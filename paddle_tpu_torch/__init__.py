@@ -1,0 +1,17 @@
+"""paddle_tpu_torch — the PyTorch/CUDA port of ``paddle_tpu``.
+
+The JAX package (``paddle_tpu``) stays the reference; this package
+mirrors it path for path, written in PyTorch for one NVIDIA H100. Every
+Pallas kernel on a ported path becomes a kernel written by hand for
+Hopper (``ops/pallas/csrc/``), built with ``nvcc`` at first use and
+bound through ``ctypes``; everything around the kernels is plain
+PyTorch. The package never imports ``jax`` or ``paddle_tpu``.
+
+Entry points run on the card unless the caller passes ``device="cpu"``;
+on a CPU tensor a kernel wrapper computes its plain PyTorch version,
+which is how the CPU tests hold the port against the reference.
+
+Ported so far: the serving path — ``serving.ServingEngine`` and its
+HTTP ``serving.Server`` over ``models.llama.LlamaForCausalLM``, with
+attention over the paged KV pool in the ragged-paged-attention kernel.
+"""

@@ -1,0 +1,1 @@
+"""Core helpers of the port (``paddle_tpu/core``'s counterpart)."""

@@ -1,0 +1,64 @@
+"""numpy state-dict bridge between the packages.
+
+The JAX package exports ``{qualified name: numpy array}`` from its
+functional state (the tests hold that side, since it touches
+``paddle_tpu``); :func:`load_numpy_state` takes such a dict into a port
+model under the same names, checking names, shapes and dtypes loudly,
+and :func:`numpy_state` gives the port's state back in the same form.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from paddle_tpu_torch.core.dtype import dtype_name
+
+__all__ = ["load_numpy_state", "numpy_state"]
+
+
+def _to_tensor(name, arr):
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        # numpy has no bfloat16 of its own: carry the bits over
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    if arr.dtype.name not in ("float32", "float16", "int32"):
+        raise TypeError(f"{name}: unsupported array dtype {arr.dtype}")
+    return torch.from_numpy(np.array(arr, order="C", copy=True))
+
+
+@torch.no_grad()
+def load_numpy_state(model: torch.nn.Module, state: dict):
+    """Copy ``state`` ({name: array}) into ``model``'s parameters. The
+    name sets must be equal, and every array must have its parameter's
+    shape and dtype; anything else raises before any parameter changes."""
+    params = dict(model.named_parameters())
+    missing = sorted(set(params) - set(state))
+    unknown = sorted(set(state) - set(params))
+    if missing or unknown:
+        raise KeyError(f"state does not match the model: missing "
+                       f"{missing[:4]}, unknown {unknown[:4]}")
+    tensors = {}
+    for name, arr in state.items():
+        p = params[name]
+        t = _to_tensor(name, arr)
+        if tuple(t.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != parameter "
+                             f"shape {tuple(p.shape)}")
+        if t.dtype != p.dtype:
+            raise TypeError(f"{name}: dtype {dtype_name(t.dtype)} != "
+                            f"parameter dtype {dtype_name(p.dtype)}")
+        tensors[name] = t
+    for name, t in tensors.items():
+        params[name].copy_(t)
+
+
+def numpy_state(model: torch.nn.Module) -> dict:
+    """``{name: numpy array}`` of every parameter (float32, float16 and
+    int32 parameters; numpy cannot hold bfloat16)."""
+    out = {}
+    for name, p in model.named_parameters():
+        if p.dtype == torch.bfloat16:
+            raise TypeError(f"{name}: numpy has no bfloat16")
+        out[name] = p.detach().cpu().numpy().copy()
+    return out

@@ -1,0 +1,143 @@
+"""Package-level contract of the PyTorch/CUDA port (``paddle_tpu_torch``):
+it imports neither JAX nor the JAX package, its entry points default to
+the CUDA card and raise where there is none, the engine refuses the JAX
+engine's options it has not ported, and no library attention kernel or
+compiler stands in for its own kernels."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from test_torch_bridge import one_torch_thread  # noqa: F401
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "paddle_tpu_torch"
+
+
+def _forbidden(mod: str) -> bool:
+    # exact module match: paddle_tpu_torch itself starts with "paddle_tpu"
+    return any(mod == m or mod.startswith(m + ".")
+               for m in ("jax", "jaxlib", "paddle_tpu"))
+
+
+def _port_modules():
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) >= 15
+    return files
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    bad = []
+    for path in _port_modules():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                bad += [(path.name, a.name) for a in node.names
+                        if _forbidden(a.name)]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                if _forbidden(node.module or ""):
+                    bad.append((path.name, node.module))
+    assert bad == []
+
+
+def test_import_in_a_fresh_process_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import paddle_tpu_torch, paddle_tpu_torch.serving.engine, "
+        "paddle_tpu_torch.serving.server, paddle_tpu_torch.models.llama, "
+        "paddle_tpu_torch.utils.bridge, "
+        "paddle_tpu_torch.ops.pallas.ragged_paged_attention\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'paddle_tpu')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default resolves")
+    from paddle_tpu_torch.device import resolve_device
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import ServingEngine
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LlamaForCausalLM(LlamaConfig.tiny())
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(model, max_blocks=8, block_size=4, prefill_chunk=4)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("kwarg", [
+    {"quantize": "int8"}, {"kv_dtype": "int8"}, {"mesh": object()},
+    {"warm_start_from": "/nonexistent"}, {"calibration": {}}])
+def test_engine_refuses_unported_options(kwarg):
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import ServingEngine
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ServingEngine(model, max_blocks=8, block_size=4, prefill_chunk=4,
+                      device="cpu", **kwarg)
+
+
+def test_engine_refuses_lora_slots_and_unknown_impls():
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import ServingEngine
+    model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
+    model._lora_slots = 2
+    with pytest.raises(NotImplementedError, match="LoRA"):
+        ServingEngine(model, max_blocks=8, block_size=4, prefill_chunk=4,
+                      device="cpu")
+    del model._lora_slots
+    with pytest.raises(ValueError, match="attn_impl"):
+        ServingEngine(model, max_blocks=8, block_size=4, prefill_chunk=4,
+                      device="cpu", attn_impl="auto")
+
+
+def test_no_library_attention_or_compiler_stands_in_for_a_kernel():
+    banned = ("scaled_dot_product_attention", "torch.compile",
+              "flash_attn", "cudnn_attention", "torch.utils.cpp_extension")
+    hits = [(p.name, b) for p in _port_modules()
+            for b in banned if b in p.read_text()]
+    assert hits == []
+    # the CUDA path of the RPA wrapper has no try/except that could fall
+    # back to the plain version
+    from paddle_tpu_torch.ops.pallas import ragged_paged_attention as rpa
+    src = Path(rpa.__file__).read_text()
+    fn = next(n for n in ast.parse(src).body
+              if isinstance(n, ast.FunctionDef)
+              and n.name == "ragged_paged_attention")
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
+
+
+def test_kernel_wrapper_counts_launches_only():
+    """On CPU tensors the wrapper computes the plain version and counts
+    nothing; a device it has no kernel for raises."""
+    import numpy as np
+    from paddle_tpu_torch.ops.pallas import ragged_paged_attention as rpa
+    T, H, hd, bs = 8, 2, 64, 4
+    q = torch.randn(T, H, hd)
+    pool = torch.randn(3, bs, 1, hd)
+    bt = torch.tensor([[1, 2], [0, 0]], dtype=torch.int32)
+    cu = torch.tensor([0, 5, 5], dtype=torch.int32)
+    ctx = torch.tensor([2, 0], dtype=torch.int32)
+    ssq, sbk = rpa.build_step_maps(np.array([0, 5]), [7], total_tokens=T,
+                                   tile_q=8, block_size=bs, max_steps=2,
+                                   max_seqs=1)
+    before = rpa.ragged_paged_attention.launches
+    out = rpa.ragged_paged_attention(q, pool, pool, bt, cu, ctx,
+                                     torch.from_numpy(ssq),
+                                     torch.from_numpy(sbk))
+    assert out.shape == q.shape and bool(torch.all(out[5:] == 0))
+    assert rpa.ragged_paged_attention.launches == before
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        rpa.ragged_paged_attention(q.to("meta"), pool, pool, bt, cu, ctx,
+                                   torch.from_numpy(ssq),
+                                   torch.from_numpy(sbk))

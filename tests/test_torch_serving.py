@@ -1,0 +1,165 @@
+"""The port's ``ServingEngine`` and HTTP ``Server`` against ``paddle_tpu``.
+
+The same bridged tiny Llama is served by the JAX engine (gather read
+path) and by the port's engine on the CPU (the RPA wrapper's plain
+version, and the gather path); their greedy token streams must be
+identical across a multi-chunk prefill, a shared-prefix pair with the
+prefix cache on and off, and a pool tight enough to force
+preemption-by-recompute. Every engine ends with no leaked KV block.
+"""
+import json
+import threading
+import urllib.error
+import urllib.request
+
+import numpy as np
+import pytest
+
+from paddle_tpu.serving import ServingEngine as JaxEngine
+from paddle_tpu_torch.serving import Server, ServingEngine
+
+from test_torch_bridge import bridged, jax_tiny, one_torch_thread  # noqa: F401
+
+
+@pytest.fixture(scope="module")
+def models():
+    jm = jax_tiny(11)
+    return jm, bridged(jm)
+
+
+def _serve(engine, prompts, max_new_tokens, sequential=False):
+    """Greedy streams of ``prompts``; ``sequential`` finishes each
+    request before the next is submitted (so later ones can hit the
+    prefix cache)."""
+    handles = []
+    for p in prompts:
+        handles.append(engine.submit(p, max_new_tokens=max_new_tokens))
+        if sequential:
+            engine.run_until_idle()
+    engine.run_until_idle()
+    out = [h.result(30)["token_ids"] for h in handles]
+    engine.cache.allocator.assert_no_leaks()
+    return out
+
+
+def test_multi_chunk_prefill_matches_jax(models):
+    jm, tm = models
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(1, 256, 23), rng.randint(1, 256, 3)]
+    kw = dict(max_batch=2, max_blocks=24, block_size=4, prefill_chunk=4)
+    ref = _serve(JaxEngine(jm, attn_impl="gather", **kw), prompts, 6)
+    for impl in (None, "gather"):
+        eng = ServingEngine(tm, device="cpu", attn_impl=impl, **kw)
+        assert _serve(eng, prompts, 6) == ref
+        # 23 tokens in chunks of 4 rode several steps, each one step of
+        # the one model
+        assert eng.stats()["steps"] > 23 // 4
+        assert eng.stats()["rpa_launches"] == 0  # CPU: no kernel launch
+
+
+def test_shared_prefix_pair_matches_jax_cache_on_and_off(models):
+    jm, tm = models
+    rng = np.random.RandomState(2)
+    prefix = rng.randint(1, 256, 12).tolist()
+    prompts = [prefix + rng.randint(1, 256, 3).tolist(),
+               prefix + rng.randint(1, 256, 5).tolist(),
+               list(prefix)]  # fully cached, aligned: copy-on-write
+    kw = dict(max_batch=2, max_blocks=24, block_size=4, prefill_chunk=8)
+    ref = _serve(JaxEngine(jm, attn_impl="gather", prefix_cache=False,
+                           **kw), prompts, 5, sequential=True)
+    for cache_on in (True, False):
+        eng = ServingEngine(tm, device="cpu", prefix_cache=cache_on, **kw)
+        assert _serve(eng, prompts, 5, sequential=True) == ref
+        pc = eng.stats()["prefix_cache"]
+        if cache_on:
+            assert pc["hits"] >= 2 and pc["hit_tokens"] >= 12 + 11
+        else:
+            assert pc is None
+
+
+def test_tight_pool_preemption_matches_jax(models):
+    """3 slots x 9-token budgets over 10 blocks of 4: the pool cannot
+    hold every admitted sequence, so preemption-by-recompute runs."""
+    jm, tm = models
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(1, 256, n) for n in (9, 12, 7)]
+    kw = dict(max_batch=3, max_blocks=10, block_size=4, prefill_chunk=4)
+    jeng = JaxEngine(jm, attn_impl="gather", **kw)
+    jhandles = [jeng.submit(p, max_new_tokens=8) for p in prompts]
+    jeng.run_until_idle()
+    ref = [h.result(30)["token_ids"] for h in jhandles]
+    jreqs = [h._req for h in jhandles]
+    assert jeng.scheduler.num_preemptions >= 1
+    for impl in (None, "gather"):
+        eng = ServingEngine(tm, device="cpu", attn_impl=impl, **kw)
+        handles = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        eng.run_until_idle()
+        assert [h.result(30)["token_ids"] for h in handles] == ref
+        eng.cache.allocator.assert_no_leaks()
+        assert eng.scheduler.num_preemptions == \
+            jeng.scheduler.num_preemptions
+        # recompute only the uncached tail: per-request prefill
+        # accounting equal to the reference engine's
+        for h, jr in zip(handles, jreqs):
+            r = h._req
+            assert (r.preemptions, r.prefilled_tokens,
+                    r.admitted_pending_total, r.cached_tokens_total) == \
+                (jr.preemptions, jr.prefilled_tokens,
+                 jr.admitted_pending_total, jr.cached_tokens_total)
+            assert r.prefilled_tokens <= \
+                r.admitted_pending_total - r.cached_tokens_total
+
+
+def _post(url, body):
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type":
+                                          "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.status, r.read().decode()
+
+
+def test_server_round_trip(models):
+    _, tm = models
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(1, 256, n).tolist() for n in (6, 10, 3)]
+    kw = dict(max_batch=2, max_blocks=24, block_size=4, prefill_chunk=4)
+    want = _serve(ServingEngine(tm, device="cpu", **kw), prompts, 5)
+
+    eng = ServingEngine(tm, device="cpu", **kw)
+    results = [None] * len(prompts)
+    with Server(eng) as srv:
+        def fire(i):
+            status, raw = _post(srv.url + "/generate", {
+                "prompt_ids": prompts[i], "max_new_tokens": 5,
+                "stream": i == 1})
+            results[i] = (status, raw)
+
+        threads = [threading.Thread(target=fire, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        with urllib.request.urlopen(srv.url + "/healthz", timeout=30) as r:
+            health = json.loads(r.read())
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(srv.url + "/generate", {"prompt_ids": "not a list"})
+        assert e.value.code == 400
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(srv.url + "/nope", timeout=30)
+        assert e.value.code == 404
+    for i, (status, raw) in enumerate(results):
+        assert status == 200
+        if i == 1:
+            lines = [json.loads(x) for x in raw.splitlines() if x.strip()]
+            streamed = [x["token"] for x in lines if "token" in x]
+            assert lines[-1]["done"] and streamed == want[i]
+            assert lines[-1]["token_ids"] == want[i]
+        else:
+            body = json.loads(raw)
+            assert body["token_ids"] == want[i]
+            assert body["finish_reason"] == "length" and body["ttft_ms"] > 0
+    assert health["status"] == "ok" and health["device"] == "cpu"
+    assert health["kv_blocks_in_use"] == 0 and health["running"] == 0
+    eng.cache.allocator.assert_no_leaks()
