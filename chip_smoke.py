@@ -21,7 +21,23 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    its tokens, every logit must be finite, and the RPA launch count must
    equal ``num_hidden_layers x engine steps``;
 5. engine parity — full width, 2 layers, float32: the kernel engine and
-   an ``attn_impl="gather"`` engine give identical greedy streams.
+   an ``attn_impl="gather"`` engine give identical greedy streams;
+6. flash kernels vs plain — (a) the training shape (B=4, S=2048, Hq=16,
+   Hkv=4, hd=128, causal) in bfloat16 and float32: the forward (K1), dq
+   (K2) and dk/dv (K3) kernels against ``flash_attention_reference`` and
+   autograd through it, with kernel/plain/library times and the least
+   time the card could take; (b) a sweep over offset-causal, GQA groups
+   1/4/8, segment ids with fully masked rows, row and full bias, dropout
+   and a length that is not a multiple of the tile, each kernel against
+   its plain version in both dtypes;
+7. training — the Llama-recipe model of ``bench.py``'s training
+   benchmark (vocab 128256 tied, hidden 2048, FFN 7168, 8 layers, 16/4
+   heads, bf16, seeded random weights) through ``TrainStep`` with AdamW
+   (f32 masters) and a global-norm clip on a 4 x 2048 batch: 2 warm-up
+   and 10 timed steps; the first loss must be within 1.0 of ln(vocab),
+   the last lower, and each flash kernel launched once per layer per
+   step; step time, tokens/s, MFU, peak memory and the device time by
+   kernel.
 
 It prints its measurements on earlier lines, then one JSON line with a
 record per kernel, and ends with
@@ -31,7 +47,9 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import gc
 import json
+import math
 import statistics
 import sys
 import threading
@@ -49,6 +67,14 @@ SEED = 0
 
 def log(*a):
     print(*a, flush=True)
+
+
+def free_device_memory():
+    """Release what a finished phase held: the server, engine and model
+    sit in reference cycles (the HTTP server and its handler), which only
+    the cycle collector frees."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -127,7 +153,7 @@ def rpa_mix(dtype, seed=SEED):
     cu[len(seqs) + 1:] = off
     ssq, sbk = build_step_maps(
         cu[:len(seqs) + 1], kv_lens, total_tokens=T, tile_q=tile_q,
-        block_size=bs, max_steps=rpa_max_steps(tile_q, mbps, pool_blocks),
+        block_size=bs, max_steps=rpa_max_steps(tile_q, mbps, max_seqs),
         max_seqs=max_seqs)
     g = torch.Generator(device="cuda").manual_seed(seed)
     kw = dict(device="cuda", dtype=dtype, generator=g)
@@ -211,6 +237,23 @@ def _post(url, body):
     return json.loads(raw)
 
 
+def device_rows(prof):
+    """``(device us, name, count)`` of every kernel and copy the profiler
+    saw on the card, largest first. Host-side events are left out: a
+    host op also reports the device time of the kernels it launched (a
+    kernel launched through ctypes has no ATen parent, so its time shows
+    again on the enclosing autograd node), which would count it twice."""
+    from torch.autograd import DeviceType
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    return sorted(((dev_us(e), e.key, e.count)
+                   for e in prof.key_averages()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA
+                   and dev_us(e) > 0), reverse=True)
+
+
 def profile_window(engine, plain_prompts, profiled_prompts, new_tokens):
     """Where the device time goes in a short serving window of the
     running engine. Two request sets of the same lengths (fresh tokens,
@@ -235,13 +278,7 @@ def profile_window(engine, plain_prompts, profiled_prompts, new_tokens):
                              ProfilerActivity.CUDA]) as prof:
         wall_us, steps = window(profiled_prompts)
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
-    rows = sorted(((dev_us(e), e.key, e.count)
-                   for e in prof.key_averages() if dev_us(e) > 0),
-                  reverse=True)
+    rows = device_rows(prof)
     total = sum(us for us, _, _ in rows)
     if total == 0:
         log("profile: the profiler saw no device time (not measured)")
@@ -357,7 +394,7 @@ def phase_serving():
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; "
         f"prefix cache {health['prefix_cache']}")
     del engine, model
-    torch.cuda.empty_cache()
+    free_device_memory()
     return launches
 
 
@@ -386,7 +423,370 @@ def phase_parity():
     log(f"parity: kernel and gather engines agree on {len(prompts)} greedy "
         f"streams of 16 tokens at full width, 2 layers, float32")
     del model
-    torch.cuda.empty_cache()
+    free_device_memory()
+
+
+# --------------------------------------------------------------------------
+FLASH_SRC = "paddle_tpu_torch/ops/pallas/csrc/flash_attention.cu"
+FLASH_KERNELS = (  # name, the TPU kernel it replaces
+    ("flash_attention_fwd", "paddle_tpu/ops/pallas/flash_attention.py:242"),
+    ("flash_attention_dq", "paddle_tpu/ops/pallas/flash_attention.py:410"),
+    ("flash_attention_dkv", "paddle_tpu/ops/pallas/flash_attention.py:471"))
+# limits of kernel vs plain: (atol, rtol) of o and lse, and of gradients.
+# float32 as the CPU parity tests. bfloat16 a few times the largest error
+# measured on the card at the training shape (PERF.md: 3.9e-3 for o,
+# 1.6e-2 for dq, 3.1e-2 for dk/dv): the kernels round p and ds to
+# bfloat16 against a running max where the plain version uses the row's
+# final max
+FLASH_TOL = {torch.float32: ((2e-5, 2e-4), (2e-4, 2e-3)),
+             torch.bfloat16: ((1e-2, 1e-2), (2e-2, 2e-2))}
+
+
+def _reset_flash_counts():
+    from paddle_tpu_torch.ops.pallas import flash_attention as fa
+    fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+
+
+def _flash_counts():
+    from paddle_tpu_torch.ops.pallas import flash_attention as fa
+    return dict(flash_attention_fwd=fa.launches_fwd,
+                flash_attention_dq=fa.launches_dq,
+                flash_attention_dkv=fa.launches_dkv)
+
+
+def flash_need(q, k, g, products, out_bytes, in_extra):
+    """Least work of one kernel call on these inputs: every input read
+    once, every output written once; 2*hd flops per product per visible
+    (q head, key) pair (causal: the pairs this offset leaves visible)."""
+    bhq, sq, hd = q.shape
+    sk = k.shape[1]
+    if g.causal:
+        i = torch.arange(sq, dtype=torch.float64)
+        pairs = float(torch.clamp(i + (sk - sq) + 1, 0, sk).sum()) * bhq
+    else:
+        pairs = float(sq * sk * bhq)
+    flops = 2 * hd * products * pairs
+    nbytes = q.numel() * q.element_size() + 2 * k.numel() * \
+        k.element_size() + in_extra + out_bytes
+    t_ops = flops / PEAK_FLOPS[q.dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return dict(flops=flops, bytes=nbytes, bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def _check(what, got, want, atol, rtol):
+    """max |got - want|; raises unless finite and within atol + rtol *
+    |want| everywhere."""
+    got, want = got.detach().float(), want.detach().float()
+    err = (got - want).abs()
+    if not bool(torch.isfinite(got).all()) or bool(
+            (err > atol + rtol * want.abs()).any()):
+        raise AssertionError(
+            f"{what}: kernel disagrees with the plain version: max |err| "
+            f"{float(err.max()):.3e} (atol {atol}, rtol {rtol})")
+    return float(err.max())
+
+
+def flash_training_shape(dtype):
+    """Phase 6(a) in one dtype: returns {kernel: record}."""
+    from paddle_tpu_torch.ops.pallas import flash_attention as fa
+    B, hq, hkv, S, hd = 4, 16, 4, 2048, 128
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def mk(h):
+        return torch.randn(B, h, S, hd, device="cuda", dtype=dtype,
+                           generator=gen)
+    q4, k4, v4, do4 = mk(hq), mk(hkv), mk(hkv), mk(hq)
+    q, k, v, g, _ = fa._geometry(q4, k4, v4, True, None, None, None, None,
+                                 0.0, None)
+    do = do4.reshape(q.shape)
+    o_tol, g_tol = FLASH_TOL[dtype]
+
+    o, lse = fa.flash_attention_fwd(q, k, v, g)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = fa.flash_attention_dq(q, k, v, do, lse, delta, g)
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, g)
+    torch.cuda.synchronize()
+    leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
+    ro, rlse = fa.flash_attention_reference(*leaves, causal=True)
+    rgrads = torch.autograd.grad(ro, leaves, do4)
+    name = str(dtype).replace("torch.", "")
+    errs = {
+        "flash_attention_fwd": max(
+            _check(f"K1 o {name}", o, ro.reshape(o.shape), *o_tol),
+            _check(f"K1 lse {name}", lse, rlse.reshape(lse.shape), *o_tol)),
+        "flash_attention_dq": _check(f"K2 dq {name}", dq,
+                                     rgrads[0].reshape(dq.shape), *g_tol),
+        "flash_attention_dkv": max(
+            _check(f"K3 dk {name}", dk, rgrads[1].reshape(dk.shape),
+                   *g_tol),
+            _check(f"K3 dv {name}", dv, rgrads[2].reshape(dv.shape),
+                   *g_tol))}
+    log(f"flash {name}: largest |plain| o {float(ro.detach().abs().max()):.3f},"
+        f" dq {float(rgrads[0].abs().max()):.3f}, dk "
+        f"{float(rgrads[1].abs().max()):.3f}, dv "
+        f"{float(rgrads[2].abs().max()):.3f}")
+    del ro, rlse, rgrads, leaves
+
+    esz, row = q.element_size(), 4 * q.shape[0] * q.shape[1]
+    kernels = {
+        "flash_attention_fwd": (
+            lambda: fa.flash_attention_fwd(q, k, v, g),
+            lambda: fa._forward_plain(q, k, v, g),
+            flash_need(q, k, g, 2, q.numel() * esz + row, 0)),
+        "flash_attention_dq": (
+            lambda: fa.flash_attention_dq(q, k, v, do, lse, delta, g),
+            lambda: fa._dq_plain(q, k, v, do, lse, delta, g),
+            flash_need(q, k, g, 3, q.numel() * esz,
+                       q.numel() * esz + 2 * row)),
+        "flash_attention_dkv": (
+            lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta, g),
+            lambda: fa._dkv_plain(q, k, v, do, lse, delta, g),
+            flash_need(q, k, g, 4, 2 * k.numel() * esz,
+                       q.numel() * esz + 2 * row))}
+    # the yardstick: PyTorch's fused attention on the same inputs (the
+    # port never calls it)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
+
+    def lib_fwd():
+        with torch.no_grad():
+            sdpa(q4, k4, v4, is_causal=True, enable_gqa=True)
+
+    def lib_fwd_bwd():
+        out = sdpa(*leaves, is_causal=True, enable_gqa=True)
+        torch.autograd.grad(out, leaves, do4)
+    lib_f = cuda_ms(lib_fwd)
+    lib_b = cuda_ms(lib_fwd_bwd) - lib_f
+    records = {}
+    with torch.no_grad():
+        for kname, (kern, plain, need) in kernels.items():
+            ms = cuda_ms(kern)
+            plain_ms = cuda_ms(plain)
+            lib = lib_f if kname == "flash_attention_fwd" else lib_b
+            log(f"flash {name} {kname}: max|err|={errs[kname]:.3e}; kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                f"{need['bound_ms']:.4f} ms ({need['bound_by']}: "
+                f"{need['bytes']} B, {need['flops']:.4e} flop), library "
+                f"{lib:.4f} ms "
+                + ("(sdpa forward)" if lib is lib_f else
+                   "(sdpa backward: dq, dk and dv together)"))
+            records[kname] = dict(max_abs_err=errs[kname], ms=ms,
+                                  plain_ms=plain_ms,
+                                  bound_ms=need["bound_ms"],
+                                  bound_by=need["bound_by"],
+                                  library_ms=lib)
+    return records
+
+
+def _sweep_case(name, dtype, gen):
+    """Phase 6(b) inputs: (q, k, v, do, geometry, rows with no live key)."""
+    from paddle_tpu_torch.ops.pallas import flash_attention as fa
+    B, hq, hkv, sq, sk, hd = 2, 8, 2, 320, 320, 128
+    kw = dict(causal=True)
+    dev = dict(device="cuda")
+    if name == "offset_causal":
+        sk = 448
+    elif name.startswith("gqa_"):
+        hkv = hq // int(name.split("_")[1])
+    elif name == "segments_dead_rows":
+        kw["q_segment_ids"] = torch.tensor([[1] * 200 + [5] * 120] * B,
+                                           **dev)
+        kw["kv_segment_ids"] = torch.tensor([[1] * 100 + [2] * 220] * B,
+                                            **dev)
+    elif name == "row_bias":
+        kw = dict(causal=False, bias=torch.randn(B, 1, 1, sk, generator=gen,
+                                                 **dev))
+    elif name == "full_bias":
+        kw["bias"] = torch.randn(1, hq, sq, sk, generator=gen, **dev)
+    elif name == "dropout":
+        kw.update(dropout_p=0.1, dropout_seed=2024)
+    elif name == "ragged":
+        sq = sk = 333
+    elif name == "head_dim_64":
+        hd = 64
+    mk = lambda h, s: torch.randn(B, h, s, hd, generator=gen,  # noqa: E731
+                                  dtype=dtype, **dev)
+    q, k, v, g, _ = fa._geometry(
+        mk(hq, sq), mk(hkv, sk), mk(hkv, sk), kw.pop("causal"), None,
+        kw.pop("bias", None), kw.pop("q_segment_ids", None),
+        kw.pop("kv_segment_ids", None), kw.pop("dropout_p", 0.0),
+        kw.pop("dropout_seed", None))
+    dead = None
+    if g.q_seg is not None:
+        dead = g.q_seg[0] == 5
+    return q, k, v, torch.randn(q.shape, generator=gen, dtype=dtype,
+                                **dev), g, dead
+
+
+SWEEP = ("offset_causal", "gqa_1", "gqa_4", "gqa_8", "segments_dead_rows",
+         "row_bias", "full_bias", "dropout", "ragged", "head_dim_64")
+
+
+def flash_sweep():
+    """Phase 6(b): every case, both dtypes, each kernel against its plain
+    version on the same inputs (and the same lse and delta)."""
+    from paddle_tpu_torch.ops.pallas import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    worst = {}
+    with torch.no_grad():
+        for dtype in (torch.float32, torch.bfloat16):
+            o_tol, g_tol = FLASH_TOL[dtype]
+            for case in SWEEP:
+                q, k, v, do, g, dead = _sweep_case(case, dtype, gen)
+                o, lse = fa.flash_attention_fwd(q, k, v, g)
+                delta = (do.float() * o.float()).sum(-1)
+                dq = fa.flash_attention_dq(q, k, v, do, lse, delta, g)
+                dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, g)
+                torch.cuda.synchronize()
+                ro, rlse = fa._forward_plain(q, k, v, g)
+                rdq = fa._dq_plain(q, k, v, do, lse, delta, g)
+                rdk, rdv = fa._dkv_plain(q, k, v, do, lse, delta, g)
+                what = f"{case} {str(dtype).replace('torch.', '')}"
+                errs = [_check(f"K1 o {what}", o, ro, *o_tol),
+                        _check(f"K1 lse {what}", lse, rlse, *o_tol),
+                        _check(f"K2 dq {what}", dq, rdq, *g_tol),
+                        _check(f"K3 dk {what}", dk, rdk, *g_tol),
+                        _check(f"K3 dv {what}", dv, rdv, *g_tol)]
+                if dead is not None and not (
+                        bool((o[:, dead] == 0).all())
+                        and bool((lse[:, dead] == 0).all())
+                        and bool((dq[:, dead] == 0).all())):
+                    raise AssertionError(
+                        f"{what}: rows with no live key are not exactly 0")
+                key = (case, dtype)
+                worst[key] = max(errs)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        log(f"flash sweep {name}: all kernels agree with the plain versions "
+            f"(max |err| per case: " + ", ".join(
+                f"{c} {worst[(c, dtype)]:.2e}" for c in SWEEP) + ")")
+    log("flash sweep: rows with no live key give exactly 0 o, lse and dq")
+
+
+def phase_flash():
+    """Phase 6; returns the bf16 records of the training shape."""
+    _reset_flash_counts()
+    flash_training_shape(torch.float32)  # checked and logged
+    recs = flash_training_shape(torch.bfloat16)
+    flash_sweep()
+    free_device_memory()
+    return recs
+
+
+# --------------------------------------------------------------------------
+def train_flops_per_step(cfg, B, S):
+    """``bench.py``'s training flop count (bench_full_model): 3 x the
+    forward's 2-per-MAC flops, attention at its causal half."""
+    d, ffn, V, L = (cfg.hidden_size, cfg.intermediate_size,
+                    cfg.vocab_size, cfg.num_hidden_layers)
+    d_kv = cfg.num_key_value_heads * (d // cfg.num_attention_heads)
+    per_tok = L * (4 * d * d + 4 * d * d_kv + 6 * d * ffn) + 2 * d * V
+    attn = L * 2 * B * S * S * d
+    return 3 * (B * S * per_tok + attn)
+
+
+def profile_train_step(step, x, step_ms):
+    """Device time by kernel name over one more training step under
+    ``torch.profiler``, and its share of the un-profiled step's wall."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(x)
+        torch.cuda.synchronize()
+
+    rows = device_rows(prof)
+    total = sum(us for us, _, _ in rows)
+    if total == 0:
+        log("train profile: the profiler saw no device time (not measured)")
+        return
+    share = {n: sum(us for us, key, _ in rows if n in key) / total
+             for n in ("flash_fwd_kernel", "flash_dq_kernel",
+                       "flash_dkv_kernel")}
+    gemm = sum(us for us, key, _ in rows
+               if any(w in key for w in ("nvjet", "gemm", "cutlass")))
+    rest = 1 - sum(share.values()) - gemm / total
+    log(f"train profile: one step, device time {total / 1e3:.3f} ms "
+        f"= {100 * total / 1e3 / step_ms:.1f}% of the un-profiled step "
+        f"wall; K1 {100 * share['flash_fwd_kernel']:.1f}%, K2 "
+        f"{100 * share['flash_dq_kernel']:.1f}%, K3 "
+        f"{100 * share['flash_dkv_kernel']:.1f}%, cuBLAS GEMMs "
+        f"{100 * gemm / total:.1f}%, everything else (elementwise, "
+        f"reductions, copies) {100 * rest:.1f}% of device time")
+    for us, key, count in rows[:10]:
+        log(f"  {100 * us / total:5.1f}%  {us / 1e3:10.3f} ms  "
+            f"{count:6d}x  {key[:90]}")
+
+
+def phase_training():
+    """The bench's training step at its full configuration; returns the
+    flash launch counts of the 12 steps."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = LlamaConfig(
+        vocab_size=128256, hidden_size=2048, intermediate_size=7168,
+        num_hidden_layers=8, num_attention_heads=16, num_key_value_heads=4,
+        max_position_embeddings=4096, tie_word_embeddings=True)
+    B, S, warmup, timed = 4, 2048, 2, 10
+    free_device_memory()
+    before = torch.cuda.memory_allocated()  # left by earlier phases
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaForCausalLM(cfg, dtype="bfloat16", seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))
+    step = TrainStep(model, lambda m, x: m(x, labels=x)[1], opt)
+    x = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (B, S))).cuda()
+
+    _reset_flash_counts()
+    losses = [float(step(x)) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    # between steps only the state stays: weights, f32 masters, moments
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    timed_losses = [step(x) for _ in range(timed)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _flash_counts()
+    losses += [float(t) for t in timed_losses]
+    steps = warmup + timed
+    ln_v = math.log(cfg.vocab_size)
+    if not (math.isfinite(losses[0]) and abs(losses[0] - ln_v) <= 1.0):
+        raise AssertionError(f"first loss {losses[0]} is not within 1.0 "
+                             f"of ln(vocab) = {ln_v:.3f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    for kname, n in counts.items():
+        if n != steps * cfg.num_hidden_layers:
+            raise AssertionError(
+                f"{kname} launched {n} times in {steps} steps, not "
+                f"{cfg.num_hidden_layers} per step")
+    step_ms = 1e3 * wall / timed
+    flops = train_flops_per_step(cfg, B, S)
+    mfu = flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+    log(f"train: {n_params} parameters, batch {B} x {S}, bf16, AdamW f32 "
+        f"masters; loss step 1 {losses[0]:.4f} (ln V = {ln_v:.4f}), step "
+        f"{steps} {losses[-1]:.4f}; losses {[round(v, 4) for v in losses]}")
+    log(f"train: launches per step K1 {counts['flash_attention_fwd'] // steps}"
+        f", K2 {counts['flash_attention_dq'] // steps}, K3 "
+        f"{counts['flash_attention_dkv'] // steps} (= {cfg.num_hidden_layers}"
+        f" layers)")
+    floor_ms = 1e3 * flops / PEAK_FLOPS[torch.bfloat16]
+    log(f"train: step {step_ms:.3f} ms (synchronised wall / {timed} steps);"
+        f" {B * S / (step_ms / 1e3):.1f} tokens/s; {flops:.4e} flop per step"
+        f" (bench.py's count), floor {floor_ms:.2f} ms at 989 TFLOP/s; MFU "
+        f"{100 * mfu:.2f}%; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() - before} B above the {before} "
+        f"B allocated before the phase, of which {resident - before} B stay"
+        f" allocated between steps")
+    profile_train_step(step, x, step_ms)
+    del step, opt, model
+    free_device_memory()
+    return counts
 
 
 def main():
@@ -401,11 +801,17 @@ def main():
     rec = phase_kernel()
     launches = phase_serving()
     phase_parity()
+    flash = phase_flash()
+    counts = phase_training()
     kernels = [dict(
         name="ragged_paged_attention", route="cuda",
         source="paddle_tpu_torch/ops/pallas/csrc/ragged_paged_attention.cu",
         replaces="paddle_tpu/ops/pallas/ragged_paged_attention.py:159",
         launches=launches, library_ms=None, **rec)]
+    for kname, replaces in FLASH_KERNELS:
+        kernels.append(dict(name=kname, route="cuda", source=FLASH_SRC,
+                            replaces=replaces, launches=counts[kname],
+                            **flash[kname]))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

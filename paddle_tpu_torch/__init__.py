@@ -13,5 +13,9 @@ which is how the CPU tests hold the port against the reference.
 
 Ported so far: the serving path — ``serving.ServingEngine`` and its
 HTTP ``serving.Server`` over ``models.llama.LlamaForCausalLM``, with
-attention over the paged KV pool in the ragged-paged-attention kernel.
+attention over the paged KV pool in the ragged-paged-attention kernel —
+and the training path — ``jit.TrainStep`` over the cacheless
+``LlamaForCausalLM`` and its causal-LM loss (``ops.fused_ce``), with
+``optimizer.AdamW`` (f32 master weights), ``nn.clip.ClipGradByGlobalNorm``
+and attention in the flash-attention forward, dq and dk/dv kernels.
 """

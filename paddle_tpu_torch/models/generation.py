@@ -1,7 +1,7 @@
 """Decode helpers shared by the serving engine — port of the matching
 functions in ``paddle_tpu/models/generation.py``. The eager and compiled
-generate loops need the cacheless attention path and wait for the
-training slice."""
+generate loops (with their KV-cached attention paths) are not ported
+yet."""
 from __future__ import annotations
 
 import torch

@@ -23,8 +23,7 @@ class Linear(torch.nn.Module):
                  dtype=torch.float32):
         super().__init__()
         self.weight = torch.nn.Parameter(torch.zeros(
-            in_features, out_features, device=device, dtype=dtype),
-            requires_grad=False)
+            in_features, out_features, device=device, dtype=dtype))
 
     def forward(self, x):
         return F.linear(x, self.weight)
@@ -41,8 +40,7 @@ class Embedding(torch.nn.Module):
                  dtype=torch.float32):
         super().__init__()
         self.weight = torch.nn.Parameter(torch.zeros(
-            num_embeddings, embedding_dim, device=device, dtype=dtype),
-            requires_grad=False)
+            num_embeddings, embedding_dim, device=device, dtype=dtype))
 
     def forward(self, ids):
         return F.embedding(ids, self.weight)

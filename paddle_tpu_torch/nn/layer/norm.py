@@ -16,7 +16,7 @@ class RMSNorm(torch.nn.Module):
         super().__init__()
         self.epsilon = epsilon
         self.weight = torch.nn.Parameter(torch.ones(
-            hidden_size, device=device, dtype=dtype), requires_grad=False)
+            hidden_size, device=device, dtype=dtype))
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, self.epsilon)

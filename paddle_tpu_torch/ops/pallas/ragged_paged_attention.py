@@ -50,13 +50,14 @@ _MAX_ROWS = 128  # kMaxWarps * kMaxRowsPerWarp in the source
 
 
 def rpa_max_steps(tile_q: int, max_blocks_per_seq: int,
-                  pool_blocks: int) -> int:
+                  max_batch: int) -> int:
     """Static bound on the per-tile work-list length. A tile of
-    ``tile_q`` tokens overlaps at most ``tile_q`` sequences; each streams
-    at most ``max_blocks_per_seq`` pages; and all sequences overlapping
-    one tile are distinct, so together they can't hold more pages than
-    the pool has allocatable blocks."""
-    return max(1, min(tile_q * max_blocks_per_seq, pool_blocks))
+    ``tile_q`` tokens overlaps at most ``min(tile_q, max_batch)``
+    sequences, and each streams at most ``max_blocks_per_seq`` pages.
+    The pool's block count is no bound: with the prefix cache on, the
+    sequences of one tile share pages, so their page lists together can
+    be longer than the pool."""
+    return max(1, min(tile_q, max_batch) * max_blocks_per_seq)
 
 
 def build_step_maps(cu_seqlens, kv_lens, *, total_tokens, tile_q,

@@ -144,7 +144,7 @@ class ServingEngine:
         budget = self.max_batch + self.prefill_chunk
         self.step_tokens = -(-budget // self._tile_q) * self._tile_q
         self._max_steps = rpa_max_steps(
-            self._tile_q, self.cache.max_blocks_per_seq, max_blocks)
+            self._tile_q, self.cache.max_blocks_per_seq, self.max_batch)
         # all-sentinel work lists for the gather path, which ignores them
         n_tiles = self.step_tokens // self._tile_q
         self._null_step_maps = (

@@ -5,6 +5,9 @@ functional state (the tests hold that side, since it touches
 ``paddle_tpu``); :func:`load_numpy_state` takes such a dict into a port
 model under the same names, checking names, shapes and dtypes loudly,
 and :func:`numpy_state` gives the port's state back in the same form.
+:func:`optimizer_state_to_numpy` and :func:`load_optimizer_state` do the
+same for an optimizer's ``state_dict`` (``param_<i>.moment1``, ...,
+``@step_count``), so moments can be compared across the packages.
 """
 from __future__ import annotations
 
@@ -13,7 +16,8 @@ import torch
 
 from paddle_tpu_torch.core.dtype import dtype_name
 
-__all__ = ["load_numpy_state", "numpy_state"]
+__all__ = ["load_numpy_state", "numpy_state", "optimizer_state_to_numpy",
+           "load_optimizer_state"]
 
 
 def _to_tensor(name, arr):
@@ -62,3 +66,27 @@ def numpy_state(model: torch.nn.Module) -> dict:
             raise TypeError(f"{name}: numpy has no bfloat16")
         out[name] = p.detach().cpu().numpy().copy()
     return out
+
+
+def optimizer_state_to_numpy(optimizer) -> dict:
+    """``{key: numpy array}`` of ``optimizer.state_dict()``, with
+    ``@step_count`` as an int. bfloat16 state raises, as in
+    :func:`numpy_state`."""
+    out = {}
+    for key, v in optimizer.state_dict().items():
+        if not isinstance(v, torch.Tensor):
+            out[key] = v
+            continue
+        if v.dtype == torch.bfloat16:
+            raise TypeError(f"{key}: numpy has no bfloat16")
+        out[key] = v.detach().cpu().numpy().copy()
+    return out
+
+
+def load_optimizer_state(optimizer, state: dict):
+    """Load ``{key: array}`` (the form above, or the JAX package's
+    ``state_dict`` turned into numpy) into ``optimizer``, each tensor on
+    its parameter's device."""
+    optimizer.set_state_dict({
+        k: v if isinstance(v, (int, np.integer)) else _to_tensor(k, v)
+        for k, v in state.items()})

@@ -11,13 +11,14 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops.pallas import flash_attention as fa
 from paddle_tpu_torch.ops.pallas import ragged_paged_attention as rpa
 
 
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the RPA kernel has no CPU mode")
+        pytest.skip("needs a CUDA device: a CUDA kernel has no CPU mode")
     return torch.device("cuda")
 
 
@@ -45,7 +46,7 @@ def _rpa_case(rng, seqs, block_size, n_kv, grp, hd, tile_q=8, mbps=8,
     ssq, sbk = rpa.build_step_maps(
         cu[:len(seqs) + 1], kv_lens, total_tokens=T, tile_q=tile_q,
         block_size=block_size,
-        max_steps=rpa.rpa_max_steps(tile_q, mbps, pool_blocks),
+        max_steps=rpa.rpa_max_steps(tile_q, mbps, max_seqs),
         max_seqs=max_seqs)
     shape = (pool_blocks + 1, block_size, n_kv, hd)
     floats = [rng.randn(T, n_kv * grp, hd), rng.randn(*shape),
@@ -100,3 +101,114 @@ def test_rpa_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="head_dim"):
         rpa.ragged_paged_attention(q[..., :32], kp[..., :32],
                                    vp[..., :32], *meta)
+
+
+# ------------------------------ flash attention -----------------------------
+def _flash_case(name, rng, dtype, hd, device):
+    """q/k/v ``[B*H, S, D]`` and the geometry of one sweep case, the
+    shapes of ``chip_smoke.py``'s phase 6(b) cut small."""
+    B, hq, hkv, sq, sk = 2, 8, 2, 200, 200
+    kw = dict(causal=True)
+    if name == "offset_causal":
+        sk = 264
+    elif name.startswith("gqa_"):
+        hkv = hq // int(name.split("_")[1])
+    elif name == "segments_dead_rows":
+        qs = np.repeat([[1] * 120 + [7] * 80], B, 0)
+        ks = np.repeat([[1] * 70 + [2] * 130], B, 0)
+        kw.update(q_segment_ids=qs, kv_segment_ids=ks)
+    elif name == "row_bias":
+        kw = dict(causal=False, bias=rng.randn(B, 1, 1, sk))
+    elif name == "full_bias":
+        kw["bias"] = rng.randn(1, hq, sq, sk)
+    elif name == "dropout":
+        kw.update(dropout_p=0.1, dropout_seed=77)
+    elif name == "ragged":
+        sq = sk = 131  # not a multiple of the kernels' 64-row tiles
+    shape = lambda h, s: (B, h, s, hd)  # noqa: E731
+    qkv = [torch.from_numpy(rng.randn(*shape(h, s))).to(device, dtype)
+           for h, s in ((hq, sq), (hkv, sk), (hkv, sk))]
+    kw = {k: torch.from_numpy(np.asarray(v)).to(device) if
+          isinstance(v, np.ndarray) else v for k, v in kw.items()}
+    q, k, v, g, _ = fa._geometry(*qkv, kw.pop("causal"), None,
+                                 kw.pop("bias", None),
+                                 kw.pop("q_segment_ids", None),
+                                 kw.pop("kv_segment_ids", None),
+                                 kw.pop("dropout_p", 0.0),
+                                 kw.pop("dropout_seed", None))
+    return q, k, v, g
+
+
+def _rel_err(a, b):
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp(min=1e-6))
+
+
+FLASH_CASES = ["causal", "offset_causal", "gqa_1", "gqa_4", "gqa_8",
+               "segments_dead_rows", "row_bias", "full_bias", "dropout",
+               "ragged"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, 2e-4),
+    # the kernels round p (and ds) to bf16 against a running max, the
+    # plain version against the row's final max: a few bf16 units apart
+    (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("name", FLASH_CASES)
+def test_flash_kernels_match_plain_versions(cuda_device, dtype, tol, hd,
+                                            name):
+    """K1 against the plain forward; K2 and K3 against the plain
+    backward on the same lse and delta; each wrapper counts one launch.
+    Errors are relative to the largest magnitude of the plain result."""
+    rng = np.random.RandomState(FLASH_CASES.index(name) + hd)
+    q, k, v, g = _flash_case(name, rng, dtype, hd, cuda_device)
+    do = torch.randn_like(q)
+    counts = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv)
+    o, lse = fa.flash_attention_fwd(q, k, v, g)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = fa.flash_attention_dq(q, k, v, do, lse, delta, g)
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, g)
+    torch.cuda.synchronize()
+    assert (fa.launches_fwd, fa.launches_dq, fa.launches_dkv) == \
+        tuple(c + 1 for c in counts)
+    ro, rlse = fa._forward_plain(q, k, v, g)
+    rdq = fa._dq_plain(q, k, v, do, lse, delta, g)
+    rdk, rdv = fa._dkv_plain(q, k, v, do, lse, delta, g)
+    for got, want in ((o, ro), (lse, rlse), (dq, rdq), (dk, rdk),
+                      (dv, rdv)):
+        assert bool(torch.isfinite(got).all())
+        assert _rel_err(got, want) <= tol
+    if name == "segments_dead_rows":  # exact zeros, not small numbers
+        dead = (g.q_seg[0] == 7)
+        assert bool((o[:, dead] == 0).all()) and bool((dq[:, dead] == 0).all())
+        assert bool((lse[:, dead] == 0).all())
+
+
+@pytest.mark.cuda
+def test_flash_autograd_matches_reference_autograd(cuda_device):
+    """End to end through ``torch.autograd``: the kernels' gradients
+    against autograd through ``flash_attention_reference`` (f32)."""
+    rng = np.random.RandomState(5)
+    mk = lambda *s: torch.from_numpy(rng.randn(*s).astype(  # noqa: E731
+        np.float32)).to(cuda_device).requires_grad_()
+    q, k, v = mk(2, 8, 150, 128), mk(2, 2, 150, 128), mk(2, 2, 150, 128)
+    do = torch.randn(2, 8, 150, 128, device=cuda_device)
+    o = fa.flash_attention_bhsd(q, k, v, causal=True)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    ro, _ = fa.flash_attention_reference(q, k, v, causal=True)
+    rgrads = torch.autograd.grad(ro, (q, k, v), do)
+    torch.testing.assert_close(o, ro, rtol=2e-4, atol=2e-5)
+    for a, b in zip(grads, rgrads):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_flash_wrapper_refuses_what_the_kernels_do_not_take(cuda_device):
+    q = torch.zeros(1, 2, 64, 32, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_bhsd(q, q, q)
+    q = torch.zeros(1, 2, 64, 64, device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention_bhsd(q.half(), q.half(), q.half())

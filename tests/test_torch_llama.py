@@ -53,7 +53,8 @@ def test_rms_norm_and_silu(pair):
     # the model's norm layer on bridged weights
     jm, tm = pair
     ref = _np(jm.model.layers[0].input_layernorm(pt.to_tensor(x)))
-    ours = tm.model.layers[0].input_layernorm(torch.from_numpy(x))
+    # parameters are trainable: the layer's output carries autograd
+    ours = tm.model.layers[0].input_layernorm(torch.from_numpy(x)).detach()
     np.testing.assert_allclose(ours.numpy(), ref, atol=COMPONENT_ATOL)
 
 
@@ -65,11 +66,11 @@ def test_linear_and_embedding(pair):
         ref = _np(getattr(jm.model.layers[1].self_attn, name)(
             pt.to_tensor(x)))
         ours = getattr(tm.model.layers[1].self_attn, name)(
-            torch.from_numpy(x))
+            torch.from_numpy(x)).detach()
         np.testing.assert_allclose(ours.numpy(), ref, atol=COMPONENT_ATOL)
     ids = rng.randint(0, 256, (2, 9)).astype(np.int32)
     ref = _np(jm.model.embed_tokens(pt.to_tensor(ids)))
-    ours = tm.model.embed_tokens(torch.from_numpy(ids))
+    ours = tm.model.embed_tokens(torch.from_numpy(ids)).detach()
     np.testing.assert_allclose(ours.numpy(), ref, atol=COMPONENT_ATOL)
 
 
@@ -129,7 +130,7 @@ def _step_metadata(rng, cfg, block_size=4, max_seqs=4, mbps=12,
     ssq, sbk = build_step_maps(
         cu[:len(seqs) + 1], kv_lens, total_tokens=T, tile_q=tile_q,
         block_size=block_size,
-        max_steps=rpa_max_steps(tile_q, mbps, pool_blocks),
+        max_steps=rpa_max_steps(tile_q, mbps, max_seqs),
         max_seqs=max_seqs)
     shape = (pool_blocks + 1, block_size, cfg.num_key_value_heads, hd)
     pools = [rng.randn(*shape).astype(np.float32)

@@ -31,8 +31,10 @@ def _port_modules():
 
 
 def test_no_module_imports_jax_or_the_jax_package():
+    """Neither the port's modules nor ``chip_smoke.py``, which drives the
+    port on the card, import JAX or the JAX package."""
     bad = []
-    for path in _port_modules():
+    for path in _port_modules() + [REPO / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
                 bad += [(path.name, a.name) for a in node.names
@@ -49,7 +51,10 @@ def test_import_in_a_fresh_process_loads_no_jax():
         "import paddle_tpu_torch, paddle_tpu_torch.serving.engine, "
         "paddle_tpu_torch.serving.server, paddle_tpu_torch.models.llama, "
         "paddle_tpu_torch.utils.bridge, "
-        "paddle_tpu_torch.ops.pallas.ragged_paged_attention\n"
+        "paddle_tpu_torch.ops.pallas.ragged_paged_attention, "
+        "paddle_tpu_torch.ops.pallas.flash_attention, "
+        "paddle_tpu_torch.ops.fused_ce, paddle_tpu_torch.jit, "
+        "paddle_tpu_torch.optimizer, paddle_tpu_torch.nn.clip\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu')]\n"
         "assert not bad, bad\n")
@@ -102,19 +107,35 @@ def test_engine_refuses_lora_slots_and_unknown_impls():
 
 
 def test_no_library_attention_or_compiler_stands_in_for_a_kernel():
-    banned = ("scaled_dot_product_attention", "torch.compile",
+    """No port module reaches PyTorch's fused attention (the port's own
+    ``nn.functional.scaled_dot_product_attention`` routes to the flash
+    kernels), a compiler or a kernel library; and the CUDA paths of the
+    kernel wrappers hold no try/except that could fall back to a plain
+    version."""
+    banned = ("torch.nn.functional.scaled_dot_product_attention",
+              "torch._C._nn", "_scaled_dot_product", "torch.compile",
               "flash_attn", "cudnn_attention", "torch.utils.cpp_extension")
     hits = [(p.name, b) for p in _port_modules()
             for b in banned if b in p.read_text()]
     assert hits == []
-    # the CUDA path of the RPA wrapper has no try/except that could fall
-    # back to the plain version
+    # the only sdpa call sites in the port are its own functional module's
+    for path in _port_modules():
+        tree = ast.parse(path.read_text(), str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom) and \
+                    (node.module or "").startswith("torch"):
+                assert "scaled_dot_product_attention" not in \
+                    [a.name for a in node.names], path.name
+    from paddle_tpu_torch.ops.pallas import flash_attention as fa
     from paddle_tpu_torch.ops.pallas import ragged_paged_attention as rpa
-    src = Path(rpa.__file__).read_text()
-    fn = next(n for n in ast.parse(src).body
-              if isinstance(n, ast.FunctionDef)
-              and n.name == "ragged_paged_attention")
-    assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
+    for mod, names in ((rpa, ("ragged_paged_attention",)),
+                       (fa, ("flash_attention_fwd", "flash_attention_dq",
+                             "flash_attention_dkv", "_launch"))):
+        src = Path(mod.__file__).read_text()
+        for fn in ast.parse(src).body:
+            if isinstance(fn, ast.FunctionDef) and fn.name in names:
+                assert not any(isinstance(n, ast.Try)
+                               for n in ast.walk(fn)), fn.name
 
 
 def test_kernel_wrapper_counts_launches_only():

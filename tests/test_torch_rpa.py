@@ -103,8 +103,10 @@ def test_build_step_maps_equals_reference(seed):
         cu = np.concatenate([[0], np.cumsum([n for n, _ in seqs])])
         kv = [n + c for n, c in seqs]
         T = -(-max(int(cu[-1]), 1) // tile_q) * tile_q
-        max_steps = trpa.rpa_max_steps(tile_q, 8, 40)
-        assert max_steps == jrpa.rpa_max_steps(tile_q, 8, 40)
+        # the port bounds the work list by the sequences a tile can
+        # overlap, not by the pool (the prefix cache shares pages)
+        max_steps = trpa.rpa_max_steps(tile_q, 8, len(seqs))
+        assert max_steps == min(tile_q, len(seqs)) * 8
         kw = dict(total_tokens=T, tile_q=tile_q, block_size=bs,
                   max_steps=max_steps, max_seqs=len(seqs))
         ours = trpa.build_step_maps(cu, kv, **kw)

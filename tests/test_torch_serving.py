@@ -163,3 +163,52 @@ def test_server_round_trip(models):
     assert health["status"] == "ok" and health["device"] == "cpu"
     assert health["kv_blocks_in_use"] == 0 and health["running"] == 0
     eng.cache.allocator.assert_no_leaks()
+
+
+def _shared_prefix_decode(engine):
+    """Three decode rows of up to 27 tokens in one q tile, sharing a
+    24-token prefix (6 pages of 4) through the prefix cache: a tile's
+    work list then holds 3 x 7 = 21 pages of a 10-block pool."""
+    rng = np.random.RandomState(5)
+    prefix = rng.randint(1, 256, 24).tolist()
+    first = engine.submit(prefix + [7], max_new_tokens=4)
+    while first._req.num_cached < 24:
+        engine.step()
+    handles = [first] + [engine.submit(prefix + [t], max_new_tokens=3)
+                         for t in (11, 13)]
+    engine.run_until_idle()
+    out = [h.result(30)["token_ids"] for h in handles]
+    engine.cache.allocator.assert_no_leaks()
+    return out
+
+
+def test_shared_pages_fit_the_work_list_bound(models, monkeypatch):
+    """The bound on a tile's RPA work list counts the pages of every
+    sequence in the tile, shared or not. The old bound, capped at the
+    pool's block count, raised on this mix; the new one runs it, and the
+    streams equal the gather path's."""
+    from paddle_tpu_torch.serving import engine as engine_mod
+    _, tm = models
+    kw = dict(max_batch=3, max_blocks=10, block_size=4, prefill_chunk=8,
+              device="cpu")
+    want = _shared_prefix_decode(ServingEngine(tm, attn_impl="gather",
+                                               **kw))
+    longest = []
+
+    def recording(*a, **k):
+        ssq, sbk = build(*a, **k)
+        longest.append(int((ssq < k["max_seqs"]).sum(axis=1).max()))
+        return ssq, sbk
+    build = engine_mod.build_step_maps
+    monkeypatch.setattr(engine_mod, "build_step_maps", recording)
+    eng = ServingEngine(tm, **kw)
+    assert eng._max_steps == 3 * 10
+    assert _shared_prefix_decode(eng) == want
+    assert eng.stats()["prefix_cache"]["hits"] >= 2
+    assert max(longest) == 21  # more pages than the pool holds
+
+    def capped_at_pool(tile_q, max_blocks_per_seq, max_batch):
+        return max(1, min(tile_q * max_blocks_per_seq, kw["max_blocks"]))
+    monkeypatch.setattr(engine_mod, "rpa_max_steps", capped_at_pool)
+    with pytest.raises(ValueError, match="kv steps > max_steps 10"):
+        _shared_prefix_decode(ServingEngine(tm, **kw))
