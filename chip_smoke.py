@@ -37,7 +37,25 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    and 10 timed steps; the first loss must be within 1.0 of ln(vocab),
    the last lower, and each flash kernel launched once per layer per
    step; step time, tokens/s, MFU, peak memory and the device time by
-   kernel.
+   kernel;
+8. grouped matmul vs plain — (a) one ``MoELayer`` at DeepSeekMoE-16B's
+   expert widths (E=64, top-6, M=2048, H=1408, seeded bf16 weights)
+   routes 4 x 2048 hidden states; its 49152 assignments, sorted by
+   expert, go through ``gmm`` (bm 512), ``gmm_aligned`` (bm 128, groups
+   padded with zero rows) and ``tgmm``, forward and backward through
+   autograd, in bf16 and f32 (the launches of this run are the kernels'
+   counts); each of K5-K8 against its plain version, with kernel, plain,
+   bound and ``torch._grouped_mm`` times, and ``torch.bmm`` on the
+   layer's own capacity layout for comparison; (b) a sweep over a hot
+   expert beside empty and one-row experts, non-zero rows past the
+   groups, widths 1000 x 333 and one expert, both dtypes;
+9. MoE training — ``MoeConfig.deepseek_moe_16b`` at full width cut to 4
+   layers (1.71 B parameters, bf16, seeded weights) through
+   ``TrainStep`` with AdamW (f32 masters) and a global-norm clip on 4 x
+   2048 ids: 2 warm-up and 10 timed steps; the first loss within 1.0 of
+   ln(vocab), the last lower, each flash kernel once per layer per step;
+   capacity and drops per MoE layer, step time, tokens/s, MFU by the
+   script's flop count, memory and the device time by kind of work.
 
 It prints its measurements on earlier lines, then one JSON line with a
 record per kernel, and ends with
@@ -789,6 +807,553 @@ def phase_training():
     return counts
 
 
+# --------------------------------------------------------------------------
+GMM_SRC = "paddle_tpu_torch/ops/pallas/csrc/grouped_matmul.cu"
+GMM_KERNELS = (  # name, launch-count attribute, the TPU kernel it replaces
+    ("gmm", "launches_gmm", "paddle_tpu/ops/pallas/grouped_matmul.py:131"),
+    ("tgmm", "launches_tgmm", "paddle_tpu/ops/pallas/grouped_matmul.py:196"),
+    ("gmm_aligned", "launches_gmm_aligned",
+     "paddle_tpu/ops/pallas/grouped_matmul.py:269"),
+    ("tgmm_aligned", "launches_tgmm_aligned",
+     "paddle_tpu/ops/pallas/grouped_matmul.py:304"))
+# kernel vs plain: max |err| over the largest |plain| value, by the dtype
+# of the result. f32 results sum in another order (a hot expert sums 44k
+# rows); bf16 results are rounded once on each side, so they may sit one
+# bf16 unit (2**-7 of the value) apart
+GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# DeepSeekMoE-16B's routed experts: d_model, expert width, experts, top-k
+MOE_M, MOE_H, MOE_E, MOE_K = 2048, 1408, 64, 6
+
+
+def _gmm_counts():
+    from paddle_tpu_torch.ops.pallas import grouped_matmul as gm
+    return {name: getattr(gm, attr) for name, attr, _ in GMM_KERNELS}
+
+
+def _reset_gmm_counts():
+    from paddle_tpu_torch.ops.pallas import grouped_matmul as gm
+    for _, attr, _ in GMM_KERNELS:
+        setattr(gm, attr, 0)
+
+
+def _rel_check(what, got, want, tol, live=None):
+    """max |got - want| (over ``live`` rows of the leading dim, if given);
+    raises unless got is finite and the error is within ``tol`` of the
+    largest |want|."""
+    got, want = got.detach().float(), want.detach().float()
+    if live is not None:
+        got, want = got[live], want[live]
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    if not bool(torch.isfinite(got).all()) or err > tol * max(scale, 1e-6):
+        raise AssertionError(
+            f"{what}: kernel disagrees with the plain version: max |err| "
+            f"{err:.3e}, largest |plain| {scale:.3e} (limit {tol} of it)")
+    return err
+
+
+def aligned_layout(rows, sizes, bm):
+    """The bm-aligned layout of group-sorted ``rows``: each group padded
+    with zero rows to a multiple of ``bm``. Returns (rows, padded sizes);
+    sizing reads the counts on the host (this script only)."""
+    padded = (sizes + bm - 1) // bm * bm
+    n_data = int(sizes.sum())
+    e_of = torch.repeat_interleave(torch.arange(sizes.shape[0],
+                                                device=rows.device),
+                                   sizes.long(), output_size=n_data)
+    start = torch.cumsum(sizes, 0) - sizes
+    start_al = torch.cumsum(padded, 0) - padded
+    dest = start_al[e_of] + torch.arange(n_data, device=rows.device) \
+        - start[e_of]
+    out = rows.new_zeros(int(padded.sum()), rows.shape[1])
+    out[dest] = rows[:n_data]
+    return out, padded.to(torch.int32)
+
+
+def moe_routed_traffic():
+    """Phase 8(a)'s traffic: the port's ``MoELayer`` at DeepSeekMoE-16B's
+    expert widths (seeded bf16 weights) routes 4 x 2048 seeded hidden
+    states of unit RMS (what the post-attention RMSNorm hands it). The
+    T*K assignments, sorted by expert, become the rows; nothing is
+    dropped. Returns (rows, group sizes, w1, the layer's capacity)."""
+    from paddle_tpu_torch.distributed.fleet import MoELayer
+    from paddle_tpu_torch.distributed.fleet.moe import route
+    T = 4 * 2048
+    layer = MoELayer(MOE_M, MOE_H, MOE_E, gate="gshard", top_k=MOE_K,
+                     activation="silu", dtype="bfloat16", seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(T, MOE_M, device="cuda", dtype=torch.bfloat16,
+                    generator=gen)
+    with torch.no_grad():
+        r = route(x, layer.gate.weight, MOE_K, layer.capacity_factor)
+    e_flat = r.idx_k.reshape(-1)  # assignment t*K + k
+    order = torch.sort(e_flat, stable=True).indices
+    sizes = torch.bincount(e_flat, minlength=MOE_E).to(torch.int32)
+    return x[order // MOE_K], sizes, layer.w1.detach(), r.capacity
+
+
+def gmm_need(n_live, m, h, nbytes, in_dtype):
+    """Least time of one grouped product: 2*n*M*H operations for the n
+    rows that carry data, against every input read once and the output
+    written once."""
+    flops = 2 * n_live * m * h
+    t_ops = flops / PEAK_FLOPS[in_dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return dict(flops=flops, bytes=nbytes, bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def library_ms(fn, want, tol, live=None):
+    """(ms, note) of one PyTorch call computing the same function, or
+    (None, why not). Only this script calls it; the port never does."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None, "this torch has no torch._grouped_mm"
+    try:
+        got = fn()
+        torch.cuda.synchronize()
+        _rel_check("torch._grouped_mm", got, want, tol, live)
+    except (RuntimeError, AssertionError, TypeError) as e:
+        return None, f"torch._grouped_mm does not compute it here: " \
+            f"{str(e).splitlines()[0][:160]}"
+    return cuda_ms(fn), "torch._grouped_mm"
+
+
+def gmm_main_path(rows_bf, sizes, w1_bf):
+    """The entry points once each, forward and backward through autograd,
+    in bf16 and f32: what phase 8 counts launches on. Returns the
+    tensors for the checks."""
+    from paddle_tpu_torch.ops.pallas import grouped_matmul as gm
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    al_bf, al_sizes = aligned_layout(rows_bf, sizes, 128)
+    runs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        # fresh leaves: in bf16, .to() would hand back the same tensor
+        lhs = rows_bf.detach().to(dtype).requires_grad_()
+        rhs = w1_bf.detach().to(dtype).requires_grad_()
+        dy = torch.randn(rows_bf.shape[0], MOE_H, device="cuda", dtype=dtype,
+                         generator=gen)
+        out = gm.gmm(lhs, rhs, sizes, bm=512)
+        out.backward(dy)
+        lhs_al = al_bf.detach().to(dtype).requires_grad_()
+        rhs_al = w1_bf.detach().to(dtype).requires_grad_()
+        dy_al = torch.randn(al_bf.shape[0], MOE_H, device="cuda",
+                            dtype=dtype, generator=gen)
+        out_al = gm.gmm_aligned(lhs_al, rhs_al, al_sizes, bm=128)
+        out_al.backward(dy_al)
+        t = gm.tgmm(lhs.detach(), dy, sizes, MOE_E, bm=512)
+        runs[dtype] = dict(lhs=lhs, rhs=rhs, dy=dy, out=out, lhs_al=lhs_al,
+                           rhs_al=rhs_al, dy_al=dy_al, out_al=out_al, t=t,
+                           al_sizes=al_sizes)
+    torch.cuda.synchronize()
+    return runs
+
+
+def gmm_check_main(run, sizes):
+    """Every result of one dtype's main-path run against the plain
+    versions on the same inputs; returns {kernel: max |err|}."""
+    from paddle_tpu_torch.ops.pallas import grouped_matmul as gm
+    dtype = run["lhs"].dtype
+    tol = GMM_TOL[dtype]
+    name = str(dtype).replace("torch.", "")
+    lhs, rhs, dy = run["lhs"].detach(), run["rhs"].detach(), run["dy"]
+    offs = gm._offsets_ext(sizes, lhs.shape[0])
+    g32 = dy.float()
+    errs = {"gmm": max(
+        _rel_check(f"K5 gmm {name}", run["out"], gm._gmm_plain(lhs, rhs, offs),
+                   tol),
+        _rel_check(f"K5 d_lhs {name}", run["lhs"].grad,
+                   gm._gmm_plain(g32, rhs.transpose(1, 2), offs).to(dtype),
+                   tol))}
+    errs["tgmm"] = max(
+        _rel_check(f"K6 d_rhs {name}", run["rhs"].grad,
+                   gm._tgmm_plain(lhs.float(), g32, offs, MOE_E).to(dtype),
+                   tol),
+        _rel_check(f"K6 tgmm {name}", run["t"],
+                   gm._tgmm_plain(lhs.float(), g32, offs, MOE_E),
+                   GMM_TOL[torch.float32]))
+    lhs_al, dy_al = run["lhs_al"].detach(), run["dy_al"]
+    be = gm._block_experts(run["al_sizes"], lhs_al.shape[0] // 128, MOE_E,
+                           128)
+    errs["gmm_aligned"] = max(
+        _rel_check(f"K7 gmm_aligned {name}", run["out_al"],
+                   gm._gmm_aligned_plain(lhs_al, rhs, be, 128), tol),
+        _rel_check(f"K7 d_lhs {name}", run["lhs_al"].grad,
+                   gm._gmm_aligned_plain(dy_al, rhs.transpose(1, 2), be,
+                                         128).to(dtype), tol))
+    d_rhs = gm._tgmm_aligned_plain(lhs_al, dy_al, be, MOE_E, 128)
+    live = (run["al_sizes"] > 0)[:, None, None]
+    errs["tgmm_aligned"] = _rel_check(
+        f"K8 d_rhs {name}", run["rhs_al"].grad,
+        torch.where(live, d_rhs, torch.zeros_like(d_rhs)).to(dtype), tol)
+    n = int(sizes.sum())
+    if n < lhs.shape[0] and not bool((run["out"][n:] == 0).all()):
+        raise AssertionError("K5: rows past the groups are not exactly 0")
+    empty = run["al_sizes"] == 0
+    if not bool((run["rhs_al"].grad[empty] == 0).all()):
+        raise AssertionError("K8: an expert with no rows got a non-zero "
+                             "d_rhs")
+    return errs
+
+
+def gmm_timings(run_bf, run_f32, sizes):
+    """Phase 8(a)'s times: K5, K7 and K8 on the bf16 traffic, K6 (f32
+    only, as in the reference) on the f32 traffic; each against its
+    plain version, its bound and, where it computes the same function,
+    ``torch._grouped_mm``."""
+    from paddle_tpu_torch.ops.pallas import grouped_matmul as gm
+    bf = torch.bfloat16
+    lhs, rhs, dy = (run_bf[k].detach() for k in ("lhs", "rhs", "dy"))
+    lhs_al, dy_al = run_bf["lhs_al"].detach(), run_bf["dy_al"]
+    al_sizes = run_bf["al_sizes"]
+    lhs32, dy32 = run_f32["lhs"].detach(), run_f32["dy"]
+    R, R_al, n = lhs.shape[0], lhs_al.shape[0], int(sizes.sum())
+    E, M, H = rhs.shape
+    offs = gm._offsets_ext(sizes, R)
+    ends = torch.cumsum(sizes, 0, dtype=torch.int32)
+    ends_al = torch.cumsum(al_sizes, 0, dtype=torch.int32)
+    be = gm._block_experts(al_sizes, R_al // 128, E, 128)
+    live = al_sizes > 0
+    w_bytes = rhs.numel() * 2
+    cases = {
+        "gmm": (bf, lambda: gm._gmm_fwd(lhs, rhs, offs),
+                lambda: gm._gmm_plain(lhs, rhs, offs),
+                lambda: torch._grouped_mm(lhs, rhs, offs=ends),
+                gmm_need(n, M, H, 2 * R * M + w_bytes + 2 * R * H
+                         + 4 * (E + 2), bf), None),
+        "tgmm": (torch.float32,
+                 lambda: gm._tgmm_fwd(lhs32, dy32, offs, E),
+                 lambda: gm._tgmm_plain(lhs32, dy32, offs, E),
+                 lambda: torch._grouped_mm(lhs32.t(), dy32, offs=ends),
+                 gmm_need(n, M, H, 4 * R * M + 4 * R * H + 4 * E * M * H
+                          + 4 * (E + 2), torch.float32), None),
+        "gmm_aligned": (bf, lambda: gm._gmm_aligned_fwd(lhs_al, rhs, be, 128),
+                        lambda: gm._gmm_aligned_plain(lhs_al, rhs, be, 128),
+                        lambda: torch._grouped_mm(lhs_al, rhs, offs=ends_al),
+                        gmm_need(n, M, H, 2 * R_al * M + w_bytes
+                                 + 2 * R_al * H + 4 * (R_al // 128), bf),
+                        None),
+        "tgmm_aligned": (bf,
+                         lambda: gm._tgmm_aligned_fwd(lhs_al, dy_al, be, E,
+                                                      128),
+                         lambda: gm._tgmm_aligned_plain(lhs_al, dy_al, be, E,
+                                                        128),
+                         lambda: torch._grouped_mm(
+                             lhs_al.t(), dy_al, offs=ends_al,
+                             out_dtype=torch.float32),
+                         gmm_need(n, M, H, 2 * R_al * M + 2 * R_al * H
+                                  + 4 * E * M * H + 4 * (R_al // 128), bf),
+                         live)}
+    records = {}
+    with torch.no_grad():
+        for kname, (dtype, kern, plain, lib, need, rows_live) in cases.items():
+            want = plain()
+            out_dtype = torch.float32 if kname.startswith("t") else dtype
+            # the record's error: the kernel's own output on these inputs
+            err = _rel_check(f"{kname} timed inputs", kern(), want,
+                             GMM_TOL[out_dtype], rows_live)
+            ms = cuda_ms(kern)
+            plain_ms = cuda_ms(plain)
+            lib_ms, lib_note = library_ms(lib, want, GMM_TOL[out_dtype],
+                                          rows_live)
+            peak = PEAK_FLOPS[dtype] / 1e12
+            rows = R_al if "aligned" in kname else R
+            log(f"gmm {kname} ({str(dtype).replace('torch.', '')}, R={rows},"
+                f" {n} rows of data): max|err| {err:.3e} (limit "
+                f"{GMM_TOL[out_dtype]} of the largest |plain|); "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                + (f"{lib_ms:.4f} ms ({lib_note})" if lib_ms is not None
+                   else f"none ({lib_note})")
+                + f"; bound max(2*n*M*H = {need['flops']:.4e} flop / "
+                f"{peak:.0f} TFLOP/s, {need['bytes']} B / 3.35 TB/s) = "
+                f"{need['bound_ms']:.4f} ms ({need['bound_by']})")
+            records[kname] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=need["bound_ms"],
+                                  bound_by=need["bound_by"],
+                                  library_ms=lib_ms)
+    return records
+
+
+def capacity_bmm_ms(w1_bf, capacity):
+    """What the MoE layer itself runs for the same w1 product: one
+    ``torch.bmm`` over the capacity layout ``[E, C, M]`` (a comparison,
+    not the same function: it pays for empty capacity slots)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    x = torch.randn(MOE_E, capacity, MOE_M, device="cuda",
+                    dtype=torch.bfloat16, generator=gen)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: torch.bmm(x, w1_bf))
+    flops = 2 * MOE_E * capacity * MOE_M * MOE_H
+    log(f"gmm comparison: torch.bmm on the MoE layer's capacity layout "
+        f"[E={MOE_E}, C={capacity}, M={MOE_M}] x [E, M, H={MOE_H}] bf16: "
+        f"{ms:.4f} ms for {flops:.4e} flop, "
+        f"{flops / (ms / 1e3) / 1e12:.1f} TFLOP/s")
+
+
+def gmm_sweep_case(name, gen):
+    """Phase 8(b) inputs: (lhs rows [R, M] f32, sizes, rhs [E, M, H] f32,
+    g [R, H] f32); rows past the groups are zero unless the case says."""
+    E, M, H, R = 16, 512, 256, 4096
+    if name == "hot_empty_single":
+        sizes = [0] * E
+        sizes[3] = 3686  # 90% of the rows
+        for e in (0, 1, 7, 11):
+            sizes[e] = 1
+        sizes[15] = R - 3686 - 4 - 200
+        sizes[9] = 200
+    elif name == "tail_rows_not_zero":
+        E, M, H = 8, 256, 256
+        sizes = [300, 0, 500, 1000, 0, 700, 400, 100]  # 3000 of 4096 rows
+    elif name == "widths_1000_333":
+        E, M, H, R = 8, 1000, 333, 2048
+        sizes = [256, 300, 0, 200, 512, 80, 300, 400]
+    else:  # "one_expert"
+        E, M, H, R = 1, 512, 384, 2048
+        sizes = [1900]
+    mk = lambda *s: torch.randn(*s, device="cuda", generator=gen)  # noqa
+    lhs, rhs, g = mk(R, M), mk(E, M, H), mk(R, H)
+    n = sum(sizes)
+    if name != "tail_rows_not_zero":
+        lhs[n:] = 0
+    return lhs, torch.tensor(sizes, dtype=torch.int32, device="cuda"), rhs, g
+
+
+GMM_SWEEP = ("hot_empty_single", "tail_rows_not_zero", "widths_1000_333",
+             "one_expert")
+
+
+def gmm_sweep():
+    """Phase 8(b): every case in both dtypes, each kernel against its
+    plain version on the same inputs, with gmm's backward form (f32 g
+    against the strided rhsᵀ view) and the exact zeros checked."""
+    from paddle_tpu_torch.ops.pallas import grouped_matmul as gm
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    worst = {}
+    bm = 64
+    with torch.no_grad():
+        for case in GMM_SWEEP:
+            lhs32, sizes, rhs32, g32 = gmm_sweep_case(case, gen)
+            E, R, n = rhs32.shape[0], lhs32.shape[0], int(sizes.sum())
+            offs = gm._offsets_ext(sizes, R)
+            al32, al_sizes = aligned_layout(lhs32[:n], sizes, bm)
+            g_al32 = torch.randn(al32.shape[0], g32.shape[1], device="cuda",
+                                 generator=gen)
+            be = gm._block_experts(al_sizes, al32.shape[0] // bm, E, bm)
+            for dtype in (torch.bfloat16, torch.float32):
+                lhs, rhs, al, g_al = (t.to(dtype) for t in
+                                      (lhs32, rhs32, al32, g_al32))
+                what = f"{case} {str(dtype).replace('torch.', '')}"
+                tol, tol32 = GMM_TOL[dtype], GMM_TOL[torch.float32]
+                out = gm._gmm_fwd(lhs, rhs, offs)
+                d_lhs = gm._gmm_fwd(g32, rhs.transpose(1, 2), offs)
+                t = gm._tgmm_fwd(lhs.float(), g32, offs, E)
+                out_al = gm._gmm_aligned_fwd(al, rhs, be, bm)
+                d_al = gm._gmm_aligned_fwd(g_al, rhs.transpose(1, 2), be, bm)
+                t_al = gm._tgmm_aligned_fwd(al, g_al, be, E, bm)
+                torch.cuda.synchronize()
+                live = al_sizes > 0
+                errs = [
+                    _rel_check(f"K5 {what}", out,
+                               gm._gmm_plain(lhs, rhs, offs), tol),
+                    _rel_check(f"K5 rhsT {what}", d_lhs, gm._gmm_plain(
+                        g32, rhs.transpose(1, 2), offs), tol32),
+                    _rel_check(f"K6 {what}", t, gm._tgmm_plain(
+                        lhs.float(), g32, offs, E), tol32),
+                    _rel_check(f"K7 {what}", out_al, gm._gmm_aligned_plain(
+                        al, rhs, be, bm), tol),
+                    _rel_check(f"K7 rhsT {what}", d_al, gm._gmm_aligned_plain(
+                        g_al, rhs.transpose(1, 2), be, bm), tol),
+                    _rel_check(f"K8 {what}", t_al, gm._tgmm_aligned_plain(
+                        al, g_al, be, E, bm), tol32, live)]
+                if not (bool((out[n:] == 0).all())
+                        and bool((d_lhs[n:] == 0).all())):
+                    raise AssertionError(f"K5 {what}: rows past the groups "
+                                         f"are not exactly 0")
+                if not bool((t[sizes == 0] == 0).all()):
+                    raise AssertionError(f"K6 {what}: an empty expert is "
+                                         f"not exactly 0")
+                worst[(case, dtype)] = max(errs)
+    for dtype in (torch.float32, torch.bfloat16):
+        log(f"gmm sweep {str(dtype).replace('torch.', '')}: K5-K8 agree with "
+            f"the plain versions (max |err| per case: " + ", ".join(
+                f"{c} {worst[(c, dtype)]:.2e}" for c in GMM_SWEEP) + ")")
+    log("gmm sweep: rows past the groups (K5, also when they hold data) and "
+        "empty experts (K6) are exactly 0")
+
+
+def phase_gmm():
+    """Phase 8; returns {kernel: record} with the launches of the main
+    path (the entry points on the routed traffic, forward and backward,
+    both dtypes)."""
+    rows, sizes, w1, capacity = moe_routed_traffic()
+    counts = sizes.tolist()
+    log(f"gmm traffic: {rows.shape[0]} assignments (T=8192 x top-{MOE_K}) "
+        f"of E={MOE_E} experts, M={MOE_M}, H={MOE_H}; rows per expert min "
+        f"{min(counts)}, median {int(statistics.median(counts))}, max "
+        f"{max(counts)}")
+    _reset_gmm_counts()
+    runs = gmm_main_path(rows, sizes, w1)
+    launches = _gmm_counts()
+    log(f"gmm main path launches (gmm, gmm_aligned fwd+bwd and tgmm, bf16 "
+        f"and f32): {launches}")
+    errs = {dtype: gmm_check_main(run, sizes) for dtype, run in runs.items()}
+    for dtype, e in errs.items():
+        log(f"gmm {str(dtype).replace('torch.', '')}: kernels agree with the "
+            f"plain versions on the routed traffic (max |err|: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in e.items())
+            + "); pad rows and empty experts exactly 0")
+    records = gmm_timings(runs[torch.bfloat16], runs[torch.float32], sizes)
+    for kname, rec in records.items():
+        rec["launches"] = launches[kname]
+    del runs
+    capacity_bmm_ms(w1, capacity)
+    gmm_sweep()
+    free_device_memory()
+    return records
+
+
+# --------------------------------------------------------------------------
+def moe_train_flops_per_step(cfg, B, S):
+    """The MoE step's flop count, 2 per MAC, 3 x the forward: attention
+    projections (4*d*d per token, MHA) and scores at their causal half
+    (2*B*S*S*d per layer), the dense FFN of the first layers (3*d*ffn per
+    token), and per MoE layer the gate (d*E), the routed experts at the K
+    assignments each token really has (K * 2*d*H MACs = K*4*d*H flop,
+    not the E*C capacity slots the bmm pays for) and the shared experts
+    (3*d*H*n_shared), plus the head (d*V)."""
+    d, L, V = cfg.hidden_size, cfg.num_hidden_layers, cfg.vocab_size
+    H, K, E = cfg.moe_intermediate_size, cfg.num_experts_per_tok, \
+        cfg.num_experts
+    dense = min(cfg.first_k_dense_replace, L)
+    macs = L * 4 * d * d + dense * 3 * d * cfg.intermediate_size \
+        + (L - dense) * (d * E + K * 2 * d * H
+                         + 3 * d * H * cfg.num_shared_experts) + d * V
+    attn = L * 2 * B * S * S * d
+    return 3 * (2 * B * S * macs + attn)
+
+
+def profile_moe_step(step, x, step_ms):
+    """Device time of one more MoE training step by kind of work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(x)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    total = sum(us for us, _, _ in rows)
+    if total == 0:
+        log("moe profile: the profiler saw no device time (not measured)")
+        return
+    flash = sum(us for us, key, _ in rows if "flash_" in key)
+    gemm = sum(us for us, key, _ in rows
+               if any(w in key for w in ("nvjet", "gemm", "cutlass")))
+    # the expert products are the only aten::bmm calls of the step (its
+    # host op carries the device time of the kernels it launched)
+    bmm = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total",
+                                                      0))
+              for e in prof.key_averages()
+              if e.key == "aten::bmm"
+              and getattr(e, "device_type", None) == DeviceType.CPU)
+    moves = sum(us for us, key, _ in rows
+                if any(w in key.lower() for w in (
+                    "index", "gather", "scatter", "sort", "radix", "scan",
+                    "cumsum", "embedding", "histogram")))
+    rest = total - flash - gemm - moves
+    log(f"moe profile: one step, device time {total / 1e3:.3f} ms = "
+        f"{100 * total / 1e3 / step_ms:.1f}% of the un-profiled step wall; "
+        f"flash K1-K3 {100 * flash / total:.1f}%, cuBLAS "
+        f"{100 * gemm / total:.1f}% (of which the expert bmm "
+        f"{100 * bmm / total:.1f}%), gathers/scatters/sorts (routing, "
+        f"embedding, CE) {100 * moves / total:.1f}%, the rest (elementwise, "
+        f"reductions, copies, optimizer) {100 * rest / total:.1f}%")
+    for us, key, count in rows[:10]:
+        log(f"  {100 * us / total:5.1f}%  {us / 1e3:10.3f} ms  "
+            f"{count:6d}x  {key[:90]}")
+
+
+def phase_moe_training():
+    """Phase 9: DeepSeekMoE-16B at full width, 4 layers, 12 steps; returns
+    the flash launch counts."""
+    from paddle_tpu_torch.distributed.fleet import MoELayer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.moe import MoeConfig, MoeForCausalLM
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = MoeConfig.deepseek_moe_16b(num_hidden_layers=4)
+    B, S, warmup, timed = 4, 2048, 2, 10
+    free_device_memory()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = MoeForCausalLM(cfg, dtype="bfloat16", seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))
+    step = TrainStep(model, lambda m, x: m(x, labels=x)[1], opt)
+    x = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (B, S))).cuda()
+
+    _reset_flash_counts()
+    _reset_gmm_counts()
+    losses = [float(step(x)) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    timed_losses = [step(x) for _ in range(timed)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _flash_counts()
+    gmm_counts = _gmm_counts()
+    losses += [float(t) for t in timed_losses]
+    steps = warmup + timed
+    ln_v = math.log(cfg.vocab_size)
+    if not (math.isfinite(losses[0]) and abs(losses[0] - ln_v) <= 1.0):
+        raise AssertionError(f"first loss {losses[0]} is not within 1.0 "
+                             f"of ln(vocab) = {ln_v:.3f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    for kname, n in counts.items():
+        if n != steps * cfg.num_hidden_layers:
+            raise AssertionError(
+                f"{kname} launched {n} times in {steps} steps, not "
+                f"{cfg.num_hidden_layers} per step")
+    moe_layers = [(i, layer.mlp) for i, layer in enumerate(model.layers)
+                  if isinstance(layer.mlp, MoELayer)]
+    step_ms = 1e3 * wall / timed
+    flops = moe_train_flops_per_step(cfg, B, S)
+    mfu = flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+    log(f"moe train: DeepSeekMoE-16B widths, {cfg.num_hidden_layers} layers "
+        f"(layer 0 dense, FFN {cfg.intermediate_size}; {len(moe_layers)} MoE "
+        f"layers of {cfg.num_experts} experts x {cfg.moe_intermediate_size}, "
+        f"top-{cfg.num_experts_per_tok}, {cfg.num_shared_experts} shared), "
+        f"{n_params} parameters, batch {B} x {S}, bf16, AdamW f32 masters; "
+        f"loss step 1 {losses[0]:.4f} (ln V = {ln_v:.4f}), step {steps} "
+        f"{losses[-1]:.4f}; losses {[round(v, 4) for v in losses]}")
+    log("moe train: capacity and dropped assignments of the last step: "
+        + ", ".join(f"layer {i} C={m.last_capacity} dropped "
+                    f"{int(m.last_dropped)} of {B * S * m.gate.top_k}"
+                    for i, m in moe_layers))
+    log(f"moe train: launches per step K1 "
+        f"{counts['flash_attention_fwd'] // steps}, K2 "
+        f"{counts['flash_attention_dq'] // steps}, K3 "
+        f"{counts['flash_attention_dkv'] // steps} (= "
+        f"{cfg.num_hidden_layers} layers); K5-K8 {gmm_counts} (the layer "
+        f"computes its experts with torch.bmm on the capacity layout, as the "
+        f"reference computes einsums)")
+    log(f"moe train: step {step_ms:.3f} ms (synchronised wall / {timed} "
+        f"steps); {B * S / (step_ms / 1e3):.1f} tokens/s; {flops:.4e} flop "
+        f"per step (moe_train_flops_per_step), floor "
+        f"{1e3 * flops / PEAK_FLOPS[torch.bfloat16]:.2f} ms at 989 TFLOP/s; "
+        f"MFU {100 * mfu:.2f}%; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() - before} B above the {before} "
+        f"B allocated before the phase, of which {resident - before} B stay"
+        f" allocated between steps")
+    profile_moe_step(step, x, step_ms)
+    del step, opt, model
+    free_device_memory()
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch",
@@ -803,6 +1368,8 @@ def main():
     phase_parity()
     flash = phase_flash()
     counts = phase_training()
+    gmm = phase_gmm()
+    phase_moe_training()
     kernels = [dict(
         name="ragged_paged_attention", route="cuda",
         source="paddle_tpu_torch/ops/pallas/csrc/ragged_paged_attention.cu",
@@ -812,6 +1379,9 @@ def main():
         kernels.append(dict(name=kname, route="cuda", source=FLASH_SRC,
                             replaces=replaces, launches=counts[kname],
                             **flash[kname]))
+    for kname, _, replaces in GMM_KERNELS:
+        kernels.append(dict(name=kname, route="cuda", source=GMM_SRC,
+                            replaces=replaces, **gmm[kname]))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,380 @@
+"""Grouped matrix multiply — port of
+``paddle_tpu/ops/pallas/grouped_matmul.py``.
+
+Tokens arrive sorted by expert: ``group_sizes[e]`` rows belong to expert
+``e``, and one kernel computes ``out[rows_e] = lhs[rows_e] @ rhs[e]`` for
+every expert. The kernels: ``csrc/grouped_matmul.cu``, CUDA C++ for
+``sm_90a``, replacing the four Pallas TPU kernels of the reference:
+
+* K5 ``_gmm_fwd`` (reference ``:121``, launched at ``:178``): the grouped
+  product over group-sorted rows; rows past ``sum(group_sizes)`` are 0;
+* K6 ``_tgmm_fwd`` (``:186``, launched at ``:242``): ``out[e] =
+  lhs[rows_e]ᵀ @ g[rows_e]`` in f32; an empty expert is 0;
+* K7 ``_gmm_aligned_fwd`` (``:261``, launched at ``:283``): K5 on the
+  bm-aligned layout, one expert per row block of ``bm`` rows;
+* K8 ``_tgmm_aligned_fwd`` (``:291``, launched at ``:335``): K6 on the
+  aligned layout; an expert with no block is left unwritten and
+  :func:`gmm_aligned`'s backward replaces it with 0 by ``where``.
+
+Each kernel wrapper launches its kernel for CUDA tensors, or raises; for
+CPU tensors it computes its plain PyTorch version, which loops over the
+groups with f32 products. The module counts kernel launches in
+``launches_gmm`` (K5), ``launches_tgmm`` (K6), ``launches_gmm_aligned``
+(K7) and ``launches_tgmm_aligned`` (K8), and nothing else. The public
+functions :func:`gmm`, :func:`gmm_aligned` (both differentiable, with the
+reference's backward) and :func:`tgmm` take ``bm`` as the reference does:
+it fixes the divisibility of the rows and the aligned layout; the CUDA
+tile height is the kernels' own. No wrapper reads ``group_sizes`` on the
+host: offsets and block experts are computed on its device.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+__all__ = ["gmm", "tgmm", "gmm_aligned"]
+
+#: kernel launches since each count was last set to 0 (CPU calls, which
+#: compute the plain versions, do not count)
+launches_gmm = 0
+launches_tgmm = 0
+launches_gmm_aligned = 0
+launches_tgmm_aligned = 0
+
+_F32, _BF16 = torch.float32, torch.bfloat16
+_DTYPE_CODE = {_F32: 0, _BF16: 1}
+# the (lhs, rhs) dtype pairs each kernel takes: those the reference's
+# forward and backward passes give it
+_GMM_MIXES = ((_F32, _F32), (_BF16, _BF16), (_F32, _BF16))
+_TGMM_MIXES = ((_F32, _F32),)
+_TGMM_ALIGNED_MIXES = ((_F32, _F32), (_BF16, _BF16))
+
+
+# ------------------------------ routing metadata ----------------------------
+def _offsets_ext(group_sizes, r_pad):
+    """int32 ``[E + 2]``: 0, ``cumsum(group_sizes)``, ``r_pad`` (reference
+    :380) — the last entry closes the sentinel pad group."""
+    gs = group_sizes.to(torch.int32)
+    zero = torch.zeros(1, dtype=torch.int32, device=gs.device)
+    pad = torch.full((1,), r_pad, dtype=torch.int32, device=gs.device)
+    return torch.cat([zero, torch.cumsum(gs, 0, dtype=torch.int32), pad])
+
+
+def _block_experts(group_sizes, n_blocks, n_groups, bm):
+    """The expert of each ``bm``-row block of the aligned layout (reference
+    :250-258): the group whose range holds the block's first row, found
+    with ``side="right"`` so a block after an empty group goes to the next
+    group; trailing blocks past the data clamp to ``n_groups - 1``."""
+    offs = torch.cumsum(group_sizes.to(torch.int32), 0, dtype=torch.int32)
+    starts = torch.arange(n_blocks, dtype=torch.int32,
+                          device=offs.device) * bm
+    be = torch.searchsorted(offs, starts, right=True, out_int32=True)
+    return torch.clamp(be, max=n_groups - 1)
+
+
+def _runs(block_experts):
+    """``[(expert, first block, past last block)]`` of equal neighbours
+    (host-side: the plain versions only)."""
+    be = block_experts.tolist()
+    runs, b = [], 0
+    while b < len(be):
+        n = b + 1
+        while n < len(be) and be[n] == be[b]:
+            n += 1
+        runs.append((be[b], b, n))
+        b = n
+    return runs
+
+
+# ------------------------------ plain versions ------------------------------
+def _gmm_plain(lhs, rhs, offsets):
+    """K5's plain version: each group's rows times its expert's matrix in
+    f32, cast to lhs's dtype at the end; rows past the groups are 0."""
+    rows = lhs.shape[0]
+    out = torch.zeros(rows, rhs.shape[2], dtype=_F32, device=lhs.device)
+    offs = offsets.tolist()
+    for e in range(rhs.shape[0]):
+        lo, hi = min(offs[e], rows), min(offs[e + 1], rows)
+        if hi > lo:
+            out[lo:hi] = lhs[lo:hi].float() @ rhs[e].float()
+    return out.to(lhs.dtype)
+
+
+def _tgmm_plain(lhs, g, offsets, n_groups):
+    """K6's plain version: ``lhs[rows_e]ᵀ @ g[rows_e]`` in f32; an empty
+    expert is 0."""
+    rows = lhs.shape[0]
+    out = torch.zeros(n_groups, lhs.shape[1], g.shape[1], dtype=_F32,
+                      device=lhs.device)
+    offs = offsets.tolist()
+    for e in range(n_groups):
+        lo, hi = min(offs[e], rows), min(offs[e + 1], rows)
+        if hi > lo:
+            out[e] = lhs[lo:hi].float().t() @ g[lo:hi].float()
+    return out
+
+
+def _gmm_aligned_plain(lhs, rhs, block_experts, bm):
+    """K7's plain version: each run of blocks times its expert's matrix."""
+    out = torch.empty(lhs.shape[0], rhs.shape[2], dtype=_F32,
+                      device=lhs.device)
+    for e, b0, b1 in _runs(block_experts):
+        rows = slice(b0 * bm, b1 * bm)
+        out[rows] = lhs[rows].float() @ rhs[e].float()
+    return out.to(lhs.dtype)
+
+
+def _tgmm_aligned_plain(lhs, g, block_experts, n_groups, bm):
+    """K8's plain version in f32. An expert with no block is 0 here, where
+    the kernel leaves it unwritten; compare the two only where an expert
+    owns a block, or after :func:`gmm_aligned`'s ``where``."""
+    out = torch.zeros(n_groups, lhs.shape[1], g.shape[1], dtype=_F32,
+                      device=lhs.device)
+    for e, b0, b1 in _runs(block_experts):
+        rows = slice(b0 * bm, b1 * bm)
+        out[e] = lhs[rows].float().t() @ g[rows].float()
+    return out
+
+
+# --------------------------------- kernels ----------------------------------
+class _Params(ctypes.Structure):
+    """The source's ``GmmParams``, field for field."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "lhs", "rhs", "offsets", "block_experts", "out")] + [
+        (n, ctypes.c_longlong) for n in ("rhs_se", "rhs_sk", "rhs_sn")] + [
+        (n, ctypes.c_int) for n in ("rows", "lhs_cols", "n_dim", "experts",
+                                    "bm", "lhs_dtype", "rhs_dtype")]
+
+
+def _lib():
+    lib = _build.load("grouped_matmul")
+    if lib.gmm_launch.argtypes is None:
+        for name in ("gmm_launch", "tgmm_launch", "gmm_aligned_launch",
+                     "tgmm_aligned_launch"):
+            fn = getattr(lib, name)
+            fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        lib.gmm_error_string.argtypes = [ctypes.c_int]
+        lib.gmm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _device(*tensors) -> str:
+    """``"cpu"`` or ``"cuda"``, the one device every tensor lies on."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"grouped matmul takes its tensors on one device, "
+                         f"got {sorted(str(d) for d in devices)}")
+    device = devices.pop()
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"grouped matmul runs on cuda or cpu tensors, not "
+                         f"{device}")
+    return device.type
+
+
+def _check_shapes(lhs, other, index, n_index):
+    """``other`` is rhs ``[E, M, H]`` (gmm) or g ``[R, H]`` (tgmm)."""
+    if other.dim() == 3:
+        ok = lhs.dim() == 2 and other.shape[1] == lhs.shape[1]
+        want = "lhs [R, M] and rhs [E, M, H]"
+    else:
+        ok = lhs.dim() == 2 and other.dim() == 2 and \
+            other.shape[0] == lhs.shape[0]
+        want = "lhs [R, M] and g [R, H]"
+    if not ok:
+        raise ValueError(f"grouped matmul takes {want}, got "
+                         f"{tuple(lhs.shape)} and {tuple(other.shape)}")
+    if index.dim() != 1 or index.shape[0] != n_index:
+        raise ValueError(f"expected an index vector of {n_index} entries, "
+                         f"got shape {tuple(index.shape)}")
+
+
+def _check_cuda(kernel, lhs, other, index, mixes, other_contiguous):
+    if (lhs.dtype, other.dtype) not in mixes:
+        names = ", ".join(f"({a}, {b})" for a, b in mixes)
+        raise TypeError(f"{kernel} takes (lhs, rhs) dtypes {names}, not "
+                        f"({lhs.dtype}, {other.dtype})".replace("torch.", ""))
+    if not lhs.is_contiguous():
+        raise ValueError(f"{kernel}: lhs must be contiguous")
+    if other_contiguous and not other.is_contiguous():
+        raise ValueError(f"{kernel}: g must be contiguous")
+    if index.dtype != torch.int32 or not index.is_contiguous():
+        raise ValueError(f"{kernel}: the group index must be a contiguous "
+                         f"int32 tensor")
+
+
+def _params(lhs, other, out, n_groups, bm, **ptrs) -> _Params:
+    """``other`` is rhs ``[E, M, H]`` (any strides) or g ``[R, H]``."""
+    strides = other.stride()
+    se, sk, sn = (0,) + strides if other.dim() == 2 else strides
+    return _Params(
+        lhs=lhs.data_ptr(), rhs=other.data_ptr(), out=out.data_ptr(),
+        rhs_se=se, rhs_sk=sk, rhs_sn=sn, rows=lhs.shape[0],
+        lhs_cols=lhs.shape[1], n_dim=other.shape[-1], experts=n_groups,
+        bm=bm, lhs_dtype=_DTYPE_CODE[lhs.dtype],
+        rhs_dtype=_DTYPE_CODE[other.dtype], **ptrs)
+
+
+def _launch(entry: str, lhs, params: _Params):
+    lib = _lib()
+    with torch.cuda.device(lhs.device):
+        stream = torch.cuda.current_stream(lhs.device).cuda_stream
+        rc = getattr(lib, entry)(ctypes.byref(params), stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"grouped matmul kernel launch ({entry}) failed: "
+            f"{lib.gmm_error_string(rc).decode()} (cudaError {rc})")
+
+
+def _gmm_fwd(lhs, rhs, offsets_ext):
+    """K5: ``out[rows_e] = lhs[rows_e] @ rhs[e]`` over group-sorted rows,
+    ``[R, H]`` in lhs's dtype; rows past the groups are 0. ``rhs`` may be
+    a strided view (gmm's backward passes ``rhsᵀ``)."""
+    global launches_gmm
+    _check_shapes(lhs, rhs, offsets_ext, rhs.shape[0] + 2)
+    if _device(lhs, rhs, offsets_ext) == "cpu":
+        return _gmm_plain(lhs, rhs, offsets_ext)
+    _check_cuda("gmm", lhs, rhs, offsets_ext, _GMM_MIXES, False)
+    out = torch.empty(lhs.shape[0], rhs.shape[2], dtype=lhs.dtype,
+                      device=lhs.device)
+    _launch("gmm_launch", lhs, _params(lhs, rhs, out, rhs.shape[0], 1,
+                                       offsets=offsets_ext.data_ptr()))
+    launches_gmm += 1
+    return out
+
+
+def _tgmm_fwd(lhs, g, offsets_ext, n_groups):
+    """K6: ``out[e] = lhs[rows_e]ᵀ @ g[rows_e]``, f32 ``[E, M, H]``; an
+    empty expert is 0."""
+    global launches_tgmm
+    _check_shapes(lhs, g, offsets_ext, n_groups + 2)
+    if _device(lhs, g, offsets_ext) == "cpu":
+        return _tgmm_plain(lhs, g, offsets_ext, n_groups)
+    _check_cuda("tgmm", lhs, g, offsets_ext, _TGMM_MIXES, True)
+    out = torch.empty(n_groups, lhs.shape[1], g.shape[1], dtype=_F32,
+                      device=lhs.device)
+    _launch("tgmm_launch", lhs, _params(lhs, g, out, n_groups, 1,
+                                        offsets=offsets_ext.data_ptr()))
+    launches_tgmm += 1
+    return out
+
+
+def _gmm_aligned_fwd(lhs, rhs, block_experts, bm):
+    """K7: block ``b`` of ``bm`` rows times ``rhs[block_experts[b]]``,
+    ``[R, H]`` in lhs's dtype."""
+    global launches_gmm_aligned
+    _check_shapes(lhs, rhs, block_experts, lhs.shape[0] // bm)
+    if _device(lhs, rhs, block_experts) == "cpu":
+        return _gmm_aligned_plain(lhs, rhs, block_experts, bm)
+    _check_cuda("gmm_aligned", lhs, rhs, block_experts, _GMM_MIXES, False)
+    out = torch.empty(lhs.shape[0], rhs.shape[2], dtype=lhs.dtype,
+                      device=lhs.device)
+    _launch("gmm_aligned_launch", lhs, _params(
+        lhs, rhs, out, rhs.shape[0], bm,
+        block_experts=block_experts.data_ptr()))
+    launches_gmm_aligned += 1
+    return out
+
+
+def _tgmm_aligned_fwd(lhs, g, block_experts, n_groups, bm):
+    """K8: ``out[e] = Σ over e's blocks of lhs_blockᵀ @ g_block``, f32
+    ``[E, M, H]``. An expert that owns no block is left unwritten (as on
+    the TPU): the caller replaces it."""
+    global launches_tgmm_aligned
+    _check_shapes(lhs, g, block_experts, lhs.shape[0] // bm)
+    if _device(lhs, g, block_experts) == "cpu":
+        return _tgmm_aligned_plain(lhs, g, block_experts, n_groups, bm)
+    _check_cuda("tgmm_aligned", lhs, g, block_experts, _TGMM_ALIGNED_MIXES,
+                True)
+    out = torch.empty(n_groups, lhs.shape[1], g.shape[1], dtype=_F32,
+                      device=lhs.device)
+    _launch("tgmm_aligned_launch", lhs, _params(
+        lhs, g, out, n_groups, bm, block_experts=block_experts.data_ptr()))
+    launches_tgmm_aligned += 1
+    return out
+
+
+# ------------------------------- public API ---------------------------------
+def _check_rows(name, rows, bm):
+    if rows % bm:
+        raise ValueError(f"{name} rows {rows} must divide block size {bm}")
+
+
+class _Gmm(torch.autograd.Function):
+    """Forward K5; backward (reference :409-416) with ``g`` in f32:
+    ``d_lhs`` is K5 on ``g`` against ``rhsᵀ`` (a strided view), ``d_rhs``
+    is K6 on f32 ``lhs`` and ``g``, both cast back to the input dtypes."""
+
+    @staticmethod
+    def forward(ctx, lhs, rhs, group_sizes):
+        offs = _offsets_ext(group_sizes, lhs.shape[0])
+        ctx.save_for_backward(lhs, rhs, offs)
+        return _gmm_fwd(lhs, rhs, offs)
+
+    @staticmethod
+    def backward(ctx, g):
+        lhs, rhs, offs = ctx.saved_tensors
+        g = g.float().contiguous()
+        d_lhs = _gmm_fwd(g, rhs.transpose(1, 2), offs)
+        d_rhs = _tgmm_fwd(lhs.float().contiguous(), g, offs, rhs.shape[0])
+        return d_lhs.to(lhs.dtype), d_rhs.to(rhs.dtype), None
+
+
+class _GmmAligned(torch.autograd.Function):
+    """Forward K7; backward (reference :364-374) in the input dtype:
+    ``d_lhs`` is K7 on ``g`` against ``rhsᵀ``, ``d_rhs`` is K8, and the
+    slab of an expert with no rows is replaced by 0 with ``where`` (never
+    a multiply: it was never written)."""
+
+    @staticmethod
+    def forward(ctx, lhs, rhs, group_sizes, bm):
+        n_groups = rhs.shape[0]
+        be = _block_experts(group_sizes, lhs.shape[0] // bm, n_groups, bm)
+        ctx.save_for_backward(lhs, rhs, group_sizes, be)
+        ctx.bm = bm
+        return _gmm_aligned_fwd(lhs, rhs, be, bm)
+
+    @staticmethod
+    def backward(ctx, g):
+        lhs, rhs, group_sizes, be = ctx.saved_tensors
+        bm = ctx.bm
+        g = g.contiguous()
+        d_lhs = _gmm_aligned_fwd(g, rhs.transpose(1, 2), be, bm)
+        d_rhs = _tgmm_aligned_fwd(lhs, g, be, rhs.shape[0], bm)
+        live = (group_sizes > 0)[:, None, None]
+        d_rhs = torch.where(live, d_rhs, torch.zeros((), dtype=d_rhs.dtype,
+                                                     device=d_rhs.device))
+        return d_lhs.to(lhs.dtype), d_rhs.to(rhs.dtype), None, None
+
+
+def gmm(lhs, rhs, group_sizes, bm: int = 512):
+    """Grouped matmul: ``out[rows_of_group_e] = lhs[rows] @ rhs[e]``.
+
+    ``lhs`` [R, M] with rows sorted by group (rows past
+    ``sum(group_sizes)`` are padding and produce zeros); ``rhs`` [E, M,
+    H]; ``group_sizes`` [E] int on lhs's device. R must divide by ``bm``.
+    Returns [R, H] in lhs's dtype, accumulated in f32. Differentiable in
+    lhs and rhs."""
+    _check_rows("gmm", lhs.shape[0], bm)
+    return _Gmm.apply(lhs, rhs, group_sizes)
+
+
+def gmm_aligned(lhs, rhs, group_sizes, bm: int = 512):
+    """Grouped matmul over the bm-aligned sorted layout: every
+    ``group_sizes[e]`` is a multiple of ``bm`` (each group's rows padded
+    up with zero rows), so one expert owns each block of ``bm`` rows.
+    Returns [R, H] in lhs's dtype. Differentiable in lhs and rhs."""
+    _check_rows("gmm_aligned", lhs.shape[0], bm)
+    return _GmmAligned.apply(lhs, rhs, group_sizes, bm)
+
+
+def tgmm(lhs, g, group_sizes, n_groups: int, bm: int = 512):
+    """Transposed grouped matmul: ``out[e] = lhs[rows_e]ᵀ @ g[rows_e]``,
+    f32 ``[n_groups, M, H]`` (gmm's backward uses the same kernel)."""
+    _check_rows("tgmm", lhs.shape[0], bm)
+    offs = _offsets_ext(group_sizes, lhs.shape[0])
+    return _tgmm_fwd(lhs.float().contiguous(), g.float().contiguous(), offs,
+                     n_groups)

@@ -1,0 +1,176 @@
+"""The port's grouped matmul against the JAX package's, on the CPU.
+
+The same numpy inputs go through ``paddle_tpu``'s ``gmm``, ``gmm_aligned``
+and ``tgmm`` (their Pallas kernels in interpret mode, as
+``tests/test_grouped_matmul.py`` runs them) and through the port's,
+whose wrappers compute their plain versions for CPU tensors. The cases
+are the reference test's: E, M, H, bm = 4, 64, 32, 8, with empty
+experts, one-row groups and a group holding nearly every row. Tolerances
+are the reference test's too: atol 1e-4 for forward outputs and 1e-3 for
+gradients, float32. Pad rows and empty experts must be exactly 0.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from paddle_tpu.ops.pallas import grouped_matmul as jgm
+from paddle_tpu_torch.ops.pallas import grouped_matmul as tgm
+
+from test_torch_bridge import one_torch_thread  # noqa: F401
+
+E, M, H, BM = 4, 64, 32, 8
+FWD_ATOL, GRAD_ATOL = 1e-4, 1e-3
+RAGGED = [[5, 0, 11, 3], [8, 8, 8, 8], [0, 0, 30, 2], [1, 1, 1, 1]]
+ALIGNED = [[16, 0, 24, 8], [8, 8, 8, 8], [0, 0, 40, 0]]
+
+
+def _inputs(seed, rows, dtype=np.float32):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(rows, M).astype(dtype), rng.randn(E, M, H).astype(dtype),
+            rng.randn(rows, H).astype(dtype))
+
+
+def _jax_grads(fn, lhs, rhs, proj, gs, rows=None):
+    """Output and gradients of ``sum(fn(lhs, rhs)[:rows] * proj[:rows])``
+    through the JAX package's custom_vjp."""
+    def loss(a, b):
+        out = fn(a, b, jnp.asarray(gs), bm=BM)
+        return (out[:rows] * jnp.asarray(proj)[:rows]).sum()
+    a, b = jnp.asarray(lhs), jnp.asarray(rhs)
+    out = fn(a, b, jnp.asarray(gs), bm=BM)
+    gl, gr = jax.grad(loss, argnums=(0, 1))(a, b)
+    return np.asarray(out), np.asarray(gl), np.asarray(gr)
+
+
+def _port_grads(fn, lhs, rhs, proj, gs, rows=None):
+    a = torch.from_numpy(lhs).requires_grad_()
+    b = torch.from_numpy(rhs).requires_grad_()
+    out = fn(a, b, torch.from_numpy(gs), bm=BM)
+    (out[:rows] * torch.from_numpy(proj)[:rows]).sum().backward()
+    return out.detach().numpy(), a.grad.numpy(), b.grad.numpy()
+
+
+@pytest.mark.parametrize("sizes", RAGGED)
+def test_gmm_forward_and_gradients_match_jax(sizes):
+    gs = np.array(sizes, np.int32)
+    lhs, rhs, proj = _inputs(sum(sizes), 40)
+    want = _jax_grads(jgm.gmm, lhs, rhs, proj, gs)
+    got = _port_grads(tgm.gmm, lhs, rhs, proj, gs)
+    np.testing.assert_allclose(got[0], want[0], atol=FWD_ATOL)
+    for g, w in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g, w, atol=GRAD_ATOL)
+    # rows past sum(group_sizes) are padding: exactly 0, and so is their
+    # gradient; an empty expert's d_rhs is exactly 0
+    assert np.all(got[0][gs.sum():] == 0) and np.all(got[1][gs.sum():] == 0)
+    assert all(np.all(got[2][e] == 0) for e in range(E) if gs[e] == 0)
+
+
+@pytest.mark.parametrize("sizes", RAGGED)
+def test_tgmm_matches_jax(sizes):
+    gs = np.array(sizes, np.int32)
+    lhs, _, g = _inputs(sum(sizes) + 7, 40)
+    want = np.asarray(jgm.tgmm(jnp.asarray(lhs), jnp.asarray(g),
+                               jnp.asarray(gs), E, bm=BM))
+    got = tgm.tgmm(torch.from_numpy(lhs), torch.from_numpy(g),
+                   torch.from_numpy(gs), E, bm=BM)
+    assert got.dtype == torch.float32 and got.shape == (E, M, H)
+    np.testing.assert_allclose(got.numpy(), want, atol=FWD_ATOL)
+    assert all(bool((got[e] == 0).all()) for e in range(E) if gs[e] == 0)
+
+
+@pytest.mark.parametrize("sizes", ALIGNED)
+def test_gmm_aligned_forward_and_gradients_match_jax(sizes):
+    """The bm-aligned layout: pad rows of lhs are 0. Outputs and lhs
+    gradients are compared on the data rows (the reference test's
+    loss), rhs gradients everywhere: an expert with no rows gets exactly
+    0, never what the kernel left unwritten."""
+    gs = np.array(sizes, np.int32)
+    lhs, rhs, proj = _inputs(sum(sizes) + 1, 48)
+    n = int(gs.sum())
+    lhs[n:] = 0
+    want = _jax_grads(jgm.gmm_aligned, lhs, rhs, proj, gs, rows=n)
+    got = _port_grads(tgm.gmm_aligned, lhs, rhs, proj, gs, rows=n)
+    np.testing.assert_allclose(got[0][:n], want[0][:n], atol=FWD_ATOL)
+    np.testing.assert_allclose(got[1][:n], want[1][:n], atol=GRAD_ATOL)
+    np.testing.assert_allclose(got[2], want[2], atol=GRAD_ATOL)
+    assert np.all(got[0][n:] == 0)  # zero pad rows give zero rows
+    assert all(np.all(got[2][e] == 0) for e in range(E) if gs[e] == 0)
+
+
+@pytest.mark.parametrize("sizes,rows", [
+    ([16, 0, 24, 8], 48), ([0, 0, 40, 0], 48), ([8, 0, 0, 8], 48),
+    ([0, 8, 8, 0], 64), ([32, 0, 0, 0], 40), ([0, 0, 0, 0], 16)])
+def test_block_experts_and_offsets_match_jax(sizes, rows):
+    """``searchsorted(side="right")`` gives a block after an empty expert
+    to the next expert, and trailing pad blocks clamp to E-1."""
+    gs = np.array(sizes, np.int32)
+    want = np.asarray(jgm._block_experts(jnp.asarray(gs), rows // BM, E, BM))
+    got = tgm._block_experts(torch.from_numpy(gs), rows // BM, E, BM)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        tgm._offsets_ext(torch.from_numpy(gs), rows).numpy(),
+        np.asarray(jgm._offsets_ext(jnp.asarray(gs), rows)))
+
+
+def test_bfloat16_follows_the_reference_dtypes():
+    """bf16 inputs: gmm and gmm_aligned return bf16 and give bf16
+    gradients, computed in f32 and rounded once (gmm's backward in f32,
+    gmm_aligned's in the input dtype); tgmm is always f32. Both sides
+    round f32 results to bf16: one bf16 unit apart at most."""
+    gs = np.array([5, 0, 11, 3], np.int32)
+    lhs, rhs, proj = _inputs(3, 40)
+    bf = [jnp.asarray(a).astype(jnp.bfloat16) for a in (lhs, rhs)]
+    tb = [torch.from_numpy(a).to(torch.bfloat16) for a in (lhs, rhs)]
+    for jfn, tfn in ((jgm.gmm, tgm.gmm), (jgm.gmm_aligned, tgm.gmm_aligned)):
+        sizes = gs if jfn is jgm.gmm else np.array([8, 0, 16, 16], np.int32)
+
+        def jloss(a, b):
+            return (jfn(a, b, jnp.asarray(sizes), bm=BM).astype(jnp.float32)
+                    * jnp.asarray(proj)).sum()
+        jout = jfn(*bf, jnp.asarray(sizes), bm=BM)
+        jg = jax.grad(jloss, argnums=(0, 1))(*bf)
+        a, b = (t.clone().requires_grad_() for t in tb)
+        out = tfn(a, b, torch.from_numpy(sizes), bm=BM)
+        (out.float() * torch.from_numpy(proj)).sum().backward()
+        assert out.dtype == a.grad.dtype == b.grad.dtype == torch.bfloat16
+        for got, want in ((out, jout), (a.grad, jg[0]), (b.grad, jg[1])):
+            want = np.asarray(want.astype(jnp.float32))
+            np.testing.assert_allclose(got.detach().float().numpy(), want,
+                                       rtol=2 ** -7, atol=1e-2)
+    t = tgm.tgmm(tb[0], torch.from_numpy(proj).to(torch.bfloat16),
+                 torch.from_numpy(gs), E, bm=BM)
+    assert t.dtype == torch.float32
+
+
+@pytest.mark.parametrize("fn", ["gmm", "gmm_aligned", "tgmm"])
+def test_rows_must_divide_the_block(fn):
+    gs = torch.tensor([10, 0, 0, 0], dtype=torch.int32)
+    lhs = torch.zeros(10, M)
+    other = torch.zeros(10, H) if fn == "tgmm" else torch.zeros(E, M, H)
+    args = (E,) if fn == "tgmm" else ()
+    with pytest.raises(ValueError, match="divide"):
+        getattr(tgm, fn)(lhs, other, gs, *args, bm=BM)
+    with pytest.raises(ValueError, match="divide"):
+        getattr(jgm, fn)(jnp.zeros((10, M)), jnp.asarray(other.numpy()),
+                         jnp.asarray(gs.numpy()), *args, bm=BM)
+
+
+def test_cpu_calls_count_no_launch_and_mixed_devices_raise():
+    counts = (tgm.launches_gmm, tgm.launches_tgmm, tgm.launches_gmm_aligned,
+              tgm.launches_tgmm_aligned)
+    lhs, rhs, proj = (torch.from_numpy(a) for a in _inputs(0, 16))
+    gs = torch.tensor([8, 0, 8, 0], dtype=torch.int32)
+    for fn in (tgm.gmm, tgm.gmm_aligned):
+        a = lhs.clone().requires_grad_()
+        (fn(a, rhs, gs, bm=BM) * proj).sum().backward()
+    tgm.tgmm(lhs, proj, gs, E, bm=BM)
+    assert (tgm.launches_gmm, tgm.launches_tgmm, tgm.launches_gmm_aligned,
+            tgm.launches_tgmm_aligned) == counts
+    with pytest.raises(ValueError, match="one device"):
+        tgm.gmm(lhs, rhs.to("meta"), gs, bm=BM)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tgm.gmm(lhs.to("meta"), rhs.to("meta"), gs.to("meta"), bm=BM)

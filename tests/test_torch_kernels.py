@@ -212,3 +212,159 @@ def test_flash_wrapper_refuses_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros(1, 2, 64, 64, device=cuda_device)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_attention_bhsd(q.half(), q.half(), q.half())
+
+
+# ------------------------------ grouped matmul ------------------------------
+# kernel vs plain: max |err| over the largest |plain| value, by the dtype of
+# the result: f32 sums in another order; bf16 results are rounded once on
+# each side, so they may sit one bf16 unit (2**-7 of the value) apart
+GMM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _gmm_case(name, device):
+    """``chip_smoke.py`` phase 8(b)'s cases, cut small: (lhs [R, M], sizes,
+    rhs [E, M, H], g [R, H]), all f32; rows past the groups are 0 unless
+    the case is ``tail_rows_not_zero``."""
+    E, M, H, R = 8, 256, 192, 1024
+    sizes = [100, 0, 300, 1, 1, 0, 400, 150]
+    if name == "hot_expert":
+        sizes = [0, 1, 922, 0, 1, 50, 50, 0]  # 90% of the rows in one
+    elif name == "widths_1000_333":
+        M, H = 1000, 333
+    elif name == "one_expert":
+        E, sizes = 1, [1000]
+    gen = torch.Generator(device=device).manual_seed(len(name))
+    mk = lambda *s: torch.randn(*s, device=device, generator=gen)  # noqa
+    lhs, rhs, g = mk(R, M), mk(E, M, H), mk(R, H)
+    if name == "tail_rows_not_zero":
+        sizes = [100, 0, 300, 1, 1, 0, 200, 150]
+    else:
+        lhs[sum(sizes):] = 0
+    return lhs, torch.tensor(sizes, dtype=torch.int32, device=device), rhs, g
+
+
+def _aligned(rows, sizes, bm):
+    """Each group's rows padded with zero rows to a multiple of bm."""
+    out, padded, o = [], [], 0
+    for n in sizes.tolist():
+        p = -(-n // bm) * bm
+        block = rows.new_zeros(p, rows.shape[1])
+        block[:n] = rows[o:o + n]
+        out.append(block)
+        padded.append(p)
+        o += n
+    return torch.cat(out), torch.tensor(padded, dtype=torch.int32,
+                                        device=rows.device)
+
+
+def _gmm_rel_err(got, want):
+    got, want = got.detach().float(), want.detach().float()
+    return float((got - want).abs().max()
+                 / want.abs().max().clamp(min=1e-6))
+
+
+GMM_CASES = ["mixed", "hot_expert", "tail_rows_not_zero", "widths_1000_333",
+             "one_expert"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", GMM_CASES)
+def test_gmm_kernels_match_plain_versions(cuda_device, dtype, name):
+    """K5-K8 against their plain versions, with gmm's backward form (f32 g
+    against the strided rhsᵀ view); each wrapper counts one launch a call.
+    Rows past the groups (K5) and empty experts (K6) are exactly 0."""
+    from paddle_tpu_torch.ops.pallas import grouped_matmul as gm
+    lhs32, sizes, rhs32, g32 = _gmm_case(name, cuda_device)
+    E, R, n, bm = rhs32.shape[0], lhs32.shape[0], int(sizes.sum()), 32
+    offs = gm._offsets_ext(sizes, R)
+    al32, al_sizes = _aligned(lhs32, sizes, bm)
+    g_al32 = torch.randn(al32.shape[0], g32.shape[1], device=cuda_device)
+    be = gm._block_experts(al_sizes, al32.shape[0] // bm, E, bm)
+    lhs, rhs, al, g_al = (t.to(dtype) for t in (lhs32, rhs32, al32, g_al32))
+    counts = (gm.launches_gmm, gm.launches_tgmm, gm.launches_gmm_aligned,
+              gm.launches_tgmm_aligned)
+    got = {
+        "K5": gm._gmm_fwd(lhs, rhs, offs),
+        "K5 rhsT": gm._gmm_fwd(g32, rhs.transpose(1, 2), offs),
+        "K6": gm._tgmm_fwd(lhs.float(), g32, offs, E),
+        "K7": gm._gmm_aligned_fwd(al, rhs, be, bm),
+        "K7 rhsT": gm._gmm_aligned_fwd(g_al, rhs.transpose(1, 2), be, bm),
+        "K8": gm._tgmm_aligned_fwd(al, g_al, be, E, bm)}
+    torch.cuda.synchronize()
+    assert (gm.launches_gmm, gm.launches_tgmm, gm.launches_gmm_aligned,
+            gm.launches_tgmm_aligned) == (counts[0] + 2, counts[1] + 1,
+                                          counts[2] + 2, counts[3] + 1)
+    want = {
+        "K5": gm._gmm_plain(lhs, rhs, offs),
+        "K5 rhsT": gm._gmm_plain(g32, rhs.transpose(1, 2), offs),
+        "K6": gm._tgmm_plain(lhs.float(), g32, offs, E),
+        "K7": gm._gmm_aligned_plain(al, rhs, be, bm),
+        "K7 rhsT": gm._gmm_aligned_plain(g_al, rhs.transpose(1, 2), be, bm),
+        "K8": gm._tgmm_aligned_plain(al, g_al, be, E, bm)}
+    live = al_sizes > 0  # K8 leaves an expert with no block unwritten
+    for key in got:
+        a, b = (got[key][live], want[key][live]) if key == "K8" else \
+            (got[key], want[key])
+        assert bool(torch.isfinite(a).all()), key
+        assert _gmm_rel_err(a, b) <= GMM_TOL[a.dtype], key
+    assert bool((got["K5"][n:] == 0).all())
+    assert bool((got["K5 rhsT"][n:] == 0).all())
+    assert bool((got["K6"][sizes == 0] == 0).all())
+
+
+def _plain_gmm(lhs, rhs, sizes):
+    """Autograd-differentiable plain grouped matmul: each group's rows
+    times its expert's matrix in f32, rows past the groups 0, cast to
+    lhs's dtype at the end."""
+    outs, o = [], 0
+    for e, n in enumerate(sizes.tolist()):
+        outs.append(lhs[o:o + n].float() @ rhs[e].float())
+        o += n
+    outs.append(lhs.new_zeros(lhs.shape[0] - o, rhs.shape[2]).float())
+    return torch.cat(outs).to(lhs.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_autograd_matches_plain_autograd(cuda_device, dtype):
+    """gmm and gmm_aligned through ``torch.autograd`` on the card against
+    autograd through the plain grouped product, on the same inputs."""
+    from paddle_tpu_torch.ops.pallas import grouped_matmul as gm
+    lhs32, sizes, rhs32, g32 = _gmm_case("mixed", cuda_device)
+    al32, al_sizes = _aligned(lhs32, sizes, 64)
+    for fn, rows, gs, bm in ((gm.gmm, lhs32, sizes, 128),
+                             (gm.gmm_aligned, al32, al_sizes, 64)):
+        dy = torch.randn(rows.shape[0], rhs32.shape[2], device=cuda_device)
+        leaves = [t.detach().to(dtype).requires_grad_()
+                  for t in (rows, rhs32)]
+        ref = [t.detach().clone().requires_grad_() for t in leaves]
+        out = fn(*leaves, gs, bm=bm)
+        grads = torch.autograd.grad(out, leaves, dy.to(dtype))
+        rout = _plain_gmm(*ref, gs)
+        rgrads = torch.autograd.grad(rout, ref, dy.to(dtype))
+        assert _gmm_rel_err(out, rout) <= GMM_TOL[dtype]
+        for a, b in zip(grads, rgrads):
+            assert a.dtype == b.dtype == dtype
+            assert bool(torch.isfinite(a).all())
+            assert _gmm_rel_err(a, b) <= GMM_TOL[dtype]
+        if fn is gm.gmm_aligned:  # experts with no rows: exactly 0
+            assert bool((grads[1][al_sizes == 0] == 0).all())
+
+
+@pytest.mark.cuda
+def test_gmm_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    from paddle_tpu_torch.ops.pallas import grouped_matmul as gm
+    lhs, sizes, rhs, g = _gmm_case("mixed", cuda_device)
+    with pytest.raises(TypeError, match="dtypes"):
+        gm.gmm(lhs.to(torch.bfloat16), rhs, sizes, bm=128)  # bf16 x f32
+    with pytest.raises(TypeError, match="dtypes"):
+        gm.gmm(lhs.half(), rhs.half(), sizes, bm=128)
+    with pytest.raises(ValueError, match="contiguous"):
+        gm.gmm(lhs.t().contiguous().t(), rhs, sizes, bm=128)
+    with pytest.raises(ValueError, match="one device"):
+        gm.gmm(lhs, rhs, sizes.cpu(), bm=128)
+    with pytest.raises(ValueError, match="one device"):
+        gm.tgmm(lhs, g.cpu(), sizes, 8, bm=128)
+    with pytest.raises(ValueError, match="divide"):
+        gm.gmm_aligned(lhs[:1000], rhs, sizes, bm=128)

@@ -53,6 +53,9 @@ def test_import_in_a_fresh_process_loads_no_jax():
         "paddle_tpu_torch.utils.bridge, "
         "paddle_tpu_torch.ops.pallas.ragged_paged_attention, "
         "paddle_tpu_torch.ops.pallas.flash_attention, "
+        "paddle_tpu_torch.ops.pallas.grouped_matmul, "
+        "paddle_tpu_torch.distributed.fleet.moe, "
+        "paddle_tpu_torch.models.moe, "
         "paddle_tpu_torch.ops.fused_ce, paddle_tpu_torch.jit, "
         "paddle_tpu_torch.optimizer, paddle_tpu_torch.nn.clip\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -68,12 +71,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default resolves")
     from paddle_tpu_torch.device import resolve_device
+    from paddle_tpu_torch.distributed.fleet import MoELayer
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.models.moe import MoeConfig, MoeForCausalLM
     from paddle_tpu_torch.serving import ServingEngine
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device(None)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         LlamaForCausalLM(LlamaConfig.tiny())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MoeForCausalLM(MoeConfig.tiny())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MoELayer(8, 16, 4)
     model = LlamaForCausalLM(LlamaConfig.tiny(), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model, max_blocks=8, block_size=4, prefill_chunk=4)
@@ -114,7 +123,8 @@ def test_no_library_attention_or_compiler_stands_in_for_a_kernel():
     version."""
     banned = ("torch.nn.functional.scaled_dot_product_attention",
               "torch._C._nn", "_scaled_dot_product", "torch.compile",
-              "flash_attn", "cudnn_attention", "torch.utils.cpp_extension")
+              "flash_attn", "cudnn_attention", "torch.utils.cpp_extension",
+              "_grouped_mm")
     hits = [(p.name, b) for p in _port_modules()
             for b in banned if b in p.read_text()]
     assert hits == []
@@ -127,10 +137,14 @@ def test_no_library_attention_or_compiler_stands_in_for_a_kernel():
                 assert "scaled_dot_product_attention" not in \
                     [a.name for a in node.names], path.name
     from paddle_tpu_torch.ops.pallas import flash_attention as fa
+    from paddle_tpu_torch.ops.pallas import grouped_matmul as gm
     from paddle_tpu_torch.ops.pallas import ragged_paged_attention as rpa
     for mod, names in ((rpa, ("ragged_paged_attention",)),
                        (fa, ("flash_attention_fwd", "flash_attention_dq",
-                             "flash_attention_dkv", "_launch"))):
+                             "flash_attention_dkv", "_launch")),
+                       (gm, ("_gmm_fwd", "_tgmm_fwd", "_gmm_aligned_fwd",
+                             "_tgmm_aligned_fwd", "_launch", "gmm",
+                             "gmm_aligned", "tgmm"))):
         src = Path(mod.__file__).read_text()
         for fn in ast.parse(src).body:
             if isinstance(fn, ast.FunctionDef) and fn.name in names:
@@ -162,3 +176,19 @@ def test_kernel_wrapper_counts_launches_only():
         rpa.ragged_paged_attention(q.to("meta"), pool, pool, bt, cu, ctx,
                                    torch.from_numpy(ssq),
                                    torch.from_numpy(sbk))
+
+    # the grouped-matmul wrappers: CPU calls, forward and backward, count
+    # nothing; a device with no kernel raises
+    from paddle_tpu_torch.ops.pallas import grouped_matmul as gm
+    names = ("launches_gmm", "launches_tgmm", "launches_gmm_aligned",
+             "launches_tgmm_aligned")
+    before = [getattr(gm, n) for n in names]
+    lhs = torch.randn(16, 8, requires_grad=True)
+    rhs = torch.randn(2, 8, 4, requires_grad=True)
+    sizes = torch.tensor([8, 8], dtype=torch.int32)
+    (gm.gmm(lhs, rhs, sizes, bm=8).sum()
+     + gm.gmm_aligned(lhs, rhs, sizes, bm=8).sum()).backward()
+    gm.tgmm(lhs.detach(), torch.randn(16, 4), sizes, 2, bm=8)
+    assert [getattr(gm, n) for n in names] == before
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        gm.gmm(lhs.to("meta"), rhs.to("meta"), sizes.to("meta"), bm=8)
