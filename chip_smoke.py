@@ -9,7 +9,10 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    torch and CUDA versions; TF32 is switched off for matmuls and cuDNN;
 2. build — every kernel source under ``paddle_tpu_torch/ops/pallas/csrc``
    compiled with ``nvcc`` for ``sm_90a`` (one process per source, all at
-   once) into the ignored build directory;
+   once) into the ignored build directory, with each kernel's registers
+   and spills; the SASS of the tensor-core kernels (K1 and K5 in bf16,
+   ``cuobjdump --dump-sass``) must hold wgmma (``HGMMA``) and, where an
+   operand comes by TMA, TMA loads (``UTMALDG``);
 3. kernel vs plain — the ragged-paged-attention (RPA) kernel against its
    plain PyTorch version at Llama-3-8B head geometry on a ragged mix of
    decode rows, a 512-token prefill chunk over 1024 cached tokens and a
@@ -25,11 +28,12 @@ Phases, each of which either succeeds or makes the script exit non-zero:
 6. flash kernels vs plain — (a) the training shape (B=4, S=2048, Hq=16,
    Hkv=4, hd=128, causal) in bfloat16 and float32: the forward (K1), dq
    (K2) and dk/dv (K3) kernels against ``flash_attention_reference`` and
-   autograd through it, with kernel/plain/library times and the least
-   time the card could take; (b) a sweep over offset-causal, GQA groups
-   1/4/8, segment ids with fully masked rows, row and full bias, dropout
-   and a length that is not a multiple of the tile, each kernel against
-   its plain version in both dtypes;
+   autograd through it, with kernel/plain/library times, TFLOP/s, the
+   design each ran (K1 bf16 on wgmma fed by TMA, the rest FMA loops) and
+   the least time the card could take; (b) a sweep over offset-causal, GQA
+   groups 1/4/8, segment ids with fully masked rows, row and full bias,
+   dropout and a length that is not a multiple of the tile, each kernel
+   against its plain version in both dtypes;
 7. training — the Llama-recipe model of ``bench.py``'s training
    benchmark (vocab 128256 tied, hidden 2048, FFN 7168, 8 layers, 16/4
    heads, bf16, seeded random weights) through ``TrainStep`` with AdamW
@@ -45,7 +49,8 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    padded with zero rows) and ``tgmm``, forward and backward through
    autograd, in bf16 and f32 (the launches of this run are the kernels'
    counts); each of K5-K8 against its plain version, with kernel, plain,
-   bound and ``torch._grouped_mm`` times, and ``torch.bmm`` on the
+   bound and ``torch._grouped_mm`` times, TFLOP/s and the loader of each
+   operand of K5's bf16 kernel (TMA or registers), and ``torch.bmm`` on the
    layer's own capacity layout for comparison; (b) a sweep over a hot
    expert beside empty and one-row experts, non-zero rows past the
    groups, widths 1000 x 333 and one expert, both dtypes;
@@ -128,17 +133,79 @@ def phase_environment():
     return card
 
 
+# the tensor-core instances and what their SASS must hold: wgmma (HGMMA)
+# and, where an operand comes by TMA, TMA loads (UTMALDG)
+SASS_CHECKS = (  # library, kernel, instance -> TMA expected
+    ("flash_attention", "flash_fwd_wgmma_kernel",
+     {"ILi64EE": True, "ILi128EE": True}),
+    ("grouped_matmul", "gmm_wgmma_kernel",
+     {"ILb1ELb1EE": True, "ILb1ELb0EE": True, "ILb0ELb1EE": True,
+      "ILb0ELb0EE": False}))
+
+
+def ptxas_usage(log_text):
+    """{mangled kernel: "N registers, S B spill stores, L B spill loads"}
+    from nvcc's -Xptxas -v output."""
+    usage, name, spills = {}, None, ""
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            regs = line.split("Used")[1].split(",")[0].strip()
+            usage[name] = f"{regs}; {spills}"
+    return usage
+
+
+def sass_counts(lib_path):
+    """{mangled kernel: (HGMMA count, UTMALDG count)} of a built library,
+    from ``cuobjdump --dump-sass``."""
+    import shutil
+    import subprocess
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "--dump-sass", str(lib_path)], check=True,
+                          capture_output=True, text=True).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = [0, 0]
+        elif name is not None:
+            counts[name][0] += "HGMMA" in line
+            counts[name][1] += "UTMALDG" in line
+    return counts
+
+
 def phase_build():
     from paddle_tpu_torch.ops.pallas import _build
     t0 = time.perf_counter()
     built = _build.build()
     log(f"build: {len(built)} of {len(_build.sources())} kernel sources "
-        f"compiled in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+        f"compiled in {time.perf_counter() - t0:.2f} s, one nvcc each, all "
+        f"at once (nvcc {' '.join(_build.NVCC_FLAGS)}); per source: "
+        + ", ".join(f"{n} {info['seconds']:.2f} s"
+                    for n, info in built.items()))
     for name, info in built.items():
+        for kernel, use in ptxas_usage(info["log"]).items():
+            log(f"  {name}: {kernel[:70]}: {use}")
+        # e.g. ptxas serialising wgmma, or ignoring setmaxnreg
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "warning" in line.lower() or "Performance Loss" in line:
                 log(f"  {name}: {line.strip()}")
+    # the tensor-core kernels really run wgmma and TMA: read their SASS
+    for lib, kernel, instances in SASS_CHECKS:
+        counts = {k: c for k, c in sass_counts(_build._target(lib)).items()
+                  if kernel in k}
+        for inst, tma in instances.items():
+            found = [c for k, c in counts.items() if inst in k]
+            if len(found) != 1 or found[0][0] == 0 or \
+                    (tma and found[0][1] == 0):
+                raise AssertionError(
+                    f"{kernel}{inst}: SASS lacks HGMMA or UTMALDG "
+                    f"(HGMMA, UTMALDG counts {found})")
+            log(f"sass: {kernel} {inst}: {found[0][0]} HGMMA, "
+                f"{found[0][1]} UTMALDG")
 
 
 # --------------------------------------------------------------------------
@@ -582,8 +649,12 @@ def flash_training_shape(dtype):
             ms = cuda_ms(kern)
             plain_ms = cuda_ms(plain)
             lib = lib_f if kname == "flash_attention_fwd" else lib_b
-            log(f"flash {name} {kname}: max|err|={errs[kname]:.3e}; kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            design = ("wgmma, tiles by TMA" if kname == "flash_attention_fwd"
+                      and dtype == torch.bfloat16 else "FMA loops")
+            log(f"flash {name} {kname} ({design}): max|err|={errs[kname]:.3e};"
+                f" kernel {ms:.4f} ms "
+                f"({need['flops'] / (ms / 1e3) / 1e12:.1f} TFLOP/s), plain "
+                f"{plain_ms:.4f} ms, bound "
                 f"{need['bound_ms']:.4f} ms ({need['bound_by']}: "
                 f"{need['bytes']} B, {need['flops']:.4e} flop), library "
                 f"{lib:.4f} ms "
@@ -719,16 +790,15 @@ def profile_train_step(step, x, step_ms):
         log("train profile: the profiler saw no device time (not measured)")
         return
     share = {n: sum(us for us, key, _ in rows if n in key) / total
-             for n in ("flash_fwd_kernel", "flash_dq_kernel",
-                       "flash_dkv_kernel")}
+             for n in ("flash_fwd", "flash_dq", "flash_dkv")}
     gemm = sum(us for us, key, _ in rows
                if any(w in key for w in ("nvjet", "gemm", "cutlass")))
     rest = 1 - sum(share.values()) - gemm / total
     log(f"train profile: one step, device time {total / 1e3:.3f} ms "
         f"= {100 * total / 1e3 / step_ms:.1f}% of the un-profiled step "
-        f"wall; K1 {100 * share['flash_fwd_kernel']:.1f}%, K2 "
-        f"{100 * share['flash_dq_kernel']:.1f}%, K3 "
-        f"{100 * share['flash_dkv_kernel']:.1f}%, cuBLAS GEMMs "
+        f"wall; K1 {100 * share['flash_fwd']:.1f}%, K2 "
+        f"{100 * share['flash_dq']:.1f}%, K3 "
+        f"{100 * share['flash_dkv']:.1f}%, cuBLAS GEMMs "
         f"{100 * gemm / total:.1f}%, everything else (elementwise, "
         f"reductions, copies) {100 * rest:.1f}% of device time")
     for us, key, count in rows[:10]:
@@ -1057,10 +1127,14 @@ def gmm_timings(run_bf, run_f32, sizes):
                                           rows_live)
             peak = PEAK_FLOPS[dtype] / 1e12
             rows = R_al if "aligned" in kname else R
+            design = ("wgmma, lhs/rhs by " + "/".join(gm._gmm_loaders(
+                lhs, rhs)) if kname == "gmm" else "FMA loops")
             log(f"gmm {kname} ({str(dtype).replace('torch.', '')}, R={rows},"
-                f" {n} rows of data): max|err| {err:.3e} (limit "
+                f" {n} rows of data; {design}): max|err| {err:.3e} (limit "
                 f"{GMM_TOL[out_dtype]} of the largest |plain|); "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                f"kernel {ms:.4f} ms "
+                f"({need['flops'] / (ms / 1e3) / 1e12:.1f} TFLOP/s), plain "
+                f"{plain_ms:.4f} ms, library "
                 + (f"{lib_ms:.4f} ms ({lib_note})" if lib_ms is not None
                    else f"none ({lib_note})")
                 + f"; bound max(2*n*M*H = {need['flops']:.4e} flop / "
@@ -1127,7 +1201,7 @@ def gmm_sweep():
     against the strided rhsᵀ view) and the exact zeros checked."""
     from paddle_tpu_torch.ops.pallas import grouped_matmul as gm
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-    worst = {}
+    worst, loaders = {}, {}
     bm = 64
     with torch.no_grad():
         for case in GMM_SWEEP:
@@ -1172,12 +1246,15 @@ def gmm_sweep():
                     raise AssertionError(f"K6 {what}: an empty expert is "
                                          f"not exactly 0")
                 worst[(case, dtype)] = max(errs)
+                if dtype == torch.bfloat16:
+                    loaders[case] = "/".join(gm._gmm_loaders(lhs, rhs))
     for dtype in (torch.float32, torch.bfloat16):
         log(f"gmm sweep {str(dtype).replace('torch.', '')}: K5-K8 agree with "
             f"the plain versions (max |err| per case: " + ", ".join(
                 f"{c} {worst[(c, dtype)]:.2e}" for c in GMM_SWEEP) + ")")
     log("gmm sweep: rows past the groups (K5, also when they hold data) and "
-        "empty experts (K6) are exactly 0")
+        "empty experts (K6) are exactly 0; K5 bf16 loaders (lhs/rhs): "
+        + ", ".join(f"{c} {v}" for c, v in loaders.items()))
 
 
 def phase_gmm():

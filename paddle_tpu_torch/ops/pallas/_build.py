@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 with ``nvcc`` for ``sm_90a`` into a shared library, which the kernel's
 wrapper loads with ``ctypes``. A source builds at its first use, into
 ``_build_cache/`` beside this file (listed in ``.gitignore``), under a
-name keyed by a hash of the source and the flags, so an edited source
-never loads a stale library. :func:`build` starts one ``nvcc`` per
+name keyed by a hash of the source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source or header never loads a stale
+library. :func:`build` starts one ``nvcc`` per
 source, all at once, and waits for all of them.
 """
 from __future__ import annotations
@@ -48,8 +49,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = _SRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    """The library's path, keyed by the source, every shared header of
+    ``csrc/`` (a ``.cu`` may include any of them) and the flags."""
+    h = hashlib.sha256((_SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(_SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return _CACHE_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

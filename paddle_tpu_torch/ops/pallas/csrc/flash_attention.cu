@@ -40,16 +40,25 @@
 // Bound on this card: operations. At the training shape (B=4, S=2048,
 // Hq=16, Hkv=4, D=128, causal, bf16) K1 does 2 products of 2*Sq*Sk*D/2
 // flops per head (68.7 GFLOP), K2 3 and K3 4, against 84-118 MB of
-// traffic: far above the H100's ridge of ~295 flops per byte. These first
-// kernels use no tensor cores: the FMA loops run at the f32 rate at best
-// (67 TFLOP/s), and bf16 inputs are widened to f32 in shared memory.
-// wgmma on bf16 tiles, TMA loads and warp specialisation are the next
-// steps (PERF.md holds the times).
+// traffic: far above the H100's ridge of ~295 flops per byte.
+//
+// Two designs, chosen by dtype. K1 in bf16 is `flash_fwd_wgmma_kernel`:
+// bf16 tensor cores through wgmma, tiles brought in by TMA through a ring
+// of shared-memory stages, loads overlapped with the products (its note
+// below). Everything else - K1 in f32, K2 and K3 - runs the FMA loops
+// above, at the f32 rate at best (67 TFLOP/s), bf16 inputs widened to f32
+// in shared memory. The f32 instances stay on FMA because the tensor
+// cores' TF32 would miss their tolerances; K2 and K3 wait for their own
+// redesign (PERF.md holds the times).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 // Launch parameters, filled field for field by the Python wrapper's
 // ctypes mirror (_Params). Declared outside the anonymous namespace so the
@@ -405,6 +414,398 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
   }
 }
 
+// ===================== K1: forward, bf16 on tensor cores ==================
+// One block of 256 threads per (flat q head, q tile of 128 rows): two
+// warpgroups of 64 q rows each. Thread 0 brings the Q tile in by TMA once,
+// then blocks of 128 keys of K and V through a ring of kStages stages,
+// each guarded by a "full" mbarrier (TMA bytes landed) and an "empty" one
+// (each of the 8 warps is done with it); it refills a stage one block
+// after the stage was freed, so it seldom waits. There is no loader warp:
+// with a ninth warp, three warps share one SM quarter's 16384 registers,
+// so ptxas allocates at most 168 a thread (setmaxnreg does not change
+// that) and the o, S and P fragments spill; eight warps leave it 255. The
+// tensor maps are 3-D, [B*H, S, D], so a box past S reads
+// zeros and never the next head's rows. S = Q Kᵀ is one wgmma chain per
+// warpgroup with both operands in shared memory (K-major); masking and the
+// online softmax run on the accumulator fragment, with row max and sum
+// over the 4 threads of a quad; P, rounded to bf16 exactly as the FMA
+// kernel rounds it, is fed back as wgmma's A operand from registers (the
+// f32 accumulator layout is the bf16 A-fragment layout, two values a
+// register) against V in shared memory, MN-major. A block's O += P V is
+// issued behind the next block's S = Q Kᵀ, so it runs on the tensor cores
+// while the warpgroup does that block's softmax; the new P is packed into
+// the A registers only after that product is done. Either a branch around
+// part of a wgmma chain or a write to registers a wgmma in flight reads
+// makes ptxas serialise every wgmma of the kernel (its C7520 and C7513).
+//
+// The visited keys are the FMA kernel's, at 64-key granularity: each
+// warpgroup visits the live 64-key tiles of its own 64 rows
+// (live_k_tiles), and keys of a block past them are masked like keys past
+// Sk. So a row whose every visible score is masked averages v over the
+// same keys as before, the set K2/K3 assume. Segment liveness is taken per
+// (row, 64-key half). A tile that the FMA kernel skips (no equal segment
+// id, or past the live tiles) is computed here and adds nothing: its p are
+// 0, and its masked scores can only lift a running max from -inf to kMask,
+// which scales an o and an l that are still 0. A block inside every bound,
+// below the causal diagonal, with no bias or segments takes a short path:
+// scale and exponent in one FMA, no masks. Operands must be 16-byte
+// aligned (the wrapper checks). Bound: operations, as for the FMA kernel;
+// this one runs its products on the bf16 tensor cores.
+namespace fwd90 {
+constexpr int kRows = 128;                 // q rows per block
+constexpr int kKeys = 128;                 // keys per stage: two 64-key tiles
+constexpr int kStages = 3;                 // K/V ring depth
+constexpr int kThreads = 256;              // two warpgroups
+constexpr int kWarps = kThreads / 32;      // one "empty" arrival each
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+constexpr size_t smem_bytes() {
+  return 1024 + static_cast<size_t>(kRows * D * 2) +
+         2 * kStages * static_cast<size_t>(kKeys * D * 2) +
+         8 * (1 + 2 * kStages);
+}
+}  // namespace fwd90
+
+template <int D>
+__global__ void __launch_bounds__(fwd90::kThreads, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           FlashParams p) {
+  using namespace hopper;
+  using fwd90::kKeys;
+  using fwd90::kLog2e;
+  using fwd90::kRows;
+  using fwd90::kStages;
+  constexpr int kPanels = D / 64;
+  constexpr int kQBytes = kRows * D * 2;
+  constexpr int kKVBytes = kKeys * D * 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = align1024(smem_raw);        // kPanels x [128][64]
+  uint8_t* k_s = q_s + kQBytes;              // kStages x kPanels x [128][64]
+  uint8_t* v_s = k_s + kStages * kKVBytes;   // the same
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + kStages * kKVBytes);
+  uint64_t* kv_full = q_full + 1;
+  uint64_t* kv_empty = kv_full + kStages;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heavy tiles first
+  const int b = bh / p.hq;
+  const int kvh = b * p.hkv + (bh % p.hq) / (p.hq / p.hkv);
+  // live 64-key tiles of each 64-row half
+  const int n_lo = live_k_tiles(p, q0);
+  const int n_hi = q0 + kTile < p.sq ? live_k_tiles(p, q0 + kTile) : 0;
+  const int n_blocks = (max(n_lo, n_hi) * kTile + kKeys - 1) / kKeys;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&kv_empty[s], fwd90::kWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // keys of block j into its stage, by thread 0
+  const auto load_block = [&](int j) {
+    const int s = j % kStages;
+    mbar_arrive_expect_tx(&kv_full[s], 2 * kKVBytes);
+    for (int pn = 0; pn < kPanels; ++pn) {
+      const int off = s * kKVBytes + pn * kKeys * 128;
+      tma_load_3d(k_s + off, &tk, &kv_full[s], pn * 64, j * kKeys, kvh);
+      tma_load_3d(v_s + off, &tv, &kv_full[s], pn * 64, j * kKeys, kvh);
+    }
+  };
+  if (threadIdx.x == 0 && n_blocks > 0) {
+    mbar_arrive_expect_tx(q_full, kQBytes);
+    for (int pn = 0; pn < kPanels; ++pn)
+      tma_load_3d(q_s + pn * kRows * 128, &tq, q_full, pn * 64, q0, bh);
+    for (int j = 0; j < min(kStages, n_blocks); ++j) load_block(j);
+  }
+
+  const int cw = threadIdx.x / 128;        // warpgroup 0 or 1
+  const int t = threadIdx.x % 128;         // thread in the warpgroup
+  const int lane = t % 32;
+  const int row0 = q0 + cw * kTile;        // first q row of the warpgroup
+  const int ra = row0 + (t / 32) * 16 + lane / 4;  // the thread's rows
+  const int rb = ra + 8;
+  const int cq = 2 * (lane % 4);           // its first column in a chunk
+  // keys this warpgroup visits: its live 64-key tiles, inside Sk
+  const int k_lim = min(p.sk, (cw == 0 ? n_lo : n_hi) * kTile);
+  const int* qseg = p.has_seg ? p.q_seg + static_cast<long long>(b) * p.sq
+                              : nullptr;
+  const int* kvseg = p.has_seg ? p.kv_seg + static_cast<long long>(b) * p.sk
+                               : nullptr;
+  const Masker mask(p, bias_of(p, bh), kvseg);
+  const int seg_a = (qseg != nullptr && ra < p.sq) ? qseg[ra] : 0;
+  const int seg_b = (qseg != nullptr && rb < p.sq) ? qseg[rb] : 0;
+  const bool short_ok = mask.bias_head == nullptr && qseg == nullptr &&
+                        mask.sm_scale > 0.f && row0 + kTile <= p.sq;
+  const uint32_t q_addr = smem_u32(q_s) + cw * kTile * 128;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m_a = __int_as_float(0xff800000), m_b = m_a;  // -inf
+  float l_a = 0.f, l_b = 0.f;
+  uint32_t pf[kKeys / 16][4];  // P of the block whose O += P V is pending
+
+  // S = Q Kᵀ of the keys in stage s (scale_d = 0 on the first k16 step, so
+  // sc need not be cleared)
+  const auto issue_s = [&](float (&sc)[64], int s) {
+    const uint32_t k_addr = smem_u32(k_s + s * kKVBytes);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_m64n128k16_ss<0>(
+          sc, desc_k_major(q_addr + (kk / 4) * kRows * 128 + off),
+          desc_k_major(k_addr + (kk / 4) * kKeys * 128 + off), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // O += P V with pf and the values in stage s
+  const auto issue_pv = [&](int s) {
+    const uint32_t v_addr = smem_u32(v_s + s * kKVBytes);
+#pragma unroll
+    for (int kk = 0; kk < kKeys / 16; ++kk) {
+      const uint64_t dv = desc_mn_major(v_addr + kk * 16 * 128, kKeys * 128);
+      if constexpr (D == 128)
+        wgmma_m64n128k16_rs<1>(o, pf[kk], dv);
+      else
+        wgmma_m64n64k16_rs<1>(o, pf[kk], dv);
+    }
+    wgmma_commit();
+  };
+  // once O += P V is done: o is final for it, pf and the stage are free
+  const auto finish_pv = [&](int s) {
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pf);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&kv_empty[s]);
+  };
+  // The online softmax of block j's scores sc, in place: sc becomes P in
+  // f32, m and l move on, and alpha_a/alpha_b are what o must be scaled by.
+  const auto softmax = [&](float (&sc)[64], int j, float& alpha_a,
+                           float& alpha_b) {
+    const int k0 = j * kKeys;
+    // rows with an equal-id key in each 64-key half ([row a/b][half]):
+    // the FMA kernel's per-tile liveness
+    bool live[2][2] = {{true, true}, {true, true}};
+    if (qseg != nullptr) {
+      live[0][0] = live[0][1] = live[1][0] = live[1][1] = false;
+#pragma unroll
+      for (int c = 0; c < kKeys / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = k0 + 8 * c + cq + e;
+          if (kpos < k_lim) {
+            const int ks = kvseg[kpos];
+            live[0][c / 8] |= ra < p.sq && ks == seg_a;
+            live[1][c / 8] |= rb < p.sq && ks == seg_b;
+          }
+        }
+#pragma unroll
+      for (int o2 = 1; o2 < 4; o2 <<= 1)
+#pragma unroll
+        for (int h = 0; h < 4; ++h)
+          live[h / 2][h % 2] |=
+              __shfl_xor_sync(0xffffffffu, live[h / 2][h % 2], o2);
+    }
+    // element i of sc: key k0 + 8 * (i / 4) + cq + (i & 1), row a for
+    // (i & 2) == 0, else row b
+    const bool short_path =
+        short_ok && k0 + kKeys <= k_lim &&
+        (!p.causal || k0 + kKeys - 1 <= row0 + mask.offset);
+    float mx_a, mx_b;
+    if (short_path) {  // the scale is positive: scale the raw max
+      float r_a = -FLT_MAX, r_b = -FLT_MAX;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        if ((i & 2) == 0)
+          r_a = fmaxf(r_a, sc[i]);
+        else
+          r_b = fmaxf(r_b, sc[i]);
+      }
+      mx_a = fmaxf(r_a * mask.sm_scale, kMask);
+      mx_b = fmaxf(r_b * mask.sm_scale, kMask);
+    } else {
+      mx_a = mx_b = kMask;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int kpos = k0 + 8 * (i / 4) + cq + (i & 1);
+        const bool upper = (i & 2) == 0;
+        float v = kMask;
+        if (kpos < k_lim) {
+          bool seg_live;
+          v = mask.score(sc[i], upper ? ra : rb, kpos, upper ? seg_a : seg_b,
+                         &seg_live);
+        }
+        sc[i] = v;
+        if (upper)
+          mx_a = fmaxf(mx_a, v);
+        else
+          mx_b = fmaxf(mx_b, v);
+      }
+    }
+#pragma unroll
+    for (int o2 = 1; o2 < 4; o2 <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o2));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o2));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+
+    if (short_path) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        sc[i] = exp2_approx(
+            fmaf(sc[i], mask.sm_scale, (i & 2) == 0 ? -mn_a : -mn_b) *
+            kLog2e);
+    } else {
+      // rows with no segment-live key in a 64-key tile add no p (:278)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int kpos = k0 + 8 * (i / 4) + cq + (i & 1);
+        const bool upper = (i & 2) == 0;
+        const bool in = live[upper ? 0 : 1][i / 32] &&
+                        (upper ? ra : rb) < p.sq && kpos < k_lim;
+        sc[i] = in ? exp2_approx((sc[i] - (upper ? mn_a : mn_b)) * kLog2e)
+                   : 0.f;
+      }
+    }
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      if ((i & 2) == 0)
+        sum_a += sc[i];
+      else
+        sum_b += sc[i];
+    }
+    if (p.has_dropout) {
+      // l keeps the raw softmax sum; only the values drop (:285)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        const int kpos = k0 + 8 * (i / 4) + cq + (i & 1);
+        const bool keep = keep_bit(bh, (i & 2) == 0 ? ra : rb, kpos, p.seed,
+                                   p.threshold);
+        sc[i] = (keep ? sc[i] : 0.f) * p.drop_scale;
+      }
+    }
+#pragma unroll
+    for (int o2 = 1; o2 < 4; o2 <<= 1) {
+      sum_a += __shfl_xor_sync(0xffffffffu, sum_a, o2);
+      sum_b += __shfl_xor_sync(0xffffffffu, sum_b, o2);
+    }
+    alpha_a = exp2_approx((m_a - mn_a) * kLog2e);
+    alpha_b = exp2_approx((m_b - mn_b) * kLog2e);
+    l_a = l_a * alpha_a + sum_a;
+    l_b = l_b * alpha_b + sum_b;
+    m_a = mn_a;
+    m_b = mn_b;
+  };
+  // P into pf in bf16: p[i], p[i + 1] are register (i % 8) / 2 of k16
+  // step i / 8. Only once no O += P V is in flight, which reads pf.
+  const auto pack_p = [&](const float (&sc)[64]) {
+#pragma unroll
+    for (int i = 0; i < 64; i += 2)
+      pf[i / 8][(i % 8) / 2] = pack_bf16(sc[i], sc[i + 1]);
+  };
+
+  if (n_blocks > 0) {
+    float alpha_a, alpha_b;
+    mbar_wait(q_full, 0);
+    {  // block 0: its S alone (o is still 0, nothing to scale)
+      float sc[64];
+      mbar_wait(&kv_full[0], 0);
+      wgmma_fence();
+      issue_s(sc, 0);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      softmax(sc, 0, alpha_a, alpha_b);
+      pack_p(sc);
+    }
+    for (int j = 1; j < n_blocks; ++j) {
+      const int s = j % kStages, prev = (j - 1) % kStages;
+      // the stage that block j - 2 freed last time round takes block
+      // j + kStages - 2
+      const int next = j + kStages - 2;
+      if (threadIdx.x == 0 && next >= kStages && next < n_blocks) {
+        mbar_wait(&kv_empty[next % kStages], (next / kStages - 1) & 1);
+        load_block(next);
+      }
+      float sc[64];
+      mbar_wait(&kv_full[s], (j / kStages) & 1);
+      wgmma_fence();
+      issue_s(sc, s);
+      issue_pv(prev);  // the previous block's P V, behind this S
+      wgmma_wait<1>();
+      fence_regs(sc);
+      softmax(sc, j, alpha_a, alpha_b);
+      finish_pv(prev);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) == 0 ? alpha_a : alpha_b;
+      pack_p(sc);
+    }
+    wgmma_fence();
+    issue_pv((n_blocks - 1) % kStages);
+    finish_pv((n_blocks - 1) % kStages);
+  }
+
+  // rows that saw no live key: exact 0 and lse 0, so the backward's
+  // p = exp(kMask - lse) underflows to 0 (:309-319)
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out0) +
+                       static_cast<long long>(bh) * p.sq * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = h == 0 ? ra : rb;
+    if (row >= p.sq) continue;
+    const float l = h == 0 ? l_a : l_b;
+    const float l_safe = l == 0.f ? 1.f : l;
+    __nv_bfloat16* orow = out + static_cast<long long>(row) * D + cq;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const __nv_bfloat162 v = __floats2bfloat162_rn(
+          o[4 * c + 2 * h] / l_safe, o[4 * c + 2 * h + 1] / l_safe);
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) = v;
+    }
+    if (lane % 4 == 0)
+      p.lse_out[static_cast<long long>(bh) * p.sq + row] =
+          l == 0.f ? 0.f : (h == 0 ? m_a : m_b) + logf(l_safe);
+  }
+}
+
+template <int D>
+cudaError_t run_fwd_wgmma(const FlashParams& p, cudaStream_t stream) {
+  const void* ptrs[4] = {p.q, p.k, p.v, p.out0};
+  for (const void* ptr : ptrs)
+    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
+      return cudaErrorMisalignedAddress;
+  CUtensorMap tq, tk, tv;
+  const cuuint64_t dq[3] = {D, static_cast<cuuint64_t>(p.sq),
+                            static_cast<cuuint64_t>(p.bhq)};
+  const cuuint64_t dk[3] = {D, static_cast<cuuint64_t>(p.sk),
+                            static_cast<cuuint64_t>(p.bhkv)};
+  const cuuint64_t sq[2] = {D * 2, static_cast<cuuint64_t>(p.sq) * D * 2};
+  const cuuint64_t sk[2] = {D * 2, static_cast<cuuint64_t>(p.sk) * D * 2};
+  const cuuint32_t bq[3] = {64, fwd90::kRows, 1};
+  const cuuint32_t bk[3] = {64, fwd90::kKeys, 1};
+  cudaError_t e = hopper::make_map(&tq, p.q, 3, dq, sq, bq);
+  if (e == cudaSuccess) e = hopper::make_map(&tk, p.k, 3, dk, sk, bk);
+  if (e == cudaSuccess) e = hopper::make_map(&tv, p.v, 3, dk, sk, bk);
+  if (e != cudaSuccess) return e;
+  const size_t smem = fwd90::smem_bytes<D>();
+  e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const unsigned nq = (p.sq + fwd90::kRows - 1) / fwd90::kRows;
+  flash_fwd_wgmma_kernel<D>
+      <<<dim3(p.bhq, nq), fwd90::kThreads, smem, stream>>>(tq, tk, tv, p);
+  return cudaGetLastError();
+}
+
 // ================================ K2: dq ==================================
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(FlashParams p) {
@@ -637,9 +1038,15 @@ template <typename T, int D>
 cudaError_t run(int which, const FlashParams& p, cudaStream_t stream) {
   const unsigned nq = (p.sq + kTile - 1) / kTile;
   const unsigned nk = (p.sk + kTile - 1) / kTile;
-  if (which == 0)
-    return launch(flash_fwd_kernel<T, D>, fwd_smem<D>(), dim3(p.bhq, nq), p,
-                  stream);
+  if (which == 0) {
+    // bf16 on the tensor cores; f32 stays on the FMA kernel, since TF32
+    // would miss the f32 tolerances
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      return run_fwd_wgmma<D>(p, stream);
+    else
+      return launch(flash_fwd_kernel<T, D>, fwd_smem<D>(), dim3(p.bhq, nq), p,
+                    stream);
+  }
   if (which == 1)
     return launch(flash_dq_kernel<T, D>, dq_smem<D>(), dim3(p.bhq, nq), p,
                   stream);

@@ -38,6 +38,15 @@
 // column past the matrix and a depth past the contraction read as 0 (K6
 // masks lhs and g alike, as the reference's `where` at :205-206 does).
 //
+// Two designs, chosen by dtype. K5 with bf16 lhs and rhs is
+// `gmm_wgmma_kernel` (its note below): tiles that never straddle a group,
+// bf16 tensor cores through wgmma, operands brought in by TMA through a
+// ring of shared-memory stages. Every other instance - K5 with an f32 lhs
+// ((f32, f32) and gmm's backward (f32 g, bf16 rhsT)), K6, K7 and K8 - runs
+// the FMA design described here and in the next paragraph: the f32
+// instances because the tensor cores' TF32 would miss their tolerances,
+// K6-K8 until their own redesign.
+//
 // Arithmetic: tiles of 128 x 16 (A) and 16 x 128 (B) are staged in shared
 // memory as f32 and multiplied by register-tiled FMA loops: thread
 // (ty, tx) = (tid / 16, tid % 16) owns rows ty*4 + {0..3, 64..67} and
@@ -49,14 +58,15 @@
 // Bound on this card: operations. At DeepSeekMoE-16B's expert widths
 // (M=2048, H=1408) and R = 49152 routed rows, K5 does 2*R*M*H = 2.8e11
 // flops against ~0.7 GB of traffic in bf16, far above the H100's ridge of
-// ~295 flops per byte. These first kernels use no tensor cores: the FMA
-// loops run at the f32 rate at best (67 TFLOP/s) and bf16 inputs are
-// widened in shared memory. mma/wgmma on bf16 tiles with TMA loads are the
-// next step (PERF.md holds the times).
+// ~295 flops per byte. The FMA loops run at the f32 rate at best (67
+// TFLOP/s), bf16 inputs widened in shared memory; K5 in bf16 runs on the
+// bf16 tensor cores (PERF.md holds the times).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 // Launch parameters, filled field for field by the Python wrapper's ctypes
 // mirror (_Params). At global scope so the extern "C" entry points that
@@ -67,8 +77,11 @@ struct GmmParams {
   const int* offsets;         // K5, K6
   const int* block_experts;   // K7, K8
   void* out;
+  const int* tiles;           // K5 bf16: the tile list (gmm_tiles_launch)
   long long rhs_se, rhs_sk, rhs_sn;  // element strides of rhs (or g)
   int rows, lhs_cols, n_dim, experts, bm, lhs_dtype, rhs_dtype;
+  int max_tiles;              // K5 bf16: entries of the tile list
+  int tma_lhs, tma_rhs;       // K5 bf16: 1 = load by TMA, 0 = by registers
 };
 
 namespace {
@@ -78,6 +91,8 @@ constexpr int kBN = 128;  // output columns
 constexpr int kBK = 16;   // contraction depth staged per step
 constexpr int kPad = 4;   // keeps float4 rows aligned, spreads banks
 constexpr int kThreads = 256;
+
+using bf16 = __nv_bfloat16;
 
 template <typename T>
 __device__ __forceinline__ float to_f(T x);
@@ -248,6 +263,326 @@ __global__ void __launch_bounds__(kThreads) gmm_kernel(GmmParams p) {
   if (tail < r1) store_zeros(out, p.n_dim, tail, r1, n0, p.n_dim);
 }
 
+// ================== K5 in bf16: wgmma fed by TMA, persistent ==============
+// The row tiles never straddle a group: group g's rows [offs[g],
+// offs[g+1]) are cut into tiles of 128 rows from offs[g], the last one
+// partial, for the E experts and the sentinel group E (rows past
+// sum(group_sizes), written as zeros). gmm_tiles_kernel writes the list on
+// the device, `max_tiles` = ceil(R / 128) + E entries of (first row, past
+// last row, group), unused entries (0, 0, -1); the wrapper's plain twin is
+// `_gmm_tiles`. A persistent grid of one block per SM walks the (tile,
+// 128-column tile) pairs. In a block, warpgroup 0 loads and warpgroups 1
+// and 2 each multiply 64 of the 128 rows: a ring of kStages stages of
+// lhs [128 rows][64 deep] (K-major) and rhs[g] [64 deep][128 columns]
+// (MN-major), each guarded by a "full" and an "empty" mbarrier (one
+// arrival from each of the 8 computing warps), so loads
+// run ahead of the wgmma m64n128k16 products across tiles. lhs comes by
+// TMA from a 2-D map [R, M] (a box may start at any row; rows of the next
+// group in a partial tile are loaded and never stored), rhs from a 3-D map
+// [E, M, H]. An operand that TMA cannot describe (a row pitch or base not
+// a multiple of 16 bytes, or rhs strided) is staged by the loader's 128
+// threads through registers into the same swizzled layout; the launch
+// picks the loader per operand (a template parameter). The accumulators
+// are rounded to bf16 once, to nearest even, and only the tile's rows of
+// its own group are stored, from registers, so no neighbour's row is
+// overwritten. gmm_load_tile and gmm_mma_tile are the mainloop over one
+// (rows, expert, columns) tile; K7 can drive them with its block runs.
+namespace gmm90 {
+constexpr int kRows = 128, kCols = 128, kDepth = 64, kStages = 4;
+constexpr int kThreads = 384;
+constexpr int kABytes = kRows * kDepth * 2;  // one panel [128][64]
+constexpr int kBBytes = kDepth * kCols * 2;  // two panels [64][64]
+constexpr size_t kSmem = 1024 + kStages * (kABytes + kBBytes) +
+                         2 * kStages * 8;
+}  // namespace gmm90
+
+// Where a stage is, and its phase: the ring position counts k steps over
+// every tile the block has walked.
+struct Ring {
+  uint32_t it = 0;
+  __device__ __forceinline__ int stage() const {
+    return static_cast<int>(it % gmm90::kStages);
+  }
+  __device__ __forceinline__ uint32_t phase() const {
+    return (it / gmm90::kStages) & 1;
+  }
+};
+
+// The loader's side of one tile: lhs rows row0.. and rhs[g] columns n0..
+// over the whole contraction. All 128 threads of warpgroup 0 call it when
+// an operand is staged through registers, thread 0 alone when both come
+// by TMA.
+template <bool kTmaA, bool kTmaB>
+__device__ void gmm_load_tile(const GmmParams& p, const CUtensorMap* ta,
+                              const CUtensorMap* tb, uint8_t* a_s,
+                              uint8_t* b_s, uint64_t* full, uint64_t* empty,
+                              Ring& ring, int row0, int g, int n0) {
+  using namespace hopper;
+  using namespace gmm90;
+  const int t = threadIdx.x;
+  const bf16* lhs = static_cast<const bf16*>(p.lhs);
+  const bf16* rhs = static_cast<const bf16*>(p.rhs) + g * p.rhs_se;
+  for (int k0 = 0; k0 < p.lhs_cols; k0 += kDepth, ++ring.it) {
+    const int s = ring.stage();
+    if (ring.it >= kStages) mbar_wait(&empty[s], ring.phase() ^ 1);
+    uint8_t* a = a_s + s * kABytes;
+    uint8_t* b = b_s + s * kBBytes;
+    if (!kTmaA) {
+      for (int i = t; i < kRows * kDepth; i += 128) {
+        const int r = i / kDepth, c = i % kDepth;
+        const int row = row0 + r, k = k0 + c;
+        bf16 v = __float2bfloat16(0.f);
+        if (row < p.rows && k < p.lhs_cols)
+          v = lhs[static_cast<long long>(row) * p.lhs_cols + k];
+        *reinterpret_cast<bf16*>(a + sw128_offset(r, c)) = v;
+      }
+    }
+    if (!kTmaB) {
+      for (int i = t; i < kDepth * kCols; i += 128) {
+        const int r = i / kCols, c = i % kCols;
+        const int k = k0 + r, n = n0 + c;
+        bf16 v = __float2bfloat16(0.f);
+        if (k < p.lhs_cols && n < p.n_dim) v = rhs[k * p.rhs_sk + n * p.rhs_sn];
+        *reinterpret_cast<bf16*>(b + (c / 64) * kDepth * 128 +
+                                 sw128_offset(r, c % 64)) = v;
+      }
+    }
+    if (!kTmaA || !kTmaB) fence_proxy_async();
+    constexpr uint32_t kTx = (kTmaA ? kABytes : 0) + (kTmaB ? kBBytes : 0);
+    if (t == 0 && kTx > 0) {
+      mbar_arrive_expect_tx(&full[s], kTx);
+      if (kTmaA) tma_load_2d(a, ta, &full[s], k0, row0);
+      if (kTmaB) {
+        tma_load_3d(b, tb, &full[s], n0, k0, g);
+        tma_load_3d(b + kDepth * 128, tb, &full[s], n0 + 64, k0, g);
+      }
+    } else {
+      mbar_arrive(&full[s]);
+    }
+  }
+}
+
+// A stage is free once each of the 8 computing warps has arrived.
+__device__ __forceinline__ void release(uint64_t* empty, int stage) {
+  if (stage < 0) return;
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) hopper::mbar_arrive(&empty[stage]);
+}
+
+// A computing warpgroup's side of one tile: acc = its 64 rows x 128
+// columns of the product over the whole contraction.
+__device__ void gmm_mma_tile(float (&acc)[64], const uint8_t* a_s,
+                             const uint8_t* b_s, uint64_t* full,
+                             uint64_t* empty, Ring& ring, int n_k, int cw) {
+  using namespace hopper;
+  using namespace gmm90;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  int prev = -1;
+  for (int ks = 0; ks < n_k; ++ks, ++ring.it) {
+    const int s = ring.stage();
+    mbar_wait(&full[s], ring.phase());
+    const uint32_t a = smem_u32(a_s + s * kABytes) + cw * 64 * 128;
+    const uint32_t b = smem_u32(b_s + s * kBBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDepth / 16; ++kk)
+      wgmma_m64n128k16_ss<1>(acc, desc_k_major(a + kk * 32),
+                             desc_mn_major(b + kk * 16 * 128, kDepth * 128),
+                             1);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous step's products are done with it
+    release(empty, prev);
+    prev = s;
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  release(empty, prev);
+}
+
+template <bool kTmaA, bool kTmaB>
+__global__ void __launch_bounds__(gmm90::kThreads, 1)
+    gmm_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                     const __grid_constant__ CUtensorMap tb, GmmParams p) {
+  using namespace hopper;
+  using namespace gmm90;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* a_s = align1024(smem_raw);
+  uint8_t* b_s = a_s + kStages * kABytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(b_s + kStages * kBBytes);
+  uint64_t* empty = full + kStages;
+  // with both operands by TMA one loader thread suffices; threads that
+  // stage an operand through registers all arrive
+  constexpr bool kStaged = !kTmaA || !kTmaB;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], kStaged ? 128 : 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == 0 && !kStaged && threadIdx.x != 0) return;
+
+  const int n_col = (p.n_dim + kCols - 1) / kCols;
+  const int n_k = (p.lhs_cols + kDepth - 1) / kDepth;
+  const int n_items = p.max_tiles * n_col;
+  bf16* out = static_cast<bf16*>(p.out);
+  const long long ld = p.n_dim;
+  const bool pairs = p.n_dim % 2 == 0;  // bf16x2 stores stay aligned
+  Ring ring;
+  for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+    const int tile = w / n_col, n0 = (w % n_col) * kCols;
+    const int row0 = p.tiles[3 * tile], row1 = p.tiles[3 * tile + 1];
+    const int g = p.tiles[3 * tile + 2];
+    if (row0 >= row1) continue;  // an unused entry
+    if (wg == 0) {
+      if (g < p.experts)
+        gmm_load_tile<kTmaA, kTmaB>(p, &ta, &tb, a_s, b_s, full, empty, ring,
+                                    row0, g, n0);
+      continue;
+    }
+    const int cw = wg - 1, t = threadIdx.x - 128 * wg, lane = t % 32;
+    if (g >= p.experts) {
+      // the sentinel group: rows past sum(group_sizes) are exactly 0
+      const int lo = row0 + cw * 64, hi = min(lo + 64, row1);
+      for (int i = t; i < (hi - lo) * kCols; i += 128) {
+        const int r = lo + i / kCols, n = n0 + i % kCols;
+        if (n < p.n_dim) out[r * ld + n] = __float2bfloat16(0.f);
+      }
+      continue;
+    }
+    float acc[64];
+    gmm_mma_tile(acc, a_s, b_s, full, empty, ring, n_k, cw);
+    const int ra = row0 + cw * 64 + (t / 32) * 16 + lane / 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = ra + 8 * h;
+      if (r >= row1) continue;
+#pragma unroll
+      for (int c = 0; c < kCols / 8; ++c) {
+        const int n = n0 + 8 * c + 2 * (lane % 4);
+        const float x = acc[4 * c + 2 * h], y = acc[4 * c + 2 * h + 1];
+        if (pairs && n + 1 < p.n_dim) {
+          *reinterpret_cast<__nv_bfloat162*>(out + r * ld + n) =
+              __floats2bfloat162_rn(x, y);
+        } else {
+          if (n < p.n_dim) out[r * ld + n] = __float2bfloat16(x);
+          if (n + 1 < p.n_dim) out[r * ld + n + 1] = __float2bfloat16(y);
+        }
+      }
+    }
+  }
+}
+
+// The K5 tile list from offsets_ext (E + 2 entries): one block scans the
+// tile counts of the E + 1 groups chunk by chunk; each thread writes its
+// group's tiles.
+__global__ void __launch_bounds__(1024) gmm_tiles_kernel(const int* offsets,
+                                                         int groups, int rows,
+                                                         int max_tiles,
+                                                         int* tiles) {
+  __shared__ int warp_sums[32];
+  const int lane = threadIdx.x % 32, wid = threadIdx.x / 32;
+  const int n_warps = blockDim.x / 32;
+  int carry = 0;
+  for (int base = 0; base < groups; base += blockDim.x) {
+    const int g = base + threadIdx.x;
+    int lo = 0, hi = 0;
+    if (g < groups) {
+      lo = min(max(offsets[g], 0), rows);
+      hi = max(min(max(offsets[g + 1], 0), rows), lo);
+    }
+    const int n = (hi - lo + gmm90::kRows - 1) / gmm90::kRows;
+    int incl = n;  // inclusive scan over the warp
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (lane == 31) warp_sums[wid] = incl;
+    __syncthreads();
+    if (wid == 0) {
+      int v = lane < n_warps ? warp_sums[lane] : 0;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, v, o);
+        if (lane >= o) v += y;
+      }
+      if (lane < n_warps) warp_sums[lane] = v;
+    }
+    __syncthreads();
+    const int first = carry + (wid > 0 ? warp_sums[wid - 1] : 0) + incl - n;
+    for (int i = 0; i < n; ++i) {
+      const int tt = first + i;
+      if (tt >= max_tiles) break;
+      tiles[3 * tt] = lo + gmm90::kRows * i;
+      tiles[3 * tt + 1] = min(lo + gmm90::kRows * (i + 1), hi);
+      tiles[3 * tt + 2] = g;
+    }
+    carry += warp_sums[n_warps - 1];
+    __syncthreads();  // warp_sums is rewritten by the next chunk
+  }
+  for (int tt = carry + threadIdx.x; tt < max_tiles; tt += blockDim.x) {
+    tiles[3 * tt] = 0;
+    tiles[3 * tt + 1] = 0;
+    tiles[3 * tt + 2] = -1;
+  }
+}
+
+template <bool kTmaA, bool kTmaB>
+cudaError_t launch_gmm_wgmma(const CUtensorMap& ta, const CUtensorMap& tb,
+                             const GmmParams& p, int grid,
+                             cudaStream_t stream) {
+  auto kernel = gmm_wgmma_kernel<kTmaA, kTmaB>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(gmm90::kSmem));
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, gmm90::kThreads, gmm90::kSmem, stream>>>(ta, tb, p);
+  return cudaGetLastError();
+}
+
+cudaError_t run_gmm_wgmma(const GmmParams& p, cudaStream_t stream) {
+  if (p.tiles == nullptr || p.max_tiles < 1) return cudaErrorInvalidValue;
+  if (p.rows == 0) return cudaSuccess;
+  CUtensorMap ta, tb;
+  cudaError_t e = cudaSuccess;
+  if (p.tma_lhs) {
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(p.lhs_cols),
+                                static_cast<cuuint64_t>(p.rows)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(p.lhs_cols) * 2};
+    const cuuint32_t box[2] = {gmm90::kDepth, gmm90::kRows};
+    e = hopper::make_map(&ta, p.lhs, 2, dims, strides, box);
+  }
+  if (e == cudaSuccess && p.tma_rhs) {
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(p.n_dim),
+                                static_cast<cuuint64_t>(p.lhs_cols),
+                                static_cast<cuuint64_t>(p.experts)};
+    const cuuint64_t strides[2] = {
+        static_cast<cuuint64_t>(p.n_dim) * 2,
+        static_cast<cuuint64_t>(p.n_dim) * p.lhs_cols * 2};
+    const cuuint32_t box[3] = {64, gmm90::kDepth, 1};
+    e = hopper::make_map(&tb, p.rhs, 3, dims, strides, box);
+  }
+  if (e != cudaSuccess) return e;
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const long long items = static_cast<long long>(p.max_tiles) *
+                          ((p.n_dim + gmm90::kCols - 1) / gmm90::kCols);
+  if (items > (1ll << 31) - 1) return cudaErrorInvalidValue;
+  const int grid = static_cast<int>(items < sms ? items : sms);
+  if (p.tma_lhs && p.tma_rhs)
+    return launch_gmm_wgmma<true, true>(ta, tb, p, grid, stream);
+  if (p.tma_lhs) return launch_gmm_wgmma<true, false>(ta, tb, p, grid, stream);
+  if (p.tma_rhs) return launch_gmm_wgmma<false, true>(ta, tb, p, grid, stream);
+  return launch_gmm_wgmma<false, false>(ta, tb, p, grid, stream);
+}
+
 // K7. grid (column tiles, row tiles). Runs of equal block_experts inside
 // the tile are multiplied one after the other.
 template <typename TA, typename TB, typename TO>
@@ -334,8 +669,6 @@ cudaError_t launch(Kernel kernel, dim3 grid, const GmmParams& p,
   return cudaGetLastError();
 }
 
-using bf16 = __nv_bfloat16;
-
 // which: 0 = K5, 1 = K6, 2 = K7, 3 = K8. Dtype codes: 0 = f32, 1 = bf16.
 int dispatch(int which, const GmmParams* p, void* stream) {
   if (p == nullptr || p->rows < 0 || p->lhs_cols < 1 || p->n_dim < 1 ||
@@ -355,8 +688,8 @@ int dispatch(int which, const GmmParams* p, void* stream) {
       return launch(gmm_kernel<float, float, float>, rows_grid, *p, st);
     case 0 * 4 + 1:
       return launch(gmm_kernel<float, bf16, float>, rows_grid, *p, st);
-    case 0 * 4 + 3:
-      return launch(gmm_kernel<bf16, bf16, bf16>, rows_grid, *p, st);
+    case 0 * 4 + 3:  // bf16 on the tensor cores; f32 lhs stays on FMA
+      return run_gmm_wgmma(*p, st);
     case 1 * 4 + 0:
       return launch(tgmm_kernel<float, float>, expert_grid, *p, st);
     case 2 * 4 + 0:
@@ -392,6 +725,18 @@ int gmm_aligned_launch(const GmmParams* p, void* stream) {
 }
 int tgmm_aligned_launch(const GmmParams* p, void* stream) {
   return dispatch(3, p, stream);
+}
+
+// The K5 tile list of `offsets` (groups + 1 entries) into `tiles`
+// (3 * max_tiles ints).
+int gmm_tiles_launch(const int* offsets, int groups, int rows, int max_tiles,
+                     int* tiles, void* stream) {
+  if (offsets == nullptr || tiles == nullptr || groups < 1 || rows < 0 ||
+      max_tiles < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  gmm_tiles_kernel<<<1, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
+      offsets, groups, rows, max_tiles, tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* gmm_error_string(int code) {

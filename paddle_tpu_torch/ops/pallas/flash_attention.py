@@ -15,9 +15,10 @@ bias, and post-softmax dropout from a position hash (:func:`dropout_keep`)
 that the forward and both backward kernels evaluate alike. Their bound on
 the H100 is operations: at the training shape (B=4, S=2048, Hq=16,
 Hkv=4, hd=128, causal, bf16) K1 does 68.7 GFLOP (0.069 ms at 989
-TFLOP/s), K2 103 GFLOP (0.104 ms) and K3 137 GFLOP (0.139 ms); the
-source's header says what these first kernels do about it, and
-``PERF.md`` holds their times.
+TFLOP/s), K2 103 GFLOP (0.104 ms) and K3 137 GFLOP (0.139 ms). K1 in
+bf16 runs on the tensor cores (wgmma, tiles by TMA), so its q, k and v
+must start on a 16-byte boundary; K1 in f32, K2 and K3 run FMA loops.
+The source's header says why, and ``PERF.md`` holds their times.
 
 Each of :func:`flash_attention_fwd`, :func:`flash_attention_dq` and
 :func:`flash_attention_dkv` launches its kernel for CUDA tensors, or
@@ -341,6 +342,12 @@ def flash_attention_fwd(q, k, v, g: FlashGeometry):
         with torch.no_grad():
             return _forward_plain(q, k, v, g)
     _check_cuda(g, q=q, k=k, v=v)
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(
+                    f"the bf16 forward kernel loads {name} by TMA, which "
+                    f"needs a 16-byte aligned base, not {t.data_ptr():#x}")
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     _launch("flash_fwd_launch", q, _params(

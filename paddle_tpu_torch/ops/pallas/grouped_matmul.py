@@ -16,6 +16,12 @@ every expert. The kernels: ``csrc/grouped_matmul.cu``, CUDA C++ for
   aligned layout; an expert with no block is left unwritten and
   :func:`gmm_aligned`'s backward replaces it with 0 by ``where``.
 
+K5 with bf16 lhs and rhs runs on the bf16 tensor cores (wgmma, operands
+by TMA, or through registers where TMA cannot describe one: see
+:func:`_gmm_loaders`) over row tiles that never straddle a group
+(:func:`_gmm_tiles`); every f32 instance keeps the FMA kernels, whose
+f32 tolerances the tensor cores' TF32 would miss.
+
 Each kernel wrapper launches its kernel for CUDA tensors, or raises; for
 CPU tensors it computes its plain PyTorch version, which loops over the
 groups with f32 products. The module counts kernel launches in
@@ -49,6 +55,7 @@ _DTYPE_CODE = {_F32: 0, _BF16: 1}
 # the (lhs, rhs) dtype pairs each kernel takes: those the reference's
 # forward and backward passes give it
 _GMM_MIXES = ((_F32, _F32), (_BF16, _BF16), (_F32, _BF16))
+_TILE_ROWS = 128  # rows of a K5 tile in the bf16 kernel
 _TGMM_MIXES = ((_F32, _F32),)
 _TGMM_ALIGNED_MIXES = ((_F32, _F32), (_BF16, _BF16))
 
@@ -143,10 +150,11 @@ def _tgmm_aligned_plain(lhs, g, block_experts, n_groups, bm):
 class _Params(ctypes.Structure):
     """The source's ``GmmParams``, field for field."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
-        "lhs", "rhs", "offsets", "block_experts", "out")] + [
+        "lhs", "rhs", "offsets", "block_experts", "out", "tiles")] + [
         (n, ctypes.c_longlong) for n in ("rhs_se", "rhs_sk", "rhs_sn")] + [
         (n, ctypes.c_int) for n in ("rows", "lhs_cols", "n_dim", "experts",
-                                    "bm", "lhs_dtype", "rhs_dtype")]
+                                    "bm", "lhs_dtype", "rhs_dtype",
+                                    "max_tiles", "tma_lhs", "tma_rhs")]
 
 
 def _lib():
@@ -157,6 +165,10 @@ def _lib():
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.POINTER(_Params), ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.gmm_tiles_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p]
+        lib.gmm_tiles_launch.restype = ctypes.c_int
         lib.gmm_error_string.argtypes = [ctypes.c_int]
         lib.gmm_error_string.restype = ctypes.c_char_p
     return lib
@@ -218,15 +230,68 @@ def _params(lhs, other, out, n_groups, bm, **ptrs) -> _Params:
         rhs_dtype=_DTYPE_CODE[other.dtype], **ptrs)
 
 
-def _launch(entry: str, lhs, params: _Params):
+def _launch(entry: str, lhs, *args):
     lib = _lib()
     with torch.cuda.device(lhs.device):
         stream = torch.cuda.current_stream(lhs.device).cuda_stream
-        rc = getattr(lib, entry)(ctypes.byref(params), stream)
+        rc = getattr(lib, entry)(*args, stream)
     if rc != 0:
         raise RuntimeError(
             f"grouped matmul kernel launch ({entry}) failed: "
             f"{lib.gmm_error_string(rc).decode()} (cudaError {rc})")
+
+
+def _max_tiles(rows, n_groups):
+    """Entries of K5's tile list: the tiles of the ``n_groups + 1`` groups
+    (the sentinel last) number at most ``ceil(rows / 128) + n_groups``."""
+    return -(-rows // _TILE_ROWS) + n_groups
+
+
+def _gmm_tiles_plain(offsets_ext, rows):
+    """The tile list's plain version (the source's ``gmm_tiles_kernel``)."""
+    n_groups = offsets_ext.shape[0] - 2
+    off = offsets_ext.to(torch.int64)
+    lo = off[:-1].clamp(0, rows)
+    hi = torch.maximum(off[1:].clamp(0, rows), lo)
+    n = (hi - lo + _TILE_ROWS - 1) // _TILE_ROWS
+    ends = torch.cumsum(n, 0)
+    t = torch.arange(_max_tiles(rows, n_groups), device=off.device)
+    g = torch.searchsorted(ends, t, right=True)  # the group of tile t
+    used = g <= n_groups
+    g = g.clamp(max=n_groups)
+    row0 = lo[g] + (t - (ends - n)[g]) * _TILE_ROWS
+    row1 = torch.minimum(row0 + _TILE_ROWS, hi[g])
+    zero = torch.zeros_like(t)
+    return torch.stack([torch.where(used, row0, zero),
+                        torch.where(used, row1, zero),
+                        torch.where(used, g, zero - 1)], 1).to(torch.int32)
+
+
+def _gmm_tiles(offsets_ext, rows):
+    """K5's tile list, int32 ``[ceil(rows / 128) + E, 3]``: each group of
+    ``offsets_ext`` (the E experts, then the sentinel group of rows past
+    ``sum(group_sizes)``) cut into tiles of 128 rows from its first row,
+    the last one partial, as (first row, past last row, group); unused
+    entries are (0, 0, -1). Built on the tensor's device, with no host
+    sync: by a one-block kernel for CUDA tensors."""
+    if offsets_ext.device.type == "cpu":
+        return _gmm_tiles_plain(offsets_ext, rows)
+    groups = offsets_ext.shape[0] - 1
+    tiles = torch.empty(_max_tiles(rows, groups - 1), 3, dtype=torch.int32,
+                        device=offsets_ext.device)
+    _launch("gmm_tiles_launch", offsets_ext, offsets_ext.data_ptr(), groups,
+            rows, tiles.shape[0], tiles.data_ptr())
+    return tiles
+
+
+def _gmm_loaders(lhs, rhs):
+    """How K5's bf16 kernel brings each operand in: ``"tma"`` where TMA
+    can describe it (16-byte aligned base and row pitch; rhs contiguous),
+    else ``"registers"``. Returns (lhs's, rhs's)."""
+    tma_lhs = lhs.data_ptr() % 16 == 0 and lhs.shape[1] % 8 == 0
+    tma_rhs = rhs.data_ptr() % 16 == 0 and rhs.shape[2] % 8 == 0 and \
+        rhs.is_contiguous()
+    return tuple("tma" if ok else "registers" for ok in (tma_lhs, tma_rhs))
 
 
 def _gmm_fwd(lhs, rhs, offsets_ext):
@@ -240,8 +305,14 @@ def _gmm_fwd(lhs, rhs, offsets_ext):
     _check_cuda("gmm", lhs, rhs, offsets_ext, _GMM_MIXES, False)
     out = torch.empty(lhs.shape[0], rhs.shape[2], dtype=lhs.dtype,
                       device=lhs.device)
-    _launch("gmm_launch", lhs, _params(lhs, rhs, out, rhs.shape[0], 1,
-                                       offsets=offsets_ext.data_ptr()))
+    params = _params(lhs, rhs, out, rhs.shape[0], 1,
+                     offsets=offsets_ext.data_ptr())
+    if lhs.dtype == _BF16:  # the tensor-core kernel walks the tile list
+        tiles = _gmm_tiles(offsets_ext, lhs.shape[0])
+        loaders = _gmm_loaders(lhs, rhs)
+        params.tiles, params.max_tiles = tiles.data_ptr(), tiles.shape[0]
+        params.tma_lhs, params.tma_rhs = (int(x == "tma") for x in loaders)
+    _launch("gmm_launch", lhs, ctypes.byref(params))
     launches_gmm += 1
     return out
 
@@ -256,8 +327,8 @@ def _tgmm_fwd(lhs, g, offsets_ext, n_groups):
     _check_cuda("tgmm", lhs, g, offsets_ext, _TGMM_MIXES, True)
     out = torch.empty(n_groups, lhs.shape[1], g.shape[1], dtype=_F32,
                       device=lhs.device)
-    _launch("tgmm_launch", lhs, _params(lhs, g, out, n_groups, 1,
-                                        offsets=offsets_ext.data_ptr()))
+    _launch("tgmm_launch", lhs, ctypes.byref(_params(
+        lhs, g, out, n_groups, 1, offsets=offsets_ext.data_ptr())))
     launches_tgmm += 1
     return out
 
@@ -272,9 +343,9 @@ def _gmm_aligned_fwd(lhs, rhs, block_experts, bm):
     _check_cuda("gmm_aligned", lhs, rhs, block_experts, _GMM_MIXES, False)
     out = torch.empty(lhs.shape[0], rhs.shape[2], dtype=lhs.dtype,
                       device=lhs.device)
-    _launch("gmm_aligned_launch", lhs, _params(
+    _launch("gmm_aligned_launch", lhs, ctypes.byref(_params(
         lhs, rhs, out, rhs.shape[0], bm,
-        block_experts=block_experts.data_ptr()))
+        block_experts=block_experts.data_ptr())))
     launches_gmm_aligned += 1
     return out
 
@@ -291,8 +362,8 @@ def _tgmm_aligned_fwd(lhs, g, block_experts, n_groups, bm):
                 True)
     out = torch.empty(n_groups, lhs.shape[1], g.shape[1], dtype=_F32,
                       device=lhs.device)
-    _launch("tgmm_aligned_launch", lhs, _params(
-        lhs, g, out, n_groups, bm, block_experts=block_experts.data_ptr()))
+    _launch("tgmm_aligned_launch", lhs, ctypes.byref(_params(
+        lhs, g, out, n_groups, bm, block_experts=block_experts.data_ptr())))
     launches_tgmm_aligned += 1
     return out
 

@@ -174,3 +174,64 @@ def test_cpu_calls_count_no_launch_and_mixed_devices_raise():
         tgm.gmm(lhs, rhs.to("meta"), gs, bm=BM)
     with pytest.raises(ValueError, match="cuda or cpu"):
         tgm.gmm(lhs.to("meta"), rhs.to("meta"), gs.to("meta"), bm=BM)
+
+
+# ------------------------------ K5's tile list ------------------------------
+# (R, group sizes): the card tests' cases (tests/test_torch_kernels.py) and
+# chip_smoke.py phase 8(b)'s, then seeded random ones
+TILE_CASES = {
+    "mixed": (1024, [100, 0, 300, 1, 1, 0, 400, 150]),
+    "hot_expert": (1024, [0, 1, 922, 0, 1, 50, 50, 0]),
+    "tail_rows_not_zero": (1024, [100, 0, 300, 1, 1, 0, 200, 150]),
+    "one_expert": (1024, [1000]),
+    "edges_mid_tile": (1024, [37, 1, 90, 0, 129, 1, 255, 300]),
+    "smoke_hot_empty_single": (4096, [1, 1, 0, 3686, 0, 0, 0, 1, 0, 200,
+                                      0, 1, 0, 0, 0, 206]),
+    "smoke_tail": (4096, [300, 0, 500, 1000, 0, 700, 400, 100]),
+    "smoke_widths_1000_333": (2048, [256, 300, 0, 200, 512, 80, 300, 400]),
+    "smoke_one_expert": (2048, [1900]),
+    "all_empty": (256, [0, 0, 0]),
+    "exact_multiples": (512, [128, 256, 0, 128]),
+}
+for _seed in range(4):
+    _rng = np.random.RandomState(_seed)
+    _e = int(_rng.randint(1, 70))
+    _sizes = _rng.multinomial(int(_rng.randint(0, 3000)),
+                              np.ones(_e) / _e).tolist()
+    TILE_CASES[f"random_{_seed}"] = (-(-sum(_sizes) // 64) * 64 + 64 * _seed,
+                                     _sizes)
+
+
+def _tiles_by_loops(sizes, rows):
+    """The tile list written as loops: each group (then the sentinel
+    group of rows past the data) cut into 128-row tiles from its start."""
+    out, start = [], 0
+    for g, n in enumerate(list(sizes) + [rows - sum(sizes)]):
+        for r in range(start, start + n, 128):
+            out.append((r, min(r + 128, start + n), g))
+        start += n
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(TILE_CASES))
+def test_gmm_tile_list_covers_every_row_once(name):
+    """Every row of lhs lies in exactly one tile, no tile crosses a group
+    edge, the sentinel group's rows come last, and the list has at most
+    ceil(R / 128) + E entries (R / 128 + E when 128 divides R)."""
+    rows, sizes = TILE_CASES[name]
+    E = len(sizes)
+    offs = tgm._offsets_ext(torch.tensor(sizes, dtype=torch.int32), rows)
+    tiles = tgm._gmm_tiles(offs, rows)
+    assert tiles.dtype == torch.int32
+    assert tiles.shape == (-(-rows // 128) + E, 3)
+    used = [tuple(t) for t in tiles.tolist() if t[0] < t[1]]
+    assert used == _tiles_by_loops(sizes, rows)
+    unused = tiles[len(used):].tolist()
+    assert unused == [[0, 0, -1]] * len(unused)
+    hits = np.zeros(rows, np.int64)
+    edges = np.concatenate([[0], np.cumsum(sizes), [rows]])
+    for r0, r1, g in used:
+        assert 0 < r1 - r0 <= 128
+        assert edges[g] <= r0 and r1 <= edges[g + 1]
+        hits[r0:r1] += 1
+    assert (hits == 1).all()

@@ -214,6 +214,81 @@ def test_flash_wrapper_refuses_what_the_kernels_do_not_take(cuda_device):
         fa.flash_attention_bhsd(q.half(), q.half(), q.half())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("sq,sk", [(333, 333), (64, 1000)])
+def test_flash_fwd_bf16_ragged_and_offset_causal(cuda_device, hd, sq, sk):
+    """The bf16 forward (tensor cores, tiles by TMA) where its tiles meet
+    the edges: 333 rows per head, so a q tile and a key tile run past the
+    end of one head's rows (the 3-D tensor maps read zeros there, never
+    the next head's rows), and 64 q rows over 1000 keys (offset causal:
+    a q tile smaller than the kernel's 128 rows, keys past the last tile
+    of 64)."""
+    rng = np.random.RandomState(sq + hd)
+    B, hq, hkv = 2, 8, 2
+    qkv = [torch.from_numpy(rng.randn(B, h, s, hd)).to(cuda_device,
+                                                      torch.bfloat16)
+           for h, s in ((hq, sq), (hkv, sk), (hkv, sk))]
+    q, k, v, g, _ = fa._geometry(*qkv, True, None, None, None, None, 0.0,
+                                 None)
+    before = fa.launches_fwd
+    o, lse = fa.flash_attention_fwd(q, k, v, g)
+    torch.cuda.synchronize()
+    assert fa.launches_fwd == before + 1
+    ro, rlse = fa._forward_plain(q, k, v, g)
+    for got, want in ((o, ro), (lse, rlse)):
+        assert bool(torch.isfinite(got).all())
+        assert _rel_err(got, want) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_fwd_row_with_every_score_masked(cuda_device, dtype, hd):
+    """Causal attention with a -inf bias on one q row: every visible score
+    of that row is clamped to the mask value, so the forward averages v
+    over the keys of the tiles it visits, keys 0 .. min(Sk, 64 * (last
+    live key tile + 1)) - 1 of the row's 64-row tile, the set the backward
+    kernels assume. Every other row matches the plain version."""
+    rng = np.random.RandomState(hd)
+    B, hq, hkv, sq, sk, row = 1, 4, 2, 200, 264, 100
+    qkv = [torch.from_numpy(rng.randn(B, h, s, hd)).to(cuda_device, dtype)
+           for h, s in ((hq, sq), (hkv, sk), (hkv, sk))]
+    bias = torch.zeros(1, 1, sq, sk, device=cuda_device)
+    bias[0, 0, row] = float("-inf")
+    q, k, v, g, _ = fa._geometry(*qkv, True, None, bias, None, None, 0.0,
+                                 None)
+    o, lse = fa.flash_attention_fwd(q, k, v, g)
+    torch.cuda.synchronize()
+    ro, _ = fa._forward_plain(q, k, v, g)
+    keep = torch.arange(sq, device=cuda_device) != row
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    assert bool(torch.isfinite(o).all())
+    assert _rel_err(o[:, keep], ro[:, keep]) <= tol
+    q0 = row // 64 * 64
+    n_keys = min(sk, 64 * ((q0 + 63 + sk - sq) // 64 + 1))
+    group = hq // hkv
+    mean = v.float()[:, :n_keys].mean(dim=1)  # [B*Hkv, D]
+    want = mean.repeat_interleave(group, dim=0)
+    torch.testing.assert_close(o[:, row].float(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_fwd_bf16_refuses_a_misaligned_base(cuda_device):
+    """TMA reads from 16-byte aligned addresses only: a q that starts one
+    element into its storage is refused, not copied or sent elsewhere."""
+    shape = (2, 64, 64)
+    buf = torch.zeros(2 * 64 * 64 + 8, device=cuda_device,
+                      dtype=torch.bfloat16)
+    q = buf[1:1 + 2 * 64 * 64].view(shape)
+    k = torch.zeros(shape, device=cuda_device, dtype=torch.bfloat16)
+    g = fa.FlashGeometry(hq=1, hkv=1, causal=False, sm_scale=0.125)
+    before = fa.launches_fwd
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_fwd(q, k, k, g)
+    assert fa.launches_fwd == before
+
+
 # ------------------------------ grouped matmul ------------------------------
 # kernel vs plain: max |err| over the largest |plain| value, by the dtype of
 # the result: f32 sums in another order; bf16 results are rounded once on
@@ -368,3 +443,43 @@ def test_gmm_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         gm.tgmm(lhs, g.cpu(), sizes, 8, bm=128)
     with pytest.raises(ValueError, match="divide"):
         gm.gmm_aligned(lhs[:1000], rhs, sizes, bm=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GMM_CASES + ["edges_mid_tile",
+                                              "misaligned_lhs"])
+def test_gmm_bf16_tensor_core_kernel(cuda_device, name):
+    """K5 in bf16 (tensor cores): the device's tile list equals its plain
+    version; the loader of each operand is TMA where TMA can describe it
+    and registers where it cannot (rhs rows of 333 bf16 are 666 bytes; an
+    lhs one element into its storage); group edges in the middle of a
+    128-row tile, one-row groups and a hot expert; rows past the groups
+    exactly 0, also when lhs holds data there."""
+    from paddle_tpu_torch.ops.pallas import grouped_matmul as gm
+    case = "mixed" if name in ("edges_mid_tile", "misaligned_lhs") else name
+    lhs32, sizes, rhs32, _ = _gmm_case(case, cuda_device)
+    if name == "edges_mid_tile":  # every edge inside a tile, none on one
+        sizes = torch.tensor([37, 1, 90, 0, 129, 1, 255, 300],
+                             device=cuda_device, dtype=torch.int32)
+        lhs32[int(sizes.sum()):] = 0
+    R, n = lhs32.shape[0], int(sizes.sum())
+    lhs, rhs = lhs32.to(torch.bfloat16), rhs32.to(torch.bfloat16)
+    if name == "misaligned_lhs":
+        buf = torch.zeros(lhs.numel() + 8, device=cuda_device,
+                          dtype=torch.bfloat16)
+        lhs = buf[1:1 + lhs.numel()].view(lhs.shape).copy_(lhs)
+    offs = gm._offsets_ext(sizes, R)
+    tiles = gm._gmm_tiles(offs, R)
+    assert torch.equal(tiles.cpu(), gm._gmm_tiles(offs.cpu(), R))
+    want = ("tma", "registers" if rhs.shape[2] % 8 else "tma")
+    if name == "misaligned_lhs":
+        want = ("registers", "tma")
+    assert gm._gmm_loaders(lhs, rhs) == want
+    before = gm.launches_gmm
+    out = gm._gmm_fwd(lhs, rhs, offs)
+    torch.cuda.synchronize()
+    assert gm.launches_gmm == before + 1
+    ref = gm._gmm_plain(lhs, rhs, offs)
+    assert bool(torch.isfinite(out).all())
+    assert _gmm_rel_err(out, ref) <= GMM_TOL[torch.bfloat16]
+    assert bool((out[n:] == 0).all())
