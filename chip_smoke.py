@@ -10,9 +10,9 @@ Phases, each of which either succeeds or makes the script exit non-zero:
 2. build — every kernel source under ``paddle_tpu_torch/ops/pallas/csrc``
    compiled with ``nvcc`` for ``sm_90a`` (one process per source, all at
    once) into the ignored build directory, with each kernel's registers
-   and spills; the SASS of the tensor-core kernels (K1 and K5 in bf16,
-   ``cuobjdump --dump-sass``) must hold wgmma (``HGMMA``) and, where an
-   operand comes by TMA, TMA loads (``UTMALDG``);
+   and spills; the SASS of the tensor-core kernels (K1, K2, K3 and K5 in
+   bf16, ``cuobjdump --dump-sass``) must hold wgmma (``HGMMA``) and,
+   where an operand comes by TMA, TMA loads (``UTMALDG``);
 3. kernel vs plain — the ragged-paged-attention (RPA) kernel against its
    plain PyTorch version at Llama-3-8B head geometry on a ragged mix of
    decode rows, a 512-token prefill chunk over 1024 cached tokens and a
@@ -29,7 +29,7 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    Hkv=4, hd=128, causal) in bfloat16 and float32: the forward (K1), dq
    (K2) and dk/dv (K3) kernels against ``flash_attention_reference`` and
    autograd through it, with kernel/plain/library times, TFLOP/s, the
-   design each ran (K1 bf16 on wgmma fed by TMA, the rest FMA loops) and
+   design each ran (bf16 on wgmma fed by TMA, f32 FMA loops) and
    the least time the card could take; (b) a sweep over offset-causal, GQA
    groups 1/4/8, segment ids with fully masked rows, row and full bias,
    dropout and a length that is not a multiple of the tile, each kernel
@@ -73,6 +73,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import statistics
 import sys
 import threading
@@ -138,9 +139,20 @@ def phase_environment():
 SASS_CHECKS = (  # library, kernel, instance -> TMA expected
     ("flash_attention", "flash_fwd_wgmma_kernel",
      {"ILi64EE": True, "ILi128EE": True}),
+    ("flash_attention", "flash_dq_wgmma_kernel",
+     {"ILi64EE": True, "ILi128EE": True}),
+    ("flash_attention", "flash_dkv_wgmma_kernel",
+     {"ILi64EE": True, "ILi128EE": True}),
     ("grouped_matmul", "gmm_wgmma_kernel",
      {"ILb1ELb1EE": True, "ILb1ELb0EE": True, "ILb0ELb1EE": True,
       "ILb0ELb0EE": False}))
+
+
+def kernel_instance(mangled):
+    """A mangled kernel name cut to its name and template arguments
+    (``flash_dq_wgmma_kernelILi128E``), or its first 70 characters."""
+    m = re.search(r"([a-z_]+_kernel)((?:I\w*?E)?)E*v", mangled)
+    return m.group(1) + m.group(2) if m else mangled[:70]
 
 
 def ptxas_usage(log_text):
@@ -188,7 +200,7 @@ def phase_build():
                     for n, info in built.items()))
     for name, info in built.items():
         for kernel, use in ptxas_usage(info["log"]).items():
-            log(f"  {name}: {kernel[:70]}: {use}")
+            log(f"  {name}: {kernel_instance(kernel)}: {use}")
         # e.g. ptxas serialising wgmma, or ignoring setmaxnreg
         for line in info["log"].splitlines():
             if "warning" in line.lower() or "Performance Loss" in line:
@@ -518,11 +530,12 @@ FLASH_KERNELS = (  # name, the TPU kernel it replaces
     ("flash_attention_dq", "paddle_tpu/ops/pallas/flash_attention.py:410"),
     ("flash_attention_dkv", "paddle_tpu/ops/pallas/flash_attention.py:471"))
 # limits of kernel vs plain: (atol, rtol) of o and lse, and of gradients.
-# float32 as the CPU parity tests. bfloat16 a few times the largest error
-# measured on the card at the training shape (PERF.md: 3.9e-3 for o,
-# 1.6e-2 for dq, 3.1e-2 for dk/dv): the kernels round p and ds to
-# bfloat16 against a running max where the plain version uses the row's
-# final max
+# float32 as the CPU parity tests. bfloat16: the largest errors measured on
+# the card at the training shape (PERF.md: 3.9e-3 for o, 1.6e-2 for dq,
+# 6.3e-2 for dk/dv) are a bfloat16 unit or two of the values they sit on
+# (dv reaches 10.3, where a unit is 6.25e-2): both sides round the result to
+# bfloat16 once, and the kernels round p and ds to bfloat16 against a
+# running max where the plain version uses the row's final max
 FLASH_TOL = {torch.float32: ((2e-5, 2e-4), (2e-4, 2e-3)),
              torch.bfloat16: ((1e-2, 1e-2), (2e-2, 2e-2))}
 
@@ -649,8 +662,8 @@ def flash_training_shape(dtype):
             ms = cuda_ms(kern)
             plain_ms = cuda_ms(plain)
             lib = lib_f if kname == "flash_attention_fwd" else lib_b
-            design = ("wgmma, tiles by TMA" if kname == "flash_attention_fwd"
-                      and dtype == torch.bfloat16 else "FMA loops")
+            design = ("wgmma, tiles by TMA" if dtype == torch.bfloat16
+                      else "FMA loops")
             log(f"flash {name} {kname} ({design}): max|err|={errs[kname]:.3e};"
                 f" kernel {ms:.4f} ms "
                 f"({need['flops'] / (ms / 1e3) / 1e12:.1f} TFLOP/s), plain "

@@ -17,45 +17,55 @@
 //   q_seg [B, Sq], kv_seg [B, Sk] int32
 // Flat q head bh = b*Hq + h reads kv head b*Hkv + h / (Hq/Hkv).
 //
-// Work assignment: 256 threads, tiles of 64 q rows x 64 keys. K1 and K2
-// run one block per (flat q head, q tile) and loop over the live k tiles;
-// K3 runs one block per (flat kv head, k tile) and loops over every
-// (q head of the group, q tile) pair, so the GQA group is reduced inside
-// the block and dk/dv are written once, with no atomics. Tiles are held
-// in shared memory as f32. Every product is a register-tiled FMA loop:
-// thread (ty, tx) = (tid / 16, tid % 16) owns rows ty*4..ty*4+3 and
-// columns tx*4 + 64*j + 0..3 of its output tile. A score row lives in the
-// 16 lanes of one half-warp, so row max and row sums are shuffles.
+// Work assignment: K1 and K2 run one block per (flat q head, q tile) and
+// loop over the live k tiles; K3 runs one block per (flat kv head, k tile)
+// and loops over every (q head of the group, q tile) pair, so the GQA
+// group is reduced inside the block and dk/dv are written once, with no
+// atomics.
 //
 // Numerics follow the TPU kernels: scores are masked to kMask and clamped
 // at it; a row with no segment-live key in a tile adds no p; in bf16 the
 // p of the PV product (K1), p_drop of dv and ds of dq/dk (K2, K3) are
 // rounded to bf16 before their product, as the TPU kernels cast them
-// before their MXU dots. Products of bf16 values are exact in f32, so the
-// FMA loops give the f32-accumulated dots of the TPU kernels. Rows past
+// before their MXU dots, and every product accumulates in f32. Rows past
 // Sq and keys past Sk (the ragged edge of a tile) are masked out: they
 // add nothing and are not written. A tile that is dead by causality or
-// that holds no equal segment id is skipped, as on the TPU.
+// that holds no equal segment id adds nothing, as on the TPU.
+//
+// The visited keys: the backward recomputes p = exp(s - lse) on the
+// (64-row q tile, 64-key tile) pairs the forward visits - the key tiles
+// below live_k_tiles of the q tile, with segment ids only those holding
+// an equal id - and p is exactly 0 outside them. Inside them a row whose
+// every visible score is masked by the bias has lse = kMask and p = 1 on
+// every key below Sk (the TPU kernels average v over the keys of the
+// tiles they visit), so every kernel, FMA or wgmma, visits exactly these
+// pairs whatever its own block shape.
 //
 // Bound on this card: operations. At the training shape (B=4, S=2048,
 // Hq=16, Hkv=4, D=128, causal, bf16) K1 does 2 products of 2*Sq*Sk*D/2
-// flops per head (68.7 GFLOP), K2 3 and K3 4, against 84-118 MB of
-// traffic: far above the H100's ridge of ~295 flops per byte.
+// flops per head (68.7 GFLOP), K2 3 (103 GFLOP) and K3 4 (137 GFLOP),
+// against 84-118 MB of traffic: far above the H100's ridge of ~295 flops
+// per byte, so 0.069, 0.104 and 0.139 ms at 989 TFLOP/s.
 //
-// Two designs, chosen by dtype. K1 in bf16 is `flash_fwd_wgmma_kernel`:
-// bf16 tensor cores through wgmma, tiles brought in by TMA through a ring
-// of shared-memory stages, loads overlapped with the products (its note
-// below). Everything else - K1 in f32, K2 and K3 - runs the FMA loops
-// above, at the f32 rate at best (67 TFLOP/s), bf16 inputs widened to f32
-// in shared memory. The f32 instances stay on FMA because the tensor
-// cores' TF32 would miss their tolerances; K2 and K3 wait for their own
-// redesign (PERF.md holds the times).
+// Two designs, chosen by an explicit dispatch on dtype in run(). In bf16,
+// K1 (`flash_fwd_wgmma_kernel`), K2 (`flash_dq_wgmma_kernel`) and K3
+// (`flash_dkv_wgmma_kernel`) run their products on the bf16 tensor cores
+// through wgmma, tiles brought in by TMA through rings of shared-memory
+// stages, loads overlapped with the products (their notes below). In f32
+// the three run register-tiled FMA loops, at the f32 rate at best (67
+// TFLOP/s): 256 threads, tiles of 64 q rows x 64 keys held in shared
+// memory as f32, thread (ty, tx) = (tid / 16, tid % 16) owning rows
+// ty*4..ty*4+3 and columns tx*4 + 64*j + 0..3 of its output tile, a score
+// row in the 16 lanes of one half-warp. The f32 instances stay on FMA
+// because the tensor cores' TF32 would miss their tolerances (PERF.md
+// holds the times).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
 
+#include <initializer_list>
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -92,19 +102,13 @@ constexpr int kPad = 4;        // row padding of row-major smem tiles
 constexpr int kLP = kTile + kPad;
 
 
+// element conversions of the FMA kernels, which run in f32 only (run())
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
 __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // x rounded to T and back (the TPU kernels' `.astype(dtype)` before a dot)
 template <typename T>
@@ -776,24 +780,33 @@ __global__ void __launch_bounds__(fwd90::kThreads, 1)
   }
 }
 
+// whether every operand a tensor-core kernel loads by TMA or stores in
+// pairs starts on a 16-byte boundary
+inline bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* ptr : ptrs)
+    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
+  return true;
+}
+
+// a 3-D map [B*H, S, D] of a bf16 q-side or kv-side tensor, boxes of 64
+// columns x box_rows rows
+template <int D>
+cudaError_t head_map(CUtensorMap* map, const void* base, int s, int bh,
+                     int box_rows) {
+  const cuuint64_t dims[3] = {D, static_cast<cuuint64_t>(s),
+                              static_cast<cuuint64_t>(bh)};
+  const cuuint64_t strides[2] = {D * 2, static_cast<cuuint64_t>(s) * D * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  return hopper::make_map(map, base, 3, dims, strides, box);
+}
+
 template <int D>
 cudaError_t run_fwd_wgmma(const FlashParams& p, cudaStream_t stream) {
-  const void* ptrs[4] = {p.q, p.k, p.v, p.out0};
-  for (const void* ptr : ptrs)
-    if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
-      return cudaErrorMisalignedAddress;
+  if (!aligned16({p.q, p.k, p.v, p.out0})) return cudaErrorMisalignedAddress;
   CUtensorMap tq, tk, tv;
-  const cuuint64_t dq[3] = {D, static_cast<cuuint64_t>(p.sq),
-                            static_cast<cuuint64_t>(p.bhq)};
-  const cuuint64_t dk[3] = {D, static_cast<cuuint64_t>(p.sk),
-                            static_cast<cuuint64_t>(p.bhkv)};
-  const cuuint64_t sq[2] = {D * 2, static_cast<cuuint64_t>(p.sq) * D * 2};
-  const cuuint64_t sk[2] = {D * 2, static_cast<cuuint64_t>(p.sk) * D * 2};
-  const cuuint32_t bq[3] = {64, fwd90::kRows, 1};
-  const cuuint32_t bk[3] = {64, fwd90::kKeys, 1};
-  cudaError_t e = hopper::make_map(&tq, p.q, 3, dq, sq, bq);
-  if (e == cudaSuccess) e = hopper::make_map(&tk, p.k, 3, dk, sk, bk);
-  if (e == cudaSuccess) e = hopper::make_map(&tv, p.v, 3, dk, sk, bk);
+  cudaError_t e = head_map<D>(&tq, p.q, p.sq, p.bhq, fwd90::kRows);
+  if (e == cudaSuccess) e = head_map<D>(&tk, p.k, p.sk, p.bhkv, fwd90::kKeys);
+  if (e == cudaSuccess) e = head_map<D>(&tv, p.v, p.sk, p.bhkv, fwd90::kKeys);
   if (e != cudaSuccess) return e;
   const size_t smem = fwd90::smem_bytes<D>();
   e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
@@ -1008,6 +1021,618 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
   }
 }
 
+// ==================== K2 and K3: bf16 on tensor cores =====================
+// Both keep K1's block: 256 threads, two warpgroups, no loader warp;
+// thread 0 issues every TMA copy through 3-D maps [B*H, S, D] (a box past S
+// reads zeros, never the next head's rows) into 128-byte-swizzled tiles,
+// and refills a ring stage one step after the stage was freed, as K1 does.
+//
+// K2 (dq): one block per (flat q head, 128 q rows), heavy causal tiles
+// first; each warpgroup owns 64 q rows. Q and dO come in once, K and V
+// through a ring of kStages stages of 64 keys. Per block of keys: S = Q Kᵀ
+// and dP = dO Vᵀ are two ss wgmma chains (all operands K-major); p = exp(s
+// - lse) and dS = p (dP - delta) scale run on the accumulator fragments;
+// dS, rounded to bf16 where the FMA kernel rounds it, is packed into
+// A-fragments and dQ += dS K runs as an rs wgmma with K as an MN-major B.
+// A block's dQ product is issued behind the next block's S and dP, so it
+// runs while the warpgroup computes that block's dS; dS is packed only
+// after the product's wait, as K1 packs P. 64-key blocks keep S, dP and the
+// packed dS at 32 + 32 + 16 registers beside dQ's 64 (hd 128).
+//
+// K3 (dk, dv): one block per (flat kv head, 128 keys), key block 0 (which
+// meets the most causal q tiles) first; each warpgroup owns 64 keys and
+// keeps its dK and dV accumulators in registers to the end. K and V come
+// in once; the block walks every (q head of the GQA group, live 64-row q
+// tile) pair in the FMA kernel's order, Q and dO through a ring of stages,
+// so the group is reduced inside the block with no atomics and dk/dv are
+// written once. The products are transposed so the accumulators are
+// key-major: Sᵀ = K Qᵀ and dPᵀ = V dOᵀ (ss chains), then dV += p_dropᵀ dO
+// and dK += dSᵀ Q as rs products with dO and Q as MN-major B operands. dSᵀ
+// is formed in place before P is packed, so at the peak a thread holds
+// dK, dV, Sᵀ and dPᵀ (64 + 64 + 32 + 32 at hd 128), and the dV product
+// runs while dSᵀ is packed. lse and delta of a pair's 64 rows are read by
+// the warpgroup's own threads one pair ahead into a register, and staged
+// in two shared-memory slots behind a warpgroup barrier.
+//
+// The visited keys are the FMA kernels', pair by pair: a (64-row q tile,
+// 64-key tile) pair counts iff the key tile is below the q tile's
+// live_k_tiles and, with segment ids, the pair holds an equal id
+// (warpgroup_any over the fragment). Inside a pair that counts every
+// in-range (row, key) gets p = exp(s - lse), so a row whose every visible
+// score is masked (lse = kMask) sees p = 1 there, as in the FMA kernels;
+// everywhere else p is exactly 0. Every pair of a block is computed (no
+// branch around a wgmma chain): a pair that does not count adds zeros. A
+// pair inside every bound, below the causal diagonal, with no bias or
+// segments takes a short path: scale, exponent and lse in one FMA, no
+// masks. Operands must be 16-byte aligned (the wrapper checks).
+namespace bwd90 {
+constexpr int kStages = 4;     // ring depth: loads run two steps ahead
+constexpr int kDqRows = 128;   // K2: q rows per block
+constexpr int kDkvKeys = 128;  // K3: keys per block
+
+template <int D>
+constexpr size_t dq_smem_bytes() {  // Q, dO, then kStages x (K, V)
+  return 1024 + 2 * static_cast<size_t>(kDqRows * D * 2) +
+         2 * kStages * static_cast<size_t>(kTile * D * 2) +
+         8 * (1 + 2 * kStages);
+}
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {  // K, V, kStages x (Q, dO), row slots
+  return 1024 + 2 * static_cast<size_t>(kDkvKeys * D * 2) +
+         2 * kStages * static_cast<size_t>(kTile * D * 2) +
+         sizeof(float) * 2 * 2 * 2 * kTile + 8 * (1 + 2 * kStages);
+}
+
+// p of an in-range (row, key) of a pair that counts: exp(s - lse), with s
+// masked and clamped as every kernel scores it
+__device__ __forceinline__ float prob(const Masker& mask, float dot, int qpos,
+                                      int kpos, int qseg, float lse) {
+  bool live;
+  const float s = mask.score(dot, qpos, kpos, qseg, &live);
+  return hopper::exp2_approx((s - lse) * fwd90::kLog2e);
+}
+}  // namespace bwd90
+
+template <int D>
+__global__ void __launch_bounds__(fwd90::kThreads, 1)
+    flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          FlashParams p) {
+  using namespace hopper;
+  using bwd90::kStages;
+  using fwd90::kLog2e;
+  constexpr int kRows = bwd90::kDqRows;
+  constexpr int kPanels = D / 64;
+  constexpr int kQBytes = kRows * D * 2;   // one of Q, dO
+  constexpr int kKVBytes = kTile * D * 2;  // one of K, V in a stage
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = align1024(smem_raw);       // kPanels x [128][64]
+  uint8_t* do_s = q_s + kQBytes;            // the same
+  uint8_t* k_s = do_s + kQBytes;            // kStages x kPanels x [64][64]
+  uint8_t* v_s = k_s + kStages * kKVBytes;  // the same
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + kStages * kKVBytes);
+  uint64_t* kv_full = q_full + 1;
+  uint64_t* kv_empty = kv_full + kStages;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heavy tiles first
+  const int b = bh / p.hq;
+  const int kvh = b * p.hkv + (bh % p.hq) / (p.hq / p.hkv);
+  // live 64-key tiles of each 64-row half
+  const int n_lo = live_k_tiles(p, q0);
+  const int n_hi = q0 + kTile < p.sq ? live_k_tiles(p, q0 + kTile) : 0;
+  const int n_blocks = max(n_lo, n_hi);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&kv_empty[s], fwd90::kWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // keys of block j into its stage, by thread 0
+  const auto load_block = [&](int j) {
+    const int s = j % kStages;
+    mbar_arrive_expect_tx(&kv_full[s], 2 * kKVBytes);
+    for (int pn = 0; pn < kPanels; ++pn) {
+      const int off = s * kKVBytes + pn * kTile * 128;
+      tma_load_3d(k_s + off, &tk, &kv_full[s], pn * 64, j * kTile, kvh);
+      tma_load_3d(v_s + off, &tv, &kv_full[s], pn * 64, j * kTile, kvh);
+    }
+  };
+  if (threadIdx.x == 0 && n_blocks > 0) {
+    mbar_arrive_expect_tx(q_full, 2 * kQBytes);
+    for (int pn = 0; pn < kPanels; ++pn) {
+      tma_load_3d(q_s + pn * kRows * 128, &tq, q_full, pn * 64, q0, bh);
+      tma_load_3d(do_s + pn * kRows * 128, &tdo, q_full, pn * 64, q0, bh);
+    }
+    for (int j = 0; j < min(kStages, n_blocks); ++j) load_block(j);
+  }
+
+  const int cw = threadIdx.x / 128;  // warpgroup 0 or 1
+  const int t = threadIdx.x % 128;   // thread in the warpgroup
+  const int lane = t % 32;
+  const int row0 = q0 + cw * kTile;  // first q row of the warpgroup
+  const int ra = row0 + (t / 32) * 16 + lane / 4;  // the thread's rows
+  const int rb = ra + 8;
+  const int cq = 2 * (lane % 4);  // its first column in a chunk
+  const int n_live = cw == 0 ? n_lo : n_hi;  // key tiles its rows visit
+  const int* qseg = p.has_seg ? p.q_seg + static_cast<long long>(b) * p.sq
+                              : nullptr;
+  const int* kvseg = p.has_seg ? p.kv_seg + static_cast<long long>(b) * p.sk
+                               : nullptr;
+  const Masker mask(p, bias_of(p, bh), kvseg);
+  const int seg_a = (qseg != nullptr && ra < p.sq) ? qseg[ra] : 0;
+  const int seg_b = (qseg != nullptr && rb < p.sq) ? qseg[rb] : 0;
+  const long long r0 = static_cast<long long>(bh) * p.sq;
+  const float lse_a = ra < p.sq ? p.lse_in[r0 + ra] : 0.f;
+  const float lse_b = rb < p.sq ? p.lse_in[r0 + rb] : 0.f;
+  const float dl_a = ra < p.sq ? p.delta[r0 + ra] : 0.f;
+  const float dl_b = rb < p.sq ? p.delta[r0 + rb] : 0.f;
+  const bool short_ok = mask.bias_head == nullptr && qseg == nullptr &&
+                        row0 + kTile <= p.sq;
+  const float scale2 = mask.sm_scale * kLog2e;
+  const uint32_t q_addr = smem_u32(q_s) + cw * kTile * 128;
+  const uint32_t do_addr = smem_u32(do_s) + cw * kTile * 128;
+
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  uint32_t dsf[kTile / 16][4];  // dS of the block whose dQ += dS K is pending
+
+  // S = Q Kᵀ and dP = dO Vᵀ of the keys in stage s
+  const auto issue_s_dp = [&](float (&sc)[32], float (&dp)[32], int s) {
+    const uint32_t k_addr = smem_u32(k_s + s * kKVBytes);
+    const uint32_t v_addr = smem_u32(v_s + s * kKVBytes);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a = (kk / 4) * kRows * 128 + (kk % 4) * 32;
+      const uint32_t bo = (kk / 4) * kTile * 128 + (kk % 4) * 32;
+      wgmma_m64n64k16_ss<0>(sc, desc_k_major(q_addr + a),
+                            desc_k_major(k_addr + bo), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a = (kk / 4) * kRows * 128 + (kk % 4) * 32;
+      const uint32_t bo = (kk / 4) * kTile * 128 + (kk % 4) * 32;
+      wgmma_m64n64k16_ss<0>(dp, desc_k_major(do_addr + a),
+                            desc_k_major(v_addr + bo), kk > 0);
+    }
+    wgmma_commit();
+  };
+  // dQ += dS K with dsf and the keys in stage s
+  const auto issue_dq = [&](int s) {
+    const uint32_t k_addr = smem_u32(k_s + s * kKVBytes);
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      const uint64_t db = desc_mn_major(k_addr + kk * 16 * 128, kTile * 128);
+      if constexpr (D == 128)
+        wgmma_m64n128k16_rs<1>(dq, dsf[kk], db);
+      else
+        wgmma_m64n64k16_rs<1>(dq, dsf[kk], db);
+    }
+    wgmma_commit();
+  };
+  // once dQ += dS K is done: dq is final for it, dsf and the stage are free
+  const auto finish_dq = [&](int s) {
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_regs(dsf);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&kv_empty[s]);
+  };
+  // dS of block j, in place in sc: element i is key k0 + 8 * (i / 4) + cq +
+  // (i & 1) of row a for (i & 2) == 0, else of row b
+  const auto grad_scores = [&](float (&sc)[32], float (&dp)[32], int j) {
+    const int k0 = j * kTile;
+    bool counts = j < n_live;
+    if (qseg != nullptr) {  // the FMA kernel skips a tile of unequal ids
+      bool any = false;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int kpos = k0 + 8 * (i / 4) + cq + (i & 1);
+        const bool upper = (i & 2) == 0;
+        any |= (upper ? ra : rb) < p.sq && kpos < p.sk &&
+               kvseg[kpos] == (upper ? seg_a : seg_b);
+      }
+      counts = warpgroup_any(any, cw) && counts;
+    }
+    const bool short_path =
+        short_ok && counts && k0 + kTile <= p.sk &&
+        (!p.causal || k0 + kTile - 1 <= row0 + mask.offset);
+    if (short_path) {
+      const float la = lse_a * kLog2e, lb = lse_b * kLog2e;
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        sc[i] = exp2_approx(fmaf(sc[i], scale2, (i & 2) == 0 ? -la : -lb));
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int kpos = k0 + 8 * (i / 4) + cq + (i & 1);
+        const bool upper = (i & 2) == 0;
+        const int row = upper ? ra : rb;
+        sc[i] = counts && row < p.sq && kpos < p.sk
+                    ? bwd90::prob(mask, sc[i], row, kpos,
+                                  upper ? seg_a : seg_b,
+                                  upper ? lse_a : lse_b)
+                    : 0.f;
+      }
+    }
+    if (p.has_dropout) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int kpos = k0 + 8 * (i / 4) + cq + (i & 1);
+        const bool keep = keep_bit(bh, (i & 2) == 0 ? ra : rb, kpos, p.seed,
+                                   p.threshold);
+        dp[i] = (keep ? dp[i] : 0.f) * p.drop_scale;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      sc[i] = sc[i] * (dp[i] - ((i & 2) == 0 ? dl_a : dl_b)) * mask.sm_scale;
+  };
+  // dS into dsf in bf16: ds[i], ds[i + 1] are register (i % 8) / 2 of k16
+  // step i / 8. Only once no dQ += dS K is in flight, which reads dsf.
+  const auto pack_ds = [&](const float (&sc)[32]) {
+#pragma unroll
+    for (int i = 0; i < 32; i += 2)
+      dsf[i / 8][(i % 8) / 2] = pack_bf16(sc[i], sc[i + 1]);
+  };
+
+  if (n_blocks > 0) {
+    mbar_wait(q_full, 0);
+    {  // block 0: its S and dP alone
+      float sc[32], dp[32];
+      mbar_wait(&kv_full[0], 0);
+      wgmma_fence();
+      issue_s_dp(sc, dp, 0);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      grad_scores(sc, dp, 0);
+      pack_ds(sc);
+    }
+    for (int j = 1; j < n_blocks; ++j) {
+      const int s = j % kStages, prev = (j - 1) % kStages;
+      // the stage that block j - 2 freed takes block j + kStages - 2
+      const int next = j + kStages - 2;
+      if (threadIdx.x == 0 && next >= kStages && next < n_blocks) {
+        mbar_wait(&kv_empty[next % kStages], (next / kStages - 1) & 1);
+        load_block(next);
+      }
+      float sc[32], dp[32];
+      mbar_wait(&kv_full[s], (j / kStages) & 1);
+      wgmma_fence();
+      issue_s_dp(sc, dp, s);
+      issue_dq(prev);  // the previous block's dQ product, behind them
+      wgmma_wait<1>();
+      fence_regs(sc);
+      fence_regs(dp);
+      grad_scores(sc, dp, j);
+      finish_dq(prev);
+      pack_ds(sc);
+    }
+    wgmma_fence();
+    issue_dq((n_blocks - 1) % kStages);
+    finish_dq((n_blocks - 1) % kStages);
+  }
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out0) + r0 * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = h == 0 ? ra : rb;
+    if (row >= p.sq) continue;
+    __nv_bfloat16* orow = out + static_cast<long long>(row) * D + cq;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) =
+          __floats2bfloat162_rn(dq[4 * c + 2 * h], dq[4 * c + 2 * h + 1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(fwd90::kThreads, 1)
+    flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           FlashParams p) {
+  using namespace hopper;
+  using bwd90::kStages;
+  using fwd90::kLog2e;
+  constexpr int kKeys = bwd90::kDkvKeys;
+  constexpr int kPanels = D / 64;
+  constexpr int kKVBytes = kKeys * D * 2;  // one of K, V
+  constexpr int kQBytes = kTile * D * 2;   // one of Q, dO in a stage
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* k_s = align1024(smem_raw);       // kPanels x [128][64]
+  uint8_t* v_s = k_s + kKVBytes;            // the same
+  uint8_t* q_s = v_s + kKVBytes;            // kStages x kPanels x [64][64]
+  uint8_t* do_s = q_s + kStages * kQBytes;  // the same
+  // per warpgroup two slots of [lse of 64 rows, delta of 64 rows]
+  float* rows_s = reinterpret_cast<float*>(do_s + kStages * kQBytes);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(rows_s + 2 * 2 * 2 * kTile);
+  uint64_t* qd_full = kv_full + 1;
+  uint64_t* qd_empty = qd_full + kStages;
+
+  const int bkv = blockIdx.x;         // flat kv head
+  const int k0 = blockIdx.y * kKeys;  // key block 0 first: the most q tiles
+  const int b = bkv / p.hkv;
+  const int group = p.hq / p.hkv;
+  // the q tiles that are causally live for these keys, qt0 .. nq - 1, for
+  // each q head of the group (the FMA kernel's loop)
+  const int offset = p.sk - p.sq;
+  const int nq = (p.sq + kTile - 1) / kTile;
+  const int qt0 = p.causal ? max(0, (k0 - offset) / kTile) : 0;
+  const int n_qt = nq - qt0;
+  const int n_pairs = group * n_qt;
+  // pair pr: flat q head of (batch, kv head, pr / n_qt), the forward's bh
+  // (_qflat, :220), and first q row
+  const auto pair_bh = [&](int pr) {
+    return b * p.hq + (bkv % p.hkv) * group + pr / n_qt;
+  };
+  const auto pair_q0 = [&](int pr) { return (qt0 + pr % n_qt) * kTile; };
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&qd_full[s], 1);
+      mbar_init(&qd_empty[s], fwd90::kWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // Q and dO of pair pr into its stage, by thread 0
+  const auto load_pair = [&](int pr) {
+    const int s = pr % kStages, bh = pair_bh(pr), q0 = pair_q0(pr);
+    mbar_arrive_expect_tx(&qd_full[s], 2 * kQBytes);
+    for (int pn = 0; pn < kPanels; ++pn) {
+      const int off = s * kQBytes + pn * kTile * 128;
+      tma_load_3d(q_s + off, &tq, &qd_full[s], pn * 64, q0, bh);
+      tma_load_3d(do_s + off, &tdo, &qd_full[s], pn * 64, q0, bh);
+    }
+  };
+  if (threadIdx.x == 0 && n_pairs > 0) {
+    mbar_arrive_expect_tx(kv_full, 2 * kKVBytes);
+    for (int pn = 0; pn < kPanels; ++pn) {
+      tma_load_3d(k_s + pn * kKeys * 128, &tk, kv_full, pn * 64, k0, bkv);
+      tma_load_3d(v_s + pn * kKeys * 128, &tv, kv_full, pn * 64, k0, bkv);
+    }
+    for (int pr = 0; pr < min(kStages, n_pairs); ++pr) load_pair(pr);
+  }
+
+  const int cw = threadIdx.x / 128;  // warpgroup 0 or 1
+  const int t = threadIdx.x % 128;   // thread in the warpgroup
+  const int lane = t % 32;
+  const int kw0 = k0 + cw * kTile;  // first key of the warpgroup
+  const int ka = kw0 + (t / 32) * 16 + lane / 4;  // the thread's keys
+  const int kb = ka + 8;
+  const int cq = 2 * (lane % 4);  // its first q column in a chunk
+  const int* qseg = p.has_seg ? p.q_seg + static_cast<long long>(b) * p.sq
+                              : nullptr;
+  const int* kvseg = p.has_seg ? p.kv_seg + static_cast<long long>(b) * p.sk
+                               : nullptr;
+  const int kseg_a = (kvseg != nullptr && ka < p.sk) ? kvseg[ka] : 0;
+  const int kseg_b = (kvseg != nullptr && kb < p.sk) ? kvseg[kb] : 0;
+  const float scale2 = p.sm_scale * kLog2e;
+  const uint32_t k_addr = smem_u32(k_s) + cw * kTile * 128;
+  const uint32_t v_addr = smem_u32(v_s) + cw * kTile * 128;
+  float* slots = rows_s + cw * 2 * 2 * kTile;  // [slot][lse | delta][64]
+  // the thread's share of pair pr's rows: lse (t < 64) or delta of row
+  // t % 64
+  const auto row_value = [&](int pr) {
+    const int q = pair_q0(pr) + t % kTile;
+    if (q >= p.sq) return 0.f;
+    const long long r = static_cast<long long>(pair_bh(pr)) * p.sq + q;
+    return t < kTile ? p.lse_in[r] : p.delta[r];
+  };
+  if (n_pairs > 0) slots[t] = row_value(0);
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  if (n_pairs > 0) mbar_wait(kv_full, 0);
+  for (int pr = 0; pr < n_pairs; ++pr) {
+    const int s = pr % kStages;
+    // the stage that pair pr - 2 freed takes pair pr + kStages - 2
+    const int next = pr + kStages - 2;
+    if (threadIdx.x == 0 && next >= kStages && next < n_pairs) {
+      mbar_wait(&qd_empty[next % kStages], (next / kStages - 1) & 1);
+      load_pair(next);
+    }
+    const float ahead = pr + 1 < n_pairs ? row_value(pr + 1) : 0.f;
+    warpgroup_sync(cw);  // every thread's row value of pair pr is staged
+    const float* lse = slots + (pr % 2) * 2 * kTile;
+    const float* delta = lse + kTile;
+    const int bh = pair_bh(pr), q0 = pair_q0(pr);
+    const uint32_t q_addr = smem_u32(q_s + s * kQBytes);
+    const uint32_t do_addr = smem_u32(do_s + s * kQBytes);
+
+    // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ: element i is q row q0 + 8 * (i / 4) + cq +
+    // (i & 1) against key a for (i & 2) == 0, else key b
+    float st[32], dpt[32];
+    mbar_wait(&qd_full[s], (pr / kStages) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a = (kk / 4) * kKeys * 128 + (kk % 4) * 32;
+      const uint32_t bo = (kk / 4) * kTile * 128 + (kk % 4) * 32;
+      wgmma_m64n64k16_ss<0>(st, desc_k_major(k_addr + a),
+                            desc_k_major(q_addr + bo), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t a = (kk / 4) * kKeys * 128 + (kk % 4) * 32;
+      const uint32_t bo = (kk / 4) * kTile * 128 + (kk % 4) * 32;
+      wgmma_m64n64k16_ss<0>(dpt, desc_k_major(v_addr + a),
+                            desc_k_major(do_addr + bo), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // does the pair (this q tile, the warpgroup's key tile) count?
+    bool counts = !p.causal || live_k_tiles(p, q0) > kw0 / kTile;
+    if (qseg != nullptr) {
+      bool any = false;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int qpos = q0 + 8 * (i / 2) + cq + (i & 1);
+        if (qpos < p.sq) {
+          const int qs = qseg[qpos];
+          any |= (ka < p.sk && qs == kseg_a) || (kb < p.sk && qs == kseg_b);
+        }
+      }
+      counts = warpgroup_any(any, cw) && counts;
+    }
+    const Masker mask(p, bias_of(p, bh), kvseg);
+    const bool short_path =
+        mask.bias_head == nullptr && qseg == nullptr && counts &&
+        q0 + kTile <= p.sq && kw0 + kTile <= p.sk &&
+        (!p.causal || kw0 + kTile - 1 <= q0 + offset);
+    // pᵀ in place in st
+    if (short_path) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = 8 * (i / 4) + cq + (i & 1);
+        st[i] = exp2_approx(fmaf(st[i], scale2, -lse[c] * kLog2e));
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = 8 * (i / 4) + cq + (i & 1);
+        const int qpos = q0 + c;
+        const int kpos = (i & 2) == 0 ? ka : kb;
+        float pv = 0.f;
+        if (counts && qpos < p.sq && kpos < p.sk)
+          pv = bwd90::prob(mask, st[i], qpos, kpos,
+                           qseg != nullptr ? qseg[qpos] : 0, lse[c]);
+        st[i] = pv;
+      }
+    }
+    uint32_t keep = 0xffffffffu;  // bit i: the dropout keep bit of element i
+    if (p.has_dropout) {
+      keep = 0;
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        keep |= static_cast<uint32_t>(keep_bit(
+                    bh, q0 + 8 * (i / 4) + cq + (i & 1),
+                    (i & 2) == 0 ? ka : kb, p.seed, p.threshold))
+                << i;
+    }
+    const float dsc = p.has_dropout ? p.drop_scale : 1.f;
+    // dSᵀ in place in dpt, from p and the dropped dP
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = 8 * (i / 4) + cq + (i & 1);
+      const float d = ((keep >> i) & 1u) ? dpt[i] * dsc : 0.f;
+      dpt[i] = st[i] * (d - delta[c]) * p.sm_scale;
+    }
+    // dV += p_dropᵀ dO, then dK += dSᵀ Q (dO and Q as MN-major B)
+    uint32_t pf[kTile / 16][4], dsf[kTile / 16][4];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const float p0 = ((keep >> i) & 1u) ? st[i] * dsc : 0.f;
+      const float p1 = ((keep >> (i + 1)) & 1u) ? st[i + 1] * dsc : 0.f;
+      pf[i / 8][(i % 8) / 2] = pack_bf16(p0, p1);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      const uint64_t db = desc_mn_major(do_addr + kk * 16 * 128, kTile * 128);
+      if constexpr (D == 128)
+        wgmma_m64n128k16_rs<1>(dv, pf[kk], db);
+      else
+        wgmma_m64n64k16_rs<1>(dv, pf[kk], db);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int i = 0; i < 32; i += 2)
+      dsf[i / 8][(i % 8) / 2] = pack_bf16(dpt[i], dpt[i + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      const uint64_t db = desc_mn_major(q_addr + kk * 16 * 128, kTile * 128);
+      if constexpr (D == 128)
+        wgmma_m64n128k16_rs<1>(dk, dsf[kk], db);
+      else
+        wgmma_m64n64k16_rs<1>(dk, dsf[kk], db);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dk);
+    fence_regs(dv);
+    fence_regs(pf);
+    fence_regs(dsf);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&qd_empty[s]);
+    slots[((pr + 1) % 2) * 2 * kTile + t] = ahead;
+  }
+
+  const long long koff = static_cast<long long>(bkv) * p.sk * D;
+  __nv_bfloat16* dk_out = static_cast<__nv_bfloat16*>(p.out0) + koff;
+  __nv_bfloat16* dv_out = static_cast<__nv_bfloat16*>(p.out1) + koff;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = h == 0 ? ka : kb;
+    if (key >= p.sk) continue;
+    const long long e0 = static_cast<long long>(key) * D + cq;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      *reinterpret_cast<__nv_bfloat162*>(dk_out + e0 + 8 * c) =
+          __floats2bfloat162_rn(dk[4 * c + 2 * h], dk[4 * c + 2 * h + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv_out + e0 + 8 * c) =
+          __floats2bfloat162_rn(dv[4 * c + 2 * h], dv[4 * c + 2 * h + 1]);
+    }
+  }
+}
+
+// K2 (which 1) or K3 (which 2) in bf16 on the tensor cores
+template <int D>
+cudaError_t run_bwd_wgmma(int which, const FlashParams& p,
+                          cudaStream_t stream) {
+  const bool dq = which == 1;
+  if (!aligned16({p.q, p.k, p.v, p.dout, p.out0, dq ? p.out0 : p.out1}))
+    return cudaErrorMisalignedAddress;
+  const int q_box = dq ? bwd90::kDqRows : kTile;
+  const int k_box = dq ? kTile : bwd90::kDkvKeys;
+  CUtensorMap tq, tdo, tk, tv;
+  cudaError_t e = head_map<D>(&tq, p.q, p.sq, p.bhq, q_box);
+  if (e == cudaSuccess) e = head_map<D>(&tdo, p.dout, p.sq, p.bhq, q_box);
+  if (e == cudaSuccess) e = head_map<D>(&tk, p.k, p.sk, p.bhkv, k_box);
+  if (e == cudaSuccess) e = head_map<D>(&tv, p.v, p.sk, p.bhkv, k_box);
+  if (e != cudaSuccess) return e;
+  if (dq) {
+    const size_t smem = bwd90::dq_smem_bytes<D>();
+    e = cudaFuncSetAttribute(flash_dq_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    const unsigned nq = (p.sq + bwd90::kDqRows - 1) / bwd90::kDqRows;
+    flash_dq_wgmma_kernel<D><<<dim3(p.bhq, nq), fwd90::kThreads, smem,
+                               stream>>>(tq, tdo, tk, tv, p);
+  } else {
+    const size_t smem = bwd90::dkv_smem_bytes<D>();
+    e = cudaFuncSetAttribute(flash_dkv_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    const unsigned nk = (p.sk + bwd90::kDkvKeys - 1) / bwd90::kDkvKeys;
+    flash_dkv_wgmma_kernel<D><<<dim3(p.bhkv, nk), fwd90::kThreads, smem,
+                                stream>>>(tq, tdo, tk, tv, p);
+  }
+  return cudaGetLastError();
+}
+
 template <int D>
 constexpr size_t fwd_smem() {
   return sizeof(float) * (2 * kTile * (D + kPad) + D * kTile + kTile * kLP);
@@ -1036,22 +1661,23 @@ cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, const FlashParams& p,
 
 template <typename T, int D>
 cudaError_t run(int which, const FlashParams& p, cudaStream_t stream) {
-  const unsigned nq = (p.sq + kTile - 1) / kTile;
-  const unsigned nk = (p.sk + kTile - 1) / kTile;
-  if (which == 0) {
-    // bf16 on the tensor cores; f32 stays on the FMA kernel, since TF32
-    // would miss the f32 tolerances
-    if constexpr (std::is_same<T, __nv_bfloat16>::value)
-      return run_fwd_wgmma<D>(p, stream);
-    else
+  // bf16 on the tensor cores; f32 stays on the FMA kernels, since TF32
+  // would miss the f32 tolerances
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return which == 0 ? run_fwd_wgmma<D>(p, stream)
+                      : run_bwd_wgmma<D>(which, p, stream);
+  } else {
+    const unsigned nq = (p.sq + kTile - 1) / kTile;
+    const unsigned nk = (p.sk + kTile - 1) / kTile;
+    if (which == 0)
       return launch(flash_fwd_kernel<T, D>, fwd_smem<D>(), dim3(p.bhq, nq), p,
                     stream);
-  }
-  if (which == 1)
-    return launch(flash_dq_kernel<T, D>, dq_smem<D>(), dim3(p.bhq, nq), p,
+    if (which == 1)
+      return launch(flash_dq_kernel<T, D>, dq_smem<D>(), dim3(p.bhq, nq), p,
+                    stream);
+    return launch(flash_dkv_kernel<T, D>, dkv_smem<D>(), dim3(p.bhkv, nk), p,
                   stream);
-  return launch(flash_dkv_kernel<T, D>, dkv_smem<D>(), dim3(p.bhkv, nk), p,
-                stream);
+  }
 }
 
 int dispatch(int which, const FlashParams* p, void* stream) {

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
-// K1's bf16 forward (flash_attention.cu) and K5's bf16 grouped product
-// (grouped_matmul.cu). mbarriers, TMA tile loads, wgmma shared-memory
-// descriptors and products, and the host-side encoding of TMA tensor maps.
+// the bf16 flash-attention kernels K1-K3 (flash_attention.cu) and K5's bf16
+// grouped product (grouped_matmul.cu). mbarriers, TMA tile loads, wgmma
+// shared-memory descriptors and products, warpgroup barriers, and the
+// host-side encoding of TMA tensor maps.
 //
 // Shared-memory tiles are bf16 in the 128-byte swizzle that TMA writes
 // (CU_TENSOR_MAP_SWIZZLE_128B): a tile is cut into panels of 64 columns,
@@ -18,7 +19,15 @@
 // an expert's [M, H] matrix) is 64-wide panels `panel_bytes` apart, with
 // groups of 8 contraction rows 1024 bytes apart. A k16 step advances a
 // K-major descriptor by 32 bytes inside the 128-byte row and an MN-major
-// one by 16 rows (2048 bytes).
+// one by 16 rows (2048 bytes). One swizzled tile serves both ways: the
+// backward kernels read a Q, dO or K tile K-major in one product and
+// MN-major in another.
+//
+// Products: m64n128k16 and m64n64k16, each with A from shared memory
+// (`_ss`) or from registers (`_rs`, the m16n8k16 A-fragment layout, into
+// which an f32 accumulator packs two values a register). Warpgroup
+// barriers (`warpgroup_sync`, `warpgroup_any`) are named barriers 1 and 2
+// of 128 threads, so one warpgroup waits on its own threads only.
 #pragma once
 
 #include <cuda.h>
@@ -219,6 +228,29 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
 }
 
 template <int TransB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
+}
+
+template <int TransB>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
                                                  const uint32_t (&a)[4],
                                                  uint64_t db) {
@@ -278,6 +310,28 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
         "n"(TransB));
+}
+
+// ------------------------------ warpgroup barriers --------------------------
+// Named barrier 1 + wg (0 is __syncthreads'), over the 128 threads of
+// warpgroup wg. The non-aligned form: threads of a warp may arrive apart,
+// as after thread 0's TMA issue.
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("barrier.sync %0, 128;" ::"r"(1 + wg) : "memory");
+}
+
+// whether any thread of warpgroup wg passes true (all 128 must call it)
+__device__ __forceinline__ bool warpgroup_any(bool v, int wg) {
+  uint32_t r;
+  asm volatile(
+      "{\n.reg .pred p, q;\n"
+      "setp.ne.u32 q, %1, 0;\n"
+      "barrier.red.or.pred p, %2, 128, q;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(r)
+      : "r"(static_cast<uint32_t>(v)), "r"(1 + wg)
+      : "memory");
+  return r != 0;
 }
 
 // ---------------------------------- helpers ---------------------------------

@@ -15,9 +15,9 @@ bias, and post-softmax dropout from a position hash (:func:`dropout_keep`)
 that the forward and both backward kernels evaluate alike. Their bound on
 the H100 is operations: at the training shape (B=4, S=2048, Hq=16,
 Hkv=4, hd=128, causal, bf16) K1 does 68.7 GFLOP (0.069 ms at 989
-TFLOP/s), K2 103 GFLOP (0.104 ms) and K3 137 GFLOP (0.139 ms). K1 in
-bf16 runs on the tensor cores (wgmma, tiles by TMA), so its q, k and v
-must start on a 16-byte boundary; K1 in f32, K2 and K3 run FMA loops.
+TFLOP/s), K2 103 GFLOP (0.104 ms) and K3 137 GFLOP (0.139 ms). In bf16
+all three run on the tensor cores (wgmma, tiles by TMA), so their q, k,
+v and do must start on a 16-byte boundary; in f32 they run FMA loops.
 The source's header says why, and ``PERF.md`` holds their times.
 
 Each of :func:`flash_attention_fwd`, :func:`flash_attention_dq` and
@@ -294,6 +294,16 @@ def _check_cuda(g: FlashGeometry, **tensors):
                              f"{q.device}")
 
 
+def _check_tma_base(kernel: str, **tensors):
+    """The bf16 kernels load their operands by TMA, which reads from
+    16-byte aligned bases only: raise on any other (nothing is copied)."""
+    for name, t in tensors.items():
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(
+                f"the bf16 {kernel} kernel loads {name} by TMA, which needs "
+                f"a 16-byte aligned base, not {t.data_ptr():#x}")
+
+
 def _params(q_like, k_like, g: FlashGeometry, **ptrs) -> _Params:
     """The kernels' ``Params`` for q of ``q_like``'s shape and dtype and
     k/v of ``k_like``'s shape; ``ptrs`` name the data pointers."""
@@ -342,12 +352,7 @@ def flash_attention_fwd(q, k, v, g: FlashGeometry):
         with torch.no_grad():
             return _forward_plain(q, k, v, g)
     _check_cuda(g, q=q, k=k, v=v)
-    if q.dtype == torch.bfloat16:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
-                raise ValueError(
-                    f"the bf16 forward kernel loads {name} by TMA, which "
-                    f"needs a 16-byte aligned base, not {t.data_ptr():#x}")
+    _check_tma_base("forward", q=q, k=k, v=v)
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     _launch("flash_fwd_launch", q, _params(
@@ -364,6 +369,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, g: FlashGeometry):
     if _device(q) == "cpu":
         return _dq_plain(q, k, v, do, lse, delta, g)
     _check_cuda(g, q=q, k=k, v=v, do=do, lse=lse, delta=delta)
+    _check_tma_base("dq", q=q, k=k, v=v, do=do)
     dq = torch.empty_like(q)
     _launch("flash_dq_launch", q, _params(
         q, k, g, q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
@@ -379,6 +385,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, g: FlashGeometry):
     if _device(q) == "cpu":
         return _dkv_plain(q, k, v, do, lse, delta, g)
     _check_cuda(g, q=q, k=k, v=v, do=do, lse=lse, delta=delta)
+    _check_tma_base("dk/dv", q=q, k=k, v=v, do=do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _launch("flash_dkv_launch", q, _params(

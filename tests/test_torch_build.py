@@ -57,3 +57,34 @@ def test_the_package_ships_its_sources_and_shared_header():
     assert _build.sources() == ["flash_attention", "grouped_matmul",
                                 "ragged_paged_attention"]
     assert (_build._SRC_DIR / "hopper.cuh").is_file()
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("mangled,instance", [
+    ("_ZN51_GLOBAL__N__a0edee5c_18_flash_attention_cu_5326155221"
+     "flash_dq_wgmma_kernelILi128EEEv14CUtensorMap_stS0_S0_S0_11FlashParams",
+     "flash_dq_wgmma_kernelILi128E"),
+    ("_ZN51_GLOBAL__N__a0edee5c_18_flash_attention_cu_5326155216"
+     "flash_dkv_kernelIfLi64EEEv11FlashParams", "flash_dkv_kernelIfLi64E")])
+def test_build_log_names_each_kernel_instance(mangled, instance):
+    """``chip_smoke.py``'s phase 2 reads nvcc's ``-Xptxas -v`` output into
+    registers and spills per kernel, and names each by its instance: the
+    hd-64 and hd-128 kernels of one template must stay apart."""
+    smoke = _chip_smoke()
+    log = (f"ptxas info    : Compiling entry function '{mangled}' for "
+           f"'sm_90a'\nptxas info    : Function properties for {mangled}\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\nptxas info    : Used 217 registers, used 1 barriers\n")
+    usage = smoke.ptxas_usage(log)
+    assert list(usage) == [mangled]
+    assert usage[mangled].startswith("217 registers; 0 bytes stack frame")
+    assert smoke.kernel_instance(mangled) == instance

@@ -289,6 +289,94 @@ def test_flash_fwd_bf16_refuses_a_misaligned_base(cuda_device):
     assert fa.launches_fwd == before
 
 
+BWD_CASES = ["masked_row", "segments_dead_rows", "offset_causal_64x1000",
+             "ragged_333", "gqa_8"]
+
+
+def _bwd_case(name, rng, hd, device):
+    """bf16 q/k/v ``[B*H, S, D]`` and the geometry of one case of the
+    backward's visited-key test (all causal)."""
+    B, hq, hkv, sq, sk = 2, 8, 2, 200, 200
+    bias = qs = ks = None
+    if name == "masked_row":  # test_flash_fwd_row_with_every_score_masked
+        B, hq, hkv, sq, sk = 1, 4, 2, 200, 264
+        bias = torch.zeros(1, 1, sq, sk, device=device)
+        bias[0, 0, 100] = float("-inf")
+    elif name == "segments_dead_rows":
+        qs = torch.tensor([[1] * 120 + [7] * 80] * B, device=device)
+        ks = torch.tensor([[1] * 70 + [2] * 130] * B, device=device)
+    elif name == "offset_causal_64x1000":
+        sq, sk = 64, 1000
+    elif name == "ragged_333":
+        sq = sk = 333
+    elif name == "gqa_8":
+        hkv = hq // 8
+    qkv = [torch.from_numpy(rng.randn(B, h, s, hd)).to(device, torch.bfloat16)
+           for h, s in ((hq, sq), (hkv, sk), (hkv, sk))]
+    q, k, v, g, _ = fa._geometry(*qkv, True, None, bias, qs, ks, 0.0, None)
+    return q, k, v, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("name", BWD_CASES)
+def test_flash_bwd_bf16_matches_the_f32_fma_kernels(cuda_device, hd, name):
+    """The bf16 dq and dk/dv kernels (tensor cores) against the f32 FMA
+    kernels on the same values cast to f32, with the same lse and delta.
+    The plain versions cannot pin which keys the kernels visit: a row whose
+    every visible score is masked (``masked_row``, lse = the mask value)
+    gets p = 1 on every in-range key of the (64-row, 64-key) tile pairs
+    the FMA kernels visit and p = 0 elsewhere, and the bf16 kernels must
+    visit exactly those pairs. Rows with no live key keep exactly 0 dq.
+    Errors are relative to the largest magnitude of the f32 result; both
+    sides round to bf16 at other places (ds, p_drop, the outputs)."""
+    rng = np.random.RandomState(BWD_CASES.index(name) + 10 * hd)
+    q, k, v, g = _bwd_case(name, rng, hd, cuda_device)
+    do = torch.from_numpy(rng.randn(*q.shape)).to(cuda_device, torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, k, v, g)
+    delta = (do.float() * o.float()).sum(-1)
+    counts = (fa.launches_dq, fa.launches_dkv)
+    dq = fa.flash_attention_dq(q, k, v, do, lse, delta, g)
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, g)
+    f32 = [t.float() for t in (q, k, v, do)]
+    rdq = fa.flash_attention_dq(*f32, lse, delta, g)
+    rdk, rdv = fa.flash_attention_dkv(*f32, lse, delta, g)
+    torch.cuda.synchronize()
+    assert (fa.launches_dq, fa.launches_dkv) == (counts[0] + 2,
+                                                 counts[1] + 2)
+    for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert bool(torch.isfinite(got).all())
+        assert _rel_err(got, want) <= 2e-2
+    if name == "masked_row":  # the row alone, and every other row alone
+        keep = torch.arange(q.shape[1], device=cuda_device) != 100
+        assert bool((lse[:, 100] < -1e38).all())
+        assert _rel_err(dq[:, 100], rdq[:, 100]) <= 2e-2
+        assert _rel_err(dq[:, keep], rdq[:, keep]) <= 2e-2
+    if name == "segments_dead_rows":  # exact zeros, not small numbers
+        dead = g.q_seg[0] == 7
+        assert bool((dq[:, dead] == 0).all())
+
+
+@pytest.mark.cuda
+def test_flash_bwd_bf16_refuses_a_misaligned_base(cuda_device):
+    """The bf16 dq and dk/dv kernels load q, k, v and do by TMA: a do that
+    starts one element into its storage is refused, not copied or sent
+    elsewhere, and no launch is counted."""
+    shape = (2, 64, 64)
+    buf = torch.zeros(2 * 64 * 64 + 8, device=cuda_device,
+                      dtype=torch.bfloat16)
+    do = buf[1:1 + 2 * 64 * 64].view(shape)
+    q = torch.zeros(shape, device=cuda_device, dtype=torch.bfloat16)
+    lse = torch.zeros(2, 64, device=cuda_device)
+    g = fa.FlashGeometry(hq=1, hkv=1, causal=False, sm_scale=0.125)
+    before = (fa.launches_dq, fa.launches_dkv)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_dq(q, q, q, do, lse, lse, g)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention_dkv(q, q, q, do, lse, lse, g)
+    assert (fa.launches_dq, fa.launches_dkv) == before
+
+
 # ------------------------------ grouped matmul ------------------------------
 # kernel vs plain: max |err| over the largest |plain| value, by the dtype of
 # the result: f32 sums in another order; bf16 results are rounded once on
