@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
-// the bf16 flash-attention kernels K1-K3 (flash_attention.cu) and K5's bf16
-// grouped product (grouped_matmul.cu). mbarriers, TMA tile loads, wgmma
-// shared-memory descriptors and products, warpgroup barriers, and the
-// host-side encoding of TMA tensor maps.
+// the bf16 flash-attention kernels K1-K3 (flash_attention.cu) and the
+// grouped products K5, K6 and K7 (grouped_matmul.cu). mbarriers, TMA tile
+// loads, wgmma shared-memory descriptors and products, warpgroup barriers,
+// and the host-side encoding of TMA tensor maps.
 //
 // Shared-memory tiles are bf16 in the 128-byte swizzle that TMA writes
 // (CU_TENSOR_MAP_SWIZZLE_128B): a tile is cut into panels of 64 columns,
@@ -189,10 +189,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // D[64 x N] (+)= A[64 x 16] B[16 x N] in f32, bf16 operands. `_ss`: A and
 // B from shared memory (scale_d = 0 overwrites D); `_rs`: A from registers
 // in the m16n8k16 A-fragment layout of each warp's 16 rows, accumulating.
-// TransB = 1 for an MN-major B. The accumulator layout: for each 8-column
+// TransB = 1 for an MN-major B; TransA = 1 (m64n128k16_ss) for an MN-major
+// A, described as an MN-major B is. The accumulator layout: for each 8-column
 // chunk c, d[4c + e] sits at row 16 * warp + lane / 4 + 8 * (e / 2) and
 // column 8c + 2 * (lane % 4) + e % 2.
-template <int TransB>
+template <int TransB, int TransA = 0>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
                                                   uint64_t db, int scale_d) {
   asm volatile(
@@ -207,7 +208,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -224,7 +225,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TransB));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TransB), "n"(TransA));
 }
 
 template <int TransB>
@@ -369,19 +370,21 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map of a bf16 tensor of `rank` dimensions, innermost first
-// (dims[0] contiguous), byte strides of dimensions 1.., boxes of box[]
-// elements (box[0] = 64: one 128-byte swizzled panel row).
-inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
-                            const cuuint64_t* dims, const cuuint64_t* strides,
-                            const cuuint32_t* box) {
+// A tensor map of a tensor of `rank` dimensions, innermost first (dims[0]
+// contiguous), byte strides of dimensions 1.., boxes of box[] elements.
+// By default bf16 in the 128-byte swizzle (box[0] = 64: one swizzled
+// panel row); K6 lands f32 tiles unswizzled, row-major.
+inline cudaError_t make_map(
+    CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+    const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint32_t one[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                        static_cast<cuuint32_t>(rank), const_cast<void*>(base),
-                        dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUresult r = fn(map, dtype, static_cast<cuuint32_t>(rank),
+                        const_cast<void*>(base), dims, strides, box, one,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

@@ -16,11 +16,14 @@ every expert. The kernels: ``csrc/grouped_matmul.cu``, CUDA C++ for
   aligned layout; an expert with no block is left unwritten and
   :func:`gmm_aligned`'s backward replaces it with 0 by ``where``.
 
-K5 with bf16 lhs and rhs runs on the bf16 tensor cores (wgmma, operands
-by TMA, or through registers where TMA cannot describe one: see
+K5 and K7 with bf16 lhs and rhs run on the bf16 tensor cores (wgmma,
+operands by TMA, or through registers where TMA cannot describe one: see
 :func:`_gmm_loaders`) over row tiles that never straddle a group
-(:func:`_gmm_tiles`); every f32 instance keeps the FMA kernels, whose
-f32 tolerances the tensor cores' TF32 would miss.
+(:func:`_gmm_tiles`; K7's groups are the runs of its block experts,
+:func:`_aligned_offsets`). K6, always f32, runs on the bf16 tensor cores
+too, each f32 value split into three bf16 values, to f32 accuracy. The
+f32 instances of K5 and K7 and all of K8 keep the FMA kernels: the
+tensor cores' TF32 would miss the f32 tolerances.
 
 Each kernel wrapper launches its kernel for CUDA tensors, or raises; for
 CPU tensors it computes its plain PyTorch version, which loops over the
@@ -55,7 +58,7 @@ _DTYPE_CODE = {_F32: 0, _BF16: 1}
 # the (lhs, rhs) dtype pairs each kernel takes: those the reference's
 # forward and backward passes give it
 _GMM_MIXES = ((_F32, _F32), (_BF16, _BF16), (_F32, _BF16))
-_TILE_ROWS = 128  # rows of a K5 tile in the bf16 kernel
+_TILE_ROWS = 128  # rows of a tile in the bf16 kernel of K5 and K7
 _TGMM_MIXES = ((_F32, _F32),)
 _TGMM_ALIGNED_MIXES = ((_F32, _F32), (_BF16, _BF16))
 
@@ -268,7 +271,8 @@ def _gmm_tiles_plain(offsets_ext, rows):
 
 
 def _gmm_tiles(offsets_ext, rows):
-    """K5's tile list, int32 ``[ceil(rows / 128) + E, 3]``: each group of
+    """The bf16 kernel's tile list, int32 ``[ceil(rows / 128) + E, 3]``
+    (K5's groups, or K7's from :func:`_aligned_offsets`): each group of
     ``offsets_ext`` (the E experts, then the sentinel group of rows past
     ``sum(group_sizes)``) cut into tiles of 128 rows from its first row,
     the last one partial, as (first row, past last row, group); unused
@@ -284,14 +288,36 @@ def _gmm_tiles(offsets_ext, rows):
     return tiles
 
 
+# how the bf16 kernel brings rhs in: the source's gmm90::Load codes
+_RHS_LOAD = {"registers": 0, "tma": 1, "tma_k_major": 2}
+
+
 def _gmm_loaders(lhs, rhs):
-    """How K5's bf16 kernel brings each operand in: ``"tma"`` where TMA
-    can describe it (16-byte aligned base and row pitch; rhs contiguous),
-    else ``"registers"``. Returns (lhs's, rhs's)."""
+    """How the bf16 kernel of K5 and K7 brings each operand in: ``"tma"``
+    where TMA can describe it (16-byte aligned base and row pitch; rhs
+    contiguous), ``"tma_k_major"`` for rhs the transposed view
+    ``[E, K, N]`` of a contiguous ``[E, N, K]`` (gmm_aligned's backward
+    passes ``rhsᵀ``), else ``"registers"``. Returns (lhs's, rhs's)."""
+    aligned = rhs.data_ptr() % 16 == 0
+    _, K, N = rhs.shape
     tma_lhs = lhs.data_ptr() % 16 == 0 and lhs.shape[1] % 8 == 0
-    tma_rhs = rhs.data_ptr() % 16 == 0 and rhs.shape[2] % 8 == 0 and \
-        rhs.is_contiguous()
-    return tuple("tma" if ok else "registers" for ok in (tma_lhs, tma_rhs))
+    if aligned and N % 8 == 0 and rhs.is_contiguous():
+        rhs_load = "tma"
+    elif aligned and K % 8 == 0 and rhs.stride() == (K * N, 1, K):
+        rhs_load = "tma_k_major"
+    else:
+        rhs_load = "registers"
+    return "tma" if tma_lhs else "registers", rhs_load
+
+
+def _set_wgmma(params, lhs, rhs, offsets_ext):
+    """Fill the bf16 kernel's fields: the tile list of ``offsets_ext``
+    (held by ``params`` until the launch) and each operand's loader."""
+    params.tile_list = _gmm_tiles(offsets_ext, lhs.shape[0])
+    params.tiles = params.tile_list.data_ptr()
+    params.max_tiles = params.tile_list.shape[0]
+    tma_lhs, rhs_load = _gmm_loaders(lhs, rhs)
+    params.tma_lhs, params.tma_rhs = int(tma_lhs == "tma"), _RHS_LOAD[rhs_load]
 
 
 def _gmm_fwd(lhs, rhs, offsets_ext):
@@ -308,18 +334,25 @@ def _gmm_fwd(lhs, rhs, offsets_ext):
     params = _params(lhs, rhs, out, rhs.shape[0], 1,
                      offsets=offsets_ext.data_ptr())
     if lhs.dtype == _BF16:  # the tensor-core kernel walks the tile list
-        tiles = _gmm_tiles(offsets_ext, lhs.shape[0])
-        loaders = _gmm_loaders(lhs, rhs)
-        params.tiles, params.max_tiles = tiles.data_ptr(), tiles.shape[0]
-        params.tma_lhs, params.tma_rhs = (int(x == "tma") for x in loaders)
+        _set_wgmma(params, lhs, rhs, offsets_ext)
     _launch("gmm_launch", lhs, ctypes.byref(params))
     launches_gmm += 1
     return out
 
 
+def _tgmm_loader(lhs, g):
+    """How K6's kernel brings its f32 operands in: ``"tma"`` where TMA can
+    describe both (16-byte aligned bases and row pitches, some rows), else
+    ``"cp.async"`` (4- or 8-byte copies, any pitch)."""
+    ok = lhs.shape[0] > 0 and all(
+        t.data_ptr() % 16 == 0 and t.shape[1] % 4 == 0 for t in (lhs, g))
+    return "tma" if ok else "cp.async"
+
+
 def _tgmm_fwd(lhs, g, offsets_ext, n_groups):
     """K6: ``out[e] = lhs[rows_e]ᵀ @ g[rows_e]``, f32 ``[E, M, H]``; an
-    empty expert is 0."""
+    empty expert is 0. On the card each f32 value is split into three
+    bf16 values and six of the nine products run on the tensor cores."""
     global launches_tgmm
     _check_shapes(lhs, g, offsets_ext, n_groups + 2)
     if _device(lhs, g, offsets_ext) == "cpu":
@@ -328,14 +361,29 @@ def _tgmm_fwd(lhs, g, offsets_ext, n_groups):
     out = torch.empty(n_groups, lhs.shape[1], g.shape[1], dtype=_F32,
                       device=lhs.device)
     _launch("tgmm_launch", lhs, ctypes.byref(_params(
-        lhs, g, out, n_groups, 1, offsets=offsets_ext.data_ptr())))
+        lhs, g, out, n_groups, 1, offsets=offsets_ext.data_ptr(),
+        tma_lhs=int(_tgmm_loader(lhs, g) == "tma"))))
     launches_tgmm += 1
     return out
 
 
+def _aligned_offsets(block_experts, n_groups, bm):
+    """The groups of K7's bf16 kernel, int32 ``[E + 2]`` as
+    :func:`_offsets_ext`: expert e's rows are ``[bm · its first block,
+    bm · past its last block)`` of the non-decreasing ``block_experts``
+    (clamped to ``[0, E − 1]``, as the FMA kernel reads them), so the
+    trailing blocks clamped to E − 1 are E − 1's rows and the sentinel
+    group is empty. On the tensor's device, with no host sync."""
+    be = block_experts.clamp(0, n_groups - 1)
+    experts = torch.arange(n_groups + 1, dtype=torch.int32, device=be.device)
+    offs = torch.searchsorted(be, experts, out_int32=True) * bm
+    return torch.cat([offs, offs[-1:]])
+
+
 def _gmm_aligned_fwd(lhs, rhs, block_experts, bm):
     """K7: block ``b`` of ``bm`` rows times ``rhs[block_experts[b]]``,
-    ``[R, H]`` in lhs's dtype."""
+    ``[R, H]`` in lhs's dtype. ``rhs`` may be a strided view
+    (gmm_aligned's backward passes ``rhsᵀ``)."""
     global launches_gmm_aligned
     _check_shapes(lhs, rhs, block_experts, lhs.shape[0] // bm)
     if _device(lhs, rhs, block_experts) == "cpu":
@@ -343,9 +391,12 @@ def _gmm_aligned_fwd(lhs, rhs, block_experts, bm):
     _check_cuda("gmm_aligned", lhs, rhs, block_experts, _GMM_MIXES, False)
     out = torch.empty(lhs.shape[0], rhs.shape[2], dtype=lhs.dtype,
                       device=lhs.device)
-    _launch("gmm_aligned_launch", lhs, ctypes.byref(_params(
-        lhs, rhs, out, rhs.shape[0], bm,
-        block_experts=block_experts.data_ptr())))
+    params = _params(lhs, rhs, out, rhs.shape[0], bm,
+                     block_experts=block_experts.data_ptr())
+    if lhs.dtype == _BF16:  # K5's tensor-core kernel over the block runs
+        _set_wgmma(params, lhs, rhs,
+                   _aligned_offsets(block_experts, rhs.shape[0], bm))
+    _launch("gmm_aligned_launch", lhs, ctypes.byref(params))
     launches_gmm_aligned += 1
     return out
 

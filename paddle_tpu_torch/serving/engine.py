@@ -174,6 +174,13 @@ class ServingEngine:
         prompt_tokens = list(prompt_tokens)
         if not prompt_tokens:
             raise ValueError("empty prompt")
+        # an id outside the vocabulary would reach the embedding lookup,
+        # whose device-side assert on the card ends every request
+        vocab = self.model.cfg.vocab_size
+        bad = [t for t in prompt_tokens if not 0 <= t < vocab]
+        if bad:
+            raise ValueError(f"prompt ids must lie in [0, {vocab}), got "
+                             f"{bad[:4]}")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         total = len(prompt_tokens) + max_new_tokens

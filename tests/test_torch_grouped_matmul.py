@@ -235,3 +235,147 @@ def test_gmm_tile_list_covers_every_row_once(name):
         assert edges[g] <= r0 and r1 <= edges[g + 1]
         hits[r0:r1] += 1
     assert (hits == 1).all()
+
+
+# ------------------------ K7's tile list on the card ------------------------
+# group sizes in blocks of bm; two trailing blocks past the groups hold data
+# and clamp to expert E-1, as _block_experts gives them
+ALIGNED_BLOCKS = {"mixed": [2, 0, 3, 1], "one_hot": [0, 0, 5, 0],
+                  "all_one": [1, 1, 1, 1]}
+
+
+@pytest.mark.parametrize("bm", [32, 64, 128, 256])
+@pytest.mark.parametrize("name", sorted(ALIGNED_BLOCKS))
+def test_aligned_tile_list_follows_the_block_runs(name, bm):
+    """K7's bf16 kernel walks the tile list of ``_aligned_offsets``: every
+    row (the trailing rows too) lies in exactly one tile, a tile never
+    crosses a run of equal block experts and multiplies by that run's
+    expert, and the sentinel group is empty. Multiplying each tile's rows
+    by its expert's matrix gives the reference's ``gmm_aligned`` forward
+    and the port's plain version."""
+    sizes = [n * bm for n in ALIGNED_BLOCKS[name]]
+    rows = sum(sizes) + 2 * bm
+    gs = torch.tensor(sizes, dtype=torch.int32)
+    be = tgm._block_experts(gs, rows // bm, E, bm)
+    offs = tgm._aligned_offsets(be, E, bm)
+    runs = np.concatenate([[0], np.cumsum(sizes), [rows]])
+    runs[E] = rows  # the trailing blocks are E-1's
+    np.testing.assert_array_equal(offs.numpy(), np.append(runs[:E + 1], rows))
+    tiles = tgm._gmm_tiles(offs, rows)
+    used = [tuple(t) for t in tiles.tolist() if t[0] < t[1]]
+    assert used == _tiles_by_loops(np.diff(runs[:E + 1]), rows)
+    hits = np.zeros(rows, np.int64)
+    be_rows = np.repeat(be.numpy(), bm)
+    for r0, r1, g in used:
+        assert g < E and 0 < r1 - r0 <= 128
+        assert (be_rows[r0:r1] == g).all()
+        hits[r0:r1] += 1
+    assert (hits == 1).all()
+    lhs, rhs, _ = _inputs(bm + len(name), rows)  # data in every row
+    lt, rt = torch.from_numpy(lhs), torch.from_numpy(rhs)
+    got = torch.empty(rows, H)
+    for r0, r1, g in used:
+        got[r0:r1] = lt[r0:r1] @ rt[g]
+    np.testing.assert_allclose(
+        got.numpy(), tgm._gmm_aligned_plain(lt, rt, be, bm).numpy(),
+        rtol=1e-5, atol=1e-5)
+    want = np.asarray(jgm._gmm_aligned_fwd(
+        jnp.asarray(lhs), jnp.asarray(rhs), jnp.asarray(be.numpy()), bm))
+    np.testing.assert_allclose(got.numpy(), want, atol=FWD_ATOL)
+
+
+# --------------------- K6's split arithmetic, emulated ----------------------
+def _split(x, n_parts=3):
+    """x = h + m + l (or h + m) in bf16 values, each difference exact in
+    f32 (the kernel's split, rounding to nearest even); returned as f32."""
+    parts = []
+    for _ in range(n_parts):
+        b = x.to(torch.bfloat16).float()
+        parts.append(b)
+        x = x - b
+    return parts
+
+
+def _tf32(x):
+    """x rounded to TF32's 10 stored mantissa bits, to nearest."""
+    a = x.numpy().view(np.uint32).astype(np.uint64)
+    return torch.from_numpy(((a + 0x1000) & 0xFFFFE000).astype(np.uint32)
+                            .view(np.float32))
+
+
+def _tgmm_emulated(lhs, g, sizes, scheme):
+    """``out[e] = lhs[rows_e]ᵀ @ g[rows_e]`` with the products of
+    ``scheme`` summed in f32: "split" is K6's design (six products of the
+    three-way bf16 split: hh, hm, mh, hl, lh, mm); "split2" the three
+    products of a two-way split (hh, hm, mh); "bf16" and "tf32" one
+    product of the operands rounded so."""
+    out = torch.zeros(len(sizes), lhs.shape[1], g.shape[1])
+    o = 0
+    for e, n in enumerate(sizes):
+        a, b = lhs[o:o + n], g[o:o + n]
+        o += n
+        if scheme == "split":
+            (ah, am, al), (bh, bm_, bl) = _split(a), _split(b)
+            pairs = ((am, bm_), (ah, bl), (al, bh), (ah, bm_), (am, bh),
+                     (ah, bh))
+        elif scheme == "split2":
+            (ah, am), (bh, bm_) = _split(a, 2), _split(b, 2)
+            pairs = ((ah, bm_), (am, bh), (ah, bh))
+        elif scheme == "bf16":
+            pairs = ((a.to(torch.bfloat16).float(),
+                      b.to(torch.bfloat16).float()),)
+        else:
+            pairs = ((_tf32(a), _tf32(b)),)
+        for x, y in pairs:
+            out[e] += x.t() @ y
+    return out
+
+
+@pytest.mark.parametrize("sizes", RAGGED)
+def test_tgmm_split_scheme_meets_the_f32_tolerance(sizes):
+    """K6's arithmetic on the CPU: within the reference test's atol of the
+    JAX ``tgmm`` and within 1e-5 of the largest |out| of the port's plain
+    version (the card's limit is 1e-4); an empty expert is exactly 0."""
+    gs = np.array(sizes, np.int32)
+    lhs, _, g = _inputs(sum(sizes) + 11, 40)
+    got = _tgmm_emulated(torch.from_numpy(lhs), torch.from_numpy(g), sizes,
+                         "split")
+    want = np.asarray(jgm.tgmm(jnp.asarray(lhs), jnp.asarray(g),
+                               jnp.asarray(gs), E, bm=BM))
+    np.testing.assert_allclose(got.numpy(), want, atol=FWD_ATOL)
+    plain = tgm._tgmm_plain(torch.from_numpy(lhs), torch.from_numpy(g),
+                            tgm._offsets_ext(torch.from_numpy(gs), 40), E)
+    assert float((got - plain).abs().max()) <= 1e-5 * float(plain.abs().max())
+    assert all(bool((got[e] == 0).all()) for e in range(E) if gs[e] == 0)
+
+
+@pytest.mark.parametrize("scheme", ["bf16", "tf32"])
+def test_one_rounded_product_misses_the_f32_tolerance(scheme):
+    """Why K6 splits: one product of operands rounded to bf16 or to TF32
+    misses the card's limit of 1e-4 of the largest |out|."""
+    sizes = [600, 0, 900, 548]
+    lhs, _, g = (torch.from_numpy(a) for a in _inputs(5, sum(sizes)))
+    plain = tgm._tgmm_plain(lhs, g, tgm._offsets_ext(
+        torch.tensor(sizes, dtype=torch.int32), sum(sizes)), E)
+    err = (_tgmm_emulated(lhs, g, sizes, scheme) - plain).abs().max()
+    assert float(err) > 1e-4 * float(plain.abs().max())
+
+
+def test_two_way_split_misses_the_reference_atol():
+    """Why K6 splits into three planes and not two: the two-way split's
+    three products miss the reference test's atol against the JAX
+    ``tgmm`` on its ragged shapes, where the three-way split meets it
+    with ten times room."""
+    err = {"split": 0.0, "split2": 0.0}
+    for sizes in RAGGED:
+        gs = np.array(sizes, np.int32)
+        lhs, _, g = _inputs(sum(sizes) + 11, 40)
+        want = np.asarray(jgm.tgmm(jnp.asarray(lhs), jnp.asarray(g),
+                                   jnp.asarray(gs), E, bm=BM))
+        for scheme in err:
+            got = _tgmm_emulated(torch.from_numpy(lhs), torch.from_numpy(g),
+                                 sizes, scheme)
+            err[scheme] = max(err[scheme],
+                              float(np.abs(got.numpy() - want).max()))
+    assert err["split"] <= FWD_ATOL / 10
+    assert err["split2"] > FWD_ATOL

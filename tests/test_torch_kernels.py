@@ -571,3 +571,86 @@ def test_gmm_bf16_tensor_core_kernel(cuda_device, name):
     assert bool(torch.isfinite(out).all())
     assert _gmm_rel_err(out, ref) <= GMM_TOL[torch.bfloat16]
     assert bool((out[n:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bm", [32, 128])
+@pytest.mark.parametrize("name", GMM_CASES)
+def test_gmm_aligned_bf16_tensor_core_kernel(cuda_device, name, bm):
+    """K7 in bf16 runs K5's tensor-core kernel over the runs of its block
+    experts: the device's tile list equals its plain twin; forward and
+    the rhsᵀ form of its backward (rhs read K-major by TMA where its rows
+    allow) against the plain version, with two trailing blocks past the
+    groups that hold data (they clamp to expert E-1 and are computed);
+    one launch a call."""
+    from paddle_tpu_torch.ops.pallas import grouped_matmul as gm
+    lhs32, sizes, rhs32, g32 = _gmm_case(name, cuda_device)
+    E, M, H = rhs32.shape
+    al32, al_sizes = _aligned(lhs32, sizes, bm)
+    al32 = torch.cat([al32, torch.randn(2 * bm, M, device=cuda_device)])
+    R = al32.shape[0]
+    g_al = torch.randn(R, H, device=cuda_device).to(torch.bfloat16)
+    be = gm._block_experts(al_sizes, R // bm, E, bm)
+    offs = gm._aligned_offsets(be, E, bm)
+    assert torch.equal(offs.cpu(), gm._aligned_offsets(be.cpu(), E, bm))
+    assert torch.equal(gm._gmm_tiles(offs, R).cpu(),
+                       gm._gmm_tiles(offs.cpu(), R))
+    al, rhs = al32.to(torch.bfloat16), rhs32.to(torch.bfloat16)
+    rhs_t = rhs.transpose(1, 2)
+    assert gm._gmm_loaders(al, rhs) == (
+        "tma", "registers" if H % 8 else "tma")
+    assert gm._gmm_loaders(g_al, rhs_t) == (
+        "registers" if H % 8 else "tma",
+        "registers" if H % 8 else "tma_k_major")
+    before = gm.launches_gmm_aligned
+    out = gm._gmm_aligned_fwd(al, rhs, be, bm)
+    d_lhs = gm._gmm_aligned_fwd(g_al, rhs_t, be, bm)
+    torch.cuda.synchronize()
+    assert gm.launches_gmm_aligned == before + 2
+    for got, want in ((out, gm._gmm_aligned_plain(al, rhs, be, bm)),
+                      (d_lhs, gm._gmm_aligned_plain(g_al, rhs_t, be, bm))):
+        assert got.dtype == torch.bfloat16
+        assert bool(torch.isfinite(got).all())
+        assert _gmm_rel_err(got, want) <= GMM_TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GMM_CASES)
+def test_tgmm_split_kernel(cuda_device, name):
+    """K6 (f32 in, split into three bf16 values on the tensor cores)
+    against its plain version at the f32 limit: ragged expert edges, the
+    hot expert, one expert, rows of 333 columns (which TMA cannot
+    describe: copied by cp.async, 4 bytes at a time); an empty expert
+    exactly 0; one launch a call."""
+    from paddle_tpu_torch.ops.pallas import grouped_matmul as gm
+    lhs, sizes, _, g = _gmm_case(name, cuda_device)
+    offs = gm._offsets_ext(sizes, lhs.shape[0])
+    assert gm._tgmm_loader(lhs, g) == (
+        "cp.async" if name == "widths_1000_333" else "tma")
+    before = gm.launches_tgmm
+    got = gm._tgmm_fwd(lhs, g, offs, sizes.shape[0])
+    torch.cuda.synchronize()
+    assert gm.launches_tgmm == before + 1
+    want = gm._tgmm_plain(lhs, g, offs, sizes.shape[0])
+    assert bool(torch.isfinite(got).all())
+    assert _gmm_rel_err(got, want) <= GMM_TOL[torch.float32]
+    assert bool((got[sizes == 0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [4096, 45056])
+def test_tgmm_split_kernel_long_contraction(cuda_device, rows):
+    """K6 on one hot expert that sums every row (45056: the 44k-row hot
+    expert the f32 limit was set for) stays within the f32 limit: its
+    accumulation error must not grow with the contraction length past
+    it."""
+    from paddle_tpu_torch.ops.pallas import grouped_matmul as gm
+    gen = torch.Generator(device=cuda_device).manual_seed(rows)
+    lhs = torch.randn(rows, 512, device=cuda_device, generator=gen)
+    g = torch.randn(rows, 256, device=cuda_device, generator=gen)
+    sizes = torch.tensor([0, rows, 0], dtype=torch.int32, device=cuda_device)
+    offs = gm._offsets_ext(sizes, rows)
+    got = gm._tgmm_fwd(lhs, g, offs, 3)
+    want = gm._tgmm_plain(lhs, g, offs, 3)
+    assert _gmm_rel_err(got, want) <= GMM_TOL[torch.float32]
+    assert bool((got[0] == 0).all()) and bool((got[2] == 0).all())

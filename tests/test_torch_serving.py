@@ -212,3 +212,76 @@ def test_shared_pages_fit_the_work_list_bound(models, monkeypatch):
     monkeypatch.setattr(engine_mod, "rpa_max_steps", capped_at_pool)
     with pytest.raises(ValueError, match="kv steps > max_steps 10"):
         _shared_prefix_decode(ServingEngine(tm, **kw))
+
+
+# -------------------- sampling and prompt ids at the edges ------------------
+def _surviving(monkeypatch, logits, top_k, top_p):
+    """The tokens each row may draw after top-k and nucleus filtering, in
+    the reference (the logits it hands ``jax.random.categorical``) and in
+    the port (the probabilities it hands ``torch.multinomial``)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from paddle_tpu.models import generation as jgen
+    from paddle_tpu_torch.models import generation as tgen
+    seen = {}
+
+    def jax_draw(key, sl):
+        seen["jax"] = np.isfinite(np.asarray(sl))
+        return jnp.argmax(sl, -1)
+
+    def torch_draw(probs, n, generator=None):
+        seen["port"] = probs.numpy() > 0
+        return torch.argmax(probs, -1, keepdim=True)
+    monkeypatch.setattr(jax.random, "categorical", jax_draw)
+    monkeypatch.setattr(torch, "multinomial", torch_draw)
+    jgen.sample_token(jnp.asarray(logits), 1.0, top_k, top_p,
+                      key=jax.random.PRNGKey(0))
+    tgen.sample_token(torch.from_numpy(logits), 1.0, top_k, top_p,
+                      generator=torch.Generator().manual_seed(0))
+    return seen["jax"], seen["port"]
+
+
+@pytest.mark.parametrize("top_k,top_p", [
+    (101, 1.0), (0, 0.9999999), (0, 0.99999999), (101, 0.99999999),
+    (5, 0.9)])
+def test_sampling_filters_as_the_reference(monkeypatch, top_k, top_p):
+    """A top_k above V (101 on V = 100) and a top_p that the f32
+    cumulative sum may never reach leave the logits unfiltered, as the
+    reference's clamped indexing does; the port raised on both. Over
+    many seeded rows the tokens that may be drawn are the reference's,
+    up to the f32 rounding of the two frameworks' cumulative sums near
+    top_p: the tokens where they part carry under 1e-6 of a row's
+    probability."""
+    logits = 4 * np.random.RandomState(7).randn(256, 100).astype(np.float32)
+    want, got = _surviving(monkeypatch, logits, top_k, top_p)
+    p = np.exp(logits.astype(np.float64))
+    p /= p.sum(axis=1, keepdims=True)
+    assert (p * (got != want)).sum(axis=1).max() < 1e-6
+    assert (got == want).mean() > 0.95
+    if top_k == 101 and top_p == 1.0:
+        assert got.all() and want.all()
+
+
+def test_out_of_vocabulary_prompt_ids_are_refused(models):
+    """An id < 0 or >= vocab_size is refused at submit, before it reaches
+    the embedding lookup (a device-side assert on the card, which ends
+    every request; the reference's lookup gives NaN rows instead), and
+    the engine serves the next request."""
+    _, tm = models
+    kw = dict(max_batch=2, max_blocks=24, block_size=4, prefill_chunk=4)
+    eng = ServingEngine(tm, device="cpu", **kw)
+    vocab = tm.cfg.vocab_size
+    for ids in ([1, vocab], [-1, 5], [vocab + 7]):
+        with pytest.raises(ValueError, match="prompt ids"):
+            eng.submit(ids, max_new_tokens=2)
+    assert _serve(eng, [[1, vocab - 1, 3]], 2) == \
+        _serve(ServingEngine(tm, device="cpu", **kw), [[1, vocab - 1, 3]], 2)
+    with Server(ServingEngine(tm, device="cpu", **kw)) as srv:
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _post(srv.url + "/generate", {"prompt_ids": [5, vocab],
+                                          "max_new_tokens": 2})
+        assert e.value.code == 400 and b"prompt ids" in e.value.read()
+        status, raw = _post(srv.url + "/generate", {"prompt_ids": [5, 6],
+                                                    "max_new_tokens": 2})
+        assert status == 200 and len(json.loads(raw)["token_ids"]) == 2
