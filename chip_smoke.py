@@ -10,20 +10,25 @@ Phases, each of which either succeeds or makes the script exit non-zero:
 2. build — every kernel source under ``paddle_tpu_torch/ops/pallas/csrc``
    compiled with ``nvcc`` for ``sm_90a`` (one process per source, all at
    once) into the ignored build directory, with each kernel's registers
-   and spills; the SASS of the tensor-core kernels (K1, K2, K3, K5 and
-   K7 in bf16, K6's split kernel, ``cuobjdump --dump-sass``) must hold
-   wgmma (``HGMMA``) and, where an operand comes by TMA, TMA loads
+   and spills; the SASS of the tensor-core kernels (K1, K2, K3, K4, K5,
+   K7 and K8 in bf16, K6's split kernel, ``cuobjdump --dump-sass``) must
+   hold wgmma (``HGMMA``) and, where an operand comes by TMA, TMA loads
    (``UTMALDG``);
 3. kernel vs plain — the ragged-paged-attention (RPA) kernel against its
    plain PyTorch version at Llama-3-8B head geometry on a ragged mix of
    decode rows, a 512-token prefill chunk over 1024 cached tokens and a
-   padding tail, in float32 and bfloat16, with kernel/plain times (CUDA
-   events, median of 20) and the least time the card could take;
+   padding tail: the float32 FMA kernel, and the bfloat16 split wgmma
+   design at q tiles of 8, 16 and 32 tokens, also on a decode-only mix
+   (phase 4's decode steps), with kernel/plain times (CUDA events, median
+   of 20) and the least time the card could take;
 4. serving — a Llama-3-8B-shaped model (all 32 layers, bf16, seeded
    random weights) behind ``ServingEngine`` + HTTP ``Server``, answering
    8 concurrent ``/generate`` requests; every request must return all
    its tokens, every logit must be finite, and the RPA launch count must
-   equal ``num_hidden_layers x engine steps``;
+   equal ``num_hidden_layers x engine steps``; a profiled window sums the
+   device time of every RPA kernel; then one real engine step with a
+   prefill chunk, decode rows and two sequences sharing prefix pages has
+   its layer-0 RPA output held against the plain version;
 5. engine parity — full width, 2 layers, float32: the kernel engine and
    an ``attn_impl="gather"`` engine give identical greedy streams;
 6. flash kernels vs plain — (a) the training shape (B=4, S=2048, Hq=16,
@@ -60,7 +65,8 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    tensor cores), its split design's six bf16 products logged beside it
    as that design's floor; (b) a sweep over a hot expert beside empty and one-row
    experts, non-zero rows past the groups, widths 1000 x 333 and one
-   expert, both dtypes, with K6's time on the hot expert;
+   expert, both dtypes, with K6's time on the hot expert; (c) K8 in
+   bf16 on one 45056-row expert beside two with no block;
 9. MoE training — ``MoeConfig.deepseek_moe_16b`` at full width cut to 4
    layers (1.71 B parameters, bf16, seeded weights) through
    ``TrainStep`` with AdamW (f32 masters) and a global-norm clip on 4 x
@@ -156,7 +162,14 @@ SASS_CHECKS = (  # library, kernel, instance -> TMA expected
      {"ILb1ELi1EE": True, "ILb1ELi2EE": True, "ILb1ELi0EE": True,
       "ILb0ELi1EE": True, "ILb0ELi2EE": True, "ILb0ELi0EE": False}),
     # <f32 tiles by TMA>, else by cp.async
-    ("grouped_matmul", "tgmm_split_kernel", {"ILb1EE": True, "ILb0EE": False}))
+    ("grouped_matmul", "tgmm_split_kernel", {"ILb1EE": True, "ILb0EE": False}),
+    # K8 in bf16 <operands by TMA>, else through registers
+    ("grouped_matmul", "tgmm_aligned_wgmma_kernel",
+     {"ILb1EE": True, "ILb0EE": False}),
+    # K4 in bf16 <head dim, warpgroups>
+    ("ragged_paged_attention", "rpa_wgmma_kernel",
+     {"ILi64ELi1EE": True, "ILi64ELi2EE": True, "ILi128ELi1EE": True,
+      "ILi128ELi2EE": True}))
 
 
 def kernel_instance(mangled):
@@ -235,19 +248,30 @@ def phase_build():
 
 
 # --------------------------------------------------------------------------
-def rpa_mix(dtype, seed=SEED):
-    """An engine-shaped RPA input at Llama-3-8B head geometry: 6 decode
-    rows with 100-3000 tokens of context, one 512-token prefill chunk on
-    top of 1024 cached tokens, and a padding tail, in the token budget of
-    ServingEngine(max_batch=8, prefill_chunk=512)."""
+# phase 4's prompt lengths: the decode-only mix gives each a decode row
+SERVING_LENS = [128, 384, 640, 896, 1280, 1664, 2048, 1536]
+RPA_TILES = (8, 16, 32)  # the reference's tile candidates (_TILE_CANDIDATES)
+RPA_KERNELS = ("rpa_kernel", "rpa_wgmma_kernel", "rpa_items_kernel",
+               "rpa_combine_kernel")  # every kernel of one RPA call
+
+
+def rpa_mix(dtype, seed=SEED, tile_q=None, decode_only=False):
+    """An engine-shaped RPA input at Llama-3-8B head geometry, in the
+    token budget of ServingEngine(max_batch=8, prefill_chunk=512): 6
+    decode rows with 100-3000 tokens of context, one 512-token prefill
+    chunk on top of 1024 cached tokens, and a padding tail; or
+    (``decode_only``) phase 4's decode steps, 8 decode rows over its
+    prompts with 16 tokens generated."""
     from paddle_tpu_torch.ops.pallas.ragged_paged_attention import (
         DEFAULT_TILE_Q, build_step_maps, rpa_max_steps)
     rng = np.random.RandomState(seed)
     n_heads, n_kv, hd, bs = 32, 8, 128, 16
     max_seqs, pool_blocks, mbps = 8, 2048, 512
-    tile_q = DEFAULT_TILE_Q
+    tile_q = DEFAULT_TILE_Q if tile_q is None else tile_q
     T = -(-(max_seqs + 512) // tile_q) * tile_q
     seqs = [(1, int(c)) for c in rng.randint(100, 3001, 6)] + [(512, 1024)]
+    if decode_only:
+        seqs = [(1, n + 16) for n in SERVING_LENS]
     bt = np.zeros((max_seqs + 1, mbps), np.int32)
     cu = np.zeros(max_seqs + 2, np.int32)
     ctx = np.zeros(max_seqs + 1, np.int32)
@@ -295,40 +319,61 @@ def rpa_mix(dtype, seed=SEED):
                              bound_by=bound_by, T=T, pages=pages)
 
 
+def _rpa_check(what, out, ref, valid, atol, rtol=0.0):
+    """max |err| of the kernel on the valid rows (raises past ``atol +
+    rtol * |plain|`` or on a non-finite value); padding rows must be
+    exactly 0."""
+    want = ref[valid].float()
+    err = (out[valid].float() - want).abs()
+    max_err = float(err.max())
+    if not bool(torch.isfinite(out).all()) or \
+            bool((err > atol + rtol * want.abs()).any()):
+        raise AssertionError(
+            f"RPA kernel disagrees with its plain version ({what}): max "
+            f"|err| {max_err} (atol {atol}, rtol {rtol})")
+    if not bool((out[~valid] == 0).all()):
+        raise AssertionError(f"RPA padding rows are not exactly 0 ({what})")
+    return max_err
+
+
 def phase_kernel():
-    """RPA kernel vs its plain version; returns the bf16 record."""
+    """RPA kernel vs its plain version: f32 (FMA kernel) at the default q
+    tile, bf16 (split wgmma design) at each q tile on phase 3's mix and on
+    the decode-only mix. Returns the bf16 record at the default tile."""
     from paddle_tpu_torch.ops.pallas.ragged_paged_attention import (
-        ragged_paged_attention, ragged_paged_attention_reference)
-    records = {}
-    for dtype, atol, rtol in ((torch.float32, 1e-4, 0.0),
-                              (torch.bfloat16, 4e-3, 0.0)):
-        args, valid, need = rpa_mix(dtype)
+        DEFAULT_TILE_Q, ragged_paged_attention,
+        ragged_paged_attention_reference)
+    cases = [(torch.float32, 1e-4, DEFAULT_TILE_Q, False)] + [
+        (torch.bfloat16, 4e-3, tq, decode) for decode in (False, True)
+        for tq in RPA_TILES]
+    record = None
+    for dtype, atol, tile_q, decode in cases:
+        args, valid, need = rpa_mix(dtype, tile_q=tile_q, decode_only=decode)
         out = ragged_paged_attention(**args)
         torch.cuda.synchronize()
         ref = ragged_paged_attention_reference(**args)
-        err = (out[valid].float() - ref[valid].float()).abs()
-        max_err = float(err.max())
-        tol = atol + rtol * ref[valid].float().abs()
-        if not bool(torch.isfinite(out).all()) or bool((err > tol).any()):
-            raise AssertionError(
-                f"RPA kernel disagrees with its plain version in {dtype}: "
-                f"max |err| {max_err} (atol {atol}, rtol {rtol})")
-        if not bool((out[~valid] == 0).all()):
-            raise AssertionError("RPA padding rows are not exactly 0")
-        ms = cuda_ms(lambda: ragged_paged_attention(**args))
-        plain_ms = cuda_ms(
-            lambda: ragged_paged_attention_reference(**args))
         name = str(dtype).replace("torch.", "")
-        log(f"rpa {name}: T={need['T']} live pages={need['pages']} "
-            f"max|err|={max_err:.3e} (atol {atol}, rtol {rtol}) "
-            f"padding rows exactly 0; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {need['bound_ms']:.4f} ms "
-            f"({need['bound_by']}: {need['bytes']} B, {need['flops']} "
-            f"flop)")
-        records[dtype] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                              bound_ms=need["bound_ms"],
-                              bound_by=need["bound_by"])
-    return records[torch.bfloat16]
+        mix = "decode-only mix" if decode else "phase 3 mix"
+        max_err = _rpa_check(f"{name}, tile_q {tile_q}, {mix}", out, ref,
+                             valid, atol)
+        ms = cuda_ms(lambda: ragged_paged_attention(**args))
+        main = tile_q == DEFAULT_TILE_Q and not decode
+        plain_ms = cuda_ms(
+            lambda: ragged_paged_attention_reference(**args)) if main \
+            else None
+        design = "split wgmma design" if dtype == torch.bfloat16 \
+            else "FMA kernel"
+        log(f"rpa {name} ({design}, tile_q {tile_q}, {mix}): T={need['T']}"
+            f" live pages={need['pages']} max|err|={max_err:.3e} (atol "
+            f"{atol}, rtol 0) padding rows exactly 0; kernel {ms:.4f} ms"
+            + (f", plain {plain_ms:.4f} ms" if plain_ms is not None else "")
+            + f", bound {need['bound_ms']:.4f} ms ({need['bound_by']}: "
+            f"{need['bytes']} B, {need['flops']} flop)")
+        if main and dtype == torch.bfloat16:
+            record = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=need["bound_ms"],
+                          bound_by=need["bound_by"])
+    return record
 
 
 # --------------------------------------------------------------------------
@@ -394,17 +439,81 @@ def profile_window(engine, plain_prompts, profiled_prompts, new_tokens):
     if total == 0:
         log("profile: the profiler saw no device time (not measured)")
         return
-    rpa_us = sum(us for us, k, _ in rows if "rpa_kernel" in k)
+    rpa_us = sum(us for us, k, _ in rows
+                 if any(name in k for name in RPA_KERNELS))
     log(f"profile: {len(profiled_prompts)} requests x {new_tokens} tokens;"
         f" device time {total / 1e3:.3f} ms in {steps} steps (profiled);"
         f" wall {plain_us / 1e3:.3f} ms in {plain_steps} steps without the"
         f" profiler, {wall_us / 1e3:.3f} ms with it; device busy "
         f"{100 * total / plain_us:.1f}% of the un-profiled wall "
         f"({100 * total / wall_us:.1f}% of the profiled wall, a lower "
-        f"bound); RPA kernel {100 * rpa_us / total:.1f}% of device time")
+        f"bound); RPA kernels {100 * rpa_us / total:.1f}% of device time "
+        f"({rpa_us / 1e3:.3f} ms, {rpa_us / 1e3 / steps:.3f} ms a step)")
     for us, key, count in rows[:6]:
         log(f"  {100 * us / total:5.1f}%  {us / 1e3:10.3f} ms  "
             f"{count:6d}x  {key[:90]}")
+
+
+def engine_step_check(engine, cfg, rng):
+    """One real engine step's layer-0 RPA output against the plain
+    version on the same inputs. Request A0 (a 1024-token prefix P and 50
+    more) is served while C decodes; then A1 and A2, both starting with P,
+    hit the prefix cache, so a step holds a prefill chunk, C's decode row
+    and two sequences sharing P's pages. The model's paged attention step
+    is wrapped for this window only: the first layer-0 call with all
+    three is checked (the pools then hold exactly what the kernel read),
+    at the card tests' bf16 tolerance (atol 4e-3, rtol 8e-3: both sides
+    round to bf16 once, and the model's outputs are not all below 1 as
+    phase 3's random ones are)."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops.pallas.ragged_paged_attention import \
+        ragged_paged_attention_reference
+    orig = pa.ragged_paged_attention_step
+    found = []
+
+    def capturing(q, k, v, k_pool, v_pool, bt, cu, ctx, sid, pos, ssq, sbk,
+                  *, scale=None, attn_impl="rpa"):
+        out = orig(q, k, v, k_pool, v_pool, bt, cu, ctx, sid, pos, ssq, sbk,
+                   scale=scale, attn_impl=attn_impl)
+        if found or k_pool is not engine.cache.k_pools[0]:
+            return out
+        n = (cu[1:] - cu[:-1]).cpu()[:bt.shape[0] - 1]
+        live = torch.nonzero(n > 0).flatten()
+        pages = [set(bt[s].cpu().tolist()) - {0} for s in live.tolist()]
+        shared = any(pages[i] & pages[j] for i in range(len(pages))
+                     for j in range(i + 1, len(pages)))
+        if not (bool((n > 1).any()) and bool((n == 1).any()) and shared):
+            return out
+        ref = ragged_paged_attention_reference(
+            q, k_pool, v_pool, bt, cu, ctx, ssq, sbk, sm_scale=scale)
+        valid = sid < bt.shape[0] - 1
+        got = out.reshape(ref.shape)
+        found.append((_rpa_check("engine step, layer 0", got, ref, valid,
+                                 4e-3, 8e-3), n[live].tolist(),
+                      int(ssq.shape[0])))
+        return out
+
+    prefix = rng.randint(1, cfg.vocab_size, 1024).tolist()
+    fresh = lambda m: rng.randint(1, cfg.vocab_size, m).tolist()  # noqa
+    pa.ragged_paged_attention_step = capturing
+    try:
+        c = engine.submit(fresh(64), max_new_tokens=96)
+        engine.submit(prefix + fresh(50), max_new_tokens=1).result(600)
+        hs = [engine.submit(prefix + fresh(m), max_new_tokens=4)
+              for m in (60, 90)]
+        for h in hs + [c]:
+            h.result(600)
+    finally:
+        pa.ragged_paged_attention_step = orig
+    if not found:
+        raise AssertionError("no engine step held a prefill chunk, a decode "
+                             "row and shared pages")
+    err, news, tiles = found[0]
+    log(f"serving: one engine step's layer-0 RPA output (new tokens per "
+        f"sequence {news}, shared prefix pages, {tiles} q tiles) agrees "
+        f"with the plain version: max|err| {err:.3e} (atol 4e-3, rtol 8e-3: "
+        f"a model's outputs reach past 1, where one bf16 unit is 7.8e-3); "
+        f"padding rows exactly 0")
 
 
 def phase_serving():
@@ -436,7 +545,7 @@ def phase_serving():
     engine._project = checked_project
 
     rng = np.random.RandomState(SEED)
-    lens = [128, 384, 640, 896, 1280, 1664, 2048, 1536]
+    lens = SERVING_LENS
     prefix = rng.randint(1, cfg.vocab_size, 1024).tolist()
     prompts = [rng.randint(1, cfg.vocab_size, n).tolist() for n in lens]
     prompts[6] = prefix + prompts[6][1024:]   # two share a 1024-token
@@ -472,6 +581,7 @@ def phase_serving():
                             for n in (256, 512, 1024, 2048)]
                            for _ in range(2))
         profile_window(engine, plain, profiled, new_tokens)
+        engine_step_check(engine, cfg, rng)
     if errors or any(t.is_alive() for t in threads):
         raise AssertionError(f"requests failed: {errors}")
     for i, res in enumerate(results):
@@ -504,9 +614,53 @@ def phase_serving():
         f"{gaps[-1]:.3f} ms; p50 TTFT {statistics.median(ttfts):.3f} ms; "
         f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; "
         f"prefix cache {health['prefix_cache']}")
-    del engine, model
+    del engine
+    free_device_memory()
+    serving_tile_sweep(model, cfg)
+    del model
     free_device_memory()
     return launches
+
+
+def serving_tile_sweep(model, cfg):
+    """The engine's q tile on phase 4's step: the same engine geometry at
+    tile_q 8, 16 and 32, then again in reverse order (the engine
+    module's DEFAULT_TILE_Q set for each engine's construction, then
+    restored),
+    each serving 8 fresh requests of phase 4's prompt lengths x 16 tokens
+    in process after one warm-up request: mean step ms (wall / engine
+    steps)."""
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving import engine as engine_mod
+    rng = np.random.RandomState(SEED + 7)
+    default = engine_mod.DEFAULT_TILE_Q
+    res = []
+    for tile_q in RPA_TILES + RPA_TILES[::-1]:
+        engine_mod.DEFAULT_TILE_Q = tile_q
+        try:
+            eng = ServingEngine(model, max_batch=8, block_size=16,
+                                prefill_chunk=512, max_blocks=2048)
+        finally:
+            engine_mod.DEFAULT_TILE_Q = default
+        eng.submit(rng.randint(1, cfg.vocab_size, 600).tolist(),
+                   max_new_tokens=4)
+        eng.run_until_idle()
+        hs = [eng.submit(rng.randint(1, cfg.vocab_size, n).tolist(),
+                         max_new_tokens=16) for n in SERVING_LENS]
+        steps0, t0 = eng.steps, time.perf_counter()
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for h in hs:
+            h.result(60)
+        steps = eng.steps - steps0
+        res.append((tile_q, eng.step_tokens, 1e3 * wall / steps, steps))
+        del eng
+        free_device_memory()
+    log("serving tile sweep (8 requests of phase 4's prompt lengths x 16 "
+        "tokens, in process, in order then reversed): " + "; ".join(
+            f"tile_q {t}: step_tokens {T}, mean step {ms:.3f} ms over {n} "
+            f"steps" for t, T, ms, n in res))
 
 
 def phase_parity():
@@ -1194,7 +1348,8 @@ def gmm_timings(run_bf, run_f32, sizes):
                          gmm_need(n, M, H, 2 * R_al * M + 2 * R_al * H
                                   + 4 * E * M * H + 4 * (R_al // 128),
                                   PEAK_FLOPS[bf]),
-                         live, "FMA loops")}
+                         live, "wgmma over the block runs, lhs/g by "
+                         + gm._tgmm_aligned_loader(lhs_al, dy_al))}
     records = {}
     with torch.no_grad():
         for kname, (dtype, kern, plain, lib, need, rows_live,
@@ -1387,6 +1542,43 @@ def gmm_sweep():
         f"M=512, H=256): {hot_ms:.4f} ms")
 
 
+def k8_long_expert():
+    """Phase 8(c): K8 in bf16 at phase 8's widths on one expert of 45056
+    rows (its accumulators restart every 1024 rows) beside two experts
+    with no block, against the plain version at the f32 limit; through
+    ``gmm_aligned``'s backward the empty experts' d_rhs is exactly 0."""
+    from paddle_tpu_torch.ops.pallas import grouped_matmul as gm
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    rows, bm = 45056, 128
+    lhs = torch.randn(rows, MOE_M, device="cuda", dtype=torch.bfloat16,
+                      generator=gen)
+    g = torch.randn(rows, MOE_H, device="cuda", dtype=torch.bfloat16,
+                    generator=gen)
+    sizes = torch.tensor([0, rows, 0], dtype=torch.int32, device="cuda")
+    be = gm._block_experts(sizes, rows // bm, 3, bm)
+    with torch.no_grad():
+        got = gm._tgmm_aligned_fwd(lhs, g, be, 3, bm)
+        want = gm._tgmm_aligned_plain(lhs, g, be, 3, bm)
+        torch.cuda.synchronize()
+        err = _rel_check("K8 on a 45056-row expert", got[1], want[1],
+                         GMM_TOL[torch.float32])
+        ms = cuda_ms(lambda: gm._tgmm_aligned_fwd(lhs, g, be, 3, bm))
+    rhs = torch.randn(3, MOE_M, MOE_H, device="cuda", dtype=torch.bfloat16,
+                      generator=gen).requires_grad_()
+    d_rhs, = torch.autograd.grad(gm.gmm_aligned(lhs, rhs, sizes, bm=bm),
+                                 rhs, g)
+    if not (bool((d_rhs[0] == 0).all()) and bool((d_rhs[2] == 0).all())):
+        raise AssertionError("K8: an expert with no rows got a non-zero "
+                             "d_rhs")
+    scale = float(want[1].abs().max())
+    log(f"gmm K8 long expert (bf16, {rows} rows on one of 3 experts, "
+        f"M={MOE_M}, H={MOE_H}, wgmma, lhs/g by "
+        f"{gm._tgmm_aligned_loader(lhs, g)}): max|err| {err:.3e} = "
+        f"{err / scale:.2e} of the largest |plain| (limit "
+        f"{GMM_TOL[torch.float32]}); kernel {ms:.4f} ms; empty experts' "
+        f"d_rhs exactly 0")
+
+
 def phase_gmm():
     """Phase 8; returns {kernel: record} with the launches of the main
     path (the entry points on the routed traffic, forward and backward,
@@ -1414,6 +1606,7 @@ def phase_gmm():
     del runs
     capacity_bmm_ms(w1, capacity)
     gmm_sweep()
+    k8_long_expert()
     free_device_memory()
     return records
 

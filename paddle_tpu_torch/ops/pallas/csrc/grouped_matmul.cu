@@ -24,7 +24,7 @@
 // written whole. Here every thread block owns its output tile outright,
 // so nothing is accumulated across blocks and no atomics are needed.
 //
-// Three designs, chosen by kernel and dtype:
+// Four designs, chosen by kernel and dtype:
 // - bf16 wgmma fed by TMA (`gmm_wgmma_kernel`, its note below): K5 and K7
 //   with bf16 lhs and rhs. A persistent grid walks a device-built list of
 //   row tiles that never straddle a group (K7's groups are the runs of
@@ -32,11 +32,13 @@
 //   shared-memory stages.
 // - a three-way bf16 split on wgmma (`tgmm_split_kernel`, its note below):
 //   K6, whose inputs are always f32, to f32 accuracy on the tensor cores.
-// - FMA loops: the f32 instances of K5 and K7 ((f32, f32) and the
+// - bf16 wgmma over the block runs (`tgmm_aligned_wgmma_kernel`, its
+//   note below): K8 with bf16 inputs, K6's persistent walk without the
+//   split, operands by TMA through K5's kind of ring.
+// - FMA loops: the f32 instances of K5, K7 and K8 ((f32, f32) and the
 //   backward's (f32 g, bf16 rhs^T)), whose tolerances the tensor cores'
-//   TF32 would miss and which the split design does not take yet, and K8
-//   until its own redesign. K5/K7 run one block per (128 output rows, 128
-//   output columns); the block finds the groups that meet its rows (binary
+//   TF32 would miss and which the split design does not take yet. K5/K7
+//   run one block per (128 output rows, 128 output columns); the block finds the groups that meet its rows (binary
 //   search over offsets, or the runs of block_experts), multiplies each
 //   group's rows by its expert's matrix and stores those rows only. K8
 //   runs one block per (expert, 128 x 128 tile of [M, H]) and loops over
@@ -60,7 +62,8 @@
 // Bound on this card: operations. At DeepSeekMoE-16B's expert widths
 // (M=2048, H=1408) and R = 49152 routed rows, K5 does 2*R*M*H = 2.8e11
 // flops against ~0.7 GB of traffic in bf16, far above the H100's ridge of
-// ~295 flops per byte. The FMA loops run at the f32 rate at best (67
+// ~295 flops per byte. K8 alone is bound by bytes: its f32 output of E*M*H
+// values (0.74 GB) takes longer to write than its products take. The FMA loops run at the f32 rate at best (67
 // TFLOP/s); the wgmma designs at the bf16 tensor-core rate (989 TFLOP/s,
 // six products for K6). PERF.md holds the times.
 
@@ -1038,6 +1041,257 @@ cudaError_t run_tgmm_split(const GmmParams& p, cudaStream_t stream) {
   return launch_tgmm_split<false>(ta, tb, p, grid, stream);
 }
 
+// ======== K8 in bf16: wgmma fed by TMA, persistent, over block runs ========
+// out[e] = sum over e's row blocks of lhs_block^T @ g_block, bf16 in, f32
+// out. Products of bf16 values are exact and wgmma sums them in f32
+// accumulators, so no split is needed (K6's f32 inputs need three planes).
+// Expert e's rows are the run [offsets[e], offsets[e+1]) of its blocks in
+// block_experts, computed on the device as K7's (`_aligned_offsets`; the
+// trailing blocks clamped to E - 1 are E - 1's rows). A persistent grid of
+// one block per SM walks the (expert, 128 lhs columns, 128 g columns)
+// items expert-major, as K6 does, so an expert's rows stay in L2 while its
+// items run; an expert that owns no block has no step and is left
+// unwritten, as on the TPU. Warpgroup 0 loads: steps of 64 rows of lhs
+// [64 rows][128 columns] and g [64 rows][128 columns], each two swizzled
+// 64-column panels, which are the MN-major A (lhs^T: A(m, k) = lhs[k, m])
+// and B (g) of wgmma m64n128k16 read by the transpose bits, through a
+// ring of kStages stages with "full" and "empty" mbarriers (loads run
+// ahead across items). By TMA from 2-D maps [R, M] and [R, H] (a box may
+// start at any row; columns past the matrix zero-filled), thread 0 alone;
+// where TMA cannot describe an operand (a row pitch or base not a
+// multiple of 16 bytes, as 333 columns) all 128 loader threads stage both
+// through registers, rows past the expert as 0 (template parameter kTma).
+// Warpgroups 1 and 2 each own 64 lhs columns x 128 g columns in 64 f32
+// registers. The last step of an expert whose rows are not a multiple of
+// 64 holds rows of the next expert: with TMA, each computing warpgroup
+// zeroes those rows of its own A panel before its products (generic
+// stores, then a proxy fence). Accuracy over long experts: wgmma's f32
+// accumulation loses more per step than an f32 add rounded to nearest
+// (1.87e-4 of the largest |out| over a 45056-row expert in K6), so the
+// accumulators restart every kFlush steps (1024 rows) and each chunk is
+// added to the output tile in f32, as K6 does. Bound: bytes, by the f32
+// output (E * M * H * 4 bytes) and the inputs read once.
+namespace tgmma90 {
+constexpr int kTile = 128, kDepth = 64, kStages = 4;
+constexpr int kFlush = 16;  // steps (1024 rows) summed in one accumulator
+constexpr int kThreads = 384;
+constexpr int kPanel = kDepth * 128;  // [64 rows][64 columns] bf16
+constexpr int kOperand = 2 * kPanel;  // [64 rows][128 columns]
+constexpr int kStage = 2 * kOperand;  // lhs then g
+constexpr size_t kSmem = 1024 + kStages * kStage + 2 * kStages * 8;
+}  // namespace tgmma90
+
+// Item w of the walk: expert e, columns m0.. of lhs and n0.. of g, the
+// expert's rows [lo, hi) in n_k steps of 64.
+struct TgmmAlignedItem {
+  int e, m0, n0, lo, hi, n_k;
+};
+
+__device__ __forceinline__ TgmmAlignedItem tgmm_aligned_item(
+    const GmmParams& p, int n_tiles, int tiles, long long w) {
+  TgmmAlignedItem it;
+  it.e = static_cast<int>(w / tiles);
+  const int t = static_cast<int>(w % tiles);
+  it.m0 = (t / n_tiles) * tgmma90::kTile;
+  it.n0 = (t % n_tiles) * tgmma90::kTile;
+  it.lo = min(max(p.offsets[it.e], 0), p.rows);
+  it.hi = max(min(p.offsets[it.e + 1], p.rows), it.lo);
+  it.n_k = (it.hi - it.lo + tgmma90::kDepth - 1) / tgmma90::kDepth;
+  return it;
+}
+
+// Rows r0 .. r0 + 63 (below hi) and columns c0 .. c0 + 127 (below cols) of
+// a row-major bf16 [rows, ld] operand into the two swizzled panels at dst,
+// 0 elsewhere; by the 128 threads of warpgroup 0.
+__device__ __forceinline__ void tgmm_aligned_stage(uint8_t* dst,
+                                                   const bf16* src,
+                                                   long long ld, int r0,
+                                                   int hi, int c0,
+                                                   int cols) {
+  using namespace tgmma90;
+  for (int i = threadIdx.x; i < kDepth * kTile; i += 128) {
+    const int r = i / kTile, c = i % kTile;
+    const int row = r0 + r, col = c0 + c;
+    bf16 v = __float2bfloat16(0.f);
+    if (row < hi && col < cols) v = src[row * ld + col];
+    *reinterpret_cast<bf16*>(dst + (c / 64) * kPanel +
+                             hopper::sw128_offset(r, c % 64)) = v;
+  }
+}
+
+template <bool kTma>
+__global__ void __launch_bounds__(tgmma90::kThreads, 1)
+    tgmm_aligned_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                              const __grid_constant__ CUtensorMap tb,
+                              GmmParams p) {
+  using namespace hopper;
+  using namespace tgmma90;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* stages = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + kStages * kStage);
+  uint64_t* empty = full + kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], kTma ? 1 : 128);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int M = p.lhs_cols, H = p.n_dim;
+  const int n_tiles = (H + kTile - 1) / kTile;
+  const int tiles = ((M + kTile - 1) / kTile) * n_tiles;
+  const long long items = static_cast<long long>(p.experts) * tiles;
+  const int wg = threadIdx.x / 128;
+  Ring<kStages> ring;
+  if (wg == 0) {  // the loader
+    if (kTma && threadIdx.x != 0) return;
+    const bf16* lhs = static_cast<const bf16*>(p.lhs);
+    const bf16* g = static_cast<const bf16*>(p.rhs);
+    for (long long w = blockIdx.x; w < items; w += gridDim.x) {
+      const TgmmAlignedItem it = tgmm_aligned_item(p, n_tiles, tiles, w);
+      for (int ks = 0; ks < it.n_k; ++ks, ++ring.it) {
+        const int s = ring.stage();
+        if (ring.it >= kStages) mbar_wait(&empty[s], ring.phase() ^ 1);
+        uint8_t* a = stages + s * kStage;
+        uint8_t* b = a + kOperand;
+        const int r0 = it.lo + ks * kDepth;
+        if constexpr (kTma) {
+          mbar_arrive_expect_tx(&full[s], kStage);
+          tma_load_2d(a, &ta, &full[s], it.m0, r0);
+          tma_load_2d(a + kPanel, &ta, &full[s], it.m0 + 64, r0);
+          tma_load_2d(b, &tb, &full[s], it.n0, r0);
+          tma_load_2d(b + kPanel, &tb, &full[s], it.n0 + 64, r0);
+        } else {
+          tgmm_aligned_stage(a, lhs, M, r0, it.hi, it.m0, M);
+          tgmm_aligned_stage(b, g, p.rhs_sk, r0, it.hi, it.n0, H);
+          fence_proxy_async();
+          mbar_arrive(&full[s]);
+        }
+      }
+    }
+    return;
+  }
+  const int cw = wg - 1, ct = threadIdx.x - 128, lane = ct % 32;
+  const int t = ct % 128;
+  for (long long w = blockIdx.x; w < items; w += gridDim.x) {
+    const TgmmAlignedItem it = tgmm_aligned_item(p, n_tiles, tiles, w);
+    if (it.n_k == 0) continue;  // no block: left unwritten
+    float* out = static_cast<float*>(p.out) +
+                 static_cast<long long>(it.e) * M * H;
+    for (int k0 = 0; k0 < it.n_k; k0 += kFlush) {
+      const int k1 = min(it.n_k, k0 + kFlush);
+      float acc[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      int prev = -1;
+      for (int ks = k0; ks < k1; ++ks, ++ring.it) {
+        const int s = ring.stage();
+        mbar_wait(&full[s], ring.phase());
+        uint8_t* a = stages + s * kStage + cw * kPanel;
+        const int valid = it.hi - (it.lo + ks * kDepth);
+        if (kTma && valid < kDepth) {
+          // rows of the next expert in this warpgroup's A panel: zeros
+          for (int i = t; i < (kDepth - valid) * 8; i += 128)
+            *reinterpret_cast<uint4*>(a + valid * 128 + 16 * i) =
+                make_uint4(0, 0, 0, 0);
+          fence_proxy_async();
+          warpgroup_sync(cw);
+        }
+        const uint32_t a0 = smem_u32(a);
+        const uint32_t b0 = smem_u32(stages + s * kStage + kOperand);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kDepth / 16; ++kk)
+          wgmma_m64n128k16_ss<1, 1>(acc, desc_mn_major(a0 + kk * 2048, kPanel),
+                                    desc_mn_major(b0 + kk * 2048, kPanel), 1);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous step's products are done with it
+        release(empty, prev);
+        prev = s;
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(empty, prev);
+      // rows of the accumulator are lhs columns m; a later chunk reads
+      // back what this thread stored for the earlier
+      const bool add = k0 > 0;
+      const int ra = it.m0 + cw * 64 + (t / 32) * 16 + lane / 4;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = ra + 8 * h;
+        if (m >= M) continue;
+#pragma unroll
+        for (int c = 0; c < kTile / 8; ++c) {
+          const int n = it.n0 + 8 * c + 2 * (lane % 4);
+          float x = acc[4 * c + 2 * h], y = acc[4 * c + 2 * h + 1];
+          float* q = out + static_cast<long long>(m) * H + n;
+          if (H % 2 == 0 && n + 1 < H) {
+            float2* q2 = reinterpret_cast<float2*>(q);
+            if (add) {
+              const float2 o = *q2;
+              x += o.x;
+              y += o.y;
+            }
+            *q2 = make_float2(x, y);
+          } else {
+            if (n < H) q[0] = add ? q[0] + x : x;
+            if (n + 1 < H) q[1] = add ? q[1] + y : y;
+          }
+        }
+      }
+    }
+  }
+}
+
+template <bool kTma>
+cudaError_t launch_tgmm_aligned_wgmma(const CUtensorMap& ta,
+                                      const CUtensorMap& tb,
+                                      const GmmParams& p, int grid,
+                                      cudaStream_t stream) {
+  auto kernel = tgmm_aligned_wgmma_kernel<kTma>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(tgmma90::kSmem));
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, tgmma90::kThreads, tgmma90::kSmem, stream>>>(ta, tb, p);
+  return cudaGetLastError();
+}
+
+// p.offsets: the runs of block_experts (E + 2 entries); p.tma_lhs: 1 = both
+// operands by TMA, 0 = both staged through registers
+cudaError_t run_tgmm_aligned_wgmma(const GmmParams& p, cudaStream_t stream) {
+  using tgmma90::kDepth;
+  using tgmma90::kTile;
+  if (p.offsets == nullptr) return cudaErrorInvalidValue;
+  if (p.rows == 0) return cudaSuccess;
+  CUtensorMap ta, tb;
+  cudaError_t e = cudaSuccess;
+  if (p.tma_lhs) {
+    const cuuint64_t da[2] = {static_cast<cuuint64_t>(p.lhs_cols),
+                              static_cast<cuuint64_t>(p.rows)};
+    const cuuint64_t sa[1] = {static_cast<cuuint64_t>(p.lhs_cols) * 2};
+    const cuuint64_t db[2] = {static_cast<cuuint64_t>(p.n_dim),
+                              static_cast<cuuint64_t>(p.rows)};
+    const cuuint64_t sb[1] = {static_cast<cuuint64_t>(p.rhs_sk) * 2};
+    const cuuint32_t box[2] = {64, kDepth};
+    e = hopper::make_map(&ta, p.lhs, 2, da, sa, box);
+    if (e == cudaSuccess) e = hopper::make_map(&tb, p.rhs, 2, db, sb, box);
+  }
+  int dev = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const long long items = static_cast<long long>(p.experts) *
+                          ((p.lhs_cols + kTile - 1) / kTile) *
+                          ((p.n_dim + kTile - 1) / kTile);
+  const int grid = static_cast<int>(items < sms ? items : sms);
+  if (p.tma_lhs)
+    return launch_tgmm_aligned_wgmma<true>(ta, tb, p, grid, stream);
+  return launch_tgmm_aligned_wgmma<false>(ta, tb, p, grid, stream);
+}
+
 // K7. grid (column tiles, row tiles). Runs of equal block_experts inside
 // the tile are multiplied one after the other.
 template <typename TA, typename TB>
@@ -1138,8 +1392,8 @@ int dispatch(int which, const GmmParams* p, void* stream) {
       return run_gmm_wgmma(*p, st);
     case 3 * 4 + 0:
       return launch(tgmm_aligned_kernel<float, float>, expert_grid, *p, st);
-    case 3 * 4 + 3:
-      return launch(tgmm_aligned_kernel<bf16, bf16>, expert_grid, *p, st);
+    case 3 * 4 + 3:  // bf16 in: wgmma over the block runs (offsets)
+      return run_tgmm_aligned_wgmma(*p, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

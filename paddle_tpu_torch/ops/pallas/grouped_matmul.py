@@ -21,9 +21,10 @@ operands by TMA, or through registers where TMA cannot describe one: see
 :func:`_gmm_loaders`) over row tiles that never straddle a group
 (:func:`_gmm_tiles`; K7's groups are the runs of its block experts,
 :func:`_aligned_offsets`). K6, always f32, runs on the bf16 tensor cores
-too, each f32 value split into three bf16 values, to f32 accuracy. The
-f32 instances of K5 and K7 and all of K8 keep the FMA kernels: the
-tensor cores' TF32 would miss the f32 tolerances.
+too, each f32 value split into three bf16 values, to f32 accuracy. K8
+with bf16 inputs runs on the tensor cores over the same block runs
+(:func:`_tgmm_aligned_loader`). The f32 instances of K5, K7 and K8 keep
+the FMA kernels: the tensor cores' TF32 would miss the f32 tolerances.
 
 Each kernel wrapper launches its kernel for CUDA tensors, or raises; for
 CPU tensors it computes its plain PyTorch version, which loops over the
@@ -59,6 +60,7 @@ _DTYPE_CODE = {_F32: 0, _BF16: 1}
 # forward and backward passes give it
 _GMM_MIXES = ((_F32, _F32), (_BF16, _BF16), (_F32, _BF16))
 _TILE_ROWS = 128  # rows of a tile in the bf16 kernel of K5 and K7
+_FLUSH_ROWS = 1024  # rows K6 and K8 sum in one wgmma accumulator
 _TGMM_MIXES = ((_F32, _F32),)
 _TGMM_ALIGNED_MIXES = ((_F32, _F32), (_BF16, _BF16))
 
@@ -146,6 +148,32 @@ def _tgmm_aligned_plain(lhs, g, block_experts, n_groups, bm):
     for e, b0, b1 in _runs(block_experts):
         rows = slice(b0 * bm, b1 * bm)
         out[e] = lhs[rows].float().t() @ g[rows].float()
+    return out
+
+
+def _tgmm_aligned_walk_plain(lhs, g, block_experts, n_groups, bm):
+    """K8's bf16 walk in plain PyTorch: the (expert, 128 lhs columns, 128
+    g columns) items over the runs of :func:`_aligned_offsets`, each
+    summing its expert's rows in chunks of ``_FLUSH_ROWS`` (the kernel
+    restarts its accumulators there) and adding each chunk to the output
+    tile in f32. An expert with no block is left unwritten: NaN here."""
+    rows, M = lhs.shape
+    H = g.shape[1]
+    offs = _aligned_offsets(block_experts, n_groups, bm).tolist()
+    out = torch.full((n_groups, M, H), float("nan"), dtype=_F32,
+                     device=lhs.device)
+    t = _TILE_ROWS
+    for e in range(n_groups):
+        lo, hi = min(max(offs[e], 0), rows), min(offs[e + 1], rows)
+        for m0 in range(0, M, t) if hi > lo else ():
+            for n0 in range(0, H, t):
+                for k0 in range(lo, hi, _FLUSH_ROWS):
+                    k1 = min(hi, k0 + _FLUSH_ROWS)
+                    part = lhs[k0:k1, m0:m0 + t].float().t() @ \
+                        g[k0:k1, n0:n0 + t].float()
+                    tile = out[e, m0:m0 + t, n0:n0 + t]
+                    out[e, m0:m0 + t, n0:n0 + t] = \
+                        part if k0 == lo else tile + part
     return out
 
 
@@ -401,10 +429,22 @@ def _gmm_aligned_fwd(lhs, rhs, block_experts, bm):
     return out
 
 
+def _tgmm_aligned_loader(lhs, g):
+    """How K8's bf16 kernel brings its operands in: ``"tma"`` where TMA
+    can describe both (16-byte aligned bases and row pitches, some rows),
+    else ``"registers"``."""
+    ok = lhs.shape[0] > 0 and all(
+        t.data_ptr() % 16 == 0 and t.shape[1] % 8 == 0 for t in (lhs, g))
+    return "tma" if ok else "registers"
+
+
 def _tgmm_aligned_fwd(lhs, g, block_experts, n_groups, bm):
     """K8: ``out[e] = Σ over e's blocks of lhs_blockᵀ @ g_block``, f32
     ``[E, M, H]``. An expert that owns no block is left unwritten (as on
-    the TPU): the caller replaces it."""
+    the TPU): the caller replaces it. In bf16 on the tensor cores over
+    the runs of :func:`_aligned_offsets`, summing at most 1024 rows in one
+    accumulator (:func:`_tgmm_aligned_walk_plain` is the same walk in
+    plain PyTorch); (f32, f32) on the FMA kernel."""
     global launches_tgmm_aligned
     _check_shapes(lhs, g, block_experts, lhs.shape[0] // bm)
     if _device(lhs, g, block_experts) == "cpu":
@@ -413,8 +453,13 @@ def _tgmm_aligned_fwd(lhs, g, block_experts, n_groups, bm):
                 True)
     out = torch.empty(n_groups, lhs.shape[1], g.shape[1], dtype=_F32,
                       device=lhs.device)
-    _launch("tgmm_aligned_launch", lhs, ctypes.byref(_params(
-        lhs, g, out, n_groups, bm, block_experts=block_experts.data_ptr())))
+    params = _params(lhs, g, out, n_groups, bm,
+                     block_experts=block_experts.data_ptr())
+    if lhs.dtype == _BF16:  # wgmma over the runs of the block experts
+        offs = _aligned_offsets(block_experts, n_groups, bm)
+        params.offsets = offs.data_ptr()
+        params.tma_lhs = int(_tgmm_aligned_loader(lhs, g) == "tma")
+    _launch("tgmm_aligned_launch", lhs, ctypes.byref(params))
     launches_tgmm_aligned += 1
     return out
 

@@ -28,6 +28,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 __all__ = ["BlockAllocator", "PagedKVCache", "PrefixCache", "chain_hash"]
 
 #: physical block id reserved as the write-off target for padding
@@ -252,12 +254,14 @@ class PrefixCache:
 
 class PagedKVCache:
     """Per-layer block pools on the device + the allocator + the
-    block-table padding helper."""
+    block-table padding helper. The pools live on the card unless
+    ``device`` names another (``resolve_device``: ``None`` is ``cuda``,
+    which raises where PyTorch sees no card)."""
 
     def __init__(self, num_layers: int, num_blocks: int, block_size: int,
                  num_kv_heads: int, head_dim: int,
                  max_blocks_per_seq: Optional[int] = None,
-                 dtype=torch.float32, device="cpu",
+                 dtype=torch.float32, device=None,
                  prefix_cache: bool = False):
         if block_size < 1:
             raise ValueError("block_size must be >= 1")
@@ -269,6 +273,7 @@ class PagedKVCache:
         self.prefix_cache = (PrefixCache(self.allocator, block_size)
                              if prefix_cache else None)
         self.dtype = dtype
+        device = resolve_device(device)
         # +1: physical block 0 is the null block and backs no sequence
         shape = (num_blocks + 1, block_size, num_kv_heads, head_dim)
         self.k_pools = [torch.zeros(shape, dtype=dtype, device=device)

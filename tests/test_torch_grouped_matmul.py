@@ -379,3 +379,33 @@ def test_two_way_split_misses_the_reference_atol():
                               float(np.abs(got.numpy() - want).max()))
     assert err["split"] <= FWD_ATOL / 10
     assert err["split2"] > FWD_ATOL
+
+
+# ---------------------- K8's bf16 walk, in plain PyTorch ---------------------
+@pytest.mark.parametrize("sizes,bm", [
+    ([16, 0, 24, 8], 8), ([0, 0, 40, 0], 8), ([1152, 0, 128, 64], 64)])
+def test_tgmm_aligned_walk_matches_jax(one_torch_thread, sizes, bm):
+    """K8's bf16 design: the (expert, 128 lhs columns, 128 g columns)
+    items over the runs of ``_aligned_offsets``, the accumulators
+    restarted every 1024 rows (the 1152-row expert sums two chunks) and
+    each chunk added to the output tile in f32, against the JAX
+    ``_tgmm_aligned_fwd`` (interpret mode) on the experts that own a
+    block, at the reference test's atol; an expert with no block is left
+    unwritten."""
+    gs = np.array(sizes, np.int32)
+    rows = int(gs.sum()) + bm  # a trailing block, clamped to E - 1
+    lhs, _, g = _inputs(bm + rows, rows)
+    be = tgm._block_experts(torch.from_numpy(gs), rows // bm, E, bm)
+    want = np.asarray(jgm._tgmm_aligned_fwd(
+        jnp.asarray(lhs), jnp.asarray(g), jnp.asarray(be.numpy()), E, bm))
+    got = tgm._tgmm_aligned_walk_plain(torch.from_numpy(lhs),
+                                       torch.from_numpy(g), be, E, bm)
+    owns = np.isin(np.arange(E), be.numpy())
+    np.testing.assert_allclose(got.numpy()[owns], want[owns], atol=FWD_ATOL)
+    assert bool(torch.isnan(got[torch.from_numpy(~owns)]).all())
+    if max(sizes) > tgm._FLUSH_ROWS:  # more than one accumulator chunk
+        np.testing.assert_allclose(
+            got.numpy()[owns],
+            tgm._tgmm_aligned_plain(torch.from_numpy(lhs),
+                                    torch.from_numpy(g), be, E,
+                                    bm).numpy()[owns], atol=FWD_ATOL)

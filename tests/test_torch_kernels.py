@@ -103,6 +103,109 @@ def test_rpa_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
                                    vp[..., :32], *meta)
 
 
+def _rpa_bf16_args(rng, seqs, block_size, grp, hd, tile_q, device,
+                   n_kv=2, shared=0):
+    """bf16 card arguments of one step; the first ``shared`` pages of
+    sequences 0 and 1 are the same physical pages (a shared prefix)."""
+    mbps = max(-(-(n + c) // block_size) for n, c in seqs) + 1
+    pages = sum(-(-(n + c) // block_size) for n, c in seqs)
+    floats, ints, valid = _rpa_case(rng, seqs, block_size, n_kv=n_kv,
+                                    grp=grp, hd=hd, tile_q=tile_q,
+                                    mbps=mbps, pool_blocks=pages + 1)
+    if shared:
+        ints[0][1, :shared] = ints[0][0, :shared]
+    args = [torch.from_numpy(a).to(device, torch.bfloat16) for a in floats] \
+        + [torch.from_numpy(a).to(device) for a in ints]
+    return args, torch.from_numpy(valid).to(device)
+
+
+# (block_size, group, hd, tile_q) of the bf16 split kernel: rows = tile_q x
+# group up to its 128
+RPA_BF16_GEOMETRY = [(bs, grp, hd, tq) for bs in (8, 16, 64)
+                     for grp in (1, 4, 8) for hd in (64, 128)
+                     for tq in (8, 16, 32) if tq * grp <= 128]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_size,grp,hd,tile_q", RPA_BF16_GEOMETRY)
+def test_rpa_bf16_split_kernel(cuda_device, block_size, grp, hd, tile_q):
+    """The bf16 design (work list on the device, chunks of a tile merged
+    by the combine pass, pages by TMA, wgmma) against the plain version:
+    a ~3000-token decode context spanning many chunks, a prefill chunk
+    straddling q tiles over cached tokens, decode rows, two sequences
+    sharing their first pages, a padding slot and a padding tail, whose
+    rows must be exactly 0. The device work list equals its plain
+    version; one launch a call."""
+    rng = np.random.RandomState(block_size * 100 + grp * 10 + tile_q)
+    seqs = [(1, 2990), (1, 2 * block_size + 3), (0, 0), (37, 300),
+            (1, 5), (9, block_size), (1, 1)]
+    args, valid = _rpa_bf16_args(rng, seqs, block_size, grp, hd, tile_q,
+                                 cuda_device, shared=2)
+    before = rpa.ragged_paged_attention.launches
+    out = rpa.ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    assert rpa.ragged_paged_attention.launches == before + 1
+    ref = rpa.ragged_paged_attention_reference(*args)
+    torch.testing.assert_close(out[valid].float(), ref[valid].float(),
+                               atol=4e-3, rtol=8e-3)
+    assert bool((out[~valid] == 0).all())
+    _, info, items = rpa._rpa_bf16(*args, 1.0 / hd ** 0.5)
+    ssq = args[6]
+    min_pages = rpa._min_pages(block_size)
+    want_info, want_items = rpa._rpa_items_plain(
+        ssq.cpu(), args[3].shape[0] - 1, min_pages,
+        rpa._max_chunks(ssq.shape[1], min_pages))
+    assert torch.equal(info.cpu(), want_info)
+    n = int(want_info[-1])
+    assert n > ssq.shape[0] // 2  # the long context is split
+    assert torch.equal(items[:n].cpu(), want_items[:n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile_q", [8, 16, 32])
+def test_rpa_bf16_decode_step_with_padding_tiles(cuda_device, tile_q):
+    """An engine's decode-only step: every decode row in the first tile,
+    every later tile padding (no live step), contexts long enough to cut
+    the first tile into its most chunks; decode rows whose sequence owns
+    no page of a chunk see no key there and keep their state."""
+    rng = np.random.RandomState(tile_q)
+    seqs = [(1, int(c)) for c in rng.randint(1500, 3000, 8)]
+    args, valid = _rpa_bf16_args(rng, seqs, 16, 4, 128, tile_q, cuda_device)
+    T = args[0].shape[0]
+    pad = torch.zeros(4 * tile_q, *args[0].shape[1:], device=cuda_device,
+                      dtype=torch.bfloat16)
+    q = torch.cat([args[0], pad])  # four more tiles of padding
+    ssq, sbk = (torch.cat([a, torch.full((4, a.shape[1]), v,
+                                         dtype=a.dtype, device=a.device)])
+                for a, v in ((args[6], args[3].shape[0] - 1), (args[7], 0)))
+    full = [q] + args[1:6] + [ssq, sbk]
+    out = rpa.ragged_paged_attention(*full)
+    torch.cuda.synchronize()
+    ref = rpa.ragged_paged_attention_reference(*full)
+    torch.testing.assert_close(out[:T][valid].float(),
+                               ref[:T][valid].float(), atol=4e-3, rtol=8e-3)
+    assert bool((out[:T][~valid] == 0).all()) and bool((out[T:] == 0).all())
+
+
+@pytest.mark.cuda
+def test_rpa_bf16_refuses_what_the_kernel_does_not_take(cuda_device):
+    """The bf16 kernel loads q and the pools by TMA: a q one element into
+    its storage is refused, as is a block size that does not tile its
+    64-key stages."""
+    rng = np.random.RandomState(1)
+    args, _ = _rpa_bf16_args(rng, [(5, 20), (1, 9)], 16, 4, 128, 8,
+                             cuda_device)
+    q = args[0]
+    buf = torch.zeros(q.numel() + 8, device=cuda_device, dtype=q.dtype)
+    q_off = buf[1:1 + q.numel()].view(q.shape).copy_(q)
+    with pytest.raises(ValueError, match="16-byte"):
+        rpa.ragged_paged_attention(q_off, *args[1:])
+    args4, _ = _rpa_bf16_args(rng, [(5, 20), (1, 9)], 4, 4, 128, 8,
+                              cuda_device)
+    with pytest.raises(ValueError, match="block_size"):
+        rpa.ragged_paged_attention(*args4)
+
+
 # ------------------------------ flash attention -----------------------------
 def _flash_case(name, rng, dtype, hd, device):
     """q/k/v ``[B*H, S, D]`` and the geometry of one sweep case, the
@@ -654,3 +757,37 @@ def test_tgmm_split_kernel_long_contraction(cuda_device, rows):
     want = gm._tgmm_plain(lhs, g, offs, 3)
     assert _gmm_rel_err(got, want) <= GMM_TOL[torch.float32]
     assert bool((got[0] == 0).all()) and bool((got[2] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [4096, 45056])
+def test_tgmm_aligned_bf16_kernel_long_contraction(cuda_device, rows):
+    """K8 in bf16 (tensor cores, accumulators restarted every 1024 rows)
+    on one hot expert that sums every row, beside two experts with no
+    block: the live expert within the f32 limit of its plain version, and
+    through ``gmm_aligned``'s backward the empty experts' d_rhs exactly
+    0."""
+    from paddle_tpu_torch.ops.pallas import grouped_matmul as gm
+    gen = torch.Generator(device=cuda_device).manual_seed(rows + 1)
+    bm = 128
+    lhs = torch.randn(rows, 512, device=cuda_device, generator=gen) \
+        .to(torch.bfloat16)
+    g = torch.randn(rows, 256, device=cuda_device, generator=gen) \
+        .to(torch.bfloat16)
+    sizes = torch.tensor([0, rows, 0], dtype=torch.int32, device=cuda_device)
+    be = gm._block_experts(sizes, rows // bm, 3, bm)
+    assert gm._tgmm_aligned_loader(lhs, g) == "tma"
+    before = gm.launches_tgmm_aligned
+    got = gm._tgmm_aligned_fwd(lhs, g, be, 3, bm)
+    torch.cuda.synchronize()
+    assert gm.launches_tgmm_aligned == before + 1
+    want = gm._tgmm_aligned_plain(lhs, g, be, 3, bm)
+    assert bool(torch.isfinite(got[1]).all())
+    assert _gmm_rel_err(got[1], want[1]) <= GMM_TOL[torch.float32]
+    rhs = torch.randn(3, 512, 256, device=cuda_device, generator=gen) \
+        .to(torch.bfloat16).requires_grad_()
+    out = gm.gmm_aligned(lhs, rhs, sizes, bm=bm)
+    d_rhs, = torch.autograd.grad(out, rhs, g)
+    assert bool((d_rhs[0] == 0).all()) and bool((d_rhs[2] == 0).all())
+    assert _gmm_rel_err(d_rhs[1], want[1].to(torch.bfloat16)) <= \
+        GMM_TOL[torch.bfloat16]

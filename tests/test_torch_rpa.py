@@ -191,3 +191,91 @@ def test_reference_gather_view_equals_reference():
     ours = tpa.gather_pool(_t(pool), _t(bt)).numpy()
     ref = np.asarray(jpa.gather_pool(jnp.asarray(pool), jnp.asarray(bt)))
     assert np.array_equal(ours, ref)
+
+
+# ------------------- the bf16 kernel's split, in plain PyTorch -------------------
+# (tile_q, min_pages, max_chunks): chunks of 1, 2 and 3 pages, and the
+# kernel's own chunking (min_pages and max_chunks of the module)
+SPLIT_CASES = [(8, 1, 64), (8, 2, 64), (16, 3, 64), (32, 2, 3),
+               (8, None, None), (16, None, None), (32, None, None)]
+
+
+@pytest.mark.parametrize("tile_q,min_pages,max_chunks", SPLIT_CASES)
+def test_split_emulation_matches_jax(one_torch_thread, tile_q, min_pages,
+                                     max_chunks):
+    """K4's bf16 design (per-chunk ``(m, l, acc)`` over the work list,
+    then the log-sum-exp combine) against the JAX RPA kernel in interpret
+    mode at the JAX test's f32 tolerance. The mix has a long decode
+    context spanning many chunks, decode rows sharing a tile with a
+    prefill chunk (so they see no key in the prefill sequence's chunks),
+    two sequences sharing their first pages, a padding slot and a padding
+    tail, whose rows are exactly 0. The port's step maps equal the
+    reference's at this tile."""
+    rng = np.random.RandomState(tile_q + (min_pages or 0))
+    bs = 4
+    seqs = [(1, 45), (1, 9), (0, 0), (13, 6), (1, 2), (2 * tile_q + 3, 7)]
+    c = _case(rng, seqs, bs, n_kv=2, grp=2, tile_q=tile_q, mbps=24,
+              pool_blocks=60)
+    c["bt"][1, :2] = c["bt"][0, :2]  # sequence 1 shares sequence 0's pages
+    kv = [n + ctx for n, ctx in seqs]
+    cu = np.concatenate([[0], np.cumsum([n for n, _ in seqs])])
+    kw = dict(total_tokens=c["q"].shape[0], tile_q=tile_q, block_size=bs,
+              max_steps=trpa.rpa_max_steps(tile_q, 24, c["max_seqs"]),
+              max_seqs=c["max_seqs"])
+    ssq, sbk = trpa.build_step_maps(cu, kv, **kw)
+    for a, b in zip((ssq, sbk), jrpa.build_step_maps(cu, kv, **kw)):
+        assert np.array_equal(a, b)
+    want = np.asarray(jrpa.ragged_paged_attention(
+        jnp.asarray(c["q"]), jnp.asarray(c["kp"]), jnp.asarray(c["vp"]),
+        jnp.asarray(c["bt"]), jnp.asarray(c["cu"]), jnp.asarray(c["ctx"]),
+        ssq, sbk))
+    got = trpa._rpa_split_plain(
+        _t(c["q"]), _t(c["kp"]), _t(c["vp"]), _t(c["bt"]), _t(c["cu"]),
+        _t(c["ctx"]), _t(ssq), _t(sbk), min_pages=min_pages,
+        max_chunks=max_chunks).numpy()
+    valid = c["sid"] < c["max_seqs"]
+    np.testing.assert_allclose(got[valid], want[valid], atol=ATOL)
+    assert np.all(got[~valid] == 0.0)
+    if min_pages is not None:  # the split really cut the long context
+        info, _ = trpa._rpa_items_plain(_t(ssq), c["max_seqs"], min_pages,
+                                        max_chunks)
+        assert int(info[3]) > 1
+
+
+def _items_by_loops(step_seq, max_seqs, min_pages, max_chunks):
+    """The work list written as loops over a numpy step map."""
+    info, items = [], []
+    for row in step_seq:
+        dead = np.nonzero(row >= max_seqs)[0]
+        live = int(dead[0]) if len(dead) else len(row)
+        length = max(min_pages, -(-live // max_chunks))
+        n = -(-live // length)
+        info += [live, length, len(items), n]
+        items += [len(info) // 4 - 1] * n
+    return info + [len(items)], items
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_work_list_matches_an_enumeration(seed):
+    """The plain version of the bf16 kernel's work list against
+    loops over the step map: each tile's live prefix, cut into at most
+    max_chunks chunks of at least min_pages steps, the chunks numbered
+    tile after tile; a dead tile has none."""
+    rng = np.random.RandomState(seed)
+    for bs, tile_q in ((4, 8), (8, 16), (4, 32)):
+        seqs = _random_mix(rng, bs, tile_q=tile_q) + [(1, 40 * bs)]
+        cu = np.concatenate([[0], np.cumsum([n for n, _ in seqs])])
+        kv = [n + c for n, c in seqs]
+        T = (-(-int(cu[-1]) // tile_q) + 2) * tile_q  # two dead tiles
+        ssq, _ = trpa.build_step_maps(
+            cu, kv, total_tokens=T, tile_q=tile_q, block_size=bs,
+            max_steps=trpa.rpa_max_steps(tile_q, 64, len(seqs)),
+            max_seqs=len(seqs))
+        for min_pages, max_chunks in ((1, 4), (2, 16), (3, 2)):
+            info, items = trpa._rpa_items_plain(_t(ssq), len(seqs),
+                                                min_pages, max_chunks)
+            want_info, want_items = _items_by_loops(ssq, len(seqs),
+                                                    min_pages, max_chunks)
+            assert info.tolist() == want_info
+            assert items.shape == (ssq.shape[0] * max_chunks,)
+            assert items[:len(want_items)].tolist() == want_items

@@ -285,3 +285,21 @@ def test_out_of_vocabulary_prompt_ids_are_refused(models):
         status, raw = _post(srv.url + "/generate", {"prompt_ids": [5, 6],
                                                     "max_new_tokens": 2})
         assert status == 200 and len(json.loads(raw)["token_ids"]) == 2
+
+
+def test_paged_kv_cache_runs_on_the_card_unless_asked(monkeypatch):
+    """``PagedKVCache`` resolves its device as every entry point does:
+    with no card the default (``cuda``) raises instead of building its
+    pools on the CPU, and ``device="cpu"`` builds them there."""
+    import torch
+
+    from paddle_tpu_torch.serving.kv_cache import PagedKVCache
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PagedKVCache(num_layers=1, num_blocks=4, block_size=4,
+                     num_kv_heads=2, head_dim=8)
+    cache = PagedKVCache(num_layers=2, num_blocks=4, block_size=4,
+                         num_kv_heads=2, head_dim=8, device="cpu")
+    assert [p.device.type for p in cache.k_pools + cache.v_pools] == \
+        ["cpu"] * 4
+    assert cache.k_pools[0].shape == (5, 4, 2, 8)
