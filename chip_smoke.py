@@ -43,11 +43,23 @@ Phases, each of which either succeeds or makes the script exit non-zero:
 7. training — the Llama-recipe model of ``bench.py``'s training
    benchmark (vocab 128256 tied, hidden 2048, FFN 7168, 8 layers, 16/4
    heads, bf16, seeded random weights) through ``TrainStep`` with AdamW
-   (f32 masters) and a global-norm clip on a 4 x 2048 batch: 2 warm-up
-   and 10 timed steps; the first loss must be within 1.0 of ln(vocab),
-   the last lower, and each flash kernel launched once per layer per
-   step; step time, tokens/s, MFU, peak memory and the device time by
-   kernel;
+   (f32 masters) and a global-norm clip on a 4 x 2048 batch, fused (the
+   default: 2 warm-up and 10 timed steps) and then with ``fused=False``
+   (2 + 5 steps, the per-parameter loop) from the same seed: the first
+   loss must be within 1.0 of ln(vocab), the last lower, each flash
+   kernel launched once per layer per step, ``fused_adam_update`` and
+   ``fused_sqnorm`` once per bucket per fused step and never in the
+   loop, and the first three losses of the two runs equal within rtol
+   1e-3; step time, tokens/s, MFU, peak and resident memory of each,
+   and a profiled step's device time by kind of kernel and by
+   ``TrainStep`` range (forward+backward, clip, update);
+7b. fused update — the Llama bucket's real sizes (0.70 B bf16 parameters
+   with f32 masters, AdamW, a clip scale from ``fused_sqnorm``): two
+   steps through ``fused_adam_update`` and through the plain bucket
+   update must agree bit for bit, ``fused_sqnorm`` within 1e-6 of the
+   plain f32 sum with the same bits on a second run; the kernels', the
+   plain versions', the per-parameter loop's and ``torch._fused_adamw_``'s
+   times on the same buffers, and the bounds;
 8. grouped matmul vs plain — (a) one ``MoELayer`` at DeepSeekMoE-16B's
    expert widths (E=64, top-6, M=2048, H=1408, seeded bf16 weights)
    routes 4 x 2048 hidden states; its 49152 assignments, sorted by
@@ -70,10 +82,9 @@ Phases, each of which either succeeds or makes the script exit non-zero:
 9. MoE training — ``MoeConfig.deepseek_moe_16b`` at full width cut to 4
    layers (1.71 B parameters, bf16, seeded weights) through
    ``TrainStep`` with AdamW (f32 masters) and a global-norm clip on 4 x
-   2048 ids: 2 warm-up and 10 timed steps; the first loss within 1.0 of
-   ln(vocab), the last lower, each flash kernel once per layer per step;
-   capacity and drops per MoE layer, step time, tokens/s, MFU by the
-   script's flop count, memory and the device time by kind of work.
+   2048 ids, fused (2 + 10 steps) and with ``fused=False`` (2 + 5), with
+   phase 7's checks and numbers; capacity and drops per MoE layer and the
+   expert products' share of device time.
 
 It prints its measurements on earlier lines, then one JSON line with a
 record per kernel, and ends with
@@ -407,7 +418,8 @@ def device_rows(prof):
     return sorted(((dev_us(e), e.key, e.count)
                    for e in prof.key_averages()
                    if getattr(e, "device_type", None) == DeviceType.CUDA
-                   and dev_us(e) > 0), reverse=True)
+                   and dev_us(e) > 0 and e.key not in STEP_RANGES),
+                  reverse=True)
 
 
 def profile_window(engine, plain_prompts, profiled_prompts, new_tokens):
@@ -956,62 +968,180 @@ def train_flops_per_step(cfg, B, S):
     return 3 * (B * S * per_tok + attn)
 
 
-def profile_train_step(step, x, step_ms):
-    """Device time by kernel name over one more training step under
-    ``torch.profiler``, and its share of the un-profiled step's wall."""
+# device kernels by kind, first match wins: (label, words in the name)
+KERNEL_KINDS = (
+    ("flash K1-K3", ("flash_",)),
+    ("fused optimizer kernels", ("fused_adam", "fused_sqnorm")),
+    ("cuBLAS GEMMs", ("nvjet", "gemm", "cutlass")),
+    ("copies, casts, cat, fill", ("copy", "memcpy", "memset", "catarray",
+                                  "fill")),
+    ("multi-tensor (foreach)", ("multi_tensor_apply",)),
+    ("gathers, scatters, sorts, embedding", (
+        "index", "gather", "scatter", "sort", "radix", "scan", "cumsum",
+        "embedding", "histogram")),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise", ("elementwise",)))
+# the ranges TrainStep opens around its three parts
+STEP_RANGES = ("TrainStep.forward_backward", "TrainStep.clip",
+               "TrainStep.update")
+
+
+def kernel_kind(key):
+    low = key.lower()
+    for label, words in KERNEL_KINDS:
+        if any(w in low for w in words):
+            if label == "elementwise":  # by the type the functor computes
+                return "elementwise bf16" if "bfloat16" in low else \
+                    "elementwise f32" if "float" in low else "elementwise"
+            return label
+    return "other"
+
+
+# the port's own kernels, launched through ctypes, which the profiler
+# links to no host op: each belongs to a TrainStep range by its name
+OWN_KERNEL_RANGES = (("flash_", "TrainStep.forward_backward"),
+                     ("fused_sqnorm", "TrainStep.clip"),
+                     ("fused_adam", "TrainStep.update"))
+
+
+def range_device_us(prof):
+    """Device us of each ``TrainStep`` range: every kernel a host op
+    launched while the range was open on the host (the backward's ops
+    run on autograd's own thread while the step's thread waits inside
+    its range), and the port's own kernels by their names."""
+    from torch.autograd import DeviceType
+
+    def own(name):
+        return next((r for w, r in OWN_KERNEL_RANGES if w in name), None)
+    spans = {n: [] for n in STEP_RANGES}
+    for e in prof.events():
+        if e.name in spans and e.device_type == DeviceType.CPU:
+            spans[e.name].append((e.time_range.start, e.time_range.end))
+    out = dict.fromkeys(STEP_RANGES, 0.0)
+    if not any(spans.values()):
+        return out
+    seen = set()
+    for e in prof.events():
+        # CUPTI's own markers ("Command Buffer Full") share the correlation
+        # id of the op they interrupt and carry its kernels again: each id
+        # counts once
+        if e.device_type != DeviceType.CPU or not e.kernels or e.id in seen:
+            continue
+        seen.add(e.id)
+        t = e.time_range.start
+        r = next((n for n, ivs in spans.items()
+                  if any(a <= t <= b for a, b in ivs)), None)
+        if r is not None:
+            out[r] += sum(k.duration for k in e.kernels
+                          if own(k.name) is None)
+    for us, key, _ in device_rows(prof):
+        if own(key) is not None:
+            out[own(key)] += us
+    return out
+
+
+def dev_total_us(e):
+    """A host op's device time with its children's (the attribute's name
+    depends on the PyTorch version)."""
+    return e.device_time_total if hasattr(e, "device_time_total") \
+        else e.cuda_time_total
+
+
+def step_breakdown(prof, what, step_ms):
+    """Log one profiled training step's device time by kind of kernel
+    (with launches) and by ``TrainStep``'s ranges; returns ``{kind or
+    range: device ms}``. A range's time is the device time of every
+    kernel launched inside it."""
+    rows = device_rows(prof)
+    total = sum(us for us, _, _ in rows)
+    if total == 0:
+        log(f"{what} profile: the profiler saw no device time "
+            f"(not measured)")
+        return {}
+    kinds = {}
+    for us, key, count in rows:
+        k = kinds.setdefault(kernel_kind(key), [0.0, 0])
+        k[0] += us
+        k[1] += count
+    log(f"{what} profile: one step, device time {total / 1e3:.3f} ms = "
+        f"{100 * total / 1e3 / step_ms:.1f}% of the un-profiled step wall;"
+        f" by kind of kernel (device ms, share, launches):")
+    for label, (us, count) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
+        log(f"  {label:38s} {us / 1e3:9.3f} ms {100 * us / total:5.1f}% "
+            f"{count:6d}x")
+    out = {label: us / 1e3 for label, (us, _) in kinds.items()}
+    spans = range_device_us(prof)
+    if any(spans.values()):
+        log(f"{what} profile: by TrainStep range (device ms, share): "
+            + ", ".join(f"{n.split('.')[1]} {us / 1e3:.3f} "
+                        f"({100 * us / total:.1f}%)"
+                        for n, us in spans.items())
+            + f", outside them {(total - sum(spans.values())) / 1e3:.3f}")
+        out.update({n: us / 1e3 for n, us in spans.items()})
+    else:
+        log(f"{what} profile: no TrainStep ranges in the trace")
+    for us, key, count in rows[:15]:
+        log(f"  {100 * us / total:5.1f}%  {us / 1e3:10.3f} ms  "
+            f"{count:6d}x  {key[:100]}")
+    return out
+
+
+def profile_train_step(step, x, step_ms, what="train"):
+    """Device time of one more training step under ``torch.profiler``,
+    by kind of kernel and by ``TrainStep`` range."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         step(x)
         torch.cuda.synchronize()
-
-    rows = device_rows(prof)
-    total = sum(us for us, _, _ in rows)
-    if total == 0:
-        log("train profile: the profiler saw no device time (not measured)")
-        return
-    share = {n: sum(us for us, key, _ in rows if n in key) / total
-             for n in ("flash_fwd", "flash_dq", "flash_dkv")}
-    gemm = sum(us for us, key, _ in rows
-               if any(w in key for w in ("nvjet", "gemm", "cutlass")))
-    rest = 1 - sum(share.values()) - gemm / total
-    log(f"train profile: one step, device time {total / 1e3:.3f} ms "
-        f"= {100 * total / 1e3 / step_ms:.1f}% of the un-profiled step "
-        f"wall; K1 {100 * share['flash_fwd']:.1f}%, K2 "
-        f"{100 * share['flash_dq']:.1f}%, K3 "
-        f"{100 * share['flash_dkv']:.1f}%, cuBLAS GEMMs "
-        f"{100 * gemm / total:.1f}%, everything else (elementwise, "
-        f"reductions, copies) {100 * rest:.1f}% of device time")
-    for us, key, count in rows[:10]:
-        log(f"  {100 * us / total:5.1f}%  {us / 1e3:10.3f} ms  "
-            f"{count:6d}x  {key[:90]}")
+    return step_breakdown(prof, what, step_ms)
 
 
-def phase_training():
-    """The bench's training step at its full configuration; returns the
-    flash launch counts of the 12 steps."""
+FUSED_SRC = "paddle_tpu_torch/ops/pallas/csrc/fused_update.cu"
+# the fused optimizer kernels have no Pallas counterpart: they stand in for
+# XLA's fusion of the reference's fused_clip_and_update
+FUSED_REPLACES = "paddle_tpu/jit/fused_update.py:250"
+FUSED_KERNELS = ("fused_adam_update", "fused_sqnorm")
+
+
+def _reset_fused_counts():
+    from paddle_tpu_torch.jit import fused_update as fu
+    fu.launches_adam = fu.launches_sqnorm = 0
+
+
+def _fused_counts():
+    from paddle_tpu_torch.jit import fused_update as fu
+    return dict(fused_adam_update=fu.launches_adam,
+                fused_sqnorm=fu.launches_sqnorm)
+
+
+def train_run(what, make_model, fused, warmup, timed, flops,
+              profile=None):
+    """One training run of a seeded model on one seeded batch of 4 x 2048
+    ids through ``TrainStep`` (AdamW, f32 masters, global-norm clip 1.0),
+    ``fused`` as given (None: the default, fused): ``warmup`` + ``timed``
+    steps, then one profiled step (``profile``, by default
+    :func:`profile_train_step`). Checks the losses and the flash and
+    fused-kernel launch counts; returns the run's numbers and the model."""
     from paddle_tpu_torch.jit import TrainStep
-    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
     from paddle_tpu_torch.optimizer import AdamW
 
-    cfg = LlamaConfig(
-        vocab_size=128256, hidden_size=2048, intermediate_size=7168,
-        num_hidden_layers=8, num_attention_heads=16, num_key_value_heads=4,
-        max_position_embeddings=4096, tie_word_embeddings=True)
-    B, S, warmup, timed = 4, 2048, 2, 10
+    B, S = 4, 2048
     free_device_memory()
     before = torch.cuda.memory_allocated()  # left by earlier phases
     torch.cuda.reset_peak_memory_stats()
-    model = LlamaForCausalLM(cfg, dtype="bfloat16", seed=SEED)
-    n_params = sum(p.numel() for p in model.parameters())
+    model = make_model()
+    cfg = model.cfg
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
                 multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))
-    step = TrainStep(model, lambda m, x: m(x, labels=x)[1], opt)
+    step = TrainStep(model, lambda m, x: m(x, labels=x)[1], opt,
+                     fused=fused)
     x = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (B, S))).cuda()
 
     _reset_flash_counts()
+    _reset_fused_counts()
     losses = [float(step(x)) for _ in range(warmup)]
     torch.cuda.synchronize()
     # between steps only the state stays: weights, f32 masters, moments
@@ -1020,42 +1150,232 @@ def phase_training():
     timed_losses = [step(x) for _ in range(timed)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = _flash_counts()
+    counts, fused_counts = _flash_counts(), _fused_counts()
+    peak = torch.cuda.max_memory_allocated()
     losses += [float(t) for t in timed_losses]
     steps = warmup + timed
     ln_v = math.log(cfg.vocab_size)
     if not (math.isfinite(losses[0]) and abs(losses[0] - ln_v) <= 1.0):
-        raise AssertionError(f"first loss {losses[0]} is not within 1.0 "
-                             f"of ln(vocab) = {ln_v:.3f}")
+        raise AssertionError(f"{what}: first loss {losses[0]} is not within "
+                             f"1.0 of ln(vocab) = {ln_v:.3f}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses}")
+        raise AssertionError(f"{what}: loss did not fall: {losses}")
     for kname, n in counts.items():
         if n != steps * cfg.num_hidden_layers:
             raise AssertionError(
-                f"{kname} launched {n} times in {steps} steps, not "
+                f"{what}: {kname} launched {n} times in {steps} steps, not "
                 f"{cfg.num_hidden_layers} per step")
+    layout = step._layout
+    buckets = len(layout.buckets) if layout is not None else 0
+    if (layout is not None) != step._fused or \
+            (layout is not None and layout.residue):
+        raise AssertionError(f"{what}: layout {layout} for fused={fused}")
+    for kname, n in fused_counts.items():  # one per bucket per step
+        if n != steps * buckets:
+            raise AssertionError(
+                f"{what}: {kname} launched {n} times in {steps} steps over "
+                f"{buckets} buckets")
     step_ms = 1e3 * wall / timed
-    flops = train_flops_per_step(cfg, B, S)
     mfu = flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
-    log(f"train: {n_params} parameters, batch {B} x {S}, bf16, AdamW f32 "
-        f"masters; loss step 1 {losses[0]:.4f} (ln V = {ln_v:.4f}), step "
-        f"{steps} {losses[-1]:.4f}; losses {[round(v, 4) for v in losses]}")
-    log(f"train: launches per step K1 {counts['flash_attention_fwd'] // steps}"
-        f", K2 {counts['flash_attention_dq'] // steps}, K3 "
-        f"{counts['flash_attention_dkv'] // steps} (= {cfg.num_hidden_layers}"
-        f" layers)")
-    floor_ms = 1e3 * flops / PEAK_FLOPS[torch.bfloat16]
-    log(f"train: step {step_ms:.3f} ms (synchronised wall / {timed} steps);"
-        f" {B * S / (step_ms / 1e3):.1f} tokens/s; {flops:.4e} flop per step"
-        f" (bench.py's count), floor {floor_ms:.2f} ms at 989 TFLOP/s; MFU "
-        f"{100 * mfu:.2f}%; max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated() - before} B above the {before} "
-        f"B allocated before the phase, of which {resident - before} B stay"
-        f" allocated between steps")
-    profile_train_step(step, x, step_ms)
-    del step, opt, model
+    n_params = sum(p.numel() for p in model.parameters())
+    mode = "fused" if step._fused else "fused=False (per-parameter loop)"
+    log(f"{what} [{mode}]: {n_params} parameters in {buckets} buckets, batch "
+        f"{B} x {S}, bf16, AdamW f32 masters, clip 1.0; loss step 1 "
+        f"{losses[0]:.4f} (ln V = {ln_v:.4f}), step {steps} "
+        f"{losses[-1]:.4f}; losses {[round(v, 4) for v in losses]}")
+    log(f"{what} [{mode}]: launches per step K1 "
+        f"{counts['flash_attention_fwd'] // steps}, K2 "
+        f"{counts['flash_attention_dq'] // steps}, K3 "
+        f"{counts['flash_attention_dkv'] // steps} (= "
+        f"{cfg.num_hidden_layers} layers); fused_adam_update "
+        f"{fused_counts['fused_adam_update']} and fused_sqnorm "
+        f"{fused_counts['fused_sqnorm']} in {steps} steps")
+    log(f"{what} [{mode}]: step {step_ms:.3f} ms (synchronised wall / "
+        f"{timed} steps); {B * S / (step_ms / 1e3):.1f} tokens/s; "
+        f"{flops:.4e} flop per step, floor "
+        f"{1e3 * flops / PEAK_FLOPS[torch.bfloat16]:.2f} ms at 989 "
+        f"TFLOP/s; MFU {100 * mfu:.2f}%; max_memory_allocated "
+        f"{peak - before} B above the {before} B allocated before the "
+        f"run, of which {resident - before} B stay allocated between steps")
+    shares = (profile or profile_train_step)(step, x, step_ms,
+                                             f"{what} [{mode}]")
+    return dict(losses=losses, step_ms=step_ms, mfu=mfu,
+                peak=peak - before, resident=resident - before,
+                flash=counts, fused=fused_counts, shares=shares), model
+
+
+def compare_fused_and_loop(what, fused, loop):
+    """The fused and the looped runs of one model from the same seed:
+    their first three losses agree within rtol 1e-3."""
+    a, b = fused["losses"][:3], loop["losses"][:3]
+    if not np.allclose(a, b, rtol=1e-3, atol=0):
+        raise AssertionError(f"{what}: fused losses {a} and looped {b} "
+                             f"differ by more than rtol 1e-3")
+    opt_ms = {k: r["shares"].get("TrainStep.clip", 0.0)
+              + r["shares"].get("TrainStep.update", 0.0)
+              for k, r in (("fused", fused), ("loop", loop))}
+    log(f"{what}: fused step {fused['step_ms']:.3f} ms against "
+        f"{loop['step_ms']:.3f} ms with fused=False "
+        f"({loop['step_ms'] / fused['step_ms']:.3f}x); clip + update "
+        f"device time {opt_ms['fused']:.3f} against {opt_ms['loop']:.3f} "
+        f"ms; first three losses {[round(v, 5) for v in a]} and "
+        f"{[round(v, 5) for v in b]} (rtol 1e-3); peak "
+        f"{fused['peak']} against {loop['peak']} B, held between steps "
+        f"{fused['resident']} against {loop['resident']} B")
+
+
+def llama_bench_config():
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    return LlamaConfig(
+        vocab_size=128256, hidden_size=2048, intermediate_size=7168,
+        num_hidden_layers=8, num_attention_heads=16, num_key_value_heads=4,
+        max_position_embeddings=4096, tie_word_embeddings=True)
+
+
+def phase_training():
+    """The bench's training step at its full configuration, fused (the
+    default: 2 + 10 steps, the main path whose launches are counted) and
+    with ``fused=False`` (2 + 5 steps); returns the fused run's flash
+    and fused-kernel launch counts."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    cfg = llama_bench_config()
+    flops = train_flops_per_step(cfg, 4, 2048)
+
+    def make():
+        return LlamaForCausalLM(cfg, dtype="bfloat16", seed=SEED)
+    fused, model = train_run("train", make, None, 2, 10, flops)
+    del model
+    loop, model = train_run("train", make, False, 2, 5, flops)
+    del model
     free_device_memory()
-    return counts
+    compare_fused_and_loop("train", fused, loop)
+    return {**fused["flash"], **fused["fused"]}
+
+
+# --------------------------------------------------------------------------
+def phase_fused_update():
+    """The fused update's kernels on the Llama bucket's real sizes (the
+    bench model's 0.70 B bf16 parameters, f32 masters, AdamW): two steps
+    through the kernels and through the plain bucket update, from the
+    same state and gradients, must agree bit for bit; then the times of
+    the kernels, the plain versions, the per-parameter loop (the clip and
+    update of ``fused=False``) and ``torch._fused_adamw_`` on the same
+    flat f32 buffers (another rule: timed, not compared)."""
+    from paddle_tpu_torch.jit import fused_update as fu
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    free_device_memory()
+    model = LlamaForCausalLM(llama_bench_config(), dtype="bfloat16",
+                             seed=SEED)
+    clip = ClipGradByGlobalNorm(1.0)
+    copies = []
+    for params in (dict(model.named_parameters()),
+                   {n: torch.nn.Parameter(p.detach().clone())
+                    for n, p in model.named_parameters()}):
+        opt = AdamW(learning_rate=1e-4, parameters=list(params.values()),
+                    multi_precision=True, grad_clip=clip)
+        layout = fu.build_layout(opt, params, list(params))
+        (b,), flats = layout.buckets, fu.build_flat_states(opt, layout,
+                                                           params)
+        copies.append((opt, b, [params[n] for n in b.names], flats[0]))
+    del model
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    grads = [(torch.randn(p.shape, device="cuda", generator=gen) * 1e-3)
+             .to(torch.bfloat16) for p in copies[0][2]]
+    n = sum(g.numel() for g in grads)
+    lr = 1e-4
+
+    def scale_of(sq):
+        return clip.scale(torch.sqrt(sq))
+    (opt_k, b_k, ps_k, f_k), (opt_p, b_p, ps_p, f_p) = copies
+    _reset_fused_counts()  # these launches are checks, not the main path
+    sq_k = fu.fused_sqnorm(grads, b_k)
+    sq_p = fu.sqnorm_plain(grads)
+    for _ in range(2):
+        fu.fused_adam_update(opt_k, b_k, ps_k, grads, f_k, lr,
+                             scale_of(sq_k))
+        fu.bucket_update_plain(opt_p, b_p, ps_p, grads, f_p, lr,
+                               scale_of(sq_k))
+    torch.cuda.synchronize()
+    sq_err = abs(float(sq_k) - float(sq_p)) / float(sq_p)
+    if sq_err > 1e-6 or not torch.equal(sq_k, fu.fused_sqnorm(grads, b_k)):
+        raise AssertionError(f"fused_sqnorm: {float(sq_k)} against plain "
+                             f"{float(sq_p)} (relative {sq_err:.3e}), or not "
+                             f"the same bits on a second run")
+    diffs = {k: float((f_k[k].float() - f_p[k].float()).abs().max())
+             for k in f_k}
+    diffs["param"] = max(float((a.detach().float() - c.detach().float())
+                               .abs().max()) for a, c in zip(ps_k, ps_p))
+    same = all(torch.equal(f_k[k], f_p[k]) for k in f_k) and all(
+        torch.equal(a.detach(), c.detach()) for a, c in zip(ps_k, ps_p))
+    if not same:
+        raise AssertionError(f"fused_adam_update differs from the plain "
+                             f"bucket update: max |err| {diffs}")
+    log(f"fused update: {n} parameters in one bucket of {len(ps_k)} "
+        f"tensors (bf16, f32 masters, AdamW decay 0.01, clip scale "
+        f"{float(scale_of(sq_k)):.6f}); fused_adam_update equals the plain "
+        f"bucket update bit for bit over 2 steps (parameters, m, v, "
+        f"masters, beta powers); fused_sqnorm {float(sq_k):.9e} against "
+        f"plain {float(sq_p):.9e} (relative {sq_err:.2e}, limit 1e-6), the "
+        f"same bits on a second run")
+
+    scale = scale_of(sq_k)
+    pairs = list(zip(ps_p, grads))
+    group = opt_p._param_groups[0]
+    flat_f32 = {k: f_p[k] for k in ("master_weight", "moment1", "moment2")}
+    g32 = torch.cat([g.reshape(-1) for g in grads]).float()
+    steps32 = torch.ones((), device="cuda")
+
+    def loop():  # fused=False's clip and update
+        clipped, _ = clip._clip_with_norm(pairs)
+        opt_p._apply(group, clipped, lr)
+
+    def library():
+        torch._fused_adamw_(
+            [flat_f32["master_weight"]], [g32], [flat_f32["moment1"]],
+            [flat_f32["moment2"]], [], [steps32], lr=lr, beta1=0.9,
+            beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+            maximize=False)
+    times = dict(
+        adam=cuda_ms(lambda: fu.fused_adam_update(opt_k, b_k, ps_k, grads,
+                                                  f_k, lr, scale)),
+        adam_plain=cuda_ms(lambda: fu.bucket_update_plain(
+            opt_p, b_p, ps_p, grads, f_p, lr, scale), reps=10),
+        sqnorm=cuda_ms(lambda: fu.fused_sqnorm(grads, b_k)),
+        sqnorm_plain=cuda_ms(lambda: fu.sqnorm_plain(grads), reps=10),
+        loop=cuda_ms(loop, reps=10),
+        library=cuda_ms(library, reps=10))
+    torch.cuda.synchronize()
+    adam_bytes, sq_bytes = 28 * n, 2 * n
+    bound = {"adam": 1e3 * adam_bytes / HBM_BYTES_PER_S,
+             "sqnorm": 1e3 * sq_bytes / HBM_BYTES_PER_S}
+    log(f"fused update: fused_adam_update {times['adam']:.4f} ms "
+        f"({adam_bytes / times['adam'] / 1e9:.3f} TB/s, "
+        f"{100 * bound['adam'] / times['adam']:.1f}% of the bound's rate), "
+        f"plain bucket update {times['adam_plain']:.4f} ms, "
+        f"torch._fused_adamw_ on the flat f32 buffers (another rule, f32 "
+        f"gradients, no bf16 parameters) {times['library']:.4f} ms; bound "
+        f"{adam_bytes} B (28 B a parameter: the bf16 gradient read, m, v "
+        f"and the master read and written, the bf16 parameter written) / "
+        f"3.35 TB/s = {bound['adam']:.4f} ms")
+    log(f"fused update: fused_sqnorm {times['sqnorm']:.4f} ms, plain "
+        f"{times['sqnorm_plain']:.4f} ms; bound {sq_bytes} B / 3.35 TB/s = "
+        f"{bound['sqnorm']:.4f} ms. Clip + update: the kernels "
+        f"{times['adam'] + times['sqnorm']:.4f} ms against the "
+        f"per-parameter loop's {times['loop']:.4f} ms")
+    del copies, opt_k, opt_p, ps_k, ps_p, f_k, f_p, pairs, flat_f32, g32
+    free_device_memory()
+    return {
+        "fused_adam_update": dict(
+            max_abs_err=max(diffs.values()), ms=times["adam"],
+            plain_ms=times["adam_plain"], bound_ms=bound["adam"],
+            bound_by="bytes", library_ms=times["library"]),
+        "fused_sqnorm": dict(
+            max_abs_err=abs(float(sq_k) - float(sq_p)), ms=times["sqnorm"],
+            plain_ms=times["sqnorm_plain"], bound_ms=bound["sqnorm"],
+            bound_by="bytes", library_ms=None)}
 
 
 # --------------------------------------------------------------------------
@@ -1631,127 +1951,63 @@ def moe_train_flops_per_step(cfg, B, S):
     return 3 * (2 * B * S * macs + attn)
 
 
-def profile_moe_step(step, x, step_ms):
-    """Device time of one more MoE training step by kind of work."""
+def profile_moe_step(step, x, step_ms, what="moe"):
+    """:func:`profile_train_step` for the MoE step, with the share of the
+    expert products beside it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         step(x)
         torch.cuda.synchronize()
-    rows = device_rows(prof)
-    total = sum(us for us, _, _ in rows)
-    if total == 0:
-        log("moe profile: the profiler saw no device time (not measured)")
-        return
-    flash = sum(us for us, key, _ in rows if "flash_" in key)
-    gemm = sum(us for us, key, _ in rows
-               if any(w in key for w in ("nvjet", "gemm", "cutlass")))
+    shares = step_breakdown(prof, what, step_ms)
+    total = sum(us for us, _, _ in device_rows(prof))
     # the expert products are the only aten::bmm calls of the step (its
     # host op carries the device time of the kernels it launched)
-    bmm = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total",
-                                                      0))
-              for e in prof.key_averages()
+    bmm = sum(dev_total_us(e) for e in prof.key_averages()
               if e.key == "aten::bmm"
               and getattr(e, "device_type", None) == DeviceType.CPU)
-    moves = sum(us for us, key, _ in rows
-                if any(w in key.lower() for w in (
-                    "index", "gather", "scatter", "sort", "radix", "scan",
-                    "cumsum", "embedding", "histogram")))
-    rest = total - flash - gemm - moves
-    log(f"moe profile: one step, device time {total / 1e3:.3f} ms = "
-        f"{100 * total / 1e3 / step_ms:.1f}% of the un-profiled step wall; "
-        f"flash K1-K3 {100 * flash / total:.1f}%, cuBLAS "
-        f"{100 * gemm / total:.1f}% (of which the expert bmm "
-        f"{100 * bmm / total:.1f}%), gathers/scatters/sorts (routing, "
-        f"embedding, CE) {100 * moves / total:.1f}%, the rest (elementwise, "
-        f"reductions, copies, optimizer) {100 * rest / total:.1f}%")
-    for us, key, count in rows[:10]:
-        log(f"  {100 * us / total:5.1f}%  {us / 1e3:10.3f} ms  "
-            f"{count:6d}x  {key[:90]}")
+    if total:
+        log(f"{what} profile: the expert bmm (cuBLAS) {bmm / 1e3:.3f} ms, "
+            f"{100 * bmm / total:.1f}% of device time")
+    return shares
 
 
 def phase_moe_training():
-    """Phase 9: DeepSeekMoE-16B at full width, 4 layers, 12 steps; returns
-    the flash launch counts."""
+    """Phase 9: DeepSeekMoE-16B at full width, 4 layers, fused (2 + 10
+    steps) and with ``fused=False`` (2 + 5 steps)."""
     from paddle_tpu_torch.distributed.fleet import MoELayer
-    from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.moe import MoeConfig, MoeForCausalLM
-    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
-    from paddle_tpu_torch.optimizer import AdamW
 
     cfg = MoeConfig.deepseek_moe_16b(num_hidden_layers=4)
-    B, S, warmup, timed = 4, 2048, 2, 10
-    free_device_memory()
-    before = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    model = MoeForCausalLM(cfg, dtype="bfloat16", seed=SEED)
-    n_params = sum(p.numel() for p in model.parameters())
-    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
-                multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))
-    step = TrainStep(model, lambda m, x: m(x, labels=x)[1], opt)
-    x = torch.from_numpy(np.random.RandomState(0).randint(
-        0, cfg.vocab_size, (B, S))).cuda()
+    B = 4
+    flops = moe_train_flops_per_step(cfg, B, 2048)
 
-    _reset_flash_counts()
+    def make():
+        return MoeForCausalLM(cfg, dtype="bfloat16", seed=SEED)
     _reset_gmm_counts()
-    losses = [float(step(x)) for _ in range(warmup)]
-    torch.cuda.synchronize()
-    resident = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    timed_losses = [step(x) for _ in range(timed)]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = _flash_counts()
+    fused, model = train_run("moe train", make, None, 2, 10, flops,
+                             profile_moe_step)
     gmm_counts = _gmm_counts()
-    losses += [float(t) for t in timed_losses]
-    steps = warmup + timed
-    ln_v = math.log(cfg.vocab_size)
-    if not (math.isfinite(losses[0]) and abs(losses[0] - ln_v) <= 1.0):
-        raise AssertionError(f"first loss {losses[0]} is not within 1.0 "
-                             f"of ln(vocab) = {ln_v:.3f}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses}")
-    for kname, n in counts.items():
-        if n != steps * cfg.num_hidden_layers:
-            raise AssertionError(
-                f"{kname} launched {n} times in {steps} steps, not "
-                f"{cfg.num_hidden_layers} per step")
     moe_layers = [(i, layer.mlp) for i, layer in enumerate(model.layers)
                   if isinstance(layer.mlp, MoELayer)]
-    step_ms = 1e3 * wall / timed
-    flops = moe_train_flops_per_step(cfg, B, S)
-    mfu = flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
     log(f"moe train: DeepSeekMoE-16B widths, {cfg.num_hidden_layers} layers "
         f"(layer 0 dense, FFN {cfg.intermediate_size}; {len(moe_layers)} MoE "
         f"layers of {cfg.num_experts} experts x {cfg.moe_intermediate_size}, "
-        f"top-{cfg.num_experts_per_tok}, {cfg.num_shared_experts} shared), "
-        f"{n_params} parameters, batch {B} x {S}, bf16, AdamW f32 masters; "
-        f"loss step 1 {losses[0]:.4f} (ln V = {ln_v:.4f}), step {steps} "
-        f"{losses[-1]:.4f}; losses {[round(v, 4) for v in losses]}")
+        f"top-{cfg.num_experts_per_tok}, {cfg.num_shared_experts} shared); "
+        f"K5-K8 {gmm_counts} (the layer computes its experts with torch.bmm "
+        f"on the capacity layout, as the reference computes einsums)")
     log("moe train: capacity and dropped assignments of the last step: "
         + ", ".join(f"layer {i} C={m.last_capacity} dropped "
-                    f"{int(m.last_dropped)} of {B * S * m.gate.top_k}"
+                    f"{int(m.last_dropped)} of {B * 2048 * m.gate.top_k}"
                     for i, m in moe_layers))
-    log(f"moe train: launches per step K1 "
-        f"{counts['flash_attention_fwd'] // steps}, K2 "
-        f"{counts['flash_attention_dq'] // steps}, K3 "
-        f"{counts['flash_attention_dkv'] // steps} (= "
-        f"{cfg.num_hidden_layers} layers); K5-K8 {gmm_counts} (the layer "
-        f"computes its experts with torch.bmm on the capacity layout, as the "
-        f"reference computes einsums)")
-    log(f"moe train: step {step_ms:.3f} ms (synchronised wall / {timed} "
-        f"steps); {B * S / (step_ms / 1e3):.1f} tokens/s; {flops:.4e} flop "
-        f"per step (moe_train_flops_per_step), floor "
-        f"{1e3 * flops / PEAK_FLOPS[torch.bfloat16]:.2f} ms at 989 TFLOP/s; "
-        f"MFU {100 * mfu:.2f}%; max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated() - before} B above the {before} "
-        f"B allocated before the phase, of which {resident - before} B stay"
-        f" allocated between steps")
-    profile_moe_step(step, x, step_ms)
-    del step, opt, model
+    del model, moe_layers
+    loop, model = train_run("moe train", make, False, 2, 5, flops,
+                            profile_moe_step)
+    del model
     free_device_memory()
-    return counts
+    compare_fused_and_loop("moe train", fused, loop)
+    return fused["fused"]
 
 
 def main():
@@ -1768,8 +2024,9 @@ def main():
     phase_parity()
     flash = phase_flash()
     counts = phase_training()
+    fused = phase_fused_update()
     gmm = phase_gmm()
-    phase_moe_training()
+    moe_fused = phase_moe_training()
     kernels = [dict(
         name="ragged_paged_attention", route="cuda",
         source="paddle_tpu_torch/ops/pallas/csrc/ragged_paged_attention.cu",
@@ -1782,6 +2039,11 @@ def main():
     for kname, _, replaces in GMM_KERNELS:
         kernels.append(dict(name=kname, route="cuda", source=GMM_SRC,
                             replaces=replaces, **gmm[kname]))
+    for kname in FUSED_KERNELS:
+        kernels.append(dict(name=kname, route="cuda", source=FUSED_SRC,
+                            replaces=FUSED_REPLACES, launches=counts[kname],
+                            **fused[kname]))
+    log(f"fused kernels' launches on the MoE step (phase 9): {moe_fused}")
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,12 @@ HTTP ``serving.Server`` over ``models.llama.LlamaForCausalLM``, with
 attention over the paged KV pool in the ragged-paged-attention kernel —
 and the training path — ``jit.TrainStep`` over the cacheless
 ``LlamaForCausalLM`` and its causal-LM loss (``ops.fused_ce``), with
-``optimizer.AdamW`` (f32 master weights), ``nn.clip.ClipGradByGlobalNorm``
-and attention in the flash-attention forward, dq and dk/dv kernels.
+attention in the flash-attention forward, dq and dk/dv kernels, and the
+optimizer layer: Paddle's rules (``optimizer``: SGD, Momentum, Adam,
+AdamW, Adagrad, RMSProp, Adadelta, Adamax, Lamb) with f32 master
+weights, the learning-rate schedulers (``optimizer.lr``), the clips of
+``nn.clip`` and the regularizers, under ``TrainStep``'s fused
+multi-tensor update (``jit.fused_update``, one hand-written pass per
+Adam/AdamW bucket). The MoE family (``models.moe``) trains through the
+same step, with the grouped-matmul kernels at ``ops.pallas``.
 """

@@ -17,10 +17,14 @@ class Adam(Optimizer):
         lr_t = lr * sqrt(1 - beta2^t) / (1 - beta1^t)
         param = param - lr_t * m / (sqrt(v) + eps)
 
-    The moments and the beta powers are updated in place.
+    The moments and the beta powers are updated in place. With moments
+    in bf16 or f16 (no ``multi_precision``) every operation rounds to
+    their dtype, as PyTorch's per-operation arithmetic does; ``lr_t`` is
+    cast to it before it meets ``m``.
     """
 
     _group_opts = ("beta1", "beta2", "epsilon")
+    _fusable_update = True  # elementwise: safe over concatenated buffers
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
@@ -53,4 +57,4 @@ class Adam(Optimizer):
         b1p = state["beta1_pow"].mul_(beta1)
         b2p = state["beta2_pow"].mul_(beta2)
         lr_t = lr * torch.sqrt(1 - b2p) / (1 - b1p)
-        return lr_t * m / (torch.sqrt(v) + epsilon)
+        return lr_t.to(m.dtype) * m / (torch.sqrt(v) + epsilon)

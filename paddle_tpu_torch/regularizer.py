@@ -1,8 +1,11 @@
 """Weight-decay regularizers — port of ``paddle_tpu/regularizer.py``
-(``L2Decay``; ``L1Decay`` is not ported yet)."""
+(``L1Decay``, ``L2Decay``): functions the optimizer folds into the
+gradient before its rule runs."""
 from __future__ import annotations
 
-__all__ = ["L2Decay"]
+import torch
+
+__all__ = ["L1Decay", "L2Decay"]
 
 
 class WeightDecayRegularizer:
@@ -11,6 +14,17 @@ class WeightDecayRegularizer:
 
     def __call__(self, param, grad):
         raise NotImplementedError
+
+
+class L1Decay(WeightDecayRegularizer):
+    """grad += coeff * sign(param) (a new tensor; nothing is updated in
+    place)."""
+
+    def __call__(self, param, grad):
+        return grad + self.coeff * torch.sign(param).to(grad.dtype)
+
+    def __repr__(self):
+        return f"L1Decay({self.coeff})"
 
 
 class L2Decay(WeightDecayRegularizer):

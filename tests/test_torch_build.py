@@ -54,8 +54,8 @@ def test_a_source_edit_renames_only_its_target(src_dir):
 
 
 def test_the_package_ships_its_sources_and_shared_header():
-    assert _build.sources() == ["flash_attention", "grouped_matmul",
-                                "ragged_paged_attention"]
+    assert _build.sources() == ["flash_attention", "fused_update",
+                                "grouped_matmul", "ragged_paged_attention"]
     assert (_build._SRC_DIR / "hopper.cuh").is_file()
 
 

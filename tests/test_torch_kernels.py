@@ -791,3 +791,126 @@ def test_tgmm_aligned_bf16_kernel_long_contraction(cuda_device, rows):
     assert bool((d_rhs[0] == 0).all()) and bool((d_rhs[2] == 0).all())
     assert _gmm_rel_err(d_rhs[1], want[1].to(torch.bfloat16)) <= \
         GMM_TOL[torch.bfloat16]
+
+
+# -- the fused optimizer kernels (jit/fused_update.py) ------------------------
+# bucket layouts: tensor shapes, and which parameters and gradients start
+# one element past an allocation (off every 16-byte boundary). "7" and
+# "4097" also put tensors at flat offsets that break the state's 16-byte
+# alignment; "1000003" runs the 16-byte path with a scalar tail
+ADAM_BUCKETS = {
+    "1": (((1,),), False),
+    "7": (((7,), (5,)), True),
+    "4097": (((3,), (4097,), (64, 64)), True),
+    "1000003": (((1000003,), (1000,)), False),
+}
+ADAM_KINDS = {  # parameter dtype, multi_precision
+    "f32": (torch.float32, False), "bf16_master": (torch.bfloat16, True),
+    "bf16": (torch.bfloat16, False), "f16_master": (torch.float16, True),
+    "f16": (torch.float16, False)}
+
+
+def _adam_opt(decay, ps, master):
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.regularizer import L1Decay
+    kw = dict(learning_rate=0.01, parameters=ps, multi_precision=master)
+    if decay == "decoupled":
+        return topt.AdamW(weight_decay=0.1, **kw)
+    if decay == "lr_ratio":
+        return topt.AdamW(weight_decay=0.1, lr_ratio=lambda p: 0.37, **kw)
+    if decay == "l2":
+        return topt.Adam(weight_decay=0.1, **kw)
+    if decay == "l1":
+        return topt.Adam(weight_decay=L1Decay(0.1), **kw)
+    return topt.Adam(**kw)
+
+
+def _bits(t):
+    """The tensor's bits as integers: NaN and -0.0 compare as bits."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _on_card(arrays, dtype, misalign, device):
+    """Contiguous tensors of ``arrays``; with ``misalign`` every other one
+    starts one element into its allocation."""
+    out = []
+    for i, a in enumerate(arrays):
+        off = 1 if misalign and i % 2 == 0 else 0
+        buf = torch.empty(a.size + off, dtype=dtype, device=device)
+        t = buf[off:].view(a.shape)
+        t.copy_(torch.from_numpy(a))
+        out.append(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket", sorted(ADAM_BUCKETS))
+@pytest.mark.parametrize("decay", ["none", "decoupled", "lr_ratio", "l2",
+                                   "l1"])
+@pytest.mark.parametrize("kind", sorted(ADAM_KINDS))
+def test_fused_adam_update_bit_equal_to_plain(cuda_device, kind, decay,
+                                              bucket):
+    """Three steps of one Adam/AdamW bucket through the kernel and
+    through the plain bucket update, from the same state and gradients:
+    every parameter, moment, master and beta power equal bit for bit. The
+    clip's scale is below 1, or above it on every other layout."""
+    import numpy as np
+    from paddle_tpu_torch.jit import fused_update as fu
+    dtype, master = ADAM_KINDS[kind]
+    shapes, misalign = ADAM_BUCKETS[bucket]
+    rng = np.random.RandomState(len(shapes) * 7 + len(decay))
+    arrays = [rng.randn(*s).astype(np.float32) for s in shapes]
+    grads = [[rng.randn(*s).astype(np.float32) for s in shapes]
+             for _ in range(3)]
+    scale = torch.tensor(0.625 if sorted(ADAM_BUCKETS).index(bucket) % 2
+                         else 1.75, device=cuda_device)
+    runs = []
+    for update in (fu.fused_adam_update, fu.bucket_update_plain):
+        ps = [torch.nn.Parameter(t) for t in _on_card(arrays, dtype, misalign,
+                                                      cuda_device)]
+        opt = _adam_opt(decay, ps, master)
+        params = {f"p{i}": p for i, p in enumerate(ps)}
+        layout = fu.build_layout(opt, params, list(params))
+        (b,) = layout.buckets
+        flats = fu.build_flat_states(opt, layout, params)
+        lr = np.float32(0.01)
+        if b.lr_ratio is not None:
+            lr = np.float32(lr) * np.float32(b.lr_ratio)
+        before = fu.launches_adam
+        for gs in grads:
+            update(opt, b, ps, _on_card(gs, dtype, misalign, cuda_device),
+                   flats[0], float(lr), scale)
+        torch.cuda.synchronize()
+        assert fu.launches_adam == before + (
+            3 if update is fu.fused_adam_update else 0)
+        runs.append((ps, flats[0]))
+    (pk, fk), (pp, fp) = runs
+    for a, b in zip(pk, pp):
+        assert torch.equal(_bits(a.detach()), _bits(b.detach()))
+    for k in fp:
+        assert torch.equal(_bits(fk[k]), _bits(fp[k])), k
+    if kind != "f16":  # f16 moments underflow: eps = 1e-8 is 0 in f16
+        assert bool(torch.isfinite(fk["moment2"].float()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bucket", sorted(ADAM_BUCKETS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_fused_sqnorm_matches_plain_and_repeats(cuda_device, dtype, bucket):
+    """A bucket's sum of squares within 1e-6 of the plain f32 sum (they
+    add in other orders), and the same bits on a second run."""
+    import numpy as np
+    from paddle_tpu_torch.jit import fused_update as fu
+    shapes, misalign = ADAM_BUCKETS[bucket]
+    rng = np.random.RandomState(len(shapes))
+    gs = _on_card([rng.randn(*s).astype(np.float32) for s in shapes], dtype,
+                  misalign, cuda_device)
+    before = fu.launches_sqnorm
+    one, two = fu.fused_sqnorm(gs), fu.fused_sqnorm(gs)
+    torch.cuda.synchronize()
+    assert fu.launches_sqnorm == before + 2
+    want = fu.sqnorm_plain(gs)
+    assert one.dtype == torch.float32 and one.shape == ()
+    assert abs(float(one) - float(want)) <= 1e-6 * float(want)
+    assert torch.equal(one, two)

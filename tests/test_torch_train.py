@@ -24,6 +24,7 @@ from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
 from paddle_tpu_torch.ops.fused_ce import matmul_cross_entropy
 from paddle_tpu_torch.optimizer import Adam, AdamW
+from paddle_tpu_torch.optimizer.lr import StepDecay
 from paddle_tpu_torch.utils.bridge import (load_optimizer_state,
                                            optimizer_state_to_numpy)
 
@@ -264,7 +265,8 @@ def test_eager_adam_groups_and_decay_match_jax():
 def test_master_weights_state_round_trip_and_refusals():
     """multi_precision keeps f32 masters of bf16 parameters, the bf16
     parameter is the master rounded, and the state survives a numpy
-    round trip. Options not ported raise."""
+    round trip. A scheduler and ``fused=True`` are accepted; options not
+    ported raise."""
     torch.manual_seed(0)
     p = torch.nn.Parameter(torch.randn(8, 4).to(torch.bfloat16))
     opt = AdamW(learning_rate=1e-2, parameters=[p], multi_precision=True)
@@ -286,13 +288,15 @@ def test_master_weights_state_round_trip_and_refusals():
     assert p.grad is None
     opt.set_lr(0.5)
     assert opt.get_lr() == 0.5
-    with pytest.raises(NotImplementedError, match="scheduler"):
-        opt.set_lr_scheduler(object())
-    with pytest.raises(NotImplementedError, match="scheduler"):
-        AdamW(learning_rate=object(), parameters=[p])
+    # a scheduler is accepted, as the optimizer's lr and by set_lr_scheduler
+    sched = StepDecay(0.1, step_size=1, gamma=0.5)
+    opt.set_lr_scheduler(sched)
+    assert opt.get_lr() == 0.1
+    assert AdamW(learning_rate=sched, parameters=[p]).get_lr() == 0.1
     tm = tl.LlamaForCausalLM(tl.LlamaConfig.tiny(), device="cpu")
-    for kw in ({"mesh": object()}, {"fused": True}, {"bucketed": True},
-               {"donate": False}):
+    # fused=True builds (the fused update is the default)
+    assert TrainStep(tm, lambda m, x: m(x), opt, fused=True)._fused
+    for kw in ({"mesh": object()}, {"bucketed": True}, {"donate": False}):
         with pytest.raises(NotImplementedError, match="not ported"):
             TrainStep(tm, lambda m, x: m(x), opt, **kw)
     with pytest.raises(NotImplementedError, match="recompute"):
