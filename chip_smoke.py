@@ -84,7 +84,24 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    ``TrainStep`` with AdamW (f32 masters) and a global-norm clip on 4 x
    2048 ids, fused (2 + 10 steps) and with ``fused=False`` (2 + 5), with
    phase 7's checks and numbers; capacity and drops per MoE layer and the
-   expert products' share of device time.
+   expert products' share of device time;
+10. fit, checkpoint, resume — phase 7's model through ``hapi.Model.fit``
+   over ``ShardedStream`` -> ``DataPipeline(batch_size=4, seq_len=2048,
+   pack=True, drop_last=True, device_prefetch=2)`` on 8 seeded documents
+   of 32-6144 tokens (several epochs, so the loss can fall), under ``FitResilience(save_every_steps=4, keep_last_k=1)``
+   in a fresh directory of the checkout: run A takes 7 steps (one async
+   save, at step 4, in flight over steps 5-7); run B, a new model,
+   optimizer and pipeline, restores step 4 and takes 3. B's batches
+   (sha256 of input_ids) must be A's steps 5-7, its losses A's at rtol
+   1e-5 and its f32 master weights after step 7 A's at rtol 1e-4; the
+   first loss within 1.0 of ln(vocab) and the last lower; K1-K3 once per
+   layer per step and ``fused_adam_update``/``fused_sqnorm`` once per
+   step. It logs the fit step against phase 7's loop, the steps with a
+   save in flight, the snapshot's stall, bytes, seconds to the commit
+   and to restore, the real-token share, tokens/s and MFU, and a
+   profiled fit step; then K1-K3 in bf16 on one packed batch's segment
+   ids against the plain version at ``FLASH_TOL``, with their times
+   beside phase 6's causal ones. The directory is deleted.
 
 It prints its measurements on earlier lines, then one JSON line with a
 record per kernel, and ends with
@@ -97,7 +114,9 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import sys
 import threading
@@ -112,6 +131,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense tensor-core bf16
               torch.float32: 67e12}    # float32 outside the tensor cores
 TF32_FLOPS = 495e12  # dense tensor-core TF32: f32 operands on the tensor cores
 SEED = 0
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(*a):
@@ -211,7 +231,6 @@ def ptxas_usage(log_text):
 def sass_counts(lib_path):
     """{mangled kernel: (HGMMA count, UTMALDG count)} of a built library,
     from ``cuobjdump --dump-sass``."""
-    import shutil
     import subprocess
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "--dump-sass", str(lib_path)], check=True,
@@ -1249,7 +1268,7 @@ def phase_training():
     del model
     free_device_memory()
     compare_fused_and_loop("train", fused, loop)
-    return {**fused["flash"], **fused["fused"]}
+    return {**fused["flash"], **fused["fused"]}, fused["step_ms"]
 
 
 # --------------------------------------------------------------------------
@@ -1975,7 +1994,8 @@ def profile_moe_step(step, x, step_ms, what="moe"):
 
 def phase_moe_training():
     """Phase 9: DeepSeekMoE-16B at full width, 4 layers, fused (2 + 10
-    steps) and with ``fused=False`` (2 + 5 steps)."""
+    steps) and with ``fused=False`` (2 + 5 steps); returns the fused
+    run's flash and fused-kernel launch counts."""
     from paddle_tpu_torch.distributed.fleet import MoELayer
     from paddle_tpu_torch.models.moe import MoeConfig, MoeForCausalLM
 
@@ -2007,7 +2027,351 @@ def phase_moe_training():
     del model
     free_device_memory()
     compare_fused_and_loop("moe train", fused, loop)
-    return fused["fused"]
+    return {**fused["flash"], **fused["fused"]}
+
+
+# --------------------------------------------------------------------------
+# run A saves at step 4 and runs to 7; run B resumes from 4 and takes 3
+FIT_SAVE_EVERY, FIT_A_STEPS, FIT_B_STEPS = 4, 7, 3
+# ~25k tokens: about three packed batches an epoch, so steps 4-7 see
+# documents again (drop_last=True: the packer's carry rides into the
+# next epoch)
+FIT_DOCUMENTS = 8
+# room for what a save writes besides the tensors' bytes: aux.pkl (the
+# skeleton with the data state) and index.json, kilobytes each
+FIT_SKELETON_ROOM = 1 << 20
+
+
+class SyntheticCorpus:
+    """Seeded token documents of 32-6144 tokens (the packer splits those
+    longer than a row), ids uniform in [1, vocab). Uniform random ids
+    leave nothing to learn but their repetition: phase 10 trains over a
+    few documents for several epochs, so its loss falls as the model
+    memorises what it has seen."""
+
+    def __init__(self, n, vocab, seed):
+        rng = np.random.RandomState(seed)
+        self.lengths = rng.randint(32, 6145, n)
+        self.seeds = rng.randint(0, 2 ** 31 - 1, n)
+        self.vocab = vocab
+
+    def __len__(self):
+        return len(self.lengths)
+
+    def __getitem__(self, i):
+        return np.random.RandomState(self.seeds[i]).randint(
+            1, self.vocab, self.lengths[i]).astype(np.int32)
+
+
+def _step_recorder(fr, registry, profile_at=None):
+    """A callback that records each step's wall, data wait and whether a
+    save was in flight (placed before ``fr``), with a profiler window
+    over fit step ``profile_at``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.hapi import Callback
+
+    class Recorder(Callback):
+        def __init__(self):
+            self.rows = []
+            self.prof = None
+
+        def on_train_batch_begin(self, step, logs=None):
+            if step == profile_at:
+                self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                self.prof.__enter__()
+            self._t0 = time.perf_counter()
+            self._data = logs["data_time"]
+
+        def on_train_batch_end(self, step, logs=None):
+            # train_batch read the loss back: the step is done on the card
+            wall = time.perf_counter() - self._t0
+            if self.prof is not None and step == profile_at:
+                torch.cuda.synchronize()
+                self.prof.__exit__(None, None, None)
+            in_flight = registry.get("ckpt_in_flight")
+            self.rows.append(dict(
+                step=fr._step0 + step, loss=logs["loss"], ms=1e3 * wall,
+                data_ms=1e3 * self._data,
+                in_flight=in_flight is not None and in_flight.value() > 0))
+
+    return Recorder()
+
+
+class _Kept:
+    """The pipeline's batches as delivered, each one's ids and segment
+    ids kept for hashing after the run (no copy back inside the loop)."""
+
+    def __init__(self, pipe):
+        self.pipe, self.batches = pipe, []
+
+    def __iter__(self):
+        for b in self.pipe:
+            self.batches.append((b["input_ids"], b["attention_mask"]))
+            yield b
+
+
+def fit_run(what, corpus, ckpt_dir, steps, restore, profile_at=None):
+    """One ``Model.fit`` of the bench's Llama over the packed pipeline
+    under ``FitResilience`` (saves every 4 global steps, keep 1)."""
+    from paddle_tpu_torch.data import DataPipeline
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.observability.metrics import MetricsRegistry
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.resilience import FitResilience
+
+    net = LlamaForCausalLM(llama_bench_config(), dtype="bfloat16",
+                           seed=SEED)
+    opt = AdamW(learning_rate=1e-4, parameters=net.parameters(),
+                multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))
+    model = Model(net).prepare(opt, loss=None)
+    pipe = DataPipeline(corpus, batch_size=4, seq_len=2048, pack=True,
+                        base_seed=SEED, drop_last=True, device_prefetch=2)
+    registry = MetricsRegistry()
+    fr = FitResilience(checkpoint_dir=ckpt_dir,
+                       save_every_steps=FIT_SAVE_EVERY, keep_last_k=1,
+                       pipeline=pipe, registry=registry)
+    need = _save_need(net)
+    if not restore:
+        free = shutil.disk_usage(ckpt_dir).free
+        log(f"{what}: a save holds {need} B of tensors (each parameter's "
+            f"bf16 weight, f32 master and two f32 moments) and up to "
+            f"{FIT_SKELETON_ROOM} B of skeleton; {free} B free under the "
+            f"checkpoint directory")
+        if free < need + FIT_SKELETON_ROOM:
+            raise AssertionError(f"{what}: {free} B free on disk, a save "
+                                 f"needs {need} + {FIT_SKELETON_ROOM} B")
+    restored, t0 = None, time.perf_counter()
+    if restore:
+        restored = fr.restore(model)
+        torch.cuda.synchronize()
+        log(f"{what}: restored step {restored} in "
+            f"{time.perf_counter() - t0:.3f} s (restore() wall: read, "
+            f"crc-check, to the card, into the model, optimizer and "
+            f"pipeline)")
+    rec = _step_recorder(fr, registry, profile_at)
+    kept = _Kept(pipe)
+    t0 = time.perf_counter()
+    model.fit(kept, epochs=steps, num_iters=steps, verbose=0,
+              callbacks=[rec, fr])
+    wall = time.perf_counter() - t0
+    return dict(net=net, opt=opt, rows=rec.rows, prof=rec.prof,
+                kept=kept.batches, registry=registry, wall=wall, fr=fr,
+                restored=restored, step0=fr._step0, need=need)
+
+
+def _hashes(kept):
+    import hashlib
+    return [hashlib.sha256(ids.cpu().numpy().tobytes()).hexdigest()[:16]
+            for ids, _ in kept]
+
+
+def _save_need(net):
+    """Bytes of the tensors a save writes, from the parameter count: each
+    parameter's own weight, its f32 master and AdamW's two f32 moments
+    (the beta powers and the skeleton are left to the room above)."""
+    return sum(p.numel() * (p.element_size() + 3 * 4)
+               for p in net.parameters())
+
+
+def _masters(opt):
+    return {k: t.detach().cpu() for k, t in opt.state_dict().items()
+            if k.endswith("master_weight")}
+
+
+def packed_flash_check(seg, flash_recs):
+    """K1-K3 in bf16 at the training shape on one packed batch's segment
+    ids against autograd through the plain version at ``FLASH_TOL``, and
+    their times beside phase 6's causal times."""
+    from paddle_tpu_torch.ops.pallas import flash_attention as fa
+    B, hq, hkv, S, hd = 4, 16, 4, 2048, 128
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def mk(h):
+        return torch.randn(B, h, S, hd, device="cuda", dtype=torch.bfloat16,
+                           generator=gen)
+    q4, k4, v4, do4 = mk(hq), mk(hkv), mk(hkv), mk(hq)
+    q, k, v, g, _ = fa._geometry(q4, k4, v4, True, None, None, seg, seg,
+                                 0.0, None)
+    do = do4.reshape(q.shape)
+    o_tol, g_tol = FLASH_TOL[torch.bfloat16]
+    o, lse = fa.flash_attention_fwd(q, k, v, g)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = fa.flash_attention_dq(q, k, v, do, lse, delta, g)
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, g)
+    torch.cuda.synchronize()
+    leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
+    ro, rlse = fa.flash_attention_reference(
+        *leaves, causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+    rg = torch.autograd.grad(ro, leaves, do4)
+    errs = {
+        "flash_attention_fwd": max(
+            _check("packed K1 o", o, ro.reshape(o.shape), *o_tol),
+            _check("packed K1 lse", lse, rlse.reshape(lse.shape), *o_tol)),
+        "flash_attention_dq": _check("packed K2 dq", dq,
+                                     rg[0].reshape(dq.shape), *g_tol),
+        "flash_attention_dkv": max(
+            _check("packed K3 dk", dk, rg[1].reshape(dk.shape), *g_tol),
+            _check("packed K3 dv", dv, rg[2].reshape(dv.shape), *g_tol))}
+    del ro, rlse, rg, leaves
+    with torch.no_grad():
+        ms = {"flash_attention_fwd": cuda_ms(
+                  lambda: fa.flash_attention_fwd(q, k, v, g)),
+              "flash_attention_dq": cuda_ms(
+                  lambda: fa.flash_attention_dq(q, k, v, do, lse, delta, g)),
+              "flash_attention_dkv": cuda_ms(
+                  lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta,
+                                                 g))}
+    docs = [int(r.max()) for r in seg]
+    pad = int((seg == 0).sum())
+    log(f"fit packed batch: documents per row {docs}, {pad} padding tokens; "
+        f"K1-K3 bf16 on its segment ids against the plain version: "
+        + ", ".join(f"{k} max|err| {errs[k]:.3e} ({ms[k]:.4f} ms, phase 6 "
+                    f"causal {flash_recs[k]['ms']:.4f} ms)" for k in errs)
+        + f" (limits {FLASH_TOL[torch.bfloat16]})")
+    free_device_memory()
+
+
+def phase_fit(flash_recs, train_step_ms):
+    """Phase 10: ``Model.fit`` over the packed pipeline with step
+    checkpoints and an exact resume. Returns the flash and fused-kernel
+    launch counts of the two runs."""
+    import tempfile
+    cfg = llama_bench_config()
+    corpus = SyntheticCorpus(FIT_DOCUMENTS, cfg.vocab_size, SEED)
+    ckpt_dir = tempfile.mkdtemp(prefix="phase10_ckpt_", dir=REPO_ROOT)
+    try:
+        return _phase_fit(cfg, corpus, ckpt_dir, flash_recs, train_step_ms)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def _phase_fit(cfg, corpus, ckpt_dir, flash_recs, train_step_ms):
+    free_device_memory()
+    _reset_flash_counts()
+    _reset_fused_counts()
+    a = fit_run("fit A", corpus, ckpt_dir, FIT_A_STEPS, restore=False)
+    # FitResilience.on_train_end waited for the save: it committed or failed
+    reg, need = a["registry"], a["need"]
+    snap = reg.get("ckpt_blocking_seconds").stats(mode="async")
+    saved = reg.get("ckpt_save_seconds").stats(mode="async")
+    written = reg.get("ckpt_bytes_total").value(direction="write")
+    failed = reg.get("ckpt_failures_total").value(kind="save")
+    if snap is None or snap["count"] != 1:
+        raise AssertionError(f"fit A: expected one async save, got {snap}")
+    if failed or not need <= written <= need + FIT_SKELETON_ROOM:
+        raise AssertionError(f"fit A: the save of step {FIT_SAVE_EVERY} "
+                             f"failed ({failed:.0f} failures; {written:.0f} "
+                             f"B written of {need} + up to "
+                             f"{FIT_SKELETON_ROOM} B)")
+    a_hash, a_losses = _hashes(a["kept"]), [r["loss"] for r in a["rows"]]
+    a_masters = _masters(a["opt"])
+    a_params = {n: p.detach().cpu() for n, p in a["net"].named_parameters()}
+    seg0 = a["kept"][0][1]
+    real = [int((seg != 0).sum()) for _, seg in a["kept"]]
+    rows = a["rows"]
+    del a
+    free_device_memory()
+
+    b = fit_run("fit B", corpus, ckpt_dir, FIT_B_STEPS, restore=True,
+                profile_at=FIT_B_STEPS)
+    counts, fused_counts = _flash_counts(), _fused_counts()
+    restore_s = b["registry"].get("ckpt_restore_seconds").stats()
+    b_hash, b_losses = _hashes(b["kept"]), [r["loss"] for r in b["rows"]]
+    steps = FIT_A_STEPS + FIT_B_STEPS
+    if b["restored"] != FIT_SAVE_EVERY or b["step0"] != FIT_SAVE_EVERY:
+        raise AssertionError(f"fit B restored step {b['restored']}, not "
+                             f"{FIT_SAVE_EVERY}")
+    if b_hash != a_hash[FIT_SAVE_EVERY:]:
+        raise AssertionError(f"fit B saw other batches: {b_hash} against "
+                             f"{a_hash[FIT_SAVE_EVERY:]}")
+    want = a_losses[FIT_SAVE_EVERY:]
+    loss_diff = max(abs(x - y) for x, y in zip(b_losses, want))
+    if not np.allclose(b_losses, want, rtol=1e-5, atol=0):
+        raise AssertionError(f"fit B losses {b_losses} differ from A's "
+                             f"{want} beyond rtol 1e-5")
+    b_masters = _masters(b["opt"])
+    master_diff = 0.0
+    for key, ta in a_masters.items():
+        tb = b_masters[key]
+        _check(f"fit B {key}", tb, ta, 0.0, 1e-4)
+        master_diff = max(master_diff, float((tb - ta).abs().max()))
+    param_diff = max(float((p.detach().cpu().float()
+                            - a_params[n].float()).abs().max())
+                     for n, p in b["net"].named_parameters())
+    ln_v = math.log(cfg.vocab_size)
+    if not (math.isfinite(a_losses[0]) and abs(a_losses[0] - ln_v) <= 1.0):
+        raise AssertionError(f"fit: first loss {a_losses[0]} is not within "
+                             f"1.0 of ln(vocab) = {ln_v:.3f}")
+    if not b_losses[-1] < a_losses[0]:
+        raise AssertionError(f"fit: loss did not fall: {a_losses} then "
+                             f"{b_losses}")
+    for kname, n in counts.items():
+        if n != steps * cfg.num_hidden_layers:
+            raise AssertionError(f"fit: {kname} launched {n} times in "
+                                 f"{steps} steps")
+    for kname, n in fused_counts.items():
+        if n != steps:
+            raise AssertionError(f"fit: {kname} launched {n} times in "
+                                 f"{steps} steps")
+    log(f"fit: A {FIT_A_STEPS} steps (async save at step {FIT_SAVE_EVERY}),"
+        f" B restored from it and took {FIT_B_STEPS}; losses A "
+        f"{[round(v, 4) for v in a_losses]}, B "
+        f"{[round(v, 4) for v in b_losses]}; B's steps "
+        f"{FIT_SAVE_EVERY + 1}-{FIT_A_STEPS} saw A's batches (sha256 of "
+        f"input_ids {b_hash}); largest difference from A: loss "
+        f"{loss_diff:.3e} (rtol 1e-5), f32 master weights after step "
+        f"{FIT_A_STEPS} {master_diff:.3e} (rtol 1e-4), bf16 parameters "
+        f"{param_diff:.3e}")
+    log(f"fit: launches in {steps} steps K1 {counts['flash_attention_fwd']},"
+        f" K2 {counts['flash_attention_dq']}, K3 "
+        f"{counts['flash_attention_dkv']} (= {cfg.num_hidden_layers} a "
+        f"step); fused_adam_update {fused_counts['fused_adam_update']}, "
+        f"fused_sqnorm {fused_counts['fused_sqnorm']} (1 a step)")
+
+    # timings of run A: the steps with no save in flight, after the first
+    quiet = [r for r in rows[1:] if not r["in_flight"]]
+    busy = [r for r in rows if r["in_flight"]]
+    fit_ms = statistics.median(r["ms"] for r in quiet)
+    flops = train_flops_per_step(cfg, 4, 2048)
+    real_share = sum(real) / (len(real) * 4 * 2048)
+    log(f"fit A step rows (step, ms, data wait ms, save in flight): "
+        + ", ".join(f"({r['step']}, {r['ms']:.3f}, {r['data_ms']:.3f}, "
+                    f"{r['in_flight']})" for r in rows))
+    log(f"fit: step {fit_ms:.3f} ms (median of A's steps "
+        f"{[r['step'] for r in quiet]}, those after the first with no save "
+        f"in flight: {[round(r['ms'], 3) for r in quiet]} ms, each step's "
+        f"wall including its loss read back) against phase 7's TrainStep "
+        f"loop {train_step_ms:.3f} ms in this run "
+        f"({fit_ms - train_step_ms:+.3f} ms); steps "
+        f"{[r['step'] for r in busy]} with a save in flight "
+        f"{[round(r['ms'], 3) for r in busy]} ms")
+    log(f"fit: save of step {FIT_SAVE_EVERY}: the loop paid "
+        f"{1e3 * snap['sum']:.3f} ms for the snapshot (device-to-host "
+        f"copies queued into pinned memory, skeleton pickled); {written} B "
+        f"written; {saved['sum']:.3f} s from the snapshot to the commit; "
+        f"restore {restore_s['sum']:.3f} s (read and crc-check, "
+        f"ckpt_restore_seconds)")
+    log(f"fit: real-token share {real_share:.4f} ({sum(real)} of "
+        f"{len(real) * 4 * 2048} tokens in A's {len(real)} batches); "
+        f"{real_share * 4 * 2048 / (fit_ms / 1e3):.1f} real tokens/s, "
+        f"{4 * 2048 / (fit_ms / 1e3):.1f} tokens/s with padding; MFU "
+        f"{100 * flops / (fit_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]:.2f}% "
+        f"on bench.py's {flops:.4e} flop a step")
+    b_rows = b["rows"]
+    log(f"fit B step rows (step, ms, data wait ms): "
+        + ", ".join(f"({r['step']}, {r['ms']:.3f}, {r['data_ms']:.3f})"
+                    for r in b_rows)
+        + f" (step {FIT_A_STEPS} under the profiler)")
+    if b["prof"] is not None:
+        step_breakdown(b["prof"], f"fit step {FIT_A_STEPS}", fit_ms)
+    del b
+    free_device_memory()
+    packed_flash_check(seg0, flash_recs)
+    return {**counts, **fused_counts}
 
 
 def main():
@@ -2023,27 +2387,37 @@ def main():
     launches = phase_serving()
     phase_parity()
     flash = phase_flash()
-    counts = phase_training()
+    counts, train_step_ms = phase_training()
     fused = phase_fused_update()
     gmm = phase_gmm()
-    moe_fused = phase_moe_training()
+    moe = phase_moe_training()
+    fit = phase_fit(flash, train_step_ms)
+    # each path's launches were counted from 0 over its own run; a kernel
+    # on several paths reports their sum, and each path's count beside it
+    paths = {"train": counts, "moe_train": moe, "fit": fit}
+
+    def path_launches(kname):
+        by_path = {p: c[kname] for p, c in paths.items()}
+        return dict(launches=sum(by_path.values()), launches_by_path=by_path)
     kernels = [dict(
         name="ragged_paged_attention", route="cuda",
         source="paddle_tpu_torch/ops/pallas/csrc/ragged_paged_attention.cu",
         replaces="paddle_tpu/ops/pallas/ragged_paged_attention.py:159",
-        launches=launches, library_ms=None, **rec)]
+        launches=launches, launches_by_path={"serving": launches},
+        library_ms=None, **rec)]
     for kname, replaces in FLASH_KERNELS:
         kernels.append(dict(name=kname, route="cuda", source=FLASH_SRC,
-                            replaces=replaces, launches=counts[kname],
+                            replaces=replaces, **path_launches(kname),
                             **flash[kname]))
     for kname, _, replaces in GMM_KERNELS:
         kernels.append(dict(name=kname, route="cuda", source=GMM_SRC,
-                            replaces=replaces, **gmm[kname]))
+                            replaces=replaces, launches_by_path={
+                                "gmm": gmm[kname]["launches"]},
+                            **gmm[kname]))
     for kname in FUSED_KERNELS:
         kernels.append(dict(name=kname, route="cuda", source=FUSED_SRC,
-                            replaces=FUSED_REPLACES, launches=counts[kname],
+                            replaces=FUSED_REPLACES, **path_launches(kname),
                             **fused[kname]))
-    log(f"fused kernels' launches on the MoE step (phase 9): {moe_fused}")
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -480,6 +480,57 @@ def test_flash_bwd_bf16_refuses_a_misaligned_base(cuda_device):
     assert (fa.launches_dq, fa.launches_dkv) == before
 
 
+def _within(got, want, atol, rtol):
+    """Finite, and within atol + rtol * |want| everywhere."""
+    got, want = got.detach().float(), want.detach().float()
+    return bool(torch.isfinite(got).all()) and not bool(
+        ((got - want).abs() > atol + rtol * want.abs()).any())
+
+
+@pytest.mark.cuda
+def test_flash_bf16_on_a_packed_batch_at_the_training_shape(cuda_device):
+    """K1, K2 and K3 in bf16 at the training shape (B=4, S=2048, Hq=16,
+    Hkv=4, hd=128) on the segment ids of a packed batch, as ``Model.fit``
+    over ``DataPipeline(pack=True)`` hands them over: many documents a
+    row and a padding tail of segment 0. Held against autograd through
+    ``flash_attention_reference`` at ``chip_smoke.py``'s bf16 limits
+    (``FLASH_TOL``: atol = rtol = 1e-2 for o and lse, 2e-2 for the
+    gradients)."""
+    from paddle_tpu_torch.data import SequencePacker
+    rng = np.random.RandomState(0)
+    B, hq, hkv, S, hd = 4, 16, 4, 2048, 128
+    packer, batches = SequencePacker(S, B), []
+    while not batches:
+        batches = packer.add(rng.randint(1, 1000, rng.randint(32, 700)))
+    seg = torch.from_numpy(batches[0]["attention_mask"]).to(cuda_device)
+    assert int(seg.max(1).values.min()) >= 3  # several documents a row
+    assert bool((seg[:, -1] == 0).any())      # and a padding tail
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    mk = lambda h: torch.randn(B, h, S, hd, device=cuda_device,  # noqa
+                               dtype=torch.bfloat16, generator=gen)
+    q4, k4, v4, do4 = mk(hq), mk(hkv), mk(hkv), mk(hq)
+    q, k, v, g, _ = fa._geometry(q4, k4, v4, True, None, None, seg, seg,
+                                 0.0, None)
+    do = do4.reshape(q.shape)
+    counts = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv)
+    o, lse = fa.flash_attention_fwd(q, k, v, g)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = fa.flash_attention_dq(q, k, v, do, lse, delta, g)
+    dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, g)
+    torch.cuda.synchronize()
+    assert (fa.launches_fwd, fa.launches_dq, fa.launches_dkv) == \
+        tuple(c + 1 for c in counts)
+    leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
+    ro, rlse = fa.flash_attention_reference(*leaves, causal=True,
+                                            q_segment_ids=seg,
+                                            kv_segment_ids=seg)
+    rdq, rdk, rdv = torch.autograd.grad(ro, leaves, do4)
+    assert _within(o, ro.reshape(o.shape), 1e-2, 1e-2)
+    assert _within(lse, rlse.reshape(lse.shape), 1e-2, 1e-2)
+    for got, want in ((dq, rdq), (dk, rdk), (dv, rdv)):
+        assert _within(got, want.reshape(got.shape), 2e-2, 2e-2)
+
+
 # ------------------------------ grouped matmul ------------------------------
 # kernel vs plain: max |err| over the largest |plain| value, by the dtype of
 # the result: f32 sums in another order; bf16 results are rounded once on

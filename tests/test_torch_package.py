@@ -57,7 +57,11 @@ def test_import_in_a_fresh_process_loads_no_jax():
         "paddle_tpu_torch.distributed.fleet.moe, "
         "paddle_tpu_torch.models.moe, "
         "paddle_tpu_torch.ops.fused_ce, paddle_tpu_torch.jit, "
-        "paddle_tpu_torch.optimizer, paddle_tpu_torch.nn.clip\n"
+        "paddle_tpu_torch.optimizer, paddle_tpu_torch.nn.clip, "
+        "paddle_tpu_torch.io, paddle_tpu_torch.data, "
+        "paddle_tpu_torch.checkpoint, paddle_tpu_torch.framework, "
+        "paddle_tpu_torch.hapi, paddle_tpu_torch.resilience, "
+        "paddle_tpu_torch.observability\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu')]\n"
         "assert not bad, bad\n")
@@ -87,6 +91,35 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model, max_blocks=8, block_size=4, prefill_chunk=4)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_data_and_checkpoint_entry_points_default_to_cuda(tmp_path):
+    """The fit slice's entry points that place tensors (the device
+    prefetch, ``to_device``, checkpoint restore and ``framework.io.load``)
+    resolve ``device=None`` to the card and raise where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default resolves")
+    import numpy as np
+    from paddle_tpu_torch.checkpoint import CheckpointManager, load_state_dir
+    from paddle_tpu_torch.data import DataPipeline, DevicePrefetcher, to_device
+    from paddle_tpu_torch.framework import load, save
+    docs = [np.arange(1, 9, dtype=np.int32)] * 4
+    calls = [
+        lambda: DataPipeline(docs, 2, seq_len=8, pack=True,
+                             device_prefetch=2),
+        lambda: DevicePrefetcher([docs[0]]),
+        lambda: to_device({"x": docs[0]})]
+    mgr = CheckpointManager(str(tmp_path / "ck"), async_=False)
+    mgr.save(1, {"w": torch.ones(2)})
+    save({"w": torch.ones(2)}, str(tmp_path / "w.pdparams"))
+    calls += [mgr.restore, lambda: load_state_dir(str(tmp_path / "ck")),
+              lambda: load(str(tmp_path / "w.pdparams")),
+              lambda: load(str(tmp_path / "ck"))]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert DataPipeline(docs, 2, seq_len=8, pack=True, device_prefetch=2,
+                        device="cpu").device == torch.device("cpu")
 
 
 @pytest.mark.parametrize("kwarg", [
