@@ -38,8 +38,11 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    design each ran (bf16 on wgmma fed by TMA, f32 FMA loops) and
    the least time the card could take; (b) a sweep over offset-causal, GQA
    groups 1/4/8, segment ids with fully masked rows, row and full bias,
-   dropout and a length that is not a multiple of the tile, each kernel
-   against its plain version in both dtypes;
+   dropout, a length that is not a multiple of the tile, head_dim 64,
+   DiT-XL/2's attention (non-causal, S 256, 16 heads of 72, zero-padded
+   to the hd-128 kernels as ``flash_attention_bhsd`` pads it), head_dims
+   32 and 80 (zero-padded to 64 and 128) and ERNIE-base's (non-causal, S 512, 12 heads of 64, dropout 0.1), each
+   kernel against its plain version in both dtypes;
 7. training — the Llama-recipe model of ``bench.py``'s training
    benchmark (vocab 128256 tied, hidden 2048, FFN 7168, 8 layers, 16/4
    heads, bf16, seeded random weights) through ``TrainStep`` with AdamW
@@ -101,10 +104,35 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    and to restore, the real-token share, tokens/s and MFU, and a
    profiled fit step; then K1-K3 in bf16 on one packed batch's segment
    ids against the plain version at ``FLASH_TOL``, with their times
-   beside phase 6's causal ones. The directory is deleted.
+   beside phase 6's causal ones. The directory is deleted;
+11. ERNIE — ``ErnieForPretraining(ErnieConfig())`` (vocab 40000, hidden
+   768, 12 layers, 12 heads, FFN 3072, dropout 0.1; bf16, seeded weights
+   by PaddleNLP's N(0, 0.02) recipe on the port's initializers) on 16 x
+   512 seeded ids with 15% MLM labels and SOP labels, through
+   ``TrainStep`` (AdamW, f32 masters, clip 1.0), fused (2 + 10 steps,
+   the main path) and ``fused=False`` (2 + 3): the first loss within 1.0
+   of ln(40000) + ln(2), the last lower, K1-K3 12 a step, the fused
+   kernels once a bucket a step and never in the loop; step time,
+   tokens/s, MFU, memory and a profiled step by kind with K1-K3's share.
+   Then ``ErnieForSequenceClassification`` at that width through
+   ``hapi.Model.prepare(AdamW, CrossEntropyLoss(), Accuracy())``: ``fit``
+   3 steps, ``evaluate`` 64 samples in 4 batches (finite losses,
+   accuracy in [0, 1]);
+12. DiT — ``DiT(DiTConfig())`` (DiT-XL/2: input 32, patch 2, 256 tokens,
+   hidden 1152, 28 blocks, 16 heads of 72, learn_sigma, 1000 classes;
+   bf16, seeded) on a batch of 64 against one seeded target (MSE in
+   f32), ``TrainStep`` fused, 2 + 10 steps: the first loss equal to
+   mean(target^2) within 1e-2 (adaLN-Zero starts the output at exactly
+   0), the last lower, K1-K3 28 a step, all on the zero-padded hd-128
+   kernels; the same numbers as phase 11. Last, K1-K3 in bf16 at
+   ERNIE's and DiT's attention shapes (B 16 and 64): each against its
+   plain version at ``FLASH_TOL`` (padded columns exactly 0); kernel,
+   plain, bound and library (sdpa) times and, at head_dim 72, the
+   zero-padding copies' time.
 
 It prints its measurements on earlier lines, then one JSON line with a
-record per kernel, and ends with
+record per kernel (K1-K3's with their times at ERNIE's and DiT's shapes
+under ``at_model_shapes``), and ends with
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -906,6 +934,18 @@ def _sweep_case(name, dtype, gen):
         sq = sk = 333
     elif name == "head_dim_64":
         hd = 64
+    elif name == "head_dim_72":  # DiT-XL/2's attention
+        hq = hkv = 16
+        sq = sk = 256
+        hd = 72
+        kw = dict(causal=False)
+    elif name in ("head_dim_32", "head_dim_80"):  # padded to 64 and 128
+        hd = int(name.rsplit("_", 1)[1])
+    elif name == "ernie_shape":  # ERNIE-base's attention, with dropout
+        hq = hkv = 12
+        sq = sk = 512
+        hd = 64
+        kw = dict(causal=False, dropout_p=0.1, dropout_seed=2024)
     mk = lambda h, s: torch.randn(B, h, s, hd, generator=gen,  # noqa: E731
                                   dtype=dtype, **dev)
     q, k, v, g, _ = fa._geometry(
@@ -921,12 +961,17 @@ def _sweep_case(name, dtype, gen):
 
 
 SWEEP = ("offset_causal", "gqa_1", "gqa_4", "gqa_8", "segments_dead_rows",
-         "row_bias", "full_bias", "dropout", "ragged", "head_dim_64")
+         "row_bias", "full_bias", "dropout", "ragged", "head_dim_64",
+         "head_dim_72", "head_dim_32", "head_dim_80", "ernie_shape")
 
 
 def flash_sweep():
     """Phase 6(b): every case, both dtypes, each kernel against its plain
-    version on the same inputs (and the same lse and delta)."""
+    version on the same inputs (and the same lse and delta), through
+    ``padded_launch``: a head_dim with no kernel instance (32, 72, 80)
+    goes in zero-padded as ``flash_attention_bhsd`` pads it, and the
+    kernels' outputs are sliced back (their padded columns must be
+    exactly 0)."""
     from paddle_tpu_torch.ops.pallas import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     worst = {}
@@ -935,11 +980,11 @@ def flash_sweep():
             o_tol, g_tol = FLASH_TOL[dtype]
             for case in SWEEP:
                 q, k, v, do, g, dead = _sweep_case(case, dtype, gen)
-                o, lse = fa.flash_attention_fwd(q, k, v, g)
-                delta = (do.float() * o.float()).sum(-1)
-                dq = fa.flash_attention_dq(q, k, v, do, lse, delta, g)
-                dk, dv = fa.flash_attention_dkv(q, k, v, do, lse, delta, g)
-                torch.cuda.synchronize()
+                (o, lse, delta, dq, dk, dv), tail = fa.padded_launch(
+                    q, k, v, do, g)
+                if tail != 0:
+                    raise AssertionError(
+                        f"{case}: padded columns not 0 (max |x| {tail})")
                 ro, rlse = fa._forward_plain(q, k, v, g)
                 rdq = fa._dq_plain(q, k, v, do, lse, delta, g)
                 rdk, rdv = fa._dkv_plain(q, k, v, do, lse, delta, g)
@@ -1136,91 +1181,30 @@ def _fused_counts():
 
 def train_run(what, make_model, fused, warmup, timed, flops,
               profile=None):
-    """One training run of a seeded model on one seeded batch of 4 x 2048
-    ids through ``TrainStep`` (AdamW, f32 masters, global-norm clip 1.0),
-    ``fused`` as given (None: the default, fused): ``warmup`` + ``timed``
-    steps, then one profiled step (``profile``, by default
-    :func:`profile_train_step`). Checks the losses and the flash and
-    fused-kernel launch counts; returns the run's numbers and the model."""
-    from paddle_tpu_torch.jit import TrainStep
-    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
-    from paddle_tpu_torch.optimizer import AdamW
-
+    """One training run of a seeded causal LM on one seeded batch of 4 x
+    2048 ids (:func:`model_train_run`, ``profile`` as given), whose first
+    loss must be within 1.0 of ln(vocab) and whose last must be lower;
+    returns the run's numbers and the model."""
     B, S = 4, 2048
     free_device_memory()
     before = torch.cuda.memory_allocated()  # left by earlier phases
     torch.cuda.reset_peak_memory_stats()
     model = make_model()
     cfg = model.cfg
-    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
-                multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))
-    step = TrainStep(model, lambda m, x: m(x, labels=x)[1], opt,
-                     fused=fused)
     x = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (B, S))).cuda()
-
-    _reset_flash_counts()
-    _reset_fused_counts()
-    losses = [float(step(x)) for _ in range(warmup)]
-    torch.cuda.synchronize()
-    # between steps only the state stays: weights, f32 masters, moments
-    resident = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    timed_losses = [step(x) for _ in range(timed)]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts, fused_counts = _flash_counts(), _fused_counts()
-    peak = torch.cuda.max_memory_allocated()
-    losses += [float(t) for t in timed_losses]
-    steps = warmup + timed
+    run = model_train_run(what, model, lambda m, x: m(x, labels=x)[1], [x],
+                          warmup, timed, flops, cfg.num_hidden_layers,
+                          before, fused=fused, items=B * S,
+                          profile=profile, desc=f"batch {B} x {S}")
+    losses = run["losses"]
     ln_v = math.log(cfg.vocab_size)
     if not (math.isfinite(losses[0]) and abs(losses[0] - ln_v) <= 1.0):
         raise AssertionError(f"{what}: first loss {losses[0]} is not within "
                              f"1.0 of ln(vocab) = {ln_v:.3f}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{what}: loss did not fall: {losses}")
-    for kname, n in counts.items():
-        if n != steps * cfg.num_hidden_layers:
-            raise AssertionError(
-                f"{what}: {kname} launched {n} times in {steps} steps, not "
-                f"{cfg.num_hidden_layers} per step")
-    layout = step._layout
-    buckets = len(layout.buckets) if layout is not None else 0
-    if (layout is not None) != step._fused or \
-            (layout is not None and layout.residue):
-        raise AssertionError(f"{what}: layout {layout} for fused={fused}")
-    for kname, n in fused_counts.items():  # one per bucket per step
-        if n != steps * buckets:
-            raise AssertionError(
-                f"{what}: {kname} launched {n} times in {steps} steps over "
-                f"{buckets} buckets")
-    step_ms = 1e3 * wall / timed
-    mfu = flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
-    n_params = sum(p.numel() for p in model.parameters())
-    mode = "fused" if step._fused else "fused=False (per-parameter loop)"
-    log(f"{what} [{mode}]: {n_params} parameters in {buckets} buckets, batch "
-        f"{B} x {S}, bf16, AdamW f32 masters, clip 1.0; loss step 1 "
-        f"{losses[0]:.4f} (ln V = {ln_v:.4f}), step {steps} "
-        f"{losses[-1]:.4f}; losses {[round(v, 4) for v in losses]}")
-    log(f"{what} [{mode}]: launches per step K1 "
-        f"{counts['flash_attention_fwd'] // steps}, K2 "
-        f"{counts['flash_attention_dq'] // steps}, K3 "
-        f"{counts['flash_attention_dkv'] // steps} (= "
-        f"{cfg.num_hidden_layers} layers); fused_adam_update "
-        f"{fused_counts['fused_adam_update']} and fused_sqnorm "
-        f"{fused_counts['fused_sqnorm']} in {steps} steps")
-    log(f"{what} [{mode}]: step {step_ms:.3f} ms (synchronised wall / "
-        f"{timed} steps); {B * S / (step_ms / 1e3):.1f} tokens/s; "
-        f"{flops:.4e} flop per step, floor "
-        f"{1e3 * flops / PEAK_FLOPS[torch.bfloat16]:.2f} ms at 989 "
-        f"TFLOP/s; MFU {100 * mfu:.2f}%; max_memory_allocated "
-        f"{peak - before} B above the {before} B allocated before the "
-        f"run, of which {resident - before} B stay allocated between steps")
-    shares = (profile or profile_train_step)(step, x, step_ms,
-                                             f"{what} [{mode}]")
-    return dict(losses=losses, step_ms=step_ms, mfu=mfu,
-                peak=peak - before, resident=resident - before,
-                flash=counts, fused=fused_counts, shares=shares), model
+    return run, model
 
 
 def compare_fused_and_loop(what, fused, loop):
@@ -2374,6 +2358,406 @@ def _phase_fit(cfg, corpus, ckpt_dir, flash_recs, train_step_ms):
     return {**counts, **fused_counts}
 
 
+# --------------------------------------------------------------------------
+def ernie_train_flops_per_step(cfg, B, S):
+    """ERNIE pretraining's flops per step: 6 per matmul parameter per
+    token (2 forward, 4 backward) over 12 layers of 4H^2 (q, k, v, out)
+    + 2HF (the FFN), the tied H x V decoder and the H^2 MLM transform at
+    every position, the pooler's H^2 and the SOP head's 2H once per
+    sequence; plus 12 * L * S * H per token of non-causal attention
+    (QK^T and PV, 2 * S * H each forward, times 3)."""
+    H, F, V, L = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
+                  cfg.num_hidden_layers)
+    per_token = L * (4 * H * H + 2 * H * F) + H * V + H * H
+    per_seq = H * H + 2 * H
+    return 6 * (B * S * per_token + B * per_seq) + B * S * 12 * L * S * H
+
+
+def dit_train_flops_per_step(cfg, B):
+    """DiT's flops per step: 6 per matmul parameter per token over the
+    blocks' 4H^2 (attention) + 2HM (the MLP, M = 4H), the final linear
+    and the patch embedding; the adaLN projections (6H^2 a block, 2H^2
+    at the end) and the timestep MLP once per image; plus 12 * L * N * H
+    per token of non-causal attention over the N patches."""
+    H, L, p = cfg.hidden_size, cfg.depth, cfg.patch_size
+    M = int(H * cfg.mlp_ratio)
+    N = (cfg.input_size // p) ** 2
+    out_c = cfg.in_channels * (2 if cfg.learn_sigma else 1)
+    per_token = L * (4 * H * H + 2 * H * M) + H * p * p * out_c + \
+        p * p * cfg.in_channels * H
+    per_image = L * 6 * H * H + 2 * H * H + 256 * H + H * H
+    return 6 * (B * N * per_token + B * per_image) + B * N * 12 * L * N * H
+
+
+def ernie_init(model):
+    """PaddleNLP's ERNIE recipe on the port's initializers: every 2-D
+    weight (embeddings and projections) ~ N(0, 0.02), drawn from the
+    seeded generator. The reference model's layer defaults (N(0, 1)
+    embeddings tied to the decoder) would start the MLM loss near
+    sqrt(H) * sqrt(2 ln V), far above ln V."""
+    from paddle_tpu_torch.nn import initializer as I
+    init = I.Normal(0.0, 0.02)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() == 2:
+                p.copy_(init(list(p.shape), p.dtype, p.device))
+
+
+def model_train_run(what, model, loss_fn, batch, warmup, timed, flops,
+                    layers, before, fused=None, unit="tokens", items=0,
+                    profile=None, desc=""):
+    """One run of ``model`` on one seeded ``batch`` through ``TrainStep``
+    (AdamW lr 1e-4, f32 masters, global-norm clip 1.0), ``fused`` as
+    given (None: the default, fused): ``warmup`` + ``timed`` steps, then
+    one profiled step (``profile``, by default
+    :func:`profile_train_step`). Checks that K1-K3 each launched
+    ``layers`` times a step and the fused kernels once a bucket a step
+    (none on the loop); returns the run's numbers. ``items`` of ``unit``
+    make one step; ``before`` is the memory allocated before the model
+    was built."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.ops.pallas import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))
+    step = TrainStep(model, loss_fn, opt, fused=fused)
+    _reset_flash_counts()
+    _reset_fused_counts()
+    padded0 = fa.launches_padded
+    losses = [float(step(*batch)) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    timed_losses = [step(*batch) for _ in range(timed)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, fused_counts = _flash_counts(), _fused_counts()
+    padded = fa.launches_padded - padded0
+    peak = torch.cuda.max_memory_allocated()
+    losses += [float(t) for t in timed_losses]
+    steps = warmup + timed
+    for kname, n in counts.items():
+        if n != steps * layers:
+            raise AssertionError(f"{what}: {kname} launched {n} times in "
+                                 f"{steps} steps, not {layers} per step")
+    layout = step._layout
+    buckets = len(layout.buckets) if layout is not None else 0
+    if (layout is not None) != step._fused or \
+            (layout is not None and layout.residue):
+        raise AssertionError(f"{what}: layout {layout} for fused={fused}")
+    for kname, n in fused_counts.items():  # one per bucket per step
+        if n != steps * buckets:
+            raise AssertionError(f"{what}: {kname} launched {n} times in "
+                                 f"{steps} steps over {buckets} buckets")
+    step_ms = 1e3 * wall / timed
+    mfu = flops / (step_ms / 1e3) / PEAK_FLOPS[torch.bfloat16]
+    mode = "fused" if step._fused else "fused=False (per-parameter loop)"
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{what} [{mode}]: {n_params} parameters in {buckets} buckets, "
+        f"{desc + ', ' if desc else ''}bf16, AdamW f32 masters, clip 1.0; "
+        f"loss step 1 {losses[0]:.4f}, step {steps} {losses[-1]:.4f}; "
+        f"losses {[round(v, 4) for v in losses]}")
+    log(f"{what} [{mode}]: launches per step K1 "
+        f"{counts['flash_attention_fwd'] // steps}, K2 "
+        f"{counts['flash_attention_dq'] // steps}, K3 "
+        f"{counts['flash_attention_dkv'] // steps} (= {layers} layers), "
+        f"{padded} of them at a zero-padded head_dim in {steps} steps; "
+        f"fused_adam_update {fused_counts['fused_adam_update']} and "
+        f"fused_sqnorm {fused_counts['fused_sqnorm']} in {steps} steps")
+    log(f"{what} [{mode}]: step {step_ms:.3f} ms (synchronised wall / "
+        f"{timed} steps); {items / (step_ms / 1e3):.1f} {unit}/s; "
+        f"{flops:.4e} flop per step, floor "
+        f"{1e3 * flops / PEAK_FLOPS[torch.bfloat16]:.2f} ms at 989 "
+        f"TFLOP/s; MFU {100 * mfu:.2f}%; max_memory_allocated "
+        f"{peak - before} B above the {before} B allocated before the "
+        f"run, of which {resident - before} B stay allocated between steps")
+    shares = (profile or profile_train_step)(
+        lambda _: step(*batch), None, step_ms, f"{what} [{mode}]")
+    return dict(losses=losses, step_ms=step_ms, mfu=mfu, padded=padded,
+                peak=peak - before, resident=resident - before,
+                flash=counts, fused=fused_counts, shares=shares)
+
+
+def _kernel_share(what, shares):
+    total = sum(v for k, v in shares.items() if not k.startswith("Train"))
+    if total:
+        log(f"{what}: K1-K3 take {shares.get('flash K1-K3', 0.0):.3f} ms, "
+            f"{100 * shares.get('flash K1-K3', 0.0) / total:.1f}% of the "
+            f"profiled step's device time")
+
+
+class _Counted:
+    """An iterable of batches that counts what it hands out."""
+
+    def __init__(self, batches):
+        self.batches, self.served = batches, 0
+
+    def __iter__(self):
+        for b in self.batches:
+            self.served += 1
+            yield b
+
+
+def ernie_finetune(cfg, rng):
+    """Phase 11's fine-tuning: ``ErnieForSequenceClassification`` at
+    ERNIE-base width through ``hapi.Model.prepare(AdamW,
+    CrossEntropyLoss(), Accuracy())``, ``fit`` for 3 steps of 16 x 512,
+    then ``evaluate`` on 64 seeded samples in 4 batches."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.hapi import Callback, Model
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.models.ernie import ErnieForSequenceClassification
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+
+    class Losses(Callback):
+        def __init__(self):
+            self.losses = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+
+    B, S = 16, 512
+
+    def batches(n):
+        return [(rng.randint(0, cfg.vocab_size, (B, S)),
+                 rng.randint(0, 2, B)) for _ in range(n)]
+    ptt.seed(SEED + 1)
+    net = ErnieForSequenceClassification(cfg, num_classes=2,
+                                         dtype="bfloat16")
+    ernie_init(net)
+    acc = Accuracy()
+    model = Model(net).prepare(
+        AdamW(learning_rate=1e-4, parameters=net.parameters(),
+              multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0)),
+        CrossEntropyLoss(), acc)
+    rec = Losses()
+    t0 = time.perf_counter()
+    model.fit(batches(3), epochs=1, verbose=0, callbacks=[rec])
+    fit_s = time.perf_counter() - t0
+    evald = _Counted(batches(4))
+    logs = model.evaluate(evald, verbose=0)
+    if len(rec.losses) != 3 or not all(map(math.isfinite, rec.losses)):
+        raise AssertionError(f"ernie fine-tune: fit losses {rec.losses}")
+    if not (math.isfinite(logs["loss"]) and 0.0 <= logs["acc"] <= 1.0):
+        raise AssertionError(f"ernie fine-tune: evaluate gave {logs}")
+    if evald.served != 4 or int(acc.count[0]) != 4 * B:
+        raise AssertionError(f"ernie fine-tune: evaluated {evald.served} "
+                             f"batches, {int(acc.count[0])} samples")
+    log(f"ernie fine-tune: hapi.Model(ErnieForSequenceClassification "
+        f"bf16).prepare(AdamW, CrossEntropyLoss(), Accuracy()); fit 3 "
+        f"steps of {B} x {S} in {fit_s:.3f} s (first step builds the "
+        f"fused plan), losses {[round(v, 4) for v in rec.losses]}; "
+        f"evaluate on {4 * B} samples in {evald.served} batches: loss "
+        f"{logs['loss']:.4f}, acc {logs['acc']:.4f}")
+    del model, net
+
+
+def phase_ernie():
+    """Phase 11: ERNIE-base pretraining at the reference's configuration
+    (vocab 40000, hidden 768, 12 layers, 12 heads, FFN 3072, dropout 0.1)
+    in bf16 on 16 x 512 tokens (bench.py's _suite_ernie), fused (2 + 10
+    steps, the main path) and with fused=False (2 + 3 steps); then the
+    classifier through hapi. Returns the fused run's launch counts."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models.ernie import ErnieConfig, ErnieForPretraining
+    cfg = ErnieConfig()
+    B, S = 16, 512
+    rng = np.random.RandomState(SEED)
+    ids = rng.randint(0, cfg.vocab_size, (B, S))
+    types = np.broadcast_to((np.arange(S) >= S // 2).astype(np.int64),
+                            (B, S)).copy()
+    masked = rng.rand(B, S) < 0.15
+    mlm = np.where(masked, rng.randint(0, cfg.vocab_size, (B, S)), -100)
+    sop = rng.randint(0, 2, B)
+    batch = [torch.from_numpy(a).cuda() for a in (ids, types, mlm, sop)]
+    flops = ernie_train_flops_per_step(cfg, B, S)
+    want = math.log(cfg.vocab_size) + math.log(2)
+
+    def loss_fn(m, ids, types, mlm, sop):
+        return m(ids, types, masked_lm_labels=mlm, sop_labels=sop)[2]
+    runs = {}
+    for fused, warm, timed in ((None, 2, 10), (False, 2, 3)):
+        free_device_memory()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ptt.seed(SEED)
+        model = ErnieForPretraining(cfg, dtype="bfloat16")
+        ernie_init(model)
+        r = model_train_run("ernie", model, loss_fn, batch, warm, timed,
+                            flops, cfg.num_hidden_layers, before,
+                            fused=fused, items=B * S)
+        del model
+        runs[fused] = r
+    losses = runs[None]["losses"]
+    if not (math.isfinite(losses[0]) and abs(losses[0] - want) <= 1.0):
+        raise AssertionError(f"ernie: first loss {losses[0]} is not within "
+                             f"1.0 of ln(V) + ln(2) = {want:.3f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"ernie: loss did not fall: {losses}")
+    # the loop's 5 steps are too few to fall through dropout's noise: from
+    # the same seed (weights and masks) they repeat the fused run's losses
+    compare_fused_and_loop("ernie", runs[None], runs[False])
+    _kernel_share("ernie [fused]", runs[None]["shares"])
+    log(f"ernie: {int(masked.sum())} of {B * S} positions masked (15% "
+        f"seeded), first loss {losses[0]:.4f} against ln(V) + ln(2) = "
+        f"{want:.4f}, last {losses[-1]:.4f}")
+    free_device_memory()
+    ernie_finetune(cfg, rng)
+    free_device_memory()
+    return {**runs[None]["flash"], **runs[None]["fused"]}
+
+
+def phase_dit():
+    """Phase 12: DiT-XL/2 at full width and depth (input 32, patch 2, 256
+    tokens, hidden 1152, 28 blocks, 16 heads of 72, learn_sigma, 1000
+    classes) in bf16 on a batch of 64 (bench.py's _suite_dit), MSE
+    against one seeded target, fused, 2 + 10 steps. Returns the run's
+    launch counts."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models.dit import DiT, DiTConfig
+    from paddle_tpu_torch.nn import MSELoss
+    cfg = DiTConfig.dit_xl_2()
+    B = 64
+    rng = np.random.RandomState(SEED)
+    x = torch.from_numpy(rng.randn(B, cfg.in_channels, cfg.input_size,
+                                   cfg.input_size).astype(np.float32))
+    t = torch.from_numpy(rng.randint(0, 1000, B))
+    y = torch.from_numpy(rng.randint(0, cfg.num_classes, B))
+    target = torch.from_numpy(rng.randn(
+        B, 2 * cfg.in_channels, cfg.input_size,
+        cfg.input_size).astype(np.float32)).cuda()
+    batch = [x.cuda().to(torch.bfloat16), t.cuda(), y.cuda(), target]
+    mse = MSELoss()
+
+    def loss_fn(m, x, t, y, target):
+        return mse(m(x, t, y).float(), target)
+    free_device_memory()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ptt.seed(SEED)
+    model = DiT(cfg, dtype="bfloat16")
+    r = model_train_run("dit", model, loss_fn, batch, 2, 10,
+                        dit_train_flops_per_step(cfg, B), cfg.depth, before,
+                        unit="images", items=B)
+    del model
+    want = float((target ** 2).mean())
+    losses = r["losses"]
+    if not abs(losses[0] - want) <= 1e-2:
+        raise AssertionError(f"dit: first loss {losses[0]} is not "
+                             f"mean(target^2) = {want:.5f} within 1e-2 "
+                             f"(adaLN-Zero starts the output at 0)")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"dit: loss did not fall: {losses}")
+    if r["padded"] != 3 * cfg.depth * 12:
+        raise AssertionError(f"dit: {r['padded']} padded launches, not "
+                             f"3 x {cfg.depth} x 12")
+    _kernel_share("dit [fused]", r["shares"])
+    log(f"dit: first loss {losses[0]:.5f} against mean(target^2) "
+        f"{want:.5f}; head_dim {cfg.hidden_size // cfg.num_heads} runs on "
+        f"the hd-128 kernels, zero-padded")
+    free_device_memory()
+    return {**r["flash"], **r["fused"]}
+
+
+def flash_model_shape(what, B, H, S, d, dropout):
+    """K1-K3 in bf16 at one model's attention shape (non-causal): each
+    kernel against its plain version on the same inputs at ``FLASH_TOL``
+    (through ``padded_launch``, as the autograd path pads and slices),
+    then kernel, plain and library (sdpa) times, the bound of the
+    caller's head_dim and, where it has no instance, the zero-padding
+    copies the autograd wrapper adds (q, k, v in the forward, do in the
+    backward). Returns {kernel: record}."""
+    from paddle_tpu_torch.ops.pallas import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    mk = lambda: torch.randn(B, H, S, d, device="cuda",  # noqa: E731
+                             dtype=torch.bfloat16, generator=gen)
+    q4, k4, v4, do4 = mk(), mk(), mk(), mk()
+    q, k, v, g, _ = fa._geometry(q4, k4, v4, False, None, None, None, None,
+                                 dropout, 2024 if dropout else None)
+    do = do4.reshape(q.shape)
+    o_tol, g_tol = FLASH_TOL[torch.bfloat16]
+    with torch.no_grad():
+        (o, lse, delta, dq, dk, dv), tail = fa.padded_launch(q, k, v, do, g)
+        if tail != 0:
+            raise AssertionError(f"flash {what}: padded columns not 0 "
+                                 f"(max |x| {tail})")
+        ro, rlse = fa._forward_plain(q, k, v, g)
+        errs = {"flash_attention_fwd": max(
+            _check(f"K1 o {what}", o, ro, *o_tol),
+            _check(f"K1 lse {what}", lse, rlse, *o_tol))}
+        del o, ro, rlse
+        errs["flash_attention_dq"] = _check(
+            f"K2 dq {what}", dq, fa._dq_plain(q, k, v, do, lse, delta, g),
+            *g_tol)
+        rdk, rdv = fa._dkv_plain(q, k, v, do, lse, delta, g)
+        errs["flash_attention_dkv"] = max(
+            _check(f"K3 dk {what}", dk, rdk, *g_tol),
+            _check(f"K3 dv {what}", dv, rdv, *g_tol))
+        del dq, dk, dv, rdk, rdv
+    qp, kp, vp = fa.pad_head_dim(q, k, v, g)
+    width = qp.shape[-1]
+    dop = torch.nn.functional.pad(do, (0, width - d))
+    esz, row = q.element_size(), 4 * q.shape[0] * q.shape[1]
+    pad_ms = cuda_ms(lambda: (fa.pad_head_dim(q, k, v, fa.FlashGeometry(
+        hq=H, hkv=H, causal=False, sm_scale=1.0)),
+        torch.nn.functional.pad(do, (0, width - d)))) if width != d else 0.0
+    kernels = {
+        "flash_attention_fwd": (
+            lambda: fa.flash_attention_fwd(qp, kp, vp, g),
+            lambda: fa._forward_plain(q, k, v, g),
+            flash_need(q, k, g, 2, q.numel() * esz + row, 0)),
+        "flash_attention_dq": (
+            lambda: fa.flash_attention_dq(qp, kp, vp, dop, lse, delta, g),
+            lambda: fa._dq_plain(q, k, v, do, lse, delta, g),
+            flash_need(q, k, g, 3, q.numel() * esz,
+                       q.numel() * esz + 2 * row)),
+        "flash_attention_dkv": (
+            lambda: fa.flash_attention_dkv(qp, kp, vp, dop, lse, delta, g),
+            lambda: fa._dkv_plain(q, k, v, do, lse, delta, g),
+            flash_need(q, k, g, 4, 2 * k.numel() * esz,
+                       q.numel() * esz + 2 * row))}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
+
+    def lib_fwd():
+        with torch.no_grad():
+            sdpa(q4, k4, v4, dropout_p=dropout)
+
+    def lib_fwd_bwd():
+        out = sdpa(*leaves, dropout_p=dropout)
+        torch.autograd.grad(out, leaves, do4)
+    lib_f = cuda_ms(lib_fwd)
+    lib_b = cuda_ms(lib_fwd_bwd) - lib_f
+    recs = {}
+    with torch.no_grad():
+        for kname, (kern, plain, need) in kernels.items():
+            ms, plain_ms = cuda_ms(kern), cuda_ms(plain)
+            lib = lib_f if kname == "flash_attention_fwd" else lib_b
+            recs[kname] = dict(max_abs_err=errs[kname], ms=ms,
+                               plain_ms=plain_ms, bound_ms=need["bound_ms"],
+                               bound_by=need["bound_by"], library_ms=lib)
+            log(f"flash {what} (B={B}, H={H}, S={S}, head_dim {d}"
+                + (f" on the hd-{width} kernel" if width != d else "")
+                + (f", dropout {dropout}" if dropout else "")
+                + f", bf16) {kname}: max|err|={errs[kname]:.3e}; kernel "
+                f"{ms:.4f} ms "
+                f"({need['flops'] / (ms / 1e3) / 1e12:.1f} TFLOP/s of the "
+                f"head_dim-{d} work), plain {plain_ms:.4f} ms, bound "
+                f"{need['bound_ms']:.4f} ms ({need['bound_by']}), library "
+                f"{lib:.4f} ms")
+    if width != d:
+        log(f"flash {what}: the zero-padding copies of one layer (q, k, v "
+            f"and do to {width}) take {pad_ms:.4f} ms")
+        for r in recs.values():
+            r["pad_ms"] = pad_ms
+    del lse, delta, qp, kp, vp, dop, leaves
+    free_device_memory()
+    return recs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch",
@@ -2392,9 +2776,14 @@ def main():
     gmm = phase_gmm()
     moe = phase_moe_training()
     fit = phase_fit(flash, train_step_ms)
+    ernie = phase_ernie()
+    dit = phase_dit()
+    shapes = {"ernie": flash_model_shape("ernie", 16, 12, 512, 64, 0.1),
+              "dit": flash_model_shape("dit", 64, 16, 256, 72, 0.0)}
     # each path's launches were counted from 0 over its own run; a kernel
     # on several paths reports their sum, and each path's count beside it
-    paths = {"train": counts, "moe_train": moe, "fit": fit}
+    paths = {"train": counts, "moe_train": moe, "fit": fit, "ernie": ernie,
+             "dit": dit}
 
     def path_launches(kname):
         by_path = {p: c[kname] for p, c in paths.items()}
@@ -2408,7 +2797,8 @@ def main():
     for kname, replaces in FLASH_KERNELS:
         kernels.append(dict(name=kname, route="cuda", source=FLASH_SRC,
                             replaces=replaces, **path_launches(kname),
-                            **flash[kname]))
+                            **flash[kname], at_model_shapes={
+                                m: r[kname] for m, r in shapes.items()}))
     for kname, _, replaces in GMM_KERNELS:
         kernels.append(dict(name=kname, route="cuda", source=GMM_SRC,
                             replaces=replaces, launches_by_path={

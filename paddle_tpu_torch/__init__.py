@@ -23,5 +23,15 @@ weights, the learning-rate schedulers (``optimizer.lr``), the clips of
 ``nn.clip`` and the regularizers, under ``TrainStep``'s fused
 multi-tensor update (``jit.fused_update``, one hand-written pass per
 Adam/AdamW bucket). The MoE family (``models.moe``) trains through the
-same step, with the grouped-matmul kernels at ``ops.pallas``.
+same step, with the grouped-matmul kernels at ``ops.pallas``. ERNIE
+(``models.ernie``) and DiT (``models.dit``) train through it too, on the
+transformer layer set of ``nn`` (biased ``Linear``, ``LayerNorm``,
+``MultiHeadAttention``, the encoder and decoder stacks, ``Conv2D``, the
+activations, losses and initializers); ``metric`` holds the metrics of
+``hapi.Model.prepare``. ``seed(n)`` seeds the port's generator
+(``core.generator``), from which dropout and the initializers draw.
 """
+from . import metric
+from .core.generator import seed
+
+__all__ = ["metric", "seed"]

@@ -1,1 +1,2 @@
-"""Core helpers of the port (``paddle_tpu/core``'s counterpart)."""
+"""Core helpers of the port (``paddle_tpu/core``'s counterpart): dtype
+names and the RNG state."""

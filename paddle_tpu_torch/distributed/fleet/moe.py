@@ -30,6 +30,7 @@ import torch
 
 from paddle_tpu_torch.core.dtype import convert_dtype
 from paddle_tpu_torch.device import resolve_device
+from paddle_tpu_torch.nn.initializer import XavierUniform
 
 __all__ = ["MoELayer", "NaiveGate", "SwitchGate", "GShardGate", "route"]
 
@@ -96,8 +97,9 @@ class _Combine(torch.autograd.Function):
 
 
 def _xavier_uniform_(p, generator):
-    """The reference's XavierUniform for a ``[fan_in, fan_out]`` weight."""
-    bound = math.sqrt(6.0 / (p.shape[0] + p.shape[1]))
+    """``nn.initializer.XavierUniform``'s draw for a ``[fan_in,
+    fan_out]`` weight, in place from ``generator``."""
+    bound = XavierUniform().limit(p.shape)
     p.uniform_(-bound, bound, generator=generator)
 
 

@@ -27,6 +27,7 @@ import torch
 from paddle_tpu_torch.core.dtype import convert_dtype
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.nn import Embedding, Linear, RMSNorm
+from paddle_tpu_torch.nn import initializer as I
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops.fused_ce import causal_lm_loss
@@ -64,6 +65,11 @@ class LlamaConfig:
                     max_position_embeddings=128)
         base.update(kw)
         return LlamaConfig(**base)
+
+
+# every projection is bias-free and starts at zero: the owning model's
+# _init_weights draws the Llama recipe (or the bridge loads the weights)
+_ZERO_NO_BIAS = dict(weight_attr=I.Constant(0.0), bias_attr=False)
 
 
 @functools.lru_cache(maxsize=32)
@@ -129,7 +135,8 @@ class LlamaAttention(torch.nn.Module):
         self.head_dim = cfg.hidden_size // cfg.num_attention_heads
         self.n_heads = cfg.num_attention_heads
         self.n_kv = cfg.num_key_value_heads
-        mk = functools.partial(Linear, device=device, dtype=dtype)
+        mk = functools.partial(Linear, device=device, dtype=dtype,
+                               **_ZERO_NO_BIAS)
         self.q_proj = mk(cfg.hidden_size, self.n_heads * self.head_dim)
         self.k_proj = mk(cfg.hidden_size, self.n_kv * self.head_dim)
         self.v_proj = mk(cfg.hidden_size, self.n_kv * self.head_dim)
@@ -197,7 +204,8 @@ class LlamaAttention(torch.nn.Module):
 class LlamaMLP(torch.nn.Module):
     def __init__(self, cfg: LlamaConfig, *, device, dtype):
         super().__init__()
-        mk = functools.partial(Linear, device=device, dtype=dtype)
+        mk = functools.partial(Linear, device=device, dtype=dtype,
+                               **_ZERO_NO_BIAS)
         self.gate_proj = mk(cfg.hidden_size, cfg.intermediate_size)
         self.up_proj = mk(cfg.hidden_size, cfg.intermediate_size)
         self.down_proj = mk(cfg.intermediate_size, cfg.hidden_size)
@@ -229,7 +237,8 @@ class LlamaModel(torch.nn.Module):
         super().__init__()
         self.cfg = cfg
         kw = dict(device=device, dtype=dtype)
-        self.embed_tokens = Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
+        self.embed_tokens = Embedding(cfg.vocab_size, cfg.hidden_size,
+                                      weight_attr=I.Constant(0.0), **kw)
         self.layers = torch.nn.ModuleList(
             [LlamaDecoderLayer(cfg, **kw)
              for _ in range(cfg.num_hidden_layers)])
@@ -298,7 +307,8 @@ class LlamaForCausalLM(torch.nn.Module):
         self.cfg = cfg
         self.model = LlamaModel(cfg, device=device, dtype=dtype)
         self.lm_head = None if cfg.tie_word_embeddings else Linear(
-            cfg.hidden_size, cfg.vocab_size, device=device, dtype=dtype)
+            cfg.hidden_size, cfg.vocab_size, device=device, dtype=dtype,
+            **_ZERO_NO_BIAS)
         self._init_weights(torch.Generator(device=device).manual_seed(seed))
 
     @torch.no_grad()

@@ -26,8 +26,10 @@ from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.distributed.fleet.moe import MoELayer, _xavier_uniform_
 from paddle_tpu_torch.nn import Embedding, Linear, RMSNorm
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn import initializer as I
 from paddle_tpu_torch.ops.fused_ce import causal_lm_loss
-from .llama import LlamaAttention, LlamaConfig, LlamaMLP, _rope_cache
+from .llama import (_ZERO_NO_BIAS, LlamaAttention, LlamaConfig, LlamaMLP,
+                    _rope_cache)
 
 __all__ = ["MoeConfig", "MoeDecoderLayer", "MoeForCausalLM"]
 
@@ -154,12 +156,14 @@ class MoeForCausalLM(torch.nn.Module):
         dtype = convert_dtype(dtype)
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
-        self.embed_tokens = Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
+        self.embed_tokens = Embedding(cfg.vocab_size, cfg.hidden_size,
+                                      weight_attr=I.Constant(0.0), **kw)
         self.layers = torch.nn.ModuleList(
             [MoeDecoderLayer(cfg, i, **kw)
              for i in range(cfg.num_hidden_layers)])
         self.norm = RMSNorm(cfg.hidden_size, epsilon=cfg.rms_norm_eps, **kw)
-        self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, **kw)
+        self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size, **kw,
+                              **_ZERO_NO_BIAS)
         # the attention's RoPE table, built from _attn_cfg() (not state)
         acfg = cfg._attn_cfg()
         cos, sin = _rope_cache(acfg.max_position_embeddings,

@@ -1,26 +1,244 @@
-"""Functional ops of the serving and training paths (port of the
-matching functions in ``paddle_tpu/nn/functional.py``)."""
+"""Functional ops of the port (port of the matching functions in
+``paddle_tpu/nn/functional.py``): activations, linear and embedding,
+dropout, the norms, convolution, attention and the losses.
+
+Randomness (dropout, ``rrelu``, the flash kernels' dropout seed) draws
+from ``core.generator``'s default generator, never from PyTorch's global
+one, so ``paddle_tpu_torch.seed(n)`` makes a run repeat. Convolution
+goes to ``torch.nn.functional.conv*``, as the reference leaves it to
+``lax.conv_general_dilated`` outside any Pallas kernel; attention goes
+to the flash-attention kernels.
+"""
 from __future__ import annotations
+
 
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core import generator as _gen
 from paddle_tpu_torch.ops.pallas.flash_attention import flash_attention_bshd
 
-__all__ = ["linear", "embedding", "rms_norm", "silu",
-           "scaled_dot_product_attention", "flash_attention",
-           "cross_entropy"]
+__all__ = [
+    # activations
+    "relu", "relu6", "gelu", "silu", "swish", "sigmoid", "tanh", "softmax",
+    "log_softmax", "leaky_relu", "elu", "selu", "celu", "hardswish",
+    "hardsigmoid", "hardtanh", "hardshrink", "softshrink", "tanhshrink",
+    "softplus", "softsign", "mish", "prelu", "rrelu", "glu", "maxout",
+    "log_sigmoid", "thresholded_relu",
+    # common
+    "linear", "embedding", "dropout",
+    # norms
+    "layer_norm", "rms_norm",
+    # convolution
+    "conv1d", "conv2d", "conv3d", "conv1d_transpose", "conv2d_transpose",
+    "conv3d_transpose",
+    # attention
+    "scaled_dot_product_attention", "flash_attention",
+    # losses
+    "cross_entropy", "mse_loss", "l1_loss", "nll_loss",
+    "binary_cross_entropy", "binary_cross_entropy_with_logits",
+    "smooth_l1_loss", "kl_div",
+]
+
+_tf = torch.nn.functional
 
 
-def linear(x, weight):
-    """``x @ W`` with Paddle's ``[in, out]`` weight layout. The product
-    goes to ``torch.matmul``, as the JAX package leaves it to XLA."""
-    return torch.matmul(x, weight)
+# =========================== activations =====================================
+def relu(x):
+    return torch.relu(x)
 
 
-def embedding(ids, weight):
-    """Row lookup ``weight[ids]``."""
-    return weight[ids.long()]
+def relu6(x):
+    return torch.clamp(x, 0.0, 6.0)
+
+
+def gelu(x, approximate=False):
+    """Exact (erf) GELU, or the tanh approximation."""
+    return _tf.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def silu(x):
+    """``x * sigmoid(x)``."""
+    return _tf.silu(x)
+
+
+swish = silu
+
+
+def sigmoid(x):
+    return torch.sigmoid(x)
+
+
+def tanh(x):
+    return torch.tanh(x)
+
+
+def log_sigmoid(x):
+    return _tf.logsigmoid(x)
+
+
+def softsign(x):
+    return x / (1 + torch.abs(x))
+
+
+def mish(x):
+    return x * torch.tanh(_tf.softplus(x))
+
+
+def softmax(x, axis=-1, dtype=None):
+    if dtype is not None:
+        from paddle_tpu_torch.core.dtype import convert_dtype
+        x = x.to(convert_dtype(dtype))
+    return torch.softmax(x, dim=int(axis))
+
+
+def log_softmax(x, axis=-1):
+    return torch.log_softmax(x, dim=int(axis))
+
+
+def leaky_relu(x, negative_slope=0.01):
+    return torch.where(x >= 0, x, negative_slope * x)
+
+
+def elu(x, alpha=1.0):
+    return torch.where(x > 0, x, alpha * torch.expm1(x))
+
+
+def selu(x, scale=1.0507009873554805, alpha=1.6732632423543772):
+    return scale * torch.where(x > 0, x, alpha * torch.expm1(x))
+
+
+def celu(x, alpha=1.0):
+    return torch.where(x > 0, x, alpha * torch.expm1(x / alpha))
+
+
+def hardswish(x):
+    return x * torch.clamp(x + 3, 0, 6) / 6
+
+
+def hardsigmoid(x, slope=1.0 / 6, offset=0.5):
+    return torch.clamp(x * slope + offset, 0, 1)
+
+
+def hardtanh(x, min=-1.0, max=1.0):
+    return torch.clamp(x, min, max)
+
+
+def hardshrink(x, threshold=0.5):
+    return torch.where(torch.abs(x) > threshold, x, torch.zeros_like(x))
+
+
+def softshrink(x, threshold=0.5):
+    zero = torch.zeros_like(x)
+    return torch.where(x > threshold, x - threshold,
+                       torch.where(x < -threshold, x + threshold, zero))
+
+
+def tanhshrink(x):
+    return x - torch.tanh(x)
+
+
+def softplus(x, beta=1.0, threshold=20.0):
+    return torch.where(x * beta > threshold, x,
+                       torch.log1p(torch.exp(beta * x)) / beta)
+
+
+def thresholded_relu(x, threshold=1.0):
+    return torch.where(x > threshold, x, torch.zeros_like(x))
+
+
+def prelu(x, weight):
+    """Leaky slope from ``weight``: one value, or one per channel (axis
+    1)."""
+    w = weight
+    if w.numel() != 1:
+        shape = [1] * x.dim()
+        shape[1] = w.numel()
+        w = w.reshape(shape)
+    return torch.where(x >= 0, x, w * x)
+
+
+def rrelu(x, lower=1.0 / 8, upper=1.0 / 3, training=True):
+    """Randomised leaky slope in ``[lower, upper)`` while training (from
+    the default generator), their mean otherwise."""
+    if not training:
+        return torch.where(x >= 0, x, (lower + upper) / 2 * x)
+    a = torch.empty(x.shape, dtype=torch.float32, device=x.device).uniform_(
+        lower, upper, generator=_gen.torch_generator(x.device)).to(x.dtype)
+    return torch.where(x >= 0, x, a * x)
+
+
+def glu(x, axis=-1):
+    a, b = torch.chunk(x, 2, dim=axis)
+    return a * torch.sigmoid(b)
+
+
+def maxout(x, groups, axis=1):
+    ax = axis % x.dim()
+    c = x.shape[ax]
+    new = tuple(x.shape[:ax]) + (c // groups, groups) + tuple(x.shape[ax + 1:])
+    return torch.amax(x.reshape(new), dim=ax + 1)
+
+
+# =========================== common ==========================================
+def linear(x, weight, bias=None):
+    """``x @ W (+ b)`` with Paddle's ``[in, out]`` weight layout. The
+    product goes to ``torch.matmul``, as the JAX package leaves it to
+    XLA."""
+    out = torch.matmul(x, weight)
+    return out if bias is None else out + bias
+
+
+def embedding(ids, weight, padding_idx=None):
+    """Row lookup ``weight[ids]``; rows of ``padding_idx`` come out 0."""
+    out = weight[ids.long()]
+    if padding_idx is not None:
+        out = torch.where((ids == padding_idx)[..., None],
+                          torch.zeros((), dtype=out.dtype, device=out.device),
+                          out)
+    return out
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train"):
+    """Reference :228: in training, zero each element (or each slice
+    along ``axis``) with probability ``p`` from the default generator and,
+    in ``upscale_in_train`` mode, scale the kept ones by ``1/(1-p)``;
+    at inference ``downscale_in_infer`` scales by ``1-p`` and
+    ``upscale_in_train`` is the identity."""
+    if mode not in ("upscale_in_train", "downscale_in_infer"):
+        raise ValueError(f"dropout mode {mode!r} (want upscale_in_train or "
+                         f"downscale_in_infer)")
+    if not 0.0 <= p <= 1.0:
+        raise ValueError(f"dropout p must be in [0, 1], got {p}")
+    if not training:
+        if mode == "downscale_in_infer" and p > 0.0:
+            return x * (1.0 - p)
+        return x
+    if p == 0.0:
+        return x
+    if p == 1.0:
+        return x * 0.0
+    shape = list(x.shape)
+    if axis is not None:
+        axes = [axis] if isinstance(axis, int) else list(axis)
+        axes = [a % x.dim() for a in axes]
+        shape = [s if i in axes else 1 for i, s in enumerate(shape)]
+    keep = torch.rand(shape, dtype=torch.float32, device=x.device,
+                      generator=_gen.torch_generator(x.device)) >= p
+    kept = x / (1.0 - p) if mode == "upscale_in_train" else x
+    return torch.where(keep, kept, torch.zeros((), dtype=x.dtype,
+                                               device=x.device))
+
+
+# =========================== norms ===========================================
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+    """LayerNorm over the trailing ``normalized_shape`` axes: (biased)
+    mean and variance, ``rsqrt``, then the weight and bias. One fused
+    PyTorch operation (the reference's composite is one XLA fusion), which
+    keeps its statistics in float32 for a bfloat16 input."""
+    ns = [normalized_shape] if isinstance(normalized_shape, int) \
+        else list(normalized_shape)
+    return _tf.layer_norm(x, ns, weight, bias, epsilon)
 
 
 def rms_norm(x, weight=None, epsilon=1e-6):
@@ -35,9 +253,127 @@ def rms_norm(x, weight=None, epsilon=1e-6):
     return out
 
 
-def silu(x):
-    """``x * sigmoid(x)``."""
-    return torch.nn.functional.silu(x)
+# =========================== convolution =====================================
+def _ntuple(v, n):
+    if isinstance(v, (int, np.integer)):
+        return (int(v),) * n
+    return tuple(int(i) for i in v)
+
+
+def _pad_pairs(padding, nd, spatial, k, stride, dilation, transpose):
+    """Paddle's padding forms -> ``[(lo, hi)] * nd``: an int, one int per
+    dimension, ``[lo0, hi0, lo1, hi1, ...]``, nested pairs, or "SAME" /
+    "VALID" (SAME as ``lax``: output ``ceil(in / stride)``; for a
+    transposed convolution, output ``in * stride``)."""
+    if isinstance(padding, str):
+        mode = padding.upper()
+        if mode == "VALID":
+            return [(0, 0)] * nd
+        if mode != "SAME":
+            raise ValueError(f"padding {padding!r} (want SAME or VALID)")
+        pairs = []
+        for i in range(nd):
+            eff = dilation[i] * (k[i] - 1) + 1
+            if transpose:
+                tot = max(eff - stride[i], 0)
+            else:
+                out = -(-spatial[i] // stride[i])
+                tot = max((out - 1) * stride[i] + eff - spatial[i], 0)
+            pairs.append((tot // 2, tot - tot // 2))
+        return pairs
+    if isinstance(padding, (int, np.integer)):
+        return [(int(padding), int(padding))] * nd
+    p = list(padding)
+    if len(p) == nd and all(isinstance(v, (int, np.integer)) for v in p):
+        return [(int(v), int(v)) for v in p]
+    if len(p) == 2 * nd and all(isinstance(v, (int, np.integer)) for v in p):
+        return [(int(p[2 * i]), int(p[2 * i + 1])) for i in range(nd)]
+    if len(p) == nd:
+        return [tuple(int(a) for a in v) for v in p]
+    raise ValueError(f"cannot interpret padding {padding!r}")
+
+
+_CONV = {1: _tf.conv1d, 2: _tf.conv2d, 3: _tf.conv3d}
+_CONV_T = {1: _tf.conv_transpose1d, 2: _tf.conv_transpose2d,
+           3: _tf.conv_transpose3d}
+
+
+def _conv_nd(x, weight, bias, stride, padding, dilation, groups,
+             data_format, nd, transpose=False, output_padding=0):
+    """Paddle's convolution on ``torch.nn.functional.conv*``. The weight
+    layout is Paddle's, which is PyTorch's: ``[out, in/groups, *k]``, or
+    ``[in, out/groups, *k]`` when transposed. Channel-last inputs are
+    moved to channels-first and back; uneven padding pads the input (or
+    crops a transposed output) explicitly."""
+    stride = _ntuple(stride, nd)
+    dilation = _ntuple(dilation, nd)
+    channel_last = data_format in ("NLC", "NHWC", "NDHWC")
+    if channel_last:
+        x = x.movedim(-1, 1)
+    spatial = tuple(x.shape[2:])
+    k = tuple(int(s) for s in weight.shape[2:])
+    pairs = _pad_pairs(padding, nd, spatial, k, stride, dilation, transpose)
+    even = all(lo == hi for lo, hi in pairs)
+    if transpose:
+        opad = _ntuple(output_padding, nd)
+        out = _CONV_T[nd](x, weight, bias, stride,
+                          tuple(lo for lo, _ in pairs) if even else 0,
+                          opad, groups, dilation)
+        if not even:  # crop the p=0 output by (lo, hi) on each side
+            idx = [slice(None), slice(None)] + [
+                slice(lo, out.shape[2 + i] - hi)
+                for i, (lo, hi) in enumerate(pairs)]
+            out = out[tuple(idx)]
+    else:
+        if not even:
+            flat = [v for lo, hi in reversed(pairs) for v in (lo, hi)]
+            x = _tf.pad(x, flat)
+            pairs = [(0, 0)] * nd
+        out = _CONV[nd](x, weight, bias, stride,
+                        tuple(lo for lo, _ in pairs), dilation, groups)
+    return out.movedim(1, -1) if channel_last else out
+
+
+def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCL"):
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups,
+                    data_format, 1)
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW"):
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups,
+                    data_format, 2)
+
+
+def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCDHW"):
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups,
+                    data_format, 3)
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     data_format="NCL"):
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups,
+                    data_format, 1, transpose=True,
+                    output_padding=output_padding)
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     data_format="NCHW"):
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups,
+                    data_format, 2, transpose=True,
+                    output_padding=output_padding)
+
+
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, dilation=1, groups=1,
+                     data_format="NCDHW"):
+    return _conv_nd(x, weight, bias, stride, padding, dilation, groups,
+                    data_format, 3, transpose=True,
+                    output_padding=output_padding)
 
 
 # =========================== attention =======================================
@@ -50,9 +386,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     ``query`` (GQA). Every call goes through the flash-attention
     wrapper: CUDA tensors launch its kernels, CPU tensors compute its
     plain version. ``attn_mask`` (float, or bool with True = attend)
-    broadcastable to ``[B, H, Sq, Sk]`` is an additive constant. Dropout
-    draws its hash seed from PyTorch's default generator; the pattern is
-    the kernels' position hash, not the reference's."""
+    broadcastable to ``[B, H, Sq, Sk]`` is an additive constant; a mask
+    from ``Transformer.generate_square_subsequent_mask`` (tagged
+    ``_causal_diag``) over equal lengths takes the kernels' causal path
+    instead and is never read (reference :938-941). Dropout's hash seed
+    is drawn from the default generator of ``core.generator``; the pattern
+    is the kernels' position hash, not the reference's."""
     if (q_segment_ids is None) != (kv_segment_ids is None):
         raise ValueError(
             "q_segment_ids and kv_segment_ids must be passed together; for "
@@ -61,12 +400,16 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         raise NotImplementedError(
             "a trainable attn_mask (the reference's differentiable "
             "composite route) is not ported to paddle_tpu_torch yet")
+    s_q, s_k = query.shape[1], key.shape[1]
+    causal_tagged = (
+        attn_mask is not None and getattr(attn_mask, "_causal_diag", False)
+        and s_q == s_k and tuple(attn_mask.shape)[-2:] == (s_q, s_k))
     drop = float(dropout_p) if training else 0.0
-    seed = None
-    if drop > 0.0:
-        seed = int(torch.randint(-2**31, 2**31 - 1, (1,)))
-    bias = None if attn_mask is None else _additive_mask(attn_mask)
-    return flash_attention_bshd(query, key, value, causal=is_causal,
+    seed = _gen.host_int() if drop > 0.0 else None
+    bias = None if attn_mask is None or causal_tagged \
+        else _additive_mask(attn_mask)
+    return flash_attention_bshd(query, key, value,
+                                causal=is_causal or causal_tagged,
                                 bias=bias, q_segment_ids=q_segment_ids,
                                 kv_segment_ids=kv_segment_ids,
                                 dropout_p=drop, dropout_seed=seed)
@@ -91,6 +434,16 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
 
 
 # =========================== losses ==========================================
+def _reduce(loss, reduction):
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    if reduction == "none":
+        return loss
+    raise ValueError(f"reduction {reduction!r} (want mean|sum|none)")
+
+
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0):
@@ -120,3 +473,69 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
     if reduction == "sum":
         return loss.sum()
     return loss
+
+
+def mse_loss(input, label, reduction="mean"):
+    return _reduce(torch.square(input - label), reduction)
+
+
+def l1_loss(input, label, reduction="mean"):
+    return _reduce(torch.abs(input - label), reduction)
+
+
+def nll_loss(input, label, weight=None, ignore_index=-100, reduction="mean"):
+    """Negative log-likelihood of log-probabilities over the last axis;
+    ``mean`` divides by the count (or the weight sum) of the labels not
+    equal to ``ignore_index``."""
+    lbl = label.long()
+    valid = lbl != ignore_index
+    safe = torch.where(valid, lbl, torch.zeros_like(lbl))
+    picked = torch.gather(input, -1, safe[..., None])[..., 0]
+    loss = -torch.where(valid, picked, torch.zeros_like(picked))
+    if weight is not None:
+        tw = weight[safe]
+        loss = loss * tw
+        if reduction == "mean":
+            return loss.sum() / torch.clamp(
+                (tw * valid.to(tw.dtype)).sum(), min=1e-12)
+    if reduction == "mean":
+        return loss.sum() / torch.clamp(valid.to(input.dtype).sum(), min=1.0)
+    return _reduce(loss, reduction)
+
+
+def binary_cross_entropy(input, label, weight=None, reduction="mean"):
+    p = torch.clamp(input, 1e-12, 1 - 1e-12)
+    loss = -(label * torch.log(p) + (1 - label) * torch.log1p(-p))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)
+
+
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction="mean", pos_weight=None):
+    neg_abs = -torch.abs(logit)
+    if pos_weight is not None:
+        log_w = (pos_weight - 1) * label + 1
+        loss = (1 - label) * logit + log_w * (
+            torch.log1p(torch.exp(neg_abs)) + torch.clamp(-logit, min=0))
+    else:
+        loss = torch.clamp(logit, min=0) - logit * label + \
+            torch.log1p(torch.exp(neg_abs))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)
+
+
+def smooth_l1_loss(input, label, reduction="mean", delta=1.0):
+    d = torch.abs(input - label)
+    loss = torch.where(d < delta, 0.5 * d * d / delta, d - 0.5 * delta)
+    return _reduce(loss, reduction)
+
+
+def kl_div(input, label, reduction="mean"):
+    """KL divergence of log-probabilities ``input`` from ``label``;
+    ``batchmean`` divides the sum by the batch size."""
+    loss = label * (torch.log(torch.clamp(label, min=1e-30)) - input)
+    if reduction == "batchmean":
+        return loss.sum() / input.shape[0]
+    return _reduce(loss, reduction)

@@ -1,5 +1,11 @@
 """Layers of the port (``paddle_tpu/nn/layer``'s counterpart)."""
-from .common import Embedding, Linear
-from .norm import RMSNorm
+from . import activation, common, conv, loss, norm, transformer
+from .activation import *  # noqa: F401,F403
+from .common import *  # noqa: F401,F403
+from .conv import *  # noqa: F401,F403
+from .loss import *  # noqa: F401,F403
+from .norm import *  # noqa: F401,F403
+from .transformer import *  # noqa: F401,F403
 
-__all__ = ["Embedding", "Linear", "RMSNorm"]
+__all__ = (activation.__all__ + common.__all__ + conv.__all__ +
+           loss.__all__ + norm.__all__ + transformer.__all__)

@@ -20,6 +20,18 @@ all three run on the tensor cores (wgmma, tiles by TMA), so their q, k,
 v and do must start on a 16-byte boundary; in f32 they run FMA loops.
 The source's header says why, and ``PERF.md`` holds their times.
 
+Head dims: the kernels have instances at 64 and 128 (``_HEAD_DIMS``).
+On the card, :func:`flash_attention_bhsd` (and so ``_bshd``) takes any
+other head_dim below 128 by zero-padding q, k and v to the next instance
+(:func:`pad_head_dim`) with ``sm_scale`` kept at ``1/sqrt(head_dim)``,
+and its autograd function slices o, dq, dk and dv back: zero columns add nothing to
+the scores and come out zero in o and in every gradient. DiT-XL/2's
+head_dim 72 runs this way on the hd-128 instances, at 128/72 = 1.78x
+the attention work plus the pad and slice copies; each launch at a
+padded width also counts in ``launches_padded``. A head_dim above 128
+raises on the card. CPU tensors compute the plain version at the
+caller's head_dim.
+
 Each of :func:`flash_attention_fwd`, :func:`flash_attention_dq` and
 :func:`flash_attention_dkv` launches its kernel for CUDA tensors, or
 raises; for CPU tensors it computes its plain PyTorch version, which
@@ -44,13 +56,15 @@ from . import _build
 __all__ = ["flash_attention_bhsd", "flash_attention_bshd",
            "flash_attention_reference", "flash_attention_fwd",
            "flash_attention_dq", "flash_attention_dkv", "dropout_keep",
-           "FlashGeometry"]
+           "pad_head_dim", "padded_launch", "FlashGeometry"]
 
 #: kernel launches since each count was last set to 0 (CPU calls, which
 #: compute the plain versions, do not count)
 launches_fwd = 0
 launches_dq = 0
 launches_dkv = 0
+#: the launches of the three above made at a zero-padded head_dim
+launches_padded = 0
 
 # finite stand-in for -inf (the reference's _MASK_VALUE, :71)
 _MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
@@ -109,6 +123,9 @@ class FlashGeometry:
     kv_seg: Optional[torch.Tensor] = None
     dropout_p: float = 0.0
     seed: int = 0
+    #: the caller's head_dim, where q, k and v were zero-padded to a
+    #: kernel instance's (:func:`pad_head_dim`)
+    padded_from: Optional[int] = None
 
     @property
     def drop_scale(self) -> float:
@@ -278,8 +295,11 @@ def _check_cuda(g: FlashGeometry, **tensors):
         raise TypeError(f"flash attention kernels take float32 or "
                         f"bfloat16, not {q.dtype}")
     if q.shape[-1] not in _HEAD_DIMS:
-        raise ValueError(f"flash attention kernels take head_dim in "
-                         f"{_HEAD_DIMS}, not {q.shape[-1]}")
+        raise ValueError(
+            f"flash attention kernels have head_dim instances "
+            f"{_HEAD_DIMS}, not {q.shape[-1]}; flash_attention_bhsd/_bshd "
+            f"take any head_dim up to {_HEAD_DIMS[-1]}, zero-padded to the "
+            f"next instance")
     for name, t in tensors.items():
         want = torch.float32 if name in ("lse", "delta") else q.dtype
         if t.dtype != want or t.device != q.device or not t.is_contiguous():
@@ -343,6 +363,12 @@ def _device(q) -> str:
     return q.device.type
 
 
+def _count_padded(g: FlashGeometry):
+    global launches_padded
+    if g.padded_from is not None:
+        launches_padded += 1
+
+
 def flash_attention_fwd(q, k, v, g: FlashGeometry):
     """K1: ``(o, lse)`` for q ``[B*Hq, Sq, D]``, k/v ``[B*Hkv, Sk, D]``;
     ``lse`` is f32 ``[B*Hq, Sq]``. CUDA tensors launch the kernel (or
@@ -359,6 +385,7 @@ def flash_attention_fwd(q, k, v, g: FlashGeometry):
         q, k, g, q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
         out0=o.data_ptr(), lse_out=lse.data_ptr()))
     launches_fwd += 1
+    _count_padded(g)
     return o, lse
 
 
@@ -376,6 +403,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, g: FlashGeometry):
         dout=do.data_ptr(), lse_in=lse.data_ptr(), delta=delta.data_ptr(),
         out0=dq.data_ptr()))
     launches_dq += 1
+    _count_padded(g)
     return dq
 
 
@@ -393,28 +421,65 @@ def flash_attention_dkv(q, k, v, do, lse, delta, g: FlashGeometry):
         dout=do.data_ptr(), lse_in=lse.data_ptr(), delta=delta.data_ptr(),
         out0=dk.data_ptr(), out1=dv.data_ptr()))
     launches_dkv += 1
+    _count_padded(g)
     return dk, dv
 
 
+def _padded_fwd(q, k, v, g: FlashGeometry):
+    """K1 as the autograd path runs it: q, k and v zero-padded to the
+    kernels' head_dim (:func:`pad_head_dim`). Returns the padded
+    ``(q, k, v)`` and K1's padded ``o`` and its ``lse``."""
+    qkv = pad_head_dim(q, k, v, g)
+    return (qkv, *flash_attention_fwd(*qkv, g))
+
+
+def _padded_bwd(qkv, o, lse, do, g: FlashGeometry):
+    """K2 and K3 on :func:`_padded_fwd`'s tensors, ``do`` zero-padded to
+    their width. Returns ``delta`` and the padded ``dq``, ``dk``, ``dv``."""
+    do = torch.nn.functional.pad(do, (0, o.shape[-1] - do.shape[-1])) \
+        if do.shape[-1] != o.shape[-1] else do.contiguous()
+    # rowsum(do * o) in f32, a plain op as in the reference (:554)
+    delta = (do.float() * o.float()).sum(dim=-1)
+    dq = flash_attention_dq(*qkv, do, lse, delta, g)
+    return (delta, dq, *flash_attention_dkv(*qkv, do, lse, delta, g))
+
+
+def padded_launch(q, k, v, do, g: FlashGeometry):
+    """K1, K2 and K3 once on ``[B*H, S, D]`` inputs, padded and sliced
+    back as :func:`flash_attention_bhsd`'s autograd path runs them.
+    Returns ``(o, lse, delta, dq, dk, dv)`` at width ``D``, and the
+    largest magnitude the kernels wrote into the padded columns (0.0
+    where nothing was padded; anything else is a kernel fault)."""
+    d = q.shape[-1]
+    qkv, o, lse = _padded_fwd(q, k, v, g)
+    delta, dq, dk, dv = _padded_bwd(qkv, o, lse, do, g)
+    padded = (o, dq, dk, dv)
+    tail = max(float(t[..., d:].abs().max()) if t.shape[-1] > d else 0.0
+               for t in padded)
+    o, dq, dk, dv = (t[..., :d] for t in padded)
+    return (o, lse, delta, dq, dk, dv), tail
+
+
 class _Flash(torch.autograd.Function):
-    """Forward K1, backward K2 + K3; bias and segment ids ride in the
+    """Forward K1, backward K2 + K3, a head_dim with no instance padded
+    inside (:func:`_padded_fwd`); bias and segment ids ride in the
     geometry as constants with no gradient (reference :685-691)."""
 
     @staticmethod
     def forward(ctx, q, k, v, g):
-        o, lse = flash_attention_fwd(q, k, v, g)
-        ctx.save_for_backward(q, k, v, o, lse)
+        qkv, o, lse = _padded_fwd(q, k, v, g)
+        ctx.save_for_backward(*qkv, o, lse)
         ctx.g = g
-        return o
+        d = q.shape[-1]
+        return o if o.shape[-1] == d else o[..., :d]
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        do = do.contiguous()
-        # rowsum(do * o) in f32, a plain op as in the reference (:554)
-        delta = (do.float() * o.float()).sum(dim=-1)
-        dq = flash_attention_dq(q, k, v, do, lse, delta, ctx.g)
-        dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, ctx.g)
+        d = do.shape[-1]
+        _, dq, dk, dv = _padded_bwd((q, k, v), o, lse, do, ctx.g)
+        if dq.shape[-1] != d:
+            dq, dk, dv = dq[..., :d], dk[..., :d], dv[..., :d]
         return dq, dk, dv, None
 
 
@@ -518,6 +583,28 @@ def _geometry(q, k, v, causal, sm_scale, bias, q_segment_ids,
     return (q.contiguous(), k.contiguous(), v.contiguous(), g, squeeze)
 
 
+def pad_head_dim(q, k, v, g: FlashGeometry):
+    """CUDA q, k, v (``[B*H, S, D]``) of a head_dim with no kernel
+    instance, zero-padded to the next instance's, and ``g`` marked with
+    the caller's head_dim (``sm_scale`` is already its own). Native
+    head_dims and CPU tensors pass unchanged; a head_dim above the
+    widest instance raises."""
+    d = q.shape[-1]
+    if q.device.type != "cuda" or d in _HEAD_DIMS:
+        return q, k, v
+    width = next((w for w in _HEAD_DIMS if w > d), None)
+    if width is None:
+        raise ValueError(
+            f"flash attention on the card takes head_dim {_HEAD_DIMS} "
+            f"natively and any head_dim below {_HEAD_DIMS[-1]} zero-padded "
+            f"to the next of them, not {d}")
+    g.padded_from = d
+    pad = (0, width - d)
+    return (torch.nn.functional.pad(q, pad),
+            torch.nn.functional.pad(k, pad),
+            torch.nn.functional.pad(v, pad))
+
+
 def flash_attention_bhsd(q, k, v, causal=False, sm_scale=None, bias=None,
                          q_segment_ids=None, kv_segment_ids=None,
                          dropout_p=0.0, dropout_seed=None, block_q=None,
@@ -532,7 +619,8 @@ def flash_attention_bhsd(q, k, v, causal=False, sm_scale=None, bias=None,
     (bool: True = attend); segment ids (``[B, Sq]``/``[B, Sk]`` ints)
     restrict attention to equal ids; both are constants. ``block_q`` and
     ``block_k`` are the TPU kernel's tile sizes and are ignored: the CUDA
-    kernels use their own tiles.
+    kernels use their own tiles. On the card a head_dim with no kernel
+    instance is zero-padded to the next one (:func:`pad_head_dim`).
     """
     del block_q, block_k
     shape = q.shape

@@ -309,12 +309,111 @@ def test_flash_autograd_matches_reference_autograd(cuda_device):
 
 @pytest.mark.cuda
 def test_flash_wrapper_refuses_what_the_kernels_do_not_take(cuda_device):
-    q = torch.zeros(1, 2, 64, 32, device=cuda_device)
+    """A head_dim above the widest instance (128) raises; one below it
+    is zero-padded by the autograd wrapper, but the kernels' own entry
+    points take only their instances' head_dims."""
+    q = torch.zeros(1, 2, 64, 200, device=cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
         fa.flash_attention_bhsd(q, q, q)
+    q3, k3, v3, g = fa._geometry(*[torch.zeros(
+        1, 2, 64, 72, device=cuda_device)] * 3, False, None, None, None,
+        None, 0.0, None)[:4]
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_fwd(q3, k3, v3, g)
     q = torch.zeros(1, 2, 64, 64, device=cuda_device)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_attention_bhsd(q.half(), q.half(), q.half())
+
+
+def _padded_case(name, rng, dtype, device):
+    """``chip_smoke.py``'s phase 6(b) cases for the ERNIE and DiT paths:
+    DiT-XL/2's head_dim 72 (non-causal, S 256, 16 heads) and ERNIE-base's
+    attention (non-causal, head_dim 64, S 512, 12 heads, dropout 0.1)."""
+    if name == "head_dim_72":
+        B, h, s, hd, drop, seed = 2, 16, 256, 72, 0.0, None
+    else:
+        B, h, s, hd, drop, seed = 2, 12, 512, 64, 0.1, 2024
+    qkv = [torch.from_numpy(rng.randn(B, h, s, hd)).to(device, dtype)
+           for _ in range(3)]
+    return fa._geometry(*qkv, False, None, None, None, None, drop, seed)[:4]
+
+
+def _check_padded_launch(q, k, v, g, tol, width):
+    """K1-K3 through ``padded_launch`` (inputs padded to ``width`` as
+    ``flash_attention_bhsd`` pads them, outputs sliced back) against the
+    plain versions at the caller's head_dim; the padded columns must be
+    exactly 0 and padded launches are counted apart."""
+    d = q.shape[-1]
+    do = torch.randn_like(q)
+    padded = fa.launches_padded
+    (o, lse, delta, dq, dk, dv), tail = fa.padded_launch(q, k, v, do, g)
+    torch.cuda.synchronize()
+    assert tail == 0.0
+    assert g.padded_from == (d if width != d else None)
+    assert fa.launches_padded - padded == (3 if width != d else 0)
+    ro, rlse = fa._forward_plain(q, k, v, g)
+    rdq = fa._dq_plain(q, k, v, do, lse, delta, g)
+    rdk, rdv = fa._dkv_plain(q, k, v, do, lse, delta, g)
+    for got, want in ((o, ro), (lse, rlse), (dq, rdq), (dk, rdk),
+                      (dv, rdv)):
+        assert got.shape == want.shape
+        assert bool(torch.isfinite(got).all())
+        assert _rel_err(got, want) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("name", ["head_dim_72", "ernie_shape"])
+def test_flash_kernels_at_the_ernie_and_dit_shapes(cuda_device, dtype, tol,
+                                                   name):
+    """K1-K3 at DiT-XL/2's head_dim 72 (-> the 128 instances at the
+    scale of 72) and at ERNIE-base's attention, against the plain
+    versions (the tolerances of
+    ``test_flash_kernels_match_plain_versions``)."""
+    rng = np.random.RandomState(31)
+    q, k, v, g = _padded_case(name, rng, dtype, cuda_device)
+    _check_padded_launch(q, k, v, g, tol,
+                         128 if name == "head_dim_72" else 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("hd,width", [(32, 64), (80, 128)])
+@pytest.mark.parametrize("name", ["causal", "gqa_4", "dropout", "ragged"])
+def test_flash_kernels_at_padded_head_dims(cuda_device, dtype, tol, hd,
+                                           width, name):
+    """A head_dim below 64 runs on the hd-64 instances and one between
+    64 and 128 on the hd-128 instances, zero-padded: K1-K3 against the
+    plain versions on ``test_flash_kernels_match_plain_versions``'s
+    cases at the same tolerances."""
+    rng = np.random.RandomState(FLASH_CASES.index(name) + hd)
+    q, k, v, g = _flash_case(name, rng, dtype, hd, cuda_device)
+    _check_padded_launch(q, k, v, g, tol, width)
+
+
+@pytest.mark.cuda
+def test_flash_autograd_at_head_dim_72(cuda_device):
+    """``flash_attention_bshd`` at DiT-XL/2's head_dim, f32, through
+    autograd: o and the gradients of q, k, v against autograd through
+    the plain reference, and one padded launch per kernel."""
+    rng = np.random.RandomState(32)
+    mk = lambda *s: torch.from_numpy(rng.randn(*s).astype(  # noqa: E731
+        np.float32)).to(cuda_device).requires_grad_()
+    q, k, v = mk(2, 256, 16, 72), mk(2, 256, 16, 72), mk(2, 256, 16, 72)
+    do = torch.randn(2, 256, 16, 72, device=cuda_device)
+    padded = fa.launches_padded
+    o = fa.flash_attention_bshd(q, k, v)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert fa.launches_padded - padded == 3
+    ro, _ = fa.flash_attention_reference(
+        *[t.transpose(1, 2) for t in (q, k, v)])
+    rgrads = torch.autograd.grad(ro.transpose(1, 2), (q, k, v), do)
+    torch.testing.assert_close(o, ro.transpose(1, 2), rtol=2e-4, atol=2e-5)
+    for a, b in zip(grads, rgrads):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-4)
 
 
 @pytest.mark.cuda

@@ -61,7 +61,11 @@ def test_import_in_a_fresh_process_loads_no_jax():
         "paddle_tpu_torch.io, paddle_tpu_torch.data, "
         "paddle_tpu_torch.checkpoint, paddle_tpu_torch.framework, "
         "paddle_tpu_torch.hapi, paddle_tpu_torch.resilience, "
-        "paddle_tpu_torch.observability\n"
+        "paddle_tpu_torch.observability, paddle_tpu_torch.metric, "
+        "paddle_tpu_torch.nn.initializer, paddle_tpu_torch.nn.containers, "
+        "paddle_tpu_torch.nn.layer.transformer, "
+        "paddle_tpu_torch.nn.layer.conv, paddle_tpu_torch.core.generator, "
+        "paddle_tpu_torch.models.ernie, paddle_tpu_torch.models.dit\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu')]\n"
         "assert not bad, bad\n")
@@ -120,6 +124,31 @@ def test_data_and_checkpoint_entry_points_default_to_cuda(tmp_path):
             call()
     assert DataPipeline(docs, 2, seq_len=8, pack=True, device_prefetch=2,
                         device="cpu").device == torch.device("cpu")
+
+
+def test_layer_set_entry_points_default_to_cuda():
+    """The layer set, its initializers and the ERNIE and DiT models
+    resolve ``device=None`` to the card and raise where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default resolves")
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.models import (DiT, DiTConfig, ErnieConfig,
+                                         ErnieForPretraining)
+    calls = [
+        lambda: nn.Linear(4, 4), lambda: nn.Embedding(8, 4),
+        lambda: nn.LayerNorm(4), lambda: nn.Conv2D(2, 4, 3),
+        lambda: nn.Conv2DTranspose(2, 4, 3), lambda: nn.PReLU(),
+        lambda: nn.MultiHeadAttention(8, 2),
+        lambda: nn.TransformerEncoderLayer(8, 2, 16),
+        lambda: nn.Transformer(8, 2, 1, 1, 16),
+        lambda: nn.Transformer.generate_square_subsequent_mask(4),
+        lambda: nn.initializer.XavierUniform()([4, 4]),
+        lambda: ErnieForPretraining(ErnieConfig.tiny()),
+        lambda: DiT(DiTConfig.tiny())]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert nn.Linear(4, 4, device="cpu").weight.device.type == "cpu"
 
 
 @pytest.mark.parametrize("kwarg", [
