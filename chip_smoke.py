@@ -128,7 +128,26 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    ERNIE's and DiT's attention shapes (B 16 and 64): each against its
    plain version at ``FLASH_TOL`` (padded columns exactly 0); kernel,
    plain, bound and library (sdpa) times and, at head_dim 72, the
-   zero-padding copies' time.
+   zero-padding copies' time;
+13. vision training, on no Pallas kernel (conv and batch norm on cuDNN
+   and PyTorch's kernels, the LSTM on PyTorch's fused recurrence, CTC
+   on PyTorch's): (a) ``PPOCRRecModel(PPOCRRecConfig())`` (PP-OCRv4
+   recognition uncut: widths 32/64/128/256, a 2-layer bidirectional
+   LSTM of 120, 6625 classes, height 48; bf16, seeded) on 64 seeded 3 x
+   48 x 320 images with 16 labels each (T = 80 frames), CTC,
+   ``TrainStep`` fused, 2 + 10 steps (``bench.py``'s _suite_ppocr
+   geometry): the first loss finite and the last lower, every
+   ``BatchNorm2D``'s running mean and variance moved and finite, the
+   LSTM on PyTorch's fused recurrence once a layer a forward
+   (``rnn.cudnn_calls``), the fused update kernels once a bucket a
+   step; (b) ``vision.models.resnet50(num_classes=1000)`` in bf16 on 64
+   seeded 3 x 224 x 224 images and labels, cross entropy, fused, 2 + 5
+   steps: the first loss within 1.0 of ln(1000), the last lower, the
+   running statistics moved. Each reports step time, images/s, MFU
+   (``vision_train_flops_per_step``: convolution, linear and LSTM
+   shapes), peak and resident memory, and a profiled step by kind
+   (convolution, batch norm, pooling, LSTM, CTC, GEMMs, elementwise,
+   the optimizer).
 
 It prints its measurements on earlier lines, then one JSON line with a
 record per kernel (K1-K3's with their times at ERNIE's and DiT's shapes
@@ -1111,11 +1130,11 @@ def dev_total_us(e):
         else e.cuda_time_total
 
 
-def step_breakdown(prof, what, step_ms):
+def step_breakdown(prof, what, step_ms, kind=kernel_kind):
     """Log one profiled training step's device time by kind of kernel
-    (with launches) and by ``TrainStep``'s ranges; returns ``{kind or
-    range: device ms}``. A range's time is the device time of every
-    kernel launched inside it."""
+    (``kind`` of its name, with launches) and by ``TrainStep``'s ranges;
+    returns ``{kind or range: device ms}``. A range's time is the device
+    time of every kernel launched inside it."""
     rows = device_rows(prof)
     total = sum(us for us, _, _ in rows)
     if total == 0:
@@ -1124,7 +1143,7 @@ def step_breakdown(prof, what, step_ms):
         return {}
     kinds = {}
     for us, key, count in rows:
-        k = kinds.setdefault(kernel_kind(key), [0.0, 0])
+        k = kinds.setdefault(kind(key), [0.0, 0])
         k[0] += us
         k[1] += count
     log(f"{what} profile: one step, device time {total / 1e3:.3f} ms = "
@@ -1150,7 +1169,7 @@ def step_breakdown(prof, what, step_ms):
     return out
 
 
-def profile_train_step(step, x, step_ms, what="train"):
+def profile_train_step(step, x, step_ms, what="train", kind=kernel_kind):
     """Device time of one more training step under ``torch.profiler``,
     by kind of kernel and by ``TrainStep`` range."""
     from torch.profiler import ProfilerActivity, profile
@@ -1158,7 +1177,7 @@ def profile_train_step(step, x, step_ms, what="train"):
                              ProfilerActivity.CUDA]) as prof:
         step(x)
         torch.cuda.synchronize()
-    return step_breakdown(prof, what, step_ms)
+    return step_breakdown(prof, what, step_ms, kind)
 
 
 FUSED_SRC = "paddle_tpu_torch/ops/pallas/csrc/fused_update.cu"
@@ -2758,6 +2777,186 @@ def flash_model_shape(what, B, H, S, d, dropout):
     return recs
 
 
+# --------------------------------------------------------------------------
+# phase 13: vision training (PP-OCRv4 recognition, ResNet-50)
+# device kernels of a vision step by kind, first match wins; the rest as
+# in the other phases
+VISION_KINDS = (
+    ("fused optimizer kernels", ("fused_adam", "fused_sqnorm")),
+    ("CTC", ("ctc_loss",)),
+    ("LSTM (PyTorch's fused recurrence)", ("rnn", "lstm", "persist")),
+    ("batch norm", ("batch_norm", "bn_fw", "bn_bw", "batchnorm")),
+    ("pooling", ("pool",)),
+    ("convolution (cuDNN)", ("conv", "xmma", "fprop", "dgrad", "wgrad",
+                             "implicit", "cudnn", "winograd", "nhwc")),
+)
+
+
+def vision_kernel_kind(key):
+    low = key.lower()
+    for label, words in VISION_KINDS:
+        if any(w in low for w in words):
+            return label
+    return kernel_kind(key)
+
+
+def vision_train_flops_per_step(model, x):
+    """3 x the forward's 2-per-multiply-add flops (forward, and the
+    backward's two products), counted from the shapes of one eval
+    forward of ``x``: each convolution's output elements times its
+    ``in/groups * kh * kw`` (hooks on every ``Conv2D``), each ``Linear``'s
+    output elements times its input width, and each LSTM layer's ``T * B
+    * 4H * (in + H)`` per direction (input projection and recurrence)."""
+    from paddle_tpu_torch import nn
+    macs = [0]
+
+    def conv(m, args, out):
+        w = m.weight
+        macs[0] += out.numel() * w.shape[1] * w.shape[2] * w.shape[3]
+
+    def linear(m, args, out):
+        macs[0] += out.numel() * m.weight.shape[0]
+
+    def lstm(m, args, out):
+        B, T = args[0].shape[0], args[0].shape[1]
+        macs[0] += sum(T * B * c.weight_ih.shape[0] *
+                       (c.weight_ih.shape[1] + c.weight_hh.shape[1])
+                       for c in m._cells)
+    hooks = [mod.register_forward_hook(
+        conv if isinstance(mod, nn.Conv2D) else
+        linear if isinstance(mod, nn.Linear) else lstm)
+        for mod in model.modules()
+        if isinstance(mod, (nn.Conv2D, nn.Linear, nn.LSTM))]
+    was = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        model.train(was)
+        for h in hooks:
+            h.remove()
+    return 3 * 2 * macs[0]
+
+
+def _bn_buffers(model):
+    from paddle_tpu_torch import nn
+    return {n: (m._mean.detach().clone(), m._variance.detach().clone())
+            for n, m in model.named_modules()
+            if isinstance(m, nn.BatchNorm2D)}
+
+
+def _check_bn_moved(what, model, before):
+    """Every ``BatchNorm2D``'s running mean and variance left its initial
+    zeros and ones and is finite."""
+    after = _bn_buffers(model)
+    for n, (m0, v0) in before.items():
+        m1, v1 = after[n]
+        if torch.equal(m0, m1) or torch.equal(v0, v1):
+            raise AssertionError(f"{what}: {n}'s running stats did not move")
+        if not (torch.isfinite(m1).all() and torch.isfinite(v1).all()):
+            raise AssertionError(f"{what}: {n}'s running stats are not "
+                                 f"finite")
+    dtypes = sorted({str(m.dtype) for m, _ in after.values()})
+    log(f"{what}: all {len(before)} BatchNorm2D layers' _mean/_variance "
+        f"moved and are finite ({', '.join(dtypes)})")
+
+
+def vision_run(what, model, loss_fn, batch, warmup, timed, B, before):
+    """``model_train_run`` for a vision model (no flash layers, images a
+    step, the vision kernel kinds in the profile); returns the run, with
+    the calls of PyTorch's fused recurrence in its steps (the profiled
+    one too) under ``recurrence_calls``."""
+    from paddle_tpu_torch.nn.layer import rnn
+    flops = vision_train_flops_per_step(model, batch[0])
+    bn0 = _bn_buffers(model)
+    calls0 = rnn.cudnn_calls
+    r = model_train_run(
+        what, model, loss_fn, batch, warmup, timed, flops, 0, before,
+        unit="images", items=B, desc=f"batch {B} x {tuple(batch[0].shape[1:])}",
+        profile=lambda fn, x, ms, w: profile_train_step(
+            fn, x, ms, w, vision_kernel_kind))
+    r["recurrence_calls"] = rnn.cudnn_calls - calls0
+    _check_bn_moved(what, model, bn0)
+    losses = r["losses"]
+    if not (math.isfinite(losses[0]) and losses[-1] < losses[0]):
+        raise AssertionError(f"{what}: loss did not fall: {losses}")
+    return r
+
+
+def phase_ppocr():
+    """Phase 13a: PP-OCRv4 recognition, ``PPOCRRecConfig()`` uncut (widths
+    32/64/128/256, LSTM hidden 120, 6625 classes, height 48), bf16, on
+    64 seeded 3 x 48 x 320 images with 16 labels each (T = 80 frames),
+    CTC, ``TrainStep`` fused, 2 + 10 steps (bench.py's _suite_ppocr
+    geometry). The two LSTM layers take PyTorch's fused recurrence once a
+    forward each. Returns the run's launch counts."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.models.ppocr import PPOCRRecConfig, PPOCRRecModel
+    cfg = PPOCRRecConfig()
+    B, W, L = 64, 320, 16
+    rng = np.random.RandomState(SEED)
+    images = torch.from_numpy(rng.randn(B, cfg.in_channels, cfg.img_height,
+                                        W).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(1, cfg.num_classes, (B, L)))
+    batch = [images.cuda().to(torch.bfloat16), labels.cuda(),
+             torch.full((B,), L, dtype=torch.int64, device="cuda")]
+
+    def loss_fn(m, x, y, n):  # the reference's logits are float32
+        return m.loss(m(x).float(), y, n)
+    free_device_memory()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ptt.seed(SEED)
+    model = PPOCRRecModel(cfg, dtype="bfloat16")
+    r = vision_run("ppocr", model, loss_fn, batch, 2, 10, B, before)
+    calls = r["recurrence_calls"]
+    steps = 2 + 10 + 1  # and the profiled one
+    if calls != 2 * steps:
+        raise AssertionError(f"ppocr: {calls} fused-recurrence calls in "
+                             f"{steps} steps, not 2 a step (one a layer)")
+    T = W // 4
+    log(f"ppocr: T = {T} frames, LSTM 2 layers x 2 directions of "
+        f"{cfg.hidden_size}, {calls} fused-recurrence calls in {steps} "
+        f"steps (2 a step, both directions in each)")
+    del model
+    free_device_memory()
+    return {**r["flash"], **r["fused"]}
+
+
+def phase_resnet():
+    """Phase 13b: ``vision.models.resnet50(num_classes=1000)`` in bf16 on
+    64 seeded 3 x 224 x 224 images and labels, ``CrossEntropyLoss``,
+    ``TrainStep`` fused, 2 + 5 steps; the first loss within 1.0 of
+    ln(1000). Returns the run's launch counts."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.nn import CrossEntropyLoss
+    from paddle_tpu_torch.vision.models import resnet50
+    B = 64
+    rng = np.random.RandomState(SEED)
+    images = torch.from_numpy(rng.randn(B, 3, 224, 224).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, 1000, B))
+    batch = [images.cuda().to(torch.bfloat16), labels.cuda()]
+    ce = CrossEntropyLoss()
+
+    def loss_fn(m, x, y):
+        return ce(m(x).float(), y)
+    free_device_memory()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ptt.seed(SEED)
+    model = resnet50(num_classes=1000, dtype="bfloat16")
+    r = vision_run("resnet50", model, loss_fn, batch, 2, 5, B, before)
+    first, ln_c = r["losses"][0], math.log(1000)
+    if not abs(first - ln_c) <= 1.0:
+        raise AssertionError(f"resnet50: first loss {first} is not within "
+                             f"1.0 of ln(1000) = {ln_c:.4f}")
+    log(f"resnet50: first loss {first:.4f} against ln(1000) = {ln_c:.4f}")
+    del model
+    free_device_memory()
+    return {**r["flash"], **r["fused"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch",
@@ -2780,10 +2979,12 @@ def main():
     dit = phase_dit()
     shapes = {"ernie": flash_model_shape("ernie", 16, 12, 512, 64, 0.1),
               "dit": flash_model_shape("dit", 64, 16, 256, 72, 0.0)}
+    ppocr = phase_ppocr()
+    resnet = phase_resnet()
     # each path's launches were counted from 0 over its own run; a kernel
     # on several paths reports their sum, and each path's count beside it
     paths = {"train": counts, "moe_train": moe, "fit": fit, "ernie": ernie,
-             "dit": dit}
+             "dit": dit, "ppocr": ppocr, "resnet50": resnet}
 
     def path_launches(kname):
         by_path = {p: c[kname] for p, c in paths.items()}

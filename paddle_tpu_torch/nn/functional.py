@@ -1,13 +1,15 @@
 """Functional ops of the port (port of the matching functions in
 ``paddle_tpu/nn/functional.py``): activations, linear and embedding,
-dropout, the norms, convolution, attention and the losses.
+dropout, the norms, convolution, pooling, attention and the losses.
 
 Randomness (dropout, ``rrelu``, the flash kernels' dropout seed) draws
 from ``core.generator``'s default generator, never from PyTorch's global
 one, so ``paddle_tpu_torch.seed(n)`` makes a run repeat. Convolution
 goes to ``torch.nn.functional.conv*``, as the reference leaves it to
-``lax.conv_general_dilated`` outside any Pallas kernel; attention goes
-to the flash-attention kernels.
+``lax.conv_general_dilated`` outside any Pallas kernel, and so do the
+batch, instance and group norms, pooling and CTC (the reference computes
+them with XLA reductions, ``reduce_window`` and a ``lax.scan``);
+attention goes to the flash-attention kernels.
 """
 from __future__ import annotations
 
@@ -28,16 +30,22 @@ __all__ = [
     # common
     "linear", "embedding", "dropout",
     # norms
-    "layer_norm", "rms_norm",
+    "layer_norm", "rms_norm", "batch_norm", "instance_norm", "group_norm",
+    "local_response_norm",
     # convolution
     "conv1d", "conv2d", "conv3d", "conv1d_transpose", "conv2d_transpose",
     "conv3d_transpose",
+    # pooling
+    "max_pool1d", "max_pool2d", "max_pool3d", "avg_pool1d", "avg_pool2d",
+    "avg_pool3d", "adaptive_avg_pool1d", "adaptive_avg_pool2d",
+    "adaptive_avg_pool3d", "adaptive_max_pool1d", "adaptive_max_pool2d",
+    "adaptive_max_pool3d",
     # attention
     "scaled_dot_product_attention", "flash_attention",
     # losses
     "cross_entropy", "mse_loss", "l1_loss", "nll_loss",
     "binary_cross_entropy", "binary_cross_entropy_with_logits",
-    "smooth_l1_loss", "kl_div",
+    "smooth_l1_loss", "kl_div", "ctc_loss",
 ]
 
 _tf = torch.nn.functional
@@ -253,6 +261,82 @@ def rms_norm(x, weight=None, epsilon=1e-6):
     return out
 
 
+_CHANNEL_LAST = ("NLC", "NHWC", "NDHWC")
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5,
+               data_format="NCHW", use_global_stats=None):
+    """Reference :397. In training (unless ``use_global_stats`` is True)
+    normalise with the batch mean and *biased* variance over every axis
+    but the channel's, and update the running buffers in place to the
+    reference's rule, ``running = momentum * running + (1 - momentum) *
+    batch``, with the biased variance. Otherwise normalise with the
+    running buffers. Channel-last formats move the channels to axis 1 and
+    back.
+
+    ``torch.nn.functional.batch_norm`` updates with the *unbiased*
+    variance and the opposite momentum, so it never sees the running
+    buffers: it writes the batch statistics (momentum 1) into two fresh
+    vectors of the buffers' dtype, from which the update is made."""
+    channel_last = data_format in _CHANNEL_LAST and x.dim() > 2
+    if channel_last:
+        x = x.movedim(-1, 1)
+    if not (training and use_global_stats is not True):
+        out = _tf.batch_norm(x, running_mean, running_var, weight, bias,
+                             False, 0.0, epsilon)
+        return out.movedim(1, -1) if channel_last else out
+    stats = torch.zeros((2, x.shape[1]), dtype=running_mean.dtype,
+                        device=x.device)
+    out = _tf.batch_norm(x, stats[0], stats[1], weight, bias, True, 1.0,
+                         epsilon)
+    n = x.numel() // x.shape[1]
+    with torch.no_grad():
+        running_mean.mul_(momentum).add_(stats[0], alpha=1.0 - momentum)
+        # stats[1] holds the unbiased variance: n-1 over n makes it biased
+        running_var.mul_(momentum).add_(
+            stats[1], alpha=(1.0 - momentum) * (n - 1) / n)
+    return out.movedim(1, -1) if channel_last else out
+
+
+def _channel_first_only(data_format, what):
+    if data_format in _CHANNEL_LAST:
+        raise NotImplementedError(
+            f"{what} with data_format={data_format!r}: the reference reads "
+            f"axis 1 as the channels whatever the format, so the port "
+            f"carries channels-first only")
+
+
+def instance_norm(x, weight=None, bias=None, epsilon=1e-5,
+                  data_format="NCHW"):
+    """Reference :439: each sample's each channel normalised over its
+    spatial axes with the biased variance, then the weight and bias."""
+    _channel_first_only(data_format, "instance_norm")
+    return _tf.instance_norm(x, weight=weight, bias=bias, eps=epsilon)
+
+
+def group_norm(x, num_groups, weight=None, bias=None, epsilon=1e-5,
+               data_format="NCHW"):
+    """Reference :461: channels split into ``num_groups`` runs, each
+    normalised over its channels and the spatial axes (biased variance)."""
+    _channel_first_only(data_format, "group_norm")
+    return _tf.group_norm(x, num_groups, weight, bias, epsilon)
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW"):
+    """Reference :488: ``x / (k + alpha * s) ** beta`` with ``s`` the sum
+    of squares over ``size`` neighbouring channels (``size // 2`` before,
+    the rest after). Unlike ``torch.nn.functional.local_response_norm``,
+    ``alpha`` scales the sum, not the mean."""
+    _channel_first_only(data_format, "local_response_norm")
+    half = size // 2
+    sq = x * x
+    pad = [0, 0] * (x.dim() - 2) + [half, size - half - 1]
+    windows = _tf.pad(sq, pad).unfold(1, size, 1)
+    return x / torch.pow(k + alpha * windows.sum(-1), beta)
+
+
 # =========================== convolution =====================================
 def _ntuple(v, n):
     if isinstance(v, (int, np.integer)):
@@ -374,6 +458,127 @@ def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
     return _conv_nd(x, weight, bias, stride, padding, dilation, groups,
                     data_format, 3, transpose=True,
                     output_padding=output_padding)
+
+
+# =========================== pooling =========================================
+def _pool_nd(x, kernel_size, stride, padding, nd, mode, data_format,
+             ceil_mode=False, exclusive=True):
+    """Reference ``_pool_nd`` (:634) on ``torch.nn.functional``'s pools.
+    ``stride=None`` is the kernel size; ``ceil_mode`` keeps a last partial
+    window that starts inside the input or its leading pad (PyTorch's
+    rule and the reference's). An exclusive average divides by the
+    window's input elements, padding and the ceil overhang excluded; a
+    non-exclusive one always by the kernel's size, the overhang included
+    (``divisor_override``). Padding of more than half a window, which
+    PyTorch's pools refuse, raises."""
+    ks = _ntuple(kernel_size, nd)
+    st = _ntuple(stride if stride is not None else kernel_size, nd)
+    pd = _ntuple(padding, nd)
+    if any(p > k // 2 for p, k in zip(pd, ks)):
+        raise NotImplementedError(
+            f"pooling padding {pd} over half the window {ks} is not "
+            f"ported to paddle_tpu_torch")
+    channel_last = data_format in _CHANNEL_LAST
+    if channel_last:
+        x = x.movedim(-1, 1)
+    if mode == "max":
+        out = _MAX_POOL[nd](x, ks, st, pd, ceil_mode=ceil_mode)
+    elif nd == 1:  # avg_pool1d has no divisor_override: pool a 1-high 2-D
+        out = _pool_nd(x[:, :, None], (1, ks[0]), (1, st[0]), (0, pd[0]), 2,
+                       mode, "NCHW", ceil_mode, exclusive)[:, :, 0]
+    else:
+        out = _AVG_POOL[nd](x, ks, st, pd, ceil_mode=ceil_mode,
+                            count_include_pad=not exclusive,
+                            divisor_override=None if exclusive
+                            else int(np.prod(ks)))
+    return out.movedim(1, -1) if channel_last else out
+
+
+_MAX_POOL = {1: _tf.max_pool1d, 2: _tf.max_pool2d, 3: _tf.max_pool3d}
+_AVG_POOL = {2: _tf.avg_pool2d, 3: _tf.avg_pool3d}
+
+
+def max_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               data_format="NCL"):
+    return _pool_nd(x, kernel_size, stride, padding, 1, "max", data_format,
+                    ceil_mode)
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               data_format="NCHW"):
+    return _pool_nd(x, kernel_size, stride, padding, 2, "max", data_format,
+                    ceil_mode)
+
+
+def max_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               data_format="NCDHW"):
+    return _pool_nd(x, kernel_size, stride, padding, 3, "max", data_format,
+                    ceil_mode)
+
+
+def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
+               ceil_mode=False, data_format="NCL"):
+    return _pool_nd(x, kernel_size, stride, padding, 1, "avg", data_format,
+                    ceil_mode, exclusive)
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, exclusive=True,
+               ceil_mode=False, data_format="NCHW"):
+    return _pool_nd(x, kernel_size, stride, padding, 2, "avg", data_format,
+                    ceil_mode, exclusive)
+
+
+def avg_pool3d(x, kernel_size, stride=None, padding=0, exclusive=True,
+               ceil_mode=False, data_format="NCDHW"):
+    return _pool_nd(x, kernel_size, stride, padding, 3, "avg", data_format,
+                    ceil_mode, exclusive)
+
+
+_ADAPTIVE = {("avg", 1): _tf.adaptive_avg_pool1d,
+             ("avg", 2): _tf.adaptive_avg_pool2d,
+             ("avg", 3): _tf.adaptive_avg_pool3d,
+             ("max", 1): _tf.adaptive_max_pool1d,
+             ("max", 2): _tf.adaptive_max_pool2d,
+             ("max", 3): _tf.adaptive_max_pool3d}
+
+
+def _adaptive_pool(x, output_size, nd, mode, data_format, return_mask=False):
+    """Reference :717: output bin ``i`` of an axis of length ``n`` pools
+    ``[floor(i * n / o), ceil((i + 1) * n / o))``, PyTorch's bins too."""
+    if return_mask:
+        raise NotImplementedError(
+            "return_mask=True (argmax indices) is not implemented; "
+            "silently dropping it would corrupt tuple-unpacking callers")
+    channel_last = data_format.endswith("C")
+    if channel_last:
+        x = x.movedim(-1, 1)
+    out = _ADAPTIVE[(mode, nd)](x, _ntuple(output_size, nd))
+    return out.movedim(1, -1) if channel_last else out
+
+
+def adaptive_avg_pool1d(x, output_size, data_format="NCL"):
+    return _adaptive_pool(x, output_size, 1, "avg", data_format)
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+    return _adaptive_pool(x, output_size, 2, "avg", data_format)
+
+
+def adaptive_avg_pool3d(x, output_size, data_format="NCDHW"):
+    return _adaptive_pool(x, output_size, 3, "avg", data_format)
+
+
+def adaptive_max_pool1d(x, output_size, return_mask=False, data_format="NCL"):
+    return _adaptive_pool(x, output_size, 1, "max", data_format, return_mask)
+
+
+def adaptive_max_pool2d(x, output_size, return_mask=False, data_format="NCHW"):
+    return _adaptive_pool(x, output_size, 2, "max", data_format, return_mask)
+
+
+def adaptive_max_pool3d(x, output_size, return_mask=False,
+                        data_format="NCDHW"):
+    return _adaptive_pool(x, output_size, 3, "max", data_format, return_mask)
 
 
 # =========================== attention =======================================
@@ -539,3 +744,43 @@ def kl_div(input, label, reduction="mean"):
     if reduction == "batchmean":
         return loss.sum() / input.shape[0]
     return _reduce(loss, reduction)
+
+
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
+             reduction="mean"):
+    """Reference :1260: the CTC loss of ``log_probs`` ``[T, B, C]``
+    against ``labels`` ``[B, L]`` (padded; each row's first
+    ``label_lengths[b]`` count), over each sample's own first
+    ``input_lengths[b]`` frames, on ``torch.nn.functional.ctc_loss``.
+    ``mean`` is the plain mean over the batch, as the reference's
+    ``_reduce`` (PyTorch's own ``mean`` first divides each loss by its
+    label length), so PyTorch is asked for ``none``.
+
+    Two deliberate divergences from the reference. The loss is computed
+    in float32 and cast back to the input's dtype (PyTorch's CUDA CTC
+    takes no bfloat16; the reference computes in the input's dtype). A
+    sample whose labels no alignment of its frames can emit gets an
+    infinite loss (PyTorch's value), where the reference floors its
+    log-space sums at -1e30 and gives a loss near 1e30."""
+    if reduction not in ("mean", "sum", "none"):
+        raise ValueError(f"reduction {reduction!r} (want mean|sum|none)")
+    lp = log_probs.float()
+    in_len = input_lengths.long()
+    loss = _tf.ctc_loss(lp, labels.long(), in_len, label_lengths.long(),
+                        blank=blank, reduction="none")
+    if lp.requires_grad:
+        # PyTorch's gradient with respect to log_probs is exp(lp) minus
+        # the alignment posterior (what the logits under a log_softmax
+        # receive); the reference's is minus the posterior. A term of
+        # value 0 whose gradient is exp(lp) over each sample's frames
+        # takes the difference off.
+        live = torch.arange(lp.shape[0], device=lp.device)[:, None] < \
+            in_len.to(lp.device)[None, :]
+        s = (lp.exp() * live[..., None]).sum((0, 2))
+        loss = loss - (s - s.detach())
+    return _reduce(loss, reduction).to(log_probs.dtype)
+
+
+from paddle_tpu_torch.nn import functional_extras as _fx  # noqa: E402
+from paddle_tpu_torch.nn.functional_extras import *  # noqa: F401,F403,E402
+__all__ = list(__all__) + list(_fx.__all__)

@@ -1,7 +1,7 @@
 """Loss layers (port of ``paddle_tpu/nn/layer/loss.py``): the losses
 that are one function of :mod:`paddle_tpu_torch.nn.functional` plus
-Paddle's reduction. ``CTCLoss`` and the margin, triplet, Poisson and
-Gaussian losses are not ported yet."""
+Paddle's reduction. The margin, triplet, Poisson and Gaussian losses
+are not ported yet."""
 from __future__ import annotations
 
 import torch
@@ -9,7 +9,7 @@ import torch
 from paddle_tpu_torch.nn import functional as F
 
 __all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss",
-           "BCEWithLogitsLoss", "SmoothL1Loss", "KLDivLoss"]
+           "BCEWithLogitsLoss", "SmoothL1Loss", "KLDivLoss", "CTCLoss"]
 
 
 class CrossEntropyLoss(torch.nn.Module):
@@ -106,3 +106,22 @@ class KLDivLoss(torch.nn.Module):
 
     def forward(self, input, label):
         return F.kl_div(input, label, self._reduction)
+
+
+class CTCLoss(torch.nn.Module):
+    """``F.ctc_loss`` with a fixed ``blank`` and reduction.
+    ``norm_by_times=True`` raises: the reference accepts it and computes
+    nothing of it."""
+
+    def __init__(self, blank=0, reduction="mean"):
+        super().__init__()
+        self._blank = blank
+        self._reduction = reduction
+
+    def forward(self, log_probs, labels, input_lengths, label_lengths,
+                norm_by_times=False):
+        if norm_by_times:
+            raise NotImplementedError(
+                "CTCLoss(norm_by_times=True) is not ported")
+        return F.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                          self._blank, self._reduction)

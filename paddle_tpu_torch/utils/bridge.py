@@ -5,6 +5,13 @@ functional state (the tests hold that side, since it touches
 ``paddle_tpu``); :func:`load_numpy_state` takes such a dict into a port
 model under the same names, checking names, shapes and dtypes loudly,
 and :func:`numpy_state` gives the port's state back in the same form.
+
+The state is every parameter and every buffer that the reference model
+has too, which this module knows by name (:data:`BRIDGED_BUFFERS`: the
+batch norms' running statistics, SpectralNorm's power-iteration
+vectors). Buffers that only the port keeps (RoPE tables, masks) never
+cross, so a model without the named buffers keeps its parameter-only key
+set.
 :func:`optimizer_state_to_numpy` and :func:`load_optimizer_state` do the
 same for an optimizer's ``state_dict`` (``param_<i>.moment1``, ...,
 ``@step_count``), so moments can be compared across the packages.
@@ -17,7 +24,20 @@ import torch
 from paddle_tpu_torch.core.dtype import dtype_name
 
 __all__ = ["load_numpy_state", "numpy_state", "optimizer_state_to_numpy",
-           "load_optimizer_state"]
+           "load_optimizer_state", "BRIDGED_BUFFERS"]
+
+#: buffer names (the last part of the qualified name) that the reference's
+#: layers hold as well: ``_BatchNormBase``'s ``_mean`` and ``_variance``,
+#: ``SpectralNorm``'s ``weight_u`` and ``weight_v``
+BRIDGED_BUFFERS = ("_mean", "_variance", "weight_u", "weight_v")
+
+
+def _state_tensors(model: torch.nn.Module) -> dict:
+    """``{name: tensor}`` of the parameters and the bridged buffers."""
+    out = dict(model.named_parameters())
+    out.update((n, b) for n, b in model.named_buffers()
+               if n.rsplit(".", 1)[-1] in BRIDGED_BUFFERS)
+    return out
 
 
 def _to_tensor(name, arr):
@@ -33,10 +53,11 @@ def _to_tensor(name, arr):
 
 @torch.no_grad()
 def load_numpy_state(model: torch.nn.Module, state: dict):
-    """Copy ``state`` ({name: array}) into ``model``'s parameters. The
-    name sets must be equal, and every array must have its parameter's
-    shape and dtype; anything else raises before any parameter changes."""
-    params = dict(model.named_parameters())
+    """Copy ``state`` ({name: array}) into ``model``'s parameters and
+    bridged buffers. The name sets must be equal, and every array must
+    have its tensor's shape and dtype; anything else raises before any
+    tensor changes."""
+    params = _state_tensors(model)
     missing = sorted(set(params) - set(state))
     unknown = sorted(set(state) - set(params))
     if missing or unknown:
@@ -58,10 +79,10 @@ def load_numpy_state(model: torch.nn.Module, state: dict):
 
 
 def numpy_state(model: torch.nn.Module) -> dict:
-    """``{name: numpy array}`` of every parameter (float32, float16 and
-    int32 parameters; numpy cannot hold bfloat16)."""
+    """``{name: numpy array}`` of every parameter and bridged buffer
+    (float32, float16 and int32; numpy cannot hold bfloat16)."""
     out = {}
-    for name, p in model.named_parameters():
+    for name, p in _state_tensors(model).items():
         if p.dtype == torch.bfloat16:
             raise TypeError(f"{name}: numpy has no bfloat16")
         out[name] = p.detach().cpu().numpy().copy()

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card. Every test here is marked ``cuda`` and skips where PyTorch sees no
-CUDA device: a CUDA kernel has no CPU mode. The file imports neither JAX
+card, and the card's routes of the vision slice (the LSTM and GRU on
+PyTorch's fused recurrence, the batch norms' running statistics, CTC)
+against the port's CPU results. Every test here is marked ``cuda`` and
+skips where PyTorch sees no CUDA device: a CUDA kernel has no CPU mode. The file imports neither JAX
 nor ``paddle_tpu``, so it also runs on a machine without them:
 
     python -m pytest tests/test_torch_kernels.py -m cuda --noconftest -q
@@ -1064,3 +1066,103 @@ def test_fused_sqnorm_matches_plain_and_repeats(cuda_device, dtype, bucket):
     assert one.dtype == torch.float32 and one.shape == ()
     assert abs(float(one) - float(want)) <= 1e-6 * float(want)
     assert torch.equal(one, two)
+
+
+# ------------------------- the vision slice's card routes --------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["LSTM", "GRU"])
+@pytest.mark.parametrize("direction", ["forward", "bidirect"])
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 3e-2)])
+def test_rnn_card_route_matches_the_step_loop(cuda_device, name, direction,
+                                              dtype, atol):
+    """Two layers on the card take PyTorch's fused recurrence once a layer
+    (the route counter says so) and agree with the same module's step
+    loop on the CPU: outputs, final states and every gradient. A
+    bfloat16 model computes in float32 (its default states are float32),
+    so only its inputs and weights carry bfloat16's rounding; with a
+    ``sequence_length`` the card runs the step loop and counts nothing."""
+    import copy
+    from paddle_tpu_torch import nn, seed
+    from paddle_tpu_torch.nn.layer import rnn
+    torch.backends.cudnn.allow_tf32 = False
+    seed(3)
+    card = getattr(nn, name)(24, 32, num_layers=2, direction=direction,
+                             device=cuda_device, dtype=dtype)
+    cpu = copy.deepcopy(card).cpu()
+    x = torch.randn(4, 20, 24, generator=torch.Generator().manual_seed(0))
+    runs = []
+    for model, dev in ((card, cuda_device), (cpu, torch.device("cpu"))):
+        xt = x.to(dev, dtype).requires_grad_(True)
+        before = rnn.cudnn_calls
+        out, fin = model(xt)
+        calls = rnn.cudnn_calls - before
+        fins = list(fin) if name == "LSTM" else [fin]
+        loss = out.float().square().sum() + sum(
+            f.float().sum() for f in fins)
+        loss.backward()
+        runs.append((calls, [out] + fins + [xt.grad] +
+                     [p.grad for p in model.parameters()]))
+    assert runs[0][0] == 2 and runs[1][0] == 0
+    assert runs[0][1][0].dtype == dtype
+    for a, b in zip(runs[0][1], runs[1][1]):
+        scale = max(float(b.float().abs().max()), 1.0)
+        assert float((a.float().cpu() - b.float()).abs().max()) <= \
+            atol * scale
+    before = rnn.cudnn_calls
+    card(x.to(cuda_device, dtype),
+         sequence_length=torch.tensor([20, 5, 9, 1], device=cuda_device))
+    assert rnn.cudnn_calls == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batch_norm_running_stats_on_the_card(cuda_device, dtype):
+    """Two training forwards of ``BatchNorm2D`` on the card move the
+    running statistics by the reference's rule (momentum 0.9, biased
+    batch variance), written out in numpy; a bfloat16 layer keeps them
+    in bfloat16."""
+    from paddle_tpu_torch import nn
+    bn = nn.BatchNorm2D(8, device=cuda_device, dtype=dtype)
+    rm = np.zeros(8)
+    rv = np.ones(8)
+    rng = np.random.RandomState(0)
+    for _ in range(2):
+        x = (2.0 * rng.randn(16, 8, 7, 9) + 0.5).astype(np.float32)
+        xt = torch.from_numpy(x).to(cuda_device, dtype)
+        xd = xt.float().cpu().numpy().astype(np.float64)
+        bn(xt)
+        rm = 0.9 * rm + 0.1 * xd.mean(axis=(0, 2, 3))
+        rv = 0.9 * rv + 0.1 * xd.var(axis=(0, 2, 3))
+    assert bn._mean.dtype == bn._variance.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(bn._mean.float().cpu().numpy(), rm,
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(bn._variance.float().cpu().numpy(), rv,
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduction", ["none", "mean"])
+def test_ctc_on_the_card_matches_the_cpu(cuda_device, reduction):
+    """CTC with per-sample input lengths, in float32 on the card against
+    the same call on the CPU: the loss and the gradient of the
+    log-probabilities (rtol 1e-4, atol 1e-4, as the reference's CTC
+    test)."""
+    from paddle_tpu_torch.nn import functional as F
+    rng = np.random.RandomState(1)
+    T, B, C, L = 40, 6, 30, 12
+    logits = torch.from_numpy(rng.randn(T, B, C).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(1, C, (B, L)))
+    in_len = torch.tensor([40, 33, 25, 40, 30, 28])
+    lbl_len = torch.tensor([12, 10, 7, 1, 12, 9])
+    outs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        lp = torch.log_softmax(logits, -1).to(dev).requires_grad_(True)
+        loss = F.ctc_loss(lp, labels.to(dev), in_len.to(dev),
+                          lbl_len.to(dev), reduction=reduction)
+        loss.sum().backward()
+        outs.append((loss.detach().cpu(), lp.grad.cpu()))
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-4)

@@ -65,7 +65,12 @@ def test_import_in_a_fresh_process_loads_no_jax():
         "paddle_tpu_torch.nn.initializer, paddle_tpu_torch.nn.containers, "
         "paddle_tpu_torch.nn.layer.transformer, "
         "paddle_tpu_torch.nn.layer.conv, paddle_tpu_torch.core.generator, "
-        "paddle_tpu_torch.models.ernie, paddle_tpu_torch.models.dit\n"
+        "paddle_tpu_torch.models.ernie, paddle_tpu_torch.models.dit, "
+        "paddle_tpu_torch.models.ppocr, paddle_tpu_torch.vision, "
+        "paddle_tpu_torch.vision.models, paddle_tpu_torch.vision.transforms, "
+        "paddle_tpu_torch.vision.datasets, "
+        "paddle_tpu_torch.nn.layer.pooling, paddle_tpu_torch.nn.layer.rnn, "
+        "paddle_tpu_torch.nn.layer.norm\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu')]\n"
         "assert not bad, bad\n")
@@ -127,13 +132,16 @@ def test_data_and_checkpoint_entry_points_default_to_cuda(tmp_path):
 
 
 def test_layer_set_entry_points_default_to_cuda():
-    """The layer set, its initializers and the ERNIE and DiT models
-    resolve ``device=None`` to the card and raise where there is none."""
+    """The layer set (norms and recurrent layers too), its initializers,
+    the ERNIE, DiT and PP-OCR models and the vision zoo resolve
+    ``device=None`` to the card and raise where there is none."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default resolves")
     from paddle_tpu_torch import nn
     from paddle_tpu_torch.models import (DiT, DiTConfig, ErnieConfig,
-                                         ErnieForPretraining)
+                                         ErnieForPretraining, PPOCRRecConfig,
+                                         PPOCRRecModel)
+    from paddle_tpu_torch.vision import LeNet, resnet18
     calls = [
         lambda: nn.Linear(4, 4), lambda: nn.Embedding(8, 4),
         lambda: nn.LayerNorm(4), lambda: nn.Conv2D(2, 4, 3),
@@ -144,7 +152,12 @@ def test_layer_set_entry_points_default_to_cuda():
         lambda: nn.Transformer.generate_square_subsequent_mask(4),
         lambda: nn.initializer.XavierUniform()([4, 4]),
         lambda: ErnieForPretraining(ErnieConfig.tiny()),
-        lambda: DiT(DiTConfig.tiny())]
+        lambda: DiT(DiTConfig.tiny()),
+        lambda: nn.BatchNorm2D(4), lambda: nn.GroupNorm(2, 4),
+        lambda: nn.InstanceNorm2D(4), lambda: nn.SpectralNorm([4, 4]),
+        lambda: nn.LSTM(4, 4), lambda: nn.GRUCell(4, 4),
+        lambda: PPOCRRecModel(PPOCRRecConfig.tiny()),
+        lambda: resnet18(), lambda: LeNet()]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
@@ -181,8 +194,8 @@ def test_no_library_attention_or_compiler_stands_in_for_a_kernel():
     """No port module reaches PyTorch's fused attention (the port's own
     ``nn.functional.scaled_dot_product_attention`` routes to the flash
     kernels), a compiler or a kernel library; and the CUDA paths of the
-    kernel wrappers hold no try/except that could fall back to a plain
-    version."""
+    kernel wrappers and of the recurrent layers hold no try/except that
+    could fall back to a plain version."""
     banned = ("torch.nn.functional.scaled_dot_product_attention",
               "torch._C._nn", "_scaled_dot_product", "torch.compile",
               "flash_attn", "cudnn_attention", "torch.utils.cpp_extension",
@@ -198,10 +211,14 @@ def test_no_library_attention_or_compiler_stands_in_for_a_kernel():
                     (node.module or "").startswith("torch"):
                 assert "scaled_dot_product_attention" not in \
                     [a.name for a in node.names], path.name
+    from paddle_tpu_torch.nn.layer import rnn
     from paddle_tpu_torch.ops.pallas import flash_attention as fa
     from paddle_tpu_torch.ops.pallas import grouped_matmul as gm
     from paddle_tpu_torch.ops.pallas import ragged_paged_attention as rpa
-    for mod, names in ((rpa, ("ragged_paged_attention",)),
+    # the recurrent layers pick their route by device; no failure of the
+    # fused recurrence sends a CUDA tensor to the step loop
+    for mod, names in ((rnn, ("_fused_layer", "_scan_rnn", "_RNNBase")),
+                       (rpa, ("ragged_paged_attention",)),
                        (fa, ("flash_attention_fwd", "flash_attention_dq",
                              "flash_attention_dkv", "_launch")),
                        (gm, ("_gmm_fwd", "_tgmm_fwd", "_gmm_aligned_fwd",
@@ -209,7 +226,8 @@ def test_no_library_attention_or_compiler_stands_in_for_a_kernel():
                              "gmm_aligned", "tgmm"))):
         src = Path(mod.__file__).read_text()
         for fn in ast.parse(src).body:
-            if isinstance(fn, ast.FunctionDef) and fn.name in names:
+            if isinstance(fn, (ast.FunctionDef, ast.ClassDef)) and \
+                    fn.name in names:
                 assert not any(isinstance(n, ast.Try)
                                for n in ast.walk(fn)), fn.name
 
