@@ -147,17 +147,46 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    (``vision_train_flops_per_step``: convolution, linear and LSTM
    shapes), peak and resident memory, and a profiled step by kind
    (convolution, batch norm, pooling, LSTM, CTC, GEMMs, elementwise,
-   the optimizer).
+   the optimizer);
+14. the Paddle API from a user's script (``import paddle_tpu_torch as
+   paddle``, no ``set_device`` call): (a) every op of the op library
+   (``paddle.ops``) once on seeded card inputs and once on the same
+   inputs on the CPU: each result on the card and equal to the CPU's
+   (rtol 1e-5; reductions, linear algebra and special functions 1e-4;
+   decompositions by what they reconstruct), random ops by device,
+   shape, dtype and repeatability under one ``paddle.seed``; (b) phase
+   7's model from ``paddle.to_tensor`` ids: the eager loop of
+   ``examples/generate_llama.py`` (``loss.backward()``, ``opt.step()``,
+   ``opt.clear_grad()``, 2 + 3 steps), whose first three losses must
+   equal a ``fused=False`` ``TrainStep``'s at rtol 1e-3, then
+   ``paddle.jit.TrainStep`` as in ``examples/train_llama.py`` (fused,
+   clip 1.0, 2 + 10 steps, losses by ``float(loss.numpy())``): the loss
+   falls, K1-K3 8 a step, and its step time beside phase 7's; (c)
+   ``model.generate`` at that width in bf16: 4 seeded 512-token
+   prompts, 64 greedy tokens, K1 launched 8 x (1 + 63) times on its
+   offset-causal form (one query row a decode step), prefill and
+   per-token times, tokens/s and K1's share of a profiled decode step;
+   then in f32 at 2 layers every generated token must equal the argmax
+   of the cacheless forward; K1 against its plain version at the decode
+   shapes (kv_len 513, 600, 1000, 2047) with the kernel's, plain and
+   ``sdpa`` times and the bound; (d) ``examples/{train_llama,
+   generate_llama,train_packed,serve_llama}.py`` copied with only the
+   package renamed, each in a fresh process on the card (all four at
+   once): each exits 0 and ``train_llama``'s loss falls; the other
+   examples are logged as not run, with the subsystem each needs.
 
 It prints its measurements on earlier lines, then one JSON line with a
-record per kernel (K1-K3's with their times at ERNIE's and DiT's shapes
-under ``at_model_shapes``), and ends with
+record per kernel (K1-K3's with their times at ERNIE's and DiT's shapes,
+and K1's at the decode shapes, under ``at_model_shapes``; K1-K3's
+``launches_by_path`` with phase 14's ``api_train`` and ``generate``),
+and ends with
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -2957,6 +2986,603 @@ def phase_resnet():
     return {**r["flash"], **r["fused"]}
 
 
+# --------------------------------------------------------------------------
+# phase 14: the Paddle API from a user's script
+API_NOT_OPS = {"OPS", "RAW", "TensorArray", "get_op", "op",
+               "monkey_patch_tensor"}
+API_RANDOM = {"rand", "randn", "randint", "randint_like", "uniform",
+              "normal", "standard_normal", "randperm", "bernoulli",
+              "multinomial", "poisson", "exponential_", "binomial"}
+# compared at rtol 1e-4 (reductions, linear algebra, special functions);
+# every other floating result at rtol 1e-5, integers and booleans exactly
+API_LOOSE = {
+    "sum", "mean", "prod", "std", "var", "median", "quantile", "nanquantile",
+    "logsumexp", "nanmean", "nansum", "cumsum", "cumprod", "logcumsumexp",
+    "norm", "dist", "cdist", "pdist", "matmul", "bmm", "dot", "mv", "inner",
+    "outer", "addmm", "einsum", "mm", "tensordot", "kron", "multi_dot",
+    "cholesky", "cholesky_solve", "qr", "svd", "eig", "eigh", "eigvals",
+    "eigvalsh", "det", "slogdet", "inverse", "pinv", "solve",
+    "triangular_solve", "lstsq", "matrix_power", "matrix_exp", "lu",
+    "corrcoef", "cov", "householder_product", "renorm", "trapezoid",
+    "cumulative_trapezoid", "trace", "polygamma", "igamma", "igammac",
+    "lgamma", "digamma", "erfinv", "i0", "i1", "logit", "stanh"}
+# equal only up to a sign per singular or eigen vector: compare what the
+# decomposition reconstructs
+API_RECONSTRUCT = {"svd", "qr", "eig", "eigh", "eigvals"}
+
+
+def api_specs():
+    """``{op: (args, kwargs)}``: seeded numpy inputs (turned into tensors
+    on the device under test), the shapes of the CPU op table cut small;
+    an op not listed takes one [3, 4] float32 input."""
+    rng = np.random.RandomState(SEED)
+    f = lambda *s: rng.randn(*s).astype(np.float32)  # noqa: E731
+    X, Y = f(3, 4), f(3, 4) + 0.1
+    U = rng.rand(3, 4).astype(np.float32) * 0.8 + 0.2
+    V = (rng.rand(3, 4).astype(np.float32) - 0.5) * 1.8  # in (-0.9, 0.9)
+    ints = lambda hi, *s: rng.randint(0, hi, s).astype(np.int64)  # noqa
+    B1, B2 = rng.rand(3, 4) > 0.5, rng.rand(3, 4) > 0.5
+    spd = f(3, 3)
+    spd = spd @ spd.T + 3 * np.eye(3, dtype=np.float32)
+    nan = np.array([[1.0, np.nan, -np.inf], [np.inf, 2.0, 3.0]], np.float32)
+    cplx = (f(3, 4) + 1j * f(3, 4)).astype(np.complex64)
+    specs = {n: ((X, Y), {}) for n in (
+        "add", "subtract", "multiply", "maximum", "minimum", "fmax", "fmin",
+        "atan2", "hypot", "logaddexp", "heaviside", "equal", "not_equal",
+        "less_than", "less_equal", "greater_than", "greater_equal",
+        "isclose", "inner", "complex")}
+    specs.update({n: ((X, U), {}) for n in (
+        "divide", "floor_divide", "remainder", "mod", "floor_mod")})
+    specs.update({n: ((U,), {}) for n in (
+        "log", "log2", "log10", "log1p", "sqrt", "rsqrt", "reciprocal",
+        "lgamma", "digamma", "logit")})
+    specs.update({n: ((V,), {}) for n in ("asin", "acos", "atanh",
+                                           "erfinv")})
+    specs.update({n: ((ints(50, 3, 4) + 1, ints(7, 3, 4) + 1), {}) for n in (
+        "gcd", "lcm", "bitwise_and", "bitwise_or", "bitwise_xor")})
+    specs.update({n: ((B1, B2), {}) for n in (
+        "logical_and", "logical_or", "logical_xor")})
+    specs.update({n: ((nan,), {}) for n in (
+        "isnan", "isinf", "isfinite", "nan_to_num", "nanmean", "nansum")})
+    specs.update({n: ((X, 1), {}) for n in (
+        "cumsum", "cummax", "cummin", "logcumsumexp", "sum", "mean", "max",
+        "min", "amax", "amin", "std", "var", "median", "logsumexp",
+        "argmax", "argmin", "sort", "unbind", "diagonal", "unstack")})
+    specs.update({
+        "pow": ((U, Y), {}), "acosh": ((U + 1.0,), {}),
+        "left_shift": ((ints(9, 3, 4), ints(4, 3, 4)), {}),
+        "right_shift": ((ints(99, 3, 4), ints(4, 3, 4)), {}),
+        "bitwise_not": ((ints(9, 3, 4),), {}), "logical_not": ((B1,), {}),
+        "scale": ((X, 2.0, 0.5), {}), "lerp": ((X, Y, 0.3), {}),
+        "clip": ((X, -0.5, 0.5), {}), "clip_": ((X.copy(), -0.5, 0.5), {}),
+        "multiplex": (([X, Y], ints(2, 3, 1)), {}),
+        "cumprod": ((U, 1), {}), "allclose": ((X, X + 1e-7), {}),
+        "equal_all": ((X, X), {}), "prod": ((U, 1), {}),
+        "all": ((B1, 1), {}), "any": ((B1, 0), {}),
+        "quantile": ((X, 0.3), {"axis": 1}),
+        "nanquantile": ((nan, 0.4), {"axis": 1}),
+        "topk": ((X, 2), {}), "kthvalue": ((X, 2), {}),
+        "mode": ((np.array([[1., 2., 2., 3.], [4., 4., 1., 1.]],
+                           np.float32),), {}),
+        "count_nonzero": ((ints(3, 3, 4), 1), {}),
+        "cast": ((X, "float16"), {}), "assign": ((X,), {}),
+        "reshape": ((X, [0, 2, 2]), {}), "transpose": ((X, [1, 0]), {}),
+        "moveaxis": ((X[None], 0, 2), {}), "swapaxes": ((X, 0, 1), {}),
+        "concat": (([X, Y], 1), {}), "stack": (([X, Y], 0), {}),
+        "split": ((X, [1, -1, 1], 1), {}), "chunk": ((X, 2, 1), {}),
+        "squeeze": ((X[None], 0), {}), "unsqueeze": ((X, [0, 2]), {}),
+        "flatten": ((X[None],), {}), "tile": ((X, [2, 1]), {}),
+        "expand": ((X[:1], [3, -1]), {}),
+        "broadcast_to": ((X[:1], [3, 4]), {}),
+        "expand_as": ((X[:1], Y), {}),
+        "broadcast_tensors": (([X, X[:1]],), {}),
+        "flip": ((X, [0, 1]), {}), "roll": ((X, 2, 1), {}),
+        "rot90": ((X,), {}), "gather": ((X, np.array([2, 0]), 0), {}),
+        "gather_nd": ((X, np.array([[0, 1], [2, 3]])), {}),
+        "take_along_axis": ((X, np.array([[1], [0], [3]]), 1), {}),
+        "put_along_axis": ((X, np.array([[1], [0], [3]]), 5.0, 1), {}),
+        "scatter": ((X, np.array([2, 0]), Y[:2]), {}),
+        "scatter_nd_add": ((X, np.array([[0], [2]]), Y[:2]), {}),
+        "scatter_nd": ((np.array([[0], [2]]), Y[:2], [4, 4]), {}),
+        "index_select": ((X, np.array([3, 1]), 1), {}),
+        "index_sample": ((X, np.array([[0, 3], [1, 1], [2, 0]])), {}),
+        "index_add": ((X, np.array([0, 2]), 0, Y[:2]), {}),
+        "index_fill": ((X, np.array([0, 2]), 1, 3.0), {}),
+        "masked_select": ((X, B1), {}), "masked_fill": ((X, B1, 2.0), {}),
+        "where": ((B1, X, Y), {}), "nonzero": ((B1,), {}),
+        "tril": ((X, -1), {}), "triu": ((X, 1), {}),
+        "pad": ((X, [1, 2]), {"mode": "reflect"}),
+        "repeat_interleave": ((X, 2, 0), {}),
+        "argsort": ((X, 0), {"descending": True}),
+        "unique": ((ints(4, 3, 4),), {}),
+        "unique_consecutive": ((np.array([1, 1, 3, 3, 2, 1]),), {}),
+        "diff": ((X, 1, 1), {}), "one_hot": ((ints(4, 5), 4), {}),
+        "slice": ((X, [0, 1], [1, 0], [3, 3]), {}),
+        "strided_slice": ((X, [1], [3], [0], [-2]), {}),
+        "crop": ((X, [2, 2], [1, 1]), {}),
+        "bucketize": ((X, np.array([-1.0, 0.0, 1.0], np.float32)), {}),
+        "searchsorted": ((np.array([-1.0, 0.0, 1.0], np.float32), X), {}),
+        "digitize": ((X, np.array([-1.0, 0.0, 1.0], np.float32)), {}),
+        "as_real": ((cplx,), {}), "as_complex": ((f(3, 4, 2),), {}),
+        "shard_index": ((ints(20, 4, 1), 20, 2, 0), {}),
+        "matmul": ((X, Y.T.copy()), {}),
+        "bmm": ((f(2, 3, 4), f(2, 4, 2)), {}), "dot": ((X, Y), {}),
+        "mv": ((X, f(4)), {}), "outer": ((f(3), f(4)), {}),
+        "addmm": ((f(3, 2), X, f(4, 2)), {"beta": 0.5, "alpha": 2.0}),
+        "einsum": (("ij,kj->ik", X, Y), {}), "mm": ((X, Y.T.copy()), {}),
+        "norm": ((X,), {"p": 3}), "dist": ((X, Y), {"p": 3.0}),
+        "cross": ((f(2, 3), f(2, 3)), {}), "cdist": ((X, Y), {}),
+        "histogram": ((X,), {"bins": 5}),
+        "bincount": ((ints(5, 8),), {}),
+        "cholesky": ((spd,), {}),
+        "cholesky_solve": ((f(3, 2), np.linalg.cholesky(spd)), {}),
+        "qr": ((X.T.copy(),), {}), "svd": ((X,), {}),
+        "eig": ((spd + f(3, 3),), {}), "eigvals": ((spd + f(3, 3),), {}),
+        "eigh": ((spd,), {}), "eigvalsh": ((spd,), {}),
+        "matrix_rank": ((X,), {}), "det": ((spd,), {}),
+        "slogdet": ((spd,), {}), "inverse": ((spd,), {}),
+        "pinv": ((X,), {}), "solve": ((spd, f(3, 2)), {}),
+        "triangular_solve": ((np.triu(spd), f(3, 2)), {}),
+        "lstsq": ((f(5, 3), f(5, 2)), {}),
+        "matrix_power": ((spd / 4, 3), {}),
+        "multi_dot": (([X, Y.T.copy(), f(3, 2)],), {}), "lu": ((spd,), {}),
+        "corrcoef": ((X,), {}), "cov": ((X,), {}),
+        "kron": ((f(2, 2), f(2, 3)), {}), "trapezoid": ((X,), {"dx": 0.5}),
+        "cumulative_trapezoid": ((X,), {"dx": 0.5}),
+        "polygamma": ((U + 0.5, 1), {}), "igamma": ((U + 0.5, U), {}),
+        "igammac": ((U + 0.5, U), {}), "renorm": ((X, 2.0, 0, 1.0), {}),
+        "label_smooth": ((np.eye(4, dtype=np.float32)[:3],),
+                         {"epsilon": 0.2}),
+        "increment": ((X.copy(), 2.0), {}), "polar": ((U, X), {}),
+        "matrix_exp": ((X[:3, :3] / 2,), {}), "vander": ((f(3),), {}),
+        "householder_product": ((X.T.copy(), U[0, :3].copy()), {}),
+        "pdist": ((f(4, 3),), {}), "tensordot": ((X, Y.T.copy()),
+                                                 {"axes": 1}),
+        "trace": ((X,), {"offset": 1}), "vsplit": ((f(4, 2), 2), {}),
+        "hsplit": ((f(2, 4), [1, 3]), {}), "dsplit": ((f(2, 2, 4), 2), {}),
+        "tensor_split": ((X, 3, 1), {}),
+        # creation: the default device (or the input's)
+        "zeros": (([2, 3],), {}), "ones": (([4],), {}),
+        "full": (([2, 2], 7.0), {}), "empty": (([2, 3],), {}),
+        "arange": ((10,), {}), "linspace": ((0, 1, 5), {}),
+        "logspace": ((0, 2, 3), {}), "eye": ((3, 4), {}),
+        "tril_indices": ((4, 4, 0), {}), "triu_indices": ((4, 4, 1), {}),
+        "full_like": ((X, 2.0), {}), "diag": ((f(3),), {}),
+        "diagflat": ((f(3),), {}), "meshgrid": ((f(3), f(4)), {}),
+        # random: device, shape, dtype and seed-repeatability only
+        "rand": (([3, 4],), {}), "randn": (([3, 4],), {}),
+        "standard_normal": (([3, 4],), {}),
+        "randint": ((0, 10, [3, 4]), {}),
+        "randint_like": ((ints(3, 3, 4), 0, 10), {}),
+        "uniform": (([3, 4],), {}), "normal": ((0.0, 1.0, [3, 4]), {}),
+        "randperm": ((10,), {}), "bernoulli": ((U * 0.9,), {}),
+        "multinomial": ((U, 2), {}), "poisson": ((U * 3,), {}),
+        "exponential_": ((X.copy(),), {}),
+        "binomial": ((np.array([5, 50, 500], np.int64),
+                      np.array([0.1, 0.5, 0.9], np.float32)), {}),
+        # TensorArray (a list of tensors on the host, its length a tensor)
+        "create_array": (("float32", [X]), {}),
+        "array_write": ((X, 0), {}), "array_length": (([X, Y],), {}),
+        "array_read": (([X, Y], 1), {}),
+        "numel": ((X,), {}), "rank": ((X,), {}),
+    })
+    return specs
+
+
+def _api_call(paddle, name, spec, place):
+    """Run op ``name`` on ``spec``'s inputs placed on ``place``."""
+    def conv(a):
+        if isinstance(a, np.ndarray):
+            return paddle.to_tensor(a.copy(), place=place)
+        if isinstance(a, list) and a and isinstance(a[0], np.ndarray):
+            return [paddle.to_tensor(v.copy(), place=place) for v in a]
+        return a
+    args, kw = spec
+    args = [conv(a) for a in args]
+    if name in ("array_length", "array_read"):  # over a TensorArray
+        args[0] = paddle.ops.create_array("float32", args[0])
+    return getattr(paddle.ops, name)(*args, **kw)
+
+
+def _api_tensors(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _api_tensors(o)]
+    return []
+
+
+def _api_values(name, outs):
+    o = [t.numpy() for t in outs]
+    if name == "svd":
+        return [(o[0] * o[1]) @ o[2], o[1]]
+    if name == "qr":
+        return [o[0] @ o[1], np.abs(o[1])]
+    if name == "eigh":
+        return [(o[1] * o[0]) @ o[1].T, o[0]]
+    if name in ("eig", "eigvals"):
+        return [np.sort_complex(o[0])]
+    if name == "lstsq":  # the card's QR solver gives no rank or values
+        return o[:1]
+    return o
+
+
+def api_op_library():
+    """14(a): every op of the op library once on the card and once on the
+    CPU, on the same seeded inputs; each result must lie on the card and
+    equal the CPU's. Random ops: device, shape, dtype and repeatability
+    under one seed."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import device
+    specs = api_specs()
+    unary = ((np.random.RandomState(7).randn(3, 4).astype(np.float32),), {})
+    names = [n for n in paddle.ops.__all__ if n not in API_NOT_OPS]
+    failures, t0 = [], time.perf_counter()
+    for name in names:
+        spec = specs.get(name, unary)
+        try:
+            paddle.seed(123)
+            got = _api_tensors(_api_call(paddle, name, spec, "gpu"))
+            if not got or any(t.device.type != "cuda" for t in got):
+                raise AssertionError(
+                    f"result on {[str(t.device) for t in got]}, not cuda")
+            if name in API_RANDOM:
+                paddle.seed(123)
+                again = _api_tensors(_api_call(paddle, name, spec, "gpu"))
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError("not repeated under one seed")
+                continue
+            device.set_device("cpu")  # the CPU twin, creation ops too
+            try:
+                want = _api_tensors(_api_call(paddle, name, spec, "cpu"))
+            finally:
+                device._chosen[0] = None  # as if set_device never ran
+            rtol, atol = (1e-4, 1e-5) if name in API_LOOSE else (1e-5, 1e-6)
+            if name in API_RECONSTRUCT:
+                rtol, atol = 1e-4, 1e-5
+            a, b = _api_values(name, got), _api_values(name, want)
+            if len(a) != len(b):
+                raise AssertionError(f"{len(a)} results, not {len(b)}")
+            for x, y in zip(a, b):
+                if x.shape != y.shape or x.dtype != y.dtype:
+                    raise AssertionError(f"{x.shape} {x.dtype} against "
+                                         f"{y.shape} {y.dtype}")
+                if x.dtype.kind in "iub":
+                    if not np.array_equal(x, y):
+                        raise AssertionError("differs from the CPU's")
+                else:
+                    np.testing.assert_allclose(x, y, rtol=rtol, atol=atol,
+                                               equal_nan=True)
+        except Exception as e:  # noqa: BLE001 — logged, then the phase fails
+            failures.append(name)
+            log(f"api ops: {name} FAILED: {type(e).__name__}: "
+                f"{str(e).splitlines()[0][:200] if str(e) else ''}")
+    log(f"api ops: {len(names)} ops of the op library on the card against "
+        f"the CPU ({len(API_RANDOM)} random ones by device, shape, dtype "
+        f"and seed), rtol 1e-5 (reductions, linear algebra and special "
+        f"functions 1e-4); {len(failures)} failed {failures}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if failures:
+        raise AssertionError(f"op library on the card: {failures}")
+    return len(names)
+
+
+def api_eager_losses(cfg, ids, steps, opt_kw):
+    """The loop of ``examples/generate_llama.py`` at full width: ``_, loss
+    = model(ids, labels=ids)``, ``loss.backward()``, ``opt.step()``,
+    ``opt.clear_grad()``; returns the losses, the step ms and the flash
+    launches."""
+    import paddle_tpu_torch as paddle
+    paddle.seed(SEED)
+    model = paddle.models.LlamaForCausalLM(cfg, dtype="bfloat16", seed=SEED)
+    opt = paddle.optimizer.AdamW(parameters=model.parameters(), **opt_kw)
+    _reset_flash_counts()
+    losses, t0 = [], None
+    for i in range(steps):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        _, loss = model(ids, labels=ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss.numpy()))
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / (steps - 2)
+    counts = _flash_counts()
+    del model, opt, loss
+    free_device_memory()
+    return losses, step_ms, counts
+
+
+def api_train(train_step_ms):
+    """14(b): a user's training script at full width, with no
+    ``set_device`` call: ids from ``paddle.to_tensor(numpy)``, the eager
+    loop (2 + 3 steps), a ``fused=False`` ``TrainStep`` (3 steps) from
+    the same seed, then ``paddle.jit.TrainStep`` as in
+    ``examples/train_llama.py`` (2 + 10 steps, losses read with
+    ``float(loss.numpy())``)."""
+    import paddle_tpu_torch as paddle
+    cfg = llama_bench_config()
+    B, S = 4, 2048
+    ids = paddle.to_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (B, S)))
+    if ids.place != "gpu:0" or type(ids) is not paddle.Tensor:
+        raise AssertionError(f"to_tensor gave {type(ids)} on {ids.place}")
+    L = cfg.num_hidden_layers
+    opt_kw = dict(learning_rate=1e-4, multi_precision=True)
+    eager, eager_ms, eager_counts = api_eager_losses(cfg, ids, 5, opt_kw)
+    for kname, n in eager_counts.items():
+        if n != 5 * L:
+            raise AssertionError(f"api eager: {kname} launched {n} times "
+                                 f"in 5 steps, not {L} a step")
+    log(f"api eager loop (model(ids, labels=ids), loss.backward(), "
+        f"opt.step(), opt.clear_grad()): losses "
+        f"{[round(v, 5) for v in eager]}; step {eager_ms:.3f} ms; K1-K3 "
+        f"{L} a step")
+
+    def run_step(fused, warmup, timed, clip):
+        paddle.seed(SEED)
+        model = paddle.models.LlamaForCausalLM(cfg, dtype="bfloat16",
+                                               seed=SEED)
+        kw = dict(opt_kw)
+        if clip:
+            kw["grad_clip"] = paddle.nn.ClipGradByGlobalNorm(1.0)
+        opt = paddle.optimizer.AdamW(parameters=model.parameters(), **kw)
+
+        def loss_fn(m, x, y):
+            _, loss = m(x, labels=y)
+            return loss
+        step = paddle.jit.TrainStep(model, loss_fn, opt, fused=fused)
+        _reset_flash_counts()
+        _reset_fused_counts()
+        losses = [float(step(ids, ids).numpy()) for _ in range(warmup)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = [step(ids, ids) for _ in range(timed)]
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / max(timed, 1)
+        if out and type(out[-1]) is not paddle.Tensor:
+            raise AssertionError(f"TrainStep returned {type(out[-1])}")
+        losses += [float(t.numpy()) for t in out]
+        counts = {**_flash_counts(), **_fused_counts()}
+        del model, opt, step, out
+        free_device_memory()
+        return losses, ms, counts
+    loop, _, _ = run_step(False, 3, 0, False)
+    if not np.allclose(eager[:3], loop[:3], rtol=1e-3, atol=0):
+        raise AssertionError(f"api: eager losses {eager[:3]} and "
+                             f"TrainStep(fused=False) {loop[:3]} differ by "
+                             f"more than rtol 1e-3")
+    log(f"api: eager first three losses {[round(v, 5) for v in eager[:3]]} "
+        f"= TrainStep(fused=False) {[round(v, 5) for v in loop[:3]]} "
+        f"(rtol 1e-3)")
+    losses, step_ms, counts = run_step(None, 2, 10, True)
+    ln_v = math.log(cfg.vocab_size)
+    if not (abs(losses[0] - ln_v) <= 1.0 and losses[-1] < losses[0]):
+        raise AssertionError(f"api TrainStep: losses {losses} (ln V "
+                             f"{ln_v:.3f})")
+    for kname in ("flash_attention_fwd", "flash_attention_dq",
+                  "flash_attention_dkv"):
+        if counts[kname] != 12 * L:
+            raise AssertionError(f"api TrainStep: {kname} launched "
+                                 f"{counts[kname]} times in 12 steps")
+    log(f"api TrainStep (paddle.jit.TrainStep over paddle.to_tensor ids, "
+        f"fused, clip 1.0): losses {[round(v, 4) for v in losses]}; K1-K3 "
+        f"{L} a step; step {step_ms:.3f} ms against phase 7's fused step "
+        f"{train_step_ms:.3f} ms from the same call "
+        f"({step_ms / train_step_ms:.3f}x)")
+    return counts, step_ms
+
+
+def api_generate():
+    """14(c): ``generate`` at full width: 4 seeded 512-token prompts, 64
+    greedy tokens in bf16 (prefill and decode times, K1's launches and
+    its share of a decode step's device time); then the f32 replay at 2
+    layers: every token equals the argmax of the cacheless forward over
+    the sequence so far."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops.pallas import flash_attention as fa
+    cfg = llama_bench_config()
+    B, P, N = 4, 512, 64
+    prompt = np.random.RandomState(1).randint(0, cfg.vocab_size, (B, P))
+    model = paddle.models.LlamaForCausalLM(cfg, dtype="bfloat16", seed=SEED)
+    model.eval()
+    ids = paddle.to_tensor(prompt)
+    model.generate(ids, max_new_tokens=2, temperature=0)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.generate(ids, max_new_tokens=1, temperature=0)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    _reset_flash_counts()
+    t0 = time.perf_counter()
+    out = model.generate(ids, max_new_tokens=N, temperature=0)
+    torch.cuda.synchronize()
+    total_ms = 1e3 * (time.perf_counter() - t0)
+    k1 = fa.launches_fwd
+    want = cfg.num_hidden_layers * N
+    if k1 != want or type(out) is not paddle.Tensor or \
+            out.shape != [B, P + N] or fa.launches_dq or fa.launches_dkv:
+        raise AssertionError(f"generate: K1 {k1} launches (want {want}), "
+                             f"{type(out)} of {out.shape}")
+    tok = out.numpy()[:, P:]
+    if not ((tok >= 0) & (tok < cfg.vocab_size)).all():
+        raise AssertionError("generate: tokens out of the vocabulary")
+    decode_ms = (total_ms - prefill_ms) / (N - 1)
+    log(f"generate (bf16, {cfg.num_hidden_layers} layers, batch {B} x "
+        f"{P}-token prompts, {N} greedy tokens): prefill {prefill_ms:.3f} "
+        f"ms; {decode_ms:.3f} ms a decode token; {total_ms:.3f} ms in all, "
+        f"{B * N / (total_ms / 1e3):.1f} tokens/s; K1 launched {k1} times "
+        f"= {cfg.num_hidden_layers} x (1 + {N - 1})")
+    # one decode step under the profiler: K1's share of its device time
+    with torch.no_grad():
+        L = cfg.num_hidden_layers
+        x = torch.as_tensor(prompt, device="cuda")
+        h, caches = model.model(x, caches=[(None, None)] * L)
+        step_tok = model._logits(h[:, -1:]).argmax(-1)
+
+        def decode(_):
+            hh, _c = model.model(step_tok, caches=caches)
+            model._logits(hh)
+        decode(None)
+        shares = profile_train_step(decode, None, decode_ms,
+                                    "generate decode step")
+    k1_share = shares.get("flash K1-K3", 0.0)
+    total_dev = sum(v for k, v in shares.items()
+                    if not k.startswith("Train"))
+    share = 100 * k1_share / total_dev if total_dev else float("nan")
+    log(f"generate decode step: K1 {k1_share:.3f} ms of {total_dev:.3f} "
+        f"ms device time ({share:.1f}%)")
+    del model, caches, h, out
+    free_device_memory()
+    # the replay oracle, f32 at 2 layers
+    small = dataclasses.replace(cfg, num_hidden_layers=2)
+    model = paddle.models.LlamaForCausalLM(small, dtype="float32",
+                                           seed=SEED)
+    model.eval()
+    out = model.generate(paddle.to_tensor(prompt[:, :64]),
+                         max_new_tokens=16, temperature=0)
+    seq = out.numpy()
+    with torch.no_grad():
+        full = torch.as_tensor(seq, device="cuda")
+        for t in range(64, seq.shape[1]):
+            nxt = model(full[:, :t])[:, -1].argmax(-1).cpu().numpy()
+            if not np.array_equal(nxt, seq[:, t]):
+                raise AssertionError(f"generate f32: token {t} "
+                                     f"{seq[:, t]} is not the cacheless "
+                                     f"argmax {nxt}")
+    log("generate f32 (2 layers, batch 4 x 64, 16 greedy tokens): every "
+        "token equals the argmax of the cacheless forward over the "
+        "sequence so far")
+    del model
+    free_device_memory()
+    return dict(flash_attention_fwd=k1, flash_attention_dq=0,
+                flash_attention_dkv=0, fused_adam_update=0, fused_sqnorm=0,
+                prefill_ms=prefill_ms, decode_ms=decode_ms, k1_share=share)
+
+
+API_EXAMPLES = ("train_llama.py", "generate_llama.py", "train_packed.py",
+                "serve_llama.py")
+# the reference's other examples, and the subsystem each needs
+API_EXAMPLES_NOT_RUN = {
+    "export_and_serve.py": "paddle.inference, paddle.static.InputSpec and "
+                           "jit.save (ROADMAP §1 item 8)",
+    "generate_compiled.py": "LlamaForCausalLM.generate_compiled "
+                            "(CUDA-graph capture, ROADMAP §1 item 1)",
+    "int8_deploy.py": "paddle.quantization, jit.save/load (ROADMAP §1 "
+                      "items 7-8)",
+    "pipeline_spmd.py": "the mesh and fleet pipeline (paddle.distributed, "
+                        "ROADMAP §1 item 6)",
+    "static_regression.py": "paddle.static (ROADMAP §1 item 8)",
+    "train_llama_spmd.py": "the mesh and sharding API "
+                           "(paddle.distributed, ROADMAP §1 item 6)"}
+
+
+def api_examples():
+    """14(d): the reference's examples, copied with ``paddle_tpu``
+    renamed ``paddle_tpu_torch`` and nothing else changed, each in a
+    fresh process on the card by default (all four at once)."""
+    import subprocess
+    import tempfile
+    src = os.path.join(REPO_ROOT, "examples")
+    tmp = tempfile.mkdtemp(prefix="api_examples_", dir=REPO_ROOT)
+    procs = {}
+    try:
+        for name in ("_common.py",) + API_EXAMPLES:
+            with open(os.path.join(src, name)) as fh:
+                text = re.sub(r"\bpaddle_tpu\b", "paddle_tpu_torch",
+                              fh.read())
+            with open(os.path.join(tmp, name), "w") as fh:
+                fh.write(text)
+        env = dict(os.environ, PYTHONPATH=REPO_ROOT)
+        for name in API_EXAMPLES:
+            code = (f"import runpy, sys; sys.path.insert(0, {tmp!r}); "
+                    f"runpy.run_path({os.path.join(tmp, name)!r}, "
+                    f"run_name='__main__')")
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-c", code], cwd=tmp, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        bad = []
+        for name, p in procs.items():
+            try:
+                out, err = p.communicate(timeout=400)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, err = p.communicate()
+            tail = out.strip().splitlines()[-3:]
+            log(f"example {name}: exit {p.returncode}; " + " | ".join(tail))
+            if p.returncode != 0:
+                log(err[-2000:])
+                bad.append(name)
+            if name == "train_llama.py" and p.returncode == 0:
+                ls = [float(v) for v in re.findall(r"loss ([0-9.]+)", out)]
+                if not ls[-1] < ls[0]:
+                    bad.append(name + " (loss did not fall)")
+        for name, need in API_EXAMPLES_NOT_RUN.items():
+            log(f"example {name}: not run (needs {need})")
+        if bad:
+            raise AssertionError(f"examples failed on the port: {bad}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def flash_decode_shapes():
+    """K1 at ``generate``'s decode shapes: one query row per head over
+    513, 600, 1000 and 2047 cached keys (GQA 16/4, hd 128, bf16, batch
+    4), against its plain version at ``FLASH_TOL``, with the kernel's,
+    the plain version's and ``sdpa``'s times and the bound (bytes: q, the
+    K/V cache and o read or written once)."""
+    from paddle_tpu_torch.ops.pallas import flash_attention as fa
+    B, hq, hkv, hd = 4, 16, 4, 128
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for sk in (513, 600, 1000, 2047):
+        q4, k4, v4 = [torch.randn(B, h, s, hd, device="cuda",
+                                  dtype=torch.bfloat16, generator=gen)
+                      for h, s in ((hq, 1), (hkv, sk), (hkv, sk))]
+        q, k, v, g, _ = fa._geometry(q4, k4, v4, True, None, None, None,
+                                     None, 0.0, None)
+        o, lse = fa.flash_attention_fwd(q, k, v, g)
+        ro, rlse = fa._forward_plain(q, k, v, g)
+        tol = FLASH_TOL[torch.bfloat16][0]
+        err = max(_check(f"K1 decode o {sk}", o, ro, *tol),
+                  _check(f"K1 decode lse {sk}", lse, rlse, *tol))
+        esz = q.element_size()
+        need = flash_need(q, k, g, 2, q.numel() * esz + 4 * q.shape[0], 0)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, g))
+            plain_ms = cuda_ms(lambda: fa._forward_plain(q, k, v, g))
+            # one query row that sees every key: sdpa's non-causal form
+            lib = cuda_ms(lambda: sdpa(q4, k4, v4, enable_gqa=True))
+        log(f"flash decode K1 (q_len 1, kv_len {sk}, GQA 16/4, hd 128, "
+            f"bf16, batch 4): max|err|={err:.3e}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {need['bound_ms']:.4f} ms "
+            f"({need['bound_by']}: {need['bytes']} B), library "
+            f"{lib:.4f} ms (sdpa)")
+        out[f"decode_kv{sk}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=need["bound_ms"], bound_by=need["bound_by"],
+            library_ms=lib)
+    return out
+
+
+def phase_api(train_step_ms):
+    """Phase 14, the Paddle API from a user's script: returns each path's
+    kernel counts (``api_train``, ``generate``) and K1's records at the
+    decode shapes."""
+    api_op_library()
+    counts, _ = api_train(train_step_ms)
+    gen = api_generate()
+    decode = flash_decode_shapes()
+    api_examples()
+    return counts, gen, decode
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch",
@@ -2981,10 +3607,12 @@ def main():
               "dit": flash_model_shape("dit", 64, 16, 256, 72, 0.0)}
     ppocr = phase_ppocr()
     resnet = phase_resnet()
+    api, gen, decode = phase_api(train_step_ms)
     # each path's launches were counted from 0 over its own run; a kernel
     # on several paths reports their sum, and each path's count beside it
     paths = {"train": counts, "moe_train": moe, "fit": fit, "ernie": ernie,
-             "dit": dit, "ppocr": ppocr, "resnet50": resnet}
+             "dit": dit, "ppocr": ppocr, "resnet50": resnet,
+             "api_train": api, "generate": gen}
 
     def path_launches(kname):
         by_path = {p: c[kname] for p, c in paths.items()}
@@ -2999,7 +3627,9 @@ def main():
         kernels.append(dict(name=kname, route="cuda", source=FLASH_SRC,
                             replaces=replaces, **path_launches(kname),
                             **flash[kname], at_model_shapes={
-                                m: r[kname] for m, r in shapes.items()}))
+                                **{m: r[kname] for m, r in shapes.items()},
+                                **(decode if kname == "flash_attention_fwd"
+                                   else {})}))
     for kname, _, replaces in GMM_KERNELS:
         kernels.append(dict(name=kname, route="cuda", source=GMM_SRC,
                             replaces=replaces, launches_by_path={

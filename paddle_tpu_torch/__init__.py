@@ -7,31 +7,125 @@ Hopper (``ops/pallas/csrc/``), built with ``nvcc`` at first use and
 bound through ``ctypes``; everything around the kernels is plain
 PyTorch. The package never imports ``jax`` or ``paddle_tpu``.
 
-Entry points run on the card unless the caller passes ``device="cpu"``;
-on a CPU tensor a kernel wrapper computes its plain PyTorch version,
-which is how the CPU tests hold the port against the reference.
+Drive it as Paddle::
 
-Ported so far: the serving path — ``serving.ServingEngine`` and its
-HTTP ``serving.Server`` over ``models.llama.LlamaForCausalLM``, with
-attention over the paged KV pool in the ragged-paged-attention kernel —
-and the training path — ``jit.TrainStep`` over the cacheless
-``LlamaForCausalLM`` and its causal-LM loss (``ops.fused_ce``), with
-attention in the flash-attention forward, dq and dk/dv kernels, and the
-optimizer layer: Paddle's rules (``optimizer``: SGD, Momentum, Adam,
-AdamW, Adagrad, RMSProp, Adadelta, Adamax, Lamb) with f32 master
-weights, the learning-rate schedulers (``optimizer.lr``), the clips of
-``nn.clip`` and the regularizers, under ``TrainStep``'s fused
-multi-tensor update (``jit.fused_update``, one hand-written pass per
-Adam/AdamW bucket). The MoE family (``models.moe``) trains through the
-same step, with the grouped-matmul kernels at ``ops.pallas``. ERNIE
-(``models.ernie``) and DiT (``models.dit``) train through it too, on the
-transformer layer set of ``nn`` (biased ``Linear``, ``LayerNorm``,
-``MultiHeadAttention``, the encoder and decoder stacks, ``Conv2D``, the
-activations, losses and initializers); ``metric`` holds the metrics of
-``hapi.Model.prepare``. ``seed(n)`` seeds the port's generator
-(``core.generator``), from which dropout and the initializers draw.
+    import paddle_tpu_torch as paddle
+    x = paddle.to_tensor([[1.0, 2.0]], stop_gradient=False)
+    y = paddle.matmul(x, x.transpose([1, 0])).sum()
+    y.backward()
+
+Everything runs on the card unless the caller asks for the CPU
+(``paddle.set_device("cpu")``, or ``device="cpu"`` at an entry point);
+asking for the card where there is none raises. On a CPU tensor a kernel
+wrapper computes its plain PyTorch version, which is how the CPU tests
+hold the port against the reference.
+
+The top level exports what the reference's does for every subsystem the
+port has: the dtypes, ``Tensor``/``Parameter``/``to_tensor`` (a facade
+over ``torch.Tensor`` that lives only at the user API,
+``core/tensor.py``), the autograd API, the flags, every op of the op
+library (``ops``), ``nn`` (every layer an ``nn.Layer``), ``optimizer``,
+``jit`` (``TrainStep``), ``io``, ``save``/``load``, ``Model``,
+``ParamAttr``, ``metric``, ``vision``, ``serving``, ``checkpoint``,
+``data``, ``models`` and the device functions. The models: Llama-3
+(serving, training and eager ``generate``), the MoE family, ERNIE, DiT
+and PP-OCRv4. A subsystem that is not ported (``amp``, ``static``,
+``incubate``, ``sparse``, ``quantization``, ``inference``, ...) is not
+exported: reaching it raises ``AttributeError``.
 """
-from . import metric
-from .core.generator import seed
+from __future__ import annotations
 
-__all__ = ["metric", "seed"]
+__version__ = "0.1.0"
+
+from paddle_tpu_torch.core.dtype import (  # noqa: F401
+    DType, bfloat16, bool_, complex64, complex128, finfo, float16, float32,
+    float64, iinfo, int8, int16, int32, int64, uint8,
+)
+from paddle_tpu_torch.core.tensor import Parameter, Tensor, to_tensor  # noqa: F401
+from paddle_tpu_torch.core.autograd import (  # noqa: F401
+    enable_grad, grad, is_grad_enabled, no_grad, set_grad_enabled,
+)
+from paddle_tpu_torch.core.generator import (  # noqa: F401
+    Generator, get_rng_state, seed, set_rng_state,
+)
+from paddle_tpu_torch.core.flags import get_flags, set_flags  # noqa: F401
+
+from paddle_tpu_torch import ops  # noqa: F401  (installs Tensor methods)
+from paddle_tpu_torch.ops import *  # noqa: F401,F403
+
+from paddle_tpu_torch import nn  # noqa: F401
+from paddle_tpu_torch import optimizer  # noqa: F401
+from paddle_tpu_torch import autograd  # noqa: F401
+from paddle_tpu_torch import regularizer  # noqa: F401
+from paddle_tpu_torch import jit  # noqa: F401
+from paddle_tpu_torch import distributed  # noqa: F401
+from paddle_tpu_torch import io  # noqa: F401
+from paddle_tpu_torch import framework  # noqa: F401
+from paddle_tpu_torch.framework.io import load, save  # noqa: F401
+from paddle_tpu_torch import metric  # noqa: F401
+from paddle_tpu_torch import hapi  # noqa: F401
+from paddle_tpu_torch.hapi import Model  # noqa: F401
+from paddle_tpu_torch import observability  # noqa: F401
+from paddle_tpu_torch import resilience  # noqa: F401
+from paddle_tpu_torch import vision  # noqa: F401
+from paddle_tpu_torch import serving  # noqa: F401
+from paddle_tpu_torch import checkpoint  # noqa: F401
+from paddle_tpu_torch import data  # noqa: F401
+from paddle_tpu_torch import utils  # noqa: F401
+from paddle_tpu_torch import models  # noqa: F401
+from paddle_tpu_torch.param_attr import ParamAttr  # noqa: F401
+from paddle_tpu_torch import device  # noqa: F401
+from paddle_tpu_torch.device import (  # noqa: F401
+    device_count, get_device, is_compiled_with_cuda, is_compiled_with_xpu,
+    set_device,
+)
+from paddle_tpu_torch import callbacks  # noqa: F401
+from paddle_tpu_torch.batch import batch  # noqa: F401
+from paddle_tpu_torch import linalg  # noqa: F401
+
+bool = bool_  # paddle.bool
+
+
+def is_compiled_with_tpu() -> bool:
+    return False
+
+
+def summary(net, input_size=None, dtypes=None, input=None):
+    """``paddle.summary``: the layer tree and its parameter counts
+    (``input`` may stand in for ``input_size``; the count does not depend
+    on either)."""
+    if input_size is None and input is not None:
+        input_size = tuple(input.shape)
+    return Model(net).summary(input_size)
+
+
+def flops(net, input_size, custom_ops=None, print_detail: bool = False):
+    """``paddle.flops``: the forward's floating-point operations on a zero
+    input of ``input_size``, counted by PyTorch's
+    ``torch.utils.flop_counter.FlopCounterMode`` (where the reference asks
+    XLA's cost analysis)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    p = next(iter(net.parameters()), None)
+    dev = p.device if p is not None else device.resolve_device(None)
+    x = torch.zeros(tuple(input_size), device=dev)
+    counter = FlopCounterMode(display=print_detail)
+    with torch.no_grad(), counter:
+        net(x)
+    return int(counter.get_total_flops())
+
+
+def enable_static():
+    """The static-graph workflow is not ported (``paddle.static``)."""
+    raise NotImplementedError(
+        "paddle_tpu_torch has no static-graph mode yet (paddle.static is "
+        "not ported); the port runs eagerly")
+
+
+def disable_static():
+    """Eager mode is the port's only mode: nothing to switch."""
+
+
+def in_dynamic_mode() -> bool:
+    return True

@@ -24,7 +24,8 @@ from typing import Optional
 import torch
 
 __all__ = ["Generator", "default_generator", "seed", "get_rng_state",
-           "set_rng_state", "rng_guard", "torch_generator", "host_int"]
+           "set_rng_state", "rng_guard", "torch_generator", "host_int",
+           "draw_generator"]
 
 
 def _key(device) -> str:
@@ -92,6 +93,16 @@ def set_rng_state(state):
 def torch_generator(device) -> torch.Generator:
     """The default generator's ``torch.Generator`` for ``device``."""
     return default_generator.torch_generator(device)
+
+
+def draw_generator(device, seed: int = 0) -> torch.Generator:
+    """The generator a random op draws from on ``device``: the default
+    generator's stream, or, for a non-zero ``seed``, a fresh one seeded
+    with it (the op's ``seed=`` argument: the same seed repeats the same
+    numbers)."""
+    if seed:
+        return torch.Generator(device=_key(device)).manual_seed(int(seed))
+    return torch_generator(device)
 
 
 def host_int(low: int = -2**31, high: int = 2**31 - 1) -> int:

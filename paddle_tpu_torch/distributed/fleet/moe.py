@@ -29,8 +29,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from paddle_tpu_torch.core.dtype import convert_dtype
+from paddle_tpu_torch.core.tensor import Parameter
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.nn.initializer import XavierUniform
+from paddle_tpu_torch.nn.layer_base import Layer
 
 __all__ = ["MoELayer", "NaiveGate", "SwitchGate", "GShardGate", "route"]
 
@@ -103,7 +105,7 @@ def _xavier_uniform_(p, generator):
     p.uniform_(-bound, bound, generator=generator)
 
 
-class _GateBase(torch.nn.Module):
+class _GateBase(Layer):
     top_k = 2
     aux = "none"
 
@@ -114,7 +116,7 @@ class _GateBase(torch.nn.Module):
         self.num_experts = num_experts
         if top_k is not None:
             self.top_k = top_k
-        self.weight = torch.nn.Parameter(torch.zeros(
+        self.weight = Parameter(torch.zeros(
             d_model, num_experts, device=resolve_device(device),
             dtype=convert_dtype(dtype)))
 
@@ -191,7 +193,7 @@ def route(xt, gate_weight, top_k, capacity_factor, valid=None) -> Routing:
     return Routing(probs, gate_k, idx_k, pos, kept, counts, C)
 
 
-class MoELayer(torch.nn.Module):
+class MoELayer(Layer):
     """Experts are a stacked MLP (w1 -> act -> w2, with biases); the gate
     routes each token to its top-k experts. ``forward`` sets ``l_aux`` to
     the gate's balance loss, and ``last_capacity``/``last_dropped`` to the
@@ -233,8 +235,8 @@ class MoELayer(torch.nn.Module):
         self.gate = gate
 
         def param(*shape):
-            return torch.nn.Parameter(torch.zeros(*shape, device=device,
-                                                  dtype=dtype))
+            return Parameter(torch.zeros(*shape, device=device,
+                                         dtype=dtype))
         self.w1 = param(num_experts, d_model, d_hidden)
         self.b1 = param(num_experts, d_hidden)
         self.w2 = param(num_experts, d_hidden, d_model)

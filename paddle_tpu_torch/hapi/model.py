@@ -254,7 +254,7 @@ class Model:
         return self
 
     def _device(self) -> torch.device:
-        p = next(self.network.parameters(), None)
+        p = next(iter(self.network.parameters()), None)
         return p.device if p is not None else torch.device("cpu")
 
     def _as_tensor(self, x):

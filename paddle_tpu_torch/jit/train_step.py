@@ -35,6 +35,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from paddle_tpu_torch.core.tensor import unwrap_args, wrap
 from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
 
 from .fused_update import (build_flat_states, build_layout, fused_clip,
@@ -153,10 +154,16 @@ class TrainStep:
                 opt._apply(group, mine, group_lrs[gi])
 
     def __call__(self, *args, **kwargs):
+        """One step on the batch ``args``/``kwargs``; the loss, detached.
+        Paddle ``Tensor`` arguments reach ``loss_fn`` as they are (it is
+        the user's code), and the loss comes back as a ``Tensor`` when
+        the batch held one."""
         opt = self._opt
         train = [p for p in opt._parameter_list if p.requires_grad]
         with record_function(RANGE_FORWARD_BACKWARD):
             loss = self._loss_fn(self._model, *args, **kwargs)
+            (loss,), _, had = unwrap_args((loss,), None)
+            had = had or unwrap_args(args, kwargs)[2]
             # the pairs hold the only reference to the gradients, so the
             # loop frees them once its clip has copied them, before the
             # update allocates its temporaries
@@ -184,7 +191,8 @@ class TrainStep:
                 self._update_loop([(self._params[n], g)
                                    for n, g in res_grads.items()], group_lrs)
         self.last_grad_norm = gnorm
-        return loss.detach()
+        loss = loss.detach()
+        return wrap(loss) if had else loss
 
 
 def _layout_sig(layout):

@@ -23,6 +23,7 @@ from paddle_tpu_torch.core.dtype import convert_dtype
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.nn import initializer as I
 from paddle_tpu_torch.param_attr import create_parameter
+from paddle_tpu_torch.nn.layer_base import Layer
 
 __all__ = ["DiTConfig", "DiT", "DiTBlock", "FinalLayer", "TimestepEmbedder",
            "LabelEmbedder", "timestep_embedding"]
@@ -72,7 +73,7 @@ def _zero():
     return I.Constant(0.0)
 
 
-class TimestepEmbedder(torch.nn.Module):
+class TimestepEmbedder(Layer):
     def __init__(self, hidden_size, freq_dim=256, *, device=None,
                  dtype=torch.float32):
         super().__init__()
@@ -88,7 +89,7 @@ class TimestepEmbedder(torch.nn.Module):
         return self.mlp(emb.to(self.mlp[0].weight.dtype))
 
 
-class LabelEmbedder(torch.nn.Module):
+class LabelEmbedder(Layer):
     def __init__(self, num_classes, hidden_size, *, device=None,
                  dtype=torch.float32):
         super().__init__()
@@ -100,7 +101,7 @@ class LabelEmbedder(torch.nn.Module):
         return self.embedding_table(labels)
 
 
-class DiTBlock(torch.nn.Module):
+class DiTBlock(Layer):
     """Transformer block with adaLN-Zero conditioning: the modulation's
     projection starts at zero, so each block starts as the identity."""
 
@@ -131,7 +132,7 @@ class DiTBlock(torch.nn.Module):
         return x + gate_mlp[:, None] * self.mlp(h)
 
 
-class FinalLayer(torch.nn.Module):
+class FinalLayer(Layer):
     def __init__(self, hidden_size, patch_size, out_channels, *,
                  device=None, dtype=torch.float32):
         super().__init__()
@@ -151,7 +152,7 @@ class FinalLayer(torch.nn.Module):
         return self.linear(_modulate(self.norm_final(x), shift, scl))
 
 
-class DiT(torch.nn.Module):
+class DiT(Layer):
     def __init__(self, cfg: DiTConfig, device=None, dtype="float32"):
         super().__init__()
         kw = dict(device=resolve_device(device), dtype=convert_dtype(dtype))

@@ -20,6 +20,7 @@ from paddle_tpu_torch import nn
 from paddle_tpu_torch.core.dtype import convert_dtype
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn.layer_base import Layer
 
 __all__ = ["ErnieConfig", "ErnieEmbeddings", "ErnieModel",
            "ErnieForSequenceClassification", "ErnieForPretraining"]
@@ -53,7 +54,7 @@ def _kw(device, dtype):
     return dict(device=resolve_device(device), dtype=convert_dtype(dtype))
 
 
-class ErnieEmbeddings(torch.nn.Module):
+class ErnieEmbeddings(Layer):
     """Word + position + token-type embeddings, LayerNorm, dropout."""
 
     def __init__(self, cfg: ErnieConfig, *, device=None, dtype="float32"):
@@ -78,7 +79,7 @@ class ErnieEmbeddings(torch.nn.Module):
         return self.dropout(self.layer_norm(x))
 
 
-class ErnieModel(torch.nn.Module):
+class ErnieModel(Layer):
     """Returns ``(sequence_output [B, S, H], pooled_output [B, H])``."""
 
     def __init__(self, cfg: ErnieConfig, device=None, dtype="float32"):
@@ -101,7 +102,7 @@ class ErnieModel(torch.nn.Module):
         return x, torch.tanh(self.pooler(x[:, 0]))
 
 
-class ErnieForSequenceClassification(torch.nn.Module):
+class ErnieForSequenceClassification(Layer):
     def __init__(self, cfg: ErnieConfig, num_classes: int = 2,
                  dropout: float = None, device=None, dtype="float32"):
         super().__init__()
@@ -120,7 +121,7 @@ class ErnieForSequenceClassification(torch.nn.Module):
         return logits, F.cross_entropy(logits, labels)
 
 
-class ErnieForPretraining(torch.nn.Module):
+class ErnieForPretraining(Layer):
     """Masked-LM and sentence-order heads (ERNIE's pretraining
     objective)."""
 

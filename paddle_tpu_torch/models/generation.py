@@ -1,12 +1,16 @@
-"""Decode helpers shared by the serving engine — port of the matching
-functions in ``paddle_tpu/models/generation.py``. The eager and compiled
-generate loops (with their KV-cached attention paths) are not ported
-yet."""
+"""Autoregressive decoding — port of ``paddle_tpu/models/generation.py``:
+the eager ``generate_loop`` (:63) behind ``LlamaForCausalLM.generate``,
+and the helpers the serving engine shares (``decode_surfaces``,
+``sample_token``). The compiled loop (``compiled_generate``) waits for
+CUDA-graph capture (ROADMAP §1 item 1).
+"""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["decode_surfaces", "sample_token"]
+from paddle_tpu_torch.core.generator import torch_generator
+
+__all__ = ["decode_surfaces", "sample_token", "generate_loop"]
 
 
 def decode_surfaces(model):
@@ -40,3 +44,36 @@ def sample_token(step_logits, temperature: float, top_k: int,
                          sl)
     probs = torch.softmax(sl, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+
+def generate_loop(prefill, decode, input_ids, max_new_tokens: int = 32,
+                  temperature: float = 1.0, top_k: int = 0,
+                  top_p: float = 1.0, eos_token_id=None) -> torch.Tensor:
+    """The full sequence ``[B, S + new]``, prompt included. A model
+    plugs in ``prefill(ids) -> (logits [B, 1, V], caches)`` and
+    ``decode(tok [B, 1], caches) -> (logits [B, 1, V], caches)``.
+
+    The tokens stay on the model's device, so without ``eos_token_id``
+    the loop never waits for the card. With it, the loop exits once
+    every row has emitted ``eos_token_id`` (rows that finish first pad
+    with it), so ``new`` is the step count taken, and no decode runs past
+    the last useful step, as in the reference."""
+    with torch.no_grad():
+        logits, caches = prefill(input_ids)
+        out = input_ids.long()
+        gen = torch_generator(out.device) if temperature != 0 else None
+        finished = torch.zeros(out.shape[0], dtype=torch.bool,
+                               device=out.device)
+        for i in range(max_new_tokens):
+            nxt = sample_token(logits[:, 0], temperature, top_k, top_p,
+                               gen).long()
+            if eos_token_id is not None:
+                nxt = torch.where(finished, torch.full_like(nxt, eos_token_id),
+                                  nxt)
+                finished |= nxt == eos_token_id
+            out = torch.cat([out, nxt[:, None]], dim=1)
+            if i == max_new_tokens - 1 or (eos_token_id is not None
+                                           and bool(finished.all())):
+                break  # the budget is spent: skip the unused forward
+            logits, caches = decode(nxt[:, None], caches)
+        return out

@@ -1,15 +1,17 @@
-"""Llama-3 family — port of ``paddle_tpu/models/llama.py``, serving and
-training paths.
+"""Llama-3 family — port of ``paddle_tpu/models/llama.py``: serving,
+training and eager generation.
 
 Ported: the config and its presets, the RoPE table and rotation, the
 token-packed block-paged forward that the serving engine's unified step
 runs (reference ``LlamaAttention._ragged_paged_forward``, ``:392``), the
 cacheless forward that training runs (flash attention, with segment ids
-from ``attention_mask`` and per-token ``position_ids``), the
-RMSNorm/SwiGLU decoder around them, the logits head and the causal-LM
-loss (the fused chunked CE for a tied vocab of at least 32768). The
-static-cache and eager-generate paths, recompute, tensor parallelism and
-the int8-KV branch are not ported yet.
+from ``attention_mask`` and per-token ``position_ids``), the eager
+growing ``(k, v)`` cache of ``generate`` (reference :267-280: the past
+keys and values concatenated with the new ones, then offset-causal
+attention over them), the RMSNorm/SwiGLU decoder around them, the logits
+head and the causal-LM loss (the fused chunked CE for a tied vocab of at
+least 32768). The static-cache path (``generate_compiled``), recompute,
+tensor parallelism and the int8-KV branch are not ported yet.
 
 Parameter names and shapes equal the reference's, so a numpy state dict
 moves between the packages unchanged (``utils/bridge.py``).
@@ -25,10 +27,13 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.dtype import convert_dtype
+from paddle_tpu_torch.core.tensor import unwrap_args, wrap
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.nn import Embedding, Linear, RMSNorm
 from paddle_tpu_torch.nn import initializer as I
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn.containers import LayerList
+from paddle_tpu_torch.nn.layer_base import Layer
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops.fused_ce import causal_lm_loss
 
@@ -128,7 +133,7 @@ def _rotate_at(q, k, position_ids, cos, sin):
     return _rot_interleaved(q, cos, sin), _rot_interleaved(k, cos, sin)
 
 
-class LlamaAttention(torch.nn.Module):
+class LlamaAttention(Layer):
     def __init__(self, cfg: LlamaConfig, *, device, dtype):
         super().__init__()
         self.cfg = cfg
@@ -155,14 +160,20 @@ class LlamaAttention(torch.nn.Module):
         [B, S, hidden] (reference :243-266). ``attention_mask`` [B, S]
         (1 real / 0 pad, or a packer's segment ids) becomes the kernel's
         segment ids; ``position_ids`` [B, S] sets per-token RoPE
-        positions."""
+        positions.
+
+        With an eager ``(past_k, past_v)`` pair (``(None, None)`` before
+        the prompt): ``generate``'s growing cache, returning ``(out,
+        (k_all, v_all))`` (reference :267-280)."""
         if cache is None:
             return self._cacheless_forward(x, rope, attention_mask,
                                            position_ids)
         if attention_mask is not None or position_ids is not None:
             raise NotImplementedError(
-                "the ragged paged path derives per-token positions and key "
+                "the cached paths derive per-token positions and key "
                 "liveness from the cache itself")
+        if not isinstance(cache, pa.RaggedLayerCache):
+            return self._eager_cache_forward(x, cache, rope)
         T = x.shape[1]
         hd = self.head_dim
         q = self.q_proj(x).reshape(T, self.n_heads, hd)
@@ -178,6 +189,32 @@ class LlamaAttention(torch.nn.Module):
             cache.positions, cache.step_seq, cache.step_blk,
             scale=1.0 / math.sqrt(hd), attn_impl=attn_impl)
         return self.o_proj(out.reshape(1, T, -1))
+
+    def _eager_cache_forward(self, x, cache, rope):
+        """RoPE at positions ``P .. P + S - 1`` after the ``P`` cached
+        ones, the new keys and values appended to the past ones (a copy
+        of the whole past each call, as the reference's ``concat``), and
+        offset-causal attention: query j sees keys up to ``P + j``. That
+        covers the prefill (P = 0) and each decode step (S = 1), through
+        the flash forward kernel on the card."""
+        B, S = x.shape[0], x.shape[1]
+        hd = self.head_dim
+        q = self.q_proj(x).reshape(B, S, self.n_heads, hd)
+        k = self.k_proj(x).reshape(B, S, self.n_kv, hd)
+        v = self.v_proj(x).reshape(B, S, self.n_kv, hd)
+        past_k, past_v = cache
+        P = 0 if past_k is None else past_k.shape[1]
+        cos_t, sin_t = rope
+        if P + S > cos_t.shape[0]:
+            cos_t, sin_t = _rope_table(P + S, hd, self.cfg.rope_theta, x)
+        cos = cos_t[None, P:P + S, None, :]
+        sin = sin_t[None, P:P + S, None, :]
+        q, k = _rot_interleaved(q, cos, sin), _rot_interleaved(k, cos, sin)
+        if P:
+            k = torch.cat([past_k, k], dim=1)
+            v = torch.cat([past_v, v], dim=1)
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return self.o_proj(out.reshape(B, S, -1)), (k, v)
 
     def _cacheless_forward(self, x, rope, attention_mask, position_ids):
         B, S = x.shape[0], x.shape[1]
@@ -201,7 +238,7 @@ class LlamaAttention(torch.nn.Module):
         return self.o_proj(out.reshape(B, S, -1))
 
 
-class LlamaMLP(torch.nn.Module):
+class LlamaMLP(Layer):
     def __init__(self, cfg: LlamaConfig, *, device, dtype):
         super().__init__()
         mk = functools.partial(Linear, device=device, dtype=dtype,
@@ -214,7 +251,7 @@ class LlamaMLP(torch.nn.Module):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
-class LlamaDecoderLayer(torch.nn.Module):
+class LlamaDecoderLayer(Layer):
     def __init__(self, cfg: LlamaConfig, *, device, dtype):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -227,19 +264,24 @@ class LlamaDecoderLayer(torch.nn.Module):
 
     def forward(self, x, cache, rope, attn_impl="rpa", attention_mask=None,
                 position_ids=None):
-        x = x + self.self_attn(self.input_layernorm(x), cache, rope,
-                               attn_impl, attention_mask, position_ids)
-        return x + self.mlp(self.post_attention_layernorm(x))
+        h = self.self_attn(self.input_layernorm(x), cache, rope,
+                           attn_impl, attention_mask, position_ids)
+        new_cache = None
+        if isinstance(h, tuple):  # the eager cache: (out, (k_all, v_all))
+            h, new_cache = h
+        x = x + h
+        x = x + self.mlp(self.post_attention_layernorm(x))
+        return x if new_cache is None else (x, new_cache)
 
 
-class LlamaModel(torch.nn.Module):
+class LlamaModel(Layer):
     def __init__(self, cfg: LlamaConfig, *, device, dtype):
         super().__init__()
         self.cfg = cfg
         kw = dict(device=device, dtype=dtype)
         self.embed_tokens = Embedding(cfg.vocab_size, cfg.hidden_size,
                                       weight_attr=I.Constant(0.0), **kw)
-        self.layers = torch.nn.ModuleList(
+        self.layers = LayerList(
             [LlamaDecoderLayer(cfg, **kw)
              for _ in range(cfg.num_hidden_layers)])
         self.norm = RMSNorm(cfg.hidden_size, epsilon=cfg.rms_norm_eps, **kw)
@@ -264,7 +306,11 @@ class LlamaModel(torch.nn.Module):
         Serving: ``input_ids`` [1, T] token-packed ids and one
         :class:`~paddle_tpu_torch.ops.paged_attention.RaggedLayerCache`
         per layer -> ``(final-norm hidden [1, T, hidden], caches)``. The
-        pools inside the caches are updated in place."""
+        pools inside the caches are updated in place.
+
+        Eager generation: ``input_ids`` [B, S] and one ``(past_k,
+        past_v)`` pair per layer (``(None, None)`` before the prompt) ->
+        ``(final-norm hidden [B, S, hidden], the grown pairs)``."""
         rope = (self.rope_cos, self.rope_sin)
         if caches is None:
             x = self.embed_tokens(input_ids)
@@ -281,12 +327,18 @@ class LlamaModel(torch.nn.Module):
                 f"caches has {len(caches)} entries for "
                 f"{len(self.layers)} layers")
         x = self.embed_tokens(input_ids)
+        if not isinstance(caches[0], pa.RaggedLayerCache):
+            grown = []
+            for layer, c in zip(self.layers, caches):
+                x, c = layer(x, tuple(c), rope)
+                grown.append(c)
+            return self.norm(x), grown
         for layer, c in zip(self.layers, caches):
             x = layer(x, c, rope, attn_impl)
         return self.norm(x), caches
 
 
-class LlamaForCausalLM(torch.nn.Module):
+class LlamaForCausalLM(Layer):
     """Llama causal LM. ``device=None`` is the CUDA card; pass
     ``device="cpu"`` to build on the CPU. Weights start from the
     reference's init recipe drawn from a ``torch.Generator`` seeded with
@@ -354,6 +406,33 @@ class LlamaForCausalLM(torch.nn.Module):
         if self.lm_head is not None:
             return self.lm_head(h)
         return torch.matmul(h, self.model.embed_tokens.weight.t())
+
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 temperature: float = 1.0, top_k: int = 0,
+                 top_p: float = 1.0, eos_token_id=None):
+        """KV-cached autoregressive decoding (reference :642-659): the
+        prompt ``input_ids`` [B, S] and up to ``max_new_tokens`` new
+        tokens, ``[B, S + new]``. Greedy at ``temperature == 0``, else
+        ``models.generation.sample_token`` with top-k / nucleus filtering
+        from the default generator; the loop ends early once every row
+        has emitted ``eos_token_id`` (see ``generation.generate_loop``).
+        Given a Paddle ``Tensor`` it returns one."""
+        from .generation import generate_loop
+        (ids,), _, had = unwrap_args((input_ids,), None)
+        ids = torch.as_tensor(ids).to(self.model.embed_tokens.weight.device)
+
+        def prefill(tokens):
+            caches = [(None, None)] * self.cfg.num_hidden_layers
+            h, caches = self.model(tokens, caches=caches)
+            return self._logits(h[:, -1:]), caches
+
+        def decode(tok, caches):
+            h, caches = self.model(tok, caches=caches)
+            return self._logits(h), caches
+
+        out = generate_loop(prefill, decode, ids, max_new_tokens,
+                            temperature, top_k, top_p, eos_token_id)
+        return wrap(out) if had else out
 
     @staticmethod
     def flops_per_token(cfg: LlamaConfig) -> float:

@@ -30,6 +30,8 @@ from paddle_tpu_torch.nn import initializer as I
 from paddle_tpu_torch.ops.fused_ce import causal_lm_loss
 from .llama import (_ZERO_NO_BIAS, LlamaAttention, LlamaConfig, LlamaMLP,
                     _rope_cache)
+from paddle_tpu_torch.nn.containers import LayerList
+from paddle_tpu_torch.nn.layer_base import Layer
 
 __all__ = ["MoeConfig", "MoeDecoderLayer", "MoeForCausalLM"]
 
@@ -96,7 +98,7 @@ class MoeConfig:
             tensor_parallel=self.tensor_parallel)
 
 
-class MoeDecoderLayer(torch.nn.Module):
+class MoeDecoderLayer(Layer):
     def __init__(self, cfg: MoeConfig, layer_idx: int, *, device, dtype):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
@@ -133,7 +135,7 @@ class MoeDecoderLayer(torch.nn.Module):
         return x + routed
 
 
-class MoeForCausalLM(torch.nn.Module):
+class MoeForCausalLM(Layer):
     """Decoder-only MoE LM; ``forward(ids, labels)`` returns ``(None,
     loss)`` with the gate-balance aux loss folded in, ``forward(ids)`` the
     logits. ``device=None`` is the CUDA card; pass ``device="cpu"`` to
@@ -158,7 +160,7 @@ class MoeForCausalLM(torch.nn.Module):
         self.cfg = cfg
         self.embed_tokens = Embedding(cfg.vocab_size, cfg.hidden_size,
                                       weight_attr=I.Constant(0.0), **kw)
-        self.layers = torch.nn.ModuleList(
+        self.layers = LayerList(
             [MoeDecoderLayer(cfg, i, **kw)
              for i in range(cfg.num_hidden_layers)])
         self.norm = RMSNorm(cfg.hidden_size, epsilon=cfg.rms_norm_eps, **kw)

@@ -18,6 +18,7 @@ import torch
 
 from paddle_tpu_torch import nn
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn.layer_base import Layer
 
 __all__ = ["PPOCRRecConfig", "PPOCRRecModel", "ConvBNLayer",
            "DepthwiseSeparable", "MobileNetBackbone", "Im2Seq",
@@ -40,7 +41,7 @@ class PPOCRRecConfig:
         return PPOCRRecConfig(**base)
 
 
-class ConvBNLayer(torch.nn.Module):
+class ConvBNLayer(Layer):
     def __init__(self, cin, cout, kernel=3, stride=1, groups=1, *,
                  device=None, dtype=torch.float32):
         super().__init__()
@@ -53,7 +54,7 @@ class ConvBNLayer(torch.nn.Module):
         return F.hardswish(self.bn(self.conv(x)))
 
 
-class DepthwiseSeparable(torch.nn.Module):
+class DepthwiseSeparable(Layer):
     def __init__(self, cin, cout, stride, **kw):
         super().__init__()
         self.dw = ConvBNLayer(cin, cin, 3, stride=stride, groups=cin, **kw)
@@ -63,7 +64,7 @@ class DepthwiseSeparable(torch.nn.Module):
         return self.pw(self.dw(x))
 
 
-class MobileNetBackbone(torch.nn.Module):
+class MobileNetBackbone(Layer):
     """Height down to 1 and width by 4 (stride (2, 1) in the last block
     keeps the sequence long), then a max pool over the remaining
     ``img_height // 8`` rows."""
@@ -82,13 +83,13 @@ class MobileNetBackbone(torch.nn.Module):
         return F.max_pool2d(x, kernel_size=[self.pool_h, 1])
 
 
-class Im2Seq(torch.nn.Module):
+class Im2Seq(Layer):
     def forward(self, x):
         """[B, C, 1, W] -> [B, W, C]."""
         return x.reshape(x.shape[0], x.shape[1], -1).transpose(1, 2)
 
 
-class SequenceEncoder(torch.nn.Module):
+class SequenceEncoder(Layer):
     def __init__(self, cin, hidden, **kw):
         super().__init__()
         self.lstm = nn.LSTM(cin, hidden, num_layers=2, direction="bidirect",
@@ -99,7 +100,7 @@ class SequenceEncoder(torch.nn.Module):
         return out
 
 
-class CTCHead(torch.nn.Module):
+class CTCHead(Layer):
     def __init__(self, cin, num_classes, **kw):
         super().__init__()
         self.fc = nn.Linear(cin, num_classes, **kw)
@@ -108,7 +109,7 @@ class CTCHead(torch.nn.Module):
         return self.fc(x)
 
 
-class PPOCRRecModel(torch.nn.Module):
+class PPOCRRecModel(Layer):
     """``forward(images [B, C, H, W]) -> logits [B, W / 4, num_classes]``;
     ``loss(logits, labels, label_lengths)`` is the CTC objective over
     every frame, blank 0."""

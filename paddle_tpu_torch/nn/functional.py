@@ -9,10 +9,13 @@ goes to ``torch.nn.functional.conv*``, as the reference leaves it to
 ``lax.conv_general_dilated`` outside any Pallas kernel, and so do the
 batch, instance and group norms, pooling and CTC (the reference computes
 them with XLA reductions, ``reduce_window`` and a ``lax.scan``);
-attention goes to the flash-attention kernels.
+attention goes to the flash-attention kernels. Every public function
+also takes Paddle ``Tensor``s from user code and gives them back
+(``_facade_boundary``).
 """
 from __future__ import annotations
 
+import functools
 
 import numpy as np
 import torch
@@ -784,3 +787,26 @@ def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
 from paddle_tpu_torch.nn import functional_extras as _fx  # noqa: E402
 from paddle_tpu_torch.nn.functional_extras import *  # noqa: F401,F403,E402
 __all__ = list(__all__) + list(_fx.__all__)
+
+
+def _facade_boundary(fn):
+    """``fn`` as the user API: called from outside a port layer's
+    ``forward`` with Paddle ``Tensor`` arguments, it computes on their
+    plain aliases and returns ``Tensor``s (``core/tensor.py``); inside a
+    port forward (plain tensors only) it is ``fn`` behind one
+    thread-local read."""
+    from paddle_tpu_torch.core.tensor import unwrap_args, wrap
+    from paddle_tpu_torch.nn.layer_base import _state
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        if _state.in_port:
+            return fn(*args, **kwargs)
+        args, kwargs, had = unwrap_args(args, kwargs)
+        out = fn(*args, **kwargs)
+        return wrap(out) if had else out
+    return call
+
+
+for _name in __all__:
+    globals()[_name] = _facade_boundary(globals()[_name])

@@ -13,6 +13,7 @@ from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn import initializer as I
 from paddle_tpu_torch.param_attr import create_parameter
+from paddle_tpu_torch.nn.layer_base import Layer
 
 __all__ = [
     "CELU", "ELU", "GELU", "GLU", "Hardshrink", "Hardsigmoid", "Hardswish",
@@ -23,7 +24,7 @@ __all__ = [
 ]
 
 
-class ReLU(torch.nn.Module):
+class ReLU(Layer):
     def __init__(self, name=None):
         super().__init__()
 
@@ -31,7 +32,7 @@ class ReLU(torch.nn.Module):
         return F.relu(x)
 
 
-class ReLU6(torch.nn.Module):
+class ReLU6(Layer):
     def __init__(self, name=None):
         super().__init__()
 
@@ -39,7 +40,7 @@ class ReLU6(torch.nn.Module):
         return F.relu6(x)
 
 
-class GELU(torch.nn.Module):
+class GELU(Layer):
     def __init__(self, approximate=False, name=None):
         super().__init__()
         self._approximate = approximate
@@ -51,7 +52,7 @@ class GELU(torch.nn.Module):
         return f"approximate={self._approximate}"
 
 
-class Sigmoid(torch.nn.Module):
+class Sigmoid(Layer):
     def __init__(self, name=None):
         super().__init__()
 
@@ -59,7 +60,7 @@ class Sigmoid(torch.nn.Module):
         return F.sigmoid(x)
 
 
-class Tanh(torch.nn.Module):
+class Tanh(Layer):
     def __init__(self, name=None):
         super().__init__()
 
@@ -67,7 +68,7 @@ class Tanh(torch.nn.Module):
         return F.tanh(x)
 
 
-class Softmax(torch.nn.Module):
+class Softmax(Layer):
     def __init__(self, axis=-1, name=None):
         super().__init__()
         self._axis = axis
@@ -79,7 +80,7 @@ class Softmax(torch.nn.Module):
         return f"axis={self._axis}"
 
 
-class LogSoftmax(torch.nn.Module):
+class LogSoftmax(Layer):
     def __init__(self, axis=-1, name=None):
         super().__init__()
         self._axis = axis
@@ -88,7 +89,7 @@ class LogSoftmax(torch.nn.Module):
         return F.log_softmax(x, axis=self._axis)
 
 
-class LogSigmoid(torch.nn.Module):
+class LogSigmoid(Layer):
     def __init__(self, name=None):
         super().__init__()
 
@@ -96,7 +97,7 @@ class LogSigmoid(torch.nn.Module):
         return F.log_sigmoid(x)
 
 
-class LeakyReLU(torch.nn.Module):
+class LeakyReLU(Layer):
     def __init__(self, negative_slope=0.01, name=None):
         super().__init__()
         self._negative_slope = negative_slope
@@ -108,7 +109,7 @@ class LeakyReLU(torch.nn.Module):
         return f"negative_slope={self._negative_slope}"
 
 
-class ELU(torch.nn.Module):
+class ELU(Layer):
     def __init__(self, alpha=1.0, name=None):
         super().__init__()
         self._alpha = alpha
@@ -117,7 +118,7 @@ class ELU(torch.nn.Module):
         return F.elu(x, self._alpha)
 
 
-class SELU(torch.nn.Module):
+class SELU(Layer):
     def __init__(self, scale=1.0507009873554805, alpha=1.6732632423543772,
                  name=None):
         super().__init__()
@@ -128,7 +129,7 @@ class SELU(torch.nn.Module):
         return F.selu(x, self._scale, self._alpha)
 
 
-class CELU(torch.nn.Module):
+class CELU(Layer):
     def __init__(self, alpha=1.0, name=None):
         super().__init__()
         self._alpha = alpha
@@ -137,7 +138,7 @@ class CELU(torch.nn.Module):
         return F.celu(x, self._alpha)
 
 
-class GLU(torch.nn.Module):
+class GLU(Layer):
     def __init__(self, axis=-1, name=None):
         super().__init__()
         self._axis = axis
@@ -146,7 +147,7 @@ class GLU(torch.nn.Module):
         return F.glu(x, self._axis)
 
 
-class Hardshrink(torch.nn.Module):
+class Hardshrink(Layer):
     def __init__(self, threshold=0.5, name=None):
         super().__init__()
         self._threshold = threshold
@@ -155,7 +156,7 @@ class Hardshrink(torch.nn.Module):
         return F.hardshrink(x, self._threshold)
 
 
-class Hardsigmoid(torch.nn.Module):
+class Hardsigmoid(Layer):
     def __init__(self, name=None):
         super().__init__()
 
@@ -163,7 +164,7 @@ class Hardsigmoid(torch.nn.Module):
         return F.hardsigmoid(x)
 
 
-class Hardswish(torch.nn.Module):
+class Hardswish(Layer):
     def __init__(self, name=None):
         super().__init__()
 
@@ -171,7 +172,7 @@ class Hardswish(torch.nn.Module):
         return F.hardswish(x)
 
 
-class Hardtanh(torch.nn.Module):
+class Hardtanh(Layer):
     def __init__(self, min=-1.0, max=1.0, name=None):
         super().__init__()
         self._min, self._max = min, max
@@ -180,7 +181,7 @@ class Hardtanh(torch.nn.Module):
         return F.hardtanh(x, self._min, self._max)
 
 
-class Maxout(torch.nn.Module):
+class Maxout(Layer):
     def __init__(self, groups, axis=1, name=None):
         super().__init__()
         self._groups, self._axis = groups, axis
@@ -189,7 +190,7 @@ class Maxout(torch.nn.Module):
         return F.maxout(x, self._groups, self._axis)
 
 
-class Mish(torch.nn.Module):
+class Mish(Layer):
     def __init__(self, name=None):
         super().__init__()
 
@@ -197,7 +198,7 @@ class Mish(torch.nn.Module):
         return F.mish(x)
 
 
-class PReLU(torch.nn.Module):
+class PReLU(Layer):
     """Learnable leaky slope: a parameter of shape ``[num_parameters]``
     (one for all channels, or one per channel of axis 1)."""
 
@@ -215,7 +216,7 @@ class PReLU(torch.nn.Module):
         return F.prelu(x, self.weight)
 
 
-class RReLU(torch.nn.Module):
+class RReLU(Layer):
     def __init__(self, lower=1.0 / 8, upper=1.0 / 3, name=None):
         super().__init__()
         self._lower, self._upper = lower, upper
@@ -224,7 +225,7 @@ class RReLU(torch.nn.Module):
         return F.rrelu(x, self._lower, self._upper, training=self.training)
 
 
-class Silu(torch.nn.Module):
+class Silu(Layer):
     def __init__(self, name=None):
         super().__init__()
 
@@ -232,7 +233,7 @@ class Silu(torch.nn.Module):
         return F.silu(x)
 
 
-class Softplus(torch.nn.Module):
+class Softplus(Layer):
     def __init__(self, beta=1.0, threshold=20.0, name=None):
         super().__init__()
         self._beta, self._threshold = beta, threshold
@@ -241,7 +242,7 @@ class Softplus(torch.nn.Module):
         return F.softplus(x, self._beta, self._threshold)
 
 
-class Softshrink(torch.nn.Module):
+class Softshrink(Layer):
     def __init__(self, threshold=0.5, name=None):
         super().__init__()
         self._threshold = threshold
@@ -250,7 +251,7 @@ class Softshrink(torch.nn.Module):
         return F.softshrink(x, self._threshold)
 
 
-class Softsign(torch.nn.Module):
+class Softsign(Layer):
     def __init__(self, name=None):
         super().__init__()
 
@@ -258,7 +259,7 @@ class Softsign(torch.nn.Module):
         return F.softsign(x)
 
 
-class Swish(torch.nn.Module):
+class Swish(Layer):
     def __init__(self, name=None):
         super().__init__()
 
@@ -266,7 +267,7 @@ class Swish(torch.nn.Module):
         return F.swish(x)
 
 
-class Tanhshrink(torch.nn.Module):
+class Tanhshrink(Layer):
     def __init__(self, name=None):
         super().__init__()
 
@@ -274,7 +275,7 @@ class Tanhshrink(torch.nn.Module):
         return F.tanhshrink(x)
 
 
-class ThresholdedReLU(torch.nn.Module):
+class ThresholdedReLU(Layer):
     def __init__(self, threshold=1.0, name=None):
         super().__init__()
         self._threshold = threshold

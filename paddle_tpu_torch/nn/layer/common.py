@@ -19,11 +19,12 @@ from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn import initializer as I
 from paddle_tpu_torch.param_attr import ParamAttr, create_parameter
+from paddle_tpu_torch.nn.layer_base import Layer
 
 __all__ = ["Linear", "Embedding", "Identity", "Dropout", "Flatten"]
 
 
-class Identity(torch.nn.Module):
+class Identity(Layer):
     def __init__(self, *args, **kwargs):
         super().__init__()
 
@@ -31,7 +32,7 @@ class Identity(torch.nn.Module):
         return x
 
 
-class Linear(torch.nn.Module):
+class Linear(Layer):
     """``y = x @ W + b`` with ``W`` of shape ``[in_features,
     out_features]``; ``bias_attr=False`` leaves out ``b``."""
 
@@ -55,7 +56,7 @@ class Linear(torch.nn.Module):
             f"bias={self.bias is not None}"
 
 
-class Embedding(torch.nn.Module):
+class Embedding(Layer):
     """Token lookup over a ``[num_embeddings, embedding_dim]`` table; the
     row of ``padding_idx`` starts at 0 and reads as 0."""
 
@@ -85,7 +86,7 @@ class Embedding(torch.nn.Module):
         return f"{self.weight.shape[0]}, {self.weight.shape[1]}"
 
 
-class Flatten(torch.nn.Module):
+class Flatten(Layer):
     """Merge the axes ``start_axis..stop_axis`` into one."""
 
     def __init__(self, start_axis=1, stop_axis=-1):
@@ -97,7 +98,7 @@ class Flatten(torch.nn.Module):
         return torch.flatten(x, self._start_axis, self._stop_axis)
 
 
-class Dropout(torch.nn.Module):
+class Dropout(Layer):
     """``F.dropout`` in training mode, per ``mode`` at inference."""
 
     def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):

@@ -17,6 +17,7 @@ from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn import initializer as I
 from paddle_tpu_torch.param_attr import ParamAttr, create_parameter
+from paddle_tpu_torch.nn.layer_base import Layer
 
 __all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose", "Conv2DTranspose",
            "Conv3DTranspose"]
@@ -28,7 +29,7 @@ def _ntuple(v, n):
     return (v,) * n
 
 
-class _ConvNd(torch.nn.Module):
+class _ConvNd(Layer):
     _nd = 2
     _transpose = False
 

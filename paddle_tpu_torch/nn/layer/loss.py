@@ -4,15 +4,14 @@ Paddle's reduction. The margin, triplet, Poisson and Gaussian losses
 are not ported yet."""
 from __future__ import annotations
 
-import torch
-
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn.layer_base import Layer
 
 __all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss",
            "BCEWithLogitsLoss", "SmoothL1Loss", "KLDivLoss", "CTCLoss"]
 
 
-class CrossEntropyLoss(torch.nn.Module):
+class CrossEntropyLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  soft_label=False, axis=-1, use_softmax=True,
                  label_smoothing=0.0, name=None):
@@ -34,7 +33,7 @@ class CrossEntropyLoss(torch.nn.Module):
             label_smoothing=self._label_smoothing)
 
 
-class MSELoss(torch.nn.Module):
+class MSELoss(Layer):
     def __init__(self, reduction="mean"):
         super().__init__()
         self._reduction = reduction
@@ -43,7 +42,7 @@ class MSELoss(torch.nn.Module):
         return F.mse_loss(input, label, self._reduction)
 
 
-class L1Loss(torch.nn.Module):
+class L1Loss(Layer):
     def __init__(self, reduction="mean", name=None):
         super().__init__()
         self._reduction = reduction
@@ -52,7 +51,7 @@ class L1Loss(torch.nn.Module):
         return F.l1_loss(input, label, self._reduction)
 
 
-class NLLLoss(torch.nn.Module):
+class NLLLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  name=None):
         super().__init__()
@@ -65,7 +64,7 @@ class NLLLoss(torch.nn.Module):
                           self._reduction)
 
 
-class BCELoss(torch.nn.Module):
+class BCELoss(Layer):
     def __init__(self, weight=None, reduction="mean", name=None):
         super().__init__()
         self._weight = weight
@@ -76,7 +75,7 @@ class BCELoss(torch.nn.Module):
                                       self._reduction)
 
 
-class BCEWithLogitsLoss(torch.nn.Module):
+class BCEWithLogitsLoss(Layer):
     def __init__(self, weight=None, reduction="mean", pos_weight=None,
                  name=None):
         super().__init__()
@@ -89,7 +88,7 @@ class BCEWithLogitsLoss(torch.nn.Module):
             logit, label, self._weight, self._reduction, self._pos_weight)
 
 
-class SmoothL1Loss(torch.nn.Module):
+class SmoothL1Loss(Layer):
     def __init__(self, reduction="mean", delta=1.0, name=None):
         super().__init__()
         self._reduction = reduction
@@ -99,7 +98,7 @@ class SmoothL1Loss(torch.nn.Module):
         return F.smooth_l1_loss(input, label, self._reduction, self._delta)
 
 
-class KLDivLoss(torch.nn.Module):
+class KLDivLoss(Layer):
     def __init__(self, reduction="mean"):
         super().__init__()
         self._reduction = reduction
@@ -108,7 +107,7 @@ class KLDivLoss(torch.nn.Module):
         return F.kl_div(input, label, self._reduction)
 
 
-class CTCLoss(torch.nn.Module):
+class CTCLoss(Layer):
     """``F.ctc_loss`` with a fixed ``blank`` and reduction.
     ``norm_by_times=True`` raises: the reference accepts it and computes
     nothing of it."""

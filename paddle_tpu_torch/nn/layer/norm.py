@@ -16,10 +16,12 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.dtype import convert_dtype
+from paddle_tpu_torch.core.tensor import Parameter
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn import initializer as I
 from paddle_tpu_torch.param_attr import ParamAttr, create_parameter
+from paddle_tpu_torch.nn.layer_base import Layer
 
 __all__ = ["LayerNorm", "RMSNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
            "BatchNorm3D", "SyncBatchNorm", "GroupNorm", "InstanceNorm1D",
@@ -27,7 +29,7 @@ __all__ = ["LayerNorm", "RMSNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
            "SpectralNorm"]
 
 
-class LayerNorm(torch.nn.Module):
+class LayerNorm(Layer):
     """LayerNorm over the trailing ``normalized_shape``, with a scale that
     starts at ones and a bias at zeros; ``weight_attr=False`` /
     ``bias_attr=False`` leave either out (DiT's norms have neither)."""
@@ -56,14 +58,14 @@ class LayerNorm(torch.nn.Module):
         return f"normalized_shape={self._normalized_shape}"
 
 
-class RMSNorm(torch.nn.Module):
+class RMSNorm(Layer):
     """Root-mean-square norm with a learned scale that starts at ones."""
 
     def __init__(self, hidden_size, epsilon=1e-6, *, device,
                  dtype=torch.float32):
         super().__init__()
         self.epsilon = epsilon
-        self.weight = torch.nn.Parameter(torch.ones(
+        self.weight = Parameter(torch.ones(
             hidden_size, device=device, dtype=dtype))
 
     def forward(self, x):
@@ -81,7 +83,7 @@ def _scale_and_shift(n, weight_attr, bias_attr, kw):
     return weight, bias
 
 
-class _BatchNormBase(torch.nn.Module):
+class _BatchNormBase(Layer):
     """Batch norm over axis 1 (the last axis for a channel-last
     ``data_format``) with Paddle's momentum: in training the running
     buffers move by ``momentum * running + (1 - momentum) * batch``
@@ -169,7 +171,7 @@ class SyncBatchNorm(_BatchNormBase):
         return out
 
 
-class GroupNorm(torch.nn.Module):
+class GroupNorm(Layer):
     def __init__(self, num_groups, num_channels, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  name=None, *, device=None, dtype=torch.float32):
@@ -191,7 +193,7 @@ class GroupNorm(torch.nn.Module):
                 f"num_channels={self._num_channels}")
 
 
-class _InstanceNormBase(torch.nn.Module):
+class _InstanceNormBase(Layer):
     """Instance norm; the reference names its weight ``scale``."""
 
     def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
@@ -221,7 +223,7 @@ class InstanceNorm3D(_InstanceNormBase):
     pass
 
 
-class LocalResponseNorm(torch.nn.Module):
+class LocalResponseNorm(Layer):
     def __init__(self, size, alpha=1e-4, beta=0.75, k=1.0,
                  data_format="NCHW", name=None):
         super().__init__()
@@ -234,7 +236,7 @@ class LocalResponseNorm(torch.nn.Module):
                                      self._data_format)
 
 
-class SpectralNorm(torch.nn.Module):
+class SpectralNorm(Layer):
     """A weight divided by its largest singular value, estimated by
     ``power_iters`` steps of power iteration from the buffers
     ``weight_u`` and ``weight_v`` (drawn from N(0, 1) on the port's

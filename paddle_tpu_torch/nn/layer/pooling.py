@@ -3,9 +3,8 @@ and average pools, the adaptive pools and ``MaxUnPool2D``, each one call
 of :mod:`paddle_tpu_torch.nn.functional`. They hold no parameters."""
 from __future__ import annotations
 
-import torch
-
 from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.nn.layer_base import Layer
 
 __all__ = ["MaxUnPool2D",
            "MaxPool1D", "MaxPool2D", "MaxPool3D", "AvgPool1D", "AvgPool2D",
@@ -20,7 +19,7 @@ def _no_mask(return_mask):
             "return_mask=True (argmax indices) is not implemented")
 
 
-class _PoolNd(torch.nn.Module):
+class _PoolNd(Layer):
     _nd = 2
     _mode = "max"
     _default_fmt = "NCHW"
@@ -71,7 +70,7 @@ class AvgPool3D(_PoolNd):
     _nd, _mode, _default_fmt = 3, "avg", "NCDHW"
 
 
-class _AdaptivePoolNd(torch.nn.Module):
+class _AdaptivePoolNd(Layer):
     _nd = 2
     _mode = "avg"
     _default_fmt = "NCHW"
@@ -115,7 +114,7 @@ class AdaptiveMaxPool3D(_AdaptivePoolNd):
     _nd, _mode, _default_fmt = 3, "max", "NCDHW"
 
 
-class MaxUnPool2D(torch.nn.Module):
+class MaxUnPool2D(Layer):
     """The inverse of ``max_pool2d_with_index``: pooled values back at
     their recorded positions, zeros elsewhere."""
 

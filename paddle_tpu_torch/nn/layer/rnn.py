@@ -43,6 +43,7 @@ from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn import initializer as I
 from paddle_tpu_torch.nn.containers import LayerList
 from paddle_tpu_torch.param_attr import ParamAttr, create_parameter
+from paddle_tpu_torch.nn.layer_base import Layer
 
 __all__ = ["RNNCellBase", "SimpleRNNCell", "LSTMCell", "GRUCell", "RNN",
            "BiRNN", "SimpleRNN", "LSTM", "GRU"]
@@ -69,7 +70,7 @@ def _cast(params, dt):
     return tuple(None if p is None else p.to(dt) for p in params)
 
 
-class RNNCellBase(torch.nn.Module):
+class RNNCellBase(Layer):
     def get_initial_states(self, batch_ref, shape=None, dtype=None,
                            init_value=0.0):
         """States of ``init_value`` for ``batch_ref``'s batch (its first
@@ -289,7 +290,7 @@ def _back(out, fin, dtype):
     return out.to(dtype), cast(fin)
 
 
-class RNN(torch.nn.Module):
+class RNN(Layer):
     """``cell`` over a sequence (the step loop on every device)."""
 
     def __init__(self, cell, is_reverse=False, time_major=False):
@@ -309,7 +310,7 @@ class RNN(torch.nn.Module):
         return _back(out, fin, inputs.dtype)
 
 
-class BiRNN(torch.nn.Module):
+class BiRNN(Layer):
     """``cell_fw`` forward and ``cell_bw`` backward over a sequence, the
     outputs concatenated (the step loop on every device)."""
 
@@ -334,7 +335,7 @@ class BiRNN(torch.nn.Module):
                      (fin_fw, fin_bw), inputs.dtype)
 
 
-class _RNNBase(torch.nn.Module):
+class _RNNBase(Layer):
     """A stack of ``num_layers`` recurrent layers, each forward or
     bidirectional; dropout between layers in training. Initial and final
     states are ``[num_layers * num_directions, batch, hidden]`` (an LSTM's

@@ -27,6 +27,7 @@ from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.containers import LayerList
 from .common import Dropout, Linear
 from .norm import LayerNorm
+from paddle_tpu_torch.nn.layer_base import Layer
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer",
            "TransformerEncoder", "TransformerDecoderLayer",
@@ -43,7 +44,7 @@ def _convert_attn_mask(mask, dtype):
                                   device=mask.device)).to(dtype)
 
 
-class MultiHeadAttention(torch.nn.Module):
+class MultiHeadAttention(Layer):
     """q/k/v/out projections around scaled dot-product attention, in
     ``[batch, seq, embed_dim]`` layout, with incremental-decoding caches:
     ``Cache`` holds the growing self-attention k/v, ``StaticCache`` the
@@ -142,7 +143,7 @@ class MultiHeadAttention(torch.nn.Module):
 _ACTS = {"relu": F.relu, "gelu": F.gelu, "silu": F.silu, "swish": F.silu}
 
 
-class TransformerEncoderLayer(torch.nn.Module):
+class TransformerEncoderLayer(Layer):
     """Self-attention and a feed-forward block, each with a residual and
     a LayerNorm after it (``normalize_before=True``: before it)."""
 
@@ -200,7 +201,7 @@ def _clones(layer, n):
                       for i in range(n)])
 
 
-class TransformerEncoder(torch.nn.Module):
+class TransformerEncoder(Layer):
     def __init__(self, encoder_layer, num_layers, norm=None):
         super().__init__()
         self.layers = _clones(encoder_layer, num_layers)
@@ -224,7 +225,7 @@ class TransformerEncoder(torch.nn.Module):
         return [layer.gen_cache(src) for layer in self.layers]
 
 
-class TransformerDecoderLayer(torch.nn.Module):
+class TransformerDecoderLayer(Layer):
     """Self-attention, cross-attention over ``memory`` and a feed-forward
     block, each with a residual and a LayerNorm."""
 
@@ -299,7 +300,7 @@ class TransformerDecoderLayer(torch.nn.Module):
         return incremental, static
 
 
-class TransformerDecoder(torch.nn.Module):
+class TransformerDecoder(Layer):
     def __init__(self, decoder_layer, num_layers, norm=None):
         super().__init__()
         self.layers = _clones(decoder_layer, num_layers)
@@ -328,7 +329,7 @@ class TransformerDecoder(torch.nn.Module):
         return caches
 
 
-class Transformer(torch.nn.Module):
+class Transformer(Layer):
     """The full encoder-decoder."""
 
     def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,

@@ -96,6 +96,27 @@ def ragged_gather_attention(q, k_pool, v_pool, block_tables, seq_ids,
     return out.reshape(T, n_heads, hd)
 
 
+def _pad_to_kernel_head_dim(q, k_pool, v_pool):
+    """On the card, a head_dim the RPA kernel has no instance for (a
+    test-size model's 16, say) zero-padded to the next instance's, as
+    ``flash_attention_bhsd`` pads K1-K3: zero columns of q and k leave
+    every score as it was (the scale is the caller's), and the padded
+    columns of v give output columns the step slices off. The pools are
+    copied each call, so only small models should take this path; the
+    calls are counted in ``ragged_paged_attention.launches_padded``."""
+    from paddle_tpu_torch.ops.pallas import ragged_paged_attention as rpa
+    hd = q.shape[-1]
+    if q.device.type != "cuda" or hd in rpa._HEAD_DIMS:
+        return q, k_pool, v_pool
+    width = next((w for w in rpa._HEAD_DIMS if w > hd), None)
+    if width is None:
+        return q, k_pool, v_pool  # the kernel's wrapper refuses it
+    rpa.ragged_paged_attention.launches_padded += 1
+    pad = (0, width - hd)
+    return tuple(torch.nn.functional.pad(t, pad) for t in (q, k_pool,
+                                                           v_pool))
+
+
 def ragged_paged_attention_step(q, k, v, k_pool, v_pool, block_tables,
                                 cu_seqlens, context_lens, seq_ids,
                                 positions, step_seq, step_blk, *,
@@ -119,9 +140,10 @@ def ragged_paged_attention_step(q, k, v, k_pool, v_pool, block_tables,
     write_tokens_to_pool(k_pool, k, block_tables, seq_ids, positions)
     write_tokens_to_pool(v_pool, v, block_tables, seq_ids, positions)
     if attn_impl == "rpa":
+        q_in, kp, vp = _pad_to_kernel_head_dim(q, k_pool, v_pool)
         out = ragged_paged_attention(
-            q, k_pool, v_pool, block_tables, cu_seqlens, context_lens,
-            step_seq, step_blk, sm_scale=scale)
+            q_in, kp, vp, block_tables, cu_seqlens, context_lens,
+            step_seq, step_blk, sm_scale=scale)[..., :hd]
     elif attn_impl == "gather":
         out = ragged_gather_attention(
             q, k_pool, v_pool, block_tables, seq_ids, positions,

@@ -464,3 +464,6 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, cu_seqlens,
 #: kernel launches since the count was last set to 0 (CPU calls, which
 #: compute the plain version, do not count)
 ragged_paged_attention.launches = 0
+#: the serving step's calls at a head_dim zero-padded to an instance's
+#: (``ops.paged_attention._pad_to_kernel_head_dim``)
+ragged_paged_attention.launches_padded = 0

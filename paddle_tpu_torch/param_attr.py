@@ -8,7 +8,7 @@ or a :class:`ParamAttr`.
 """
 from __future__ import annotations
 
-import torch
+from paddle_tpu_torch.core.tensor import Parameter
 
 __all__ = ["ParamAttr", "create_parameter"]
 
@@ -39,7 +39,7 @@ class ParamAttr:
 
 
 def create_parameter(shape, *, device, dtype, attr=None, is_bias=False,
-                     default_initializer=None) -> torch.nn.Parameter:
+                     default_initializer=None) -> Parameter:
     """A parameter of ``shape`` on ``device``: ``attr``'s initializer,
     else ``default_initializer``, else Paddle's default (zeros for a
     bias, Xavier-uniform for a weight). ``trainable=False`` gives a
@@ -52,5 +52,5 @@ def create_parameter(shape, *, device, dtype, attr=None, is_bias=False,
     if init is None:
         init = I.Constant(0.0) if is_bias else I.XavierUniform()
     trainable = attr is None or getattr(attr, "trainable", True) is not False
-    return torch.nn.Parameter(init(list(shape), dtype, device),
-                              requires_grad=trainable)
+    return Parameter(init(list(shape), dtype, device),
+                     trainable)

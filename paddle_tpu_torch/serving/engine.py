@@ -101,7 +101,7 @@ class ServingEngine:
             raise NotImplementedError(
                 "LoRA adapter slots are not ported to paddle_tpu_torch yet")
         self.device = resolve_device(device)
-        model_dev = next(model.parameters()).device
+        model_dev = next(iter(model.parameters())).device
         if model_dev.type != self.device.type or (
                 self.device.index is not None
                 and model_dev.index != self.device.index):
@@ -490,6 +490,9 @@ class ServingEngine:
             "preemptions": self.scheduler.num_preemptions,
             "requests_in_flight": len(self._handles),
             "steps": self.steps,
+            # compiled executables of the unified step (the reference's
+            # count is 1): the port runs the step eagerly and compiles none
+            "step_compiles": 0,
             # process-wide count of RPA kernel launches (CPU tensors run
             # the plain version and count none)
             "rpa_launches": ragged_paged_attention.launches,

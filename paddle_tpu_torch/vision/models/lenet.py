@@ -4,11 +4,12 @@ from __future__ import annotations
 import torch
 
 from paddle_tpu_torch import nn
+from paddle_tpu_torch.nn.layer_base import Layer
 
 __all__ = ["LeNet"]
 
 
-class LeNet(torch.nn.Module):
+class LeNet(Layer):
     def __init__(self, num_classes=10, *, device=None, dtype=torch.float32):
         super().__init__()
         kw = dict(device=device, dtype=dtype)

@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 
 from paddle_tpu_torch import nn
+from paddle_tpu_torch.nn.layer_base import Layer
 
 __all__ = ["MobileNetV1", "MobileNetV2", "mobilenet_v1", "mobilenet_v2"]
 
@@ -29,7 +30,7 @@ class ConvBNReLU(nn.Sequential):
         super().__init__(*layers)
 
 
-class DepthwiseSeparable(torch.nn.Module):
+class DepthwiseSeparable(Layer):
     def __init__(self, cin, cout, stride, **kw):
         super().__init__()
         self.dw = ConvBNReLU(cin, cin, 3, stride=stride, groups=cin, **kw)
@@ -39,7 +40,7 @@ class DepthwiseSeparable(torch.nn.Module):
         return self.pw(self.dw(x))
 
 
-class MobileNetV1(torch.nn.Module):
+class MobileNetV1(Layer):
     def __init__(self, scale=1.0, num_classes=1000, with_pool=True, *,
                  device=None, dtype=torch.float32):
         super().__init__()
@@ -69,7 +70,7 @@ class MobileNetV1(torch.nn.Module):
         return x
 
 
-class InvertedResidual(torch.nn.Module):
+class InvertedResidual(Layer):
     def __init__(self, cin, cout, stride, expand_ratio, **kw):
         super().__init__()
         hidden = int(round(cin * expand_ratio))
@@ -87,7 +88,7 @@ class InvertedResidual(torch.nn.Module):
         return x + out if self.use_res else out
 
 
-class MobileNetV2(torch.nn.Module):
+class MobileNetV2(Layer):
     def __init__(self, scale=1.0, num_classes=1000, with_pool=True, *,
                  device=None, dtype=torch.float32):
         super().__init__()

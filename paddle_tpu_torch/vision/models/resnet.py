@@ -6,12 +6,13 @@ from __future__ import annotations
 import torch
 
 from paddle_tpu_torch import nn
+from paddle_tpu_torch.nn.layer_base import Layer
 
 __all__ = ["ResNet", "resnet18", "resnet34", "resnet50", "resnet101",
            "resnet152", "BasicBlock", "BottleneckBlock"]
 
 
-class BasicBlock(torch.nn.Module):
+class BasicBlock(Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -39,7 +40,7 @@ class BasicBlock(torch.nn.Module):
         return self.relu(out + identity)
 
 
-class BottleneckBlock(torch.nn.Module):
+class BottleneckBlock(Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None,
@@ -70,7 +71,7 @@ class BottleneckBlock(torch.nn.Module):
         return self.relu(out + identity)
 
 
-class ResNet(torch.nn.Module):
+class ResNet(Layer):
     def __init__(self, block, depth=50, width=64, num_classes=1000,
                  with_pool=True, groups=1, *, device=None,
                  dtype=torch.float32):

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from paddle_tpu_torch import nn
+from paddle_tpu_torch.nn.layer_base import Layer
 
 __all__ = ["VGG", "vgg11", "vgg13", "vgg16", "vgg19"]
 
@@ -34,7 +35,7 @@ def _make_features(cfg, batch_norm=False, **kw):
     return nn.Sequential(*layers)
 
 
-class VGG(torch.nn.Module):
+class VGG(Layer):
     def __init__(self, features, num_classes=1000, with_pool=True, *,
                  device=None, dtype=torch.float32):
         super().__init__()

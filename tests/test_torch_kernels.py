@@ -90,6 +90,35 @@ def test_rpa_kernel_matches_plain_version(cuda_device, dtype, atol, rtol,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol,rtol", [
+    (torch.float32, 1e-4, 1e-4), (torch.bfloat16, 4e-3, 8e-3)])
+def test_rpa_serving_step_pads_a_small_head_dim(cuda_device, dtype, atol,
+                                                rtol):
+    """A test-size model's head_dim 16 (``LlamaConfig.tiny()``, which the
+    reference's ``examples/serve_llama.py`` serves) reaches the kernel
+    zero-padded to its hd-64 instance by the serving step, and gives the
+    plain version's result at hd 16."""
+    from paddle_tpu_torch.ops.paged_attention import \
+        _pad_to_kernel_head_dim
+    rng = np.random.RandomState(16)
+    floats, ints, valid = _rpa_case(rng, [(5, 0), (1, 11), (0, 0), (3, 4)],
+                                    8, n_kv=2, grp=2, hd=16)
+    q, kp, vp = [torch.from_numpy(a).to(cuda_device, dtype) for a in floats]
+    meta = [torch.from_numpy(a).to(cuda_device) for a in ints]
+    padded = rpa.ragged_paged_attention.launches_padded
+    qp, kpp, vpp = _pad_to_kernel_head_dim(q, kp, vp)
+    assert qp.shape[-1] == kpp.shape[-1] == 64
+    assert rpa.ragged_paged_attention.launches_padded == padded + 1
+    out = rpa.ragged_paged_attention(qp, kpp, vpp, *meta,
+                                     sm_scale=0.25)[..., :16]
+    ref = rpa.ragged_paged_attention_reference(q, kp, vp, *meta,
+                                               sm_scale=0.25)
+    valid = torch.from_numpy(valid).to(cuda_device)
+    torch.testing.assert_close(out[valid].float(), ref[valid].float(),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
 def test_rpa_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     rng = np.random.RandomState(0)
     floats, ints, _ = _rpa_case(rng, [(3, 2)], 8, n_kv=1, grp=1, hd=64)
@@ -443,6 +472,40 @@ def test_flash_fwd_bf16_ragged_and_offset_causal(cuda_device, hd, sq, sk):
     for got, want in ((o, ro), (lse, rlse)):
         assert bool(torch.isfinite(got).all())
         assert _rel_err(got, want) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sk", [513, 600, 1000, 2047])
+def test_flash_fwd_bf16_at_the_decode_shapes(cuda_device, sk):
+    """K1 as ``generate``'s decode step runs it: one query row per head
+    over ``sk`` cached keys (offset causal: the row sees every key), GQA
+    16/4, head_dim 128, bf16; 63 of the kernel's 64 tile rows are dead
+    and the diagonal lands in the last key tile. Against the plain
+    version at ``chip_smoke.py``'s ``FLASH_TOL`` (atol = rtol = 1e-2 for
+    o and lse), and through ``nn.functional.scaled_dot_product_attention``
+    as the eager cache calls it."""
+    from paddle_tpu_torch.nn import functional as F
+    rng = np.random.RandomState(sk)
+    B, hq, hkv, hd = 4, 16, 4, 128
+    qkv = [torch.from_numpy(rng.randn(B, h, s, hd)).to(cuda_device,
+                                                      torch.bfloat16)
+           for h, s in ((hq, 1), (hkv, sk), (hkv, sk))]
+    q, k, v, g, _ = fa._geometry(*qkv, True, None, None, None, None, 0.0,
+                                 None)
+    before = fa.launches_fwd
+    o, lse = fa.flash_attention_fwd(q, k, v, g)
+    torch.cuda.synchronize()
+    assert fa.launches_fwd == before + 1
+    ro, rlse = fa._forward_plain(q, k, v, g)
+    for got, want in ((o, ro), (lse, rlse)):
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                                   rtol=1e-2)
+    with torch.no_grad():
+        out = F.scaled_dot_product_attention(
+            *[t.transpose(1, 2) for t in qkv], is_causal=True)
+    assert fa.launches_fwd == before + 2
+    torch.testing.assert_close(out.transpose(1, 2).reshape(o.shape).float(),
+                               ro.float(), atol=1e-2, rtol=1e-2)
 
 
 @pytest.mark.cuda
