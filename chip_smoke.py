@@ -11,7 +11,8 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    compiled with ``nvcc`` for ``sm_90a`` (one process per source, all at
    once) into the ignored build directory, with each kernel's registers
    and spills; the SASS of the tensor-core kernels (K1, K2, K3, K4, K5,
-   K7 and K8 in bf16, K6's split kernel, ``cuobjdump --dump-sass``) must
+   K7 and K8 in bf16, K1-K3 also in f16, K6's split kernel,
+   ``cuobjdump --dump-sass``) must
    hold wgmma (``HGMMA``) and, where an operand comes by TMA, TMA loads
    (``UTMALDG``);
 3. kernel vs plain — the ragged-paged-attention (RPA) kernel against its
@@ -174,11 +175,36 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    package renamed, each in a fresh process on the card (all four at
    once): each exits 0 and ``train_llama``'s loss falls; the other
    examples are logged as not run, with the subsystem each needs.
+   Since PR 13 ``examples/generate_compiled.py`` runs with them and must
+   print that its compiled tokens equal the eager ones;
+15. CUDA-graph capture, amp and recompute at phase 7's width: (a)
+   ``generate_compiled`` in bf16 on 14(c)'s prompts (4 x 512, 64 greedy
+   tokens): one capture a signature (the second call replays), prefill
+   and decode ms a token and the decode's busy share beside 14(c)'s
+   eager ``generate`` from the same call, a sampled run's tokens in the
+   vocabulary; at 2 layers in f32 the tokens equal the eager
+   ``generate``'s, chunked prefill equals one-shot and each row of a
+   left-padded ragged batch equals its solo run; (b)
+   ``paddle.jit.to_static`` of the eval forward (4 x 512): the capturing
+   call and a replay equal the eager logits at bf16 tolerance, K1 8
+   launches a replay (the eager forwards it is compared with and timed
+   beside do not count), a parameter update seen without a new capture;
+   (c) f32 weights under ``auto_cast(dtype="float16")`` O1 with a
+   ``GradScaler`` (AdamW, 2 + 10 steps): losses finite and falling,
+   found-inf steps counted, K1-K3 8 a step and every launch in float16;
+   one O2 step of a ``decorate``d bf16 model; K1-K3 in float16 against
+   their plain versions at phase 6's training shape at float16's own
+   limits (``FLASH_TOL_F16``), timed beside the bf16 kernels; (d) four
+   fused ``TrainStep``s with ``cfg.recompute`` and four without from the
+   same weights: losses and the first step's gradient norm equal (rtol
+   1e-3), step ms and peak memory of each, K1 twice a layer a step.
 
 It prints its measurements on earlier lines, then one JSON line with a
 record per kernel (K1-K3's with their times at ERNIE's and DiT's shapes,
-and K1's at the decode shapes, under ``at_model_shapes``; K1-K3's
-``launches_by_path`` with phase 14's ``api_train`` and ``generate``),
+and K1's at the decode shapes, under ``at_model_shapes``, and their
+float16 record under ``float16``; K1-K3's ``launches_by_path`` with phase
+14's ``api_train`` and ``generate`` and phase 15's ``to_static``,
+``amp_f16`` and ``recompute``),
 and ends with
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -204,6 +230,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense tensor-core bf16
+              torch.float16: 989e12,   # dense tensor-core fp16
               torch.float32: 67e12}    # float32 outside the tensor cores
 TF32_FLOPS = 495e12  # dense tensor-core TF32: f32 operands on the tensor cores
 SEED = 0
@@ -257,13 +284,14 @@ def phase_environment():
 
 # the tensor-core instances and what their SASS must hold: wgmma (HGMMA)
 # and, where an operand comes by TMA, TMA loads (UTMALDG)
+FLASH_TC_INSTANCES = {f"I{e}Li{d}EE": True for e in ("13__nv_bfloat16",
+                                                      "6__half")
+                      for d in (64, 128)}
 SASS_CHECKS = (  # library, kernel, instance -> TMA expected
-    ("flash_attention", "flash_fwd_wgmma_kernel",
-     {"ILi64EE": True, "ILi128EE": True}),
-    ("flash_attention", "flash_dq_wgmma_kernel",
-     {"ILi64EE": True, "ILi128EE": True}),
-    ("flash_attention", "flash_dkv_wgmma_kernel",
-     {"ILi64EE": True, "ILi128EE": True}),
+    # K1-K3 <element type (bf16 or f16), head dim>
+    ("flash_attention", "flash_fwd_wgmma_kernel", FLASH_TC_INSTANCES),
+    ("flash_attention", "flash_dq_wgmma_kernel", FLASH_TC_INSTANCES),
+    ("flash_attention", "flash_dkv_wgmma_kernel", FLASH_TC_INSTANCES),
     # <TMA lhs, rhs load>: 0 registers, 1 TMA MN-major, 2 TMA K-major
     ("grouped_matmul", "gmm_wgmma_kernel",
      {"ILb1ELi1EE": True, "ILb1ELi2EE": True, "ILb1ELi0EE": True,
@@ -813,11 +841,38 @@ FLASH_KERNELS = (  # name, the TPU kernel it replaces
 # running max where the plain version uses the row's final max
 FLASH_TOL = {torch.float32: ((2e-5, 2e-4), (2e-4, 2e-3)),
              torch.bfloat16: ((1e-2, 1e-2), (2e-2, 2e-2))}
+# float16 keeps three more mantissa bits than bfloat16 and rounds at the
+# same places. Its limits, (atol, rtol) of K1's o and lse, of K2's dq and
+# of K3's dk and dv at the training shape, sit near 3x its own largest
+# errors there (PERF.md: 4.9e-4, 2.0e-3 and 7.8e-3, one float16 unit of
+# dv's 10.3) and below bfloat16's (3.9e-3, 1.6e-2, 6.3e-2): a float16
+# instance that rounded p, ds or its outputs at bfloat16's precision
+# fails them
+FLASH_TOL_F16 = ((1.5e-3, 0.0), (6e-3, 0.0), (2.4e-2, 0.0))
+
+
+def flash_kernel_tols(dtype):
+    """The limits of K1, K2 and K3 against their plain versions."""
+    if dtype == torch.float16:
+        return FLASH_TOL_F16
+    o_tol, g_tol = FLASH_TOL[dtype]
+    return o_tol, g_tol, g_tol
 
 
 def _reset_flash_counts():
     from paddle_tpu_torch.ops.pallas import flash_attention as fa
     fa.launches_fwd = fa.launches_dq = fa.launches_dkv = 0
+
+
+def _uncounted_flash(fn):
+    """``fn()``, with K1-K3's counters put back as they were before it:
+    an eager run made only to compare with or to time beside a path does
+    not count on that path."""
+    from paddle_tpu_torch.ops.pallas import flash_attention as fa
+    held = fa.launches_fwd, fa.launches_dq, fa.launches_dkv
+    out = fn()
+    fa.launches_fwd, fa.launches_dq, fa.launches_dkv = held
+    return out
 
 
 def _flash_counts():
@@ -873,7 +928,7 @@ def flash_training_shape(dtype):
     q, k, v, g, _ = fa._geometry(q4, k4, v4, True, None, None, None, None,
                                  0.0, None)
     do = do4.reshape(q.shape)
-    o_tol, g_tol = FLASH_TOL[dtype]
+    k1_tol, k2_tol, k3_tol = flash_kernel_tols(dtype)
 
     o, lse = fa.flash_attention_fwd(q, k, v, g)
     delta = (do.float() * o.float()).sum(-1)
@@ -886,15 +941,16 @@ def flash_training_shape(dtype):
     name = str(dtype).replace("torch.", "")
     errs = {
         "flash_attention_fwd": max(
-            _check(f"K1 o {name}", o, ro.reshape(o.shape), *o_tol),
-            _check(f"K1 lse {name}", lse, rlse.reshape(lse.shape), *o_tol)),
+            _check(f"K1 o {name}", o, ro.reshape(o.shape), *k1_tol),
+            _check(f"K1 lse {name}", lse, rlse.reshape(lse.shape),
+                   *k1_tol)),
         "flash_attention_dq": _check(f"K2 dq {name}", dq,
-                                     rgrads[0].reshape(dq.shape), *g_tol),
+                                     rgrads[0].reshape(dq.shape), *k2_tol),
         "flash_attention_dkv": max(
             _check(f"K3 dk {name}", dk, rgrads[1].reshape(dk.shape),
-                   *g_tol),
+                   *k3_tol),
             _check(f"K3 dv {name}", dv, rgrads[2].reshape(dv.shape),
-                   *g_tol))}
+                   *k3_tol))}
     log(f"flash {name}: largest |plain| o {float(ro.detach().abs().max()):.3f},"
         f" dq {float(rgrads[0].abs().max()):.3f}, dk "
         f"{float(rgrads[1].abs().max()):.3f}, dv "
@@ -937,8 +993,8 @@ def flash_training_shape(dtype):
             ms = cuda_ms(kern)
             plain_ms = cuda_ms(plain)
             lib = lib_f if kname == "flash_attention_fwd" else lib_b
-            design = ("wgmma, tiles by TMA" if dtype == torch.bfloat16
-                      else "FMA loops")
+            design = ("FMA loops" if dtype == torch.float32
+                      else "wgmma, tiles by TMA")
             log(f"flash {name} {kname} ({design}): max|err|={errs[kname]:.3e};"
                 f" kernel {ms:.4f} ms "
                 f"({need['flops'] / (ms / 1e3) / 1e12:.1f} TFLOP/s), plain "
@@ -3433,7 +3489,9 @@ def api_generate():
                     if not k.startswith("Train"))
     share = 100 * k1_share / total_dev if total_dev else float("nan")
     log(f"generate decode step: K1 {k1_share:.3f} ms of {total_dev:.3f} "
-        f"ms device time ({share:.1f}%)")
+        f"ms device time ({share:.1f}%); busy "
+        f"{100 * total_dev / decode_ms:.1f}% of the {decode_ms:.3f} ms "
+        f"decode token")
     del model, caches, h, out
     free_device_memory()
     # the replay oracle, f32 at 2 layers
@@ -3459,17 +3517,16 @@ def api_generate():
     free_device_memory()
     return dict(flash_attention_fwd=k1, flash_attention_dq=0,
                 flash_attention_dkv=0, fused_adam_update=0, fused_sqnorm=0,
-                prefill_ms=prefill_ms, decode_ms=decode_ms, k1_share=share)
+                prefill_ms=prefill_ms, decode_ms=decode_ms, k1_share=share,
+                decode_dev_ms=total_dev)
 
 
 API_EXAMPLES = ("train_llama.py", "generate_llama.py", "train_packed.py",
-                "serve_llama.py")
+                "serve_llama.py", "generate_compiled.py")
 # the reference's other examples, and the subsystem each needs
 API_EXAMPLES_NOT_RUN = {
     "export_and_serve.py": "paddle.inference, paddle.static.InputSpec and "
                            "jit.save (ROADMAP §1 item 8)",
-    "generate_compiled.py": "LlamaForCausalLM.generate_compiled "
-                            "(CUDA-graph capture, ROADMAP §1 item 1)",
     "int8_deploy.py": "paddle.quantization, jit.save/load (ROADMAP §1 "
                       "items 7-8)",
     "pipeline_spmd.py": "the mesh and fleet pipeline (paddle.distributed, "
@@ -3515,6 +3572,9 @@ def api_examples():
             if p.returncode != 0:
                 log(err[-2000:])
                 bad.append(name)
+            if name == "generate_compiled.py" and p.returncode == 0 and \
+                    "token-for-token: True" not in out:
+                bad.append(name + " (compiled != eager)")
             if name == "train_llama.py" and p.returncode == 0:
                 ls = [float(v) for v in re.findall(r"loss ([0-9.]+)", out)]
                 if not ls[-1] < ls[0]:
@@ -3583,6 +3643,380 @@ def phase_api(train_step_ms):
     return counts, gen, decode
 
 
+# --------------------------------------------------------------------------
+# phase 15: CUDA-graph capture (generate_compiled, to_static), amp in
+# float16 with K1-K3's f16 instances, and recompute
+def _profiled_device_ms(fn):
+    """Device ms of one call of ``fn`` under ``torch.profiler`` (every
+    kernel and copy it saw), or None where it saw none."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = sum(us for us, _, _ in device_rows(prof))
+    return total / 1e3 if total else None
+
+
+def _timed_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0), out
+
+
+def _left_padded(prompts, S):
+    ids = np.zeros((len(prompts), S), np.int64)
+    mask = np.zeros((len(prompts), S), np.int64)
+    for b, p in enumerate(prompts):
+        ids[b, S - len(p):] = p
+        mask[b, S - len(p):] = 1
+    return ids, mask
+
+
+def compiled_generate_run(gen):
+    """15(a): ``generate_compiled`` at 14(c)'s width and prompts (bf16, 4 x
+    512, 64 greedy tokens): one capture a signature (a second call
+    replays), prefill and decode ms a token and the decode's busy share
+    beside 14(c)'s eager ``generate`` (``gen``) from this call; a sampled
+    run's tokens in the vocabulary. Then at 2 layers in f32: tokens equal
+    the eager ``generate``'s, chunked prefill equals one-shot, and each
+    row of a left-padded ragged batch equals its prompt's solo run."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import cuda_graph
+    cfg = llama_bench_config()
+    B, P, N = 4, 512, 64
+    prompt = np.random.RandomState(1).randint(0, cfg.vocab_size, (B, P))
+    model = paddle.models.LlamaForCausalLM(cfg, dtype="bfloat16", seed=SEED)
+    model.eval()
+    ids = paddle.to_tensor(prompt)
+    c0 = cuda_graph.captures
+    first_ms, first = _timed_ms(
+        lambda: model.generate_compiled(ids, max_new_tokens=N))
+    c1 = cuda_graph.captures
+    model.generate_compiled(ids, max_new_tokens=1)  # its own signature
+    prefill_ms, _ = _timed_ms(
+        lambda: model.generate_compiled(ids, max_new_tokens=1))
+    total_ms, out = _timed_ms(
+        lambda: model.generate_compiled(ids, max_new_tokens=N))
+    captures = c1 - c0
+    if captures != 1 or cuda_graph.captures != c1:
+        raise AssertionError(f"generate_compiled: {captures} captures for "
+                             f"one signature, {cuda_graph.captures - c1} "
+                             f"on the calls after")
+    tok = out.numpy()
+    if type(out) is not paddle.Tensor or tok.shape != (B, P + N) or \
+            not np.array_equal(tok, first.numpy()) or \
+            not ((tok >= 0) & (tok < cfg.vocab_size)).all():
+        raise AssertionError(f"generate_compiled: {type(out)} of "
+                             f"{tok.shape}, replay equal to the capturing "
+                             f"call: {np.array_equal(tok, first.numpy())}")
+    decode_ms = (total_ms - prefill_ms) / (N - 1)
+    dev_all = _profiled_device_ms(
+        lambda: model.generate_compiled(ids, max_new_tokens=N))
+    dev_pre = _profiled_device_ms(
+        lambda: model.generate_compiled(ids, max_new_tokens=1))
+    if dev_all is None or dev_pre is None:
+        dev_ms = busy = None
+        busy_txt = "busy share not measured (the profiler saw no device time)"
+    else:
+        dev_ms = (dev_all - dev_pre) / (N - 1)
+        busy = dev_ms / decode_ms
+        busy_txt = (f"{dev_ms:.3f} ms of device work a decode token, busy "
+                    f"{100 * busy:.1f}%")
+    eager_busy = gen["decode_dev_ms"] / gen["decode_ms"]
+    log(f"generate_compiled (bf16, {cfg.num_hidden_layers} layers, batch "
+        f"{B} x {P}-token prompts, {N} greedy tokens; the decode step one "
+        f"CUDA graph replayed {N - 1} times): first call {first_ms:.3f} ms "
+        f"(the capture; {captures} capture for the signature, 0 on the "
+        f"calls after); prefill {prefill_ms:.3f} ms; {decode_ms:.3f} ms a "
+        f"decode token; {total_ms:.3f} ms in all, "
+        f"{B * N / (total_ms / 1e3):.1f} tokens/s; {busy_txt}")
+    log(f"generate_compiled against 14(c)'s eager generate in this call: "
+        f"decode {decode_ms:.3f} against {gen['decode_ms']:.3f} ms a token "
+        f"({gen['decode_ms'] / decode_ms:.2f}x); busy "
+        + (f"{100 * busy:.1f}%" if busy is not None else "not measured")
+        + f" against {100 * eager_busy:.1f}%; prefill {prefill_ms:.3f} "
+        f"against {gen['prefill_ms']:.3f} ms")
+    paddle.seed(SEED)
+    sampled = model.generate_compiled(ids[:, :128], max_new_tokens=16,
+                                      temperature=1.0, top_k=50).numpy()
+    new = sampled[:, 128:]
+    if not ((new >= 0) & (new < cfg.vocab_size)).all():
+        raise AssertionError("generate_compiled sampled: tokens out of the "
+                             "vocabulary")
+    log(f"generate_compiled sampled (temperature 1, top_k 50, 16 tokens, "
+        f"the card's generator registered with the graph): in-vocabulary "
+        f"tokens, row 0 {new[0].tolist()}")
+    del model, out, first
+    free_device_memory()
+    # the f32 oracles at 2 layers
+    small = dataclasses.replace(cfg, num_hidden_layers=2)
+    model = paddle.models.LlamaForCausalLM(small, dtype="float32", seed=SEED)
+    model.eval()
+    ids = paddle.to_tensor(prompt[:, :64])
+    eager = model.generate(ids, max_new_tokens=16, temperature=0).numpy()
+    comp = model.generate_compiled(ids, max_new_tokens=16).numpy()
+    chunked = model.generate_compiled(ids, max_new_tokens=16,
+                                      prefill_chunk=16).numpy()
+    if not np.array_equal(comp, eager) or not np.array_equal(chunked, comp):
+        raise AssertionError("generate_compiled f32: tokens differ from the "
+                             "eager generate's or chunked from one-shot")
+    lens = (64, 40, 17, 5)
+    prompts = [prompt[b, :n] for b, n in enumerate(lens)]
+    pad, mask = _left_padded(prompts, 64)
+    rag = model.generate_compiled(paddle.to_tensor(pad), max_new_tokens=16,
+                                  attention_mask=paddle.to_tensor(mask))
+    rag = rag.numpy()
+    for b, p in enumerate(prompts):
+        solo = model.generate_compiled(paddle.to_tensor(p[None]),
+                                       max_new_tokens=16).numpy()
+        if not np.array_equal(rag[b, 64:], solo[0, len(p):]):
+            raise AssertionError(f"generate_compiled ragged: row {b} "
+                                 f"(prompt {len(p)}) is not its solo run")
+    log(f"generate_compiled f32 (2 layers, batch 4 x 64, 16 greedy tokens):"
+        f" tokens equal the eager generate's; prefill in chunks of 16 "
+        f"equals one-shot; a left-padded batch of prompts {list(lens)} "
+        f"gives each row its solo run")
+    del model
+    free_device_memory()
+    return dict(decode_ms=decode_ms, prefill_ms=prefill_ms, busy=busy,
+                captures=captures)
+
+
+def to_static_run():
+    """15(b): ``paddle.jit.to_static`` of the bench model's eval forward
+    (bf16, 4 x 512 ids): the capturing call and a replay against the
+    eager logits at bf16 tolerance; K1 8 launches a replay; a parameter
+    update between calls seen without a new capture; replay and eager
+    forward ms. Returns the path's kernel counts."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import cuda_graph
+    from paddle_tpu_torch.ops.pallas import flash_attention as fa
+    cfg = llama_bench_config()
+    L = cfg.num_hidden_layers
+    model = paddle.models.LlamaForCausalLM(cfg, dtype="bfloat16", seed=SEED)
+    model.eval()
+    x = torch.from_numpy(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (4, 512))).cuda()
+    with torch.no_grad():
+        eager = model(x)
+    sm = paddle.jit.to_static(model)
+    _reset_flash_counts()
+    c0 = cuda_graph.captures
+    first = sm(x)
+    k1 = fa.launches_fwd
+    replay = sm(x)
+    per_replay = fa.launches_fwd - k1
+    tol = FLASH_TOL[torch.bfloat16][0]
+    err = max(_check("to_static capturing call", first, eager, *tol),
+              _check("to_static replay", replay, eager, *tol))
+    if per_replay != L or cuda_graph.captures != c0 + 1:
+        raise AssertionError(f"to_static: K1 {per_replay} launches a "
+                             f"replay (want {L}), "
+                             f"{cuda_graph.captures - c0} captures")
+    # the eager forwards (timed, and the oracle after the update) are
+    # not to_static's: its count holds the capturing call's warm-up run,
+    # and 8 a replay
+    with torch.no_grad():
+        eager_ms = _uncounted_flash(lambda: cuda_ms(lambda: model(x),
+                                                    reps=10))
+    replay_ms = cuda_ms(lambda: sm(x), reps=10)
+    with torch.no_grad():
+        model.model.norm.weight.mul_(1.5)
+        updated = _uncounted_flash(lambda: model(x))
+    err_u = _check("to_static after a parameter update", sm(x), updated,
+                   *tol)
+    if cuda_graph.captures != c0 + 1 or len(sm.code_cache) != 1:
+        raise AssertionError("to_static: a parameter update captured again")
+    calls = 1 + 1 + 13 + 1  # capturing call, replay, 3 + 10 timed, update
+    if fa.launches_fwd != calls * L:
+        raise AssertionError(f"to_static: K1 {fa.launches_fwd} launches "
+                             f"over {calls} calls (want {calls * L})")
+    log(f"to_static (bench model eval forward, bf16, 4 x 512 ids): the "
+        f"capturing call and replays equal the eager logits (max|err| "
+        f"{err:.3e}, after a parameter update {err_u:.3e}; atol/rtol "
+        f"{tol}); K1 {per_replay} launches a replay, {fa.launches_fwd} "
+        f"over the path's {calls} calls; one capture, one "
+        f"cache entry; replay {replay_ms:.3f} ms against the eager "
+        f"forward's {eager_ms:.3f} ms ({eager_ms / replay_ms:.2f}x)")
+    counts = {**_flash_counts(), "fused_adam_update": 0, "fused_sqnorm": 0}
+    del model, sm, eager, first, replay, updated
+    free_device_memory()
+    return counts
+
+
+def amp_run():
+    """15(c): the bench model with f32 weights under
+    ``auto_cast(dtype="float16")`` O1 and a ``GradScaler`` (AdamW, 2 + 10
+    steps of 4 x 2048 ids): finite losses that fall, the found-inf steps
+    counted, K1-K3 8 a step and every launch in float16; then one O2 step
+    of a ``decorate``d bf16 model. Returns the O1 run's kernel counts."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops.pallas import flash_attention as fa
+    cfg = llama_bench_config()
+    L = cfg.num_hidden_layers
+    x = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (4, 2048))).cuda()
+    seen = {}
+    orig = {n: getattr(fa, n) for n in ("flash_attention_fwd",
+                                        "flash_attention_dq",
+                                        "flash_attention_dkv")}
+
+    def recording(name):
+        def call(q, *a, **kw):
+            seen.setdefault(name, set()).add(q.dtype)
+            return orig[name](q, *a, **kw)
+        return call
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    model = paddle.models.LlamaForCausalLM(cfg, dtype="float32", seed=SEED)
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters())
+    scaler = paddle.amp.GradScaler(init_loss_scaling=1024.0)
+    losses, skipped, scales = [], 0, []
+    _reset_flash_counts()
+    try:
+        for n in orig:
+            setattr(fa, n, recording(n))
+        for i in range(12):
+            if i == 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            with paddle.amp.auto_cast(dtype="float16"):
+                _, loss = model(x, labels=x)
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            skipped += scaler._found_inf
+            scaler.update()
+            opt.clear_grad()
+            scales.append(scaler.get_loss_scaling())
+            losses.append(float(loss.detach()))
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / 10
+    finally:
+        for n, f in orig.items():
+            setattr(fa, n, f)
+    counts = {**_flash_counts(), "fused_adam_update": 0, "fused_sqnorm": 0}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"amp f16: losses {losses}")
+    if any(seen.get(n) != {torch.float16} for n in orig) or \
+            any(counts[n] != 12 * L for n in orig):
+        raise AssertionError(f"amp f16: K1-K3 dtypes {seen}, launches "
+                             f"{counts} (want float16, {12 * L} each)")
+    log(f"amp O1 float16 (bench model, f32 weights, auto_cast white ops in "
+        f"f16, GradScaler from 1024, AdamW, 4 x 2048 ids): losses "
+        f"{[round(v, 4) for v in losses]}; {skipped} of 12 steps skipped "
+        f"on a non-finite gradient (scale after each step {scales}); K1-K3 "
+        f"{L} a step, every launch in float16; step {step_ms:.3f} ms "
+        f"(eager loop: scale, backward, unscale, step); peak {peak} B")
+    del model, opt, loss
+    free_device_memory()
+    model = paddle.models.LlamaForCausalLM(cfg, dtype="float32", seed=SEED)
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters())
+    model, opt = paddle.amp.decorate(model, opt, level="O2",
+                                     dtype="bfloat16")
+    with paddle.amp.auto_cast(level="O2", dtype="bfloat16"):
+        _, loss = model(x, labels=x)
+    loss.backward()
+    opt.step()
+    w = model.model.layers[0].self_attn.q_proj.weight
+    first = float(loss.detach())
+    if w.dtype != torch.bfloat16 or not opt._multi_precision or \
+            abs(first - math.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f"amp O2: weight {w.dtype}, masters "
+                             f"{opt._multi_precision}, loss {first}")
+    log(f"amp O2 bfloat16 (decorate: weights cast to bf16, AdamW with f32 "
+        f"masters): one step, loss {first:.4f} (ln V "
+        f"{math.log(cfg.vocab_size):.4f})")
+    del model, opt, loss, w
+    free_device_memory()
+    return counts
+
+
+def recompute_run():
+    """15(d): one fused ``TrainStep`` of the bench model (bf16, 4 x 2048)
+    with and without ``cfg.recompute`` from the same weights and batch:
+    the four losses and the first step's gradient norm equal at bf16
+    tolerance; step ms (1 + 3 steps) and
+    peak memory of each. Returns the recompute run's kernel counts."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    base = llama_bench_config()
+    L = base.num_hidden_layers
+    x = torch.from_numpy(np.random.RandomState(0).randint(
+        0, base.vocab_size, (4, 2048))).cuda()
+    runs = {}
+    for rc in (False, True):
+        free_device_memory()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model = LlamaForCausalLM(dataclasses.replace(base, recompute=rc),
+                                 dtype="bfloat16", seed=SEED)
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                    multi_precision=True,
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        step = TrainStep(model, lambda m, v: m(v, labels=v)[1], opt)
+        _reset_flash_counts()
+        _reset_fused_counts()
+        losses = [float(step(x))]
+        gnorm = float(step.last_grad_norm)
+        ms, out = _timed_ms(lambda: [step(x) for _ in range(3)])
+        losses += [float(v) for v in out]
+        runs[rc] = dict(losses=losses, gnorm=gnorm, step_ms=ms / 3,
+                        peak=torch.cuda.max_memory_allocated() - before,
+                        counts={**_flash_counts(), **_fused_counts()})
+        del model, opt, step, out
+    free_device_memory()
+    a, b = runs[False], runs[True]
+    want = {"flash_attention_fwd": 2 * 4 * L, "flash_attention_dq": 4 * L,
+            "flash_attention_dkv": 4 * L}
+    # the first loss is the forward's, which recompute leaves alone; the
+    # first step's gradient norm and the losses after steps 1-3 (same
+    # weights, same batch) are where a wrong re-run backward would show
+    if not np.allclose(b["losses"], a["losses"], rtol=1e-3, atol=0) \
+            or not np.isclose(b["gnorm"], a["gnorm"], rtol=1e-3, atol=0) \
+            or any(b["counts"][k] != n for k, n in want.items()):
+        raise AssertionError(f"recompute: losses {b['losses']} against "
+                             f"{a['losses']}, first gradient norm "
+                             f"{b['gnorm']} against {a['gnorm']}; launches "
+                             f"{b['counts']} (want {want})")
+    log(f"recompute (bench model, bf16, fused TrainStep, 4 x 2048): losses "
+        f"{b['losses']} against {a['losses']} without, first step's "
+        f"gradient norm {b['gnorm']:.6g} against {a['gnorm']:.6g} (rtol "
+        f"1e-3); step "
+        f"{b['step_ms']:.3f} against {a['step_ms']:.3f} ms "
+        f"({b['step_ms'] / a['step_ms']:.3f}x); peak {b['peak']} against "
+        f"{a['peak']} B ({b['peak'] / a['peak']:.3f}x); K1 {2 * L} a step "
+        f"(each layer's forward runs again in the backward), K2 and K3 {L}")
+    return b["counts"]
+
+
+def phase_capture_amp_recompute(gen, flash_bf16):
+    """Phase 15; returns each path's kernel counts and K1-K3's float16
+    records at the training shape (timed beside phase 6's bf16 ones)."""
+    compiled_generate_run(gen)
+    static = to_static_run()
+    amp = amp_run()
+    f16 = flash_training_shape(torch.float16)
+    log(f"flash float16 limits at the training shape, (atol, rtol) of "
+        f"K1/K2/K3: {FLASH_TOL_F16}")
+    for kname, rec in f16.items():
+        log(f"flash float16 {kname} against bfloat16 in this call: "
+            f"{rec['ms']:.4f} against {flash_bf16[kname]['ms']:.4f} ms "
+            f"({rec['ms'] / flash_bf16[kname]['ms']:.3f}x), bound "
+            f"{rec['bound_ms']:.4f} ms")
+    free_device_memory()
+    rc = recompute_run()
+    return {"to_static": static, "amp_f16": amp, "recompute": rc}, f16
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch",
@@ -3608,11 +4042,12 @@ def main():
     ppocr = phase_ppocr()
     resnet = phase_resnet()
     api, gen, decode = phase_api(train_step_ms)
+    capture_paths, flash_f16 = phase_capture_amp_recompute(gen, flash)
     # each path's launches were counted from 0 over its own run; a kernel
     # on several paths reports their sum, and each path's count beside it
     paths = {"train": counts, "moe_train": moe, "fit": fit, "ernie": ernie,
              "dit": dit, "ppocr": ppocr, "resnet50": resnet,
-             "api_train": api, "generate": gen}
+             "api_train": api, "generate": gen, **capture_paths}
 
     def path_launches(kname):
         by_path = {p: c[kname] for p, c in paths.items()}
@@ -3626,7 +4061,8 @@ def main():
     for kname, replaces in FLASH_KERNELS:
         kernels.append(dict(name=kname, route="cuda", source=FLASH_SRC,
                             replaces=replaces, **path_launches(kname),
-                            **flash[kname], at_model_shapes={
+                            **flash[kname], float16=flash_f16[kname],
+                            at_model_shapes={
                                 **{m: r[kname] for m, r in shapes.items()},
                                 **(decode if kname == "flash_attention_fwd"
                                    else {})}))

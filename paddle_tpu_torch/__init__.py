@@ -25,11 +25,13 @@ port has: the dtypes, ``Tensor``/``Parameter``/``to_tensor`` (a facade
 over ``torch.Tensor`` that lives only at the user API,
 ``core/tensor.py``), the autograd API, the flags, every op of the op
 library (``ops``), ``nn`` (every layer an ``nn.Layer``), ``optimizer``,
-``jit`` (``TrainStep``), ``io``, ``save``/``load``, ``Model``,
+``jit`` (``to_static`` over CUDA-graph capture, the functional trio,
+``TrainStep``), ``amp`` (``auto_cast``, ``decorate``, ``GradScaler``),
+``io``, ``save``/``load``, ``Model``,
 ``ParamAttr``, ``metric``, ``vision``, ``serving``, ``checkpoint``,
 ``data``, ``models`` and the device functions. The models: Llama-3
 (serving, training and eager ``generate``), the MoE family, ERNIE, DiT
-and PP-OCRv4. A subsystem that is not ported (``amp``, ``static``,
+and PP-OCRv4. A subsystem that is not ported (``static``,
 ``incubate``, ``sparse``, ``quantization``, ``inference``, ...) is not
 exported: reaching it raises ``AttributeError``.
 """
@@ -58,6 +60,7 @@ from paddle_tpu_torch import optimizer  # noqa: F401
 from paddle_tpu_torch import autograd  # noqa: F401
 from paddle_tpu_torch import regularizer  # noqa: F401
 from paddle_tpu_torch import jit  # noqa: F401
+from paddle_tpu_torch import amp  # noqa: F401
 from paddle_tpu_torch import distributed  # noqa: F401
 from paddle_tpu_torch import io  # noqa: F401
 from paddle_tpu_torch import framework  # noqa: F401

@@ -17,7 +17,8 @@ the reference, ``train_batch`` returns the step's loss as a Python
 float, which waits for the step to finish on the card every step.
 
 Not ported yet, raising ``NotImplementedError``: ``StepTelemetry`` and
-``VisualDL``, ``prepare(amp_configs=…)`` (amp), ``fit``'s
+``VisualDL``, ``prepare(amp_configs=…)`` (which the reference accepts
+and ignores; ``amp.auto_cast`` is ported), ``fit``'s
 ``accumulate_grad_batches`` other than 1 (which the reference accepts
 and ignores), and the env-armed chaos (``PADDLE_TPU_CHAOS_*``) and
 profiler (``PADDLE_TPU_PROFILE_AT_STEP``) windows of ``fit``.
@@ -229,9 +230,12 @@ class Model:
         ``net(*batch)`` (or ``net(**batch)`` for a dict batch) returns the
         loss or an ``(out, loss)`` pair."""
         if amp_configs is not None:
+            # the reference takes amp_configs and never reads it: raise
+            # rather than ignore (use amp.auto_cast around the forward)
             raise NotImplementedError(
-                "amp (prepare(amp_configs=...)) is not ported to "
-                "paddle_tpu_torch yet")
+                "prepare(amp_configs=...) is not ported to paddle_tpu_torch "
+                "(the reference accepts it and ignores it); wrap the "
+                "forward in paddle.amp.auto_cast instead")
         self._optimizer = optimizer
         self._loss = loss
         if metrics is None:

@@ -70,6 +70,7 @@ import torch
 
 from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
 from paddle_tpu_torch.optimizer.adam import Adam
+from paddle_tpu_torch.ops.pallas import counters
 from paddle_tpu_torch.optimizer.optimizer import decay_factor
 from paddle_tpu_torch.regularizer import L1Decay, L2Decay
 
@@ -82,6 +83,7 @@ __all__ = ["FlatLayout", "Bucket", "build_layout", "build_flat_states",
 #: compute the plain versions, do not count)
 launches_adam = 0
 launches_sqnorm = 0
+counters.register(__name__, "launches_adam", "launches_sqnorm")
 
 # elements of one tensor that one block of the kernels takes
 _CHUNK = 8192

@@ -10,8 +10,11 @@ growing ``(k, v)`` cache of ``generate`` (reference :267-280: the past
 keys and values concatenated with the new ones, then offset-causal
 attention over them), the RMSNorm/SwiGLU decoder around them, the logits
 head and the causal-LM loss (the fused chunked CE for a tied vocab of at
-least 32768). The static-cache path (``generate_compiled``), recompute,
-tensor parallelism and the int8-KV branch are not ported yet.
+least 32768), the static-cache path of ``generate_compiled`` (reference
+``_static_forward``, :283-351: preallocated ``[B, L, n_kv, hd]`` buffers
+written in place at a position held on the card) and recompute
+(``cfg.recompute`` through ``distributed.fleet.utils.recompute``).
+Tensor parallelism and the int8-KV branch are not ported yet.
 
 Parameter names and shapes equal the reference's, so a numpy state dict
 moves between the packages unchanged (``utils/bridge.py``).
@@ -26,6 +29,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from paddle_tpu_torch.amp.auto_cast import cast_for
 from paddle_tpu_torch.core.dtype import convert_dtype
 from paddle_tpu_torch.core.tensor import unwrap_args, wrap
 from paddle_tpu_torch.device import resolve_device
@@ -149,7 +153,7 @@ class LlamaAttention(Layer):
 
     def forward(self, x, cache: Optional[pa.RaggedLayerCache], rope,
                 attn_impl: str = "rpa", attention_mask=None,
-                position_ids=None):
+                position_ids=None, pos_offsets=None):
         """With a cache: token-packed block-paged attention. ``x`` [1, T,
         hidden] carries every scheduled sequence's new tokens back to
         back; RoPE at the cache's per-token positions; the new K/V go
@@ -164,11 +168,21 @@ class LlamaAttention(Layer):
 
         With an eager ``(past_k, past_v)`` pair (``(None, None)`` before
         the prompt): ``generate``'s growing cache, returning ``(out,
-        (k_all, v_all))`` (reference :267-280)."""
+        (k_all, v_all))`` (reference :267-280).
+
+        With a static ``(k_buf, v_buf, pos)`` triple: ``generate_compiled``'s
+        fixed-shape cache (:meth:`_static_forward`); ``attention_mask`` is
+        then the ``[B, L]`` key liveness over the buffers and
+        ``pos_offsets`` the ``[B]`` per-row RoPE shift."""
         if cache is None:
             return self._cacheless_forward(x, rope, attention_mask,
                                            position_ids)
-        if attention_mask is not None or position_ids is not None:
+        if type(cache) is tuple and len(cache) == 3 and \
+                position_ids is None:
+            return self._static_forward(x, cache, rope, attention_mask,
+                                        pos_offsets)
+        if attention_mask is not None or position_ids is not None or \
+                pos_offsets is not None:
             raise NotImplementedError(
                 "the cached paths derive per-token positions and key "
                 "liveness from the cache itself")
@@ -189,6 +203,55 @@ class LlamaAttention(Layer):
             cache.positions, cache.step_seq, cache.step_blk,
             scale=1.0 / math.sqrt(hd), attn_impl=attn_impl)
         return self.o_proj(out.reshape(1, T, -1))
+
+    def _static_forward(self, x, cache, rope, key_mask=None,
+                        pos_offsets=None):
+        """The fixed-shape cache of ``generate_compiled`` (reference
+        :283-351): RoPE at positions ``pos .. pos + S - 1`` (``pos`` an
+        int32 0-d tensor on the model's device, never read on the host),
+        the new keys and values written into the ``[B, L, n_kv, hd]``
+        buffers at those indices in place (``index_copy_``), then
+        attention over the whole buffer in f32, masked to the causal
+        bound and, for a ragged batch, to the ``[B, L]`` key liveness
+        ``key_mask``, as the reference computes it outside its Pallas
+        kernels. ``pos_offsets`` ``[B]`` shifts each row's RoPE
+        positions (clipped to ``[0, L)``), so a left-padded row's first
+        real token sits at position 0 while every row writes at the same
+        buffer index. Returns ``(out, (k_buf, v_buf, pos + S))``."""
+        B, S = x.shape[0], x.shape[1]
+        hd = self.head_dim
+        grp = self.n_heads // self.n_kv
+        q = self.q_proj(x).reshape(B, S, self.n_heads, hd)
+        k = self.k_proj(x).reshape(B, S, self.n_kv, hd)
+        v = self.v_proj(x).reshape(B, S, self.n_kv, hd)
+        k_buf, v_buf, pos = cache
+        L = k_buf.shape[1]
+        cos_t, sin_t = rope
+        idx = pos.long() + torch.arange(S, device=x.device)  # [S]
+        if key_mask is not None or pos_offsets is not None:
+            po = torch.zeros(B, dtype=torch.long, device=x.device) \
+                if pos_offsets is None else pos_offsets.long()
+            pidx = torch.clamp(idx[None, :] - po[:, None], 0, L - 1)
+            cos = cos_t[pidx][:, :, None, :]
+            sin = sin_t[pidx][:, :, None, :]
+        else:
+            cos = cos_t[idx][None, :, None, :]
+            sin = sin_t[idx][None, :, None, :]
+        q, k = _rot_interleaved(q, cos, sin), _rot_interleaved(k, cos, sin)
+        k_buf.index_copy_(1, idx, k.to(k_buf.dtype))
+        v_buf.index_copy_(1, idx, v.to(v_buf.dtype))
+        qg = q.reshape(B, S, self.n_kv, grp, hd).float()
+        s = torch.einsum("bskgh,blkh->bskgl", qg, k_buf.float()) * \
+            (1.0 / math.sqrt(hd))
+        live = torch.arange(L, device=x.device)[None, :] <= idx[:, None]
+        live = live[None] if key_mask is None else \
+            live[None] & key_mask.bool()[:, None, :]  # [B|1, S, L]
+        s = torch.where(live[:, :, None, None, :], s,
+                        torch.finfo(torch.float32).min)
+        w = torch.softmax(s, dim=-1).to(v_buf.dtype)
+        out = torch.einsum("bskgl,blkh->bskgh", w, v_buf)
+        return (self.o_proj(out.reshape(B, S, self.n_heads * hd)),
+                (k_buf, v_buf, pos + S))
 
     def _eager_cache_forward(self, x, cache, rope):
         """RoPE at positions ``P .. P + S - 1`` after the ``P`` cached
@@ -225,6 +288,8 @@ class LlamaAttention(Layer):
         cos_t, sin_t = rope
         if S > cos_t.shape[0]:  # the reference's table covers max(S, max_pos)
             cos_t, sin_t = _rope_table(S, hd, self.cfg.rope_theta, x)
+        if cos_t.dtype != q.dtype:  # amp: the reference's table is q's dtype
+            cos_t, sin_t = cos_t.to(q.dtype), sin_t.to(q.dtype)
         if position_ids is not None:
             q, k = _rotate_at(q, k, position_ids, cos_t, sin_t)
         else:
@@ -263,11 +328,12 @@ class LlamaDecoderLayer(Layer):
         self.mlp = LlamaMLP(cfg, **kw)
 
     def forward(self, x, cache, rope, attn_impl="rpa", attention_mask=None,
-                position_ids=None):
+                position_ids=None, pos_offsets=None):
         h = self.self_attn(self.input_layernorm(x), cache, rope,
-                           attn_impl, attention_mask, position_ids)
+                           attn_impl, attention_mask, position_ids,
+                           pos_offsets)
         new_cache = None
-        if isinstance(h, tuple):  # the eager cache: (out, (k_all, v_all))
+        if isinstance(h, tuple):  # a returned cache: (out, new cache)
             h, new_cache = h
         x = x + h
         x = x + self.mlp(self.post_attention_layernorm(x))
@@ -295,9 +361,22 @@ class LlamaModel(Layer):
         self.register_buffer("rope_sin", torch.from_numpy(sin).to(
             device=device, dtype=dtype), persistent=False)
 
+    def _rope_at_least(self, n: int):
+        """The model's RoPE table, or, for a buffer longer than
+        ``max_position_embeddings``, one of ``n`` rows made once and
+        kept (so a CUDA graph that reads it never makes it)."""
+        if n <= self.rope_cos.shape[0]:
+            return self.rope_cos, self.rope_sin
+        ext = self.__dict__.setdefault("_rope_ext", {})
+        key = (n, self.rope_cos.device, self.rope_cos.dtype)
+        if key not in ext:
+            ext[key] = _rope_table(n, self.rope_cos.shape[1] * 2,
+                                   self.cfg.rope_theta, self.rope_cos)
+        return ext[key]
+
     def forward(self, input_ids, caches: Optional[List] = None,
                 attention_mask=None, position_ids=None,
-                attn_impl: str = "rpa"):
+                attn_impl: str = "rpa", pos_offsets=None):
         """Cacheless (``caches=None``, training): ``input_ids`` [B, S] ->
         final-norm hidden [B, S, hidden]; ``attention_mask`` [B, S] (1/0
         padding or packed segment ids) and ``position_ids`` [B, S] as in
@@ -310,22 +389,60 @@ class LlamaModel(Layer):
 
         Eager generation: ``input_ids`` [B, S] and one ``(past_k,
         past_v)`` pair per layer (``(None, None)`` before the prompt) ->
-        ``(final-norm hidden [B, S, hidden], the grown pairs)``."""
+        ``(final-norm hidden [B, S, hidden], the grown pairs)``.
+
+        Compiled generation: one static ``(k_buf, v_buf, pos)`` triple per
+        layer (:meth:`LlamaAttention._static_forward`), with
+        ``attention_mask`` the ``[B, L]`` key liveness over the buffers
+        and ``pos_offsets`` the ``[B]`` RoPE shift of a left-padded batch
+        -> ``(final-norm hidden, the triples with pos + S)``.
+
+        With ``cfg.recompute`` in training mode the cacheless path runs
+        each decoder layer under ``distributed.fleet.utils.recompute``
+        (reference :546-553): its activations are recomputed in the
+        backward instead of kept."""
         rope = (self.rope_cos, self.rope_sin)
         if caches is None:
+            if pos_offsets is not None:
+                raise NotImplementedError(
+                    "pos_offsets is an argument of the static-cache path")
             x = self.embed_tokens(input_ids)
+            if self.cfg.recompute and self.training:
+                from paddle_tpu_torch.distributed.fleet.utils import \
+                    recompute
+                for layer in self.layers:
+                    x = recompute(layer, x, None, rope,
+                                  attention_mask=attention_mask,
+                                  position_ids=position_ids)
+                return self.norm(x)
             for layer in self.layers:
                 x = layer(x, None, rope, attention_mask=attention_mask,
                           position_ids=position_ids)
             return self.norm(x)
-        if attention_mask is not None or position_ids is not None:
-            raise NotImplementedError(
-                "attention_mask/position_ids are cacheless (training) "
-                "arguments; the paged path derives both from its caches")
         if len(caches) != len(self.layers):
             raise ValueError(
                 f"caches has {len(caches)} entries for "
                 f"{len(self.layers)} layers")
+        if type(caches[0]) is tuple and len(caches[0]) == 3:
+            if position_ids is not None:
+                raise NotImplementedError(
+                    "position_ids is a cacheless (packed training) "
+                    "argument")
+            x = self.embed_tokens(input_ids)
+            rope = self._rope_at_least(caches[0][0].shape[1])
+            new = []
+            for layer, c in zip(self.layers, caches):
+                x, c = layer(x, c, rope, attention_mask=attention_mask,
+                             pos_offsets=pos_offsets)
+                new.append(c)
+            return self.norm(x), new
+        if attention_mask is not None or position_ids is not None or \
+                pos_offsets is not None:
+            raise NotImplementedError(
+                "attention_mask/position_ids are cacheless (training) "
+                "arguments, and with pos_offsets the static cache's; the "
+                "eager and paged caches derive positions and liveness "
+                "from themselves")
         x = self.embed_tokens(input_ids)
         if not isinstance(caches[0], pa.RaggedLayerCache):
             grown = []
@@ -350,10 +467,9 @@ class LlamaForCausalLM(Layer):
         super().__init__()
         if cfg.hidden_size % cfg.num_attention_heads:
             raise ValueError("hidden_size must divide by num_attention_heads")
-        if cfg.recompute or cfg.tensor_parallel:
+        if cfg.tensor_parallel:
             raise NotImplementedError(
-                "recompute and tensor_parallel are not ported to "
-                "paddle_tpu_torch yet")
+                "tensor_parallel is not ported to paddle_tpu_torch yet")
         device = resolve_device(device)
         dtype = convert_dtype(dtype)
         self.cfg = cfg
@@ -392,8 +508,10 @@ class LlamaForCausalLM(Layer):
                 "internal shift leaves nothing to predict for length 1)")
         if (labels is not None and self.lm_head is None
                 and self.cfg.vocab_size >= self._FUSED_CE_MIN_VOCAB):
-            return None, causal_lm_loss(h, self.model.embed_tokens.weight,
-                                        labels)
+            # the reference's op "fused_causal_ce": on neither amp list
+            h, w = cast_for("fused_causal_ce", h,
+                                self.model.embed_tokens.weight)
+            return None, causal_lm_loss(h, w, labels)
         logits = self._logits(h)
         if labels is None:
             return logits
@@ -405,7 +523,9 @@ class LlamaForCausalLM(Layer):
     def _logits(self, h):
         if self.lm_head is not None:
             return self.lm_head(h)
-        return torch.matmul(h, self.model.embed_tokens.weight.t())
+        # the reference's ops.matmul: a white-list op under amp
+        h, w = cast_for("matmul", h, self.model.embed_tokens.weight)
+        return torch.matmul(h, w.t())
 
     def generate(self, input_ids, max_new_tokens: int = 32,
                  temperature: float = 1.0, top_k: int = 0,
@@ -432,6 +552,25 @@ class LlamaForCausalLM(Layer):
 
         out = generate_loop(prefill, decode, ids, max_new_tokens,
                             temperature, top_k, top_p, eos_token_id)
+        return wrap(out) if had else out
+
+    def generate_compiled(self, input_ids, max_new_tokens: int = 32,
+                          temperature: float = 0.0, top_k: int = 0,
+                          top_p: float = 1.0, eos_token_id=None,
+                          prefill_chunk: int = 0, attention_mask=None):
+        """Generation over static KV buffers with the decode step
+        captured once per signature and replayed (reference :661; see
+        ``generation.compiled_generate``). Greedy tokens equal
+        ``generate``'s; ``attention_mask`` serves a left-padded batch of
+        unequal prompts, each row equal to its solo run. Given a Paddle
+        ``Tensor`` it returns one."""
+        from .generation import compiled_generate
+        (ids, mask), _, had = unwrap_args((input_ids, attention_mask),
+                                          None)
+        out = compiled_generate(self, ids, max_new_tokens, temperature,
+                                top_k, top_p, eos_token_id,
+                                prefill_chunk=prefill_chunk,
+                                attention_mask=mask)
         return wrap(out) if had else out
 
     @staticmethod

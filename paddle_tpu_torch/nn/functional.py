@@ -613,6 +613,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         attn_mask is not None and getattr(attn_mask, "_causal_diag", False)
         and s_q == s_k and tuple(attn_mask.shape)[-2:] == (s_q, s_k))
     drop = float(dropout_p) if training else 0.0
+    if drop > 0.0 and query.is_cuda and \
+            torch.cuda.is_current_stream_capturing():
+        # the seed is a host integer: a CUDA graph would bake one mask
+        raise NotImplementedError(
+            "flash attention dropout under CUDA-graph capture needs its "
+            "seed on the card, which is not ported yet")
     seed = _gen.host_int() if drop > 0.0 else None
     bias = None if attn_mask is None or causal_tagged \
         else _additive_mask(attn_mask)
@@ -789,24 +795,31 @@ from paddle_tpu_torch.nn.functional_extras import *  # noqa: F401,F403,E402
 __all__ = list(__all__) + list(_fx.__all__)
 
 
-def _facade_boundary(fn):
+def _facade_boundary(fn, name):
     """``fn`` as the user API: called from outside a port layer's
     ``forward`` with Paddle ``Tensor`` arguments, it computes on their
     plain aliases and returns ``Tensor``s (``core/tensor.py``); inside a
     port forward (plain tensors only) it is ``fn`` behind one
-    thread-local read."""
+    thread-local read. Under an ``amp.auto_cast`` policy either way
+    casts its floating inputs by ``name``, the reference's op name."""
+    from paddle_tpu_torch.amp.auto_cast import _open as amp_open
+    from paddle_tpu_torch.amp.auto_cast import cast_inputs
     from paddle_tpu_torch.core.tensor import unwrap_args, wrap
     from paddle_tpu_torch.nn.layer_base import _state
 
     @functools.wraps(fn)
     def call(*args, **kwargs):
         if _state.in_port:
+            if amp_open[0]:
+                args, kwargs = cast_inputs(name, args, kwargs)
             return fn(*args, **kwargs)
         args, kwargs, had = unwrap_args(args, kwargs)
+        if amp_open[0]:
+            args, kwargs = cast_inputs(name, args, kwargs)
         out = fn(*args, **kwargs)
         return wrap(out) if had else out
     return call
 
 
 for _name in __all__:
-    globals()[_name] = _facade_boundary(globals()[_name])
+    globals()[_name] = _facade_boundary(globals()[_name], _name)

@@ -44,6 +44,7 @@ from paddle_tpu_torch.nn import initializer as I
 from paddle_tpu_torch.nn.containers import LayerList
 from paddle_tpu_torch.param_attr import ParamAttr, create_parameter
 from paddle_tpu_torch.nn.layer_base import Layer
+from paddle_tpu_torch.ops.pallas import counters
 
 __all__ = ["RNNCellBase", "SimpleRNNCell", "LSTMCell", "GRUCell", "RNN",
            "BiRNN", "SimpleRNN", "LSTM", "GRU"]
@@ -51,6 +52,7 @@ __all__ = ["RNNCellBase", "SimpleRNNCell", "LSTMCell", "GRUCell", "RNN",
 #: calls of PyTorch's fused recurrence (one per LSTM/GRU layer a forward
 #: on the card)
 cudnn_calls = 0
+counters.register(__name__, "cudnn_calls")
 
 
 def _as_tuple(states):

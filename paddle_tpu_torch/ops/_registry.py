@@ -6,7 +6,8 @@ which unwraps Paddle ``Tensor`` arguments (zero-copy), calls it, and
 wraps the result as ``Tensor``s. Autograd is PyTorch's. The wrapper also
 honours ``FLAGS_check_nan_inf`` (a floating output with a NaN or an Inf
 raises ``FloatingPointError``) and ``FLAGS_benchmark`` (wait for the card
-after the op).
+after the op), and casts the op's floating inputs by its name under an
+active ``amp.auto_cast`` policy (the reference casts in ``apply_op``).
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from paddle_tpu_torch.amp.auto_cast import _open as _amp_open
+from paddle_tpu_torch.amp.auto_cast import cast_inputs
 from paddle_tpu_torch.core import flags
 from paddle_tpu_torch.core.tensor import unwrap_args, wrap
 
@@ -45,6 +48,8 @@ def _check_nan_inf(name, out):
 def dispatch(name: str, fn: Callable, args, kwargs):
     """Run ``fn`` on unwrapped arguments and wrap what it returns."""
     args, kwargs, _ = unwrap_args(args, kwargs)
+    if _amp_open[0]:
+        args, kwargs = cast_inputs(name, args, kwargs)
     out = fn(*args, **kwargs)
     if _FLAGS["check_nan_inf"].value:
         _check_nan_inf(name, out)

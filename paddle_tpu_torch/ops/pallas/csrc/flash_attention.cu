@@ -24,9 +24,9 @@
 // atomics.
 //
 // Numerics follow the TPU kernels: scores are masked to kMask and clamped
-// at it; a row with no segment-live key in a tile adds no p; in bf16 the
-// p of the PV product (K1), p_drop of dv and ds of dq/dk (K2, K3) are
-// rounded to bf16 before their product, as the TPU kernels cast them
+// at it; a row with no segment-live key in a tile adds no p; in bf16 (f16)
+// the p of the PV product (K1), p_drop of dv and ds of dq/dk (K2, K3) are
+// rounded to bf16 (f16) before their product, as the TPU kernels cast them
 // before their MXU dots, and every product accumulates in f32. Rows past
 // Sq and keys past Sk (the ragged edge of a tile) are masked out: they
 // add nothing and are not written. A tile that is dead by causality or
@@ -51,7 +51,12 @@
 // K1 (`flash_fwd_wgmma_kernel`), K2 (`flash_dq_wgmma_kernel`) and K3
 // (`flash_dkv_wgmma_kernel`) run their products on the bf16 tensor cores
 // through wgmma, tiles brought in by TMA through rings of shared-memory
-// stages, loads overlapped with the products (their notes below). In f32
+// stages, loads overlapped with the products (their notes below). The same
+// three kernels, templated on the element type E, serve f16 (what
+// auto_cast(dtype="float16") sends them): wgmma's .f16 kind on the same
+// m64nNk16 shapes, f16 TMA maps, and P and dS packed to f16 where bf16 packs
+// them, with f32 accumulation as in bf16. f16's narrower range matters for
+// dS, which the TPU kernels also cast to the input dtype. In f32
 // the three run register-tiled FMA loops, at the f32 rate at best (67
 // TFLOP/s): 256 threads, tiles of 64 q rows x 64 keys held in shared
 // memory as f32, thread (ty, tx) = (tid / 16, tid % 16) owning rows
@@ -61,12 +66,16 @@
 // holds the times).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
 
 #include <initializer_list>
+#include <mutex>
+#include <set>
 #include <type_traits>
+#include <utility>
 
 #include "hopper.cuh"
 
@@ -418,7 +427,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
   }
 }
 
-// ===================== K1: forward, bf16 on tensor cores ==================
+// ================ K1: forward, bf16 or f16 on tensor cores ===============
 // One block of 256 threads per (flat q head, q tile of 128 rows): two
 // warpgroups of 64 q rows each. Thread 0 brings the Q tile in by TMA once,
 // then blocks of 128 keys of K and V through a ring of kStages stages,
@@ -471,7 +480,7 @@ constexpr size_t smem_bytes() {
 }
 }  // namespace fwd90
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(fwd90::kThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tk,
@@ -563,7 +572,7 @@ __global__ void __launch_bounds__(fwd90::kThreads, 1)
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;
-      wgmma_m64n128k16_ss<0>(
+      wgmma_m64n128k16_ss<0, 0, E>(
           sc, desc_k_major(q_addr + (kk / 4) * kRows * 128 + off),
           desc_k_major(k_addr + (kk / 4) * kKeys * 128 + off), kk > 0);
     }
@@ -576,9 +585,9 @@ __global__ void __launch_bounds__(fwd90::kThreads, 1)
     for (int kk = 0; kk < kKeys / 16; ++kk) {
       const uint64_t dv = desc_mn_major(v_addr + kk * 16 * 128, kKeys * 128);
       if constexpr (D == 128)
-        wgmma_m64n128k16_rs<1>(o, pf[kk], dv);
+        wgmma_m64n128k16_rs<1, E>(o, pf[kk], dv);
       else
-        wgmma_m64n64k16_rs<1>(o, pf[kk], dv);
+        wgmma_m64n64k16_rs<1, E>(o, pf[kk], dv);
     }
     wgmma_commit();
   };
@@ -714,7 +723,7 @@ __global__ void __launch_bounds__(fwd90::kThreads, 1)
   const auto pack_p = [&](const float (&sc)[64]) {
 #pragma unroll
     for (int i = 0; i < 64; i += 2)
-      pf[i / 8][(i % 8) / 2] = pack_bf16(sc[i], sc[i + 1]);
+      pf[i / 8][(i % 8) / 2] = pack2<E>(sc[i], sc[i + 1]);
   };
 
   if (n_blocks > 0) {
@@ -759,25 +768,39 @@ __global__ void __launch_bounds__(fwd90::kThreads, 1)
 
   // rows that saw no live key: exact 0 and lse 0, so the backward's
   // p = exp(kMask - lse) underflows to 0 (:309-319)
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out0) +
-                       static_cast<long long>(bh) * p.sq * D;
+  E* out = static_cast<E*>(p.out0) + static_cast<long long>(bh) * p.sq * D;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = h == 0 ? ra : rb;
     if (row >= p.sq) continue;
     const float l = h == 0 ? l_a : l_b;
     const float l_safe = l == 0.f ? 1.f : l;
-    __nv_bfloat16* orow = out + static_cast<long long>(row) * D + cq;
+    E* orow = out + static_cast<long long>(row) * D + cq;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
-      const __nv_bfloat162 v = __floats2bfloat162_rn(
-          o[4 * c + 2 * h] / l_safe, o[4 * c + 2 * h + 1] / l_safe);
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) = v;
-    }
+    for (int c = 0; c < D / 8; ++c)
+      store2<E>(orow + 8 * c, o[4 * c + 2 * h] / l_safe,
+                o[4 * c + 2 * h + 1] / l_safe);
     if (lane % 4 == 0)
       p.lse_out[static_cast<long long>(bh) * p.sq + row] =
           l == 0.f ? 0.f : (h == 0 ? m_a : m_b) + logf(l_safe);
   }
+}
+
+// cudaFuncSetAttribute(kernel, max dynamic shared memory) once per kernel
+// and device, on its first launch: a launch that a CUDA graph captures
+// later (jit/cuda_graph.py) then makes no call but the launch itself
+cudaError_t set_smem_once(const void* kernel, size_t smem) {
+  static std::mutex mu;
+  static std::set<std::pair<const void*, int>> done;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const std::lock_guard<std::mutex> lock(mu);
+  if (done.count({kernel, dev})) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e == cudaSuccess) done.insert({kernel, dev});
+  return e;
 }
 
 // whether every operand a tensor-core kernel loads by TMA or stores in
@@ -788,33 +811,34 @@ inline bool aligned16(std::initializer_list<const void*> ptrs) {
   return true;
 }
 
-// a 3-D map [B*H, S, D] of a bf16 q-side or kv-side tensor, boxes of 64
-// columns x box_rows rows
-template <int D>
+// a 3-D map [B*H, S, D] of a bf16 or f16 (E) q-side or kv-side tensor,
+// boxes of 64 columns x box_rows rows
+template <typename E, int D>
 cudaError_t head_map(CUtensorMap* map, const void* base, int s, int bh,
                      int box_rows) {
   const cuuint64_t dims[3] = {D, static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(bh)};
   const cuuint64_t strides[2] = {D * 2, static_cast<cuuint64_t>(s) * D * 2};
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
-  return hopper::make_map(map, base, 3, dims, strides, box);
+  return hopper::make_map(map, base, 3, dims, strides, box,
+                           hopper::map_dtype<E>());
 }
 
-template <int D>
+template <typename E, int D>
 cudaError_t run_fwd_wgmma(const FlashParams& p, cudaStream_t stream) {
   if (!aligned16({p.q, p.k, p.v, p.out0})) return cudaErrorMisalignedAddress;
   CUtensorMap tq, tk, tv;
-  cudaError_t e = head_map<D>(&tq, p.q, p.sq, p.bhq, fwd90::kRows);
-  if (e == cudaSuccess) e = head_map<D>(&tk, p.k, p.sk, p.bhkv, fwd90::kKeys);
-  if (e == cudaSuccess) e = head_map<D>(&tv, p.v, p.sk, p.bhkv, fwd90::kKeys);
+  cudaError_t e = head_map<E, D>(&tq, p.q, p.sq, p.bhq, fwd90::kRows);
+  if (e == cudaSuccess) e = head_map<E, D>(&tk, p.k, p.sk, p.bhkv, fwd90::kKeys);
+  if (e == cudaSuccess) e = head_map<E, D>(&tv, p.v, p.sk, p.bhkv, fwd90::kKeys);
   if (e != cudaSuccess) return e;
   const size_t smem = fwd90::smem_bytes<D>();
-  e = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
+  e = set_smem_once(reinterpret_cast<const void*>(
+                        &flash_fwd_wgmma_kernel<E, D>),
+                    smem);
   if (e != cudaSuccess) return e;
   const unsigned nq = (p.sq + fwd90::kRows - 1) / fwd90::kRows;
-  flash_fwd_wgmma_kernel<D>
+  flash_fwd_wgmma_kernel<E, D>
       <<<dim3(p.bhq, nq), fwd90::kThreads, smem, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
@@ -1021,7 +1045,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(FlashParams p) {
   }
 }
 
-// ==================== K2 and K3: bf16 on tensor cores =====================
+// =============== K2 and K3: bf16 or f16 on tensor cores ===================
 // Both keep K1's block: 256 threads, two warpgroups, no loader warp;
 // thread 0 issues every TMA copy through 3-D maps [B*H, S, D] (a box past S
 // reads zeros, never the next head's rows) into 128-byte-swizzled tiles,
@@ -1094,7 +1118,7 @@ __device__ __forceinline__ float prob(const Masker& mask, float dot, int qpos,
 }
 }  // namespace bwd90
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(fwd90::kThreads, 1)
     flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tdo,
@@ -1194,14 +1218,14 @@ __global__ void __launch_bounds__(fwd90::kThreads, 1)
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t a = (kk / 4) * kRows * 128 + (kk % 4) * 32;
       const uint32_t bo = (kk / 4) * kTile * 128 + (kk % 4) * 32;
-      wgmma_m64n64k16_ss<0>(sc, desc_k_major(q_addr + a),
+      wgmma_m64n64k16_ss<0, E>(sc, desc_k_major(q_addr + a),
                             desc_k_major(k_addr + bo), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t a = (kk / 4) * kRows * 128 + (kk % 4) * 32;
       const uint32_t bo = (kk / 4) * kTile * 128 + (kk % 4) * 32;
-      wgmma_m64n64k16_ss<0>(dp, desc_k_major(do_addr + a),
+      wgmma_m64n64k16_ss<0, E>(dp, desc_k_major(do_addr + a),
                             desc_k_major(v_addr + bo), kk > 0);
     }
     wgmma_commit();
@@ -1213,9 +1237,9 @@ __global__ void __launch_bounds__(fwd90::kThreads, 1)
     for (int kk = 0; kk < kTile / 16; ++kk) {
       const uint64_t db = desc_mn_major(k_addr + kk * 16 * 128, kTile * 128);
       if constexpr (D == 128)
-        wgmma_m64n128k16_rs<1>(dq, dsf[kk], db);
+        wgmma_m64n128k16_rs<1, E>(dq, dsf[kk], db);
       else
-        wgmma_m64n64k16_rs<1>(dq, dsf[kk], db);
+        wgmma_m64n64k16_rs<1, E>(dq, dsf[kk], db);
     }
     wgmma_commit();
   };
@@ -1282,7 +1306,7 @@ __global__ void __launch_bounds__(fwd90::kThreads, 1)
   const auto pack_ds = [&](const float (&sc)[32]) {
 #pragma unroll
     for (int i = 0; i < 32; i += 2)
-      dsf[i / 8][(i % 8) / 2] = pack_bf16(sc[i], sc[i + 1]);
+      dsf[i / 8][(i % 8) / 2] = pack2<E>(sc[i], sc[i + 1]);
   };
 
   if (n_blocks > 0) {
@@ -1323,20 +1347,19 @@ __global__ void __launch_bounds__(fwd90::kThreads, 1)
     finish_dq((n_blocks - 1) % kStages);
   }
 
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out0) + r0 * D;
+  E* out = static_cast<E*>(p.out0) + r0 * D;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = h == 0 ? ra : rb;
     if (row >= p.sq) continue;
-    __nv_bfloat16* orow = out + static_cast<long long>(row) * D + cq;
+    E* orow = out + static_cast<long long>(row) * D + cq;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) =
-          __floats2bfloat162_rn(dq[4 * c + 2 * h], dq[4 * c + 2 * h + 1]);
+      store2<E>(orow + 8 * c, dq[4 * c + 2 * h], dq[4 * c + 2 * h + 1]);
   }
 }
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(fwd90::kThreads, 1)
     flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                            const __grid_constant__ CUtensorMap tdo,
@@ -1465,14 +1488,14 @@ __global__ void __launch_bounds__(fwd90::kThreads, 1)
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t a = (kk / 4) * kKeys * 128 + (kk % 4) * 32;
       const uint32_t bo = (kk / 4) * kTile * 128 + (kk % 4) * 32;
-      wgmma_m64n64k16_ss<0>(st, desc_k_major(k_addr + a),
+      wgmma_m64n64k16_ss<0, E>(st, desc_k_major(k_addr + a),
                             desc_k_major(q_addr + bo), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t a = (kk / 4) * kKeys * 128 + (kk % 4) * 32;
       const uint32_t bo = (kk / 4) * kTile * 128 + (kk % 4) * 32;
-      wgmma_m64n64k16_ss<0>(dpt, desc_k_major(v_addr + a),
+      wgmma_m64n64k16_ss<0, E>(dpt, desc_k_major(v_addr + a),
                             desc_k_major(do_addr + bo), kk > 0);
     }
     wgmma_commit();
@@ -1543,29 +1566,29 @@ __global__ void __launch_bounds__(fwd90::kThreads, 1)
     for (int i = 0; i < 32; i += 2) {
       const float p0 = ((keep >> i) & 1u) ? st[i] * dsc : 0.f;
       const float p1 = ((keep >> (i + 1)) & 1u) ? st[i + 1] * dsc : 0.f;
-      pf[i / 8][(i % 8) / 2] = pack_bf16(p0, p1);
+      pf[i / 8][(i % 8) / 2] = pack2<E>(p0, p1);
     }
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk) {
       const uint64_t db = desc_mn_major(do_addr + kk * 16 * 128, kTile * 128);
       if constexpr (D == 128)
-        wgmma_m64n128k16_rs<1>(dv, pf[kk], db);
+        wgmma_m64n128k16_rs<1, E>(dv, pf[kk], db);
       else
-        wgmma_m64n64k16_rs<1>(dv, pf[kk], db);
+        wgmma_m64n64k16_rs<1, E>(dv, pf[kk], db);
     }
     wgmma_commit();
 #pragma unroll
     for (int i = 0; i < 32; i += 2)
-      dsf[i / 8][(i % 8) / 2] = pack_bf16(dpt[i], dpt[i + 1]);
+      dsf[i / 8][(i % 8) / 2] = pack2<E>(dpt[i], dpt[i + 1]);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk) {
       const uint64_t db = desc_mn_major(q_addr + kk * 16 * 128, kTile * 128);
       if constexpr (D == 128)
-        wgmma_m64n128k16_rs<1>(dk, dsf[kk], db);
+        wgmma_m64n128k16_rs<1, E>(dk, dsf[kk], db);
       else
-        wgmma_m64n64k16_rs<1>(dk, dsf[kk], db);
+        wgmma_m64n64k16_rs<1, E>(dk, dsf[kk], db);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -1579,8 +1602,8 @@ __global__ void __launch_bounds__(fwd90::kThreads, 1)
   }
 
   const long long koff = static_cast<long long>(bkv) * p.sk * D;
-  __nv_bfloat16* dk_out = static_cast<__nv_bfloat16*>(p.out0) + koff;
-  __nv_bfloat16* dv_out = static_cast<__nv_bfloat16*>(p.out1) + koff;
+  E* dk_out = static_cast<E*>(p.out0) + koff;
+  E* dv_out = static_cast<E*>(p.out1) + koff;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int key = h == 0 ? ka : kb;
@@ -1588,16 +1611,16 @@ __global__ void __launch_bounds__(fwd90::kThreads, 1)
     const long long e0 = static_cast<long long>(key) * D + cq;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c) {
-      *reinterpret_cast<__nv_bfloat162*>(dk_out + e0 + 8 * c) =
-          __floats2bfloat162_rn(dk[4 * c + 2 * h], dk[4 * c + 2 * h + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv_out + e0 + 8 * c) =
-          __floats2bfloat162_rn(dv[4 * c + 2 * h], dv[4 * c + 2 * h + 1]);
+      store2<E>(dk_out + e0 + 8 * c, dk[4 * c + 2 * h],
+                dk[4 * c + 2 * h + 1]);
+      store2<E>(dv_out + e0 + 8 * c, dv[4 * c + 2 * h],
+                dv[4 * c + 2 * h + 1]);
     }
   }
 }
 
-// K2 (which 1) or K3 (which 2) in bf16 on the tensor cores
-template <int D>
+// K2 (which 1) or K3 (which 2) in bf16 or f16 (E) on the tensor cores
+template <typename E, int D>
 cudaError_t run_bwd_wgmma(int which, const FlashParams& p,
                           cudaStream_t stream) {
   const bool dq = which == 1;
@@ -1606,28 +1629,26 @@ cudaError_t run_bwd_wgmma(int which, const FlashParams& p,
   const int q_box = dq ? bwd90::kDqRows : kTile;
   const int k_box = dq ? kTile : bwd90::kDkvKeys;
   CUtensorMap tq, tdo, tk, tv;
-  cudaError_t e = head_map<D>(&tq, p.q, p.sq, p.bhq, q_box);
-  if (e == cudaSuccess) e = head_map<D>(&tdo, p.dout, p.sq, p.bhq, q_box);
-  if (e == cudaSuccess) e = head_map<D>(&tk, p.k, p.sk, p.bhkv, k_box);
-  if (e == cudaSuccess) e = head_map<D>(&tv, p.v, p.sk, p.bhkv, k_box);
+  cudaError_t e = head_map<E, D>(&tq, p.q, p.sq, p.bhq, q_box);
+  if (e == cudaSuccess) e = head_map<E, D>(&tdo, p.dout, p.sq, p.bhq, q_box);
+  if (e == cudaSuccess) e = head_map<E, D>(&tk, p.k, p.sk, p.bhkv, k_box);
+  if (e == cudaSuccess) e = head_map<E, D>(&tv, p.v, p.sk, p.bhkv, k_box);
   if (e != cudaSuccess) return e;
   if (dq) {
     const size_t smem = bwd90::dq_smem_bytes<D>();
-    e = cudaFuncSetAttribute(flash_dq_wgmma_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+    e = set_smem_once(
+        reinterpret_cast<const void*>(&flash_dq_wgmma_kernel<E, D>), smem);
     if (e != cudaSuccess) return e;
     const unsigned nq = (p.sq + bwd90::kDqRows - 1) / bwd90::kDqRows;
-    flash_dq_wgmma_kernel<D><<<dim3(p.bhq, nq), fwd90::kThreads, smem,
+    flash_dq_wgmma_kernel<E, D><<<dim3(p.bhq, nq), fwd90::kThreads, smem,
                                stream>>>(tq, tdo, tk, tv, p);
   } else {
     const size_t smem = bwd90::dkv_smem_bytes<D>();
-    e = cudaFuncSetAttribute(flash_dkv_wgmma_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+    e = set_smem_once(
+        reinterpret_cast<const void*>(&flash_dkv_wgmma_kernel<E, D>), smem);
     if (e != cudaSuccess) return e;
     const unsigned nk = (p.sk + bwd90::kDkvKeys - 1) / bwd90::kDkvKeys;
-    flash_dkv_wgmma_kernel<D><<<dim3(p.bhkv, nk), fwd90::kThreads, smem,
+    flash_dkv_wgmma_kernel<E, D><<<dim3(p.bhkv, nk), fwd90::kThreads, smem,
                                 stream>>>(tq, tdo, tk, tv, p);
   }
   return cudaGetLastError();
@@ -1651,9 +1672,8 @@ constexpr size_t dkv_smem() {
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, const FlashParams& p,
                    cudaStream_t stream) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const cudaError_t e =
+      set_smem_once(reinterpret_cast<const void*>(kernel), smem);
   if (e != cudaSuccess) return e;
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
@@ -1661,11 +1681,12 @@ cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, const FlashParams& p,
 
 template <typename T, int D>
 cudaError_t run(int which, const FlashParams& p, cudaStream_t stream) {
-  // bf16 on the tensor cores; f32 stays on the FMA kernels, since TF32
-  // would miss the f32 tolerances
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return which == 0 ? run_fwd_wgmma<D>(p, stream)
-                      : run_bwd_wgmma<D>(which, p, stream);
+  // bf16 and f16 on the tensor cores; f32 stays on the FMA kernels, since
+  // TF32 would miss the f32 tolerances
+  if constexpr (std::is_same<T, __nv_bfloat16>::value ||
+                std::is_same<T, __half>::value) {
+    return which == 0 ? run_fwd_wgmma<T, D>(p, stream)
+                      : run_bwd_wgmma<T, D>(which, p, stream);
   } else {
     const unsigned nq = (p.sq + kTile - 1) / kTile;
     const unsigned nk = (p.sk + kTile - 1) / kTile;
@@ -1695,6 +1716,8 @@ int dispatch(int which, const FlashParams* p, void* stream) {
     e = run<__nv_bfloat16, 64>(which, *p, st);
   if (p->dtype == 1 && p->head_dim == 128)
     e = run<__nv_bfloat16, 128>(which, *p, st);
+  if (p->dtype == 2 && p->head_dim == 64) e = run<__half, 64>(which, *p, st);
+  if (p->dtype == 2 && p->head_dim == 128) e = run<__half, 128>(which, *p, st);
   return static_cast<int>(e);
 }
 
@@ -1702,8 +1725,9 @@ int dispatch(int which, const FlashParams* p, void* stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Each returns a cudaError_t value (0 on
-// a launch that was accepted); the Python wrapper raises on anything else.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Each returns a cudaError_t
+// value (0 on a launch that was accepted); the Python wrapper raises on
+// anything else.
 int flash_fwd_launch(const FlashParams* p, void* stream) {
   return dispatch(0, p, stream);
 }

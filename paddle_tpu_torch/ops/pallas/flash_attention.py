@@ -16,8 +16,9 @@ that the forward and both backward kernels evaluate alike. Their bound on
 the H100 is operations: at the training shape (B=4, S=2048, Hq=16,
 Hkv=4, hd=128, causal, bf16) K1 does 68.7 GFLOP (0.069 ms at 989
 TFLOP/s), K2 103 GFLOP (0.104 ms) and K3 137 GFLOP (0.139 ms). In bf16
-all three run on the tensor cores (wgmma, tiles by TMA), so their q, k,
-v and do must start on a 16-byte boundary; in f32 they run FMA loops.
+and in f16 (what ``amp.auto_cast(dtype="float16")`` sends them) all
+three run on the tensor cores (wgmma, tiles by TMA), so their q, k, v
+and do must start on a 16-byte boundary; in f32 they run FMA loops.
 The source's header says why, and ``PERF.md`` holds their times.
 
 Head dims: the kernels have instances at 64 and 128 (``_HEAD_DIMS``).
@@ -51,7 +52,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, counters
 
 __all__ = ["flash_attention_bhsd", "flash_attention_bshd",
            "flash_attention_reference", "flash_attention_fwd",
@@ -65,6 +66,8 @@ launches_dq = 0
 launches_dkv = 0
 #: the launches of the three above made at a zero-padded head_dim
 launches_padded = 0
+counters.register(__name__, "launches_fwd", "launches_dq", "launches_dkv",
+                  "launches_padded")
 
 # finite stand-in for -inf (the reference's _MASK_VALUE, :71)
 _MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
@@ -72,7 +75,7 @@ _MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 _HASH_Q, _HASH_K, _HASH_MIX = 0x9E3779B9, 0xC2B2AE35, 0x85EBCA6B
 _U32 = 0xFFFFFFFF
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128)
 
 
@@ -292,8 +295,8 @@ def _ptr(t):
 def _check_cuda(g: FlashGeometry, **tensors):
     q = tensors["q"]
     if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"flash attention kernels take float32 or "
-                        f"bfloat16, not {q.dtype}")
+        raise TypeError(f"flash attention kernels take float32, "
+                        f"bfloat16 or float16, not {q.dtype}")
     if q.shape[-1] not in _HEAD_DIMS:
         raise ValueError(
             f"flash attention kernels have head_dim instances "
@@ -315,13 +318,15 @@ def _check_cuda(g: FlashGeometry, **tensors):
 
 
 def _check_tma_base(kernel: str, **tensors):
-    """The bf16 kernels load their operands by TMA, which reads from
-    16-byte aligned bases only: raise on any other (nothing is copied)."""
+    """The bf16 and f16 kernels load their operands by TMA, which reads
+    from 16-byte aligned bases only: raise on any other (nothing is
+    copied)."""
     for name, t in tensors.items():
-        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+        if t.dtype != torch.float32 and t.data_ptr() % 16:
             raise ValueError(
-                f"the bf16 {kernel} kernel loads {name} by TMA, which needs "
-                f"a 16-byte aligned base, not {t.data_ptr():#x}")
+                f"the {str(t.dtype)[6:]} {kernel} kernel loads {name} by "
+                f"TMA, which needs a 16-byte aligned base, not "
+                f"{t.data_ptr():#x}")
 
 
 def _params(q_like, k_like, g: FlashGeometry, **ptrs) -> _Params:

@@ -43,7 +43,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, counters
 
 __all__ = ["gmm", "tgmm", "gmm_aligned"]
 
@@ -53,6 +53,8 @@ launches_gmm = 0
 launches_tgmm = 0
 launches_gmm_aligned = 0
 launches_tgmm_aligned = 0
+counters.register(__name__, "launches_gmm", "launches_tgmm",
+                  "launches_gmm_aligned", "launches_tgmm_aligned")
 
 _F32, _BF16 = torch.float32, torch.bfloat16
 _DTYPE_CODE = {_F32: 0, _BF16: 1}

@@ -36,7 +36,7 @@ import math
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, counters
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_reference",
            "build_step_maps", "rpa_max_steps", "DEFAULT_TILE_Q",
@@ -467,3 +467,5 @@ ragged_paged_attention.launches = 0
 #: the serving step's calls at a head_dim zero-padded to an instance's
 #: (``ops.paged_attention._pad_to_kernel_head_dim``)
 ragged_paged_attention.launches_padded = 0
+counters.register(__name__, "ragged_paged_attention.launches",
+                  "ragged_paged_attention.launches_padded")

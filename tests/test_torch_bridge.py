@@ -5,9 +5,14 @@ other ``test_torch_*`` files import: the port itself never touches
 ``paddle_tpu``. Weights always cross through numpy, never through
 matching the two frameworks' random generators.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
+
+import jax
+import jax.numpy as jnp
 
 import paddle_tpu as pt
 from paddle_tpu.models.llama import LlamaConfig, LlamaForCausalLM
@@ -46,6 +51,73 @@ def buffers_from_jax(model) -> dict:
     ``paddle_tpu`` model."""
     return {n: np.asarray(b.data) for n, b in model.named_buffers()
             if n.rsplit(".", 1)[-1] in BRIDGED_BUFFERS}
+
+
+@contextlib.contextmanager
+def undrawn_jax_init():
+    """Inside the block the JAX package's initializers draw nothing:
+    ``jax.random``'s ``normal``, ``truncated_normal`` and ``uniform`` give
+    zeros. A test builds a reference model in it only when it loads every
+    weight afterwards (the port's, through :func:`load_into_jax`), so no
+    draw is ever read; it saves one XLA compile of a random kernel per
+    parameter shape (~0.4 s each on the CPU)."""
+    def normal(key, shape=(), dtype=None, **kw):
+        return jnp.zeros(shape, dtype or jnp.float32)
+
+    def truncated_normal(key, lower, upper, shape=None, dtype=None, **kw):
+        return jnp.zeros(shape or (), dtype or jnp.float32)
+
+    def uniform(key, shape=(), dtype=None, minval=0.0, maxval=1.0, **kw):
+        return jnp.zeros(shape, dtype or jnp.float32)
+    fakes = {"normal": normal, "truncated_normal": truncated_normal,
+             "uniform": uniform}
+    saved = {n: getattr(jax.random, n) for n in fakes}
+    for n, f in fakes.items():
+        setattr(jax.random, n, f)
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(jax.random, n, f)
+
+
+def load_into_jax(jax_model, port_model):
+    """Copy the port model's parameters and bridged buffers into the JAX
+    model (the bridge's other direction), with every name checked."""
+    state = numpy_state(port_model)
+    missing, unexpected = jax_model.set_state_dict(state)
+    assert not unexpected, unexpected
+    assert not set(missing) & set(state_dict_from_jax(jax_model)), missing
+    return state
+
+
+def jax_value_and_grads(model, loss_fn, *arrays):
+    """The JAX package's loss on ``arrays`` and the gradient of every
+    trainable parameter of ``model``, as its ``TrainStep`` computes them
+    (``paddle_tpu/jit/train_step.py:384-400``: ``jax.value_and_grad`` over
+    the functional state, the model called with its storage swapped),
+    under one ``jax.jit``: the function its eager tape computes, in one
+    XLA compile instead of one per op and shape. ``loss_fn(model,
+    *tensors)`` returns ``(loss, aux)``. Returns numpy ``(loss, aux,
+    {name: gradient}, {name: buffer as the call left it})``; the model's
+    own storage is untouched."""
+    from paddle_tpu.core.autograd import no_grad
+    from paddle_tpu.core.tensor import Tensor
+    from paddle_tpu.jit.functional import functional_state, swap_state
+    train, frozen, buffers = functional_state(model)
+
+    def loss_of(tr, *arrs):
+        with no_grad(), swap_state(model, {**tr, **frozen, **buffers}) \
+                as out_bufs:
+            loss, aux = loss_fn(model, *[Tensor(a) for a in arrs])
+            aux = jax.tree_util.tree_map(
+                lambda t: t.data if isinstance(t, Tensor) else t, aux,
+                is_leaf=lambda t: isinstance(t, Tensor))
+        return loss.data, (aux, out_bufs)
+    (loss, (aux, bufs)), grads = jax.jit(jax.value_and_grad(
+        loss_of, has_aux=True))(train, *arrays)
+    as_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
+    return np.asarray(loss), as_np(aux), as_np(grads), as_np(bufs)
 
 
 def jax_tiny(seed=0, **kw):

@@ -1,8 +1,9 @@
 """The reference's example scripts run against the port with nothing
 changed but the package name: each of ``examples/{train_llama,
-generate_llama,train_packed,serve_llama}.py`` (with ``_common.py``) is
-copied, the word ``paddle_tpu`` replaced by ``paddle_tpu_torch``, and
-run in a fresh process after ``paddle_tpu_torch.set_device("cpu")`` —
+generate_llama,train_packed,serve_llama,generate_compiled}.py`` (with
+``_common.py``) is copied, the word ``paddle_tpu`` replaced by
+``paddle_tpu_torch``, and run in a fresh process after
+``paddle_tpu_torch.set_device("cpu")`` —
 the one line a CPU run adds, since the port runs on the card by
 default. ``chip_smoke.py`` runs the same copies on the card."""
 import os
@@ -15,7 +16,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 EXAMPLES = ["train_llama.py", "generate_llama.py", "train_packed.py",
-            "serve_llama.py"]
+            "serve_llama.py", "generate_compiled.py"]
 
 
 def port_copy(dst: Path):
@@ -45,6 +46,9 @@ def test_example_runs_on_the_port(script, tmp_path):
         assert losses[-1] < losses[0], r.stdout
     if script == "generate_llama.py":
         assert "generated:" in r.stdout
+    if script == "generate_compiled.py":
+        assert "token-for-token: True" in r.stdout, r.stdout
+        assert "deterministic: True" in r.stdout, r.stdout
     if script == "serve_llama.py":
         assert r.stdout.count("tok | ttft") == 3, r.stdout
         # the port runs the unified step eagerly: it compiles no program

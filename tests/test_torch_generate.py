@@ -25,11 +25,28 @@ def _prompt(b=2, s=7, seed=0):
     return np.random.RandomState(seed).randint(1, 256, (b, s))
 
 
+def _reference_tokens(jm, ids, n, eos=None):
+    """The reference's greedy tokens through its compiled loop, which
+    equals its eager ``generate`` token for token
+    (``tests/test_compiled_generate.py::test_compiled_equals_eager_greedy``)
+    in one XLA compile instead of one per op and cache length. It runs the
+    whole budget, finished rows emitting ``eos``; the eager loop stops
+    after the step at which every row has emitted it, so the reference's
+    eager output is this one cut there."""
+    out = np.asarray(jm.generate_compiled(
+        pt.to_tensor(ids), max_new_tokens=n, temperature=0,
+        eos_token_id=eos).numpy())
+    if eos is not None:
+        done = np.logical_or.accumulate(out[:, ids.shape[1]:] == eos, 1)
+        if done.all(0).any():
+            out = out[:, :ids.shape[1] + int(done.all(0).argmax()) + 1]
+    return out
+
+
 def test_greedy_tokens_equal_the_reference(pair):
     jm, tm = pair
     ids = _prompt()
-    ref = np.asarray(jm.generate(pt.to_tensor(ids), max_new_tokens=12,
-                                 temperature=0).numpy())
+    ref = _reference_tokens(jm, ids, 12)
     out = tm.generate(ptt.to_tensor(ids), max_new_tokens=12, temperature=0)
     assert type(out) is ptt.Tensor
     np.testing.assert_array_equal(out.numpy(), ref)
@@ -75,9 +92,7 @@ def test_eos_ends_the_loop_early(pair):
     eos = int(first[0, 7])  # row 0 emits it first
     out = tm.generate(ptt.to_tensor(ids), max_new_tokens=12, temperature=0,
                       eos_token_id=eos).numpy()
-    ref = np.asarray(jm.generate(pt.to_tensor(ids), max_new_tokens=12,
-                                 temperature=0, eos_token_id=eos).numpy())
-    np.testing.assert_array_equal(out, ref)
+    np.testing.assert_array_equal(out, _reference_tokens(jm, ids, 12, eos))
     assert (out[0, 7:] == eos).all()
 
 

@@ -35,7 +35,7 @@ from paddle_tpu_torch.utils.bridge import (load_numpy_state, numpy_state,
                                            optimizer_state_to_numpy)
 
 from test_torch_bridge import one_torch_thread  # noqa: F401
-from test_torch_bridge import state_dict_from_jax
+from test_torch_bridge import jax_value_and_grads, state_dict_from_jax
 
 FWD_TOL = dict(rtol=1e-5, atol=1e-6)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
@@ -69,16 +69,26 @@ def _layers(gate, top_k, cf, mode, seed):
     return jm, tm
 
 
-def _jax_routing(jm, x, mask, monkeypatch):
-    """The JAX layer's top-k picks and, in ragged mode, its token->slot
-    map (kept assignments hold ``e*C + position``, dropped ones ``E*C``),
-    recorded from a forward without gradients."""
+def _jax_reference(jm, x, proj, mask, monkeypatch):
+    """The JAX layer on ``x``: its output, ``l_aux``, and the gradients of
+    ``sum(y * proj) + l_aux`` with respect to ``x`` and every weight, from
+    ``jax.value_and_grad`` over its functional state under one jit (as
+    its ``TrainStep`` computes them); and its top-k picks and, in ragged
+    mode, its token->slot map (kept assignments hold ``e*C + position``,
+    dropped ones ``E*C``), recorded by ``jax.debug.callback`` where the
+    layer computes them."""
+    from paddle_tpu.core.autograd import no_grad
+    from paddle_tpu.core.tensor import Tensor
+    from paddle_tpu.jit.functional import functional_state, swap_state
     seen = {}
+
+    def keep(name):
+        return lambda v: seen.__setitem__(name, np.asarray(v))
     top_k = jax.lax.top_k
 
     def record_top_k(a, k):
         vals, idx = top_k(a, k)
-        seen["idx_k"] = np.asarray(idx)
+        jax.debug.callback(keep("idx_k"), idx)
         return vals, idx
     monkeypatch.setattr(jax.lax, "top_k", record_top_k)
     moves = jfleet.moe._ragged_moves
@@ -87,15 +97,24 @@ def _jax_routing(jm, x, mask, monkeypatch):
         dispatch, combine = moves(n_slots)
 
         def rec_dispatch(xt, slot_src, slots_stack):
-            seen["slots"] = np.asarray(slots_stack)
+            jax.debug.callback(keep("slots"), slots_stack)
             return dispatch(xt, slot_src, slots_stack)
         return rec_dispatch, combine
     monkeypatch.setattr(jfleet.moe, "_ragged_moves", record_moves)
-    with pt.no_grad():
-        jm(pt.to_tensor(x), **({} if mask is None else
-                              {"token_mask": pt.to_tensor(mask)}))
+    kw = {} if mask is None else {"token_mask": pt.to_tensor(mask)}
+    train, frozen, buffers = functional_state(jm)
+
+    def loss_of(tr, xa):
+        with no_grad(), swap_state(jm, {**tr, **frozen, **buffers}):
+            y = jm(Tensor(xa), **kw)
+            aux = jm.l_aux.data
+        return (y.data * proj).sum() + aux, (y.data, aux)
+    (_, (y, l_aux)), (grads, gx) = jax.jit(jax.value_and_grad(
+        loss_of, argnums=(0, 1), has_aux=True))(train, x)
+    jax.effects_barrier()
     monkeypatch.undo()
-    return seen
+    return seen, np.asarray(y), float(l_aux), np.asarray(gx), \
+        {n: np.asarray(g) for n, g in grads.items()}
 
 
 def _compare(gate, top_k, cf, mode, monkeypatch, mask=None, seed=0):
@@ -104,10 +123,10 @@ def _compare(gate, top_k, cf, mode, monkeypatch, mask=None, seed=0):
     x = rng.randn(2, 12, D).astype(np.float32)
     x[1, 5] = 0.0  # uniform probabilities: an exact tie among all experts
     proj = rng.randn(2, 12, D).astype(np.float32)
-    kw_j = {} if mask is None else {"token_mask": pt.to_tensor(mask)}
     kw_t = {} if mask is None else {"token_mask": torch.from_numpy(mask)}
 
-    seen = _jax_routing(jm, x, mask, monkeypatch)
+    seen, yj, laux_j, gx_j, jgrads = _jax_reference(jm, x, proj, mask,
+                                                    monkeypatch)
     K = tm.gate.top_k
     valid = None if mask is None else torch.from_numpy(mask).reshape(-1)
     r = route(torch.from_numpy(x).reshape(-1, D), tm.gate.weight, K, cf,
@@ -120,19 +139,13 @@ def _compare(gate, top_k, cf, mode, monkeypatch, mask=None, seed=0):
                             torch.full_like(r.pos, E * C))
         np.testing.assert_array_equal(slots.numpy(), seen["slots"])
 
-    xj = pt.to_tensor(x, stop_gradient=False)
-    yj = jm(xj, **kw_j)
-    lj = (yj * pt.to_tensor(proj)).sum() + jm.l_aux
-    lj.backward()
     xt = torch.from_numpy(x).requires_grad_()
     yt = tm(xt, **kw_t)
     ((yt * torch.from_numpy(proj)).sum() + tm.l_aux).backward()
 
-    np.testing.assert_allclose(yt.detach().numpy(), _np(yj), **FWD_TOL)
-    np.testing.assert_allclose(float(tm.l_aux.detach()),
-                               float(_np(jm.l_aux)), **FWD_TOL)
-    np.testing.assert_allclose(xt.grad.numpy(), _np(xj.grad), **GRAD_TOL)
-    jgrads = {n: _np(p.grad) for n, p in jm.named_parameters()}
+    np.testing.assert_allclose(yt.detach().numpy(), yj, **FWD_TOL)
+    np.testing.assert_allclose(float(tm.l_aux.detach()), laux_j, **FWD_TOL)
+    np.testing.assert_allclose(xt.grad.numpy(), gx_j, **GRAD_TOL)
     tgrads = {n: p.grad.numpy() for n, p in tm.named_parameters()}
     assert sorted(tgrads) == sorted(jgrads)
     for n in jgrads:
@@ -214,19 +227,19 @@ def test_loss_and_every_gradient_match_jax(route_):
         0, jm.cfg.vocab_size, (2, 16)).astype(np.int32)
     labels = ids.copy()
     labels[0, 4:9] = -100
+    def loss_and_logits(m, x, y):
+        loss = m(x, labels=y)[1]
+        return loss, (m(x) if route_ == "logits_ce" else None)
+    jl, ref, jg, _ = jax_value_and_grads(jm, loss_and_logits, ids, labels)
     if route_ == "logits_ce":
-        ref = _np(jm(pt.to_tensor(ids)))
         with torch.no_grad():
             logits = tm(torch.from_numpy(ids))
         np.testing.assert_allclose(logits.numpy(), ref, rtol=1e-5,
                                    atol=1e-5)
-    _, jl = jm(pt.to_tensor(ids), labels=pt.to_tensor(labels))
-    jl.backward()
     out, tl = tm(torch.from_numpy(ids), labels=torch.from_numpy(labels))
     tl.backward()
     assert out is None
-    np.testing.assert_allclose(float(tl.detach()), float(_np(jl)), rtol=1e-5)
-    jg = {n: _np(p.grad) for n, p in jm.named_parameters()}
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
     for n, p in tm.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), jg[n], err_msg=n,
                                    **GRAD_TOL)

@@ -80,7 +80,12 @@ def test_import_in_a_fresh_process_loads_no_jax():
         "paddle_tpu_torch.ops.array, paddle_tpu_torch.ops.extras, "
         "paddle_tpu_torch.nn.layer_base, paddle_tpu_torch.linalg, "
         "paddle_tpu_torch.batch, paddle_tpu_torch.callbacks, "
-        "paddle_tpu_torch.device.cuda, paddle_tpu_torch.models.generation\n"
+        "paddle_tpu_torch.device.cuda, paddle_tpu_torch.models.generation, "
+        "paddle_tpu_torch.jit.api, paddle_tpu_torch.jit.functional, "
+        "paddle_tpu_torch.jit.cuda_graph, paddle_tpu_torch.amp, "
+        "paddle_tpu_torch.ops.pallas.counters, "
+        "paddle_tpu_torch.amp.auto_cast, paddle_tpu_torch.amp.grad_scaler, "
+        "paddle_tpu_torch.distributed.fleet.utils\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu')]\n"
         "assert not bad, bad\n")
@@ -110,6 +115,22 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServingEngine(model, max_blocks=8, block_size=4, prefill_chunk=4)
     assert resolve_device("cpu") == torch.device("cpu")
+    # capture (compiled_generate's decode step, to_static's calls) runs
+    # on the card: with no tensor to say otherwise it resolves to the
+    # card, and asking for the CPU is refused, not run eagerly behind
+    # the caller's back
+    from paddle_tpu_torch.jit import to_static
+    from paddle_tpu_torch.jit.cuda_graph import CapturedGraph
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CapturedGraph(lambda: None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        to_static(lambda: 1)()
+    with pytest.raises(ValueError, match="card"):
+        CapturedGraph(lambda: None, "cpu")
+    # the CPU route of compiled_generate is the model's device, asked for
+    out = model.generate_compiled(torch.ones(1, 3, dtype=torch.long),
+                                  max_new_tokens=2)
+    assert out.device.type == "cpu" and tuple(out.shape) == (1, 5)
 
 
 def test_data_and_checkpoint_entry_points_default_to_cuda(tmp_path):
@@ -221,13 +242,20 @@ def test_no_library_attention_or_compiler_stands_in_for_a_kernel():
                     (node.module or "").startswith("torch"):
                 assert "scaled_dot_product_attention" not in \
                     [a.name for a in node.names], path.name
+    from paddle_tpu_torch.jit import api, cuda_graph
+    from paddle_tpu_torch.models import generation
     from paddle_tpu_torch.nn.layer import rnn
     from paddle_tpu_torch.ops.pallas import flash_attention as fa
     from paddle_tpu_torch.ops.pallas import grouped_matmul as gm
     from paddle_tpu_torch.ops.pallas import ragged_paged_attention as rpa
     # the recurrent layers pick their route by device; no failure of the
     # fused recurrence sends a CUDA tensor to the step loop
+    # nor does capture: a call on the card replays or captures, and a
+    # capture that fails raises
     for mod, names in ((rnn, ("_fused_layer", "_scan_rnn", "_RNNBase")),
+                       (cuda_graph, ("CapturedGraph",)),
+                       (api, ("StaticFunction",)),
+                       (generation, ("compiled_generate", "_Compiled")),
                        (rpa, ("ragged_paged_attention",)),
                        (fa, ("flash_attention_fwd", "flash_attention_dq",
                              "flash_attention_dkv", "_launch")),
@@ -284,10 +312,44 @@ def test_kernel_wrapper_counts_launches_only():
         gm.gmm(lhs.to("meta"), rhs.to("meta"), sizes.to("meta"), bm=8)
 
 
+def test_every_launch_counter_is_registered():
+    """A launch counter is a module-level integer named ``launches...``
+    or ``cudnn_calls`` (or one kept on a function, ``f.launches... =
+    0``). Each must be in ``ops/pallas/counters``' registry: a CUDA-graph
+    replay adds its captured counts only to registered counters, and an
+    unregistered one would count once at capture and never again."""
+    import importlib
+    from paddle_tpu_torch.ops.pallas import counters
+    found = set()
+    for f in _port_modules():
+        module = ".".join(f.relative_to(REPO).with_suffix("").parts)
+        module = module.removesuffix(".__init__")
+        for node in ast.parse(f.read_text()).body:
+            if not isinstance(node, ast.Assign):
+                continue
+            for t in node.targets:
+                if isinstance(t, ast.Name):
+                    path = t.id
+                elif isinstance(t, ast.Attribute) and isinstance(
+                        t.value, ast.Name):
+                    path = f"{t.value.id}.{t.attr}"
+                else:
+                    continue
+                last = path.rsplit(".", 1)[-1]
+                if last.startswith("launches") or last == "cudnn_calls":
+                    found.add((module, path))
+                    importlib.import_module(module)
+    # the counters of the K1-K8 wrappers, the fused update and the fused
+    # recurrence, at least
+    assert len(found) >= 13, sorted(found)
+    assert found <= set(counters.registered()), \
+        sorted(found - set(counters.registered()))
+
+
 # the reference's top-level names whose subsystems the port has not
 # ported yet: they stay unexported (ROADMAP §1)
 UNPORTED_TOP_LEVEL = {
-    "amp", "static", "profiler", "sparse", "quantization", "tuning",
+    "static", "profiler", "sparse", "quantization", "tuning",
     "incubate", "inference", "text", "audio", "fft", "distribution",
     "geometric", "hub", "onnx", "reader", "sysconfig", "version", "signal",
 }
@@ -297,7 +359,8 @@ def test_top_level_exports_what_the_reference_does():
     """``import paddle_tpu_torch as paddle`` exposes every name of the
     reference's top level (``paddle_tpu/__init__.py``) for the subsystems
     the port has: the dtypes, ``Tensor``/``to_tensor``, autograd, flags,
-    every op, ``nn``, ``optimizer``, ``jit``, ``io``, ``save``/``load``,
+    every op, ``nn``, ``optimizer``, ``jit``, ``amp``, ``io``,
+    ``save``/``load``,
     ``Model``, ``ParamAttr``, the device functions, ``linalg``, ``batch``,
     ``callbacks``, ``summary`` and ``flops``. An unported subsystem
     raises ``AttributeError``, and ``enable_static`` raises."""
@@ -329,7 +392,11 @@ def test_top_level_exports_what_the_reference_does():
     for name in UNPORTED_TOP_LEVEL:
         assert not hasattr(paddle, name), name
     with pytest.raises(AttributeError):
-        paddle.amp.auto_cast
+        paddle.static.InputSpec
+    # amp and jit: the reference's names, but jit.save/load (not ported)
+    assert set(pt.amp.__all__) <= set(dir(paddle.amp))
+    assert set(pt.jit.__all__) - set(dir(paddle.jit)) == \
+        {"save", "load", "TranslatedLayer"}
     with pytest.raises(NotImplementedError):
         paddle.enable_static()
     assert paddle.in_dynamic_mode()

@@ -5,8 +5,12 @@ logits, CTC loss and every gradient (the case of ``tests/test_models.py``'s
 norms' running statistics after them, and ``ctc_loss`` with per-sample
 input lengths in every reduction.
 
-Weights and running statistics cross through numpy; inputs come from a
-numpy seed. Tolerances: rtol 1e-4, atol 1e-5 for the model (the
+Weights and running statistics cross through numpy (the port's seeded
+ones into a reference model built without drawing its own,
+``undrawn_jax_init``); inputs come from a numpy seed. The reference's
+gradients come from ``jax.value_and_grad`` over its functional state
+under one jit, as its ``TrainStep`` computes them
+(``jax_value_and_grads``). Tolerances: rtol 1e-4, atol 1e-5 for the model (the
 reference's ``tests/test_layers.py``), rtol 1e-4, atol 1e-4 for CTC (its
 ``tests/test_advice_fixes.py``).
 """
@@ -22,6 +26,7 @@ import paddle_tpu.optimizer as jopt
 from paddle_tpu.jit import TrainStep as JaxTrainStep
 from paddle_tpu.models.ppocr import PPOCRRecConfig as JaxConfig
 from paddle_tpu.models.ppocr import PPOCRRecModel as JaxModel
+import paddle_tpu_torch as ptt
 import paddle_tpu_torch.nn as tnn
 import paddle_tpu_torch.nn.functional as F
 from paddle_tpu_torch.jit import TrainStep
@@ -30,7 +35,8 @@ from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.utils.bridge import load_numpy_state, numpy_state
 
 from test_torch_bridge import one_torch_thread  # noqa: F401
-from test_torch_bridge import state_dict_from_jax
+from test_torch_bridge import (jax_value_and_grads, load_into_jax,
+                               state_dict_from_jax, undrawn_jax_init)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 CTC_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -43,11 +49,19 @@ def _np(t):
 
 
 def _pair(seed):
-    pt.seed(seed)
-    jm = JaxModel(JaxConfig.tiny())
+    """The port's model drawn from ``seed`` and the reference's with its
+    weights and running statistics."""
+    ptt.seed(seed)
     tm = PPOCRRecModel(PPOCRRecConfig.tiny(), device="cpu")
-    load_numpy_state(tm, state_dict_from_jax(jm))
+    with undrawn_jax_init():
+        jm = JaxModel(JaxConfig.tiny())
+    load_into_jax(jm, tm)
     return jm, tm
+
+
+def _loss_and_logits(m, x, y, n):
+    logits = m(x)
+    return m.loss(logits, y, n), logits
 
 
 def _batch(cfg, B=2, W=64, L=5):
@@ -61,23 +75,20 @@ def _batch(cfg, B=2, W=64, L=5):
 def test_tiny_forward_loss_and_every_gradient_match_jax():
     jm, tm = _pair(6)
     imgs, labels, lens = _batch(tm.cfg)
-    jl = jm(pt.to_tensor(imgs))
-    jloss = jm.loss(jl, pt.to_tensor(labels), pt.to_tensor(lens))
-    jloss.backward()
+    jloss, jl, ref, ref_buf = jax_value_and_grads(
+        jm, _loss_and_logits, imgs, labels, lens)
     tl = tm(torch.from_numpy(imgs))
     assert tuple(tl.shape) == (2, 16, tm.cfg.num_classes)
     tloss = tm.loss(tl, torch.from_numpy(labels), torch.from_numpy(lens))
     tloss.backward()
     np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
     np.testing.assert_allclose(_np(tloss), _np(jloss), **TOL)
-    ref = {n: _np(p.grad) for n, p in jm.named_parameters()}
     ours = {n: _np(p.grad) for n, p in tm.named_parameters()}
     assert sorted(ours) == sorted(ref)
     for n in ref:
         np.testing.assert_allclose(ours[n], ref[n], err_msg=n, **TOL)
     # the training forward moved every running statistic as the
     # reference's did
-    ref_buf = {n: _np(b) for n, b in jm.named_buffers()}
     for n, b in tm.named_buffers():
         np.testing.assert_allclose(_np(b), ref_buf[n], err_msg=n, **TOL)
 

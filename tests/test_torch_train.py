@@ -299,8 +299,12 @@ def test_master_weights_state_round_trip_and_refusals():
     for kw in ({"mesh": object()}, {"bucketed": True}, {"donate": False}):
         with pytest.raises(NotImplementedError, match="not ported"):
             TrainStep(tm, lambda m, x: m(x), opt, **kw)
-    with pytest.raises(NotImplementedError, match="recompute"):
-        tl.LlamaForCausalLM(tl.LlamaConfig.tiny(recompute=True),
+    # recompute is ported (tests/test_torch_recompute.py); tensor
+    # parallelism is not
+    assert tl.LlamaForCausalLM(tl.LlamaConfig.tiny(recompute=True),
+                               device="cpu").cfg.recompute
+    with pytest.raises(NotImplementedError, match="tensor_parallel"):
+        tl.LlamaForCausalLM(tl.LlamaConfig.tiny(tensor_parallel=True),
                             device="cpu")
 
 

@@ -29,8 +29,9 @@ from paddle_tpu_torch.utils.bridge import load_numpy_state
 from paddle_tpu_torch.vision import transforms as T
 from paddle_tpu_torch.vision.datasets import MNIST, FakeData, FashionMNIST
 
+from paddle_tpu_torch.utils.bridge import numpy_state
 from test_torch_bridge import one_torch_thread  # noqa: F401
-from test_torch_bridge import state_dict_from_jax
+from test_torch_bridge import state_dict_from_jax, undrawn_jax_init
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 
@@ -43,9 +44,11 @@ def _names(model):
 def test_resnet18_eval_forward_matches_jax_with_bridged_buffers():
     """Running statistics drawn away from 0 and 1 go into both models
     through the bridge; the eval forward normalises with them."""
-    pt.seed(0)
-    jm = jv.resnet18(num_classes=10)
-    state = state_dict_from_jax(jm)
+    ptt.seed(0)
+    tm = tv.resnet18(num_classes=10, device="cpu")
+    with undrawn_jax_init():  # every weight comes from the port's draw
+        jm = jv.resnet18(num_classes=10)
+    state = numpy_state(tm)
     rng = np.random.RandomState(1)
     for n in state:
         if n.endswith("._mean"):
@@ -54,16 +57,18 @@ def test_resnet18_eval_forward_matches_jax_with_bridged_buffers():
             state[n] = rng.uniform(0.5, 1.5, state[n].shape).astype(
                 np.float32)
     jm.set_state_dict({k: pt.to_tensor(v) for k, v in state.items()})
-    tm = tv.resnet18(num_classes=10, device="cpu")
     load_numpy_state(tm, state)
+    assert sorted(state_dict_from_jax(jm)) == sorted(state)
     jm.eval()
     tm.eval()
     x = np.random.RandomState(0).randn(2, 3, 32, 32).astype(np.float32)
     with torch.no_grad():
         out = tm(torch.from_numpy(x)).numpy()
     assert out.shape == (2, 10)
-    np.testing.assert_allclose(out, np.asarray(jm(pt.to_tensor(x)).data),
-                               **TOL)
+    # the reference's forward as one program (its to_static equals its
+    # eager forward: tests/test_jit.py::TestToStatic::test_layer_parity)
+    ref = pt.jit.to_static(jm)(pt.to_tensor(x))
+    np.testing.assert_allclose(out, np.asarray(ref.data), **TOL)
 
 
 def test_resnet50_structure():
@@ -73,7 +78,8 @@ def test_resnet50_structure():
     assert tuple(tm.fc.weight.shape) == (2048, 7)
     n = sum(p.numel() for p in tm.parameters())
     assert 23_000_000 < n < 27_000_000
-    jm = jv.resnet50(num_classes=7)
+    with undrawn_jax_init():  # names and shapes only
+        jm = jv.resnet50(num_classes=7)
     assert n == sum(int(np.prod(p.shape)) for p in jm.parameters())
     assert _names(tm) == sorted(
         [k for k, _ in jm.named_parameters()] +
@@ -88,8 +94,8 @@ def test_resnet50_structure():
 def test_model_zoo_names_and_shapes(name, kw):
     """Each model's parameters and buffers carry the reference's names and
     shapes, so its state crosses the bridge unchanged."""
-    pt.seed(2)
-    jm = getattr(jv.models, name)(**kw)
+    with undrawn_jax_init():  # names and shapes only
+        jm = getattr(jv.models, name)(**kw)
     tm = getattr(tv.models, name)(**kw, device="cpu")
     load_numpy_state(tm, state_dict_from_jax(jm))
     side = 28 if name == "LeNet" else 32
@@ -103,7 +109,8 @@ def test_model_zoo_names_and_shapes(name, kw):
 def test_vgg_features_names():
     from paddle_tpu.vision.models.vgg import _make_features as jax_features
     from paddle_tpu_torch.vision.models.vgg import _CFGS, _make_features
-    jf = jax_features(_CFGS["A"], batch_norm=True)
+    with undrawn_jax_init():  # names only
+        jf = jax_features(_CFGS["A"], batch_norm=True)
     tf = _make_features(_CFGS["A"], batch_norm=True, device="cpu")
     assert _names(tf) == sorted([k for k, _ in jf.named_parameters()] +
                                 [k for k, _ in jf.named_buffers()])
