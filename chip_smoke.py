@@ -11,7 +11,7 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    compiled with ``nvcc`` for ``sm_90a`` (one process per source, all at
    once) into the ignored build directory, with each kernel's registers
    and spills; the SASS of the tensor-core kernels (K1, K2, K3, K4, K5,
-   K7 and K8 in bf16, K1-K3 also in f16, K6's split kernel,
+   K7 and K8 in bf16, K1-K4 also in f16, K6's split kernel,
    ``cuobjdump --dump-sass``) must
    hold wgmma (``HGMMA``) and, where an operand comes by TMA, TMA loads
    (``UTMALDG``);
@@ -20,8 +20,10 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    decode rows, a 512-token prefill chunk over 1024 cached tokens and a
    padding tail: the float32 FMA kernel, and the bfloat16 split wgmma
    design at q tiles of 8, 16 and 32 tokens, also on a decode-only mix
-   (phase 4's decode steps), with kernel/plain times (CUDA events, median
-   of 20) and the least time the card could take;
+   (phase 4's decode steps), and its float16 instance on both mixes at
+   float16's own limit (``RPA_TOL``), timed beside bf16, with
+   kernel/plain times (CUDA events, median of 20) and the least time the
+   card could take;
 4. serving — a Llama-3-8B-shaped model (all 32 layers, bf16, seeded
    random weights) behind ``ServingEngine`` + HTTP ``Server``, answering
    8 concurrent ``/generate`` requests; every request must return all
@@ -197,14 +199,32 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    limits (``FLASH_TOL_F16``), timed beside the bf16 kernels; (d) four
    fused ``TrainStep``s with ``cfg.recompute`` and four without from the
    same weights: losses and the first step's gradient norm equal (rtol
-   1e-3), step ms and peak memory of each, K1 twice a layer a step.
+   1e-3), step ms and peak memory of each, K1 twice a layer a step;
+16. quantized, multi-tenant serving at phase 4's width and prompts (32
+   new tokens, through the HTTP ``Server``): (a) the model in float16 on
+   K4's f16 instance: all tokens, finite logits, K4 f16 launches = layers
+   x steps, one engine step's layer-0 RPA output against the plain
+   version; (b) bf16 with ``tuning.apply_lora(n_slots=4)``, two seeded
+   tenants loaded, ``quantize="int8_wo"``, requests to slot 0 and both
+   tenants: all tokens, finite logits, RPA launches = layers x steps, no
+   leaked block, and the window's ``max_memory_allocated`` at least 6 GB
+   below phase 4's; (c) ``kv_dtype="int8"`` at a gather geometry
+   (prefill_chunk 16, max_blocks_per_seq 72): a 1088-token request then
+   its 1024-token prefix alone (a copy-on-write prefix hit), the pools'
+   bytes against a bf16 cache's (about half); (d) full width, 2 layers,
+   f32: the ``int8_wo`` engine's streams on RPA equal gather's and eager
+   ``generate`` over the dequantized weights; a LoRA slot's equal eager
+   ``generate`` with the adapter merged, slot 0's a no-LoRA engine's; an
+   ``fp8_wo`` engine serves with finite logits.
 
 It prints its measurements on earlier lines, then one JSON line with a
 record per kernel (K1-K3's with their times at ERNIE's and DiT's shapes,
 and K1's at the decode shapes, under ``at_model_shapes``, and their
 float16 record under ``float16``; K1-K3's ``launches_by_path`` with phase
 14's ``api_train`` and ``generate`` and phase 15's ``to_static``,
-``amp_f16`` and ``recompute``),
+``amp_f16`` and ``recompute``; K4's float16 record (phase 3 and phase
+16(a)) under ``float16`` and its ``launches_by_path`` with phase 16's
+``serving_f16`` and ``serving_int8_lora``),
 and ends with
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -224,6 +244,7 @@ import sys
 import threading
 import time
 import urllib.request
+import warnings
 
 import numpy as np
 import torch
@@ -301,10 +322,10 @@ SASS_CHECKS = (  # library, kernel, instance -> TMA expected
     # K8 in bf16 <operands by TMA>, else through registers
     ("grouped_matmul", "tgmm_aligned_wgmma_kernel",
      {"ILb1EE": True, "ILb0EE": False}),
-    # K4 in bf16 <head dim, warpgroups>
+    # K4 <element type (bf16 or f16), head dim, warpgroups>
     ("ragged_paged_attention", "rpa_wgmma_kernel",
-     {"ILi64ELi1EE": True, "ILi64ELi2EE": True, "ILi128ELi1EE": True,
-      "ILi128ELi2EE": True}))
+     {f"I{e}Li{d}ELi{w}EE": True for e in ("13__nv_bfloat16", "6__half")
+      for d in (64, 128) for w in (1, 2)}))
 
 
 def kernel_instance(mangled):
@@ -470,18 +491,34 @@ def _rpa_check(what, out, ref, valid, atol, rtol=0.0):
     return max_err
 
 
+# K4 kernel vs plain, max |err| limit (rtol 0) by dtype. float32 as the
+# CPU tests; bfloat16: both sides round an f32 result to bf16 once (a bf16
+# unit of the outputs); float16 keeps three more mantissa bits and rounds
+# at the same places (P to v's dtype, the output once), so its limit sits
+# between its own readings on phase 3's mixes and bf16's (1.2e-4 and
+# 2.4e-4 against 9.8e-4 and 2.0e-3 on phase 3's mix and the decode-only
+# mix; PERF.md): an f16 instance that packed P or its output at bf16
+# precision fails it
+RPA_TOL = {torch.float32: 1e-4, torch.bfloat16: 4e-3, torch.float16: 5e-4}
+
+
 def phase_kernel():
     """RPA kernel vs its plain version: f32 (FMA kernel) at the default q
     tile, bf16 (split wgmma design) at each q tile on phase 3's mix and on
-    the decode-only mix. Returns the bf16 record at the default tile."""
+    the decode-only mix, and f16 (the same design's f16 instance) at the
+    default tile on both mixes, timed beside bf16 in the same call.
+    Returns the bf16 record at the default tile and the f16 record (with
+    its decode-only mix under ``decode_only``)."""
     from paddle_tpu_torch.ops.pallas.ragged_paged_attention import (
         DEFAULT_TILE_Q, ragged_paged_attention,
         ragged_paged_attention_reference)
-    cases = [(torch.float32, 1e-4, DEFAULT_TILE_Q, False)] + [
-        (torch.bfloat16, 4e-3, tq, decode) for decode in (False, True)
-        for tq in RPA_TILES]
-    record = None
-    for dtype, atol, tile_q, decode in cases:
+    cases = [(torch.float32, DEFAULT_TILE_Q, False)] + [
+        (torch.bfloat16, tq, decode) for decode in (False, True)
+        for tq in RPA_TILES] + [
+        (torch.float16, DEFAULT_TILE_Q, decode) for decode in (False, True)]
+    record, f16, bf16_ms = None, {}, {}
+    for dtype, tile_q, decode in cases:
+        atol = RPA_TOL[dtype]
         args, valid, need = rpa_mix(dtype, tile_q=tile_q, decode_only=decode)
         out = ragged_paged_attention(**args)
         torch.cuda.synchronize()
@@ -491,23 +528,32 @@ def phase_kernel():
         max_err = _rpa_check(f"{name}, tile_q {tile_q}, {mix}", out, ref,
                              valid, atol)
         ms = cuda_ms(lambda: ragged_paged_attention(**args))
-        main = tile_q == DEFAULT_TILE_Q and not decode
+        main = tile_q == DEFAULT_TILE_Q and (
+            not decode or dtype == torch.float16)
         plain_ms = cuda_ms(
             lambda: ragged_paged_attention_reference(**args)) if main \
             else None
-        design = "split wgmma design" if dtype == torch.bfloat16 \
-            else "FMA kernel"
+        design = "FMA kernel" if dtype == torch.float32 \
+            else "split wgmma design"
+        if dtype == torch.bfloat16 and tile_q == DEFAULT_TILE_Q:
+            bf16_ms[decode] = ms
         log(f"rpa {name} ({design}, tile_q {tile_q}, {mix}): T={need['T']}"
             f" live pages={need['pages']} max|err|={max_err:.3e} (atol "
             f"{atol}, rtol 0) padding rows exactly 0; kernel {ms:.4f} ms"
             + (f", plain {plain_ms:.4f} ms" if plain_ms is not None else "")
             + f", bound {need['bound_ms']:.4f} ms ({need['bound_by']}: "
-            f"{need['bytes']} B, {need['flops']} flop)")
+            f"{need['bytes']} B, {need['flops']} flop)"
+            + (f"; bf16 {bf16_ms[decode]:.4f} ms in this call, f16/bf16 "
+               f"{ms / bf16_ms[decode]:.3f}" if dtype == torch.float16
+               else ""))
+        rec = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=need["bound_ms"], bound_by=need["bound_by"])
         if main and dtype == torch.bfloat16:
-            record = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=need["bound_ms"],
-                          bound_by=need["bound_by"])
-    return record
+            record = rec
+        if dtype == torch.float16:
+            f16["decode_only" if decode else "main"] = dict(
+                rec, bf16_ms=bf16_ms[decode], atol=atol)
+    return record, dict(f16["main"], decode_only=f16["decode_only"])
 
 
 # --------------------------------------------------------------------------
@@ -589,7 +635,7 @@ def profile_window(engine, plain_prompts, profiled_prompts, new_tokens):
             f"{count:6d}x  {key[:90]}")
 
 
-def engine_step_check(engine, cfg, rng):
+def engine_step_check(engine, cfg, rng, dtype=torch.bfloat16):
     """One real engine step's layer-0 RPA output against the plain
     version on the same inputs. Request A0 (a 1024-token prefix P and 50
     more) is served while C decodes; then A1 and A2, both starting with P,
@@ -599,17 +645,21 @@ def engine_step_check(engine, cfg, rng):
     three is checked (the pools then hold exactly what the kernel read),
     at the card tests' bf16 tolerance (atol 4e-3, rtol 8e-3: both sides
     round to bf16 once, and the model's outputs are not all below 1 as
-    phase 3's random ones are)."""
+    phase 3's random ones are); an f16 engine at f16's own limits (atol
+    ``RPA_TOL[f16]``, rtol twice that)."""
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops.pallas.ragged_paged_attention import \
         ragged_paged_attention_reference
     orig = pa.ragged_paged_attention_step
     found = []
 
+    atol, rtol = (4e-3, 8e-3) if dtype == torch.bfloat16 else \
+        (RPA_TOL[dtype], 2 * RPA_TOL[dtype])
+
     def capturing(q, k, v, k_pool, v_pool, bt, cu, ctx, sid, pos, ssq, sbk,
-                  *, scale=None, attn_impl="rpa"):
+                  *, scale=None, attn_impl="rpa", **kw):
         out = orig(q, k, v, k_pool, v_pool, bt, cu, ctx, sid, pos, ssq, sbk,
-                   scale=scale, attn_impl=attn_impl)
+                   scale=scale, attn_impl=attn_impl, **kw)
         if found or k_pool is not engine.cache.k_pools[0]:
             return out
         n = (cu[1:] - cu[:-1]).cpu()[:bt.shape[0] - 1]
@@ -624,7 +674,7 @@ def engine_step_check(engine, cfg, rng):
         valid = sid < bt.shape[0] - 1
         got = out.reshape(ref.shape)
         found.append((_rpa_check("engine step, layer 0", got, ref, valid,
-                                 4e-3, 8e-3), n[live].tolist(),
+                                 atol, rtol), n[live].tolist(),
                       int(ssq.shape[0])))
         return out
 
@@ -644,30 +694,28 @@ def engine_step_check(engine, cfg, rng):
         raise AssertionError("no engine step held a prefill chunk, a decode "
                              "row and shared pages")
     err, news, tiles = found[0]
-    log(f"serving: one engine step's layer-0 RPA output (new tokens per "
+    log(f"serving ({str(dtype).replace('torch.', '')}): one engine step's "
+        f"layer-0 RPA output (new tokens per "
         f"sequence {news}, shared prefix pages, {tiles} q tiles) agrees "
-        f"with the plain version: max|err| {err:.3e} (atol 4e-3, rtol 8e-3: "
-        f"a model's outputs reach past 1, where one bf16 unit is 7.8e-3); "
-        f"padding rows exactly 0")
+        f"with the plain version: max|err| {err:.3e} (atol {atol}, rtol "
+        f"{rtol}: a model's outputs reach past 1, where one bf16 unit is "
+        f"7.8e-3 and one f16 unit 9.8e-4); padding rows exactly 0")
+    return err
 
 
-def phase_serving():
-    """Llama-3-8B widths, 32 layers, bf16, behind the HTTP server."""
-    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+def serve_window(engine, cfg, prompts, new_tokens, adapter_ids=None,
+                 during=None):
+    """A serving window of phases 4 and 16: ``prompts`` as concurrent
+    ``/generate`` requests through the HTTP ``Server`` (odd ones
+    streamed), each to its LoRA slot in ``adapter_ids``;
+    ``during(engine)`` runs before the server stops. Every request must return all its tokens, every logit
+    must be finite, the RPA launches must equal layers x steps (0 on the
+    gather path) and no KV block may leak. The peak is
+    ``max_memory_allocated`` over the window, reset when it opens, as
+    phase 4's window peak. Returns the window's numbers."""
     from paddle_tpu_torch.ops.pallas import ragged_paged_attention as rpa
-    from paddle_tpu_torch.serving import ServingEngine, Server
-
-    cfg = LlamaConfig.llama3_8b()
-    t0 = time.perf_counter()
-    model = LlamaForCausalLM(cfg, dtype="bfloat16", seed=SEED)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"serving: Llama-3-8B widths, {cfg.num_hidden_layers} layers, bf16,"
-        f" {n_params} parameters built in "
-        f"{time.perf_counter() - t0:.2f} s")
-    engine = ServingEngine(model, max_batch=8, block_size=16,
-                           prefill_chunk=512, max_blocks=2048)
-    # a check of this script only: every logits tensor must be finite
+    from paddle_tpu_torch.serving import Server
+    adapter_ids = adapter_ids or [0] * len(prompts)
     bad_logits = []
     orig_project = engine._project
 
@@ -678,14 +726,6 @@ def phase_serving():
         return logits
 
     engine._project = checked_project
-
-    rng = np.random.RandomState(SEED)
-    lens = SERVING_LENS
-    prefix = rng.randint(1, cfg.vocab_size, 1024).tolist()
-    prompts = [rng.randint(1, cfg.vocab_size, n).tolist() for n in lens]
-    prompts[6] = prefix + prompts[6][1024:]   # two share a 1024-token
-    prompts[7] = prefix + prompts[7][1024:]   # prefix
-    new_tokens = 32
     results = [None] * len(prompts)
     errors = []
     torch.cuda.reset_peak_memory_stats()
@@ -693,13 +733,14 @@ def phase_serving():
         def fire(i):
             try:
                 results[i] = _post(srv.url + "/generate", {
-                    "prompt_ids": prompts[i],
-                    "max_new_tokens": new_tokens, "temperature": 0.0,
-                    "stream": i % 2 == 1})
+                    "prompt_ids": prompts[i], "max_new_tokens": new_tokens,
+                    "temperature": 0.0, "stream": i % 2 == 1,
+                    "adapter_id": adapter_ids[i]})
             except Exception as e:  # noqa: BLE001 — reported below
                 errors.append(f"request {i}: {e!r}")
         steps0 = engine.steps
         rpa.ragged_paged_attention.launches = 0
+        rpa.ragged_paged_attention.launches_f16 = 0
         t0 = time.perf_counter()
         threads = [threading.Thread(target=fire, args=(i,))
                    for i in range(len(prompts))]
@@ -709,14 +750,13 @@ def phase_serving():
             t.join(timeout=900)
         wall = time.perf_counter() - t0
         launches = rpa.ragged_paged_attention.launches
+        launches_f16 = rpa.ragged_paged_attention.launches_f16
         steps = engine.steps - steps0
+        peak = torch.cuda.max_memory_allocated()
         with urllib.request.urlopen(srv.url + "/healthz", timeout=60) as r:
             health = json.loads(r.read())
-        plain, profiled = ([rng.randint(1, cfg.vocab_size, n).tolist()
-                            for n in (256, 512, 1024, 2048)]
-                           for _ in range(2))
-        profile_window(engine, plain, profiled, new_tokens)
-        engine_step_check(engine, cfg, rng)
+        extra = during(engine) if during is not None else None
+    engine._project = orig_project
     if errors or any(t.is_alive() for t in threads):
         raise AssertionError(f"requests failed: {errors}")
     for i, res in enumerate(results):
@@ -728,33 +768,87 @@ def phase_serving():
             raise AssertionError(f"request {i}: streamed tokens differ")
     if bad_logits:
         raise AssertionError(f"non-finite logits in steps {bad_logits}")
-    if launches != cfg.num_hidden_layers * steps or steps == 0 or \
-            health["rpa_launches"] != launches:
+    want = cfg.num_hidden_layers * steps if engine.attn_impl == "rpa" else 0
+    if launches != want or steps == 0 or health["rpa_launches"] != launches:
         raise AssertionError(
-            f"rpa launches {launches} (healthz {health['rpa_launches']}) "
-            f"!= {cfg.num_hidden_layers} layers x {steps} steps")
+            f"rpa launches {launches} (healthz {health['rpa_launches']}) != "
+            f"{want} ({cfg.num_hidden_layers} layers x {steps} steps on the "
+            f"{engine.attn_impl} path)")
     engine.cache.allocator.assert_no_leaks()
-    ttfts = sorted(r["ttft_ms"] for r in results)
-    # each request's mean gap between output tokens, from the server's
-    # own ttft_ms and latency_ms
     gaps = sorted((r["latency_ms"] - r["ttft_ms"]) / (new_tokens - 1)
                   for r in results)
-    log(f"serving: {len(prompts)} requests, prompts {lens}, "
+    return dict(launches=launches, launches_f16=launches_f16, steps=steps,
+                wall=wall, peak=peak, health=health, extra=extra,
+                mean_step_ms=1e3 * wall / steps,
+                gap_p50=statistics.median(gaps), gap_max=gaps[-1],
+                ttft_p50=statistics.median(r["ttft_ms"] for r in results))
+
+
+def _window_line(what, w, n, new_tokens):
+    return (f"{what}: {n} requests x {new_tokens} tokens, all returned, "
+            f"logits finite; {w['steps']} engine steps, {w['launches']} RPA "
+            f"launches; mean step (wall / steps) {w['mean_step_ms']:.3f} ms;"
+            f" gap between output tokens p50 {w['gap_p50']:.3f} ms, max "
+            f"{w['gap_max']:.3f} ms; p50 TTFT {w['ttft_p50']:.3f} ms; "
+            f"max_memory_allocated over the window {w['peak']} B")
+
+
+def _phase4_prompts(cfg, rng):
+    """Phase 4's prompt lengths, fresh tokens; the last two share a
+    1024-token prefix."""
+    prefix = rng.randint(1, cfg.vocab_size, 1024).tolist()
+    prompts = [rng.randint(1, cfg.vocab_size, n).tolist()
+               for n in SERVING_LENS]
+    prompts[6] = prefix + prompts[6][1024:]
+    prompts[7] = prefix + prompts[7][1024:]
+    return prompts
+
+
+def phase_serving():
+    """Llama-3-8B widths, 32 layers, bf16, behind the HTTP server."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = LlamaConfig.llama3_8b()
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, dtype="bfloat16", seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"serving: Llama-3-8B widths, {cfg.num_hidden_layers} layers, bf16,"
+        f" {n_params} parameters built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    engine = ServingEngine(model, max_batch=8, block_size=16,
+                           prefill_chunk=512, max_blocks=2048)
+    rng = np.random.RandomState(SEED)
+    prompts = _phase4_prompts(cfg, rng)
+    new_tokens = 32
+
+    def during(eng):
+        plain, profiled = ([rng.randint(1, cfg.vocab_size, n).tolist()
+                            for n in (256, 512, 1024, 2048)]
+                           for _ in range(2))
+        profile_window(eng, plain, profiled, new_tokens)
+        engine_step_check(eng, cfg, rng)
+
+    w = serve_window(engine, cfg, prompts, new_tokens, during=during)
+    launches, steps, wall = w["launches"], w["steps"], w["wall"]
+    log(f"serving: {len(prompts)} requests, prompts {SERVING_LENS}, "
         f"{new_tokens} new tokens each, all returned; {steps} engine steps,"
         f" {launches} RPA launches (= {cfg.num_hidden_layers} x steps)")
     log(f"serving: window wall {wall:.3f} s; mean step (wall / steps) "
-        f"{1e3 * wall / steps:.3f} ms; decode tokens/s (generated tokens /"
+        f"{w['mean_step_ms']:.3f} ms; decode tokens/s (generated tokens /"
         f" wall) {len(prompts) * new_tokens / wall:.2f}; gap between output"
-        f" tokens per request, p50 {statistics.median(gaps):.3f} ms, max "
-        f"{gaps[-1]:.3f} ms; p50 TTFT {statistics.median(ttfts):.3f} ms; "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B; "
-        f"prefix cache {health['prefix_cache']}")
+        f" tokens per request, p50 {w['gap_p50']:.3f} ms, max "
+        f"{w['gap_max']:.3f} ms; p50 TTFT {w['ttft_p50']:.3f} ms; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated()} B "
+        f"({w['peak']} B over the 8-request window); "
+        f"prefix cache {w['health']['prefix_cache']}")
     del engine
     free_device_memory()
     serving_tile_sweep(model, cfg)
     del model
     free_device_memory()
-    return launches
+    return launches, w["peak"]
 
 
 def serving_tile_sweep(model, cfg):
@@ -4017,6 +4111,363 @@ def phase_capture_amp_recompute(gen, flash_bf16):
     return {"to_static": static, "amp_f16": amp, "recompute": rc}, f16
 
 
+# --------------------------------------------------------------------------
+def _tenant(stacks, seed, std=0.02):
+    """A seeded LoRA tenant: N(0, std) rows for every A and B stack (B
+    non-zero, so the tenant's delta is)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {k: torch.randn(v.shape[1:], generator=g, device="cuda",
+                           dtype=torch.float32).mul_(std).to(v.dtype)
+            for k, v in stacks.items()}
+
+
+def int8_lora_costs(engine, model, cfg):
+    """What phase 16(b)'s two plain-PyTorch stages cost a step, at its step
+    shape (``step_tokens`` rows; the head at ``max_batch`` rows), device
+    ms by CUDA events: one layer's seven quantized projections
+    (dequantize + ``torch.matmul``, the engine's own forward) against
+    ``torch.matmul`` over the same weights dequantized beforehand, and
+    the LoRA hooks' per-token gather-and-einsum over slot ids 0-2, each
+    scaled by the layer count, plus the head. Bound of a weight-only
+    product: the int8 weights read once at the card's memory rate."""
+    from paddle_tpu_torch import tuning
+    from paddle_tpu_torch.tuning import lora
+    T, L = engine.step_tokens, cfg.num_hidden_layers
+    layer = model.model.layers[0]
+    projs = [getattr(layer.self_attn, n) for n in
+             ("q_proj", "k_proj", "v_proj", "o_proj")] + \
+        [getattr(layer.mlp, n) for n in ("gate_proj", "up_proj",
+                                         "down_proj")]
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    xs = [torch.randn(T, p._wq.q.shape[0], generator=g, device="cuda",
+                      dtype=torch.bfloat16) for p in projs]
+    ws = [p._wq.dequantize() for p in projs]
+    outs = [torch.zeros(T, p._wq.q.shape[1], device="cuda",
+                        dtype=torch.bfloat16) for p in projs]
+    ids = (torch.arange(T, device="cuda") % 3).to(torch.int32)
+    hook = lora._make_hook(tuning.LoRAConfig().scaling)
+    deq_ms = cuda_ms(lambda: [p.forward(x) for p, x in zip(projs, xs)])
+    mm_ms = cuda_ms(lambda: [torch.matmul(x, w) for x, w in zip(xs, ws)])
+    with lora.adapter_ids(ids):
+        lora_ms = cuda_ms(lambda: [hook(p, (x,), o) for p, x, o in
+                                   zip(projs, xs, outs)])
+    head = model.lm_head
+    x8 = torch.randn(engine.max_batch, cfg.hidden_size, generator=g,
+                     device="cuda", dtype=torch.bfloat16)
+    head_deq_ms = cuda_ms(lambda: head.forward(x8))
+    w_head = head._wq.dequantize()
+    head_mm_ms = cuda_ms(lambda: torch.matmul(x8, w_head))
+    del ws, w_head
+    qbytes = sum(leaf.nbytes for leaf in engine._qleaves.values())
+    step = dict(deq=L * deq_ms + head_deq_ms, mm=L * mm_ms + head_mm_ms,
+                lora=L * lora_ms,
+                bound=1e3 * qbytes / HBM_BYTES_PER_S)
+    log(f"quantized serving (b) costs a step ({T} rows, {L} layers): "
+        f"dequantize + torch.matmul {step['deq']:.3f} ms against "
+        f"torch.matmul over pre-dequantized bf16 weights {step['mm']:.3f} "
+        f"ms (one layer {deq_ms:.4f} / {mm_ms:.4f} ms, head "
+        f"{head_deq_ms:.4f} / {head_mm_ms:.4f} ms); a weight-only int8 "
+        f"product's bound (the int8 weights read once) {step['bound']:.3f}"
+        f" ms; the LoRA hooks' gather-and-einsum {step['lora']:.3f} ms "
+        f"(one layer's seven {lora_ms:.4f} ms)")
+    return step
+
+
+def int8_kv_gather_cost(engine, cfg):
+    """What phase 16(c)'s int8 gather read costs a step, device ms by CUDA
+    events, one layer scaled by the layer count: its step geometry (a
+    16-token prefill chunk at context 1024 and a decode row at 1087, of
+    a sequence whose 68 pages the pools hold) through
+    ``ragged_gather_attention`` with the scale pools, against K4's bf16
+    kernel on the same pages dequantized to bf16, and the bound of
+    reading the int8 pages and scales once."""
+    from paddle_tpu_torch.ops.paged_attention import ragged_gather_attention
+    from paddle_tpu_torch.ops.pallas.ragged_paged_attention import (
+        build_step_maps, ragged_paged_attention)
+    c = engine.cache
+    T, S, L = engine.step_tokens, engine.max_batch, cfg.num_hidden_layers
+    n_heads, n_kv = cfg.num_attention_heads, cfg.num_key_value_heads
+    hd = cfg.hidden_size // n_heads
+    bt = np.zeros((S + 1, c.max_blocks_per_seq), np.int32)
+    bt[0, :68] = bt[1, :68] = np.arange(1, 69)
+    cu = np.zeros(S + 2, np.int32)
+    cu[1:] = [16] + [17] * S
+    ctx = np.zeros(S + 1, np.int32)
+    ctx[:2] = (1024, 1087)
+    sid = np.full(T, S, np.int32)
+    sid[:16], sid[16] = 0, 1
+    pos = np.zeros(T, np.int32)
+    pos[:16], pos[16] = 1024 + np.arange(16), 1087
+    ssq, sbk = build_step_maps(cu[:3], [1040, 1088], total_tokens=T,
+                               tile_q=engine._tile_q, block_size=16,
+                               max_steps=engine._max_steps, max_seqs=S)
+    dev = {k: torch.from_numpy(v).cuda() for k, v in dict(
+        bt=bt, cu=cu, ctx=ctx, sid=sid, pos=pos, ssq=ssq, sbk=sbk).items()}
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q = torch.randn(T, n_heads, hd, generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    kp, vp, ks, vs = c.k_pools[0], c.v_pools[0], c.k_scales[0], c.v_scales[0]
+    gather_ms = cuda_ms(lambda: ragged_gather_attention(
+        q, kp, vp, dev["bt"], dev["sid"], dev["pos"], scale=hd ** -0.5,
+        k_scale=ks, v_scale=vs))
+    kb = (kp.float() * ks[..., None]).bfloat16()
+    vb = (vp.float() * vs[..., None]).bfloat16()
+    rpa_ms = cuda_ms(lambda: ragged_paged_attention(
+        q, kb, vb, dev["bt"], dev["cu"], dev["ctx"], dev["ssq"],
+        dev["sbk"]))
+    del kb, vb
+    # both sequences read the same 68 pages: each page once per layer
+    nbytes = 2 * 68 * 16 * n_kv * (hd + 4)
+    step = dict(gather=L * gather_ms, rpa=L * rpa_ms,
+                bound=1e3 * L * nbytes / HBM_BYTES_PER_S)
+    log(f"quantized serving (c) cost a step ({T} rows, {L} layers): the "
+        f"int8 gather read {step['gather']:.3f} ms (one layer "
+        f"{gather_ms:.4f} ms) against K4's bf16 kernel on the same pages "
+        f"{step['rpa']:.3f} ms; bound of reading the int8 pages and scales "
+        f"once {step['bound']:.4f} ms")
+    return step
+
+
+def phase_quantized_serving(phase4_peak):
+    """Phase 16: quantized, multi-tenant serving at Llama-3-8B widths (32
+    layers, seeded random weights) behind ``ServingEngine`` and the HTTP
+    ``Server``, phase 4's prompt lengths x 32 tokens. (a) float16 on K4's
+    f16 instance; (b) bf16 with 4 LoRA slots (two loaded) under
+    ``quantize="int8_wo"``, its window peak against phase 4's; (c) int8
+    KV at the gather geometry, with a copy-on-write prefix hit; (d) the
+    exactness oracles at 2 layers in f32. Returns K4's launches by path
+    and the f16 engine step's max |err|."""
+    from paddle_tpu_torch import tuning
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving.kv_cache import PagedKVCache
+
+    cfg = LlamaConfig.llama3_8b()
+    rng = np.random.RandomState(SEED + 16)
+    new_tokens = 32
+    geometry = dict(max_batch=8, block_size=16, prefill_chunk=512,
+                    max_blocks=2048)
+
+    # (a) float16 on the RPA path
+    model = LlamaForCausalLM(cfg, dtype="float16", seed=SEED)
+    engine = ServingEngine(model, **geometry)
+    wa = serve_window(engine, cfg, _phase4_prompts(cfg, rng), new_tokens,
+                      during=lambda e: engine_step_check(
+                          e, cfg, rng, torch.float16))
+    if wa["launches_f16"] != wa["launches"]:
+        raise AssertionError(f"f16 engine: {wa['launches_f16']} of "
+                             f"{wa['launches']} RPA launches in float16")
+    log(_window_line("quantized serving (a) float16", wa, 8, new_tokens)
+        + f"; K4 float16 launches {wa['launches_f16']} (= "
+        f"{cfg.num_hidden_layers} x steps)")
+    del engine, model
+    free_device_memory()
+
+    # (b) int8 weights under 4 LoRA slots, two tenants loaded
+    model = LlamaForCausalLM(cfg, dtype="bfloat16", seed=SEED)
+    tuning.apply_lora(model, tuning.LoRAConfig(), n_slots=4)
+    t0 = time.perf_counter()
+    engine = ServingEngine(model, quantize="int8_wo", **geometry)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    qbytes = sum(leaf.nbytes for leaf in engine._qleaves.values())
+    held = torch.cuda.memory_allocated()
+    stacks = {k: v for k, v in model.named_parameters() if "lora_" in k}
+    for slot in (1, 2):
+        engine.load_adapter(slot, _tenant(stacks, SEED + slot),
+                            name=f"tenant-{slot}")
+    ids = [0, 1, 2, 0, 1, 2, 1, 2]
+    wb = serve_window(engine, cfg, _phase4_prompts(cfg, rng), new_tokens,
+                      adapter_ids=ids)
+    st = engine.stats()
+    if st["weight_dtype"] != "int8" or st["adapters"]["loaded"] != 2:
+        raise AssertionError(f"int8 + LoRA engine stats {st}")
+    saved = phase4_peak - wb["peak"]
+    log(_window_line("quantized serving (b) int8_wo + 4 LoRA slots", wb, 8,
+                     new_tokens)
+        + f"; adapter ids {ids}; {len(engine._qleaves)} quantized leaves, "
+        f"{qbytes} B of int8 values + scales (quantized at construction "
+        f"in {build_s:.2f} s); {held} B held after construction; window "
+        f"peak {wb['peak']} B against phase 4's bf16 {phase4_peak} B: "
+        f"{saved} B less")
+    if saved < 6e9:
+        raise AssertionError(f"the int8 + LoRA engine's window peak is only "
+                             f"{saved} B below phase 4's (want >= 6 GB)")
+    int8_lora_costs(engine, model, cfg)
+    del engine, model, stacks
+    free_device_memory()
+
+    # (c) int8 KV at the gather geometry, a copy-on-write prefix hit
+    model = LlamaForCausalLM(cfg, dtype="bfloat16", seed=SEED)
+    kv_geom = dict(max_batch=8, block_size=16, prefill_chunk=16,
+                   max_blocks=2048, max_blocks_per_seq=72)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        engine = ServingEngine(model, kv_dtype="int8", **kv_geom)
+    if engine.attn_impl != "gather" or not any(
+            issubclass(w.category, RuntimeWarning) for w in caught):
+        raise AssertionError("int8 KV did not pin the gather path loudly")
+    copies = []
+    copy_block = engine.cache.copy_block
+
+    def counted(src, dst):
+        copies.append((src, dst))
+        copy_block(src, dst)
+    engine.cache.copy_block = counted
+    prefix = rng.randint(1, cfg.vocab_size, 1024).tolist()
+    w1 = serve_window(engine, cfg,
+                      [prefix + rng.randint(1, cfg.vocab_size, 64).tolist()],
+                      new_tokens)
+    w2 = serve_window(engine, cfg, [list(prefix)], new_tokens)
+    pc = engine.stats()["prefix_cache"]
+    if not copies or pc["hits"] < 1:
+        raise AssertionError(f"no copy-on-write prefix hit: copies {copies},"
+                             f" prefix cache {pc}")
+    kv_bytes = engine.cache.pool_bytes()
+    scale_bytes = sum(t.numel() * t.element_size() for t in
+                      engine.cache.k_scales + engine.cache.v_scales)
+    int8_kv_gather_cost(engine, cfg)
+    del engine
+    free_device_memory()
+    ref = PagedKVCache(cfg.num_hidden_layers, kv_geom["max_blocks"], 16,
+                       cfg.num_key_value_heads, cfg.hidden_size //
+                       cfg.num_attention_heads, 72, dtype=torch.bfloat16)
+    bf16_bytes = ref.pool_bytes()
+    del ref
+    log(f"quantized serving (c) int8 KV, gather read (prefill_chunk 16, "
+        f"max_blocks_per_seq 72): a 1088-token request then its 1024-token"
+        f" prefix alone (a fully cached prompt: {len(copies)} copy-on-write "
+        f"block copy, prefix cache {pc}), 32 tokens each, all returned, "
+        f"logits finite; {w1['steps']} + {w2['steps']} steps, mean step "
+        f"{w1['mean_step_ms']:.3f} / {w2['mean_step_ms']:.3f} ms; pools "
+        f"{kv_bytes} B ({scale_bytes} B of them scales) against {bf16_bytes}"
+        f" B for a bf16 cache of the same geometry: "
+        f"{kv_bytes / bf16_bytes:.4f}x")
+    if not kv_bytes / bf16_bytes < 0.55:
+        raise AssertionError("the int8 KV pools are not about half the bf16 "
+                             "cache's")
+    del model
+    free_device_memory()
+
+    quantized_serving_exactness()
+    return {"serving_f16": wa["launches"],
+            "serving_int8_lora": wb["launches"]}, wa["extra"]
+
+
+def quantized_serving_exactness():
+    """Phase 16(d), full width, 2 layers, float32 (phase 5's pattern; one
+    model per engine, each built from the same seed): the ``int8_wo``
+    engine on RPA and on gather give identical greedy streams, equal to
+    the eager ``generate`` of the model with its projection weights
+    replaced by their dequantized values; a LoRA tenant slot's streams
+    equal the eager ``generate`` of the model with that adapter merged (W
+    + A B scaling), and slot 0's a no-LoRA engine's; an ``fp8_wo`` engine
+    serves a request with finite logits."""
+    from paddle_tpu_torch import tuning
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.quantization.weight_only import (QuantizedLeaf,
+                                                           quantize_state)
+    from paddle_tpu_torch.serving import ServingEngine
+
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=2)
+    rng = np.random.RandomState(SEED + 161)
+    prompts = [rng.randint(1, cfg.vocab_size, n).tolist()
+               for n in (100, 300, 600, 900)]
+    kw = dict(max_batch=4, block_size=16, prefill_chunk=64, max_blocks=256,
+              max_blocks_per_seq=64)
+    n_new = 16
+
+    def fresh():
+        free_device_memory()
+        return LlamaForCausalLM(cfg, dtype="float32", seed=SEED + 1)
+
+    def served(model, **ekw):
+        return ServingEngine(model, **kw, **ekw)
+
+    def streams(eng, jobs):
+        hs = [eng.submit(p, max_new_tokens=n_new, adapter_id=a)
+              for p, a in jobs]
+        eng.run_until_idle()
+        out = [h.result(60)["token_ids"] for h in hs]
+        eng.cache.allocator.assert_no_leaks()
+        return out
+
+    def eager(model):
+        return [model.generate(torch.tensor([p], device="cuda"),
+                               max_new_tokens=n_new, temperature=0.0)[
+                                   0, len(p):].tolist() for p in prompts]
+
+    base_jobs = [(p, 0) for p in prompts]
+    s_rpa = streams(served(fresh(), quantize="int8_wo"), base_jobs)
+    s_gather = streams(served(fresh(), quantize="int8_wo",
+                              attn_impl="gather"), base_jobs)
+    if s_rpa != s_gather:
+        raise AssertionError(f"int8_wo rpa and gather streams differ: "
+                             f"{s_rpa} / {s_gather}")
+    model = fresh()
+    with torch.no_grad():
+        params = dict(model.named_parameters())
+        for k, leaf in quantize_state(params, "int8_wo").items():
+            if isinstance(leaf, QuantizedLeaf):
+                params[k].copy_(leaf.dequantize())
+        del params
+    s_deq = eager(model)
+    if s_rpa != s_deq:
+        raise AssertionError(f"int8_wo engine {s_rpa} != eager generate over "
+                             f"the dequantized weights {s_deq}")
+    del model
+
+    model = fresh()
+    lcfg = tuning.LoRAConfig()
+    tuning.apply_lora(model, lcfg, n_slots=2)
+    stacks = {k: v for k, v in model.named_parameters() if "lora_" in k}
+    tenant = _tenant(stacks, SEED + 7)
+    eng = served(model)
+    eng.load_adapter(1, tenant, name="tenant")
+    s_lora = streams(eng, base_jobs + [(p, 1) for p in prompts])
+    del eng, model, stacks
+    s_plain = streams(served(fresh()), base_jobs)
+    model = fresh()
+    with torch.no_grad():
+        for name, sub in model.named_sublayers():
+            if name.rsplit(".", 1)[-1] in lcfg.target_modules:
+                sub.weight.add_(tenant[f"{name}.lora_A"]
+                                @ tenant[f"{name}.lora_B"] * lcfg.scaling)
+    s_merged = eager(model)
+    del model
+    if s_lora[:len(prompts)] != s_plain:
+        raise AssertionError(f"slot 0 {s_lora[:len(prompts)]} != the no-LoRA "
+                             f"engine {s_plain}")
+    if s_lora[len(prompts):] != s_merged:
+        raise AssertionError(f"slot 1 {s_lora[len(prompts):]} != eager "
+                             f"generate with the adapter merged {s_merged}")
+    if s_merged == s_plain:
+        raise AssertionError("the tenant's adapter changed no stream")
+
+    model = fresh()
+    eng = served(model, quantize="fp8_wo")
+    finite = []
+    orig = eng._project
+
+    def checked(h):
+        logits = orig(h)
+        finite.append(bool(torch.isfinite(logits).all()))
+        return logits
+    eng._project = checked
+    out = streams(eng, base_jobs[:1])[0]
+    if len(out) != n_new or not all(finite):
+        raise AssertionError(f"fp8_wo engine: {out}, finite {finite}")
+    del eng, model
+    free_device_memory()
+    log(f"quantized serving (d), full width, 2 layers, float32: the int8_wo "
+        f"engine on RPA and on gather agree on {len(prompts)} greedy streams"
+        f" of {n_new} tokens, equal to eager generate over the dequantized "
+        f"weights; LoRA slot 1's streams equal eager generate with the "
+        f"adapter merged (W + A B x {lcfg.scaling}), slot 0's a no-LoRA "
+        f"engine's, and differ from them; an fp8_wo engine served "
+        f"{n_new} tokens with finite logits ({len(finite)} steps)")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch",
@@ -4026,8 +4477,8 @@ def main():
     t0 = time.perf_counter()
     phase_environment()
     phase_build()
-    rec = phase_kernel()
-    launches = phase_serving()
+    rec, rec_f16 = phase_kernel()
+    launches, serving_peak = phase_serving()
     phase_parity()
     flash = phase_flash()
     counts, train_step_ms = phase_training()
@@ -4043,6 +4494,7 @@ def main():
     resnet = phase_resnet()
     api, gen, decode = phase_api(train_step_ms)
     capture_paths, flash_f16 = phase_capture_amp_recompute(gen, flash)
+    rpa_paths, f16_step_err = phase_quantized_serving(serving_peak)
     # each path's launches were counted from 0 over its own run; a kernel
     # on several paths reports their sum, and each path's count beside it
     paths = {"train": counts, "moe_train": moe, "fit": fit, "ernie": ernie,
@@ -4052,12 +4504,15 @@ def main():
     def path_launches(kname):
         by_path = {p: c[kname] for p, c in paths.items()}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
+    rpa_paths = {"serving": launches, **rpa_paths}
     kernels = [dict(
         name="ragged_paged_attention", route="cuda",
         source="paddle_tpu_torch/ops/pallas/csrc/ragged_paged_attention.cu",
         replaces="paddle_tpu/ops/pallas/ragged_paged_attention.py:159",
-        launches=launches, launches_by_path={"serving": launches},
-        library_ms=None, **rec)]
+        launches=sum(rpa_paths.values()), launches_by_path=rpa_paths,
+        library_ms=None, **rec, float16=dict(
+            rec_f16, launches=rpa_paths["serving_f16"],
+            engine_step_max_abs_err=f16_step_err))]
     for kname, replaces in FLASH_KERNELS:
         kernels.append(dict(name=kname, route="cuda", source=FLASH_SRC,
                             replaces=replaces, **path_launches(kname),

@@ -29,10 +29,12 @@ library (``ops``), ``nn`` (every layer an ``nn.Layer``), ``optimizer``,
 ``TrainStep``), ``amp`` (``auto_cast``, ``decorate``, ``GradScaler``),
 ``io``, ``save``/``load``, ``Model``,
 ``ParamAttr``, ``metric``, ``vision``, ``serving``, ``checkpoint``,
-``data``, ``models`` and the device functions. The models: Llama-3
+``data``, ``quantization`` (QAT, PTQ, real int8 layers and the serving
+engine's weight-only PTQ), ``tuning`` (LoRA), ``models`` and the device
+functions. The models: Llama-3
 (serving, training and eager ``generate``), the MoE family, ERNIE, DiT
 and PP-OCRv4. A subsystem that is not ported (``static``,
-``incubate``, ``sparse``, ``quantization``, ``inference``, ...) is not
+``incubate``, ``sparse``, ``inference``, ...) is not
 exported: reaching it raises ``AttributeError``.
 """
 from __future__ import annotations
@@ -71,6 +73,8 @@ from paddle_tpu_torch.hapi import Model  # noqa: F401
 from paddle_tpu_torch import observability  # noqa: F401
 from paddle_tpu_torch import resilience  # noqa: F401
 from paddle_tpu_torch import vision  # noqa: F401
+from paddle_tpu_torch import quantization  # noqa: F401
+from paddle_tpu_torch import tuning  # noqa: F401
 from paddle_tpu_torch import serving  # noqa: F401
 from paddle_tpu_torch import checkpoint  # noqa: F401
 from paddle_tpu_torch import data  # noqa: F401

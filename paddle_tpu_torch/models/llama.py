@@ -12,9 +12,11 @@ attention over them), the RMSNorm/SwiGLU decoder around them, the logits
 head and the causal-LM loss (the fused chunked CE for a tied vocab of at
 least 32768), the static-cache path of ``generate_compiled`` (reference
 ``_static_forward``, :283-351: preallocated ``[B, L, n_kv, hd]`` buffers
-written in place at a position held on the card) and recompute
-(``cfg.recompute`` through ``distributed.fleet.utils.recompute``).
-Tensor parallelism and the int8-KV branch are not ported yet.
+written in place at a position held on the card), recompute
+(``cfg.recompute`` through ``distributed.fleet.utils.recompute``), the
+int8-KV branch of the paged forward (:407-436: scale pools in the
+cache) and the numerics taps (:475-626). Tensor parallelism is not
+ported yet.
 
 Parameter names and shapes equal the reference's, so a numpy state dict
 moves between the packages unchanged (``utils/bridge.py``).
@@ -38,6 +40,7 @@ from paddle_tpu_torch.nn import initializer as I
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.containers import LayerList
 from paddle_tpu_torch.nn.layer_base import Layer
+from paddle_tpu_torch.observability import numerics
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops.fused_ce import causal_lm_loss
 
@@ -201,7 +204,8 @@ class LlamaAttention(Layer):
             v, cache.k_pool, cache.v_pool, cache.block_tables,
             cache.cu_seqlens, cache.context_lens, cache.seq_ids,
             cache.positions, cache.step_seq, cache.step_blk,
-            scale=1.0 / math.sqrt(hd), attn_impl=attn_impl)
+            scale=1.0 / math.sqrt(hd), attn_impl=attn_impl,
+            k_scale=cache.k_scale, v_scale=cache.v_scale)
         return self.o_proj(out.reshape(1, T, -1))
 
     def _static_forward(self, x, cache, rope, key_mask=None,
@@ -313,7 +317,11 @@ class LlamaMLP(Layer):
         self.down_proj = mk(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        # numerics tap seam: the gated activation is where Llama-family
+        # 16-bit ranges blow up first
+        act = numerics.tap("mlp_act",
+                           F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return self.down_proj(act)
 
 
 class LlamaDecoderLayer(Layer):
@@ -335,8 +343,10 @@ class LlamaDecoderLayer(Layer):
         new_cache = None
         if isinstance(h, tuple):  # a returned cache: (out, new cache)
             h, new_cache = h
-        x = x + h
-        x = x + self.mlp(self.post_attention_layernorm(x))
+        x = x + numerics.tap("attn", h)
+        x = x + numerics.tap("mlp",
+                             self.mlp(self.post_attention_layernorm(x)))
+        x = numerics.tap("resid", x)
         return x if new_cache is None else (x, new_cache)
 
 
@@ -400,25 +410,35 @@ class LlamaModel(Layer):
         With ``cfg.recompute`` in training mode the cacheless path runs
         each decoder layer under ``distributed.fleet.utils.recompute``
         (reference :546-553): its activations are recomputed in the
-        backward instead of kept."""
+        backward instead of kept.
+
+        Every path taps the numerics seam under the reference's names
+        (:475-568): ``embed``, per layer (scope ``layers.{i}``) ``attn``,
+        ``mlp_act``, ``mlp`` and ``resid``, and ``final_norm``; inside a
+        recompute region the taps are suppressed and the layer's output
+        is tapped as ``resid``."""
         rope = (self.rope_cos, self.rope_sin)
         if caches is None:
             if pos_offsets is not None:
                 raise NotImplementedError(
                     "pos_offsets is an argument of the static-cache path")
-            x = self.embed_tokens(input_ids)
+            x = numerics.tap("embed", self.embed_tokens(input_ids))
             if self.cfg.recompute and self.training:
                 from paddle_tpu_torch.distributed.fleet.utils import \
                     recompute
-                for layer in self.layers:
-                    x = recompute(layer, x, None, rope,
-                                  attention_mask=attention_mask,
-                                  position_ids=position_ids)
-                return self.norm(x)
-            for layer in self.layers:
-                x = layer(x, None, rope, attention_mask=attention_mask,
-                          position_ids=position_ids)
-            return self.norm(x)
+                for i, layer in enumerate(self.layers):
+                    with numerics.scope(f"layers.{i}"):
+                        with numerics.suppress():
+                            x = recompute(layer, x, None, rope,
+                                          attention_mask=attention_mask,
+                                          position_ids=position_ids)
+                        x = numerics.tap("resid", x)
+                return numerics.tap("final_norm", self.norm(x))
+            for i, layer in enumerate(self.layers):
+                with numerics.scope(f"layers.{i}"):
+                    x = layer(x, None, rope, attention_mask=attention_mask,
+                              position_ids=position_ids)
+            return numerics.tap("final_norm", self.norm(x))
         if len(caches) != len(self.layers):
             raise ValueError(
                 f"caches has {len(caches)} entries for "
@@ -428,14 +448,15 @@ class LlamaModel(Layer):
                 raise NotImplementedError(
                     "position_ids is a cacheless (packed training) "
                     "argument")
-            x = self.embed_tokens(input_ids)
+            x = numerics.tap("embed", self.embed_tokens(input_ids))
             rope = self._rope_at_least(caches[0][0].shape[1])
             new = []
-            for layer, c in zip(self.layers, caches):
-                x, c = layer(x, c, rope, attention_mask=attention_mask,
-                             pos_offsets=pos_offsets)
+            for i, (layer, c) in enumerate(zip(self.layers, caches)):
+                with numerics.scope(f"layers.{i}"):
+                    x, c = layer(x, c, rope, attention_mask=attention_mask,
+                                 pos_offsets=pos_offsets)
                 new.append(c)
-            return self.norm(x), new
+            return numerics.tap("final_norm", self.norm(x)), new
         if attention_mask is not None or position_ids is not None or \
                 pos_offsets is not None:
             raise NotImplementedError(
@@ -443,16 +464,18 @@ class LlamaModel(Layer):
                 "arguments, and with pos_offsets the static cache's; the "
                 "eager and paged caches derive positions and liveness "
                 "from themselves")
-        x = self.embed_tokens(input_ids)
+        x = numerics.tap("embed", self.embed_tokens(input_ids))
         if not isinstance(caches[0], pa.RaggedLayerCache):
             grown = []
-            for layer, c in zip(self.layers, caches):
-                x, c = layer(x, tuple(c), rope)
+            for i, (layer, c) in enumerate(zip(self.layers, caches)):
+                with numerics.scope(f"layers.{i}"):
+                    x, c = layer(x, tuple(c), rope)
                 grown.append(c)
-            return self.norm(x), grown
-        for layer, c in zip(self.layers, caches):
-            x = layer(x, c, rope, attn_impl)
-        return self.norm(x), caches
+            return numerics.tap("final_norm", self.norm(x)), grown
+        for i, (layer, c) in enumerate(zip(self.layers, caches)):
+            with numerics.scope(f"layers.{i}"):
+                x = layer(x, c, rope, attn_impl)
+        return numerics.tap("final_norm", self.norm(x)), caches
 
 
 class LlamaForCausalLM(Layer):
@@ -512,7 +535,7 @@ class LlamaForCausalLM(Layer):
             h, w = cast_for("fused_causal_ce", h,
                                 self.model.embed_tokens.weight)
             return None, causal_lm_loss(h, w, labels)
-        logits = self._logits(h)
+        logits = numerics.tap("logits", self._logits(h))
         if labels is None:
             return logits
         loss = F.cross_entropy(

@@ -21,6 +21,14 @@ paths share that layout:
 Unlike the reference, the pools are updated **in place**: the JAX step
 threads them functionally (pools in, pools out), which in PyTorch would
 copy every layer's pool every step and double the cache's memory.
+
+int8 KV (reference :150-399): with scale pools in the cache
+(``k_scale``/``v_scale``, ``[num_blocks + 1, block_size, n_kv]`` f32),
+the step quantizes the new K/V per (token, kv head)
+(:func:`quantize_kv_slots`), scatters values and scales into their pools
+in place (:func:`write_kv_scales_to_pool`) and reads through the gather
+path, which dequantizes the gathered context in f32. The RPA kernel reads
+unquantized pools only: an int8 pool on the ``rpa`` path raises.
 """
 from __future__ import annotations
 
@@ -30,7 +38,8 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["RaggedLayerCache", "write_tokens_to_pool", "gather_pool",
-           "ragged_gather_attention", "ragged_paged_attention_step"]
+           "ragged_gather_attention", "ragged_paged_attention_step",
+           "quantize_kv_slots", "write_kv_scales_to_pool"]
 
 
 class RaggedLayerCache(NamedTuple):
@@ -47,6 +56,22 @@ class RaggedLayerCache(NamedTuple):
     positions: torch.Tensor     # [T] int32 absolute position per token
     step_seq: torch.Tensor      # [num_q_tiles, max_steps] int32 work map
     step_blk: torch.Tensor      # [num_q_tiles, max_steps] int32 work map
+    # int8-KV scale pools, paged like the value pools; None when the
+    # pools hold the model's dtype
+    k_scale: torch.Tensor = None  # [num_blocks + 1, block_size, n_kv] f32
+    v_scale: torch.Tensor = None  # [num_blocks + 1, block_size, n_kv] f32
+
+
+def _slots(pool, block_tables, seq_ids, positions):
+    """(physical block, slot) of each token: its position through its
+    sequence's block-table row; padding tokens (sentinel ``seq_ids`` ->
+    the all-null table row) land in (null block 0, slot 0)."""
+    bs, nblk = pool.shape[1], block_tables.shape[1]
+    pos = positions.long()
+    blk = torch.clamp(pos // bs, 0, nblk - 1)
+    phys = block_tables[seq_ids.long(), blk].long()
+    slot = torch.where(phys == 0, torch.zeros_like(pos), pos % bs)
+    return phys, slot
 
 
 def write_tokens_to_pool(pool, new, block_tables, seq_ids, positions):
@@ -55,13 +80,32 @@ def write_tokens_to_pool(pool, new, block_tables, seq_ids, positions):
     return the pool. Padding tokens (sentinel ``seq_ids`` -> the all-null
     table row) all land in (null block 0, slot 0); which of them wins
     does not matter, since no live step reads the null block."""
-    bs, nblk = pool.shape[1], block_tables.shape[1]
-    pos = positions.long()
-    blk = torch.clamp(pos // bs, 0, nblk - 1)
-    phys = block_tables[seq_ids.long(), blk].long()
-    slot = torch.where(phys == 0, torch.zeros_like(pos), pos % bs)
+    phys, slot = _slots(pool, block_tables, seq_ids, positions)
     pool[phys, slot] = new.to(pool.dtype)
     return pool
+
+
+def quantize_kv_slots(x):
+    """Symmetric per-token, per-head int8 quantization of KV rows:
+    ``x [..., n_kv, hd]`` -> ``(q int8 [..., n_kv, hd], scale f32
+    [..., n_kv])`` with scale = max(absmax, 1e-8) / 127 (the dequant
+    multiplier), rounded half to even and clipped to +-127 as the
+    reference's ``jnp.round`` and ``jnp.clip``."""
+    f = x.float()
+    absmax = f.abs().amax(dim=-1)
+    scale = torch.clamp(absmax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(f / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def write_kv_scales_to_pool(scale_pool, scales, block_tables, seq_ids,
+                            positions):
+    """Scatter per-token dequant ``scales`` [T, n_kv] into the paged
+    scale pool **in place**, at the (physical block, slot) the quantized
+    values landed in (padding to the null block), and return it."""
+    phys, slot = _slots(scale_pool, block_tables, seq_ids, positions)
+    scale_pool[phys, slot] = scales.to(scale_pool.dtype)
+    return scale_pool
 
 
 def gather_pool(pool, block_tables):
@@ -72,11 +116,14 @@ def gather_pool(pool, block_tables):
 
 
 def ragged_gather_attention(q, k_pool, v_pool, block_tables, seq_ids,
-                            positions, *, scale):
+                            positions, *, scale, k_scale=None,
+                            v_scale=None):
     """Token-packed GQA attention through the gather path: gather every
     sequence's whole padded context, pick each token's row, dense masked
     softmax. Costs the ``[T, L_max, n_kv, hd]`` materialisation the
-    kernel removes; outputs at padding tokens are garbage."""
+    kernel removes; outputs at padding tokens are garbage. With int8
+    pools (``k_scale``/``v_scale`` given) the gathered context is
+    dequantized in f32 and the result is f32."""
     T, n_heads, hd = q.shape
     n_kv = k_pool.shape[2]
     grp = n_heads // n_kv
@@ -84,6 +131,12 @@ def ragged_gather_attention(q, k_pool, v_pool, block_tables, seq_ids,
     vals = gather_pool(v_pool, block_tables)
     sid = seq_ids.long()
     kt, vt = keys[sid], vals[sid]              # [T, L, n_kv, hd]
+    if k_scale is not None:
+        # the scale pools page and gather like the value pools
+        ksc = gather_pool(k_scale, block_tables)[sid]  # [T, L, n_kv]
+        vsc = gather_pool(v_scale, block_tables)[sid]
+        kt = kt.float() * ksc[..., None]
+        vt = vt.float() * vsc[..., None]
     L = kt.shape[1]
     qg = q.reshape(T, n_kv, grp, hd)
     s = torch.einsum("tkgh,tlkh->tkgl", qg.float(), kt.float()) * scale
@@ -120,7 +173,8 @@ def _pad_to_kernel_head_dim(q, k_pool, v_pool):
 def ragged_paged_attention_step(q, k, v, k_pool, v_pool, block_tables,
                                 cu_seqlens, context_lens, seq_ids,
                                 positions, step_seq, step_blk, *,
-                                scale=None, attn_impl="rpa"):
+                                scale=None, attn_impl="rpa", k_scale=None,
+                                v_scale=None):
     """One unified serving step over the token-packed ragged layout.
 
     ``q`` [T, n_heads, hd] and ``k``/``v`` [T, n_kv, hd] are the
@@ -130,6 +184,12 @@ def ragged_paged_attention_step(q, k, v, k_pool, v_pool, block_tables,
     plain version for CPU tensors) or the gather path. Returns
     ``out [T, n_heads * hd]``; outputs at padding tokens are garbage
     (gather) or 0 (rpa) and must be discarded by the caller.
+
+    With int8 pools (``k_scale``/``v_scale`` scale pools given) the new
+    K/V are quantized per (token, kv head), values and scales scattered
+    in place, and the gather path dequantizes on the fly (the output
+    comes back in q's dtype). Only ``attn_impl="gather"`` reads int8
+    pools: ``"rpa"`` raises.
     """
     from paddle_tpu_torch.ops.pallas.ragged_paged_attention import \
         ragged_paged_attention
@@ -137,6 +197,27 @@ def ragged_paged_attention_step(q, k, v, k_pool, v_pool, block_tables,
     T, n_heads, hd = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
+    if k_scale is not None:
+        if attn_impl != "gather":
+            raise ValueError(
+                "int8 KV pools are read by the gather path only: the RPA "
+                "kernel reads unquantized pools (ServingEngine(kv_dtype="
+                "'int8') pins attn_impl='gather')")
+        kq, ks = quantize_kv_slots(k)
+        vq, vs = quantize_kv_slots(v)
+        write_tokens_to_pool(k_pool, kq, block_tables, seq_ids, positions)
+        write_tokens_to_pool(v_pool, vq, block_tables, seq_ids, positions)
+        write_kv_scales_to_pool(k_scale, ks, block_tables, seq_ids,
+                                positions)
+        write_kv_scales_to_pool(v_scale, vs, block_tables, seq_ids,
+                                positions)
+        out = ragged_gather_attention(
+            q, k_pool, v_pool, block_tables, seq_ids, positions,
+            scale=scale, k_scale=k_scale, v_scale=v_scale)
+        return out.to(q.dtype).reshape(T, n_heads * hd)
+    if k_pool.dtype == torch.int8:
+        raise ValueError("an int8 KV pool needs its scale pools "
+                         "(k_scale, v_scale)")
     write_tokens_to_pool(k_pool, k, block_tables, seq_ids, positions)
     write_tokens_to_pool(v_pool, v, block_tables, seq_ids, positions)
     if attn_impl == "rpa":

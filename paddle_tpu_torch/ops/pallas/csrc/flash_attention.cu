@@ -72,10 +72,7 @@
 #include <stdint.h>
 
 #include <initializer_list>
-#include <mutex>
-#include <set>
 #include <type_traits>
-#include <utility>
 
 #include "hopper.cuh"
 
@@ -786,22 +783,7 @@ __global__ void __launch_bounds__(fwd90::kThreads, 1)
   }
 }
 
-// cudaFuncSetAttribute(kernel, max dynamic shared memory) once per kernel
-// and device, on its first launch: a launch that a CUDA graph captures
-// later (jit/cuda_graph.py) then makes no call but the launch itself
-cudaError_t set_smem_once(const void* kernel, size_t smem) {
-  static std::mutex mu;
-  static std::set<std::pair<const void*, int>> done;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  const std::lock_guard<std::mutex> lock(mu);
-  if (done.count({kernel, dev})) return cudaSuccess;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
-  if (e == cudaSuccess) done.insert({kernel, dev});
-  return e;
-}
+using hopper::set_smem_once;
 
 // whether every operand a tensor-core kernel loads by TMA or stores in
 // pairs starts on a 16-byte boundary

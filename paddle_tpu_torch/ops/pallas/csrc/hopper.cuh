@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
-// the bf16 and f16 flash-attention kernels K1-K3 (flash_attention.cu) and the
+// the bf16 and f16 flash-attention kernels K1-K3 (flash_attention.cu), the
+// bf16 and f16 ragged paged attention K4 (ragged_paged_attention.cu) and the
 // grouped products K5, K6 and K7 (grouped_matmul.cu). mbarriers, TMA tile
 // loads, wgmma shared-memory descriptors and products, warpgroup barriers,
 // and the host-side encoding of TMA tensor maps.
@@ -22,7 +23,8 @@
 // K-major descriptor by 32 bytes inside the 128-byte row and an MN-major
 // one by 16 rows (2048 bytes). One swizzled tile serves both ways: the
 // backward kernels read a Q, dO or K tile K-major in one product and
-// MN-major in another.
+// MN-major in another. `set_smem_once` raises a kernel's dynamic shared
+// memory limit once per kernel and device.
 //
 // Products: m64n128k16 and m64n64k16, each with A from shared memory
 // (`_ss`) or from registers (`_rs`, the m16n8k16 A-fragment layout, into
@@ -39,7 +41,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <set>
 #include <type_traits>
+#include <utility>
 
 namespace hopper {
 
@@ -415,6 +420,23 @@ inline EncodeTiled encode_tiled() {
       fn = reinterpret_cast<EncodeTiled>(f);
   }
   return fn;
+}
+
+// cudaFuncSetAttribute(kernel, max dynamic shared memory) once per kernel
+// and device, on its first launch: a launch that a CUDA graph captures
+// later (jit/cuda_graph.py) then makes no call but the launch itself
+inline cudaError_t set_smem_once(const void* kernel, size_t smem) {
+  static std::mutex mu;
+  static std::set<std::pair<const void*, int>> done;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const std::lock_guard<std::mutex> lock(mu);
+  if (done.count({kernel, dev})) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e == cudaSuccess) done.insert({kernel, dev});
+  return e;
 }
 
 // A tensor map of a tensor of `rank` dimensions, innermost first (dims[0]

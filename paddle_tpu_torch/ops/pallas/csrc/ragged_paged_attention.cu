@@ -29,10 +29,14 @@
 // stream at HBM rate across all 132 SMs.
 //
 // Two designs, chosen by an explicit dispatch on dtype (rpa_launch for
-// f32, rpa_bf16_launch for bf16):
+// f32, rpa_wgmma_launch for bf16 and f16):
 //
-// bf16: split, persistent, pages by TMA, tensor cores. Three launches per
-// call, on the caller's stream, no host synchronisation:
+// bf16 and f16: split, persistent, pages by TMA, tensor cores. The kernels
+// are templates on the element type E (`__nv_bfloat16` or `__half`: the
+// same two bytes an element, so every shared-memory layout holds for
+// both); f16 takes wgmma's .f16 kind, f16 TMA maps, P packed to f16 and
+// f16 stores. Three launches per call, on the caller's stream, no host
+// synchronisation:
 //  1. `rpa_items_kernel` builds the work list on the device from step_seq,
 //     as gmm_tiles_kernel builds K5's: each tile's live prefix (a binary
 //     search for the first sentinel) is cut into chunks of L_j = max(C,
@@ -43,7 +47,7 @@
 //     and dead steps cost nothing. At most kMaxChunks chunks a tile bounds
 //     the scratch the wrapper allocates (num_tiles * kMaxChunks * n_kv *
 //     rows * (hd + 2) floats) with no host count.
-//  2. `rpa_wgmma_kernel<D, NWG>`: a persistent grid (one block per SM, two
+//  2. `rpa_wgmma_kernel<E, D, NWG>`: a persistent grid (one block per SM, two
 //     where one warpgroup computes) walks the items, the count read from
 //     device memory. One producer warp (its lanes read 32 steps' metadata
 //     at once, lane 0 issues the copies) loads the item's Q tile once,
@@ -64,7 +68,7 @@
 //     nothing that bounds the kernel). Per stage: S = Q K^T by an ss
 //     wgmma chain (m64n64k16, both K-major), the visibility bound applied
 //     on the accumulator fragment per slot's sequence, the online softmax
-//     in f32 (exp2), P rounded to bf16 (as the TPU kernel casts p to v's
+//     in f32 (exp2), P rounded to E (as the TPU kernel casts p to v's
 //     dtype) and fed from registers against MN-major V (rs wgmma), as K1
 //     does, a stage's P V issued behind the next stage's S. A tile of one
 //     chunk writes its normalised output; a tile of several writes per
@@ -75,7 +79,7 @@
 //     live step.
 // What it does about the FMA kernel's limits: the split walk spreads a
 // long decode tile over kMaxChunks x n_kv blocks instead of n_kv; larger
-// q tiles (up to 128 rows) serve more rows per page load; pages stay bf16
+// q tiles (up to 128 rows) serve more rows per page load; pages stay in E
 // and arrive by TMA, several per stage, loads running a ring ahead of the
 // products; scores and P V run on the tensor cores.
 //
@@ -83,16 +87,20 @@
 // kv head) walking the tile's whole step list, each warp owning score
 // rows, K and V pages copied into shared memory element by element, the
 // online softmax in f32 through warp shuffles. It stays for float32,
-// whose tolerance bf16 tensor-core products would miss.
+// whose tolerance 16-bit tensor-core products would miss. The dynamic
+// shared-memory limit of each wgmma instance is raised once per kernel and
+// device (hopper::set_smem_once), so a launch a CUDA graph captures makes
+// no other call.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
 
-// Launch parameters of the bf16 design, filled field for field by the
+// Launch parameters of the bf16/f16 design, filled field for field by the
 // Python wrapper's ctypes mirror (_Params). At global scope so the extern
 // "C" entry point that takes it keeps external linkage.
 struct RpaParams {
@@ -112,6 +120,7 @@ struct RpaParams {
   long long q_st, q_sh, o_st, o_sh;
   int num_tiles, tile_q, group, block_size, n_kv, max_steps, max_seqs;
   int bt_width, head_dim, pool_blocks, min_pages, max_chunks;
+  int dtype;  // 1 bfloat16, 2 float16: the element type E of the kernels
   float sm_scale;
 };
 
@@ -288,7 +297,7 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   return cudaGetLastError();
 }
 
-// ============ bf16: split, persistent, pages by TMA, wgmma ==============
+// ========= bf16/f16: split, persistent, pages by TMA, wgmma ============
 namespace rpa90 {
 constexpr int kKeys = 64;        // keys per stage: 64 / block_size pages
 constexpr int kMaxSlots = kKeys / 8;  // pages a stage holds (block_size 8)
@@ -393,7 +402,7 @@ __device__ __forceinline__ RpaItem rpa_item(const RpaParams& p, int w) {
   return it;
 }
 
-template <int D, int NWG>
+template <typename E, int D, int NWG>
 __global__ void __launch_bounds__(rpa90::Cfg<D, NWG>::kThreads,
                                   rpa90::Cfg<D, NWG>::kBlocksPerSm)
     rpa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -542,7 +551,7 @@ __global__ void __launch_bounds__(rpa90::Cfg<D, NWG>::kThreads,
   const float sl = p.sm_scale * kLog2e;
   int log2bs = 0;
   while ((1 << log2bs) < bs) ++log2bs;
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+  E* out = static_cast<E*>(p.out);
 
   uint32_t it = 0;
   int n_item = 0;
@@ -557,7 +566,7 @@ __global__ void __launch_bounds__(rpa90::Cfg<D, NWG>::kThreads,
     float l_a = 0.f, l_b = 0.f;
     const int qb = n_item & 1;
     const uint32_t q_addr = smem_u32(q_s + qb * C::kQBytes) + cw * 64 * 128;
-    uint32_t pf[4][4];  // P of the stage whose P V is pending, in bf16
+    uint32_t pf[4][4];  // P of the stage whose P V is pending, in E
 
     // S = Q K^T of stage st (scale_d = 0 on the first k16 step)
     const auto issue_s = [&](float (&sc)[32], int st) {
@@ -565,7 +574,7 @@ __global__ void __launch_bounds__(rpa90::Cfg<D, NWG>::kThreads,
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t off = (kk % 4) * 32;
-        wgmma_m64n64k16_ss<0>(
+        wgmma_m64n64k16_ss<0, E>(
             sc, desc_k_major(q_addr + (kk / 4) * kQPanel + off),
             desc_k_major(k_addr + (kk / 4) * kKeys * 128 + off), kk > 0);
       }
@@ -578,9 +587,9 @@ __global__ void __launch_bounds__(rpa90::Cfg<D, NWG>::kThreads,
       for (int kk = 0; kk < kKeys / 16; ++kk) {
         const uint64_t dv = desc_mn_major(v_addr + kk * 16 * 128, kKeys * 128);
         if constexpr (D == 128)
-          wgmma_m64n128k16_rs<1>(o, pf[kk], dv);
+          wgmma_m64n128k16_rs<1, E>(o, pf[kk], dv);
         else
-          wgmma_m64n64k16_rs<1>(o, pf[kk], dv);
+          wgmma_m64n64k16_rs<1, E>(o, pf[kk], dv);
       }
       wgmma_commit();
     };
@@ -653,12 +662,12 @@ __global__ void __launch_bounds__(rpa90::Cfg<D, NWG>::kThreads,
       m_a = mn_a;
       m_b = mn_b;
     };
-    // P in bf16 as the A fragments of the four k16 steps; only once no
-    // P V is in flight, which reads pf
+    // P in E (v's type, as the TPU kernel casts p) as the A fragments of
+    // the four k16 steps; only once no P V is in flight, which reads pf
     const auto pack_p = [&](const float (&sc)[32]) {
 #pragma unroll
       for (int i = 0; i < 32; i += 2)
-        pf[i / 8][(i % 8) / 2] = pack_bf16(sc[i], sc[i + 1]);
+        pf[i / 8][(i % 8) / 2] = pack2<E>(sc[i], sc[i + 1]);
     };
 
     mbar_wait(&q_full[qb], (n_item >> 1) & 1);
@@ -710,13 +719,12 @@ __global__ void __launch_bounds__(rpa90::Cfg<D, NWG>::kThreads,
       if (item.chunks == 1) {
         const float inv = l == 0.f ? 0.f : 1.f / l;  // no key seen: 0
         const int tok = item.j * p.tile_q + r / p.group;
-        __nv_bfloat16* orow = out + tok * p.o_st +
-                              (item.h * p.group + r % p.group) * p.o_sh + cq;
+        E* orow = out + tok * p.o_st +
+                  (item.h * p.group + r % p.group) * p.o_sh + cq;
 #pragma unroll
         for (int c = 0; c < D / 8; ++c)
-          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * c) =
-              __floats2bfloat162_rn(o[4 * c + 2 * hh] * inv,
-                                    o[4 * c + 2 * hh + 1] * inv);
+          store2<E>(orow + 8 * c, o[4 * c + 2 * hh] * inv,
+                    o[4 * c + 2 * hh + 1] * inv);
       } else {
         const long long b =
             (static_cast<long long>(item.u) * p.n_kv + item.h) * rows + r;
@@ -739,7 +747,7 @@ __global__ void __launch_bounds__(rpa90::Cfg<D, NWG>::kThreads,
 // step: exactly 0. Tiles of one chunk were written by the main kernel.
 // A block of 8 warps per (tile, kv head, 8 rows): a warp a row, each lane
 // D / 32 neighbouring columns, the chunks' loads independent.
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(256) rpa_combine_kernel(RpaParams p) {
   constexpr int kPer = D / 32;
   const int j = blockIdx.x, h = blockIdx.y;
@@ -780,12 +788,11 @@ __global__ void __launch_bounds__(256) rpa_combine_kernel(RpaParams p) {
     for (int x = 0; x < kPer; ++x) acc[x] *= inv;
   }
   const int tok = j * p.tile_q + r / p.group;
-  __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(p.out) + tok * p.o_st +
-                        (h * p.group + r % p.group) * p.o_sh + kPer * lane;
+  E* orow = static_cast<E*>(p.out) + tok * p.o_st +
+            (h * p.group + r % p.group) * p.o_sh + kPer * lane;
 #pragma unroll
   for (int x = 0; x < kPer; x += 2)
-    *reinterpret_cast<__nv_bfloat162*>(orow + x) =
-        __floats2bfloat162_rn(acc[x], acc[x + 1]);
+    hopper::store2<E>(orow + x, acc[x], acc[x + 1]);
 }
 
 // whether a pointer or a byte count is a multiple of 16
@@ -793,7 +800,7 @@ inline bool al16(const void* ptr) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
-template <int D, int NWG>
+template <typename E, int D, int NWG>
 cudaError_t run_rpa_wgmma(const RpaParams& p, cudaStream_t stream) {
   using C = rpa90::Cfg<D, NWG>;
   const int n_heads = p.n_kv * p.group;
@@ -806,7 +813,8 @@ cudaError_t run_rpa_wgmma(const RpaParams& p, cudaStream_t stream) {
                                    static_cast<cuuint64_t>(p.q_st) * 2};
     const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(p.group),
                                static_cast<cuuint32_t>(p.tile_q)};
-    cudaError_t e = hopper::make_map(&tq, p.q, 3, dims, strides, box);
+    cudaError_t e = hopper::make_map(&tq, p.q, 3, dims, strides, box,
+                                     hopper::map_dtype<E>());
     if (e != cudaSuccess) return e;
   }
   // pools viewed as [(num_blocks + 1) * block_size, n_kv, hd]: one box a
@@ -817,9 +825,11 @@ cudaError_t run_rpa_wgmma(const RpaParams& p, cudaStream_t stream) {
   const cuuint64_t strides[2] = {D * 2,
                                  static_cast<cuuint64_t>(p.n_kv) * D * 2};
   const cuuint32_t box[3] = {64, 1, static_cast<cuuint32_t>(p.block_size)};
-  cudaError_t e = hopper::make_map(&tk, p.k_pool, 3, dims, strides, box);
+  cudaError_t e = hopper::make_map(&tk, p.k_pool, 3, dims, strides, box,
+                                   hopper::map_dtype<E>());
   if (e == cudaSuccess)
-    e = hopper::make_map(&tv, p.v_pool, 3, dims, strides, box);
+    e = hopper::make_map(&tv, p.v_pool, 3, dims, strides, box,
+                         hopper::map_dtype<E>());
   if (e != cudaSuccess) return e;
   int dev = 0, sms = 0;
   e = cudaGetDevice(&dev);
@@ -829,9 +839,8 @@ cudaError_t run_rpa_wgmma(const RpaParams& p, cudaStream_t stream) {
   rpa_items_kernel<<<1, 1024, 0, stream>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  auto kernel = rpa_wgmma_kernel<D, NWG>;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(C::kSmem));
+  auto kernel = rpa_wgmma_kernel<E, D, NWG>;
+  e = hopper::set_smem_once(reinterpret_cast<const void*>(kernel), C::kSmem);
   if (e != cudaSuccess) return e;
   int per_sm = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
@@ -842,16 +851,27 @@ cudaError_t run_rpa_wgmma(const RpaParams& p, cudaStream_t stream) {
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int rows = p.tile_q * p.group;
-  rpa_combine_kernel<D>
+  rpa_combine_kernel<E, D>
       <<<dim3(p.num_tiles, p.n_kv, (rows + 7) / 8), 256, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename E>
+cudaError_t run_rpa_typed(const RpaParams& p, bool two, cudaStream_t st) {
+  if (p.head_dim == 64)
+    return two ? run_rpa_wgmma<E, 64, 2>(p, st) : run_rpa_wgmma<E, 64, 1>(p, st);
+  if (p.head_dim == 128)
+    return two ? run_rpa_wgmma<E, 128, 2>(p, st)
+               : run_rpa_wgmma<E, 128, 1>(p, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// The f32 FMA kernel; dtype must be 0 (float32: bf16 runs rpa_bf16_launch).
+// The f32 FMA kernel; dtype must be 0 (float32: bf16 and f16 run
+// rpa_wgmma_launch).
 // Returns a cudaError_t value (0 on a launch that was accepted); the
 // Python wrapper raises on anything else.
 int rpa_launch(int dtype, int head_dim, const void* q, const void* k_pool,
@@ -882,13 +902,14 @@ int rpa_launch(int dtype, int head_dim, const void* q, const void* k_pool,
   return static_cast<int>(e);
 }
 
-// The bf16 design: the work list, the persistent wgmma kernel and the
-// combine pass, in that order on `stream`. Returns a cudaError_t value.
-int rpa_bf16_launch(const RpaParams* p, void* stream) {
+// The bf16 and f16 design (p->dtype 1 or 2): the work list, the persistent
+// wgmma kernel and the combine pass, in that order on `stream`. Returns a
+// cudaError_t value.
+int rpa_wgmma_launch(const RpaParams* p, void* stream) {
   if (p == nullptr || p->num_tiles < 1 || p->n_kv < 1 || p->n_kv > 65535 ||
       p->num_tiles > 2147483647 / 4 || p->group < 1 || p->group > 256 ||
       p->tile_q < 1 || p->tile_q > 256 || p->max_chunks < 1 ||
-      p->min_pages < 1 || p->max_steps < 1)
+      p->min_pages < 1 || p->max_steps < 1 || p->dtype < 1 || p->dtype > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const int rows = p->tile_q * p->group;
   const int bs = p->block_size;
@@ -901,10 +922,10 @@ int rpa_bf16_launch(const RpaParams* p, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   const bool two = rows > 64;
   cudaError_t e = cudaErrorInvalidValue;
-  if (p->head_dim == 64)
-    e = two ? run_rpa_wgmma<64, 2>(*p, st) : run_rpa_wgmma<64, 1>(*p, st);
-  if (p->head_dim == 128)
-    e = two ? run_rpa_wgmma<128, 2>(*p, st) : run_rpa_wgmma<128, 1>(*p, st);
+  if (p->dtype == 1)
+    e = run_rpa_typed<__nv_bfloat16>(*p, two, st);
+  else
+    e = run_rpa_typed<__half>(*p, two, st);
   return static_cast<int>(e);
 }
 

@@ -14,13 +14,17 @@ ragged GQA attention over the block-paged KV pool:
     step_seq/blk   : [num_q_tiles, max_steps] int32 (``build_step_maps``)
 
 Its bound on the H100 is bytes: each live page read once per kv head,
-plus q and the output. In bf16 the kernel splits each q tile's step list
+plus q and the output. In bf16 and f16 (one design, templated on the
+element type) the kernel splits each q tile's step list
 into chunks of at most :data:`MAX_CHUNKS` per tile (built on the
 device; :func:`_rpa_items_plain` is its plain version), walks the (chunk, kv head) items persistently with
 pages brought in by TMA and the products on the tensor cores, and merges
 the chunks of a tile in a combine pass (:func:`_rpa_split_plain` is the
 same arithmetic in plain PyTorch). In float32 it runs the first port's
 FMA kernel. See the source's header and ``PERF.md`` for the times.
+Like the TPU kernel, which allocates its output in q's dtype and takes
+any float, the wrapper takes float32, bfloat16 and float16, and returns
+q's dtype.
 
 :func:`ragged_paged_attention` launches the kernel for CUDA tensors, or
 raises; for CPU tensors it computes :func:`ragged_paged_attention_reference`,
@@ -58,9 +62,9 @@ MIN_CHUNK_KEYS = 128
 # finite stand-in for -inf (the reference's _MASK_VALUE, :82)
 _MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (64, 128)
-_BF16_BLOCK_SIZES = (8, 16, 32, 64)  # pages that tile a 64-key stage
+_WGMMA_BLOCK_SIZES = (8, 16, 32, 64)  # pages that tile a 64-key stage
 _MAX_ROWS = 128  # rows of a q tile either kernel takes
 
 
@@ -195,7 +199,7 @@ def _max_chunks(max_steps, min_pages):
 
 
 def _rpa_items_plain(step_seq, max_seqs, min_pages, max_chunks):
-    """The bf16 kernel's work list, the plain version of the source's
+    """The bf16/f16 kernel's work list, the plain version of the source's
     ``rpa_items_kernel``. A tile's live steps are its step list before the
     first sentinel; they are cut into chunks of ``max(min_pages,
     ceil(live / max_chunks))`` steps. Returns ``info`` int32 ``[4 *
@@ -225,7 +229,7 @@ def _rpa_items_plain(step_seq, max_seqs, min_pages, max_chunks):
 def _rpa_split_plain(q, k_pool, v_pool, block_tables, cu_seqlens,
                      context_lens, step_seq, step_blk, *, sm_scale=None,
                      min_pages=None, max_chunks=None):
-    """The bf16 kernel's arithmetic in plain PyTorch (f32): each (chunk,
+    """The bf16/f16 kernel's arithmetic in plain PyTorch (f32): each (chunk,
     kv head) item of :func:`_rpa_items_plain` keeps per row the partial
     state ``(m, l, acc)`` over its chunk's pages (pages no row of the tile
     can see are skipped, as the kernel skips their loads), with p rounded
@@ -304,8 +308,8 @@ def _rpa_split_plain(q, k_pool, v_pool, block_tables, cu_seqlens,
 
 def _check_cuda_inputs(q, k_pool, v_pool, meta):
     if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"RPA kernel takes float32 or bfloat16, not "
-                        f"{q.dtype}")
+        raise TypeError(f"RPA kernel takes float32, bfloat16 or float16, "
+                        f"not {q.dtype}")
     if q.shape[-1] not in _HEAD_DIMS:
         raise ValueError(f"RPA kernel takes head_dim in {_HEAD_DIMS}, not "
                          f"{q.shape[-1]}")
@@ -333,7 +337,8 @@ class _Params(ctypes.Structure):
         (n, ctypes.c_int) for n in (
             "num_tiles", "tile_q", "group", "block_size", "n_kv",
             "max_steps", "max_seqs", "bt_width", "head_dim", "pool_blocks",
-            "min_pages", "max_chunks")] + [("sm_scale", ctypes.c_float)]
+            "min_pages", "max_chunks", "dtype")] + [
+        ("sm_scale", ctypes.c_float)]
 
 
 def _lib():
@@ -344,8 +349,8 @@ def _lib():
         fn.argtypes = [I, I] + [P] * 9 + [I] * 8 + [L] * 4 + \
             [ctypes.c_float, P]
         fn.restype = I
-        lib.rpa_bf16_launch.argtypes = [ctypes.POINTER(_Params), P]
-        lib.rpa_bf16_launch.restype = I
+        lib.rpa_wgmma_launch.argtypes = [ctypes.POINTER(_Params), P]
+        lib.rpa_wgmma_launch.restype = I
         lib.rpa_error_string.argtypes = [I]
         lib.rpa_error_string.restype = ctypes.c_char_p
     return lib
@@ -358,22 +363,24 @@ def _raise_on(lib, rc):
             f"{lib.rpa_error_string(rc).decode()} (cudaError {rc})")
 
 
-def _rpa_bf16(q, k_pool, v_pool, block_tables, cu_seqlens, context_lens,
-              step_seq, step_blk, sm_scale):
-    """The bf16 design on the card: the work list, the persistent wgmma
-    kernel and the combine pass. Returns ``(out, info, items)``, the last
-    two as :func:`_rpa_items_plain` gives them (``items`` past the count
+def _rpa_wgmma(q, k_pool, v_pool, block_tables, cu_seqlens, context_lens,
+               step_seq, step_blk, sm_scale):
+    """The bf16/f16 design on the card (q's dtype picks the instance):
+    the work list, the persistent wgmma kernel and the combine pass.
+    Returns ``(out, info, items)``, the last two as
+    :func:`_rpa_items_plain` gives them (``items`` past the count
     unwritten)."""
     T, n_heads, hd, n_kv, group, tile_q = _geometry(q, k_pool, step_seq)
     bs = k_pool.shape[1]
-    if bs not in _BF16_BLOCK_SIZES:
-        raise ValueError(f"the bf16 RPA kernel takes block_size in "
-                         f"{_BF16_BLOCK_SIZES}, not {bs}")
+    if bs not in _WGMMA_BLOCK_SIZES:
+        raise ValueError(f"the bf16/f16 RPA kernel takes block_size in "
+                         f"{_WGMMA_BLOCK_SIZES}, not {bs}")
+    # 8 elements of two bytes: a 16-byte TMA stride, in either dtype
     if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)) or \
             q.stride(0) % 8 or q.stride(1) % 8:
-        raise ValueError("the bf16 RPA kernel loads q and the pools by TMA:"
-                         " their bases and q's token and head strides must"
-                         " be 16-byte aligned")
+        raise ValueError("the bf16/f16 RPA kernel loads q and the pools by "
+                         "TMA: their bases and q's token and head strides "
+                         "must be 16-byte aligned")
     num_tiles, max_steps = step_seq.shape
     rows = tile_q * group
     min_pages = _min_pages(bs)
@@ -398,11 +405,12 @@ def _rpa_bf16(q, k_pool, v_pool, block_tables, cu_seqlens, context_lens,
         group=group, block_size=bs, n_kv=n_kv, max_steps=max_steps,
         max_seqs=block_tables.shape[0] - 1, bt_width=block_tables.shape[1],
         head_dim=hd, pool_blocks=k_pool.shape[0], min_pages=min_pages,
-        max_chunks=max_chunks, sm_scale=float(sm_scale))
+        max_chunks=max_chunks, dtype=_DTYPE_CODE[q.dtype],
+        sm_scale=float(sm_scale))
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _raise_on(lib, lib.rpa_bf16_launch(ctypes.byref(params), stream))
+        _raise_on(lib, lib.rpa_wgmma_launch(ctypes.byref(params), stream))
     return out, info, items
 
 
@@ -417,8 +425,10 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, cu_seqlens,
     module docstring. Returns ``[total_tokens, n_heads, hd]`` in q's
     dtype; outputs at padding tokens are exactly 0.
 
-    CUDA tensors launch the kernel (or raise): bf16 the split wgmma
-    design, f32 the FMA kernel. CPU tensors compute the plain version.
+    CUDA tensors launch the kernel (or raise): bf16 and f16 the split
+    wgmma design, f32 the FMA kernel. CPU tensors compute the plain
+    version. Every launch counts in ``launches``; the f16 ones also in
+    ``launches_f16``.
     """
     if q.device.type == "cpu":
         return ragged_paged_attention_reference(
@@ -437,10 +447,12 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, cu_seqlens,
             f"{tile_q * group} rows > the kernel's {_MAX_ROWS}")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(hd)
-    if q.dtype == torch.bfloat16:
-        out = _rpa_bf16(q, k_pool, v_pool, block_tables, cu_seqlens,
-                        context_lens, step_seq, step_blk, sm_scale)[0]
+    if q.dtype != torch.float32:
+        out = _rpa_wgmma(q, k_pool, v_pool, block_tables, cu_seqlens,
+                         context_lens, step_seq, step_blk, sm_scale)[0]
         ragged_paged_attention.launches += 1
+        if q.dtype == torch.float16:
+            ragged_paged_attention.launches_f16 += 1
         return out
     out = torch.empty(T, n_heads, hd, dtype=q.dtype, device=q.device)
     lib = _lib()
@@ -467,5 +479,8 @@ ragged_paged_attention.launches = 0
 #: the serving step's calls at a head_dim zero-padded to an instance's
 #: (``ops.paged_attention._pad_to_kernel_head_dim``)
 ragged_paged_attention.launches_padded = 0
+#: the launches of the float16 instances (also counted in ``launches``)
+ragged_paged_attention.launches_f16 = 0
 counters.register(__name__, "ragged_paged_attention.launches",
-                  "ragged_paged_attention.launches_padded")
+                  "ragged_paged_attention.launches_padded",
+                  "ragged_paged_attention.launches_f16")

@@ -10,34 +10,142 @@ Attention reads go through the ragged-paged-attention kernel
 (``ops/pallas/ragged_paged_attention.py``) unless the engine is built
 with ``attn_impl="gather"``.
 
+Serving options of the reference (its engine :203-857):
+
+* ``quantize="int8_wo"|"fp8_wo"`` — the projection weights and
+  ``lm_head`` are quantized once, at construction
+  (``quantization.weight_only``), and their 16/32-bit storage is freed;
+  each quantized projection dequantizes its weight at use, in column
+  chunks of at most :data:`DEQUANT_CHUNK` elements, and multiplies with
+  ``torch.matmul`` (the reference's product is an XLA dot). The engine
+  owns the model from then on: those layers hold no weight parameter.
+* ``kv_dtype="int8"`` — int8 KV pools with f32 scale pools, read through
+  the gather path (the RPA kernel reads unquantized pools, so the engine
+  pins ``attn_impl="gather"`` with the reference's ``RuntimeWarning``).
+* ``calibration=`` — a numerics summary dict, or a checkpoint path whose
+  ``"numerics"`` entry gates which layers stay unquantized.
+* ``warm_start_from=`` and :meth:`ServingEngine.load_weights` — weights
+  from a checkpoint, behind the reference's dtype guard.
+* LoRA tenant slots — a model prepared with ``tuning.apply_lora(
+  n_slots=N)``; :meth:`ServingEngine.load_adapter`, ``unload_adapter``
+  and ``submit(adapter_id=)``, with a per-slot load generation seeding
+  the prefix-cache chain.
+
 What differs from the reference: PyTorch runs the step eagerly, so
 there is no compiled executable and no trace counter — ``stats()``
 reports the number of ``steps`` and the kernel's ``rpa_launches``
 instead; the KV pools are updated in place rather than threaded
-through the step; and the reference's quantisation, int8 KV, LoRA
-slots, tensor-parallel ``mesh=``, warm start, metrics, request ledger,
-numerics taps and fleet KV handoff are not ported yet (their
-constructor arguments raise ``NotImplementedError``).
+through the step; the reference's ``PADDLE_TPU_QUANT_WEIGHTS``,
+``PADDLE_TPU_QUANT_KV`` and ``PADDLE_TPU_PREFIX_CACHE`` are not read
+(the arguments carry them); and tensor-parallel ``mesh=`` (it raises
+``NotImplementedError``), the request ledger, the decode numerics
+sampling and the fleet KV handoff are not ported yet.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import threading
 import time
+import types
+import warnings
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from paddle_tpu_torch.core.dtype import dtype_name
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.models.generation import decode_surfaces, sample_token
 from paddle_tpu_torch.ops.paged_attention import RaggedLayerCache
 from paddle_tpu_torch.ops.pallas.ragged_paged_attention import (
     DEFAULT_TILE_Q, build_step_maps, ragged_paged_attention, rpa_max_steps)
+from paddle_tpu_torch.quantization.weight_only import (
+    WEIGHT_MODES, QuantizedLeaf, calibration_from_checkpoint, quantize_leaf,
+    quantization_metrics, quantize_state)
+from paddle_tpu_torch.tuning import lora
 
 from .kv_cache import PagedKVCache, chain_hash
 from .scheduler import Request, RequestState, Scheduler
 
-__all__ = ["ServingEngine", "RequestHandle"]
+__all__ = ["ServingEngine", "RequestHandle", "serving_metrics",
+           "DEQUANT_CHUNK"]
+
+#: elements of a quantized weight dequantized at once: a projection's
+#: product runs over column chunks of at most this many elements, so the
+#: dequantized copy never outgrows one chunk (at Llama-3-8B's widths the
+#: lm_head takes 16 chunks, the MLP projections 2, the attention's 1;
+#: the f32 staging of a chunk is 128 MiB)
+DEQUANT_CHUNK = 1 << 25
+
+_serving_metrics_cache = None
+
+
+def serving_metrics(registry=None) -> dict:
+    """The ``serving_adapter_*`` metric families of the reference's
+    ``serving_metrics`` (its multi-tenant LoRA gauges and counters),
+    created on first use on ``observability.metrics``' registry. The
+    quantization gauges are ``quantization.weight_only.
+    quantization_metrics``'."""
+    global _serving_metrics_cache
+    if registry is None and _serving_metrics_cache is not None:
+        return _serving_metrics_cache
+    from paddle_tpu_torch.observability import get_registry
+    reg = registry if registry is not None else get_registry()
+    d = {
+        "adapter_slots": reg.gauge(
+            "serving_adapter_slots",
+            "LoRA tenant slots the engine was built with (0 = plain "
+            "single-model engine)"),
+        "adapter_slots_loaded": reg.gauge(
+            "serving_adapter_slots_loaded",
+            "tenant slots currently holding a loaded adapter"),
+        "adapter_requests": reg.counter(
+            "serving_adapter_requests_total",
+            "requests dispatched to a non-base adapter slot, by adapter"),
+        "adapter_loads": reg.counter(
+            "serving_adapter_loads_total",
+            "adapter installs via load_adapter (in-place slot writes)"),
+    }
+    if registry is None:
+        _serving_metrics_cache = d
+    return d
+
+
+def _quantized_linear_forward(layer, x):
+    """A quantized projection's forward: ``x @ dequantize(W) (+ b)``, the
+    weight dequantized (f32 values x scales, then the logical dtype, as
+    the reference's ``dequantize``) over column chunks of at most
+    :data:`DEQUANT_CHUNK` elements, each multiplied and dropped before
+    the next."""
+    leaf = layer._wq
+    q, scale = leaf.q, leaf.scale
+    d_in, d_out = q.shape
+    step = max(1, DEQUANT_CHUNK // d_in)
+    parts = []
+    for c0 in range(0, d_out, step):
+        c1 = min(d_out, c0 + step)
+        w = q[:, c0:c1].float().mul_(scale[c0:c1]).to(leaf.orig_dtype)
+        parts.append(torch.matmul(x, w))
+    out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+    return out if layer.bias is None else out + layer.bias
+
+
+def _read_checkpoint_state(path: str, step: Optional[int] = None) -> dict:
+    """A checkpoint's model state on the CPU: a ``CheckpointManager``
+    directory (latest or ``step``), one ``step_N`` directory, or a flat
+    ``.pdparams`` file; a training checkpoint's ``{"model": ...}`` half.
+    Values come back as tensors."""
+    if os.path.isdir(path):
+        from paddle_tpu_torch.checkpoint import load_state_dir
+        state = load_state_dir(path, step=step, device="cpu")
+    else:
+        from paddle_tpu_torch.framework.io import load
+        state = load(path, device="cpu")
+    if isinstance(state, dict) and isinstance(state.get("model"), dict):
+        state = state["model"]
+    return {k: v if isinstance(v, torch.Tensor)
+            else torch.as_tensor(np.asarray(v)) for k, v in state.items()}
 
 
 class RequestHandle:
@@ -78,7 +186,8 @@ class ServingEngine:
     """Continuous-batching inference over a causal LM that speaks the
     ragged ``caches=`` protocol (``models.llama``). Runs on the card
     unless ``device="cpu"``; the model must already live on that
-    device."""
+    device. ``mesh=`` is not ported (it raises ``NotImplementedError``);
+    the other options are the reference's (module docstring)."""
 
     def __init__(self, model, max_batch: int = 8, max_blocks: int = 64,
                  block_size: int = 16, prefill_chunk: int = 16,
@@ -89,17 +198,16 @@ class ServingEngine:
                  mesh=None, quantize: Optional[str] = None,
                  kv_dtype: Optional[str] = None, calibration=None,
                  device=None):
-        for name, val in (("warm_start_from", warm_start_from),
-                          ("mesh", mesh), ("quantize", quantize),
-                          ("kv_dtype", kv_dtype),
-                          ("calibration", calibration)):
-            if val is not None:
-                raise NotImplementedError(
-                    f"ServingEngine({name}=...) is not ported to "
-                    f"paddle_tpu_torch yet")
-        if getattr(model, "_lora_slots", 0):
+        if mesh is not None:
             raise NotImplementedError(
-                "LoRA adapter slots are not ported to paddle_tpu_torch yet")
+                "ServingEngine(mesh=...) is not ported to paddle_tpu_torch "
+                "yet: tensor-parallel serving waits for the port's mesh")
+        if quantize is not None and quantize not in WEIGHT_MODES:
+            raise ValueError(f"quantize={quantize!r} (want one of "
+                             f"{sorted(WEIGHT_MODES)})")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(
+                f"kv_dtype={kv_dtype!r} (want None or 'int8')")
         self.device = resolve_device(device)
         model_dev = next(iter(model.parameters())).device
         if model_dev.type != self.device.type or (
@@ -109,9 +217,40 @@ class ServingEngine:
                 f"model lives on {model_dev} but the engine runs on "
                 f"{self.device}; build the model on the engine's device")
         model.eval()
+        if warm_start_from is not None:
+            model.set_state_dict(_read_checkpoint_state(warm_start_from))
         self.model = model
         cfg = model.cfg
         self._backbone, self._project, dtype = decode_surfaces(model)
+        # weight-only quantization: the projection weights become
+        # (values, scales) pairs, dequantized one projection at a time
+        if isinstance(calibration, str):
+            calibration = calibration_from_checkpoint(calibration)
+        self._calibration = calibration
+        self.quantize = quantize
+        #: {parameter name: QuantizedLeaf} of the quantized projections
+        self._qleaves = self._quantize_model() if quantize else {}
+        self._weight_dtype = WEIGHT_MODES[quantize][0] if quantize \
+            else dtype_name(dtype)
+        # multi-tenant LoRA slots: a model prepared with
+        # tuning.apply_lora(n_slots=N) carries [N + 1, ...] stacks; each
+        # token dispatches by its slot id, row 0 = the base model
+        self.n_adapter_slots = int(getattr(model, "_lora_slots", 0) or 0)
+        self._lora_stacks = {
+            n: p for n, p in model.named_parameters()
+            if n.rsplit(".", 1)[-1].startswith("lora_")}
+        if self.n_adapter_slots and (not self._lora_stacks or any(
+                p.dim() != 3 or p.shape[0] != self.n_adapter_slots + 1
+                for p in self._lora_stacks.values())):
+            raise ValueError(
+                f"the model claims {self.n_adapter_slots} LoRA slots but "
+                "has no [n_slots + 1, ...] adapter stacks: prepare it with "
+                "tuning.apply_lora(model, cfg, n_slots=N)")
+        self._adapters = {}  # slot -> adapter name
+        # per-slot load generation: seeds the prefix-cache chain so KV
+        # computed under one adapter (or one load of a slot) never
+        # answers a request decoding under another
+        self._adapter_gen = {}  # slot -> int
 
         nl = cfg.num_hidden_layers
         n_kv = cfg.num_key_value_heads
@@ -123,10 +262,16 @@ class ServingEngine:
         max_pos = cfg.max_position_embeddings
         if max_blocks_per_seq is None:
             max_blocks_per_seq = min(max_blocks, -(-max_pos // block_size))
+        self.kv_dtype = kv_dtype
         self.cache = PagedKVCache(nl, max_blocks, block_size, n_kv, hd,
                                   max_blocks_per_seq, dtype=dtype,
                                   device=self.device,
-                                  prefix_cache=self.prefix_cache_enabled)
+                                  prefix_cache=self.prefix_cache_enabled,
+                                  kv_dtype=kv_dtype)
+        if kv_dtype is not None:
+            quantization_metrics()["kv_scale_bytes"].set(sum(
+                t.numel() * t.element_size()
+                for t in self.cache.k_scales + self.cache.v_scales))
         self.max_model_len = min(self.cache.max_seq_len, max_pos)
         self.max_batch = int(max_batch)
         self.prefill_chunk = int(prefill_chunk)
@@ -136,6 +281,13 @@ class ServingEngine:
         if self.attn_impl not in ("rpa", "gather"):
             raise ValueError(
                 f"attn_impl {self.attn_impl!r} (want rpa|gather)")
+        if kv_dtype is not None and self.attn_impl == "rpa":
+            # the RPA kernel streams raw pages and knows nothing of the
+            # scale pools: int8 KV rides the gather read path
+            warnings.warn(
+                "kv_dtype='int8' forces attn_impl='gather' (the RPA "
+                "kernel reads unquantized pools)", RuntimeWarning)
+            self.attn_impl = "gather"
         # unified-step geometry: the flat token budget covers every
         # decode slot plus one full prefill chunk, rounded up to the RPA
         # kernel's q-tile height; max_steps is the static per-tile
@@ -163,17 +315,170 @@ class ServingEngine:
         self._thread: Optional[threading.Thread] = None
         self._shutdown = False
         self._handles = {}  # req_id -> RequestHandle
+        m = serving_metrics()
+        self._m_adapter_requests = m["adapter_requests"]
+        m["adapter_slots"].set(self.n_adapter_slots)
+        m["adapter_slots_loaded"].set(len(self._adapters))
+
+    # -- weights -----------------------------------------------------------
+    def _quantize_model(self) -> dict:
+        """Quantize the model's projection weights in place of their
+        parameters: each selected ``Linear`` loses its ``weight``
+        parameter (its storage is freed once nothing else holds it),
+        keeps the :class:`QuantizedLeaf` as ``_wq`` and computes through
+        :func:`_quantized_linear_forward`."""
+        params = dict(self.model.named_parameters())
+        qstate = quantize_state(params, self.quantize,
+                                calibration=self._calibration)
+        leaves = {k: v for k, v in qstate.items()
+                  if isinstance(v, QuantizedLeaf)}
+        del params, qstate
+        for name, leaf in leaves.items():
+            layer = self.model.get_submodule(name.rsplit(".", 1)[0])
+            del layer.weight
+            layer._wq = leaf
+            layer.forward = types.MethodType(_quantized_linear_forward,
+                                             layer)
+        return leaves
+
+    def load_weights(self, path: str, step: Optional[int] = None):
+        """Swap in weights from a checkpoint: a training
+        ``CheckpointManager`` directory (latest or ``step``), one
+        ``step_N`` directory, or a flat ``.pdparams`` file.
+
+        Refuses while requests are in flight: their KV was computed under
+        the old weights. The dtype guard (reference :416-500): every
+        incoming leaf must have the dtype the engine serves it in (a
+        quantized leaf's logical dtype). A floating mismatch is cast
+        loudly (``RuntimeWarning`` naming the leaf); anything else is
+        refused with a ``ValueError`` naming the leaf, before any weight
+        changes. Quantized leaves are quantized again from the fresh
+        weights (the same set as at construction)."""
+        with self._lock:
+            active = self.scheduler.num_running + self.scheduler.num_waiting
+            if active:
+                raise RuntimeError(
+                    f"cannot swap weights with {active} request(s) in "
+                    f"flight (their KV cache predates the new weights); "
+                    f"drain() the engine first")
+            raw = _read_checkpoint_state(path, step)
+            own = dict(self.model.state_dict())
+            checked = {}
+            for k, v in raw.items():
+                exp = self._qleaves.get(k, own.get(k))
+                if exp is not None and v.dtype != exp.dtype:
+                    if v.is_floating_point() and exp.dtype.is_floating_point:
+                        warnings.warn(
+                            f"load_weights: casting leaf '{k}' "
+                            f"{dtype_name(v.dtype)} -> "
+                            f"{dtype_name(exp.dtype)} to match the "
+                            f"engine", RuntimeWarning)
+                        v = v.to(exp.dtype)
+                    else:
+                        raise ValueError(
+                            f"load_weights: leaf '{k}' is "
+                            f"{dtype_name(v.dtype)} but the engine serves "
+                            f"it as {dtype_name(exp.dtype)} — refusing the "
+                            f"checkpoint")
+                checked[k] = v
+            plain = {k: v for k, v in checked.items()
+                     if k not in self._qleaves}
+            self.model.set_state_dict(plain)
+            for k, v in checked.items():
+                if k in self._qleaves:
+                    leaf = quantize_leaf(v.to(self.device), self.quantize)
+                    self._qleaves[k] = leaf
+                    self.model.get_submodule(k.rsplit(".", 1)[0])._wq = leaf
+
+    # -- multi-tenant LoRA slots -------------------------------------------
+    def _busy_slot(self, slot: int):
+        busy = [r.req_id for r in list(self.scheduler.slotted())
+                + list(self.scheduler.waiting) if r.adapter_id == slot]
+        if busy:
+            raise RuntimeError(
+                f"adapter slot {slot} has {len(busy)} request(s) in "
+                f"flight; drain or abort them first")
+
+    @torch.no_grad()
+    def load_adapter(self, slot: int, state: dict,
+                     name: Optional[str] = None):
+        """Install a trained adapter (``tuning.load_adapter_state``'s
+        ``{param name: tensor}``, 2-D leaves) into tenant ``slot``
+        (1..n_slots), in place in the stacks. Refuses while a request of
+        that slot is in flight, and names an unknown leaf or a wrong
+        shape before writing anything."""
+        if not self.n_adapter_slots:
+            raise RuntimeError(
+                "engine has no adapter slots — build the model with "
+                "tuning.apply_lora(model, cfg, n_slots=N)")
+        if not 1 <= int(slot) <= self.n_adapter_slots:
+            raise ValueError(
+                f"adapter slot {slot} out of range 1.."
+                f"{self.n_adapter_slots}")
+        slot = int(slot)
+        with self._lock:
+            self._busy_slot(slot)
+            unknown = [k for k in state if k not in self._lora_stacks]
+            if unknown:
+                raise KeyError(
+                    f"adapter state names unknown to this model: "
+                    f"{sorted(unknown)[:3]}")
+            rows = {}
+            for k, v in state.items():
+                tgt = self._lora_stacks[k]
+                v = v if isinstance(v, torch.Tensor) else \
+                    torch.as_tensor(np.asarray(v))
+                if tuple(v.shape) != tuple(tgt.shape[1:]):
+                    raise ValueError(
+                        f"adapter leaf '{k}' has shape {tuple(v.shape)}, "
+                        f"slot expects {tuple(tgt.shape[1:])}")
+                rows[k] = v
+            for k, v in rows.items():
+                tgt = self._lora_stacks[k]
+                tgt[slot].copy_(v.to(tgt.device, tgt.dtype))
+            self._adapters[slot] = name or f"adapter-{slot}"
+            # new slot contents -> new prefix-cache namespace: blocks
+            # registered under the previous occupant can never match
+            self._adapter_gen[slot] = self._adapter_gen.get(slot, 0) + 1
+        m = serving_metrics()
+        m["adapter_loads"].inc()
+        m["adapter_slots_loaded"].set(len(self._adapters))
+
+    @torch.no_grad()
+    def unload_adapter(self, slot: int):
+        """Zero tenant ``slot``'s rows (delta back to exactly 0) and free
+        the slot."""
+        slot = int(slot)
+        with self._lock:
+            self._busy_slot(slot)
+            for p in self._lora_stacks.values():
+                p[slot].zero_()
+            self._adapters.pop(slot, None)
+            self._adapter_gen[slot] = self._adapter_gen.get(slot, 0) + 1
+        serving_metrics()["adapter_slots_loaded"].set(len(self._adapters))
 
     # -- submission --------------------------------------------------------
     def submit(self, prompt_tokens: Sequence[int], max_new_tokens: int = 32,
                temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
                eos_token_id: Optional[int] = None,
-               on_token: Optional[Callable] = None) -> RequestHandle:
+               on_token: Optional[Callable] = None,
+               adapter_id: int = 0) -> RequestHandle:
         """Enqueue a request; returns immediately with a handle. Tokens
-        stream through ``on_token(request, token_id)`` as they decode."""
+        stream through ``on_token(request, token_id)`` as they decode.
+        ``adapter_id`` picks the tenant's LoRA slot (0 = base model)."""
         prompt_tokens = list(prompt_tokens)
         if not prompt_tokens:
             raise ValueError("empty prompt")
+        adapter_id = int(adapter_id)
+        if adapter_id:
+            if not 1 <= adapter_id <= self.n_adapter_slots:
+                raise ValueError(
+                    f"adapter_id {adapter_id} out of range (engine has "
+                    f"{self.n_adapter_slots} slots)")
+            if adapter_id not in self._adapters:
+                raise ValueError(
+                    f"adapter slot {adapter_id} is empty — load_adapter "
+                    f"first")
         # an id outside the vocabulary would reach the embedding lookup,
         # whose device-side assert on the card ends every request
         vocab = self.model.cfg.vocab_size
@@ -196,11 +501,20 @@ class ServingEngine:
                 f"{self.cache.allocator.capacity} (table width "
                 f"{self.cache.max_blocks_per_seq}) — raise max_blocks or "
                 "shorten the request")
+        # non-base tenants hash their KV blocks under a seed of (slot,
+        # load generation): identical prompts under different adapters
+        # give different KV, so they never share prefix-cache entries
+        seed = (chain_hash(None,
+                           [adapter_id, self._adapter_gen[adapter_id]])
+                if adapter_id else None)
         req = Request(prompt_tokens=prompt_tokens,
                       max_new_tokens=int(max_new_tokens),
                       temperature=float(temperature), top_k=int(top_k),
                       top_p=float(top_p), eos_token_id=eos_token_id,
-                      on_token=on_token)
+                      on_token=on_token, adapter_id=adapter_id,
+                      cache_seed=seed, committed_hash=seed)
+        if adapter_id:
+            self._m_adapter_requests.inc(adapter=self._adapters[adapter_id])
         handle = RequestHandle(req)
         with self._cv:
             if self._shutdown:
@@ -259,6 +573,7 @@ class ServingEngine:
         sid = np.full((T,), S, np.int32)   # sentinel = padding
         pos = np.zeros((T,), np.int32)
         last_idx = np.zeros((S,), np.int32)
+        aid = np.zeros((T,), np.int32)     # padding -> slot 0 (base)
         kv_lens = []
         off = 0
         for i, (seq, n, is_prefill) in enumerate(entries):
@@ -273,6 +588,7 @@ class ServingEngine:
             ctx[i] = c
             sid[off:off + n] = i
             pos[off:off + n] = c + np.arange(n)
+            aid[off:off + n] = seq.adapter_id
             cu[i + 1] = off + n
             last_idx[i] = off + n - 1
             kv_lens.append(c + n)
@@ -290,9 +606,16 @@ class ServingEngine:
             return torch.from_numpy(a).to(self.device)
 
         meta = [dev(a) for a in (bt, cu, ctx, sid, pos, ssq, sbk)]
-        caches = [RaggedLayerCache(kp, vp, *meta) for kp, vp in
-                  zip(self.cache.k_pools, self.cache.v_pools)]
-        with torch.no_grad():
+        c = self.cache
+        scales = zip(c.k_scales, c.v_scales) if self.kv_dtype else \
+            [(None, None)] * len(c.k_pools)
+        caches = [RaggedLayerCache(kp, vp, *meta, ks, vs) for kp, vp, (ks, vs)
+                  in zip(c.k_pools, c.v_pools, scales)]
+        # per-token LoRA dispatch: this step's token -> slot ids, on the
+        # model's device, for the adapter hooks
+        adapters = (lora.adapter_ids(dev(aid)) if self.n_adapter_slots
+                    else contextlib.nullcontext())
+        with torch.no_grad(), adapters:
             h, _ = self._backbone(dev(tokens), caches=caches,
                                   attn_impl=self.attn_impl)
             # logits at each sequence's LAST packed token only (rows of
@@ -505,7 +828,17 @@ class ServingEngine:
             "max_batch": self.max_batch,
             "max_model_len": self.max_model_len,
             "block_size": self.cache.block_size,
-            "kv_dtype": str(self.cache.dtype).replace("torch.", ""),
+            # what the weights and the KV actually serve in, and which
+            # tenant sits in which slot
+            "kv_dtype": self.kv_dtype or dtype_name(self.cache.dtype),
+            "quantize": self.quantize,
+            "weight_dtype": self._weight_dtype,
+            "adapter_slots": self.n_adapter_slots,
+            "adapters": {
+                "slots": self.n_adapter_slots,
+                "loaded": len(self._adapters),
+                "occupancy": {str(k): v for k, v in
+                              sorted(self._adapters.items())}},
             "prefix_cache": None,
         }
         if pc is not None:

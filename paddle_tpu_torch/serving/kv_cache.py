@@ -13,10 +13,15 @@
   its compiled step, the pools are updated **in place** (a functional
   copy per layer per step would double the cache's memory at 8B width),
   and the copy-on-write block copy is an in-place slice copy.
+  ``kv_dtype="int8"`` stores int8 pools and, per layer, f32 scale pools
+  ``[num_blocks + 1, block_size, n_kv]`` (one dequant multiplier per
+  token slot and kv head, reference :357-390); the block copy copies
+  the scales with the values.
 
 The allocator, prefix index and hashing are host Python and port
-verbatim apart from the dropped fleet, tensor-parallel, int8 and
-metrics hooks.
+verbatim apart from the dropped fleet, tensor-parallel and metrics
+hooks. ``PrefixCache.match(seed=)`` roots a chain in a namespace (the
+engine's per-adapter-slot seed).
 """
 from __future__ import annotations
 
@@ -208,16 +213,20 @@ class PrefixCache:
             del self._index[key]
         self.evictions += 1
 
-    def match(self, tokens: Sequence[int]) -> Tuple[List[int], List[bytes]]:
+    def match(self, tokens: Sequence[int],
+              seed: Optional[bytes] = None) -> Tuple[List[int], List[bytes]]:
         """Longest registered full-block prefix of ``tokens``: returns
         the CLAIMED physical blocks (one reference each, caller owns)
         and their digests. The caller applies the at-least-one-token
-        prefill cap (scheduler admission)."""
+        prefill cap (scheduler admission). ``seed`` roots the chain in a
+        namespace (a LoRA adapter slot's digest, so KV computed under one
+        adapter never matches another tenant's identical prompt);
+        ``None`` is the base model's."""
         self.lookups += 1
         bs = self.block_size
         blocks: List[int] = []
         digests: List[bytes] = []
-        parent = None
+        parent = seed
         for i in range(len(tokens) // bs):
             d = chain_hash(parent, tokens[i * bs:(i + 1) * bs])
             b = self._index.get(d)
@@ -256,15 +265,20 @@ class PagedKVCache:
     """Per-layer block pools on the device + the allocator + the
     block-table padding helper. The pools live on the card unless
     ``device`` names another (``resolve_device``: ``None`` is ``cuda``,
-    which raises where PyTorch sees no card)."""
+    which raises where PyTorch sees no card). ``dtype`` is the attention's
+    compute dtype; ``kv_dtype="int8"`` stores int8 pools with f32 scale
+    pools beside them (``k_scales``/``v_scales``, empty otherwise)."""
 
     def __init__(self, num_layers: int, num_blocks: int, block_size: int,
                  num_kv_heads: int, head_dim: int,
                  max_blocks_per_seq: Optional[int] = None,
                  dtype=torch.float32, device=None,
-                 prefix_cache: bool = False):
+                 prefix_cache: bool = False,
+                 kv_dtype: Optional[str] = None):
         if block_size < 1:
             raise ValueError("block_size must be >= 1")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(f"kv_dtype={kv_dtype!r} (want None or 'int8')")
         self.num_layers = num_layers
         self.num_blocks = num_blocks
         self.block_size = block_size
@@ -272,14 +286,28 @@ class PagedKVCache:
         self.allocator = BlockAllocator(num_blocks)
         self.prefix_cache = (PrefixCache(self.allocator, block_size)
                              if prefix_cache else None)
+        #: compute dtype of the attention; the storage may be narrower
         self.dtype = dtype
+        self.kv_dtype = kv_dtype
         device = resolve_device(device)
         # +1: physical block 0 is the null block and backs no sequence
         shape = (num_blocks + 1, block_size, num_kv_heads, head_dim)
-        self.k_pools = [torch.zeros(shape, dtype=dtype, device=device)
+        store = torch.int8 if kv_dtype == "int8" else dtype
+        self.k_pools = [torch.zeros(shape, dtype=store, device=device)
                         for _ in range(num_layers)]
-        self.v_pools = [torch.zeros(shape, dtype=dtype, device=device)
+        self.v_pools = [torch.zeros(shape, dtype=store, device=device)
                         for _ in range(num_layers)]
+        self.k_scales: List[torch.Tensor] = []
+        self.v_scales: List[torch.Tensor] = []
+        if kv_dtype == "int8":
+            # paged like the pools, so the block tables address both
+            sshape = (num_blocks + 1, block_size, num_kv_heads)
+            self.k_scales = [torch.zeros(sshape, dtype=torch.float32,
+                                         device=device)
+                             for _ in range(num_layers)]
+            self.v_scales = [torch.zeros(sshape, dtype=torch.float32,
+                                         device=device)
+                             for _ in range(num_layers)]
 
     @property
     def max_seq_len(self) -> int:
@@ -289,11 +317,21 @@ class PagedKVCache:
     def blocks_for(self, num_tokens: int) -> int:
         return -(-num_tokens // self.block_size)  # ceil div
 
+    def pool_bytes(self) -> int:
+        """Bytes of every pool the cache holds: values and, for int8 KV,
+        the scale pools."""
+        return sum(t.numel() * t.element_size() for t in
+                   self.k_pools + self.v_pools + self.k_scales
+                   + self.v_scales)
+
     @torch.no_grad()
     def copy_block(self, src: int, dst: int):
         """Copy-on-write: duplicate physical block ``src`` into ``dst``
-        across every layer's K and V pool, in place."""
-        for p in self.k_pools + self.v_pools:
+        across every layer's K and V pool, in place, and their scale pools
+        with them (a block copied without its scales would dequantize to
+        garbage)."""
+        for p in self.k_pools + self.v_pools + self.k_scales + \
+                self.v_scales:
             p[dst].copy_(p[src])
 
     def pad_block_table(self, block_ids: Sequence[int]) -> np.ndarray:

@@ -18,7 +18,9 @@ When the block pool can't cover an allocation, the sequence with the
 latest arrival is preempted: its blocks are freed and it re-enters the
 queue with ``prompt + generated`` as its new prefill text, so greedy
 output is identical to the unpreempted run. Host Python, ported
-verbatim apart from the dropped observability and LoRA hooks.
+verbatim apart from the dropped observability hooks; a request's
+``adapter_id`` and ``cache_seed`` (its LoRA slot and the prefix-cache
+namespace of that slot's load) ride along.
 """
 from __future__ import annotations
 
@@ -58,6 +60,8 @@ class Request:
     on_token: Optional[Callable] = None
     req_id: int = field(default_factory=lambda: next(_req_counter))
     arrival_time: float = field(default_factory=time.perf_counter)
+    #: LoRA adapter slot applied to this request's rows (0 = base model)
+    adapter_id: int = 0
 
     # -- runtime state (engine/scheduler managed) --------------------------
     state: RequestState = RequestState.WAITING
@@ -81,6 +85,9 @@ class Request:
     #: digest of the last one (the next block's hash parent)
     committed_blocks: int = 0
     committed_hash: Optional[bytes] = None
+    #: prefix-cache chain root: non-base adapters hash their blocks under
+    #: an adapter-specific seed so one tenant's KV never answers another's
+    cache_seed: Optional[bytes] = None
     #: copy-on-write: claimed source block + the logical index of the
     #: private destination block the engine copies it into pre-step
     cow_src: Optional[int] = None
@@ -206,7 +213,7 @@ class Scheduler:
         tokens = seq.pending_tokens
         if len(tokens) <= self.cache.block_size:
             return  # no full block can match under the one-token cap
-        blocks, digests = pc.match(tokens)
+        blocks, digests = pc.match(tokens, seed=seq.cache_seed)
         if not blocks:
             return
         matched = len(blocks) * self.cache.block_size
@@ -222,7 +229,8 @@ class Scheduler:
         seq.num_cached = matched
         seq.cached_tokens_total += matched
         seq.committed_blocks = len(blocks)
-        seq.committed_hash = digests[len(blocks) - 1] if blocks else None
+        seq.committed_hash = (digests[len(blocks) - 1] if blocks
+                              else seq.cache_seed)
         pc.hit_tokens += matched
 
     def _release_cow(self, seq: Request):
@@ -318,7 +326,7 @@ class Scheduler:
         seq.prefill_pos = 0
         seq.num_cached = 0
         seq.committed_blocks = 0
-        seq.committed_hash = None
+        seq.committed_hash = seq.cache_seed
         seq.state = RequestState.WAITING
         seq.preemptions += 1
         self.num_preemptions += 1

@@ -8,6 +8,7 @@ daemon threads). Endpoints:
        "max_new_tokens": 32,             # optional sampling params
        "temperature": 0.0, "top_k": 0, "top_p": 1.0,
        "eos_token_id": null,
+       "adapter_id": 0,                  # LoRA tenant slot, 0 = base
        "stream": false}
 
   A non-streaming response is one JSON object with ``token_ids``,
@@ -15,7 +16,8 @@ daemon threads). Endpoints:
   true`` the response is chunked ``application/x-ndjson``: one
   ``{"token": id}`` line per generated token as it decodes, then a
   final ``{"done": true, ...}`` summary line.
-* ``GET /healthz`` — liveness plus the engine's ``stats()``.
+* ``GET /healthz`` — liveness plus the engine's ``stats()`` (with its
+  ``quantize``, ``kv_dtype``, ``weight_dtype`` and adapter slots).
 
 The reference's ``/statusz``, ``/metrics``, ``/fleetz``,
 ``/debug/profile``, load shedding, per-request deadlines and trace
@@ -104,7 +106,8 @@ class Handler(http.server.BaseHTTPRequestHandler):
                 top_p=float(body.get("top_p", 1.0)),
                 eos_token_id=body.get("eos_token_id"),
                 on_token=(lambda req, tok: tokens_q.put(tok))
-                if stream else None)
+                if stream else None,
+                adapter_id=int(body.get("adapter_id", 0)))
         except (ValueError, TypeError, RuntimeError) as e:
             self._json(400, {"error": str(e)})
             return

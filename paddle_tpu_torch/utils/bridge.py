@@ -11,7 +11,11 @@ has too, which this module knows by name (:data:`BRIDGED_BUFFERS`: the
 batch norms' running statistics, SpectralNorm's power-iteration
 vectors). Buffers that only the port keeps (RoPE tables, masks) never
 cross, so a model without the named buffers keeps its parameter-only key
-set.
+set. LoRA adapters (``tuning.apply_lora``) cross under the reference's
+names (``...q_proj.lora_A``/``lora_B``), in the 2-D training form and
+the ``[n_slots + 1, ...]`` serving stacks alike; ``adapter_slot=`` puts
+a training checkpoint's 2-D leaves into one row of a serving stack, as
+the reference's engine loads a trained adapter into a slot.
 :func:`optimizer_state_to_numpy` and :func:`load_optimizer_state` do the
 same for an optimizer's ``state_dict`` (``param_<i>.moment1``, ...,
 ``@step_count``), so moments can be compared across the packages.
@@ -51,12 +55,18 @@ def _to_tensor(name, arr):
     return torch.from_numpy(np.array(arr, order="C", copy=True))
 
 
+def _is_lora(name: str) -> bool:
+    return name.rsplit(".", 1)[-1].startswith("lora_")
+
+
 @torch.no_grad()
-def load_numpy_state(model: torch.nn.Module, state: dict):
+def load_numpy_state(model: torch.nn.Module, state: dict,
+                     adapter_slot=None):
     """Copy ``state`` ({name: array}) into ``model``'s parameters and
     bridged buffers. The name sets must be equal, and every array must
     have its tensor's shape and dtype; anything else raises before any
-    tensor changes."""
+    tensor changes. With ``adapter_slot`` a 2-D LoRA leaf lands in that
+    row of the model's 3-D serving stack of the same name."""
     params = _state_tensors(model)
     missing = sorted(set(params) - set(state))
     unknown = sorted(set(state) - set(params))
@@ -67,6 +77,10 @@ def load_numpy_state(model: torch.nn.Module, state: dict):
     for name, arr in state.items():
         p = params[name]
         t = _to_tensor(name, arr)
+        if adapter_slot is not None and _is_lora(name) and p.dim() == 3 \
+                and t.dim() == 2:
+            p = p[int(adapter_slot)]
+            params[name] = p
         if tuple(t.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)} != parameter "
                              f"shape {tuple(p.shape)}")

@@ -223,3 +223,28 @@ def test_round_trip_with_buffers_is_byte_identical():
         assert back[name].tobytes() == arr.tobytes(), name
     with pytest.raises(KeyError, match="_mean"):
         load_numpy_state(port, state_dict_from_jax(jm, buffers=False))
+
+
+@pytest.mark.parametrize("n_slots", [0, 2])
+def test_lora_leaves_cross_under_the_reference_names(n_slots):
+    """LoRA adapters (``tuning.apply_lora``) cross the bridge under the
+    reference's names, ``...q_proj.lora_A``/``lora_B``, in the 2-D
+    training form and the ``[n_slots + 1, ...]`` serving stacks, bit for
+    bit both ways."""
+    from paddle_tpu import tuning as jtuning
+    from paddle_tpu_torch import tuning
+    jm = jax_tiny(5)
+    jtuning.apply_lora(jm, jtuning.LoRAConfig(rank=4), n_slots=n_slots)
+    state = state_dict_from_jax(jm)
+    lora = sorted(k for k in state if ".lora_" in k)
+    assert len(lora) == 2 * 2 * 7
+    assert "model.layers.0.self_attn.q_proj.lora_A" in lora
+    assert state[lora[0]].ndim == (3 if n_slots else 2)
+    cfg = tl.LlamaConfig(**{f: getattr(jm.cfg, f) for f in
+                            tl.LlamaConfig.__dataclass_fields__})
+    tm = tl.LlamaForCausalLM(cfg, device="cpu")
+    tuning.apply_lora(tm, tuning.LoRAConfig(rank=4), n_slots=n_slots)
+    load_numpy_state(tm, state)
+    back = numpy_state(tm)
+    assert sorted(back) == sorted(state)
+    assert all(back[k].tobytes() == state[k].tobytes() for k in state)

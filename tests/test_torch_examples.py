@@ -5,7 +5,13 @@ generate_llama,train_packed,serve_llama,generate_compiled}.py`` (with
 ``paddle_tpu_torch``, and run in a fresh process after
 ``paddle_tpu_torch.set_device("cpu")`` —
 the one line a CPU run adds, since the port runs on the card by
-default. ``chip_smoke.py`` runs the same copies on the card."""
+default. ``chip_smoke.py`` runs the same copies on the card.
+
+``examples/int8_deploy.py`` runs the same way as far as the port goes: its
+steps 1-2 (PTQ calibration, ``convert``, ``convert_to_int8`` and the int8
+model's forward) print the reference's lines, and its step 3
+(``paddle.jit.save``/``load``) stops with the ``AttributeError`` of the
+port's ``jit``, which has no ``save`` yet (ROADMAP §1 item 8)."""
 import os
 import re
 import subprocess
@@ -27,9 +33,7 @@ def port_copy(dst: Path):
             re.sub(r"\bpaddle_tpu\b", "paddle_tpu_torch", text))
 
 
-@pytest.mark.parametrize("script", EXAMPLES)
-def test_example_runs_on_the_port(script, tmp_path):
-    port_copy(tmp_path)
+def _run(script, tmp_path):
     code = ("import runpy, sys\n"
             "import paddle_tpu_torch\n"
             "paddle_tpu_torch.set_device('cpu')\n"
@@ -37,8 +41,15 @@ def test_example_runs_on_the_port(script, tmp_path):
             f"runpy.run_path({str(tmp_path / script)!r}, "
             "run_name='__main__')\n")
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
-    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
-                       capture_output=True, text=True, timeout=300)
+    return subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+@pytest.mark.parametrize("script", EXAMPLES)
+def test_example_runs_on_the_port(script, tmp_path):
+    port_copy(tmp_path)
+    r = _run(script, tmp_path)
     assert r.returncode == 0, f"{script}:\n{r.stdout}\n{r.stderr}"
     assert "jax" not in r.stderr.lower()
     if script == "train_llama.py":
@@ -54,3 +65,26 @@ def test_example_runs_on_the_port(script, tmp_path):
         # the port runs the unified step eagerly: it compiles no program
         # (the reference's count is 1; ROADMAP §3)
         assert "'step_compiles': 0" in r.stdout, r.stdout
+
+
+def test_int8_deploy_runs_to_jit_save(tmp_path):
+    """``examples/int8_deploy.py`` with only the package renamed: PTQ,
+    ``convert`` and ``convert_to_int8`` run on the port and print the
+    reference's lines (the int8 model equals its fake-quant simulation,
+    its weights are int8); the run then stops at step 3, at
+    ``paddle.jit.save``, with the port's ``AttributeError``."""
+    text = (REPO / "examples" / "int8_deploy.py").read_text()
+    (tmp_path / "int8_deploy.py").write_text(
+        re.sub(r"\bpaddle_tpu\b", "paddle_tpu_torch", text))
+    r = _run("int8_deploy.py", tmp_path)
+    assert r.returncode == 1, f"{r.stdout}\n{r.stderr}"
+    err = float(re.search(r"fp32 vs int8 mean \|err\|: ([0-9.e-]+)",
+                          r.stdout).group(1))
+    assert 0 < err < 0.1, r.stdout
+    assert "simulation vs int8 match: True" in r.stdout, r.stdout
+    assert "int8 weight dtype: torch.int8" in r.stdout, r.stdout
+    assert "served == int8" not in r.stdout
+    assert r.stderr.strip().splitlines()[-1] == (
+        "AttributeError: module 'paddle_tpu_torch.jit' has no attribute "
+        "'save'"), r.stderr
+    assert "jax" not in r.stderr.lower()

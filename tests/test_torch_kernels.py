@@ -125,8 +125,9 @@ def test_rpa_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     q, kp, vp = [torch.from_numpy(a).to(cuda_device, torch.float32)
                  for a in floats]
     meta = [torch.from_numpy(a).to(cuda_device) for a in ints]
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        rpa.ragged_paged_attention(q.half(), kp.half(), vp.half(), *meta)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        rpa.ragged_paged_attention(q.double(), kp.double(), vp.double(),
+                                   *meta)
     with pytest.raises(ValueError, match="int32"):
         rpa.ragged_paged_attention(q, kp, vp, meta[0].long(), *meta[1:])
     with pytest.raises(ValueError, match="head_dim"):
@@ -135,9 +136,10 @@ def test_rpa_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
 
 
 def _rpa_bf16_args(rng, seqs, block_size, grp, hd, tile_q, device,
-                   n_kv=2, shared=0):
-    """bf16 card arguments of one step; the first ``shared`` pages of
-    sequences 0 and 1 are the same physical pages (a shared prefix)."""
+                   n_kv=2, shared=0, dtype=torch.bfloat16):
+    """bf16 (or ``dtype``) card arguments of one step; the first
+    ``shared`` pages of sequences 0 and 1 are the same physical pages (a
+    shared prefix)."""
     mbps = max(-(-(n + c) // block_size) for n, c in seqs) + 1
     pages = sum(-(-(n + c) // block_size) for n, c in seqs)
     floats, ints, valid = _rpa_case(rng, seqs, block_size, n_kv=n_kv,
@@ -145,7 +147,7 @@ def _rpa_bf16_args(rng, seqs, block_size, grp, hd, tile_q, device,
                                     mbps=mbps, pool_blocks=pages + 1)
     if shared:
         ints[0][1, :shared] = ints[0][0, :shared]
-    args = [torch.from_numpy(a).to(device, torch.bfloat16) for a in floats] \
+    args = [torch.from_numpy(a).to(device, dtype) for a in floats] \
         + [torch.from_numpy(a).to(device) for a in ints]
     return args, torch.from_numpy(valid).to(device)
 
@@ -180,7 +182,7 @@ def test_rpa_bf16_split_kernel(cuda_device, block_size, grp, hd, tile_q):
     torch.testing.assert_close(out[valid].float(), ref[valid].float(),
                                atol=4e-3, rtol=8e-3)
     assert bool((out[~valid] == 0).all())
-    _, info, items = rpa._rpa_bf16(*args, 1.0 / hd ** 0.5)
+    _, info, items = rpa._rpa_wgmma(*args, 1.0 / hd ** 0.5)
     ssq = args[6]
     min_pages = rpa._min_pages(block_size)
     want_info, want_items = rpa._rpa_items_plain(
@@ -216,6 +218,86 @@ def test_rpa_bf16_decode_step_with_padding_tiles(cuda_device, tile_q):
     torch.testing.assert_close(out[:T][valid].float(),
                                ref[:T][valid].float(), atol=4e-3, rtol=8e-3)
     assert bool((out[:T][~valid] == 0).all()) and bool((out[T:] == 0).all())
+
+
+# K4 in float16 against its plain version: float16 keeps three more
+# mantissa bits than bfloat16 and the kernel rounds at the same places (P
+# to v's dtype before the value product, the output once), so its limit
+# sits between its own largest errors on the card (1.2e-4 and 2.4e-4 on
+# chip_smoke.py phase 3's two mixes) and bfloat16's (9.8e-4 and 2.0e-3):
+# an f16 instance that packed P or its output at bfloat16's precision
+# fails it, which the serving-shape test shows with the bf16 kernel
+RPA_F16_TOL = dict(atol=5e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("decode_only", [False, True])
+def test_rpa_f16_matches_plain_at_the_serving_shapes(cuda_device, hd,
+                                                      decode_only):
+    """The f16 instance at chip_smoke.py phase 3's geometry (32 query
+    and 8 kv heads, block 16, q tile 8, pages scattered over a
+    2048-block pool) and at the engine's head_dims 64 and 128: six
+    decode rows over 100-3000 cached tokens with a 512-token prefill
+    chunk over 1024 (phase 3's mix), or eight decode rows over phase
+    4's prompts (the decode-only mix). One launch, counted in
+    ``launches`` and ``launches_f16``; padding rows exactly 0."""
+    rng = np.random.RandomState(hd + decode_only)
+    if decode_only:
+        seqs = [(1, n + 16) for n in (128, 384, 640, 896, 1280, 1664,
+                                      2048, 1536)]
+    else:
+        seqs = [(1, int(c)) for c in rng.randint(100, 3001, 6)] + \
+            [(512, 1024)]
+    floats, ints, valid = _rpa_case(rng, seqs, 16, n_kv=8, grp=4, hd=hd,
+                                    tile_q=8, mbps=512, pool_blocks=2048)
+    perm = rng.permutation(np.arange(1, 2049)).astype(np.int32)
+    ints[0] = np.where(ints[0] > 0, perm[ints[0] - 1], 0).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda_device, torch.float16)
+            for a in floats] + [torch.from_numpy(a).to(cuda_device)
+                                for a in ints]
+    before = (rpa.ragged_paged_attention.launches,
+              rpa.ragged_paged_attention.launches_f16)
+    out = rpa.ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float16
+    assert (rpa.ragged_paged_attention.launches,
+            rpa.ragged_paged_attention.launches_f16) == \
+        (before[0] + 1, before[1] + 1)
+    ref = rpa.ragged_paged_attention_reference(*args)
+    valid = torch.from_numpy(valid).to(cuda_device)
+    torch.testing.assert_close(out[valid].float(), ref[valid].float(),
+                               **RPA_F16_TOL)
+    assert bool((out[~valid] == 0).all())
+    # the bf16 instance on the same values misses the f16 limit
+    bf = rpa.ragged_paged_attention(*[a.bfloat16() for a in args[:3]],
+                                    *args[3:])
+    assert not torch.allclose(bf[valid].float(), ref[valid].float(),
+                              **RPA_F16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_size,grp,hd,tile_q", [
+    (8, 1, 64, 8), (16, 4, 128, 8), (16, 8, 64, 16), (64, 4, 128, 32)])
+def test_rpa_f16_split_kernel(cuda_device, block_size, grp, hd, tile_q):
+    """The f16 instance on the bf16 split kernel's mix (a long decode
+    context over many chunks, a prefill chunk straddling tiles, shared
+    pages, padding), one and two warpgroups, and its work list equal to
+    the plain version's."""
+    rng = np.random.RandomState(block_size * 100 + grp * 10 + tile_q)
+    seqs = [(1, 2990), (1, 2 * block_size + 3), (0, 0), (37, 300),
+            (1, 5), (9, block_size), (1, 1)]
+    args, valid = _rpa_bf16_args(rng, seqs, block_size, grp, hd, tile_q,
+                                 cuda_device, shared=2, dtype=torch.float16)
+    out = rpa.ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    ref = rpa.ragged_paged_attention_reference(*args)
+    torch.testing.assert_close(out[valid].float(), ref[valid].float(),
+                               **RPA_F16_TOL)
+    assert bool((out[~valid] == 0).all())
+    plain = rpa._rpa_split_plain(*args)
+    torch.testing.assert_close(out[valid].float(), plain[valid].float(),
+                               **RPA_F16_TOL)
 
 
 @pytest.mark.cuda
@@ -1376,3 +1458,50 @@ def test_capture_registers_the_dropout_generator(cuda_device):
     for got, w in zip(means, want):
         torch.testing.assert_close(got, w, rtol=1e-5, atol=1e-5)
 
+
+
+# ------------------------------ int8 execution -------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [
+    (64, 4096, 1024), (520, 128, 64), (40, 64, 96), (17, 8, 8),
+    (24, 16, 40), (100, 72, 24), (8, 64, 32), (33, 24, 44), (20, 7, 9)])
+def test_int8_matmul_on_the_card_is_exact(cuda_device, m, k, n):
+    """``Int8Linear``'s product on the card: ``torch._int_mm`` where it
+    takes the shape (M > 16, K and N multiples of 8), the exact float64
+    branch elsewhere; both equal an int64 product on the CPU, at the
+    grid's extremes too."""
+    from paddle_tpu_torch.quantization.int8 import (int8_matmul,
+                                                    int8_matmul_exact)
+    g = torch.Generator().manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    a[0], b[:, 0] = 127, -127
+    want = (a.long() @ b.long()).int()
+    for fn in (int8_matmul, int8_matmul_exact):
+        got = fn(a.to(cuda_device), b.to(cuda_device))
+        assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("padding,fmt", [(1, "NCHW"), ("SAME", "NHWC")])
+def test_int8_layers_on_the_card_equal_the_cpu(cuda_device, padding, fmt):
+    """``Int8Linear`` and ``Int8Conv2D`` on the card give the CPU's
+    results: the same int8 weights, an exact int32 accumulation on both
+    (the convolution in float64), one f32 rescale."""
+    from paddle_tpu_torch.quantization import Int8Conv2D, Int8Linear
+    g = torch.Generator().manual_seed(5)
+    wq = torch.randint(-127, 128, (64, 96), generator=g, dtype=torch.int8)
+    lin = Int8Linear(wq, np.linspace(0.5, 2.0, 96).astype(np.float32), 3.0,
+                     torch.randn(96, generator=g), w_axis=1)
+    x = torch.randn(40, 64, generator=g)
+    cw = torch.randint(-127, 128, (8, 3, 3, 3), generator=g,
+                       dtype=torch.int8)
+    conv = Int8Conv2D(cw, 0.7, 2.5, torch.randn(8, generator=g), 1,
+                      padding, 1, 1, fmt)
+    xc = torch.randn(2, 3, 9, 9, generator=g)
+    if fmt == "NHWC":
+        xc = xc.permute(0, 2, 3, 1).contiguous()
+    for layer, inp in ((lin, x), (conv, xc)):
+        want = layer(inp)
+        got = layer.to(cuda_device)(inp.to(cuda_device))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)

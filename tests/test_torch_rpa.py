@@ -279,3 +279,89 @@ def test_work_list_matches_an_enumeration(seed):
             assert info.tolist() == want_info
             assert items.shape == (ssq.shape[0] * max_chunks,)
             assert items[:len(want_items)].tolist() == want_items
+
+
+# ------------------------------- float16 --------------------------------------
+# Both packages take q in float16 and give float16 back. The JAX kernel
+# rounds p to v's dtype before the value product and rounds the output
+# once; the port's plain version keeps p in f32 and its split emulation
+# rounds p as the kernel does. The outputs here stay below 4 in magnitude,
+# where a float16 unit is 2**-9 (the largest differences read 2**-10), so
+# the limit is that unit: a bfloat16 rounding anywhere (2**-6 there) fails
+F16_ATOL = 2.0 ** -9
+
+
+@pytest.mark.parametrize("block_size,grp,tile_q", [(8, 1, 8), (16, 4, 8),
+                                                   (4, 2, 16)])
+def test_float16_plain_versions_match_jax(block_size, grp, tile_q):
+    """K4 in float16: the plain version and the split kernel's emulation
+    against the JAX RPA kernel (interpret mode) on the same float16
+    inputs, with padding rows exactly 0 on both sides."""
+    rng = np.random.RandomState(block_size + 7 * grp)
+    seqs = [(5, 0), (1, 2 * block_size + 3), (0, 0), (1, 3),
+            (2 * tile_q + 1, block_size), (12, 5)]
+    c = _case(rng, seqs, block_size, n_kv=2, grp=grp, tile_q=tile_q,
+              mbps=12, pool_blocks=60)
+    h = {k: c[k].astype(np.float16) for k in ("q", "kp", "vp")}
+    want = np.asarray(jrpa.ragged_paged_attention(
+        jnp.asarray(h["q"]), jnp.asarray(h["kp"]), jnp.asarray(h["vp"]),
+        jnp.asarray(c["bt"]), jnp.asarray(c["cu"]), jnp.asarray(c["ctx"]),
+        c["ssq"], c["sbk"]))
+    assert want.dtype == np.float16
+    args = [_t(h["q"]), _t(h["kp"]), _t(h["vp"])] + \
+        [_t(c[k]) for k in ("bt", "cu", "ctx", "ssq", "sbk")]
+    valid = c["sid"] < c["max_seqs"]
+    for fn in (trpa.ragged_paged_attention, trpa._rpa_split_plain):
+        got = fn(*args)
+        assert got.dtype == torch.float16
+        got = got.numpy()
+        np.testing.assert_allclose(got[valid].astype(np.float32),
+                                   want[valid].astype(np.float32),
+                                   atol=F16_ATOL, rtol=0)
+        assert np.all(got[~valid] == 0.0)
+    assert np.all(want[~valid] == 0.0)
+
+
+# ------------------------------- int8 KV --------------------------------------
+def test_int8_kv_step_equals_jax_and_the_rpa_path_refuses_it():
+    """The int8-KV step: the port's per-(token, head) quantization equals
+    the reference's (int8 values equal, scales to the last bit), the
+    value and scale pools it scatters in place equal the reference's
+    threaded ones, and the dequantizing gather read gives the reference's
+    output at its f32 tolerance. The RPA path refuses int8 pools, with
+    or without their scales."""
+    rng = np.random.RandomState(11)
+    c = _case(rng, [(5, 3), (1, 9), (0, 0), (7, 0)], 4, n_kv=2, grp=2)
+    kq, ks = tpa.quantize_kv_slots(_t(c["knew"]))
+    jkq, jks = jpa.quantize_kv_slots(jnp.asarray(c["knew"]))
+    assert kq.dtype == torch.int8
+    assert np.array_equal(kq.numpy(), np.asarray(jkq))
+    assert np.array_equal(ks.numpy(), np.asarray(jks))
+    shape = c["kp"].shape
+    pools = {n: np.zeros(shape, np.int8) for n in ("kp", "vp")}
+    scales = {n: np.zeros(shape[:3], np.float32) for n in ("ks", "vs")}
+    jout, *jstate = jpa.ragged_paged_attention_step(
+        jnp.asarray(c["q"]), jnp.asarray(c["knew"]), jnp.asarray(c["vnew"]),
+        jnp.asarray(pools["kp"]), jnp.asarray(pools["vp"]),
+        jnp.asarray(c["bt"]), jnp.asarray(c["cu"]), jnp.asarray(c["ctx"]),
+        jnp.asarray(c["sid"]), jnp.asarray(c["pos"]), c["ssq"], c["sbk"],
+        k_scale=jnp.asarray(scales["ks"]), v_scale=jnp.asarray(scales["vs"]))
+    tstate = [_t(pools["kp"]), _t(pools["vp"]), _t(scales["ks"]),
+              _t(scales["vs"])]
+    meta = [_t(c[k]) for k in ("bt", "cu", "ctx", "sid", "pos", "ssq",
+                               "sbk")]
+    out = tpa.ragged_paged_attention_step(
+        _t(c["q"]), _t(c["knew"]), _t(c["vnew"]), tstate[0], tstate[1],
+        *meta, attn_impl="gather", k_scale=tstate[2], v_scale=tstate[3])
+    for ours, ref in zip(tstate, jstate):
+        assert np.array_equal(ours.numpy(), np.asarray(ref))
+    valid = c["sid"] < c["max_seqs"]
+    np.testing.assert_allclose(out.numpy()[valid], np.asarray(jout)[valid],
+                               atol=ATOL)
+    with pytest.raises(ValueError, match="gather path only"):
+        tpa.ragged_paged_attention_step(
+            _t(c["q"]), _t(c["knew"]), _t(c["vnew"]), *tstate[:2], *meta,
+            attn_impl="rpa", k_scale=tstate[2], v_scale=tstate[3])
+    with pytest.raises(ValueError, match="scale pools"):
+        tpa.ragged_paged_attention_step(
+            _t(c["q"]), _t(c["knew"]), _t(c["vnew"]), *tstate[:2], *meta)
