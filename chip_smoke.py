@@ -215,7 +215,36 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    f32: the ``int8_wo`` engine's streams on RPA equal gather's and eager
    ``generate`` over the dequantized weights; a LoRA slot's equal eager
    ``generate`` with the adapter merged, slot 0's a no-LoRA engine's; an
-   ``fp8_wo`` engine serves with finite logits.
+   ``fp8_wo`` engine serves with finite logits;
+17. MoE serving and decoding, the autotuner and ``paddle.incubate``: (a)
+   ``MoeConfig.deepseek_moe_16b()`` uncut (28 layers, 16/16 heads of 128,
+   64 routed experts top-6 beside 2 shared, bf16, seeded weights) behind
+   the HTTP ``Server`` with phase 4's prompts and geometry: all tokens,
+   finite logits, K4 launches = 28 x steps, the window's numbers and
+   busy share, each MoE layer's capacity and dropped assignments in the
+   window's busiest step, the layer-0 K4 output of a real step against
+   the plain version, ``aux_loss()`` None and no leaked block; K4 at
+   this model's heads on phase 3's mix against its plain version, timed;
+   (b) eager ``generate`` (4 x 512, 64 greedy tokens): K1 28 x 64
+   launches, ms a token; ``generate_compiled`` on the same prompts: one
+   capture a signature, the replay equal to the capturing call, ms a
+   token and busy share; (c) at 2 layers in f32: the kernel engine's
+   greedy streams equal the gather engine's, ``generate_compiled``
+   equals eager ``generate``, one request's tokens equal in a 1-slot and
+   a 4-slot engine; (d) the engine q tile swept by hand on this model as
+   phase 4's, then ``FLAGS_use_autotune``: ``rpa_tile_q``'s picks for
+   this engine's and phase 4's signatures beside both sweeps, two engines
+   served from the cache, ``_auto_chunks``' pick at phase 7's fused
+   cross entropy; (e) ``incubate.nn.FusedMultiTransformer`` as 12
+   post-LN ``FusedTransformerEncoderLayer``s at ERNIE-base widths (d 768,
+   12 heads, FFN 3072, dropout 0.1, bf16) on 16 x 512 tokens, MSE to a
+   seeded target through ``TrainStep`` (AdamW, 2 + 5 steps): the loss
+   falls and K1-K3 launch 12 times a step; then small f32 modules on
+   the card against the same modules on the CPU: ``FusedMultiTransformer``
+   with a mask, ``FusedEcMoe`` with caller logits,
+   ``memory_efficient_attention``, LookAhead and an EMA over 4 steps, a
+   Jacobian and a Hessian, and ``prune_model`` + ``decorate`` keeping
+   2:4 through a step.
 
 It prints its measurements on earlier lines, then one JSON line with a
 record per kernel (K1-K3's with their times at ERNIE's and DiT's shapes,
@@ -223,8 +252,11 @@ and K1's at the decode shapes, under ``at_model_shapes``, and their
 float16 record under ``float16``; K1-K3's ``launches_by_path`` with phase
 14's ``api_train`` and ``generate`` and phase 15's ``to_static``,
 ``amp_f16`` and ``recompute``; K4's float16 record (phase 3 and phase
-16(a)) under ``float16`` and its ``launches_by_path`` with phase 16's
-``serving_f16`` and ``serving_int8_lora``),
+16(a)) under ``float16``, its record at phase 17's MoE heads under
+``at_moe_heads`` and the autotuner's picks under ``autotune``, and its
+``launches_by_path`` with phase 16's ``serving_f16`` and
+``serving_int8_lora`` and phase 17's ``moe_serving``; K1-K3's with phase
+17's ``moe_generate`` and ``incubate``),
 and ends with
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -410,17 +442,19 @@ RPA_KERNELS = ("rpa_kernel", "rpa_wgmma_kernel", "rpa_items_kernel",
                "rpa_combine_kernel")  # every kernel of one RPA call
 
 
-def rpa_mix(dtype, seed=SEED, tile_q=None, decode_only=False):
-    """An engine-shaped RPA input at Llama-3-8B head geometry, in the
-    token budget of ServingEngine(max_batch=8, prefill_chunk=512): 6
-    decode rows with 100-3000 tokens of context, one 512-token prefill
-    chunk on top of 1024 cached tokens, and a padding tail; or
-    (``decode_only``) phase 4's decode steps, 8 decode rows over its
-    prompts with 16 tokens generated."""
+def rpa_mix(dtype, seed=SEED, tile_q=None, decode_only=False, n_heads=32,
+            n_kv=8):
+    """An engine-shaped RPA input at Llama-3-8B head geometry (or
+    ``n_heads``/``n_kv`` of head_dim 128: DeepSeekMoE-16B's 16/16 in
+    phase 17), in the token budget of ServingEngine(max_batch=8,
+    prefill_chunk=512): 6 decode rows with 100-3000 tokens of context,
+    one 512-token prefill chunk on top of 1024 cached tokens, and a
+    padding tail; or (``decode_only``) phase 4's decode steps, 8 decode
+    rows over its prompts with 16 tokens generated."""
     from paddle_tpu_torch.ops.pallas.ragged_paged_attention import (
         DEFAULT_TILE_Q, build_step_maps, rpa_max_steps)
     rng = np.random.RandomState(seed)
-    n_heads, n_kv, hd, bs = 32, 8, 128, 16
+    hd, bs = 128, 16
     max_seqs, pool_blocks, mbps = 8, 2048, 512
     tile_q = DEFAULT_TILE_Q if tile_q is None else tile_q
     T = -(-(max_seqs + 512) // tile_q) * tile_q
@@ -845,20 +879,21 @@ def phase_serving():
         f"prefix cache {w['health']['prefix_cache']}")
     del engine
     free_device_memory()
-    serving_tile_sweep(model, cfg)
+    sweep = serving_tile_sweep(model, cfg)
     del model
     free_device_memory()
-    return launches, w["peak"]
+    return launches, w["peak"], sweep
 
 
-def serving_tile_sweep(model, cfg):
+def serving_tile_sweep(model, cfg, what="serving"):
     """The engine's q tile on phase 4's step: the same engine geometry at
     tile_q 8, 16 and 32, then again in reverse order (the engine
     module's DEFAULT_TILE_Q set for each engine's construction, then
     restored),
     each serving 8 fresh requests of phase 4's prompt lengths x 16 tokens
     in process after one warm-up request: mean step ms (wall / engine
-    steps)."""
+    steps). Returns ``(tile_q, step_tokens, mean step ms, steps)`` of
+    each engine."""
     from paddle_tpu_torch.serving import ServingEngine
     from paddle_tpu_torch.serving import engine as engine_mod
     rng = np.random.RandomState(SEED + 7)
@@ -886,10 +921,11 @@ def serving_tile_sweep(model, cfg):
         res.append((tile_q, eng.step_tokens, 1e3 * wall / steps, steps))
         del eng
         free_device_memory()
-    log("serving tile sweep (8 requests of phase 4's prompt lengths x 16 "
+    log(f"{what} tile sweep (8 requests of phase 4's prompt lengths x 16 "
         "tokens, in process, in order then reversed): " + "; ".join(
             f"tile_q {t}: step_tokens {T}, mean step {ms:.3f} ms over {n} "
             f"steps" for t, T, ms, n in res))
+    return res
 
 
 def phase_parity():
@@ -4468,6 +4504,470 @@ def quantized_serving_exactness():
         f"{n_new} tokens with finite logits ({len(finite)} steps)")
 
 
+# --------------------------------------------------------------------------
+# phase 17: MoE serving and decoding, the autotuner, paddle.incubate
+def _moe_recorder(model, engine):
+    """Wrap every routed layer's forward for a serving window: each call
+    records the engine step it ran in, the layer, its capacity, and (as
+    device tensors, read after the window) its dropped assignments and
+    live tokens. Returns the records and the function that unwraps."""
+    from paddle_tpu_torch.distributed.fleet import MoELayer
+    records, wrapped = [], []
+    for i, layer in enumerate(model.layers):
+        mlp = layer.mlp
+        if not isinstance(mlp, MoELayer):
+            continue
+
+        def forward(x, token_mask=None, _i=i, _mlp=mlp,
+                    _orig=mlp.forward):
+            out = _orig(x, token_mask=token_mask)
+            live = token_mask.sum() if token_mask is not None else None
+            records.append((engine.steps, _i, _mlp.last_capacity,
+                            _mlp.last_dropped, live))
+            return out
+        mlp.forward = forward
+        wrapped.append(mlp)
+
+    def unwrap():
+        for mlp in wrapped:
+            del mlp.forward
+    return records, unwrap
+
+
+def moe_serving(model, cfg):
+    """17(a): DeepSeekMoE-16B behind the HTTP server with phase 4's
+    prompts and geometry, then K4 at this model's heads on phase 3's mix.
+    Returns the window's K4 launches and the kernel record."""
+    from paddle_tpu_torch.ops.pallas.ragged_paged_attention import (
+        ragged_paged_attention, ragged_paged_attention_reference)
+    from paddle_tpu_torch.serving import ServingEngine
+    engine = ServingEngine(model, max_batch=8, block_size=16,
+                           prefill_chunk=512, max_blocks=2048)
+    rng = np.random.RandomState(SEED + 17)
+    prompts = _phase4_prompts(cfg, rng)
+    new_tokens = 32
+    records, unwrap = _moe_recorder(model, engine)
+    steps0 = engine.steps
+
+    def during(eng):
+        plain, profiled = ([rng.randint(1, cfg.vocab_size, n).tolist()
+                            for n in (256, 512, 1024, 2048)]
+                           for _ in range(2))
+        profile_window(eng, plain, profiled, new_tokens)
+        return engine_step_check(eng, cfg, rng)
+
+    try:
+        w = serve_window(engine, cfg, prompts, new_tokens, during=during)
+    finally:
+        unwrap()
+    if model.aux_loss() is not None:
+        raise AssertionError("moe serving: aux_loss() is not None after "
+                             "the engine's steps")
+    if engine.stats()["kv_blocks_in_use"]:
+        raise AssertionError("moe serving: KV blocks left in use")
+    log(_window_line("moe serving (DeepSeekMoE-16B, bf16)", w, len(prompts),
+                     new_tokens) + f"; decode tokens/s (generated tokens / "
+        f"wall) {len(prompts) * new_tokens / w['wall']:.2f}; "
+        f"{cfg.num_hidden_layers} x {w['steps']} steps = "
+        f"{cfg.num_hidden_layers * w['steps']} K4 launches; prefix cache "
+        f"{w['health']['prefix_cache']}; aux_loss() None, no KV block "
+        f"leaked")
+    window = [r for r in records if steps0 <= r[0] < steps0 + w["steps"]]
+    live = {}
+    for step, _, _, _, n in window:
+        live.setdefault(step, int(n))
+    busiest = max(live, key=live.get)
+    per_layer = [(i, c, int(d)) for st, i, c, d, _ in window
+                 if st == busiest]
+    log(f"moe serving: the window's busiest step ({live[busiest]} live of "
+        f"{engine.step_tokens} step tokens): capacity and dropped "
+        f"assignments by MoE layer " + ", ".join(
+            f"{i}: C {c} dropped {d}" for i, c, d in per_layer)
+        + f"; {sum(d for _, _, d in per_layer)} of "
+        f"{live[busiest] * cfg.num_experts_per_tok * len(per_layer)} "
+        f"assignments dropped in that step")
+    del engine
+    free_device_memory()
+    args, valid, need = rpa_mix(torch.bfloat16, n_heads=16, n_kv=16)
+    out = ragged_paged_attention(**args)
+    ref = ragged_paged_attention_reference(**args)
+    err = _rpa_check("bfloat16, DeepSeekMoE-16B heads", out, ref, valid,
+                     RPA_TOL[torch.bfloat16])
+    ms = cuda_ms(lambda: ragged_paged_attention(**args))
+    plain_ms = cuda_ms(lambda: ragged_paged_attention_reference(**args))
+    log(f"rpa bfloat16 at DeepSeekMoE-16B's heads (16 query and 16 KV "
+        f"heads, group 1, hd 128; phase 3's mix, tile_q 8): T={need['T']} "
+        f"live pages={need['pages']} max|err|={err:.3e} (atol "
+        f"{RPA_TOL[torch.bfloat16]}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {need['bound_ms']:.4f} ms "
+        f"({need['bound_by']}: {need['bytes']} B, {need['flops']} flop)")
+    return w["launches"], dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               bound_ms=need["bound_ms"],
+                               bound_by=need["bound_by"],
+                               engine_step_max_abs_err=w["extra"],
+                               launches=w["launches"])
+
+
+def moe_decoding(model, cfg):
+    """17(b): eager ``generate`` (4 x 512, 64 greedy tokens) on K1, then
+    ``generate_compiled`` on the same prompts: one capture a signature,
+    the replay equal to the capturing call, ms a token and busy share.
+    Returns the eager run's launch counts."""
+    from paddle_tpu_torch.jit import cuda_graph
+    from paddle_tpu_torch.ops.pallas import flash_attention as fa
+    B, P, N = 4, 512, 64
+    L = cfg.num_hidden_layers
+    prompt = np.random.RandomState(1).randint(0, cfg.vocab_size, (B, P))
+    ids = torch.as_tensor(prompt, device="cuda")
+    _uncounted_flash(lambda: model.generate(ids, max_new_tokens=2,
+                                            temperature=0))
+    prefill_ms, _ = _uncounted_flash(lambda: _timed_ms(
+        lambda: model.generate(ids, max_new_tokens=1, temperature=0)))
+    _reset_flash_counts()
+    _reset_fused_counts()
+    total_ms, out = _timed_ms(
+        lambda: model.generate(ids, max_new_tokens=N, temperature=0))
+    counts = {**_flash_counts(), **_fused_counts()}
+    if counts["flash_attention_fwd"] != L * N or fa.launches_dq or \
+            fa.launches_dkv or tuple(out.shape) != (B, P + N):
+        raise AssertionError(f"moe generate: K1 {counts} (want {L} x {N}),"
+                             f" {tuple(out.shape)}")
+    if model.aux_loss() is not None:
+        raise AssertionError("moe generate: aux_loss() is not None")
+    decode_ms = (total_ms - prefill_ms) / (N - 1)
+    log(f"moe generate (DeepSeekMoE-16B, bf16, batch {B} x {P}-token "
+        f"prompts, {N} greedy tokens): prefill {prefill_ms:.3f} ms; "
+        f"{decode_ms:.3f} ms a decode token; {total_ms:.3f} ms in all, "
+        f"{B * N / (total_ms / 1e3):.1f} tokens/s; K1 launched "
+        f"{counts['flash_attention_fwd']} times = {L} x (1 + {N - 1}); "
+        f"aux_loss() None")
+    c0 = cuda_graph.captures
+    first_ms, first = _timed_ms(
+        lambda: model.generate_compiled(ids, max_new_tokens=N))
+    c1 = cuda_graph.captures
+    model.generate_compiled(ids, max_new_tokens=1)
+    cprefill_ms, _ = _timed_ms(
+        lambda: model.generate_compiled(ids, max_new_tokens=1))
+    ctotal_ms, comp = _timed_ms(
+        lambda: model.generate_compiled(ids, max_new_tokens=N))
+    if c1 - c0 != 1 or cuda_graph.captures != c1 or \
+            not torch.equal(comp, first) or model.aux_loss() is not None:
+        raise AssertionError(
+            f"moe generate_compiled: {c1 - c0} captures for the signature,"
+            f" {cuda_graph.captures - c1} after; replay equal to the "
+            f"capturing call: "
+            f"{torch.equal(comp, first)}")
+    cdecode_ms = (ctotal_ms - cprefill_ms) / (N - 1)
+    dev_all = _profiled_device_ms(
+        lambda: model.generate_compiled(ids, max_new_tokens=N))
+    dev_pre = _profiled_device_ms(
+        lambda: model.generate_compiled(ids, max_new_tokens=1))
+    busy_txt = "busy share not measured (the profiler saw no device time)"
+    if dev_all is not None and dev_pre is not None:
+        dev_ms = (dev_all - dev_pre) / (N - 1)
+        busy_txt = (f"{dev_ms:.3f} ms of device work a decode token, busy "
+                    f"{100 * dev_ms / cdecode_ms:.1f}%")
+    same = int((comp[:, P:] == out[:, P:]).all(1).sum())
+    log(f"moe generate_compiled (same prompts; the decode step one CUDA "
+        f"graph replayed {N - 1} times): first call {first_ms:.3f} ms (1 "
+        f"capture for the signature), prefill {cprefill_ms:.3f} ms, "
+        f"{cdecode_ms:.3f} ms a decode token ({decode_ms / cdecode_ms:.2f}x"
+        f" faster than eager), {B * N / (ctotal_ms / 1e3):.1f} tokens/s; "
+        f"{busy_txt}; the replay equals the capturing call; {same} of {B} "
+        f"rows equal the eager generate's in bf16")
+    return counts
+
+
+def moe_exactness():
+    """17(c): DeepSeekMoE-16B's widths at 2 layers in f32: the ``rpa``
+    engine's greedy streams equal the gather engine's, ``generate_compiled``
+    equals eager ``generate``, and one request gets the same tokens in a
+    1-slot and a 4-slot engine."""
+    from paddle_tpu_torch.models.moe import MoeConfig, MoeForCausalLM
+    from paddle_tpu_torch.serving import ServingEngine
+    cfg = MoeConfig.deepseek_moe_16b(num_hidden_layers=2)
+    model = MoeForCausalLM(cfg, dtype="float32", seed=SEED + 1).eval()
+    rng = np.random.RandomState(SEED + 1)
+    prompts = [rng.randint(1, cfg.vocab_size, n).tolist()
+               for n in (100, 300, 600, 900)]
+    kw = dict(block_size=16, prefill_chunk=64, max_blocks=256,
+              max_blocks_per_seq=64)
+
+    def streams(jobs, **extra):
+        eng = ServingEngine(model, **dict(kw, **extra))
+        hs = [eng.submit(p, max_new_tokens=16) for p in jobs]
+        eng.run_until_idle()
+        eng.cache.allocator.assert_no_leaks()
+        return [h.result(60)["token_ids"] for h in hs]
+    got = {impl: streams(prompts, max_batch=4, attn_impl=impl)
+           for impl in ("rpa", "gather")}
+    if got["rpa"] != got["gather"]:
+        raise AssertionError(f"moe f32: kernel and gather streams differ: "
+                             f"{got}")
+    slots = [streams([prompts[1]], max_batch=mb)[0] for mb in (1, 4)]
+    if slots[0] != slots[1]:
+        raise AssertionError(f"moe f32: 1-slot and 4-slot engines differ: "
+                             f"{slots}")
+    ids = torch.as_tensor(np.random.RandomState(2).randint(
+        0, cfg.vocab_size, (4, 64)), device="cuda")
+    eager = _uncounted_flash(lambda: model.generate(ids, max_new_tokens=16,
+                                                    temperature=0))
+    comp = model.generate_compiled(ids, max_new_tokens=16)
+    if not torch.equal(eager, comp) or model.aux_loss() is not None:
+        raise AssertionError("moe f32: generate_compiled differs from the "
+                             "eager generate")
+    log("moe f32 (DeepSeekMoE-16B widths, 2 layers): kernel and gather "
+        "engines agree on 4 greedy streams of 16 tokens; one request gets "
+        "the same 16 tokens in a 1-slot and a 4-slot engine; "
+        "generate_compiled equals the eager generate (4 x 64, 16 tokens)")
+    del model
+    free_device_memory()
+
+
+def moe_autotune(model, cfg, llama_sweep):
+    """17(d): the engine q tile's sweep on this model (the autotuner off,
+    the tile set by hand as phase 4's), then with ``FLAGS_use_autotune``
+    on: ``rpa_tile_q``'s pick for this engine's signature and phase 4's,
+    beside the sweeps; a second engine of the same signature a cache hit;
+    ``_auto_chunks``' pick at phase 7's fused cross entropy."""
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.ops import fused_ce
+    from paddle_tpu_torch.ops.pallas import autotune as at
+    from paddle_tpu_torch.ops.pallas.ragged_paged_attention import \
+        rpa_tile_q
+    from paddle_tpu_torch.serving import ServingEngine
+    moe_sweep = serving_tile_sweep(model, cfg, "moe serving")
+    cache = at.AutoTuneCache.instance()
+    cache.clear()
+    set_flags({"FLAGS_use_autotune": True})
+    try:
+        t0 = time.perf_counter()
+        picks = {}
+        for what, heads, kv in (("moe", 16, 16), ("llama", 32, 8)):
+            picks[what] = rpa_tile_q(520, heads, kv, 128, 16, 512, 2048,
+                                     dtype="bfloat16")
+        sweep_s = time.perf_counter() - t0
+        stats0 = cache.stats()
+        engines = [ServingEngine(model, max_batch=8, block_size=16,
+                                 prefill_chunk=512, max_blocks=2048)
+                   for _ in range(2)]
+        tiles = [e._tile_q for e in engines]
+        del engines
+        free_device_memory()
+        stats = cache.stats()
+        bench = llama_bench_config()
+        T, V, d = 4 * 2047, bench.vocab_size, bench.hidden_size
+        t0 = time.perf_counter()
+        chunks = fused_ce._auto_chunks(T, V, d, torch.bfloat16, "cuda")
+        chunks_s = time.perf_counter() - t0
+    finally:
+        set_flags({"FLAGS_use_autotune": False})
+    if tiles != [picks["moe"]] * 2 or stats["hits"] - stats0["hits"] != 2:
+        raise AssertionError(f"autotune: engine tiles {tiles} against the "
+                             f"pick {picks['moe']}, cache {stats}")
+
+    def mean_by_tile(res):
+        return {t: statistics.mean(ms for tt, _, ms, _ in res if tt == t)
+                for t in RPA_TILES}
+    for what, sweep in (("moe", moe_sweep), ("llama", llama_sweep)):
+        by = mean_by_tile(sweep)
+        best = min(by, key=by.get)
+        log(f"autotune ({what} engine signature): rpa_tile_q picks "
+            f"tile_q {picks[what]} (the kernel alone on the reference's "
+            f"synthetic mix); the engine-step sweep's mean step by tile "
+            + ", ".join(f"{t}: {ms:.3f} ms" for t, ms in by.items())
+            + f" -> fastest engine step at tile_q {best}")
+    log(f"autotune: both sweeps {sweep_s:.2f} s; two engines of the MoE "
+        f"signature took tile_q {tiles} from the cache (hits "
+        f"{stats['hits']}, misses {stats['misses']}, {stats['size']} "
+        f"entries); _auto_chunks at phase 7's fused cross entropy (T {T}, "
+        f"V {V}, d {d}, bf16) picks {chunks} chunks of 4, 8, 16, 32 in "
+        f"{chunks_s:.2f} s")
+    return dict(picks=picks, chunks=chunks)
+
+
+def incubate_train_flops_per_step(L, B, S, d, ffn):
+    """6 x matmul parameters a token, plus attention's 12 * B * S^2 * d a
+    layer (forward and backward)."""
+    params = L * (4 * d * d + 2 * d * ffn)
+    return 6 * params * B * S + 12 * L * B * S * S * d
+
+
+def incubate_checks():
+    """17(e), the CPU counterparts: small f32 modules on the card against
+    the same modules on the CPU with the same weights and inputs."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.incubate import asp
+    from paddle_tpu_torch.incubate import autograd as iag
+    from paddle_tpu_torch.incubate import nn as inn
+    from paddle_tpu_torch.incubate import optimizer as iopt
+    attn_tol, grad_tol = FLASH_TOL[torch.float32]
+    g = np.random.RandomState(SEED + 17)
+
+    def twin(make):
+        cpu = make("cpu")
+        card = make("cuda")
+        card.set_state_dict(cpu.state_dict())
+        return cpu, card
+
+    def both(fn, *arrays):
+        return [fn(*[torch.as_tensor(a, device=dev) for a in arrays])
+                for dev in ("cpu", "cuda")]
+
+    def check(what, got, want, tol):
+        return _check(what, got.detach().cpu(), want.detach(), *tol)
+
+    errs = {}
+    mt = twin(lambda dev: inn.FusedMultiTransformer(
+        64, 4, 128, num_layers=2, device=dev))
+    x = g.randn(2, 64, 64).astype(np.float32)
+    mask = np.where(g.rand(2, 1, 64, 64) < 0.2, -1e9, 0.0).astype(np.float32)
+    mask[..., 0] = 0.0
+    with torch.no_grad():
+        want, got = [m(torch.as_tensor(x, device=d),
+                       attn_mask=torch.as_tensor(mask, device=d))
+                     for m, d in zip(mt, ("cpu", "cuda"))]
+    errs["FusedMultiTransformer"] = check("FusedMultiTransformer", got,
+                                          want, attn_tol)
+    moe = twin(lambda dev: inn.FusedEcMoe(64, 128, 8, device=dev))
+    gate = g.randn(2, 64, 8).astype(np.float32)
+    with torch.no_grad():
+        want, got = [m(torch.as_tensor(x, device=d),
+                       torch.as_tensor(gate, device=d))
+                     for m, d in zip(moe, ("cpu", "cuda"))]
+    errs["FusedEcMoe"] = check("FusedEcMoe (caller logits)", got, want,
+                               (1e-5, 1e-4))
+    q, k, v = (g.randn(2, 64, 4, 64).astype(np.float32) for _ in range(3))
+    want, got = both(lambda a, b, c: inn.memory_efficient_attention(
+        a, b, c, scale=0.05, training=False), q, k, v)
+    errs["memory_efficient_attention"] = check(
+        "memory_efficient_attention", got, want, attn_tol)
+    # LookAhead over SGD and an EMA of the same weights, 4 steps
+    stacks = twin(lambda dev: inn.FusedMultiTransformer(
+        64, 4, 128, num_layers=2, device=dev))
+    y = g.randn(2, 64, 64).astype(np.float32)
+    shadows = []
+    for m, dev in zip(stacks, ("cpu", "cuda")):
+        la = iopt.LookAhead(ptt.optimizer.SGD(
+            learning_rate=0.05, parameters=m.parameters()), alpha=0.5, k=2)
+        ema = iopt.ExponentialMovingAverage(m.parameters(), decay=0.7)
+        xx, yy = (torch.as_tensor(a, device=dev) for a in (x, y))
+        for _ in range(4):
+            loss = ((m(xx) - yy) ** 2).mean()
+            loss.backward()
+            la.step()
+            la.clear_grad()
+            ema.update()
+        with ema.apply():
+            shadows.append({n: p.detach().clone()
+                            for n, p in m.named_parameters()})
+    errs["LookAhead"] = max(check(f"LookAhead {n}", p, dict(
+        stacks[0].named_parameters())[n], grad_tol)
+        for n, p in stacks[1].named_parameters())
+    errs["ExponentialMovingAverage"] = max(
+        check(f"EMA {n}", shadows[1][n], shadows[0][n], grad_tol)
+        for n in shadows[0])
+    # one Jacobian and one Hessian
+    W = g.randn(5, 3).astype(np.float32)
+    xs = g.randn(3).astype(np.float32)
+    for name, make in (
+            ("Jacobian", lambda w, t: iag.Jacobian(
+                lambda u: torch.tanh(w @ u), t)),
+            ("Hessian", lambda w, t: iag.Hessian(
+                lambda u: (torch.tanh(w @ u) ** 2).sum(), t))):
+        want, got = both(lambda w, t: make(w, t)._compute(), W, xs)
+        errs[name] = check(name, got, want, (1e-6, 1e-5))
+    # ASP: prune to 2:4, one decorated SGD step, the pattern kept
+    pruned = twin(lambda dev: inn.FusedMultiTransformer(
+        64, 4, 128, num_layers=2, device=dev))
+    for m, dev in zip(pruned, ("cpu", "cuda")):
+        asp.prune_model(m, n=2, m=4)
+        opt = asp.decorate(ptt.optimizer.SGD(
+            learning_rate=0.05, parameters=m.parameters()))
+        loss = m(torch.as_tensor(x, device=dev)).square().mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+    masks = asp.ASPHelper.masks_for(pruned[1])
+    cpu_params = dict(pruned[0].named_parameters())
+    for n, p in pruned[1].named_parameters():
+        errs["asp"] = max(errs.get("asp", 0.0),
+                          check(f"asp {n}", p, cpu_params[n], grad_tol))
+        if n in masks and not asp.check_mask_1d(p, 2, 4):
+            raise AssertionError(f"asp: {n} left 2:4 after the step")
+    if not masks:
+        raise AssertionError("asp: nothing pruned")
+    log("incubate on the card against the same modules on the CPU (f32, "
+        "same weights and inputs): max |err| " + ", ".join(
+            f"{k} {v:.2e}" for k, v in errs.items())
+        + f"; {len(masks)} weights kept 2:4 through a decorated SGD step")
+
+
+def phase_moe_and_incubate(llama_sweep):
+    """Phase 17: MoE serving and decoding at DeepSeekMoE-16B's full width,
+    the f32 equalities at 2 layers, the autotuner, and
+    ``paddle.incubate``. Returns the launch counts of its paths and K4's
+    record at the MoE geometry."""
+    from paddle_tpu_torch.incubate import nn as inn
+    from paddle_tpu_torch.models.moe import MoeConfig, MoeForCausalLM
+    cfg = MoeConfig.deepseek_moe_16b()
+    free_device_memory()
+    t0 = time.perf_counter()
+    model = MoeForCausalLM(cfg, dtype="bfloat16", seed=SEED).eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"moe: DeepSeekMoE-16B, all {cfg.num_hidden_layers} layers, bf16, "
+        f"{n_params} parameters ({2 * n_params} B) built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    parts = {"build": time.perf_counter() - t0}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t
+        return out
+    rpa_launches, rpa_rec = timed("serving", moe_serving, model, cfg)
+    generate_counts = timed("decoding", moe_decoding, model, cfg)
+    autotune = timed("autotune", moe_autotune, model, cfg, llama_sweep)
+    del model
+    free_device_memory()
+    timed("f32 equalities", moe_exactness)
+    # (e) the fused encoder stack at ERNIE-base widths
+    L, B, S, d, H, ffn = 12, 16, 512, 768, 12, 3072
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    stack = inn.FusedMultiTransformer(d, H, ffn, dropout_rate=0.1,
+                                      normalize_before=False, num_layers=L,
+                                      dtype="bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(B, S, d, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+    y = torch.randn(B, S, d, device="cuda", generator=gen,
+                    dtype=torch.bfloat16)
+
+    def loss_fn(m, x, y):
+        return ((m(x).float() - y.float()) ** 2).mean()
+    t = time.perf_counter()
+    r = model_train_run(
+        "incubate FusedMultiTransformer", stack, loss_fn, [x, y], 2, 5,
+        incubate_train_flops_per_step(L, B, S, d, ffn), L, before,
+        items=B * S, desc=f"{L} post-LN FusedTransformerEncoderLayers at "
+        f"ERNIE-base widths (d {d}, {H} heads, FFN {ffn}, dropout 0.1), "
+        f"{B} x {S} tokens, MSE to a seeded target")
+    if not r["losses"][-1] < r["losses"][0]:
+        raise AssertionError(f"incubate: loss did not fall: {r['losses']}")
+    del stack
+    free_device_memory()
+    parts["incubate training"] = time.perf_counter() - t
+    timed("incubate checks", incubate_checks)
+    free_device_memory()
+    log("phase 17 seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return dict(moe_serving=rpa_launches, rpa_moe=rpa_rec,
+                moe_generate=generate_counts,
+                incubate={**r["flash"], **r["fused"]}, autotune=autotune)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch",
@@ -4478,7 +4978,7 @@ def main():
     phase_environment()
     phase_build()
     rec, rec_f16 = phase_kernel()
-    launches, serving_peak = phase_serving()
+    launches, serving_peak, llama_sweep = phase_serving()
     phase_parity()
     flash = phase_flash()
     counts, train_step_ms = phase_training()
@@ -4495,16 +4995,20 @@ def main():
     api, gen, decode = phase_api(train_step_ms)
     capture_paths, flash_f16 = phase_capture_amp_recompute(gen, flash)
     rpa_paths, f16_step_err = phase_quantized_serving(serving_peak)
+    p17 = phase_moe_and_incubate(llama_sweep)
     # each path's launches were counted from 0 over its own run; a kernel
     # on several paths reports their sum, and each path's count beside it
     paths = {"train": counts, "moe_train": moe, "fit": fit, "ernie": ernie,
              "dit": dit, "ppocr": ppocr, "resnet50": resnet,
-             "api_train": api, "generate": gen, **capture_paths}
+             "api_train": api, "generate": gen, **capture_paths,
+             "moe_generate": p17["moe_generate"],
+             "incubate": p17["incubate"]}
 
     def path_launches(kname):
         by_path = {p: c[kname] for p, c in paths.items()}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
-    rpa_paths = {"serving": launches, **rpa_paths}
+    rpa_paths = {"serving": launches, **rpa_paths,
+                 "moe_serving": p17["moe_serving"]}
     kernels = [dict(
         name="ragged_paged_attention", route="cuda",
         source="paddle_tpu_torch/ops/pallas/csrc/ragged_paged_attention.cu",
@@ -4512,7 +5016,8 @@ def main():
         launches=sum(rpa_paths.values()), launches_by_path=rpa_paths,
         library_ms=None, **rec, float16=dict(
             rec_f16, launches=rpa_paths["serving_f16"],
-            engine_step_max_abs_err=f16_step_err))]
+            engine_step_max_abs_err=f16_step_err),
+        at_moe_heads=p17["rpa_moe"], autotune=p17["autotune"])]
     for kname, replaces in FLASH_KERNELS:
         kernels.append(dict(name=kname, route="cuda", source=FLASH_SRC,
                             replaces=replaces, **path_launches(kname),

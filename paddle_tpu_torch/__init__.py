@@ -30,11 +30,12 @@ library (``ops``), ``nn`` (every layer an ``nn.Layer``), ``optimizer``,
 ``io``, ``save``/``load``, ``Model``,
 ``ParamAttr``, ``metric``, ``vision``, ``serving``, ``checkpoint``,
 ``data``, ``quantization`` (QAT, PTQ, real int8 layers and the serving
-engine's weight-only PTQ), ``tuning`` (LoRA), ``models`` and the device
-functions. The models: Llama-3
-(serving, training and eager ``generate``), the MoE family, ERNIE, DiT
-and PP-OCRv4. A subsystem that is not ported (``static``,
-``incubate``, ``sparse``, ``inference``, ...) is not
+engine's weight-only PTQ), ``tuning`` (LoRA), ``incubate`` (the fused
+layers, LookAhead/ModelAverage/EMA, auto-checkpoint, functional autodiff,
+ASP), ``models`` and the device functions. The models: Llama-3
+(serving, training and eager ``generate``), the MoE family (the same),
+ERNIE, DiT and PP-OCRv4. A subsystem that is not ported (``static``,
+``sparse``, ``inference``, ...) is not
 exported: reaching it raises ``AttributeError``.
 """
 from __future__ import annotations
@@ -75,6 +76,7 @@ from paddle_tpu_torch import resilience  # noqa: F401
 from paddle_tpu_torch import vision  # noqa: F401
 from paddle_tpu_torch import quantization  # noqa: F401
 from paddle_tpu_torch import tuning  # noqa: F401
+from paddle_tpu_torch import incubate  # noqa: F401
 from paddle_tpu_torch import serving  # noqa: F401
 from paddle_tpu_torch import checkpoint  # noqa: F401
 from paddle_tpu_torch import data  # noqa: F401

@@ -4,10 +4,12 @@ Paddle's ``set_flags``/``get_flags`` over plain Python values, each
 overridable from the environment (``FLAGS_<name>``). Only the flags the
 port honours are defined: ``check_nan_inf`` (the op library checks every
 floating output for NaN/Inf), ``default_dtype`` (the floating dtype of
-the creation ops) and ``benchmark`` (the op library waits for the card
-after every op). ``set_flags`` of any other name defines it, as in the
-reference; the port reads none of those. ``use_autotune`` waits for
-``ops/pallas/autotune.py``.
+the creation ops), ``benchmark`` (the op library waits for the card
+after every op) and ``use_autotune`` (``ops/pallas/autotune.py`` sweeps
+the RPA kernel's q tile and the fused cross entropy's chunk count once
+per signature on the card and caches the winner). ``set_flags`` of any
+other name defines it, as in the reference; the port reads none of
+those.
 """
 from __future__ import annotations
 
@@ -78,3 +80,4 @@ def flag(name: str) -> Any:
 define_flag("check_nan_inf", False, "check every op output for NaN/Inf (reference: FLAGS_check_nan_inf)")
 define_flag("default_dtype", "float32", "default floating dtype for tensor creation")
 define_flag("benchmark", False, "wait for the card after every op of the op library, for timing")
+define_flag("use_autotune", False, "sweep the RPA q tile and the fused-CE chunk count once per signature on the card and cache the winner (reference: FLAGS_use_autotune + phi/kernels/autotune)")

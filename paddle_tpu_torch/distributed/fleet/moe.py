@@ -186,7 +186,10 @@ def route(xt, gate_weight, top_k, capacity_factor, valid=None) -> Routing:
         e_flat = torch.where(valid.repeat(top_k), e_flat,
                              torch.full_like(e_flat, E))
     pos = _positions(e_flat).reshape(top_k, T)
-    counts = torch.bincount(e_flat, minlength=E + 1)[:E]
+    # E + 1 fixed bins (the sentinel's last): no read of the largest id
+    # back to the host, so the count runs under CUDA-graph capture
+    counts = torch.zeros(E + 1, dtype=torch.long, device=xt.device
+                         ).scatter_add_(0, e_flat, torch.ones_like(e_flat))[:E]
     kept = pos < C
     if valid is not None:
         kept = kept & valid[None, :]

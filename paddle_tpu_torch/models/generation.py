@@ -21,11 +21,17 @@ _COMPILED_CACHE_CAP = 16
 
 
 def decode_surfaces(model):
-    """``(backbone, project, dtype)`` for a Llama causal LM: the trunk at
-    ``model.model``, its ``_logits`` projector, and the embedding
-    weight's dtype (the KV-cache dtype). The reference's branch for the
-    MoE LM waits for the MoE slice."""
-    return model.model, model._logits, model.model.embed_tokens.weight.dtype
+    """``(backbone, project, dtype)``: the zoo family seam of every
+    cached decode path (``compiled_generate`` and the serving engine;
+    reference :22-36). Llama keeps its trunk at ``model.model`` with a
+    ``_logits`` projector; the MoE LM's cached forward lives on the model
+    itself, with an ``lm_head``. ``dtype`` is the embedding weight's (the
+    KV-cache dtype)."""
+    backbone = getattr(model, "model", None)
+    if backbone is None or not callable(backbone):
+        backbone = model
+    project = model._logits if hasattr(model, "_logits") else model.lm_head
+    return backbone, project, backbone.embed_tokens.weight.dtype
 
 
 def sample_token(step_logits, temperature: float, top_k: int,
@@ -139,8 +145,11 @@ class _Compiled:
         position moved on in place; the last position's logits."""
         backbone, project, _ = decode_surfaces(self.model)
         caches = [(k, v, self.pos) for k, v in self.kv]
-        h, _ = backbone(toks, caches=caches, attention_mask=self.km,
-                        pos_offsets=self.po)
+        # a ragged batch's mask and offsets, which the MoE LM's forward
+        # does not take (as in the reference)
+        kw = {} if self.km is None else dict(attention_mask=self.km,
+                                             pos_offsets=self.po)
+        h, _ = backbone(toks, caches=caches, **kw)
         self.pos.add_(toks.shape[1])
         return project(h[:, -1:, :])
 
@@ -200,7 +209,7 @@ def compiled_generate(model, input_ids, max_new_tokens: int = 32,
     signatures (batch, prompt length, budget, sampling, eos, dtype,
     chunk, raggedness, state names), least recently used out first."""
     backbone, project, dtype = decode_surfaces(model)
-    device = model.model.embed_tokens.weight.device
+    device = backbone.embed_tokens.weight.device
     ids = torch.as_tensor(input_ids).to(device).long()
     B, S = int(ids.shape[0]), int(ids.shape[1])
     mnt = int(max_new_tokens)

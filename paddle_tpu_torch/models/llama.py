@@ -140,6 +140,74 @@ def _rotate_at(q, k, position_ids, cos, sin):
     return _rot_interleaved(q, cos, sin), _rot_interleaved(k, cos, sin)
 
 
+def _rope_at_least(owner, n: int):
+    """``owner``'s RoPE table (its ``rope_cos``/``rope_sin`` buffers), or,
+    for a buffer longer than ``max_position_embeddings``, one of ``n``
+    rows made once and kept on ``owner`` (so a CUDA graph that reads it
+    never makes it)."""
+    if n <= owner.rope_cos.shape[0]:
+        return owner.rope_cos, owner.rope_sin
+    ext = owner.__dict__.setdefault("_rope_ext", {})
+    key = (n, owner.rope_cos.device, owner.rope_cos.dtype)
+    if key not in ext:
+        ext[key] = _rope_table(n, owner.rope_cos.shape[1] * 2,
+                               owner.cfg.rope_theta, owner.rope_cos)
+    return ext[key]
+
+
+def run_cached_layers(owner, x, caches, attn_impl="rpa", attention_mask=None,
+                      position_ids=None, pos_offsets=None):
+    """The per-cache-kind layer loop of the cached trunks, shared by
+    :class:`LlamaModel` and ``models.moe.MoeForCausalLM``: ``x`` the
+    embedded ids, one cache per layer of ``owner.layers``, each layer
+    called as ``layer(x, cache, rope, ...)`` under the numerics scope
+    ``layers.{i}``. Returns ``(x, caches)``.
+
+    - static ``(k_buf, v_buf, pos)`` triples (``generate_compiled``): the
+      RoPE table at least as long as the buffers, with ``attention_mask``
+      the ``[B, L]`` key liveness and ``pos_offsets`` the ``[B]`` RoPE
+      shift; each layer returns its triple with ``pos + S``;
+    - eager ``(past_k, past_v)`` pairs (``generate``): each layer returns
+      its grown pair;
+    - :class:`~paddle_tpu_torch.ops.paged_attention.RaggedLayerCache`
+      (the serving step): the pools are written in place through
+      ``attn_impl``'s read path, and the caches come back as they were.
+
+    ``position_ids`` is a cacheless argument and raises here; so do
+    ``attention_mask`` and ``pos_offsets`` outside the static form (the
+    eager and paged caches derive positions and liveness from
+    themselves)."""
+    if len(caches) != len(owner.layers):
+        raise ValueError(
+            f"caches has {len(caches)} entries for "
+            f"{len(owner.layers)} layers")
+    if position_ids is not None:
+        raise NotImplementedError(
+            "position_ids is a cacheless (packed training) argument")
+    static = type(caches[0]) is tuple and len(caches[0]) == 3
+    if static:
+        rope = _rope_at_least(owner, caches[0][0].shape[1])
+        kw = dict(attention_mask=attention_mask, pos_offsets=pos_offsets)
+    elif attention_mask is not None or pos_offsets is not None:
+        raise NotImplementedError(
+            "attention_mask and pos_offsets are the static cache's "
+            "arguments; the eager and paged caches derive positions and "
+            "liveness from themselves")
+    else:
+        rope = (owner.rope_cos, owner.rope_sin)
+        kw = {}
+    paged = isinstance(caches[0], pa.RaggedLayerCache)
+    new = []
+    for i, (layer, c) in enumerate(zip(owner.layers, caches)):
+        with numerics.scope(f"layers.{i}"):
+            if paged:
+                x = layer(x, c, rope, attn_impl)
+            else:
+                x, c = layer(x, tuple(c), rope, **kw)
+        new.append(c)
+    return x, new
+
+
 class LlamaAttention(Layer):
     def __init__(self, cfg: LlamaConfig, *, device, dtype):
         super().__init__()
@@ -371,19 +439,6 @@ class LlamaModel(Layer):
         self.register_buffer("rope_sin", torch.from_numpy(sin).to(
             device=device, dtype=dtype), persistent=False)
 
-    def _rope_at_least(self, n: int):
-        """The model's RoPE table, or, for a buffer longer than
-        ``max_position_embeddings``, one of ``n`` rows made once and
-        kept (so a CUDA graph that reads it never makes it)."""
-        if n <= self.rope_cos.shape[0]:
-            return self.rope_cos, self.rope_sin
-        ext = self.__dict__.setdefault("_rope_ext", {})
-        key = (n, self.rope_cos.device, self.rope_cos.dtype)
-        if key not in ext:
-            ext[key] = _rope_table(n, self.rope_cos.shape[1] * 2,
-                                   self.cfg.rope_theta, self.rope_cos)
-        return ext[key]
-
     def forward(self, input_ids, caches: Optional[List] = None,
                 attention_mask=None, position_ids=None,
                 attn_impl: str = "rpa", pos_offsets=None):
@@ -439,42 +494,10 @@ class LlamaModel(Layer):
                     x = layer(x, None, rope, attention_mask=attention_mask,
                               position_ids=position_ids)
             return numerics.tap("final_norm", self.norm(x))
-        if len(caches) != len(self.layers):
-            raise ValueError(
-                f"caches has {len(caches)} entries for "
-                f"{len(self.layers)} layers")
-        if type(caches[0]) is tuple and len(caches[0]) == 3:
-            if position_ids is not None:
-                raise NotImplementedError(
-                    "position_ids is a cacheless (packed training) "
-                    "argument")
-            x = numerics.tap("embed", self.embed_tokens(input_ids))
-            rope = self._rope_at_least(caches[0][0].shape[1])
-            new = []
-            for i, (layer, c) in enumerate(zip(self.layers, caches)):
-                with numerics.scope(f"layers.{i}"):
-                    x, c = layer(x, c, rope, attention_mask=attention_mask,
-                                 pos_offsets=pos_offsets)
-                new.append(c)
-            return numerics.tap("final_norm", self.norm(x)), new
-        if attention_mask is not None or position_ids is not None or \
-                pos_offsets is not None:
-            raise NotImplementedError(
-                "attention_mask/position_ids are cacheless (training) "
-                "arguments, and with pos_offsets the static cache's; the "
-                "eager and paged caches derive positions and liveness "
-                "from themselves")
         x = numerics.tap("embed", self.embed_tokens(input_ids))
-        if not isinstance(caches[0], pa.RaggedLayerCache):
-            grown = []
-            for i, (layer, c) in enumerate(zip(self.layers, caches)):
-                with numerics.scope(f"layers.{i}"):
-                    x, c = layer(x, tuple(c), rope)
-                grown.append(c)
-            return numerics.tap("final_norm", self.norm(x)), grown
-        for i, (layer, c) in enumerate(zip(self.layers, caches)):
-            with numerics.scope(f"layers.{i}"):
-                x = layer(x, c, rope, attn_impl)
+        x, caches = run_cached_layers(self, x, caches, attn_impl,
+                                      attention_mask, position_ids,
+                                      pos_offsets)
         return numerics.tap("final_norm", self.norm(x)), caches
 
 

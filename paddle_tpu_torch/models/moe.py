@@ -10,10 +10,12 @@ num_shared_experts``.
 
 Ported: the configuration and its presets, the cacheless forward, both
 loss routes with the gate-balance aux loss folded in, ``aux_loss`` and
-``clear_decode_side_effects``. The cached (serving and generation) path
-raises, as do tensor parallelism and ``generate``. Parameter names and
-shapes equal the reference's, so a numpy state dict moves between the
-packages unchanged (``utils/bridge.py``).
+``clear_decode_side_effects``, the cached forward that serving and
+decoding run (reference :188-206) over the three cache forms of the
+Llama trunk, eager ``generate`` and ``generate_compiled``. Tensor
+parallelism raises. Parameter names and shapes equal the reference's,
+so a numpy state dict moves between the packages unchanged
+(``utils/bridge.py``).
 """
 from __future__ import annotations
 
@@ -22,14 +24,16 @@ from dataclasses import dataclass
 import torch
 
 from paddle_tpu_torch.core.dtype import convert_dtype
+from paddle_tpu_torch.core.tensor import unwrap_args, wrap
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.distributed.fleet.moe import MoELayer, _xavier_uniform_
 from paddle_tpu_torch.nn import Embedding, Linear, RMSNorm
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn import initializer as I
+from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops.fused_ce import causal_lm_loss
 from .llama import (_ZERO_NO_BIAS, LlamaAttention, LlamaConfig, LlamaMLP,
-                    _rope_cache)
+                    _rope_cache, run_cached_layers)
 from paddle_tpu_torch.nn.containers import LayerList
 from paddle_tpu_torch.nn.layer_base import Layer
 
@@ -124,15 +128,39 @@ class MoeDecoderLayer(Layer):
             else:
                 self.shared_expert = None
 
-    def forward(self, x, rope):
-        x = x + self.self_attn(self.input_layernorm(x), None, rope)
+    def forward(self, x, cache, rope, attn_impl="rpa", attention_mask=None,
+                pos_offsets=None):
+        """The Llama attention with any of its cache forms (``cache=None``
+        for the cacheless forward; a returned cache comes back as ``(out,
+        cache)``), then the dense MLP or the routed experts beside the
+        shared ones (reference :115-146).
+
+        With a :class:`~paddle_tpu_torch.ops.paged_attention.RaggedLayerCache`
+        the routed experts get ``token_mask = seq_ids < sentinel``, the
+        sentinel being the all-null block-table row ``block_tables.shape[0]
+        - 1`` that marks the step's budget padding (reference :137-141), so
+        padding claims no expert capacity. The reference's per-row
+        ``PagedLayerCache`` branch (:132-136) has no counterpart: the port
+        has no ``PagedLayerCache``."""
+        h = self.self_attn(self.input_layernorm(x), cache, rope, attn_impl,
+                           attention_mask, None, pos_offsets)
+        new_cache = None
+        if isinstance(h, tuple):  # a returned cache: (out, new cache)
+            h, new_cache = h
+        x = x + h
         h = self.post_attention_layernorm(x)
         if self.is_dense:
-            return x + self.mlp(h)
-        routed = self.mlp(h)
-        if self.shared_expert is not None:
-            routed = routed + self.shared_expert(h)
-        return x + routed
+            out = x + self.mlp(h)
+        else:
+            mask = None
+            if isinstance(cache, pa.RaggedLayerCache):
+                sentinel = cache.block_tables.shape[0] - 1
+                mask = (cache.seq_ids < sentinel)[None, :]
+            routed = self.mlp(h, token_mask=mask)
+            if self.shared_expert is not None:
+                routed = routed + self.shared_expert(h)
+            out = x + routed
+        return out if new_cache is None else (out, new_cache)
 
 
 class MoeForCausalLM(Layer):
@@ -212,20 +240,30 @@ class MoeForCausalLM(Layer):
             return loss
         return loss + aux * self.cfg.aux_loss_weight
 
-    def forward(self, input_ids, labels=None, caches=None):
-        """The cacheless causal LM (reference :188-245). Without
-        ``labels``: the logits. With them (``labels == input_ids``; the
-        shift happens here; -100 is ignored): ``(None, loss)``, through
-        the fused chunked CE on the untied head for a vocab of at least
-        32768, else cross entropy over the logits of positions ``:-1``."""
-        if caches is not None:
-            raise NotImplementedError(
-                "the cached (serving and generation) path of MoeForCausalLM "
-                "is not ported to paddle_tpu_torch yet")
+    def forward(self, input_ids, labels=None, caches=None,
+                attn_impl: str = "rpa"):
+        """Cacheless (reference :208-245): without ``labels``, the logits.
+        With them (``labels == input_ids``; the shift happens here; -100 is
+        ignored): ``(None, loss)``, through the fused chunked CE on the
+        untied head for a vocab of at least 32768, else cross entropy over
+        the logits of positions ``:-1``.
+
+        Cached (reference :188-206): one cache per layer, in any form the
+        Llama trunk takes (``models.llama.run_cached_layers``): eager
+        ``(past_k, past_v)`` pairs (``(None, None)`` before the prompt),
+        static ``(k_buf, v_buf, pos)`` triples, or the serving step's
+        ``RaggedLayerCache``s read through ``attn_impl``. Returns the
+        final-norm hidden states and the caches, not logits: the caller
+        projects only the positions it needs. As in the reference, the
+        cached forward takes no ``attention_mask`` or ``pos_offsets``, so
+        a ragged ``generate_compiled`` raises ``TypeError``."""
         rope = (self.rope_cos, self.rope_sin)
         x = self.embed_tokens(input_ids)
+        if caches is not None:
+            x, caches = run_cached_layers(self, x, caches, attn_impl)
+            return self.norm(x), caches
         for layer in self.layers:
-            x = layer(x, rope)
+            x = layer(x, None, rope)
         h = self.norm(x)
         if labels is not None and labels.shape[1] < 2:
             raise ValueError(
@@ -242,6 +280,49 @@ class MoeForCausalLM(Layer):
                                labels[:, 1:].reshape(-1))
         return None, self._with_aux(loss)
 
-    def generate(self, *args, **kwargs):
-        raise NotImplementedError(
-            "MoeForCausalLM.generate is not ported to paddle_tpu_torch yet")
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 temperature: float = 1.0, top_k: int = 0,
+                 top_p: float = 1.0, eos_token_id=None):
+        """KV-cached decoding over the eager growing cache (reference
+        :247-262, through ``generation.generate_loop``): the prompt
+        ``[B, S]`` and up to ``max_new_tokens`` new tokens. The gates'
+        ``l_aux`` is cleared afterwards, so :meth:`aux_loss` is ``None``.
+        Given a Paddle ``Tensor`` it returns one."""
+        from .generation import generate_loop
+        (ids,), _, had = unwrap_args((input_ids,), None)
+        ids = torch.as_tensor(ids).to(self.embed_tokens.weight.device)
+
+        def prefill(tokens):
+            caches = [(None, None)] * self.cfg.num_hidden_layers
+            h, caches = self(tokens, caches=caches)
+            return self.lm_head(h[:, -1:]), caches
+
+        def decode(tok, caches):
+            h, caches = self(tok, caches=caches)
+            return self.lm_head(h), caches
+
+        try:
+            out = generate_loop(prefill, decode, ids, max_new_tokens,
+                                temperature, top_k, top_p, eos_token_id)
+        finally:
+            self.clear_decode_side_effects()
+        return wrap(out) if had else out
+
+    def generate_compiled(self, input_ids, max_new_tokens: int = 32,
+                          temperature: float = 0.0, top_k: int = 0,
+                          top_p: float = 1.0, eos_token_id=None,
+                          prefill_chunk: int = 0):
+        """Generation over static KV buffers with the decode step
+        captured once per signature and replayed (reference :265-280; see
+        ``generation.compiled_generate``); greedy tokens equal
+        :meth:`generate`'s. The gates' ``l_aux`` is cleared afterwards.
+        Given a Paddle ``Tensor`` it returns one."""
+        from .generation import compiled_generate
+        (ids,), _, had = unwrap_args((input_ids,), None)
+        try:
+            out = compiled_generate(self, ids, max_new_tokens, temperature,
+                                    top_k, top_p, eos_token_id,
+                                    prefill_chunk=prefill_chunk)
+        finally:
+            self.clear_decode_side_effects()
+        return wrap(out) if had else out

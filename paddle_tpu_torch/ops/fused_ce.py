@@ -9,7 +9,9 @@ leaves them to XLA with ``preferred_element_type=f32``); the loop over
 chunks is Python, where the reference scans.
 
 Returns PER-TOKEN losses (callers reduce), as
-``F.cross_entropy(..., reduction='none')`` does for hard labels.
+``F.cross_entropy(..., reduction='none')`` does for hard labels. The
+chunk count is 8, or with ``FLAGS_use_autotune`` on the card the winner
+of :func:`_auto_chunks`' sweep.
 """
 from __future__ import annotations
 
@@ -80,6 +82,37 @@ class _MatmulCE(torch.autograd.Function):
         return dh.to(h.dtype), dw, None, None, None
 
 
+def _auto_chunks(T, V, d, dtype, device) -> int:
+    """The vocab chunk count for this signature (reference :113-141): the
+    default 8, or with ``FLAGS_use_autotune`` on the card the winner of a
+    sweep over the counts 4, 8, 16 and 32 that divide V, each timed
+    forward and backward on zero operands and cached per ``(T, V, d,
+    dtype)`` (``ops/pallas/autotune.py``). For CPU tensors: the default,
+    with nothing swept."""
+    from paddle_tpu_torch.core.flags import flag
+    if not flag("use_autotune") or torch.device(device).type != "cuda":
+        return _DEF_CHUNKS
+    from paddle_tpu_torch.ops.pallas.autotune import autotune
+
+    def build(nc):
+        h0 = torch.zeros(T, d, dtype=dtype, device=device,
+                         requires_grad=True)
+        w0 = torch.zeros(V, d, dtype=dtype, device=device,
+                         requires_grad=True)
+        lab0 = torch.zeros(T, dtype=torch.long, device=device)
+        valid0 = torch.ones(T, dtype=torch.bool, device=device)
+
+        def run():
+            with torch.enable_grad():
+                loss = _MatmulCE.apply(h0, w0, lab0, valid0, nc).sum()
+                return torch.autograd.grad(loss, (h0, w0))
+        return run
+
+    return autotune("fused_ce_chunks", (T, V, d, str(dtype)),
+                    [c for c in (4, 8, 16, 32) if V % c == 0], build,
+                    _DEF_CHUNKS)
+
+
 def matmul_cross_entropy(h, w_vd, labels, ignore_index: int = -100,
                          n_chunks=None):
     """Per-token CE of ``h @ w_vdᵀ`` against int ``labels``.
@@ -87,7 +120,9 @@ def matmul_cross_entropy(h, w_vd, labels, ignore_index: int = -100,
     ``h``: [T, d] (or [..., d], flattened), ``w_vd``: [V, d] (the tied
     embedding's layout), ``labels``: int [T]. Tokens whose label equals
     ``ignore_index`` contribute zero loss and zero gradient.
-    ``n_chunks`` (default 8) must divide V; otherwise one chunk is used.
+    ``n_chunks`` must divide V, otherwise one chunk is used; ``None``
+    picks the default (or the autotuned winner under
+    ``FLAGS_use_autotune``).
     """
     lead = h.shape[:-1]
     h2 = h.reshape(-1, h.shape[-1])
@@ -95,7 +130,9 @@ def matmul_cross_entropy(h, w_vd, labels, ignore_index: int = -100,
     valid = lab != ignore_index
     lab = torch.where(valid, lab, torch.zeros_like(lab))
     V = w_vd.shape[0]
-    n_chunks = _DEF_CHUNKS if n_chunks is None else int(n_chunks)
+    n_chunks = _auto_chunks(h2.shape[0], V, h2.shape[1], h2.dtype,
+                            h2.device) if n_chunks is None \
+        else int(n_chunks)
     if V % n_chunks:
         n_chunks = 1
     loss = _MatmulCE.apply(h2, w_vd, lab, valid, n_chunks)

@@ -43,13 +43,15 @@ import torch
 from . import _build, counters
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_reference",
-           "build_step_maps", "rpa_max_steps", "DEFAULT_TILE_Q",
-           "MAX_CHUNKS"]
+           "build_step_maps", "rpa_max_steps", "rpa_tile_q",
+           "DEFAULT_TILE_Q", "MAX_CHUNKS"]
 
 #: flat-token tile height of the engine's steps: of the reference's
 #: candidates (8, 16, 32), the fastest serving step on the H100 (PERF.md);
 #: the kernels take at most 128 rows of tile_q x GQA group
 DEFAULT_TILE_Q = 8
+#: the tiles ``rpa_tile_q`` sweeps (the reference's ``_TILE_CANDIDATES``)
+_TILE_CANDIDATES = (8, 16, 32)
 
 #: the bf16 kernel's split: a tile's live steps are cut into chunks of
 #: max(MIN_CHUNK_KEYS / block_size pages, ceil(live / MAX_CHUNKS)) steps,
@@ -484,3 +486,69 @@ ragged_paged_attention.launches_f16 = 0
 counters.register(__name__, "ragged_paged_attention.launches",
                   "ragged_paged_attention.launches_padded",
                   "ragged_paged_attention.launches_f16")
+
+
+def rpa_tile_q(budget_tokens, n_heads, n_kv, head_dim, block_size,
+               max_blocks_per_seq, pool_blocks, dtype="float32", *,
+               device=None, default=DEFAULT_TILE_Q) -> int:
+    """The flat-token tile height for an engine at this signature
+    (reference :313-373): ``default``, or with ``FLAGS_use_autotune`` on
+    the card the winner of a sweep over ``(8, 16, 32)``, measured once
+    per signature and cached (``autotune.py``). The candidates are those
+    the kernel takes, ``tile_q x (n_heads / n_kv) <= 128`` rows. Each is
+    timed on the reference's synthetic mix: one prefill chunk over half
+    the rounded budget, and decode rows for the rest with a page of
+    context each, over a zero pool of ``pool_blocks`` pages; a head_dim
+    without an instance is timed at the one the serving step pads it to.
+    ``device`` is where the engine runs (``None``: the card); for the CPU
+    it returns ``default`` and sweeps nothing. The engine rounds its
+    budget up to a multiple of the tile, so any candidate is legal."""
+    from paddle_tpu_torch.core.flags import flag
+    if not flag("use_autotune"):
+        return default
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    if dev.type != "cuda":
+        return default
+    from .autotune import autotune
+
+    group = int(n_heads) // int(n_kv)
+    hd_k = next((h for h in _HEAD_DIMS if h >= int(head_dim)), int(head_dim))
+    tdtype = getattr(torch, str(dtype))
+    sig = (int(budget_tokens), int(n_heads), int(n_kv), int(head_dim),
+           int(block_size), int(max_blocks_per_seq), int(pool_blocks),
+           str(dtype))
+    cands = [t for t in _TILE_CANDIDATES if t * group <= _MAX_ROWS]
+
+    def build(tile):
+        T = -(-int(budget_tokens) // tile) * tile
+        max_seqs = max(2, min(T, 8))
+        max_steps = rpa_max_steps(tile, max_blocks_per_seq, max_seqs)
+        n_dec = min(max_seqs - 1, max(1, T // 2))
+        new_lens = [T - n_dec] + [1] * n_dec
+        ctx = [0] + [block_size] * n_dec
+        cu = np.zeros(max_seqs + 2, np.int32)
+        cu[1:len(new_lens) + 1] = np.cumsum(new_lens)
+        cu[len(new_lens) + 1:] = cu[len(new_lens)]
+        ctx_arr = np.zeros(max_seqs + 1, np.int32)
+        ctx_arr[:len(ctx)] = ctx
+        kv_lens = [n + c for n, c in zip(new_lens, ctx)]
+        bt = np.zeros((max_seqs + 1, max_blocks_per_seq), np.int32)
+        nxt = 1
+        for s, kv in enumerate(kv_lens):
+            n_pages = -(-kv // block_size)
+            bt[s, :n_pages] = np.arange(nxt, nxt + n_pages)
+            nxt += n_pages
+        if nxt - 1 > pool_blocks:
+            raise ValueError("the synthetic mix needs more pages than the "
+                             "pool holds")
+        ssq, sbk = build_step_maps(
+            cu[:len(new_lens) + 1], kv_lens, total_tokens=T, tile_q=tile,
+            block_size=block_size, max_steps=max_steps, max_seqs=max_seqs)
+        meta = [torch.from_numpy(a).to(dev)
+                for a in (bt, cu, ctx_arr, ssq, sbk)]
+        q = torch.zeros(T, n_heads, hd_k, dtype=tdtype, device=dev)
+        pool = torch.zeros(pool_blocks + 1, block_size, n_kv, hd_k,
+                           dtype=tdtype, device=dev)
+        return lambda: ragged_paged_attention(q, pool, pool, *meta)
+
+    return autotune("ragged_paged_attention", sig, cands, build, default)

@@ -31,6 +31,12 @@ Serving options of the reference (its engine :203-857):
   and ``submit(adapter_id=)``, with a per-slot load generation seeding
   the prefix-cache chain.
 
+The model is any causal LM of the zoo that speaks the ``caches=``
+protocol (``models.generation.decode_surfaces``): Llama, and the MoE LM,
+whose gates' ``l_aux`` is cleared after every step. The q tile of the
+RPA kernel is ``DEFAULT_TILE_Q``, or with ``FLAGS_use_autotune`` on the
+card the winner of ``rpa_tile_q``'s sweep for the engine's signature.
+
 What differs from the reference: PyTorch runs the step eagerly, so
 there is no compiled executable and no trace counter — ``stats()``
 reports the number of ``steps`` and the kernel's ``rpa_launches``
@@ -59,7 +65,8 @@ from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.models.generation import decode_surfaces, sample_token
 from paddle_tpu_torch.ops.paged_attention import RaggedLayerCache
 from paddle_tpu_torch.ops.pallas.ragged_paged_attention import (
-    DEFAULT_TILE_Q, build_step_maps, ragged_paged_attention, rpa_max_steps)
+    DEFAULT_TILE_Q, build_step_maps, ragged_paged_attention, rpa_max_steps,
+    rpa_tile_q)
 from paddle_tpu_torch.quantization.weight_only import (
     WEIGHT_MODES, QuantizedLeaf, calibration_from_checkpoint, quantize_leaf,
     quantization_metrics, quantize_state)
@@ -184,7 +191,7 @@ class RequestHandle:
 
 class ServingEngine:
     """Continuous-batching inference over a causal LM that speaks the
-    ragged ``caches=`` protocol (``models.llama``). Runs on the card
+    ragged ``caches=`` protocol (Llama and the MoE LM). Runs on the card
     unless ``device="cpu"``; the model must already live on that
     device. ``mesh=`` is not ported (it raises ``NotImplementedError``);
     the other options are the reference's (module docstring)."""
@@ -259,7 +266,12 @@ class ServingEngine:
         #: prefix_cache=False is the bit-parity oracle
         self.prefix_cache_enabled = True if prefix_cache is None \
             else bool(prefix_cache)
-        max_pos = cfg.max_position_embeddings
+        # the position cap is the attention's RoPE table length; the MoE
+        # config carries none of its own, its attention is built from
+        # _attn_cfg() (reference :314-321)
+        max_pos = getattr(cfg, "max_position_embeddings", None)
+        if max_pos is None:
+            max_pos = cfg._attn_cfg().max_position_embeddings
         if max_blocks_per_seq is None:
             max_blocks_per_seq = min(max_blocks, -(-max_pos // block_size))
         self.kv_dtype = kv_dtype
@@ -290,9 +302,16 @@ class ServingEngine:
             self.attn_impl = "gather"
         # unified-step geometry: the flat token budget covers every
         # decode slot plus one full prefill chunk, rounded up to the RPA
-        # kernel's q-tile height; max_steps is the static per-tile
-        # work-list bound
-        self._tile_q = DEFAULT_TILE_Q
+        # kernel's q-tile height (autotuned under FLAGS_use_autotune; a
+        # gather-pinned engine never runs the kernel, so sweeps nothing);
+        # max_steps is the static per-tile work-list bound
+        self._tile_q = DEFAULT_TILE_Q if self.attn_impl == "gather" \
+            else rpa_tile_q(
+                self.max_batch + self.prefill_chunk,
+                cfg.num_attention_heads, n_kv, hd, block_size,
+                self.cache.max_blocks_per_seq, max_blocks,
+                dtype=dtype_name(dtype), device=self.device,
+                default=DEFAULT_TILE_Q)
         budget = self.max_batch + self.prefill_chunk
         self.step_tokens = -(-budget // self._tile_q) * self._tile_q
         self._max_steps = rpa_max_steps(
@@ -622,6 +641,7 @@ class ServingEngine:
             # empty metadata slots gather token 0 and are discarded)
             hsel = h[0][dev(last_idx).long()][:, None, :]
             logits = self._project(hsel)[:, 0].float()
+        self._clear_model_side_effects()
         arr = logits.cpu().numpy()
         self.steps += 1
 
@@ -643,6 +663,13 @@ class ServingEngine:
                 self._commit_cached_blocks(seq)
                 tok = self._sample(arr[i], seq)
                 self._emit_token(seq, tok)
+
+    def _clear_model_side_effects(self):
+        """Drop the MoE gates' ``l_aux`` a step left behind (reference
+        :1263-1268), so ``aux_loss()`` is ``None`` after serving."""
+        clear = getattr(self.model, "clear_decode_side_effects", None)
+        if clear is not None:
+            clear()
 
     def _commit_cached_blocks(self, seq: Request):
         """Register every newly-completed full block in the prefix

@@ -248,3 +248,32 @@ def test_lora_leaves_cross_under_the_reference_names(n_slots):
     back = numpy_state(tm)
     assert sorted(back) == sorted(state)
     assert all(back[k].tobytes() == state[k].tobytes() for k in state)
+
+
+@pytest.mark.parametrize("layer", ["multi_transformer", "ec_moe"])
+def test_incubate_nn_names_cross_unchanged(layer):
+    """``incubate.nn``'s fused layers keep the reference's parameter
+    names and shapes (the packed ``qkv_weight [3, H, hd, E]``, the
+    ``linear1``/``ln2`` families, ``FusedEcMoe``'s ``moe.*``), so a JAX
+    state dict loads into the port and comes back bit for bit."""
+    import paddle_tpu.incubate.nn as jinn
+    from paddle_tpu.distributed.mesh import mesh_scope
+    from paddle_tpu_torch.incubate import nn as inn
+    pt.seed(6)
+    with mesh_scope(None):
+        if layer == "multi_transformer":
+            jm = jinn.FusedMultiTransformer(16, 2, 32, num_layers=2)
+            tm = inn.FusedMultiTransformer(16, 2, 32, num_layers=2,
+                                           device="cpu")
+            name = "layers.1.fused_attn.qkv_weight"
+            shape = (3, 2, 8, 16)
+        else:
+            jm = jinn.FusedEcMoe(8, 16, num_experts=4)
+            tm = inn.FusedEcMoe(8, 16, num_experts=4, device="cpu")
+            name, shape = "moe.w1", (4, 8, 16)
+        state = state_dict_from_jax(jm)
+    assert state[name].shape == shape
+    load_numpy_state(tm, state)
+    back = numpy_state(tm)
+    assert sorted(back) == sorted(state)
+    assert all(back[k].tobytes() == state[k].tobytes() for k in state)

@@ -110,7 +110,16 @@ def test_sampling_repeats_under_the_same_seed(pair):
 
 
 def test_moe_generate_still_raises():
+    """The MoE LM's ``generate`` runs since the MoE serving slice (its
+    tokens against the reference's are in ``test_torch_moe_serving.py``);
+    what still raises is a ragged ``generate_compiled``: the MoE forward
+    takes no ``attention_mask``, as the reference's does not."""
+    from paddle_tpu_torch.models.generation import compiled_generate
     from paddle_tpu_torch.models.moe import MoeConfig, MoeForCausalLM
     m = MoeForCausalLM(MoeConfig.tiny(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        m.generate(torch.ones(1, 3, dtype=torch.long), max_new_tokens=2)
+    ids = torch.ones(2, 3, dtype=torch.long)
+    assert m.generate(ids, max_new_tokens=2).shape == (2, 5)
+    assert m.aux_loss() is None
+    with pytest.raises(TypeError, match="attention_mask"):
+        compiled_generate(m, ids, max_new_tokens=2,
+                          attention_mask=np.array([[0, 1, 1], [1, 1, 1]]))

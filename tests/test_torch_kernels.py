@@ -1505,3 +1505,165 @@ def test_int8_layers_on_the_card_equal_the_cpu(cuda_device, padding, fmt):
         want = layer(inp)
         got = layer.to(cuda_device)(inp.to(cuda_device))
         torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_rpa_at_the_moe_geometry(cuda_device, dtype):
+    """DeepSeekMoE-16B's attention on the bf16/f16 kernels: 16 KV heads,
+    group 1, head_dim 128, block 16, tile 8: a 512-token prefill chunk
+    over 1024 cached tokens, decode rows of 2047 and 130 tokens, a shared
+    prefix and a padding tail, against the plain version at the serving
+    check's bf16 tolerance (f16 at its own)."""
+    rng = np.random.RandomState(16)
+    seqs = [(512, 1024), (1, 2047), (1, 130), (0, 0), (1, 17)]
+    args, valid = _rpa_bf16_args(rng, seqs, 16, 1, 128, 8, cuda_device,
+                                 n_kv=16, shared=4, dtype=dtype)
+    out = rpa.ragged_paged_attention(*args)
+    ref = rpa.ragged_paged_attention_reference(*args)
+    tol = dict(atol=4e-3, rtol=8e-3) if dtype == torch.bfloat16 else \
+        dict(atol=5e-4, rtol=1e-3)
+    torch.testing.assert_close(out[valid].float(), ref[valid].float(), **tol)
+    assert bool((out[~valid] == 0).all())
+
+
+@pytest.mark.cuda
+def test_rpa_tile_q_picks_a_tile_the_kernel_takes(cuda_device):
+    """With ``FLAGS_use_autotune`` on the card, ``rpa_tile_q`` sweeps the
+    tiles of rows <= 128 on the synthetic mix and caches its pick: one
+    of them (only 8 at group 16), a hit the second time, and the kernel
+    runs a step at the picked tile."""
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.ops.pallas import autotune as at
+    cache = at.AutoTuneCache.instance()
+    cache.clear()
+    set_flags({"FLAGS_use_autotune": True})
+    try:
+        for n_heads, n_kv, cands in ((16, 16, (8, 16, 32)),
+                                     (32, 2, (8,))):
+            sig = (520, n_heads, n_kv, 128, 16, 128, 512, "bfloat16")
+            tile = rpa.rpa_tile_q(*sig)
+            assert tile in cands
+            assert rpa.rpa_tile_q(*sig) == tile
+        assert cache.stats()["hits"] == 2 and cache.stats()["misses"] == 2
+    finally:
+        set_flags({"FLAGS_use_autotune": False})
+        cache.clear()
+    rng = np.random.RandomState(3)
+    args, valid = _rpa_bf16_args(rng, [(9, 16), (1, 40)], 16, 1, 128, tile,
+                                 cuda_device, n_kv=2)
+    out = rpa.ragged_paged_attention(*args)
+    ref = rpa.ragged_paged_attention_reference(*args)
+    torch.testing.assert_close(out[valid].float(), ref[valid].float(),
+                               atol=4e-3, rtol=8e-3)
+
+
+def _tiny_moe(device, dtype=torch.float32, **kw):
+    from paddle_tpu_torch.models.moe import MoeConfig, MoeForCausalLM
+    cfg = MoeConfig.tiny(hidden_size=128, num_attention_heads=2,
+                         num_key_value_heads=2, **kw)
+    return MoeForCausalLM(cfg, device=device, dtype=dtype, seed=5).eval()
+
+
+def _strict_capture(monkeypatch):
+    """``CapturedGraph.capture`` with the function it captures run under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host read in its
+    warm-up run raises (one during the capture itself is refused by the
+    capture anyway)."""
+    from paddle_tpu_torch.jit import cuda_graph
+    capture = cuda_graph.CapturedGraph.capture
+
+    def strict(self):
+        fn = self._fn
+
+        def checked():
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        self._fn = checked
+        return capture(self)
+    monkeypatch.setattr(cuda_graph.CapturedGraph, "capture", strict)
+    return cuda_graph
+
+
+@pytest.mark.cuda
+def test_moe_layer_replays_under_capture(cuda_device, monkeypatch):
+    """``route`` counts with a fixed-bin ``scatter_add_`` (no host read),
+    so ``MoELayer``'s forward, with and without a token mask, captures as
+    a CUDA graph with the sync check set to error, and its replay on new
+    inputs equals the eager forward: outputs, capacity drops, the
+    auxiliary loss."""
+    from paddle_tpu_torch.distributed.fleet import MoELayer
+    cuda_graph = _strict_capture(monkeypatch)
+    layer = MoELayer(64, 96, 8, top_k=2, activation="silu",
+                     device=cuda_device, seed=3)
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn(2, 24, 64, device=cuda_device, generator=g)
+    mask = torch.rand(2, 24, device=cuda_device, generator=g) > 0.3
+    for m in (None, mask):
+        static_x = x.clone()
+
+        def step():
+            return (layer(static_x, token_mask=m), layer.l_aux,
+                    layer.last_dropped)
+        with torch.no_grad():
+            graph = cuda_graph.CapturedGraph(step, cuda_device)
+            graph.capture()
+            new = torch.randn(2, 24, 64, device=cuda_device, generator=g)
+            static_x.copy_(new)
+            out, aux, dropped = graph.replay()
+            want = layer(new, token_mask=m)
+        torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(aux, layer.l_aux, atol=1e-6, rtol=1e-5)
+        assert int(dropped) == int(layer.last_dropped)
+
+
+@pytest.mark.cuda
+def test_moe_generate_compiled_captures_without_a_sync(cuda_device,
+                                                       monkeypatch):
+    """The MoE LM's ``generate_compiled``: its decode step captures once
+    per signature with the sync check set to error (no host read left in
+    the step), the replayed greedy tokens equal the eager ``generate``'s
+    (f32, head_dim 64), a second call replays, and ``aux_loss()`` is
+    ``None`` after each."""
+    model = _tiny_moe(cuda_device)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 128, (4, 16))).to(cuda_device)
+    eager = model.generate(ids, max_new_tokens=10, temperature=0)
+    assert model.aux_loss() is None
+    cuda_graph = _strict_capture(monkeypatch)
+    before = cuda_graph.captures
+    comp = model.generate_compiled(ids, max_new_tokens=10)
+    assert cuda_graph.captures == before + 1
+    assert torch.equal(comp, eager)
+    assert model.aux_loss() is None
+    assert torch.equal(model.generate_compiled(ids, max_new_tokens=10),
+                       eager)
+    assert cuda_graph.captures == before + 1
+
+
+@pytest.mark.cuda
+def test_moe_engine_serves_on_the_kernel(cuda_device):
+    """The MoE LM behind ``ServingEngine`` on the card (bf16, head_dim
+    64): K4 launched once a layer a step, greedy streams equal the
+    gather engine's, no leaked block, ``aux_loss()`` ``None``."""
+    from paddle_tpu_torch.serving import ServingEngine
+    model = _tiny_moe(cuda_device, torch.float32)
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(1, 128, n).tolist() for n in (9, 30, 5)]
+    streams = {}
+    for impl in ("rpa", "gather"):
+        eng = ServingEngine(model, max_batch=4, max_blocks=64,
+                            block_size=16, prefill_chunk=16, attn_impl=impl)
+        before = rpa.ragged_paged_attention.launches
+        hs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        eng.run_until_idle()
+        streams[impl] = [h.result(30)["token_ids"] for h in hs]
+        launched = rpa.ragged_paged_attention.launches - before
+        want = 2 * eng.steps if impl == "rpa" else 0
+        assert launched == want
+        eng.cache.allocator.assert_no_leaks()
+        assert model.aux_loss() is None
+    assert streams["rpa"] == streams["gather"]

@@ -285,12 +285,13 @@ def test_three_train_steps_match_jax():
 
 
 def test_model_refuses_what_is_not_ported():
+    """Tensor parallelism raises; the cached forward (ported since the MoE
+    serving slice) refuses a cache list of the wrong length, as the
+    reference does, and the loss a one-token sequence."""
     tm = MoeForCausalLM(MoeConfig.tiny(), device="cpu")
     ids = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tm(ids, caches=[None, None])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tm.generate(ids)
+    with pytest.raises(ValueError, match="caches has 1 entries"):
+        tm(ids, caches=[(None, None)])
     with pytest.raises(NotImplementedError, match="not ported"):
         MoeForCausalLM(MoeConfig.tiny(tensor_parallel=True), device="cpu")
     with pytest.raises(ValueError, match="length >= 2"):
