@@ -226,7 +226,8 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    the plain version, ``aux_loss()`` None and no leaked block; K4 at
    this model's heads on phase 3's mix against its plain version, timed;
    (b) eager ``generate`` (4 x 512, 64 greedy tokens): K1 28 x 64
-   launches, ms a token; ``generate_compiled`` on the same prompts: one
+   launches, ms a token, ``aux_loss()`` the last decode step's (finite,
+   as the reference's); ``generate_compiled`` on the same prompts: one
    capture a signature, the replay equal to the capturing call, ms a
    token and busy share; (c) at 2 layers in f32: the kernel engine's
    greedy streams equal the gather engine's, ``generate_compiled``
@@ -244,7 +245,22 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    with a mask, ``FusedEcMoe`` with caller logits,
    ``memory_efficient_attention``, LookAhead and an EMA over 4 steps, a
    Jacobian and a Hessian, and ``prune_model`` + ``decorate`` keeping
-   2:4 through a step.
+   2:4 through a step;
+18. export and deployment: (a) Llama-3-8B's widths at 2 decoder layers
+   (untied, float16, seeded, eval) through ``paddle.jit.save`` with
+   ``InputSpec([None, 1024], "int32")`` into a temporary directory of
+   the checkout, then ``inference.Predictor`` on the card at batch 2
+   and 4 (the shared dynamic batch): the logits within K1's float16
+   limits of the eager forward, K1 two launches a run (through the
+   registered op ``paddle_tpu::flash_fwd``), with the export, save and
+   load seconds, the file sizes and the predictor's ms a run; K1 at that
+   shape against its plain version, timed; (b) ``examples/{
+   export_and_serve,int8_deploy,static_regression}.py`` to their end on
+   the card; (c) a copy on a ``paddle.device.cuda.Stream`` ordered by an
+   ``Event``; (d) a trainable float mask through
+   ``F.scaled_dot_product_attention`` in f32 against the CPU, output and
+   the gradients of q, k, v and the mask; (e) the host µs a call of K1
+   at a tiny shape through the op and through its body called directly.
 
 It prints its measurements on earlier lines, then one JSON line with a
 record per kernel (K1-K3's with their times at ERNIE's and DiT's shapes,
@@ -256,7 +272,8 @@ float16 record under ``float16``; K1-K3's ``launches_by_path`` with phase
 ``at_moe_heads`` and the autotuner's picks under ``autotune``, and its
 ``launches_by_path`` with phase 16's ``serving_f16`` and
 ``serving_int8_lora`` and phase 17's ``moe_serving``; K1-K3's with phase
-17's ``moe_generate`` and ``incubate``),
+17's ``moe_generate`` and ``incubate`` and phase 18's ``export``, and
+K1's phase 18 record under ``export``),
 and ends with
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -3653,37 +3670,41 @@ def api_generate():
 
 API_EXAMPLES = ("train_llama.py", "generate_llama.py", "train_packed.py",
                 "serve_llama.py", "generate_compiled.py")
+# lines an example must print to have done its work on the card
+EXAMPLE_LINES = {
+    "generate_compiled.py": ("token-for-token: True",),
+    "export_and_serve.py": ("served logits: (2, 16, 256)",),
+    "int8_deploy.py": ("simulation vs int8 match: True",
+                       "served == int8: True")}
+# phase 18(b): the deployment examples
+DEPLOY_EXAMPLES = ("export_and_serve.py", "int8_deploy.py",
+                   "static_regression.py")
 # the reference's other examples, and the subsystem each needs
 API_EXAMPLES_NOT_RUN = {
-    "export_and_serve.py": "paddle.inference, paddle.static.InputSpec and "
-                           "jit.save (ROADMAP §1 item 8)",
-    "int8_deploy.py": "paddle.quantization, jit.save/load (ROADMAP §1 "
-                      "items 7-8)",
     "pipeline_spmd.py": "the mesh and fleet pipeline (paddle.distributed, "
-                        "ROADMAP §1 item 6)",
-    "static_regression.py": "paddle.static (ROADMAP §1 item 8)",
+                        "ROADMAP §1 item 5)",
     "train_llama_spmd.py": "the mesh and sharding API "
-                           "(paddle.distributed, ROADMAP §1 item 6)"}
+                           "(paddle.distributed, ROADMAP §1 item 5)"}
 
 
-def api_examples():
-    """14(d): the reference's examples, copied with ``paddle_tpu``
-    renamed ``paddle_tpu_torch`` and nothing else changed, each in a
-    fresh process on the card by default (all four at once)."""
+def api_examples(names=API_EXAMPLES):
+    """14(d) and 18(b): the reference's examples, copied with
+    ``paddle_tpu`` renamed ``paddle_tpu_torch`` and nothing else changed,
+    each in a fresh process on the card by default (all at once)."""
     import subprocess
     import tempfile
     src = os.path.join(REPO_ROOT, "examples")
     tmp = tempfile.mkdtemp(prefix="api_examples_", dir=REPO_ROOT)
     procs = {}
     try:
-        for name in ("_common.py",) + API_EXAMPLES:
+        for name in ("_common.py",) + tuple(names):
             with open(os.path.join(src, name)) as fh:
                 text = re.sub(r"\bpaddle_tpu\b", "paddle_tpu_torch",
                               fh.read())
             with open(os.path.join(tmp, name), "w") as fh:
                 fh.write(text)
         env = dict(os.environ, PYTHONPATH=REPO_ROOT)
-        for name in API_EXAMPLES:
+        for name in names:
             code = (f"import runpy, sys; sys.path.insert(0, {tmp!r}); "
                     f"runpy.run_path({os.path.join(tmp, name)!r}, "
                     f"run_name='__main__')")
@@ -3702,15 +3723,17 @@ def api_examples():
             if p.returncode != 0:
                 log(err[-2000:])
                 bad.append(name)
-            if name == "generate_compiled.py" and p.returncode == 0 and \
-                    "token-for-token: True" not in out:
-                bad.append(name + " (compiled != eager)")
-            if name == "train_llama.py" and p.returncode == 0:
+            if name in ("train_llama.py", "static_regression.py") and \
+                    p.returncode == 0:
                 ls = [float(v) for v in re.findall(r"loss ([0-9.]+)", out)]
                 if not ls[-1] < ls[0]:
                     bad.append(name + " (loss did not fall)")
-        for name, need in API_EXAMPLES_NOT_RUN.items():
-            log(f"example {name}: not run (needs {need})")
+            for want in EXAMPLE_LINES.get(name, ()):
+                if p.returncode == 0 and want not in out:
+                    bad.append(f"{name} (no {want!r})")
+        if names is API_EXAMPLES:
+            for name, need in API_EXAMPLES_NOT_RUN.items():
+                log(f"example {name}: not run (needs {need})")
         if bad:
             raise AssertionError(f"examples failed on the port: {bad}")
     finally:
@@ -4632,15 +4655,17 @@ def moe_decoding(model, cfg):
             fa.launches_dkv or tuple(out.shape) != (B, P + N):
         raise AssertionError(f"moe generate: K1 {counts} (want {L} x {N}),"
                              f" {tuple(out.shape)}")
-    if model.aux_loss() is not None:
-        raise AssertionError("moe generate: aux_loss() is not None")
+    aux = model.aux_loss()  # the last decode step's, as the reference's
+    if aux is None or not bool(torch.isfinite(aux)):
+        raise AssertionError(f"moe generate: aux_loss() {aux} after the "
+                             f"eager generate, want the last step's")
     decode_ms = (total_ms - prefill_ms) / (N - 1)
     log(f"moe generate (DeepSeekMoE-16B, bf16, batch {B} x {P}-token "
         f"prompts, {N} greedy tokens): prefill {prefill_ms:.3f} ms; "
         f"{decode_ms:.3f} ms a decode token; {total_ms:.3f} ms in all, "
         f"{B * N / (total_ms / 1e3):.1f} tokens/s; K1 launched "
         f"{counts['flash_attention_fwd']} times = {L} x (1 + {N - 1}); "
-        f"aux_loss() None")
+        f"aux_loss() {float(aux):.4f} (the last decode step's)")
     c0 = cuda_graph.captures
     first_ms, first = _timed_ms(
         lambda: model.generate_compiled(ids, max_new_tokens=N))
@@ -4967,6 +4992,250 @@ def phase_moe_and_incubate(llama_sweep):
                 moe_generate=generate_counts,
                 incubate={**r["flash"], **r["fused"]}, autotune=autotune)
 
+# --------------------------------------------------------------------------
+def export_llama():
+    """18(a): Llama-3-8B's widths at 2 decoder layers (untied, float16,
+    seeded, eval) through ``jit.save`` with ``InputSpec([None, 1024],
+    "int32")``, then ``inference.Predictor`` on the card at batch 2 and
+    batch 4 (the shared dynamic batch dim): logits within K1's float16
+    limits of the eager forward, K1 two launches a run. Returns the
+    path's launch counts and K1's export record."""
+    import tempfile
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.inference import Config, Predictor
+    from paddle_tpu_torch.jit import serialization
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops.pallas import flash_attention as fa
+    from paddle_tpu_torch.static import InputSpec
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=2)
+    L, S = cfg.num_hidden_layers, 1024
+    model = LlamaForCausalLM(cfg, dtype="float16", seed=SEED).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    spec = [InputSpec([None, S], "int32", "ids")]
+    tmp = tempfile.mkdtemp(prefix="phase18_export_", dir=REPO_ROOT)
+    path = os.path.join(tmp, "llama")
+    try:
+        # torch.export alone, on the same example inputs jit.save makes
+        args, dyn = serialization._example_inputs(spec, "cuda")
+        t = time.perf_counter()
+        with torch.no_grad():
+            torch.export.export(model, args, dynamic_shapes=dyn)
+        export_s = time.perf_counter() - t
+        t = time.perf_counter()
+        jit.save(model, path, input_spec=spec)
+        save_s = time.perf_counter() - t
+        sizes = {ext: os.path.getsize(path + ext)
+                 for ext in (".pdmodel", ".pdiparams")}
+        t = time.perf_counter()
+        pred = Predictor(Config(path))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        gen = torch.Generator().manual_seed(SEED)
+        _reset_flash_counts()
+        runs, errs, tol = 0, {}, FLASH_TOL_F16[0]
+        for b in (2, 4):
+            ids = torch.randint(0, cfg.vocab_size, (b, S), generator=gen,
+                                dtype=torch.int32)
+            (logits,) = pred.run([ids.numpy()])
+            runs += 1
+            with torch.no_grad():
+                eager = _uncounted_flash(lambda: model(ids.cuda()))
+            errs[b] = _check(f"export: predictor logits at batch {b}",
+                             torch.from_numpy(logits).cuda(), eager, *tol)
+        if fa.launches_fwd != L * runs:
+            raise AssertionError(f"export: K1 {fa.launches_fwd} launches "
+                                 f"in {runs} runs, want {L} a run")
+        ids_np = ids.numpy()
+        reps = 5
+        t = time.perf_counter()
+        for _ in range(reps):
+            pred.run([ids_np])
+        run_ms = 1e3 * (time.perf_counter() - t) / reps
+        ids_dev = ids.cuda()
+        with torch.no_grad():
+            fwd_ms = cuda_ms(lambda: pred._module(ids_dev), reps=reps,
+                             warmup=1)
+        runs += reps + reps + 1
+        counts = dict(_flash_counts(), fused_adam_update=0, fused_sqnorm=0)
+        if counts["flash_attention_fwd"] != L * runs or \
+                counts["flash_attention_dq"] or counts["flash_attention_dkv"]:
+            raise AssertionError(f"export: launches {counts}, want K1 "
+                                 f"{L} x {runs} runs and no K2/K3")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del model, pred
+    free_device_memory()
+    log(f"export (a): Llama-3-8B widths at {L} layers, untied, float16, "
+        f"{n_params} parameters; torch.export {export_s:.2f} s, jit.save "
+        f"{save_s:.2f} s (.pdmodel {sizes['.pdmodel']} B, .pdiparams "
+        f"{sizes['.pdiparams']} B), Predictor load {load_s:.2f} s; logits "
+        f"against the eager forward max|err| batch 2 {errs[2]:.3e}, batch "
+        f"4 {errs[4]:.3e} (limit {tol}); K1 {L} launches a run, "
+        f"{counts['flash_attention_fwd']} in {runs} runs; predictor "
+        f"{run_ms:.3f} ms a run at batch 4 x {S} (ids in, float16 logits "
+        f"out as numpy), the program's forward {fwd_ms:.3f} ms on the card "
+        f"(CUDA events, logits left there)")
+    return counts, dict(export_s=export_s, save_s=save_s, load_s=load_s,
+                        pdmodel_bytes=sizes[".pdmodel"],
+                        pdiparams_bytes=sizes[".pdiparams"],
+                        predictor_ms=run_ms, forward_ms=fwd_ms,
+                        max_abs_err=max(errs.values()))
+
+
+def flash_export_shape():
+    """K1 at 18(a)'s shape (batch 4 x 1024, 32/8 heads, hd 128, causal,
+    float16) against its plain version at float16's limit, with the
+    kernel's, plain and ``sdpa`` times and the bound."""
+    from paddle_tpu_torch.ops.pallas import flash_attention as fa
+    B, hq, hkv, S, hd = 4, 32, 8, 1024, 128
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q4, k4, v4 = [torch.randn(B, h, S, hd, device="cuda",
+                              dtype=torch.float16, generator=gen)
+                  for h in (hq, hkv, hkv)]
+    q, k, v, g, _ = fa._geometry(q4, k4, v4, True, None, None, None, None,
+                                 0.0, None)
+    o, lse = _uncounted_flash(lambda: fa.flash_attention_fwd(q, k, v, g))
+    ro, rlse = fa._forward_plain(q, k, v, g)
+    tol = FLASH_TOL_F16[0]
+    err = max(_check("K1 export shape o", o, ro, *tol),
+              _check("K1 export shape lse", lse, rlse, *tol))
+    need = flash_need(q, k, g, 2, q.numel() * 2 + 4 * q.shape[0], 0)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        ms = _uncounted_flash(
+            lambda: cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, g)))
+        plain_ms = cuda_ms(lambda: fa._forward_plain(q, k, v, g))
+        lib = cuda_ms(lambda: sdpa(q4, k4, v4, is_causal=True,
+                                   enable_gqa=True))
+    log(f"flash export K1 (4 x {S}, GQA {hq}/{hkv}, hd {hd}, causal, f16): "
+        f"max|err|={err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {need['bound_ms']:.4f} ms ({need['bound_by']}), library "
+        f"{lib:.4f} ms (sdpa)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=need["bound_ms"], bound_by=need["bound_by"],
+                library_ms=lib)
+
+
+def stream_and_event():
+    """18(c): a copy made on a ``paddle.device.cuda.Stream`` and ordered
+    before the current stream by an ``Event`` reads back its values."""
+    from paddle_tpu_torch.device import cuda as pcuda
+    src = torch.arange(1 << 22, device="cuda", dtype=torch.float32)
+    dst = torch.empty_like(src)
+    side = pcuda.Stream(priority=1)
+    done = pcuda.Event(enable_timing=True)
+    start = pcuda.Event(enable_timing=True)
+    side.wait_stream(pcuda.current_stream())
+    with pcuda.stream_guard(side):
+        start.record()
+        dst.copy_(src * 3.0)
+        side.record_event(done)
+    pcuda.current_stream().wait_event(done)
+    back = (dst - 1.0).cpu()  # on the current stream, after the event
+    done.synchronize()
+    if not done.query() or not torch.equal(back,
+                                            src.cpu() * 3.0 - 1.0):
+        raise AssertionError("stream/event: the copy on the side stream "
+                             "did not read back")
+    log(f"stream (c): a {src.numel() * 4} B copy on a side Stream (priority "
+        f"1) ordered by an Event read back equal; {start.elapsed_time(done):.3f}"
+        f" ms between its events")
+
+
+def trainable_mask_on_the_card():
+    """18(d): ``F.scaled_dot_product_attention`` with a float mask that
+    requires grad (the composite route: no flash launch) in f32 on the
+    card, its output and the gradients of q, k, v and the mask against
+    the CPU's; a constant mask on the same inputs launches K1."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.ops.pallas import flash_attention as fa
+    gen = torch.Generator().manual_seed(SEED)
+    shapes = [(2, 128, 8, 64), (2, 128, 2, 64), (2, 128, 2, 64),
+              (1, 8, 128, 128)]
+    cpu = [torch.randn(*sh, generator=gen) for sh in shapes]
+    outs = {}
+    before = fa.launches_fwd
+    for dev in ("cpu", "cuda"):
+        q, k, v, m = [x.detach().clone().to(dev).requires_grad_()
+                      for x in cpu]
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                           is_causal=True)
+        torch.sin(o).sum().backward()
+        outs[dev] = [o, q.grad, k.grad, v.grad, m.grad]
+    if fa.launches_fwd != before:
+        raise AssertionError("trainable mask: the composite launched K1")
+    (o_tol, g_tol), err = FLASH_TOL[torch.float32], 0.0
+    for name, a, b in zip(("o", "dq", "dk", "dv", "dmask"), outs["cuda"],
+                          outs["cpu"]):
+        err = max(err, _check(f"trainable mask {name}", a.cpu(), b,
+                              *(o_tol if name == "o" else g_tol)))
+    with torch.no_grad():
+        const = _uncounted_flash(lambda: F.scaled_dot_product_attention(
+            *[x.cuda() for x in cpu[:3]], attn_mask=cpu[3].cuda(),
+            is_causal=True))
+        _check("constant mask on K1", const, outs["cuda"][0], *o_tol)
+    log(f"trainable mask (d): f32 on the card against the CPU, output and "
+        f"the gradients of q, k, v and the mask max|err| {err:.3e}; no K1 "
+        f"launch on the composite; the constant mask through K1 agrees")
+
+
+def flash_op_host_cost(calls=1000):
+    """18(e): host microseconds a call of K1 at a tiny shape (1 head, 64
+    rows, hd 64, bf16) through the registered op ``paddle_tpu::flash_fwd``
+    and through the op's body called directly, 1000 calls each, in turns;
+    the launches are not counted on any path."""
+    from paddle_tpu_torch.ops.pallas import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = [torch.randn(1, 64, 64, device="cuda", dtype=torch.bfloat16,
+                           generator=gen) for _ in range(3)]
+    args = (q, k, v, None, None, None, 1, 1, True, 0.125, 1, 1, 0.0, 0, -1)
+    routes = {"op": lambda: torch.ops.paddle_tpu.flash_fwd(*args),
+              "direct": lambda: fa._flash_fwd_op._init_fn(*args)}
+    us = {name: [] for name in routes}
+
+    def run():
+        for _ in range(2):
+            for name, fn in routes.items():
+                fn()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(calls):
+                    fn()
+                us[name].append(1e6 * (time.perf_counter() - t) / calls)
+                torch.cuda.synchronize()
+    _uncounted_flash(run)
+    best = {name: min(v) for name, v in us.items()}
+    log(f"flash op (e): host us a call over {calls} calls of K1 (1 x 64 x "
+        f"64, bf16): paddle_tpu::flash_fwd {best['op']:.2f} "
+        f"({', '.join(f'{x:.2f}' for x in us['op'])}), direct "
+        f"{best['direct']:.2f} ({', '.join(f'{x:.2f}' for x in us['direct'])}"
+        f"): the op adds {best['op'] - best['direct']:.2f} us a call")
+    return dict(op_host_us=best["op"], direct_host_us=best["direct"])
+
+
+def phase_export_and_deploy():
+    """Phase 18: export and deployment on the card. Returns the export
+    path's launch counts and K1's export record."""
+    parts = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t
+        return out
+    free_device_memory()
+    counts, rec = timed("(a) export", export_llama)
+    rec["kernel_at_shape"] = timed("(a) K1 at its shape", flash_export_shape)
+    timed("(b) examples", api_examples, DEPLOY_EXAMPLES)
+    timed("(c) stream", stream_and_event)
+    timed("(d) trainable mask", trainable_mask_on_the_card)
+    rec.update(timed("(e) op cost", flash_op_host_cost))
+    free_device_memory()
+    log("phase 18 seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()) +
+        f"; phase 18 {sum(parts.values()):.1f} s")
+    return counts, rec
+
 
 def main():
     if not torch.cuda.is_available():
@@ -4996,13 +5265,14 @@ def main():
     capture_paths, flash_f16 = phase_capture_amp_recompute(gen, flash)
     rpa_paths, f16_step_err = phase_quantized_serving(serving_peak)
     p17 = phase_moe_and_incubate(llama_sweep)
+    export_counts, export_rec = phase_export_and_deploy()
     # each path's launches were counted from 0 over its own run; a kernel
     # on several paths reports their sum, and each path's count beside it
     paths = {"train": counts, "moe_train": moe, "fit": fit, "ernie": ernie,
              "dit": dit, "ppocr": ppocr, "resnet50": resnet,
              "api_train": api, "generate": gen, **capture_paths,
              "moe_generate": p17["moe_generate"],
-             "incubate": p17["incubate"]}
+             "incubate": p17["incubate"], "export": export_counts}
 
     def path_launches(kname):
         by_path = {p: c[kname] for p, c in paths.items()}
@@ -5025,7 +5295,9 @@ def main():
                             at_model_shapes={
                                 **{m: r[kname] for m, r in shapes.items()},
                                 **(decode if kname == "flash_attention_fwd"
-                                   else {})}))
+                                   else {})},
+                            **({"export": export_rec}
+                               if kname == "flash_attention_fwd" else {})))
     for kname, _, replaces in GMM_KERNELS:
         kernels.append(dict(name=kname, route="cuda", source=GMM_SRC,
                             replaces=replaces, launches_by_path={

@@ -26,16 +26,19 @@ over ``torch.Tensor`` that lives only at the user API,
 ``core/tensor.py``), the autograd API, the flags, every op of the op
 library (``ops``), ``nn`` (every layer an ``nn.Layer``), ``optimizer``,
 ``jit`` (``to_static`` over CUDA-graph capture, the functional trio,
-``TrainStep``), ``amp`` (``auto_cast``, ``decorate``, ``GradScaler``),
+``TrainStep``, ``save``/``load`` over ``torch.export``), ``amp`` (``auto_cast``, ``decorate``, ``GradScaler``),
 ``io``, ``save``/``load``, ``Model``,
 ``ParamAttr``, ``metric``, ``vision``, ``serving``, ``checkpoint``,
 ``data``, ``quantization`` (QAT, PTQ, real int8 layers and the serving
 engine's weight-only PTQ), ``tuning`` (LoRA), ``incubate`` (the fused
 layers, LookAhead/ModelAverage/EMA, auto-checkpoint, functional autodiff,
-ASP), ``models`` and the device functions. The models: Llama-3
+ASP), ``static`` (``InputSpec``, and the Program/Executor workflow
+over a recorded program), ``inference`` (``Config``/``Predictor`` over
+``jit.save``'s ``torch.export`` program), ``models`` and the device
+functions. The models: Llama-3
 (serving, training and eager ``generate``), the MoE family (the same),
-ERNIE, DiT and PP-OCRv4. A subsystem that is not ported (``static``,
-``sparse``, ``inference``, ...) is not
+ERNIE, DiT and PP-OCRv4. A subsystem that is not ported (``sparse``,
+``profiler``, ...) is not
 exported: reaching it raises ``AttributeError``.
 """
 from __future__ import annotations
@@ -91,6 +94,8 @@ from paddle_tpu_torch.device import (  # noqa: F401
 from paddle_tpu_torch import callbacks  # noqa: F401
 from paddle_tpu_torch.batch import batch  # noqa: F401
 from paddle_tpu_torch import linalg  # noqa: F401
+from paddle_tpu_torch import static  # noqa: F401
+from paddle_tpu_torch import inference  # noqa: F401
 
 bool = bool_  # paddle.bool
 
@@ -125,16 +130,23 @@ def flops(net, input_size, custom_ops=None, print_detail: bool = False):
     return int(counter.get_total_flops())
 
 
+_mode = {"dynamic": True}
+
+
 def enable_static():
-    """The static-graph workflow is not ported (``paddle.static``)."""
-    raise NotImplementedError(
-        "paddle_tpu_torch has no static-graph mode yet (paddle.static is "
-        "not ported); the port runs eagerly")
+    """Enter the static-graph workflow (reference ``enable_static``).
+
+    Ops still run at once, on ``static.data``'s placeholders; inside a
+    ``static.program_guard`` they are recorded, and
+    ``static.Executor.run`` replays the record (``static/graph.py``).
+    ``Optimizer.minimize`` attaches itself to the program instead of
+    stepping."""
+    _mode["dynamic"] = False
 
 
 def disable_static():
-    """Eager mode is the port's only mode: nothing to switch."""
+    _mode["dynamic"] = True
 
 
 def in_dynamic_mode() -> bool:
-    return True
+    return _mode["dynamic"]

@@ -174,6 +174,8 @@ class Tensor(torch.Tensor, metaclass=_TensorMeta):
         if value and _Base.grad_fn.__get__(self) is not None:
             _Base.detach_(self)  # cut a computed tensor from its graph
         else:
+            if not value:
+                _check_differentiable(self.dtype)
             _Base.requires_grad_(self, not value)
 
     @property
@@ -607,6 +609,19 @@ class Parameter(torch.nn.Parameter):
         return out
 
 
+def _check_differentiable(dtype):
+    """PyTorch keeps no gradient for a bool or integer tensor, where
+    Paddle stores ``stop_gradient=False`` on any: marking one trainable
+    raises ``ValueError`` (for a bool attention mask, the error the
+    reference raises at ``scaled_dot_product_attention``)."""
+    dtype = convert_dtype(dtype)
+    if not (dtype.is_floating_point or dtype.is_complex):
+        raise ValueError(
+            f"a {str(dtype)[6:]} tensor cannot receive a gradient (a bool "
+            f"mask selects, it is not added to the logits); pass a float "
+            f"tensor or keep stop_gradient=True")
+
+
 def to_tensor(data, dtype=None, place=None,
               stop_gradient: bool = True) -> Tensor:
     """``paddle.to_tensor``: a new leaf :class:`Tensor` holding a copy of
@@ -631,4 +646,6 @@ def to_tensor(data, dtype=None, place=None,
         t = torch.as_tensor(arr, device=resolve_device(place))
     if dtype is not None:
         t = t.to(convert_dtype(dtype))
+    if not stop_gradient:
+        _check_differentiable(t.dtype)
     return torch.Tensor._make_subclass(Tensor, t, not stop_gradient)

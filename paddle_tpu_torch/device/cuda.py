@@ -1,8 +1,11 @@
 """``paddle.device.cuda`` — port of ``paddle_tpu/device/cuda.py``.
 
-Where the reference's build has no CUDA and reports zero devices, the
-port runs on CUDA: each function is PyTorch's ``torch.cuda`` counterpart,
-and ``Stream``/``Event`` are PyTorch's.
+Where the reference's build has no CUDA and reports zero devices (its
+``Stream`` and ``Event`` do nothing), the port runs on CUDA: each
+function is PyTorch's ``torch.cuda`` counterpart, and ``Stream`` and
+``Event`` are ``torch.cuda.Stream``/``Event`` with the reference's names
+and signatures (Paddle's stream priority 1 is high, 2 normal). Asking
+for a stream or an event without a card raises ``RuntimeError``.
 """
 from __future__ import annotations
 
@@ -15,8 +18,39 @@ __all__ = ["device_count", "current_stream", "synchronize", "Stream",
            "max_memory_allocated", "max_memory_reserved",
            "memory_allocated", "memory_reserved", "empty_cache"]
 
-Stream = torch.cuda.Stream
-Event = torch.cuda.Event
+
+def _need_card(what: str):
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"paddle.device.cuda.{what} needs a CUDA card, "
+                           f"and PyTorch sees none here")
+
+
+class Stream(torch.cuda.Stream):
+    """A CUDA stream (reference ``Stream(device=None, priority=2)``)."""
+
+    def __new__(cls, device=None, priority=2, **kwargs):
+        _need_card("Stream")
+        return super().__new__(cls, device=_index(device),
+                               priority=-1 if priority == 1 else 0,
+                               **kwargs)
+
+    def record_event(self, event=None):
+        """Record ``event`` (a new :class:`Event` if None) on this
+        stream and return it."""
+        event = event if event is not None else Event()
+        event.record(self)
+        return event
+
+
+class Event(torch.cuda.Event):
+    """A CUDA event (reference ``Event(enable_timing=False,
+    blocking=False, interprocess=False)``)."""
+
+    def __new__(cls, enable_timing=False, blocking=False,
+                interprocess=False):
+        _need_card("Event")
+        return super().__new__(cls, enable_timing=enable_timing,
+                               blocking=blocking, interprocess=interprocess)
 
 
 def _index(device):
@@ -38,11 +72,14 @@ def synchronize(device=None):
 
 
 def current_stream(device=None):
+    _need_card("current_stream")
     return torch.cuda.current_stream(_index(device))
 
 
 @contextlib.contextmanager
 def stream_guard(stream):
+    """Make ``stream`` current inside the block."""
+    _need_card("stream_guard")
     with torch.cuda.stream(stream):
         yield stream
 

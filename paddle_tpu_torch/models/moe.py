@@ -285,9 +285,10 @@ class MoeForCausalLM(Layer):
                  top_p: float = 1.0, eos_token_id=None):
         """KV-cached decoding over the eager growing cache (reference
         :247-262, through ``generation.generate_loop``): the prompt
-        ``[B, S]`` and up to ``max_new_tokens`` new tokens. The gates'
-        ``l_aux`` is cleared afterwards, so :meth:`aux_loss` is ``None``.
-        Given a Paddle ``Tensor`` it returns one."""
+        ``[B, S]`` and up to ``max_new_tokens`` new tokens. As in the
+        reference, the gates keep the last decode step's ``l_aux``, so
+        :meth:`aux_loss` gives that step's loss. Given a Paddle
+        ``Tensor`` it returns one."""
         from .generation import generate_loop
         (ids,), _, had = unwrap_args((input_ids,), None)
         ids = torch.as_tensor(ids).to(self.embed_tokens.weight.device)
@@ -301,11 +302,8 @@ class MoeForCausalLM(Layer):
             h, caches = self(tok, caches=caches)
             return self.lm_head(h), caches
 
-        try:
-            out = generate_loop(prefill, decode, ids, max_new_tokens,
-                                temperature, top_k, top_p, eos_token_id)
-        finally:
-            self.clear_decode_side_effects()
+        out = generate_loop(prefill, decode, ids, max_new_tokens,
+                            temperature, top_k, top_p, eos_token_id)
         return wrap(out) if had else out
 
     def generate_compiled(self, input_ids, max_new_tokens: int = 32,

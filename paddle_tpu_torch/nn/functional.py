@@ -46,7 +46,8 @@ __all__ = [
     # attention
     "scaled_dot_product_attention", "flash_attention",
     # losses
-    "cross_entropy", "mse_loss", "l1_loss", "nll_loss",
+    "cross_entropy", "softmax_with_cross_entropy", "square_error_cost",
+    "mse_loss", "l1_loss", "nll_loss",
     "binary_cross_entropy", "binary_cross_entropy_with_logits",
     "smooth_l1_loss", "kl_div", "ctc_loss",
 ]
@@ -594,7 +595,10 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     ``query`` (GQA). Every call goes through the flash-attention
     wrapper: CUDA tensors launch its kernels, CPU tensors compute its
     plain version. ``attn_mask`` (float, or bool with True = attend)
-    broadcastable to ``[B, H, Sq, Sk]`` is an additive constant; a mask
+    broadcastable to ``[B, H, Sq, Sk]`` is an additive constant, unless
+    it is a float mask that requires grad: that one takes the
+    differentiable composite (:func:`_sdpa_composite`) and receives a
+    gradient, as in the reference. A mask
     from ``Transformer.generate_square_subsequent_mask`` (tagged
     ``_causal_diag``) over equal lengths takes the kernels' causal path
     instead and is never read (reference :938-941). Dropout's hash seed
@@ -604,10 +608,13 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
         raise ValueError(
             "q_segment_ids and kv_segment_ids must be passed together; for "
             "pure key padding use all-ones q_segment_ids")
-    if attn_mask is not None and getattr(attn_mask, "requires_grad", False):
-        raise NotImplementedError(
-            "a trainable attn_mask (the reference's differentiable "
-            "composite route) is not ported to paddle_tpu_torch yet")
+    if attn_mask is not None and attn_mask.requires_grad:
+        # a learned additive bias must receive a gradient: the kernels
+        # hold the mask as a constant, so it takes the reference's
+        # differentiable composite (:913-936), on every device
+        return _sdpa_composite(query, key, value, attn_mask, dropout_p,
+                               is_causal, training, q_segment_ids,
+                               kv_segment_ids)
     s_q, s_k = query.shape[1], key.shape[1]
     causal_tagged = (
         attn_mask is not None and getattr(attn_mask, "_causal_diag", False)
@@ -627,6 +634,43 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                 bias=bias, q_segment_ids=q_segment_ids,
                                 kv_segment_ids=kv_segment_ids,
                                 dropout_p=drop, dropout_seed=seed)
+
+
+def _sdpa_composite(query, key, value, attn_mask, dropout_p, is_causal,
+                    training, q_segment_ids, kv_segment_ids):
+    """The reference's composite (:977-1020) for a trainable float mask,
+    differentiable in the mask: logits in the inputs' dtype, masked to
+    the dtype's minimum, the mask added, softmax in f32, rows with no
+    segment-live key zeroed. Dropout draws a Bernoulli mask from
+    ``core.generator`` (a pattern of its own, as in the reference)."""
+    q, k, v = (t.transpose(1, 2) for t in (query, key, value))
+    if k.shape[1] != q.shape[1]:  # GQA: broadcast the kv heads
+        rep = q.shape[1] // k.shape[1]
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    logits = torch.matmul(q, k.transpose(-1, -2)) / np.sqrt(q.shape[-1])
+    low = torch.finfo(logits.dtype).min
+    if is_causal:
+        sq, sk = logits.shape[-2:]
+        causal = torch.ones(sq, sk, dtype=torch.bool,
+                            device=logits.device).tril(sk - sq)
+        logits = logits.masked_fill(~causal, low)
+    seg = None
+    if q_segment_ids is not None:
+        seg = (q_segment_ids[:, :, None] == kv_segment_ids[:, None, :])
+        logits = logits.masked_fill(~seg[:, None], low)
+    logits = logits + attn_mask
+    w = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    if seg is not None:  # rows with no live key: pure padding, zero
+        w = torch.where(seg[:, None].any(-1, keepdim=True), w,
+                        torch.zeros((), dtype=w.dtype, device=w.device))
+    if dropout_p > 0 and training:
+        keep = torch.rand(w.shape, device=w.device,
+                          generator=_gen.torch_generator(w.device)) \
+            >= dropout_p
+        w = torch.where(keep, w / (1 - dropout_p),
+                        torch.zeros((), dtype=w.dtype, device=w.device))
+    return torch.matmul(w, v).transpose(1, 2)
 
 
 def _additive_mask(mask):
@@ -661,32 +705,71 @@ def _reduce(loss, reduction):
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0):
-    """Hard-label cross entropy over the last axis (reference :1068).
-    Labels equal to ``ignore_index`` give zero loss; ``mean`` divides the
-    f32 sum by the count of the other labels. The reference's other
-    options are not ported yet and raise."""
-    if weight is not None or soft_label or not use_softmax or \
-            label_smoothing or axis not in (-1, input.dim() - 1):
-        raise NotImplementedError(
-            "cross_entropy takes hard labels over the last axis in "
-            "paddle_tpu_torch; weight, soft_label, use_softmax=False, "
-            "label_smoothing and other axes are not ported yet")
+    """Cross entropy over the class ``axis`` (reference :1060-1112).
+    ``use_softmax=False`` takes probabilities (``log(max(x, 1e-30))``).
+    Soft labels: ``-sum(target * log p)``, ``label_smoothing`` mixing the
+    target with the uniform one; ``mean`` averages the rows. Hard labels
+    equal to ``ignore_index`` give zero loss; ``label_smoothing`` mixes
+    the picked log-probability with the row's mean; ``weight`` scales a
+    row by its label's class weight, and ``mean`` divides the f32 sum by
+    the sum of the valid rows' weights (else by their count). Where the
+    reference picks hard labels along another axis than the last it
+    gathers a wrong shape; the port moves the class axis last first."""
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"reduction {reduction!r} (want mean|sum|none)")
-    lp = torch.log_softmax(input, dim=-1)
+    axis = axis % input.dim()
+    lp = torch.log_softmax(input, dim=axis) if use_softmax \
+        else torch.log(torch.clamp(input, min=1e-30))
+    if soft_label:
+        if weight is not None:
+            raise NotImplementedError(
+                "cross_entropy with soft_label=True ignores weight in the "
+                "reference; the port refuses it rather than ignore it")
+        tgt = label
+        if label_smoothing > 0:
+            tgt = (1 - label_smoothing) * tgt + \
+                label_smoothing / lp.shape[axis]
+        return _reduce(-(tgt * lp).sum(dim=axis), reduction)
+    lp = lp.movedim(axis, -1)
     lbl = label.long()
-    if lbl.dim() == lp.dim():
-        lbl = lbl.squeeze(-1)
+    if lbl.dim() == input.dim():
+        lbl = lbl.squeeze(axis)
     valid = lbl != ignore_index
     safe = torch.where(valid, lbl, torch.zeros_like(lbl))
     picked = torch.gather(lp, -1, safe[..., None])[..., 0]
+    if label_smoothing > 0:
+        picked = (1 - label_smoothing) * picked + \
+            label_smoothing * lp.mean(dim=-1)
     loss = -torch.where(valid, picked, torch.zeros_like(picked))
+    if weight is not None:
+        tw = weight[safe]
+        loss = loss * tw
+        if reduction == "mean":
+            wt = torch.where(valid, tw, torch.zeros_like(tw)).sum(
+                dtype=torch.float32)
+            return (loss.sum(dtype=torch.float32) /
+                    torch.clamp(wt, min=1e-12)).to(loss.dtype)
     if reduction == "mean":
         denom = torch.clamp(valid.sum(dtype=torch.float32), min=1.0)
         return (loss.sum(dtype=torch.float32) / denom).to(loss.dtype)
-    if reduction == "sum":
-        return loss.sum()
+    return _reduce(loss, reduction)
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False, axis=-1,
+                               ignore_index=-100, return_softmax=False):
+    """Reference :1115: the unreduced :func:`cross_entropy`, and the
+    softmax over ``axis`` when ``return_softmax``."""
+    loss = cross_entropy(logits, label, reduction="none",
+                         soft_label=soft_label, axis=axis,
+                         ignore_index=ignore_index)
+    if return_softmax:
+        return loss, torch.softmax(logits, dim=axis)
     return loss
+
+
+def square_error_cost(input, label):
+    """Reference :1135: the elementwise ``(input - label)²``."""
+    return torch.square(input - label)
 
 
 def mse_loss(input, label, reduction="mean"):

@@ -45,7 +45,8 @@ def _shape(shape):
         return tuple(int(s) for s in unwrap(shape).reshape(-1).tolist())
     if isinstance(shape, (int, np.integer)):
         return (int(shape),)
-    return tuple(int(_scalar(s)) for s in shape)
+    return tuple(s if isinstance(s, torch.SymInt) else int(_scalar(s))
+                 for s in shape)
 
 
 def _new(fn):

@@ -32,6 +32,8 @@ __all__ = [
 
 
 def _int(v):
+    if isinstance(v, torch.SymInt):
+        return v  # a dim under torch.export stays symbolic
     return int(v.item()) if isinstance(v, torch.Tensor) else int(v)
 
 

@@ -33,6 +33,15 @@ padded width also counts in ``launches_padded``. A head_dim above 128
 raises on the card. CPU tensors compute the plain version at the
 caller's head_dim.
 
+K1 is the registered op ``paddle_tpu::flash_fwd``
+(``torch.library.custom_op``, registered when this module is imported,
+with a fake implementation giving ``o`` and the f32 ``lse``): its
+geometry travels as explicit arguments, so ``torch.export`` records one
+node, and a loaded program (``jit.load``, ``inference.Predictor``)
+launches the same kernel as the eager path. K2 and K3 stay plain
+functions: export is for inference. The op costs 29-42 µs of host time
+a call over calling its body on the H100 machine (``PERF.md``).
+
 Each of :func:`flash_attention_fwd`, :func:`flash_attention_dq` and
 :func:`flash_attention_dkv` launches its kernel for CUDA tensors, or
 raises; for CPU tensors it computes its plain PyTorch version, which
@@ -376,9 +385,36 @@ def _count_padded(g: FlashGeometry):
 
 def flash_attention_fwd(q, k, v, g: FlashGeometry):
     """K1: ``(o, lse)`` for q ``[B*Hq, Sq, D]``, k/v ``[B*Hkv, Sk, D]``;
-    ``lse`` is f32 ``[B*Hq, Sq]``. CUDA tensors launch the kernel (or
-    raise); CPU tensors compute the plain version."""
+    ``lse`` is f32 ``[B*Hq, Sq]``. The call goes through the registered
+    op ``paddle_tpu::flash_fwd`` (:func:`_flash_fwd_op`), with the
+    geometry as its explicit arguments, so an exported program reaches
+    the same kernel: CUDA tensors launch it (or raise); CPU tensors
+    compute the plain version."""
+    _device(q)
+    bb, hb = g.bias_bh
+    return torch.ops.paddle_tpu.flash_fwd(
+        q, k, v, g.bias, g.q_seg, g.kv_seg, g.hq, g.hkv, g.causal,
+        g.sm_scale, bb, hb, g.dropout_p, int(g.seed) & _U32,
+        -1 if g.padded_from is None else g.padded_from)
+
+
+@torch.library.custom_op("paddle_tpu::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: Optional[torch.Tensor],
+                  q_seg: Optional[torch.Tensor],
+                  kv_seg: Optional[torch.Tensor], hq: int, hkv: int,
+                  causal: bool, sm_scale: float, bias_bb: int, bias_hb: int,
+                  dropout_p: float, seed: int,
+                  padded_from: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1 as a registered op (``padded_from`` -1: not padded). The body
+    is :func:`flash_attention_fwd`'s whole work; ``torch.export`` sees
+    one node and its fake implementation (:func:`_flash_fwd_fake`), and
+    a loaded program runs this body."""
     global launches_fwd
+    g = FlashGeometry(hq=hq, hkv=hkv, causal=causal, sm_scale=sm_scale,
+                      bias=bias, bias_bh=(bias_bb, bias_hb), q_seg=q_seg,
+                      kv_seg=kv_seg, dropout_p=dropout_p, seed=seed,
+                      padded_from=None if padded_from < 0 else padded_from)
     if _device(q) == "cpu":
         with torch.no_grad():
             return _forward_plain(q, k, v, g)
@@ -392,6 +428,14 @@ def flash_attention_fwd(q, k, v, g: FlashGeometry):
     launches_fwd += 1
     _count_padded(g)
     return o, lse
+
+
+@_flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, bias, q_seg, kv_seg, hq, hkv, causal,
+                    sm_scale, bias_bb, bias_hb, dropout_p, seed,
+                    padded_from):
+    return (torch.empty_like(q),
+            q.new_empty(q.shape[:2], dtype=torch.float32))
 
 
 def flash_attention_dq(q, k, v, do, lse, delta, g: FlashGeometry):

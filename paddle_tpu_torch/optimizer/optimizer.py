@@ -51,8 +51,13 @@ class Optimizer:
                  weight_decay=None, grad_clip=None, name=None,
                  multi_precision=False):
         if parameters is None:
-            raise ValueError("parameters is required: pass "
-                             "model.parameters()")
+            import paddle_tpu_torch
+            if paddle_tpu_torch.in_dynamic_mode():
+                raise ValueError(
+                    "parameters is required in dygraph mode: pass "
+                    "model.parameters() (static mode collects them from "
+                    "the loss graph at minimize())")
+            parameters = []  # static mode: filled by minimize()
         if not isinstance(learning_rate, (int, float, lr_mod.LRScheduler)):
             raise TypeError(f"learning_rate must be a float or an "
                             f"LRScheduler, got {type(learning_rate)}")
@@ -238,8 +243,22 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
-        """Backward and one step (the reference's dygraph branch; the
-        port has no static mode). Returns ``(None, [(param, grad)])``."""
+        """Dygraph: backward and one step. Static mode: attach this
+        optimizer and ``loss`` to the default program, whose
+        ``Executor.run`` then takes the gradients of its replayed loss and
+        steps (reference :256-288); with no parameters given, the
+        trainable ``Parameter`` leaves of the loss's graph are collected.
+        Returns ``(None, [(param, grad)])``."""
+        import paddle_tpu_torch
+        if not paddle_tpu_torch.in_dynamic_mode():
+            from paddle_tpu_torch.static.graph import (default_main_program,
+                                                       graph_parameters)
+            if not self._parameter_list:
+                self._param_groups = [{"params": graph_parameters(loss)}]
+            prog = default_main_program()
+            prog.optimizer = self
+            prog.loss = loss
+            return None, [(p, None) for p in self._parameter_list]
         loss.backward()
         self.step()
         return None, [(p, p.grad) for p in self._parameter_list]

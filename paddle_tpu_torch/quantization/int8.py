@@ -27,6 +27,7 @@ import copy
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 import paddle_tpu_torch.nn.functional as F
 from paddle_tpu_torch.nn import Layer
@@ -134,10 +135,12 @@ class Int8Linear(_Int8Base):
 
     def _weight_for(self, device):
         """``w_q``, column-major on the card (made once per device and
-        storage)."""
+        storage; in a traced program, on each run)."""
         w = self.w_q
         if device.type != "cuda":
             return w
+        if is_fake(w):  # a traced program (``jit.save``): one of its ops
+            return w.t().contiguous().t()
         key = (w.device, w.data_ptr())
         cached = self.__dict__.get("_w_cm")
         if cached is None or cached[0] != key:

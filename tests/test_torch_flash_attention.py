@@ -202,3 +202,127 @@ def test_kernel_parameters_carry_the_geometry():
     assert p.drop_scale == pytest.approx(1 / 0.75)
     assert (p.q, p.out1, p.k) == (12345, 678, None)
     assert p.bias == g.bias.data_ptr() and p.kv_seg == g.kv_seg.data_ptr()
+
+
+# ------------------------- K1 as a registered op ----------------------------
+def _op_args(name, rng):
+    """Arguments of ``paddle_tpu::flash_fwd`` for one geometry."""
+    q = torch.from_numpy(rng.randn(4, 16, 32).astype(np.float32))
+    k = torch.from_numpy(rng.randn(2, 24, 32).astype(np.float32))
+    v = torch.from_numpy(rng.randn(2, 24, 32).astype(np.float32))
+    bias = seg_q = seg_k = None
+    causal, drop, seed = name == "causal_gqa", 0.0, 0
+    if name == "bias_dropout":
+        bias = torch.from_numpy(rng.randn(1, 16, 24).astype(np.float32))
+        drop, seed = 0.2, 2**32 - 5
+    if name == "segments":
+        seg_q = torch.from_numpy(_seg([1] * 8 + [2] * 8, 2))
+        seg_k = torch.from_numpy(_seg([1] * 12 + [2] * 12, 2))
+    return (q, k, v, bias, seg_q, seg_k, 2, 1, causal, 32 ** -0.5, 1, 1,
+            drop, seed, -1)
+
+
+@pytest.mark.parametrize("name", ["causal_gqa", "bias_dropout", "segments"])
+def test_flash_fwd_is_a_registered_op(name):
+    """``flash_attention_fwd`` goes through ``paddle_tpu::flash_fwd``:
+    ``torch.library.opcheck`` passes on the CPU (schema, fake
+    implementation against the body, registration), and the op gives
+    the plain forward's ``(o, lse)`` with no launch counted."""
+    args = _op_args(name, np.random.RandomState(3))
+    torch.library.opcheck(torch.ops.paddle_tpu.flash_fwd.default, args)
+    before = tfa.launches_fwd
+    q, k, v, bias, sq, sk, hq, hkv, causal, scale, bb, hb, p, seed, _ = args
+    g = tfa.FlashGeometry(hq=hq, hkv=hkv, causal=causal, sm_scale=scale,
+                          bias=bias, bias_bh=(bb, hb), q_seg=sq, kv_seg=sk,
+                          dropout_p=p, seed=seed)
+    o, lse = tfa.flash_attention_fwd(q, k, v, g)
+    want_o, want_lse = tfa._forward_plain(q, k, v, g)
+    assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
+    assert tfa.launches_fwd == before
+
+
+# ------------------------------ trainable mask -------------------------------
+def _sdpa_pair(q, kv, mask, mask_trainable, **kw):
+    """The reference's and the port's ``scaled_dot_product_attention`` on
+    the same inputs: outputs, and the gradients of ``sum(sin(out))`` in
+    q, k, v and (if trainable) the mask."""
+    import paddle_tpu as pt
+    import paddle_tpu.nn.functional as JF
+    import paddle_tpu_torch.nn.functional as TF
+    jq, jk, jv = (pt.to_tensor(a, stop_gradient=False) for a in (q, kv, kv))
+    jm = pt.to_tensor(mask, stop_gradient=not mask_trainable)
+    jout = JF.scaled_dot_product_attention(jq, jk, jv, attn_mask=jm, **kw)
+    pt.ops.sin(jout).sum().backward()
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, kv, kv))
+    tm = torch.from_numpy(mask).requires_grad_(mask_trainable)
+    tout = TF.scaled_dot_product_attention(tq, tk, tv, attn_mask=tm, **kw)
+    torch.sin(tout).sum().backward()
+    jg = [np.asarray(t.grad.numpy()) for t in (jq, jk, jv)]
+    tg = [t.grad.numpy() for t in (tq, tk, tv)]
+    if mask_trainable:
+        jg.append(np.asarray(jm.grad.numpy()))
+        tg.append(tm.grad.numpy())
+    return (tout.detach().numpy(), np.asarray(jout.numpy())), tg, jg
+
+
+@pytest.mark.parametrize("kw", [{}, {"is_causal": True}],
+                         ids=["full", "causal"])
+def test_trainable_mask_gets_the_references_gradient(kw):
+    """A float mask that requires grad takes the reference's composite
+    (``tests/test_flash_attention.py:537``): output and the gradients of
+    q, k, v and the mask equal the reference's at flash f32's tolerance,
+    with GQA (4 query heads over 2 kv heads)."""
+    rng = np.random.RandomState(21)
+    q = rng.randn(2, 8, 4, 16).astype(np.float32)
+    kv = rng.randn(2, 8, 2, 16).astype(np.float32)
+    mask = (rng.randn(1, 4, 8, 8) * 0.5).astype(np.float32)
+    (out, ref), tg, jg = _sdpa_pair(q, kv, mask, True, **kw)
+    np.testing.assert_allclose(out, ref, **O_TOL)
+    assert len(tg) == 4 and np.abs(tg[3]).max() > 0
+    for a, b in zip(tg, jg):
+        np.testing.assert_allclose(a, b, **O_TOL)
+
+
+def test_trainable_mask_with_segments_and_a_constant_mask_alike():
+    """Segment ids on the composite route (a row with no live key comes
+    out zero, as in the reference); and a constant mask (the kernels'
+    route) gives the trainable one's output."""
+    rng = np.random.RandomState(22)
+    q = rng.randn(2, 8, 2, 16).astype(np.float32)
+    mask = rng.randn(1, 1, 8, 8).astype(np.float32)
+    seg = _seg([1] * 5 + [2] * 3, 2)
+    kw = dict(q_segment_ids=torch.from_numpy(seg),
+              kv_segment_ids=torch.from_numpy(seg))
+    import paddle_tpu as pt
+    import paddle_tpu.nn.functional as JF
+    import paddle_tpu_torch.nn.functional as TF
+    jm = pt.to_tensor(mask, stop_gradient=False)
+    ref = JF.scaled_dot_product_attention(
+        pt.to_tensor(q), pt.to_tensor(q), pt.to_tensor(q), attn_mask=jm,
+        q_segment_ids=pt.to_tensor(seg), kv_segment_ids=pt.to_tensor(seg))
+    pt.ops.sin(ref).sum().backward()
+    tm = torch.from_numpy(mask).requires_grad_()
+    tq = torch.from_numpy(q)
+    ours = TF.scaled_dot_product_attention(tq, tq, tq, attn_mask=tm, **kw)
+    torch.sin(ours).sum().backward()
+    np.testing.assert_allclose(ours.detach().numpy(),
+                               np.asarray(ref.numpy()), **O_TOL)
+    np.testing.assert_allclose(tm.grad.numpy(), np.asarray(jm.grad.numpy()),
+                               **O_TOL)
+    const = TF.scaled_dot_product_attention(tq, tq, tq,
+                                            attn_mask=tm.detach(), **kw)
+    np.testing.assert_allclose(const.numpy(), ours.detach().numpy(),
+                               **O_TOL)
+
+
+def test_a_bool_mask_cannot_be_made_trainable():
+    """The reference raises ``ValueError`` at the attention call for a
+    bool mask marked trainable; PyTorch keeps no gradient on a bool
+    tensor, so the port raises the same error where the mask is marked."""
+    import paddle_tpu_torch as ptt
+    m = ptt.to_tensor(np.ones((1, 1, 4, 4), bool), place="cpu")
+    with pytest.raises(ValueError, match="cannot receive a gradient"):
+        m.stop_gradient = False
+    with pytest.raises(ValueError, match="cannot receive a gradient"):
+        ptt.to_tensor(np.ones((4, 4), bool), place="cpu",
+                      stop_gradient=False)

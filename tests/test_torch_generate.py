@@ -111,15 +111,29 @@ def test_sampling_repeats_under_the_same_seed(pair):
 
 def test_moe_generate_still_raises():
     """The MoE LM's ``generate`` runs since the MoE serving slice (its
-    tokens against the reference's are in ``test_torch_moe_serving.py``);
-    what still raises is a ragged ``generate_compiled``: the MoE forward
-    takes no ``attention_mask``, as the reference's does not."""
+    tokens against the reference's are in ``test_torch_moe_serving.py``)
+    and keeps the last decode step's ``l_aux``, as the reference's eager
+    ``generate`` does: ``aux_loss()`` afterwards equals the reference's
+    on bridged weights at the layers' tolerance. What still raises is a
+    ragged ``generate_compiled``: the MoE forward takes no
+    ``attention_mask``, as the reference's does not."""
+    from paddle_tpu.models import moe as jmoe
     from paddle_tpu_torch.models.generation import compiled_generate
     from paddle_tpu_torch.models.moe import MoeConfig, MoeForCausalLM
+    from paddle_tpu_torch.utils.bridge import load_numpy_state
+    from test_torch_bridge import state_dict_from_jax
+    pt.seed(5)
+    jm = jmoe.MoeForCausalLM(jmoe.MoeConfig.tiny())
+    jm.eval()
     m = MoeForCausalLM(MoeConfig.tiny(), device="cpu")
+    m.eval()
+    load_numpy_state(m, state_dict_from_jax(jm))
     ids = torch.ones(2, 3, dtype=torch.long)
-    assert m.generate(ids, max_new_tokens=2).shape == (2, 5)
-    assert m.aux_loss() is None
+    assert m.generate(ids, max_new_tokens=2, temperature=0).shape == (2, 5)
+    jm.generate(pt.to_tensor(ids.numpy()), max_new_tokens=2, temperature=0)
+    np.testing.assert_allclose(float(m.aux_loss()),
+                               float(np.asarray(jm.aux_loss().numpy())),
+                               rtol=1e-4, atol=1e-5)
     with pytest.raises(TypeError, match="attention_mask"):
         compiled_generate(m, ids, max_new_tokens=2,
                           attention_mask=np.array([[0, 1, 1], [1, 1, 1]]))

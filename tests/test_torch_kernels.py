@@ -1627,12 +1627,21 @@ def test_moe_generate_compiled_captures_without_a_sync(cuda_device,
     per signature with the sync check set to error (no host read left in
     the step), the replayed greedy tokens equal the eager ``generate``'s
     (f32, head_dim 64), a second call replays, and ``aux_loss()`` is
-    ``None`` after each."""
+    ``None`` after each. After the eager ``generate`` the gates keep the
+    last decode step's ``l_aux``, as the reference's do: ``aux_loss()``
+    equals the plain versions' on the CPU over the same weights, at the
+    layers' tolerance."""
     model = _tiny_moe(cuda_device)
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, 128, (4, 16))).to(cuda_device)
     eager = model.generate(ids, max_new_tokens=10, temperature=0)
-    assert model.aux_loss() is None
+    plain = _tiny_moe("cpu")
+    plain.load_state_dict({k: v.cpu()
+                           for k, v in model.state_dict().items()})
+    assert torch.equal(plain.generate(ids.cpu(), max_new_tokens=10,
+                                      temperature=0), eager.cpu())
+    torch.testing.assert_close(model.aux_loss().cpu(), plain.aux_loss(),
+                               rtol=1e-4, atol=1e-5)
     cuda_graph = _strict_capture(monkeypatch)
     before = cuda_graph.captures
     comp = model.generate_compiled(ids, max_new_tokens=10)
@@ -1667,3 +1676,172 @@ def test_moe_engine_serves_on_the_kernel(cuda_device):
         eng.cache.allocator.assert_no_leaks()
         assert model.aux_loss() is None
     assert streams["rpa"] == streams["gather"]
+
+
+# ------------------ export, deployment and the static graph -----------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_op_launches_k1_on_the_card(cuda_device, dtype):
+    """``paddle_tpu::flash_fwd`` on CUDA tensors launches K1 (counted) and
+    agrees with the plain version; a head_dim the kernel has no instance
+    for raises there rather than compute the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = [torch.randn(2 * h, 96, 64, device=cuda_device, dtype=dtype,
+                           generator=gen) for h in (4, 2, 2)]
+    args = (q, k, v, None, None, None, 4, 2, True, 0.125, 1, 1, 0.0, 0, -1)
+    before = fa.launches_fwd
+    o, lse = torch.ops.paddle_tpu.flash_fwd(*args)
+    assert fa.launches_fwd == before + 1
+    g = fa.FlashGeometry(hq=4, hkv=2, causal=True, sm_scale=0.125)
+    ro, rlse = fa._forward_plain(q, k, v, g)
+    tol = dict(atol=2e-5, rtol=2e-4) if dtype == torch.float32 else \
+        dict(atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(o.float(), ro.float(), **tol)
+    torch.testing.assert_close(lse, rlse, **tol)
+    q3 = torch.zeros(2, 8, 200, device=cuda_device, dtype=dtype)
+    with pytest.raises(ValueError, match="head_dim"):
+        torch.ops.paddle_tpu.flash_fwd(q3, q3, q3, *args[3:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["cuda", "cpu"])
+def test_exported_program_runs_k1_on_the_card(cuda_device, tmp_path, where):
+    """``jit.save`` of a Llama (exported on the card, or on the CPU and
+    moved by ``move_to_device_pass``) and ``inference.Predictor`` on the
+    card: the graph holds ``paddle_tpu::flash_fwd``, a run launches K1
+    once a layer, and the logits equal the eager forward's at two batch
+    sizes (f32, hd 64)."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.inference import Config, Predictor
+    from paddle_tpu_torch.static import InputSpec
+    model = _tiny_llama(cuda_device)
+    exported = model if where == "cuda" else _tiny_llama("cpu")
+    exported.load_state_dict({k: v.to(where)
+                              for k, v in model.state_dict().items()})
+    jit.save(exported, str(tmp_path / "m"),
+             input_spec=[InputSpec([None, 24], "int64")])
+    pred = Predictor(Config(str(tmp_path / "m")))
+    nodes = [n for n in pred._module.graph.nodes
+             if n.target is torch.ops.paddle_tpu.flash_fwd.default]
+    assert len(nodes) == 2
+    for b in (2, 3):
+        ids = np.random.RandomState(b).randint(0, 128, (b, 24))
+        before = fa.launches_fwd
+        (out,) = pred.run([ids])
+        assert fa.launches_fwd == before + 2
+        with torch.no_grad():
+            want = model(torch.from_numpy(ids).to(cuda_device))
+        torch.testing.assert_close(torch.from_numpy(out), want.cpu(),
+                                   atol=2e-5, rtol=2e-4)
+
+
+@pytest.mark.cuda
+def test_stream_and_event_on_the_card(cuda_device):
+    """``paddle.device.cuda``'s ``Stream`` and ``Event`` (the reference's
+    names and signatures) order a copy on a side stream before a read on
+    the current one."""
+    from paddle_tpu_torch.device import cuda as pcuda
+    src = torch.arange(1 << 20, device=cuda_device, dtype=torch.float32)
+    dst = torch.empty_like(src)
+    side = pcuda.Stream(priority=1)
+    assert isinstance(side, torch.cuda.Stream)
+    side.wait_stream(pcuda.current_stream())
+    with pcuda.stream_guard(side):
+        dst.copy_(src * 2.0)
+        ev = side.record_event()
+    assert isinstance(ev, pcuda.Event)
+    pcuda.current_stream().wait_event(ev)
+    assert torch.equal((dst + 1.0).cpu(), src.cpu() * 2.0 + 1.0)
+    ev.synchronize()
+    assert ev.query()
+
+
+@pytest.mark.cuda
+def test_trainable_mask_on_the_card_equals_the_cpu(cuda_device):
+    """A float mask that requires grad takes the composite on the card
+    (no K1 launch): output and gradients equal the CPU's in f32."""
+    import paddle_tpu_torch.nn.functional as F
+    gen = torch.Generator().manual_seed(1)
+    base = [torch.randn(*s, generator=gen) for s in
+            ((2, 32, 4, 64), (2, 32, 2, 64), (2, 32, 2, 64), (1, 4, 32, 32))]
+    res = {}
+    before = fa.launches_fwd
+    for dev in ("cpu", cuda_device):
+        xs = [x.detach().clone().to(dev).requires_grad_() for x in base]
+        out = F.scaled_dot_product_attention(*xs[:3], attn_mask=xs[3])
+        torch.sin(out).sum().backward()
+        res[str(dev)] = [out] + [x.grad for x in xs]
+    assert fa.launches_fwd == before
+    for a, b in zip(res["cuda"], res["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, atol=2e-4, rtol=2e-3)
+
+
+@pytest.mark.cuda
+def test_control_flow_on_a_device_predicate_under_capture_raises(
+        cuda_device):
+    """A CUDA graph cannot branch on device data: ``static.nn.cond``,
+    ``while_loop`` and ``switch_case`` on a card predicate raise under
+    ``to_static``; eagerly they run."""
+    from paddle_tpu_torch.jit import to_static
+    from paddle_tpu_torch.static import nn as snn
+    x = torch.tensor([1.0, 2.0], device=cuda_device)
+
+    def branch(t):
+        return snn.cond(t.sum() > 0, lambda a: a * 2, lambda a: a - 1,
+                        operands=(t,))
+    torch.testing.assert_close(branch(x), x * 2)
+    for fn in (branch,
+               lambda t: snn.while_loop(lambda v: v.sum() < 10,
+                                        lambda v: v * 2, [t])[0],
+               lambda t: snn.switch_case(t.sum().int(),
+                                         {3: lambda: t * 3})):
+        with pytest.raises(NotImplementedError, match="CUDA graph"):
+            to_static(fn)(x)
+
+
+@pytest.mark.cuda
+def test_static_program_trains_on_the_card(cuda_device):
+    """``examples/static_regression.py``'s workflow with its placeholders
+    and replay on the card: the loss falls as on the CPU."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    paddle.enable_static()
+    try:
+        prog = static.Program()
+        with static.program_guard(prog):
+            x = static.data("x", [None, 13], "float32")
+            y = static.data("y", [None, 1], "float32")
+            pred = static.nn.fc(x, size=1)
+            loss = paddle.ops.mean(paddle.ops.square(
+                paddle.ops.subtract(pred, y)))
+            paddle.optimizer.SGD(learning_rate=0.1).minimize(loss)
+        assert pred.device.type == "cuda"
+        rng = np.random.RandomState(0)
+        w = rng.randn(13, 1).astype(np.float32)
+        exe = static.Executor()
+        losses = []
+        for _ in range(30):
+            xb = rng.randn(64, 13).astype(np.float32)
+            losses.append(float(exe.run(prog, feed={"x": xb, "y": xb @ w},
+                                        fetch_list=[loss])[0]))
+        assert losses[-1] < losses[0] * 1e-3, losses[::10]
+    finally:
+        paddle.disable_static()
+
+
+@pytest.mark.cuda
+def test_int8_layer_exports_on_the_card(cuda_device, tmp_path):
+    """``convert_to_int8``'s ``Int8Linear`` (``torch._int_mm`` on the
+    card) through ``jit.save``/``jit.load`` on the card equals the live
+    int8 layer (``examples/int8_deploy.py``'s step 3)."""
+    from paddle_tpu_torch import jit, nn, quantization as q
+    from paddle_tpu_torch.static import InputSpec
+    lin = nn.Linear(32, 16, device=cuda_device)
+    model = q.convert_to_int8(nn.Sequential(lin)).eval()
+    jit.save(model, str(tmp_path / "int8"),
+             input_spec=[InputSpec([8, 32], "float32")])
+    back = jit.load(str(tmp_path / "int8"))
+    x = torch.randn(8, 32, device=cuda_device)
+    with torch.no_grad():
+        torch.testing.assert_close(back(x), model(x), atol=1e-6, rtol=0)

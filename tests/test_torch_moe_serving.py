@@ -6,7 +6,8 @@ a request's tokens do not depend on the engine's slot count
 (``tests/test_serving.py::test_moe_served_independent_of_inactive_slots``),
 ``quantize="int8_wo"``, int8 KV and LoRA tenant slots do what the
 reference's do, and ``generate``/``generate_compiled`` give the JAX
-package's tokens. ``aux_loss()`` is ``None`` after each.
+package's tokens. ``aux_loss()`` is the reference's after the eager
+``generate`` and ``None`` after the others.
 
 Both engines run the same step geometry (``step_tokens`` 8), so both
 route with the same expert capacity. The JAX tokens come from its
@@ -192,8 +193,13 @@ def test_lora_slots_on_the_moe_engine():
 def test_generate_and_generate_compiled_equal_jax(pair):
     """Greedy ``generate`` (the eager growing cache) and
     ``generate_compiled`` (static buffers; its one-shot and chunked
-    prefills) give the JAX package's tokens; ``aux_loss()`` is ``None``
-    after each, and a fresh training forward gives a real one again."""
+    prefills) give the JAX package's tokens. After the eager
+    ``generate`` the gates keep the last decode step's ``l_aux``, as the
+    reference's do: ``aux_loss()`` equals the reference's after its eager
+    ``generate`` (two new tokens: the reference compiles each op of each
+    step) at the layers' tolerance. After ``generate_compiled`` it is
+    ``None`` in both packages, and a fresh training forward gives a real
+    one again."""
     jm, tm = pair
     ids = np.random.RandomState(0).randint(0, 128, (2, 8))
     ref = np.asarray(jm.generate_compiled(
@@ -202,7 +208,13 @@ def test_generate_and_generate_compiled_equal_jax(pair):
     t = torch.as_tensor(ids)
     got = tm.generate(t, max_new_tokens=8, temperature=0.0)
     np.testing.assert_array_equal(got.numpy(), ref)
-    assert tm.aux_loss() is None
+    tm.generate(t, max_new_tokens=2, temperature=0.0)
+    jm.generate(pt.to_tensor(ids.astype(np.int64)), max_new_tokens=2,
+                temperature=0.0)
+    np.testing.assert_allclose(float(tm.aux_loss()),
+                               float(np.asarray(jm.aux_loss().numpy())),
+                               rtol=1e-4, atol=1e-5)
+    jm.clear_decode_side_effects()
     for chunk in (0, 4):
         got = tm.generate_compiled(t, max_new_tokens=8, prefill_chunk=chunk)
         np.testing.assert_array_equal(got.numpy(), ref)

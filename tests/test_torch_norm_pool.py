@@ -327,3 +327,13 @@ def test_pool_options_not_ported_raise():
         F.adaptive_max_pool2d(x, 2, return_mask=True)
     with pytest.raises(NotImplementedError, match="NCHW"):
         F.max_unpool2d(x, x.long(), 2, data_format="NHWC")
+
+
+def test_sparse_embedding_raises():
+    """``Embedding(sparse=True)``: the reference takes ``sparse`` and
+    ignores it (``paddle_tpu/nn/layer/common.py:61``); the port refuses
+    it, as it refuses every option the reference ignores (ROADMAP §3),
+    and a dense table builds."""
+    with pytest.raises(NotImplementedError, match="sparse"):
+        tnn.Embedding(10, 4, sparse=True, device="cpu")
+    assert tuple(tnn.Embedding(10, 4, device="cpu").weight.shape) == (10, 4)

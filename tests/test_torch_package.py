@@ -92,7 +92,10 @@ def test_import_in_a_fresh_process_loads_no_jax():
         "paddle_tpu_torch.ops.pallas.autotune, paddle_tpu_torch.incubate, "
         "paddle_tpu_torch.incubate.nn, paddle_tpu_torch.incubate.optimizer, "
         "paddle_tpu_torch.incubate.checkpoint, "
-        "paddle_tpu_torch.incubate.autograd, paddle_tpu_torch.incubate.asp\n"
+        "paddle_tpu_torch.incubate.autograd, paddle_tpu_torch.incubate.asp, "
+        "paddle_tpu_torch.jit.serialization, paddle_tpu_torch.static, "
+        "paddle_tpu_torch.static.graph, paddle_tpu_torch.static.nn, "
+        "paddle_tpu_torch.inference\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu')]\n"
         "assert not bad, bad\n")
@@ -390,7 +393,7 @@ def test_every_launch_counter_is_registered():
 # the reference's top-level names whose subsystems the port has not
 # ported yet: they stay unexported (ROADMAP §1)
 UNPORTED_TOP_LEVEL = {
-    "static", "profiler", "sparse", "inference", "text", "audio", "fft", "distribution",
+    "profiler", "sparse", "text", "audio", "fft", "distribution",
     "geometric", "hub", "onnx", "reader", "sysconfig", "version", "signal",
 }
 
@@ -402,8 +405,9 @@ def test_top_level_exports_what_the_reference_does():
     every op, ``nn``, ``optimizer``, ``jit``, ``amp``, ``io``,
     ``save``/``load``,
     ``Model``, ``ParamAttr``, the device functions, ``linalg``, ``batch``,
-    ``callbacks``, ``summary`` and ``flops``. An unported subsystem
-    raises ``AttributeError``, and ``enable_static`` raises."""
+    ``callbacks``, ``summary`` and ``flops``, ``static``, ``inference``
+    and the static mode's switches. An unported subsystem raises
+    ``AttributeError``."""
     import types
 
     import paddle_tpu as pt
@@ -431,14 +435,19 @@ def test_top_level_exports_what_the_reference_does():
     assert missing == []
     for name in UNPORTED_TOP_LEVEL:
         assert not hasattr(paddle, name), name
-    with pytest.raises(AttributeError):
-        paddle.static.InputSpec
-    # amp and jit: the reference's names, but jit.save/load (not ported)
-    assert set(pt.amp.__all__) <= set(dir(paddle.amp))
-    assert set(pt.jit.__all__) - set(dir(paddle.jit)) == \
-        {"save", "load", "TranslatedLayer"}
-    with pytest.raises(NotImplementedError):
-        paddle.enable_static()
+    # amp, jit, static and inference: every name of the reference's
+    for ref_mod, port_mod in ((pt.amp, paddle.amp), (pt.jit, paddle.jit),
+                              (pt.static, paddle.static),
+                              (pt.inference, paddle.inference)):
+        assert set(ref_mod.__all__) <= set(dir(port_mod)), ref_mod
+    assert set(pt.static.nn.__all__) <= set(dir(paddle.static.nn))
+    assert paddle.static.InputSpec([None, 2]).shape == (-1, 2)
+    assert paddle.in_dynamic_mode()
+    paddle.enable_static()
+    try:
+        assert not paddle.in_dynamic_mode()
+    finally:
+        paddle.disable_static()
     assert paddle.in_dynamic_mode()
     assert paddle.Model is paddle.hapi.Model
     assert paddle.nn.Layer is paddle.nn.layer_base.Layer

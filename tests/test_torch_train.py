@@ -152,9 +152,13 @@ def test_cross_entropy_matches_jax(reduction):
     ours = F.cross_entropy(torch.from_numpy(logits),
                            torch.from_numpy(labels), reduction=reduction)
     np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="hard labels"):
-        F.cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels),
-                        label_smoothing=0.1)
+    # label smoothing is ported: the reference's value, not a refusal
+    ref = _np(JF.cross_entropy(pt.to_tensor(logits), pt.to_tensor(labels),
+                               reduction=reduction, label_smoothing=0.1))
+    ours = F.cross_entropy(torch.from_numpy(logits),
+                           torch.from_numpy(labels), reduction=reduction,
+                           label_smoothing=0.1)
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.parametrize("mask", ["bool", "float"])
@@ -174,12 +178,21 @@ def test_sdpa_with_a_mask_matches_jax(mask):
         torch.from_numpy(q), torch.from_numpy(kv), torch.from_numpy(kv),
         attn_mask=torch.from_numpy(m))
     np.testing.assert_allclose(ours.numpy(), ref, rtol=2e-4, atol=2e-5)
-    trainable = torch.zeros(16, 16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="trainable"):
-        F.scaled_dot_product_attention(torch.from_numpy(q),
-                                       torch.from_numpy(kv),
-                                       torch.from_numpy(kv),
-                                       attn_mask=trainable)
+    # a trainable float mask (ported): the reference's composite, its
+    # output and its gradient in the mask
+    bias = rng.randn(16, 16).astype(np.float32)
+    jb = pt.to_tensor(bias, stop_gradient=False)
+    jout = JF.scaled_dot_product_attention(
+        pt.to_tensor(q), pt.to_tensor(kv), pt.to_tensor(kv), attn_mask=jb)
+    jout.sum().backward()
+    trainable = torch.from_numpy(bias).requires_grad_()
+    ours = F.scaled_dot_product_attention(
+        torch.from_numpy(q), torch.from_numpy(kv), torch.from_numpy(kv),
+        attn_mask=trainable)
+    ours.sum().backward()
+    np.testing.assert_allclose(_np(ours), _np(jout), rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(trainable.grad.numpy(), _np(jb.grad),
+                               rtol=2e-4, atol=2e-5)
 
 
 def test_three_train_steps_match_jax():
