@@ -260,7 +260,30 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    ``Event``; (d) a trainable float mask through
    ``F.scaled_dot_product_attention`` in f32 against the CPU, output and
    the gradients of q, k, v and the mask; (e) the host µs a call of K1
-   at a tiny shape through the op and through its body called directly.
+   at a tiny shape through the op and through its body called directly;
+19. serving in production at Llama-3-8B widths (32 layers, bf16, seeded)
+   with phase 4's prompts and geometry: each prompt's solo greedy stream
+   (16 tokens), and the mean engine step with the request ledger armed
+   and disarmed (A B B A); (a) one engine behind ``Server(
+   max_queue_depth=4)``: a burst of 24 requests (phase 4's prompts three
+   times, odd ones streamed, each with a ``traceparent``) gets 503s with
+   ``Retry-After``, every accepted stream equals its solo stream and
+   echoes its trace id; ``POST /debug/profile?seconds=2`` during the
+   burst writes a ``torch.profiler`` trace naming ``rpa_wgmma_kernel``
+   and a second POST gets 409; ``/statusz?format=json`` carries burn
+   rates and the top in-flight requests; ``deadline_s=0.05`` with 512
+   tokens gets 504 and the request's blocks go back; ``/metrics`` parses
+   and its request, rejection and token counters equal the client's and
+   the ledger's counts; the memory ledger and ``memory_report()`` hold
+   the parameters and pools within 1%; (b) ``build_fleet`` of a
+   ``prefill`` and a ``decode`` replica sharing the model behind
+   ``RouterServer``: every stream equals its solo stream, the decode
+   replica's ledger shows the handed-off blocks as cached tokens, K4
+   launches on both replicas (their sum the global count), ``trace merge
+   --requests`` stitches router + both replicas per request, with the
+   handoff's ms and bytes; (c) the replica serving a stream is killed
+   after 3 tokens and the survivor, holding the prefix, finishes it
+   token for token, recomputing only the tail.
 
 It prints its measurements on earlier lines, then one JSON line with a
 record per kernel (K1-K3's with their times at ERNIE's and DiT's shapes,
@@ -273,7 +296,9 @@ float16 record under ``float16``; K1-K3's ``launches_by_path`` with phase
 ``launches_by_path`` with phase 16's ``serving_f16`` and
 ``serving_int8_lora`` and phase 17's ``moe_serving``; K1-K3's with phase
 17's ``moe_generate`` and ``incubate`` and phase 18's ``export``, and
-K1's phase 18 record under ``export``),
+K1's phase 18 record under ``export``; K4's ``launches_by_path`` with
+phase 19's ``serving_prod`` and ``fleet``, and phase 19's ledger step
+costs under ``serving_ledger_step_ms``),
 and ends with
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -290,8 +315,10 @@ import re
 import shutil
 import statistics
 import sys
+import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 import warnings
 
@@ -5237,6 +5264,670 @@ def phase_export_and_deploy():
     return counts, rec
 
 
+# --------------------------------------------------------------------------
+# phase 19: serving in production — the HTTP server's shedding, deadlines,
+# trace echo, /metrics, /statusz, the profiler window, the request and
+# memory ledgers, and the two-replica fleet with its KV handoff
+PROD_NEW_TOKENS = 16
+PROD_BURST = 24
+
+
+def _http(method, url, body=None, headers=None, timeout=600):
+    """``(status, headers, body bytes)`` of one request; an HTTP error
+    status is returned, not raised."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method, headers={
+        "Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _prom(text):
+    """``{series: value}`` of a Prometheus text exposition; raises on a
+    line that is not ``# ...`` or ``name{labels} value``."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = re.fullmatch(r'([a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})?) (\S+)',
+                         line)
+        if m is None:
+            raise AssertionError(f"not Prometheus text: {line!r}")
+        out[m.group(1)] = float(m.group(3))
+    return out
+
+
+def _solo_streams(model, prompts, new_tokens):
+    """Each prompt alone through a fresh engine of phase 4's geometry:
+    its greedy tokens, and at each the gap between the two largest
+    logits (the near-tie margin of that choice)."""
+    from paddle_tpu_torch.serving import ServingEngine
+    out = []
+    for p in prompts:
+        eng = ServingEngine(model, max_batch=8, block_size=16,
+                            prefill_chunk=512, max_blocks=2048,
+                            request_ledger=False)
+        gaps = []
+        sample = eng._sample
+
+        def recording(row, seq, sample=sample, gaps=gaps):
+            top2 = np.partition(row, -2)[-2:]
+            gaps.append(float(top2[1] - top2[0]))
+            return sample(row, seq)
+        eng._sample = recording
+        h = eng.submit(p, max_new_tokens=new_tokens)
+        eng.run_until_idle()
+        out.append((h.result(60)["token_ids"], gaps))
+        del eng, sample, recording
+        free_device_memory()  # the recording closure holds a cycle
+    return out
+
+
+#: the largest top-2 logit gap at which a bf16 batched greedy stream may
+#: part from its solo stream: a step of another batch composition splits
+#: K4's work list and the prefill chunks elsewhere, and the logits are
+#: bf16 values (a unit is 0.0625 between 8 and 16); the partings measured
+#: sat at gaps of 0 to 0.1875 (PERF.md §6), the limit is 4 units.
+#: The f32 oracle of phase 19 holds the same paths to exact equality
+NEAR_TIE = 0.25
+
+
+def _check_streams(what, streams, solo):
+    """Each stream against its solo ``(tokens, gaps)``: equal, or parting
+    first at a near-tie of the solo run (gap at most ``NEAR_TIE``).
+    Returns ``(exact, [(request, position, gap), ...])``; raises on a
+    stream that parts where the solo choice was clear."""
+    exact, ties = 0, []
+    for i, s in streams.items():
+        toks, gaps = solo[i]
+        if s == toks:
+            exact += 1
+            continue
+        j = next((j for j, (a, b) in enumerate(zip(s, toks)) if a != b),
+                 min(len(s), len(toks)))
+        if j >= len(gaps) or gaps[j] > NEAR_TIE:
+            raise AssertionError(
+                f"{what}: request {i} parts from its solo stream at token "
+                f"{j}, where the solo run's top-2 gap is "
+                f"{gaps[j] if j < len(gaps) else None} (> {NEAR_TIE})")
+        ties.append((i, j, round(gaps[j], 5)))
+    return exact, ties
+
+
+def _ledger_step_cost(model, prompts):
+    """Mean engine step (wall / steps) over the same 8 requests with the
+    request ledger armed and disarmed, in turns A B B A."""
+    from paddle_tpu_torch.serving import ServingEngine
+    res = {True: [], False: []}
+    for armed in (True, False, False, True):
+        eng = ServingEngine(model, max_batch=8, block_size=16,
+                            prefill_chunk=512, max_blocks=2048,
+                            request_ledger=armed)
+        hs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        res[armed].append(1e3 * (time.perf_counter() - t0) / eng.steps)
+        for h in hs:
+            h.result(60)
+        del eng, hs
+        free_device_memory()
+    return res
+
+
+def f32_exactness(prompts):
+    """Phase 19's exactness oracle: Llama-3-8B widths cut to 2 layers in
+    float32 (K4's FMA kernel, no bf16 rounding): a concurrent batch of
+    phase 4's prompts through one engine, and through a prefill ->
+    decode fleet sharing the model, each equal to its solo greedy
+    stream token for token."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import FleetRouter, ServingEngine, \
+        build_fleet
+    cfg = LlamaConfig.llama3_8b(num_hidden_layers=2)
+    model = LlamaForCausalLM(cfg, dtype="float32", seed=SEED + 19)
+    kw = dict(max_batch=8, block_size=16, prefill_chunk=512,
+              max_blocks=2048)
+    solo = [toks for toks, _ in _solo_streams(model, prompts,
+                                              PROD_NEW_TOKENS)]
+    eng = ServingEngine(model, **kw)
+    hs = [eng.submit(p, max_new_tokens=PROD_NEW_TOKENS) for p in prompts]
+    eng.run_until_idle()
+    batched = [h.result(60)["token_ids"] for h in hs]
+    del eng, hs
+    free_device_memory()
+    reps = build_fleet(lambda: model, 2, roles=["prefill", "decode"], **kw)
+    router = FleetRouter(reps)
+    router.start()
+    try:
+        hs = [router.submit(p, max_new_tokens=PROD_NEW_TOKENS)
+              for p in prompts]
+        fleet = [h.result(300)["token_ids"] for h in hs]
+    finally:
+        router.shutdown(drain=True)
+    if batched != solo or fleet != solo:
+        raise AssertionError(f"f32: batched {batched} / fleet {fleet} != "
+                             f"solo {solo}")
+    log(f"serving prod (f32 oracle): Llama-3-8B widths at 2 layers, f32: "
+        f"{len(prompts)} concurrent requests through one engine and "
+        f"through a prefill -> decode fleet, every stream equal to its "
+        f"solo greedy stream ({PROD_NEW_TOKENS} tokens)")
+    del reps, router, model
+    free_device_memory()
+
+
+def production_server(model, cfg, prompts, solo, work_dir):
+    """Phase 19(a): one engine behind ``Server(max_queue_depth=4)``."""
+    from paddle_tpu_torch.observability import memory as obs_memory
+    from paddle_tpu_torch.observability import profile as obs_profile
+    from paddle_tpu_torch.observability import requests as obs_requests
+    from paddle_tpu_torch.observability import slo
+    from paddle_tpu_torch.ops.pallas import ragged_paged_attention as rpa
+    from paddle_tpu_torch.serving import Server, ServingEngine
+    from paddle_tpu_torch.serving.engine import serving_metrics
+
+    led = obs_requests.active()
+    slo.configure({"ttft_p99": (10.0, 0.99), "success": (0.99, 0.99)},
+                  windows_s=(60.0, 600.0))
+    obs_profile.set_trace_dir(work_dir)
+    engine = ServingEngine(model, max_batch=8, block_size=16,
+                           prefill_chunk=512, max_blocks=2048)
+    fam = serving_metrics()
+    base = {k: fam["requests"].value(outcome=k)
+            for k in ("accepted", "completed", "failed")}
+    rej0 = {r: fam["rejections"].value(reason=r)
+            for r in ("queue_full", "deadline")}
+    tok0 = {k: fam["tokens"].value(kind=k) for k in ("prompt", "generated")}
+    burst = [prompts[i % len(prompts)] for i in range(PROD_BURST)]
+    results = [None] * len(burst)
+    tid = [f"{0x19a00000 + i:032x}" for i in range(len(burst))]
+    out = {}
+    with Server(engine, max_queue_depth=4) as srv:
+        t_fire = time.perf_counter() + 0.05
+
+        def fire(i):
+            # one arrival every 10 ms: each shed check sees the queue the
+            # earlier arrivals built (arrivals at one instant would all
+            # pass the check before any of them was queued)
+            time.sleep(max(t_fire + 0.01 * i - time.perf_counter(), 0))
+            results[i] = _http("POST", srv.url + "/generate", {
+                "prompt_ids": burst[i], "max_new_tokens": PROD_NEW_TOKENS,
+                "stream": i % 2 == 1},
+                {"traceparent": f"00-{tid[i]}-00f067aa0ba902b7-01"})
+        threads = [threading.Thread(target=fire, args=(i,))
+                   for i in range(len(burst))]
+        torch.cuda.reset_peak_memory_stats()
+        rpa.ragged_paged_attention.launches = 0
+        steps0 = engine.steps
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        # /statusz and /metrics while requests are in flight
+        deadline = time.monotonic() + 120
+        while not (engine.steps > steps0 and
+                   engine.stats()["requests_in_flight"]) and \
+                time.monotonic() < deadline:
+            time.sleep(0.005)
+        t_s = time.perf_counter()
+        _, _, statusz = _http("GET", srv.url + "/statusz?format=json")
+        statusz_ms = 1e3 * (time.perf_counter() - t_s)
+        scrape_ms = []
+        for _ in range(5):
+            t_s = time.perf_counter()
+            _http("GET", srv.url + "/metrics")
+            scrape_ms.append(1e3 * (time.perf_counter() - t_s))
+        # the profiler window opens during the burst; a second one is 409
+        t_s = time.perf_counter()
+        code1, _, body1 = _http("POST", srv.url + "/debug/profile?seconds=2")
+        profile_start_ms = 1e3 * (time.perf_counter() - t_s)
+        code2, _, body2 = _http("POST", srv.url + "/debug/profile?seconds=2")
+        # one request straight into the engine while the window is open,
+        # so the window holds engine steps whatever the burst has left
+        prof_tid = "e" * 32
+        prof_h = engine.submit(prompts[2], max_new_tokens=PROD_NEW_TOKENS,
+                               trace_id=prof_tid)
+        prof_toks = prof_h.result(600)["token_ids"]
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        launches = rpa.ragged_paged_attention.launches
+        steps = engine.steps - steps0
+        peak = torch.cuda.max_memory_allocated()
+        # the deadline request: 512 tokens in 50 ms cannot be served
+        dl_tid = "d" * 32
+        code_dl, hdr_dl, body_dl = _http("POST", srv.url + "/generate", {
+            "prompt_ids": prompts[0], "max_new_tokens": 512,
+            "deadline_s": 0.05},
+            {"traceparent": f"00-{dl_tid}-00f067aa0ba902b7-01"})
+        deadline = time.monotonic() + 60
+        while engine.stats()["requests_in_flight"] and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
+        code_bad, _, _ = _http("POST", srv.url + "/generate", {
+            "prompt_ids": prompts[0], "deadline_s": 0})
+        _, _, metrics_text = _http("GET", srv.url + "/metrics")
+        _, _, health = _http("GET", srv.url + "/healthz")
+        fleetz = _http("GET", srv.url + "/fleetz")[0]
+        deadline = time.monotonic() + 120
+        while obs_profile.capture_active() and time.monotonic() < deadline:
+            time.sleep(0.05)
+    health = json.loads(health)
+    statusz = json.loads(statusz)
+    # -- the burst: at least one 503, the accepted streams exact
+    codes = [r[0] for r in results]
+    shed = [i for i, c in enumerate(codes) if c == 503]
+    accepted = [i for i, c in enumerate(codes) if c == 200]
+    if not shed or len(shed) + len(accepted) != len(burst):
+        raise AssertionError(f"burst status codes {codes}")
+    for i in shed:
+        if not results[i][1].get("Retry-After"):
+            raise AssertionError("a 503 without Retry-After")
+    streams = {}
+    for i in accepted + shed:
+        code, hdr, body = results[i]
+        if tid[i] not in hdr.get("traceparent", ""):
+            raise AssertionError(f"request {i}: traceparent not echoed "
+                                 f"({hdr.get('traceparent')})")
+        if code != 200:
+            continue
+        if i % 2:
+            lines = [json.loads(x) for x in body.decode().splitlines()
+                     if x.strip()]
+            done = lines[-1]
+            toks = [x["token"] for x in lines if "token" in x]
+            if done["token_ids"] != toks:
+                raise AssertionError(f"request {i}: streamed tokens differ")
+        else:
+            done = json.loads(body)
+        if done.get("trace_id") != tid[i]:
+            raise AssertionError(f"request {i}: trace id {done}")
+        streams[i] = done["token_ids"]
+    exact, ties = _check_streams(
+        "(a)", {**streams, "profiled": prof_toks},
+        {**{i: solo[i % len(prompts)] for i in streams}, "profiled": solo[2]})
+    want = cfg.num_hidden_layers * steps
+    if launches != want or engine.rpa_launches < want:
+        raise AssertionError(f"rpa launches {launches} (engine "
+                             f"{engine.rpa_launches}) != {want}")
+    # -- the deadline: 504, aborted, blocks back
+    dl = json.loads(body_dl)
+    if code_dl != 504 or dl.get("trace_id") != dl_tid or \
+            dl_tid not in hdr_dl.get("traceparent", "") or code_bad != 400:
+        raise AssertionError(f"deadline: {code_dl} {dl} {code_bad}")
+    st = engine.stats()
+    if st["requests_in_flight"] or st["kv_blocks_in_use"]:
+        raise AssertionError(f"the aborted request kept its blocks: {st}")
+    engine.cache.allocator.assert_no_leaks()
+    # -- /metrics against the client's counts and the engine
+    prom = _prom(metrics_text.decode())
+
+    def delta(series, before):
+        return prom.get(series, 0.0) - before
+    recs = {d["trace_id"]: d for d in led.exemplars()}
+    dl_rec = recs[dl_tid]
+    gen = sum(len(s) for s in streams.values()) + len(prof_toks) + \
+        dl_rec["decode_tokens"]
+    prompt_tok = sum(recs[t]["prefilled_tokens"]
+                     for t in [tid[i] for i in accepted] + [prof_tid, dl_tid])
+    checks = {
+        "accepted": (delta('serving_requests_total{outcome="accepted"}',
+                           base["accepted"]), len(accepted) + 2),
+        "completed": (delta('serving_requests_total{outcome="completed"}',
+                            base["completed"]), len(accepted) + 1),
+        "failed": (delta('serving_requests_total{outcome="failed"}',
+                         base["failed"]), 1),
+        "queue_full": (delta('serving_rejections_total{reason="queue_full"}',
+                             rej0["queue_full"]), len(shed)),
+        "deadline": (delta('serving_rejections_total{reason="deadline"}',
+                           rej0["deadline"]), 1),
+        "generated": (delta('serving_tokens_total{kind="generated"}',
+                            tok0["generated"]), gen),
+        "prompt": (delta('serving_tokens_total{kind="prompt"}',
+                         tok0["prompt"]), prompt_tok),
+    }
+    bad = {k: v for k, v in checks.items() if v[0] != v[1]}
+    if bad or health["steps"] != engine.steps or \
+            health["rpa_launches_engine"] != engine.rpa_launches:
+        raise AssertionError(f"/metrics against the counts: {bad}")
+    # -- /statusz: burn rates and the top in-flight requests
+    burn = statusz["slo"]["slos"]["ttft_p99"]["burn_rate"]
+    top = statusz["requests"]["top_in_flight"]
+    if set(burn) != {"fast", "slow"} or not top or any(
+            "kv_block_seconds" not in r for r in top):
+        raise AssertionError(f"/statusz: {statusz}")
+    # -- the ledger's token accounting
+    for t in [tid[i] for i in accepted] + [prof_tid]:
+        r = recs[t]
+        if r["preemptions"] == 0 and \
+                r["prefilled_tokens"] + r["cached_tokens"] != r["prompt_len"]:
+            raise AssertionError(f"ledger record {r}")
+    cached = sum(recs[t]["cached_tokens"]
+                 for t in [tid[i] for i in accepted] + [prof_tid])
+    # -- the profiler window
+    cap = json.loads(body1)
+    if code1 != 200 or code2 != 409:
+        raise AssertionError(f"profile: {code1} {body1} {code2} {body2}")
+    trace_file = os.path.join(cap["trace_dir"], obs_profile.TRACE_FILE)
+    with open(trace_file) as f:
+        events = json.load(f)
+    events = events.get("traceEvents", events)
+    rpa_events = sum(1 for e in events
+                     if "rpa_wgmma_kernel" in str(e.get("name", "")))
+    if not rpa_events:
+        raise AssertionError("the profile window holds no rpa_wgmma_kernel")
+    trace_bytes = os.path.getsize(trace_file)
+    # -- memory: parameters and pools within 1%
+    snap = obs_memory.snapshot()
+    rep = engine.memory_report()
+    params = sum(p.numel() * p.element_size() for p in model.parameters())
+    # the RoPE tables ride with the parameters (4 MiB at 8B widths)
+    params += sum(b.numel() * b.element_size() for b in model.buffers())
+    pools = engine.cache.pool_bytes()
+    for what, got, want_b in (
+            ("snapshot params", snap["owners"]["serving_params"], params),
+            ("snapshot pools", snap["owners"]["kv_cache"], pools),
+            ("report", rep.argument_bytes, params + pools)):
+        if abs(got - want_b) > 0.01 * want_b:
+            raise AssertionError(f"memory {what}: {got} vs {want_b}")
+    log(f"serving prod (a): burst of {len(burst)} through Server("
+        f"max_queue_depth=4): {len(accepted)} accepted, {len(shed)} shed "
+        f"503 with Retry-After; accepted streams against their solo "
+        f"greedy streams ({PROD_NEW_TOKENS} tokens; with the request "
+        f"served in the profile window): {exact} equal, "
+        f"{len(ties)} parting at a solo near-tie (request, token, top-2 "
+        f"gap) {ties}; traceparent echoed on "
+        f"all {len(burst)}; {steps} engine steps, {launches} RPA launches "
+        f"(= {cfg.num_hidden_layers} x steps); wall {wall:.3f} s, mean "
+        f"step {1e3 * wall / steps:.3f} ms; window peak {peak} B; "
+        f"prefix-cache tokens {cached}")
+    log(f"serving prod (a): deadline_s=0.05 with 512 tokens -> {code_dl}, "
+        f"aborted after {dl_rec['decode_tokens']} tokens, its blocks back "
+        f"(kv_blocks_in_use 0); deadline_s=0 -> {code_bad}; /fleetz "
+        f"{fleetz}; /metrics parsed, {len(prom)} series, equal to the "
+        f"client's and the engine's counts: " + ", ".join(
+            f"{k} {v[0]:g}" for k, v in checks.items()))
+    log(f"serving prod (a): /metrics scrape {statistics.median(scrape_ms):.3f}"
+        f" ms median of 5 under load (max {max(scrape_ms):.3f}); /statusz "
+        f"{statusz_ms:.3f} ms, burn rates {burn}, {len(top)} top in-flight "
+        f"requests by KV block-seconds")
+    log(f"serving prod (a): profile window 2 s -> {code1} (the POST took "
+        f"{profile_start_ms:.1f} ms), second POST -> "
+        f"{code2}; trace {trace_bytes} B with {rpa_events} rpa_wgmma_kernel "
+        f"events, export_chrome_trace "
+        f"{obs_profile.last_export_seconds:.3f} s")
+    log(f"serving prod (a): memory snapshot serving_params "
+        f"{snap['owners']['serving_params']} B (parameters and RoPE "
+        f"tables {params} B), "
+        f"kv_cache {snap['owners']['kv_cache']} B (pools {pools} B); "
+        f"memory_report {rep.to_json()}")
+    out.update(launches=launches, steps=steps, wall=wall, peak=peak,
+               exact=exact, ties=ties,
+               scrape_ms=statistics.median(scrape_ms),
+               accepted=len(accepted), shed=len(shed))
+    del engine
+    free_device_memory()
+    slo.reset()
+    return out
+
+
+def production_fleet(model, cfg, prompts, solo, work_dir):
+    """Phase 19(b): one prefill and one decode replica, one model."""
+    from paddle_tpu_torch.observability import trace
+    from paddle_tpu_torch.observability import requests as obs_requests
+    from paddle_tpu_torch.ops.pallas import ragged_paged_attention as rpa
+    from paddle_tpu_torch.serving import FleetRouter, RouterServer, \
+        build_fleet
+
+    free, total = torch.cuda.mem_get_info()
+    pool_bytes = 2 * cfg.num_hidden_layers * 2049 * 16 * \
+        cfg.num_key_value_heads * 128 * 2
+    if free < 2 * pool_bytes + (2 << 30):
+        raise AssertionError(f"{free} B free: two pool sets of "
+                             f"{pool_bytes} B do not fit")
+    led = obs_requests.active()
+    reps = build_fleet(lambda: model, 2, roles=["prefill", "decode"],
+                       max_batch=8, block_size=16, prefill_chunk=512,
+                       max_blocks=2048)
+    router = FleetRouter(reps)
+    handoff = {"export_ms": [], "import_ms": [], "import_call_ms": [],
+               "bytes": []}
+
+    def timed(obj, name, key):
+        """Time ``obj.name`` (synchronized), into ``handoff[key]``."""
+        fn = getattr(obj, name)
+
+        def wrapped(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            handoff[key].append(1e3 * (time.perf_counter() - t))
+            if name == "export_blocks":
+                handoff["bytes"].append(sum(x.numel() * x.element_size()
+                                            for x in out))
+            return out
+        setattr(obj, name, wrapped)
+    # the copies themselves, and the decode replica's whole import call
+    # (which waits for the step in flight to take the engine's lock)
+    timed(reps[0].engine.cache, "export_blocks", "export_ms")
+    timed(reps[1].engine.cache, "import_blocks", "import_ms")
+    timed(reps[1].engine, "import_kv_blocks", "import_call_ms")
+    trace_dir = os.path.join(work_dir, "spans")
+    trace.enable(trace_dir)
+    tid = [f"{0x19b00000 + i:032x}" for i in range(len(prompts))]
+    results = [None] * len(prompts)
+    try:
+        with RouterServer(router, max_queue_depth=8) as srv:
+            def fire(i):
+                results[i] = _http("POST", srv.url + "/generate", {
+                    "prompt_ids": prompts[i],
+                    "max_new_tokens": PROD_NEW_TOKENS,
+                    "stream": i % 2 == 1},
+                    {"traceparent": f"00-{tid[i]}-00f067aa0ba902b7-01"})
+            threads = [threading.Thread(target=fire, args=(i,))
+                       for i in range(len(prompts))]
+            torch.cuda.reset_peak_memory_stats()
+            rpa.ragged_paged_attention.launches = 0
+            own0 = [r.engine.rpa_launches for r in reps]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=900)
+            wall = time.perf_counter() - t0
+            launches = rpa.ragged_paged_attention.launches
+            own = [r.engine.rpa_launches - o for r, o in zip(reps, own0)]
+            peak = torch.cuda.max_memory_allocated()
+            fleetz = json.loads(_http("GET", srv.url + "/fleetz")[2])
+    finally:
+        trace.disable()
+    streams = {}
+    for i, (code, hdr, body) in enumerate(results):
+        if code != 200:
+            raise AssertionError(f"fleet request {i}: {code} {body[:200]}")
+        if i % 2:
+            lines = [json.loads(x) for x in body.decode().splitlines()
+                     if x.strip()]
+            streams[i] = lines[-1]["token_ids"]
+        else:
+            streams[i] = json.loads(body)["token_ids"]
+    exact, ties = _check_streams("(b)", streams, solo)
+    if min(own) <= 0 or sum(own) != launches:
+        raise AssertionError(f"K4 launches per replica {own}, global "
+                             f"{launches}")
+    recs = {}
+    for d in led.exemplars():
+        recs.setdefault(d["trace_id"], []).append(d)
+    for i, p in enumerate(prompts):
+        pre, dec = recs[tid[i]][0], recs[tid[i]][-1]
+        full = len(p) // 16 * 16
+        if pre["prefilled_tokens"] != len(p) or \
+                dec["cached_tokens"] != min(full, len(p) - 1) or \
+                dec["prefilled_tokens"] >= 16:
+            raise AssertionError(f"fleet request {i}: prefill {pre}, "
+                                 f"decode {dec}")
+    summary = __import__(
+        "paddle_tpu_torch.observability.trace", fromlist=["merge"]).merge(
+        trace_dir, requests=True)
+    chains = summary["requests"]["requests"]
+    with open(os.path.join(trace_dir, "merged_trace.json")) as f:
+        by_tid = {}
+        for e in json.load(f)["traceEvents"]:
+            t = (e.get("args") or {}).get("trace")
+            if t is not None:
+                by_tid.setdefault(t, []).append(e["name"])
+    for t in tid:
+        names = by_tid.get(t, [])
+        if chains[t]["spans"] < 8 or names.count("router_route") != 2 or \
+                names.count("router_handoff") != 1 or \
+                names.count("request_done") != 2:
+            raise AssertionError(f"trace chain of {t}: {names}")
+    n = len(prompts)
+    log(f"serving prod (b): fleet of 1 prefill + 1 decode replica sharing "
+        f"one model, behind RouterServer: {n} requests of {SERVING_LENS} "
+        f"tokens x {PROD_NEW_TOKENS}: against one engine's solo streams "
+        f"{exact} equal, {len(ties)} parting at a solo near-tie {ties}; "
+        f"routing {fleetz['routing']}; K4 launches prefill {own[0]}, decode "
+        f"{own[1]} (sum {sum(own)} = global {launches}); wall {wall:.3f} s; "
+        f"window peak {peak} B")
+    log(f"serving prod (b): KV handoff per request: export "
+        f"{statistics.median(handoff['export_ms']):.3f} ms median (max "
+        f"{max(handoff['export_ms']):.3f}), import "
+        f"{statistics.median(handoff['import_ms']):.3f} ms median (max "
+        f"{max(handoff['import_ms']):.3f}; the whole import call, waiting "
+        f"for the decode replica's step, "
+        f"{statistics.median(handoff['import_call_ms']):.3f} ms median), "
+        f"{statistics.median(handoff['bytes'])} B median ({min(handoff['bytes'])}"
+        f"-{max(handoff['bytes'])} B); decode replica cached tokens "
+        f"{[recs[t][-1]['cached_tokens'] for t in tid]}, prefilled "
+        f"{[recs[t][-1]['prefilled_tokens'] for t in tid]}; trace merge "
+        f"--requests: {len(chains)} chains, router + both replicas")
+    router.shutdown(drain=True)
+    del reps, router
+    free_device_memory()
+    return dict(launches=launches, own=own, wall=wall, peak=peak,
+                **handoff)
+
+
+def production_failover(model, prompts, solo):
+    """Phase 19(c): kill the mixed replica serving a stream after 3
+    tokens; the survivor, holding the prompt's prefix, finishes it."""
+    from paddle_tpu_torch.observability import requests as obs_requests
+    from paddle_tpu_torch.serving import FleetRouter, build_fleet
+
+    led = obs_requests.active()
+    reps = build_fleet(lambda: model, 2, max_batch=8, block_size=16,
+                       prefill_chunk=512, max_blocks=2048)
+    router = FleetRouter(reps)
+    router.start()
+    prompt = prompts[4]
+    got, seen3, killed = [], threading.Event(), threading.Event()
+
+    def on_tok(_h, t):
+        got.append(t)
+        if len(got) >= 3:
+            seen3.set()
+            if not killed.is_set():
+                killed.wait(30)  # hold the victim's step until the kill
+
+    tid = "c" * 32
+    try:
+        h = router.submit(prompt, max_new_tokens=PROD_NEW_TOKENS,
+                          on_token=on_tok, trace_id=tid)
+        if not seen3.wait(300):
+            raise AssertionError("no third token")
+        victim = h._attempt_replica
+        survivor = reps[1] if victim is reps[0] else reps[0]
+        survivor.engine.submit(prompt, max_new_tokens=2).result(300)
+        killer = threading.Thread(target=victim.kill)
+        killer.start()
+        time.sleep(0.1)
+        killed.set()
+        killer.join(60)
+        res = h.result(300)
+    finally:
+        router.shutdown(drain=True)
+    rec = [d for d in led.exemplars()
+           if d["trace_id"] == tid and d["error"] is None][-1]
+    exact, ties = _check_streams("(c)", {4: res["token_ids"]}, solo)
+    if res["token_ids"] != got or res["failovers"] != 1 or rec["cached_tokens"] < len(prompt) // \
+            16 * 16 or rec["cached_tokens"] + rec["prefilled_tokens"] != \
+            rec["prompt_len"]:
+        raise AssertionError(f"failover: {res} {got} {rec}")
+    log(f"serving prod (c): the replica serving a {len(prompt)}-token "
+        f"prompt killed after its third token; the survivor "
+        f"finished all {len(got)}, each streamed once (against the solo "
+        f"stream: {'equal' if exact else ties}; failovers "
+        f"{res['failovers']}), its attempt cached {rec['cached_tokens']} "
+        f"of {rec['prompt_len']} tokens and prefilled "
+        f"{rec['prefilled_tokens']}")
+    del reps, router
+    free_device_memory()
+
+
+def phase_serving_production():
+    """Phase 19. Returns the launch counts of (a) and (b)."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.observability import profile as obs_profile
+    from paddle_tpu_torch.observability import requests as obs_requests
+
+    free_device_memory()
+    t_phase = time.perf_counter()
+    parts = {}
+    cfg = LlamaConfig.llama3_8b()
+    rng = np.random.RandomState(SEED)
+    prompts = _phase4_prompts(cfg, rng)
+    # every completed record kept, so each request's can be read back
+    obs_requests.disable()
+    obs_requests.maybe_arm(sample_rate=1.0)
+    work_dir = tempfile.mkdtemp(prefix="phase19_", dir=REPO_ROOT)
+    try:
+        t = time.perf_counter()
+        f32_exactness(prompts)
+        parts["f32 oracle"] = time.perf_counter() - t
+        model = LlamaForCausalLM(cfg, dtype="bfloat16", seed=SEED)
+        t = time.perf_counter()
+        solo = _solo_streams(model, prompts, PROD_NEW_TOKENS)
+        parts["solo streams"] = time.perf_counter() - t
+        gaps = sorted(g for _, gs in solo for g in gs)
+        log(f"serving prod: solo greedy streams of phase 4's 8 prompts x "
+            f"{PROD_NEW_TOKENS} tokens; top-2 logit gap over their "
+            f"{len(gaps)} choices: min {gaps[0]:.5f}, 5th percentile "
+            f"{gaps[len(gaps) // 20]:.5f}, median "
+            f"{statistics.median(gaps):.5f}, max {gaps[-1]:.5f}")
+        t = time.perf_counter()
+        cost = _ledger_step_cost(model, prompts)
+        parts["ledger cost"] = time.perf_counter() - t
+        log("serving prod: mean engine step over phase 4's 8 requests x 8 "
+            "tokens, ledger armed / disarmed in turns A B B A: armed "
+            + " / ".join(f"{x:.3f}" for x in cost[True]) + " ms, disarmed "
+            + " / ".join(f"{x:.3f}" for x in cost[False]) + " ms")
+        t = time.perf_counter()
+        a = production_server(model, cfg, prompts, solo, work_dir)
+        parts["(a) server"] = time.perf_counter() - t
+        t = time.perf_counter()
+        b = production_fleet(model, cfg, prompts, solo, work_dir)
+        parts["(b) fleet"] = time.perf_counter() - t
+        t = time.perf_counter()
+        production_failover(model, prompts, solo)
+        parts["(c) failover"] = time.perf_counter() - t
+    finally:
+        obs_profile.set_trace_dir(None)
+        obs_requests.disable()
+        shutil.rmtree(work_dir, ignore_errors=True)
+    del model
+    free_device_memory()
+    log("phase 19 seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()) +
+        f"; phase 19 {time.perf_counter() - t_phase:.1f} s")
+    return {"serving_prod": a["launches"], "fleet": b["launches"]}, \
+        {"armed_ms": cost[True], "disarmed_ms": cost[False]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch",
@@ -5266,6 +5957,7 @@ def main():
     rpa_paths, f16_step_err = phase_quantized_serving(serving_peak)
     p17 = phase_moe_and_incubate(llama_sweep)
     export_counts, export_rec = phase_export_and_deploy()
+    prod_launches, ledger_cost = phase_serving_production()
     # each path's launches were counted from 0 over its own run; a kernel
     # on several paths reports their sum, and each path's count beside it
     paths = {"train": counts, "moe_train": moe, "fit": fit, "ernie": ernie,
@@ -5278,7 +5970,7 @@ def main():
         by_path = {p: c[kname] for p, c in paths.items()}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
     rpa_paths = {"serving": launches, **rpa_paths,
-                 "moe_serving": p17["moe_serving"]}
+                 "moe_serving": p17["moe_serving"], **prod_launches}
     kernels = [dict(
         name="ragged_paged_attention", route="cuda",
         source="paddle_tpu_torch/ops/pallas/csrc/ragged_paged_attention.cu",
@@ -5287,7 +5979,8 @@ def main():
         library_ms=None, **rec, float16=dict(
             rec_f16, launches=rpa_paths["serving_f16"],
             engine_step_max_abs_err=f16_step_err),
-        at_moe_heads=p17["rpa_moe"], autotune=p17["autotune"])]
+        at_moe_heads=p17["rpa_moe"], autotune=p17["autotune"],
+        serving_ledger_step_ms=ledger_cost)]
     for kname, replaces in FLASH_KERNELS:
         kernels.append(dict(name=kname, route="cuda", source=FLASH_SRC,
                             replaces=replaces, **path_launches(kname),

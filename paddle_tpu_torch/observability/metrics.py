@@ -4,16 +4,21 @@ Labeled Counter / Gauge / Histogram families in a
 :class:`MetricsRegistry`, with the reference's label-cardinality guard
 (``PADDLE_TPU_METRICS_MAX_LABELSETS``), and the process-wide default
 registry (:func:`get_registry`) that the loader (``loader_*``), the data
-pipeline (``data_*``), the checkpoint writer (``ckpt_*``) and the
-resilience layer (``resilience_*``) record into.
+pipeline (``data_*``), the checkpoint writer (``ckpt_*``), the
+resilience layer (``resilience_*``) and the serving engine
+(``serving_*``) record into.
 
-Not ported yet: the Prometheus-text and JSON exposition and the HTTP
-exporter (``MetricsExporter``, ``start_exporter``); they raise
-``NotImplementedError``. Read a family's values with ``value()``,
-``total()`` or ``stats()``.
+Two exposition sinks render a registry, byte for byte as the
+reference's: Prometheus text (``prometheus_text``) and a JSON document
+(``to_json``). :class:`MetricsExporter` serves both over stdlib HTTP
+(``/metrics``, ``/metrics.json``) with ``/healthz`` and ``/statusz``;
+its ``/fleetz`` answers 501 until ``observability.fleet``'s snapshot is
+ported. ``start_exporter``'s host is an argument (loopback by default):
+the reference's ``PADDLE_TPU_METRICS_HOST`` is not read.
 """
 from __future__ import annotations
 
+import json
 import os
 import threading
 import warnings
@@ -21,7 +26,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
            "get_registry", "start_exporter", "maybe_start_exporter",
-           "MetricsExporter"]
+           "MetricsExporter", "stop_exporter"]
 
 _LabelKey = Tuple[Tuple[str, str], ...]
 
@@ -45,6 +50,18 @@ def _max_label_sets() -> int:
 
 def _label_key(labels: Dict[str, object]) -> _LabelKey:
     return tuple(sorted((k, str(v)) for k, v in labels.items()))
+
+
+def _escape_label(v: str) -> str:
+    """Prometheus label-value escaping: backslash, quote, newline."""
+    return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _render_labels(key: _LabelKey, extra: str = "") -> str:
+    parts = [f'{k}="{_escape_label(v)}"' for k, v in key]
+    if extra:
+        parts.append(extra)
+    return "{" + ",".join(parts) + "}" if parts else ""
 
 
 class _Metric:
@@ -165,8 +182,19 @@ class Histogram(_Metric):
                     "mean": st["sum"] / max(st["count"], 1)}
 
 
+def _snapshot(m: _Metric):
+    """Sorted ``(labels, value)`` items copied under the metric's lock: a
+    histogram's sample dict is live state, so a scrape must not read it
+    after the lock is released."""
+    with m._lock:
+        return sorted(
+            (k, dict(v, counts=list(v["counts"])) if isinstance(v, dict)
+             else v)
+            for k, v in m._samples.items())
+
+
 class MetricsRegistry:
-    """Named metric collection."""
+    """Named metric collection with Prometheus-text and JSON exposition."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -208,14 +236,58 @@ class MetricsRegistry:
         for m in metrics:
             m.clear()
 
+    def _metric_snapshot(self):
+        """Sorted ``(name, metric)`` pairs under the registry lock, so a
+        scrape never iterates the dict while a family is registered."""
+        with self._lock:
+            return sorted(self._metrics.items())
+
+    # -- exposition -----------------------------------------------------------
     def prometheus_text(self) -> str:
-        raise NotImplementedError(
-            "the Prometheus exposition is not ported to paddle_tpu_torch "
-            "yet; read the families through value()/total()/stats()")
+        lines = []
+        for name, m in self._metric_snapshot():
+            if m.help:
+                lines.append(f"# HELP {name} {m.help}")
+            lines.append(f"# TYPE {name} {m.kind}")
+            items = _snapshot(m)
+            if isinstance(m, Histogram):
+                for key, st in items:
+                    # per-bucket counts are already cumulative
+                    for b, c in zip(m.buckets, st["counts"]):
+                        le = 'le="%s"' % b
+                        lines.append(
+                            f"{name}_bucket{_render_labels(key, le)} {c}")
+                    inf = 'le="+Inf"'
+                    lines.append(
+                        f"{name}_bucket{_render_labels(key, inf)} "
+                        f"{st['count']}")
+                    lines.append(
+                        f"{name}_sum{_render_labels(key)} {st['sum']}")
+                    lines.append(
+                        f"{name}_count{_render_labels(key)} {st['count']}")
+            else:
+                for key, v in items:
+                    lines.append(f"{name}{_render_labels(key)} {v}")
+        return "\n".join(lines) + "\n"
 
     def to_json(self) -> dict:
-        raise NotImplementedError(
-            "the JSON exposition is not ported to paddle_tpu_torch yet")
+        """Structured exposition: one entry per metric, its samples with
+        label dicts."""
+        out = {}
+        for name, m in self._metric_snapshot():
+            samples = []
+            for key, v in _snapshot(m):
+                entry = {"labels": dict(key)}
+                if isinstance(m, Histogram):
+                    entry.update({"sum": v["sum"], "count": v["count"],
+                                  "buckets": dict(zip(
+                                      (str(b) for b in m.buckets),
+                                      v["counts"]))})
+                else:
+                    entry["value"] = v
+                samples.append(entry)
+            out[name] = {"type": m.kind, "help": m.help, "samples": samples}
+        return out
 
 
 _default = MetricsRegistry()
@@ -227,21 +299,119 @@ def get_registry() -> MetricsRegistry:
 
 
 class MetricsExporter:
-    def __init__(self, *a, **kw):
-        raise NotImplementedError(
-            "the metrics HTTP exporter is not ported to paddle_tpu_torch "
-            "yet")
+    """Background HTTP exposition server (daemon thread): ``/metrics``
+    (Prometheus text), ``/metrics.json``, ``/healthz`` (rank, job id and
+    the age of the last step), ``/statusz`` (SLO burn rates and the
+    request ledger; ``?format=json`` for the raw payload) and
+    ``/fleetz`` (501 until the fleet snapshot is ported), on ``port``
+    (0 picks an ephemeral port; ``self.port`` holds the bound one)."""
+
+    def __init__(self, port: int, registry: Optional[MetricsRegistry] = None,
+                 host: str = "127.0.0.1"):
+        import http.server
+
+        registry = registry or get_registry()
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802 (stdlib API)
+                # lazy imports: metrics is the substrate the other
+                # observability modules import
+                code = 200
+                if self.path.startswith("/metrics.json"):
+                    body = json.dumps(registry.to_json()).encode()
+                    ctype = "application/json"
+                elif self.path.startswith("/metrics"):
+                    body = registry.prometheus_text().encode()
+                    ctype = "text/plain; version=0.0.4"
+                elif self.path.startswith("/fleetz"):
+                    from . import fleet
+                    try:
+                        body = json.dumps(fleet.fleetz_snapshot()).encode()
+                    except NotImplementedError as e:
+                        code, body = 501, json.dumps(
+                            {"error": str(e)}).encode()
+                    ctype = "application/json"
+                elif self.path.startswith("/healthz"):
+                    from . import fleet
+                    body = json.dumps(
+                        {"status": "ok", **fleet.healthz_fields()}).encode()
+                    ctype = "application/json"
+                elif self.path.startswith("/statusz"):
+                    from . import requests as obs_requests
+                    payload = obs_requests.statusz_payload()
+                    if "format=json" in self.path:
+                        body = json.dumps(payload).encode()
+                        ctype = "application/json"
+                    else:
+                        body = obs_requests.render_statusz_html(
+                            payload).encode()
+                        ctype = "text/html; charset=utf-8"
+                else:
+                    self.send_error(404)
+                    return
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):  # keep test output quiet
+                pass
+
+        self.registry = registry
+        self._server = http.server.ThreadingHTTPServer((host, port), Handler)
+        self.port = self._server.server_address[1]
+        self._thread = threading.Thread(
+            target=self._server.serve_forever, name="pt-metrics-exporter",
+            daemon=True)
+        self._thread.start()
+
+    def stop(self):
+        self._server.shutdown()
+        self._server.server_close()
+        self._thread.join(timeout=5)
 
 
-def start_exporter(*a, **kw):
-    raise NotImplementedError(
-        "the metrics HTTP exporter is not ported to paddle_tpu_torch yet")
+_exporter_state = {"exporter": None}
 
 
-def maybe_start_exporter():
-    """Env-gated start: ``PADDLE_TPU_METRICS_PORT`` asks for the exporter,
-    which is not ported, so a set port raises."""
+def start_exporter(port: int, registry: Optional[MetricsRegistry] = None,
+                   host: str = "127.0.0.1") -> MetricsExporter:
+    """Start (or return the already-running) exposition server; a second
+    call asking for another port or registry warns and keeps the first."""
+    existing = _exporter_state["exporter"]
+    if existing is not None:
+        if (port and port != existing.port) or \
+                (registry is not None and registry is not existing.registry):
+            warnings.warn(
+                f"metrics exporter already running on port {existing.port} "
+                f"with its own registry; ignoring start_exporter(port="
+                f"{port}) — stop_exporter() first to rebind",
+                RuntimeWarning, stacklevel=2)
+        return existing
+    _exporter_state["exporter"] = MetricsExporter(port, registry, host=host)
+    return _exporter_state["exporter"]
+
+
+def maybe_start_exporter() -> Optional[MetricsExporter]:
+    """Env-gated start: a no-op unless ``PADDLE_TPU_METRICS_PORT`` holds
+    a positive port (an unparsable value is off, and a taken port keeps
+    whatever runs)."""
     port = os.environ.get("PADDLE_TPU_METRICS_PORT")
-    if port and port.strip() not in ("", "0"):
-        start_exporter(port)
-    return None
+    try:
+        port_n = int(port) if port else 0
+    except ValueError:
+        port_n = 0
+    if port_n <= 0:
+        return _exporter_state["exporter"]
+    try:
+        return start_exporter(port_n)
+    except OSError:
+        return _exporter_state["exporter"]
+
+
+def stop_exporter():
+    exp = _exporter_state["exporter"]
+    if exp is not None:
+        exp.stop()
+        _exporter_state["exporter"] = None

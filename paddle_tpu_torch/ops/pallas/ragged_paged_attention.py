@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import numpy as np
 import torch
@@ -452,9 +453,7 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, cu_seqlens,
     if q.dtype != torch.float32:
         out = _rpa_wgmma(q, k_pool, v_pool, block_tables, cu_seqlens,
                          context_lens, step_seq, step_blk, sm_scale)[0]
-        ragged_paged_attention.launches += 1
-        if q.dtype == torch.float16:
-            ragged_paged_attention.launches_f16 += 1
+        _count_launch(q.dtype == torch.float16)
         return out
     out = torch.empty(T, n_heads, hd, dtype=q.dtype, device=q.device)
     lib = _lib()
@@ -471,8 +470,29 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, cu_seqlens,
             q.stride(0), q.stride(1), out.stride(0), out.stride(1),
             float(sm_scale), stream)
     _raise_on(lib, rc)
-    ragged_paged_attention.launches += 1
+    _count_launch(False)
     return out
+
+
+_count_lock = threading.Lock()
+_thread_counts = threading.local()
+
+
+def _count_launch(f16: bool):
+    """One launch of the kernel: the process-wide counts, under a lock
+    (two serving engines launch from two threads), and the calling
+    thread's own count (:func:`thread_launches`)."""
+    with _count_lock:
+        ragged_paged_attention.launches += 1
+        if f16:
+            ragged_paged_attention.launches_f16 += 1
+    _thread_counts.launches = getattr(_thread_counts, "launches", 0) + 1
+
+
+def thread_launches() -> int:
+    """The kernel launches made on the calling thread so far: a serving
+    engine reads it around its step to count its own launches."""
+    return getattr(_thread_counts, "launches", 0)
 
 
 #: kernel launches since the count was last set to 0 (CPU calls, which

@@ -37,15 +37,32 @@ whose gates' ``l_aux`` is cleared after every step. The q tile of the
 RPA kernel is ``DEFAULT_TILE_Q``, or with ``FLAGS_use_autotune`` on the
 card the winner of ``rpa_tile_q``'s sweep for the engine's signature.
 
+Production telemetry, as the reference's: the ``serving_*`` metric
+families (queue depth, running/waiting, TTFT, queue-wait, inter-token
+and latency histograms, token, preemption and step counters, KV
+headroom, block-seconds, prefix-cache counters); the per-request ledger
+(``observability.requests``, armed unless ``request_ledger=False``);
+the per-request span chain (``queue_wait`` -> ``prefill_chunk`` ->
+``decode`` -> ``request_done``) into ``observability.trace`` when a
+writer is armed, each span carrying the request's W3C trace id
+(``submit(trace_id=)``); the device-memory ledger's owners (``kv_cache``,
+``serving_params``) and :meth:`ServingEngine.memory_report`; the
+``/healthz`` liveness stamp (``observability.fleet.note_step``); and
+the fleet's KV handoff (:meth:`ServingEngine.export_kv_blocks`,
+:meth:`ServingEngine.import_kv_blocks`).
+
 What differs from the reference: PyTorch runs the step eagerly, so
 there is no compiled executable and no trace counter — ``stats()``
-reports the number of ``steps`` and the kernel's ``rpa_launches``
-instead; the KV pools are updated in place rather than threaded
-through the step; the reference's ``PADDLE_TPU_QUANT_WEIGHTS``,
-``PADDLE_TPU_QUANT_KV`` and ``PADDLE_TPU_PREFIX_CACHE`` are not read
-(the arguments carry them); and tensor-parallel ``mesh=`` (it raises
-``NotImplementedError``), the request ledger, the decode numerics
-sampling and the fleet KV handoff are not ported yet.
+reports the number of ``steps`` and the kernel's launches instead
+(``rpa_launches`` process-wide, ``rpa_launches_engine`` this engine's
+own: two engines may serve from one card); the KV pools are updated in
+place rather than threaded through the step; ``memory_report()`` is
+measured on a zero-work step, not read from a compiler; the
+reference's ``PADDLE_TPU_QUANT_WEIGHTS``, ``PADDLE_TPU_QUANT_KV``,
+``PADDLE_TPU_PREFIX_CACHE`` and ``PADDLE_TPU_REQUEST_LEDGER`` are not
+read (the arguments carry them); and tensor-parallel ``mesh=`` (it
+raises ``NotImplementedError``) and the decode numerics sampling are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -63,6 +80,11 @@ import torch
 from paddle_tpu_torch.core.dtype import dtype_name
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.models.generation import decode_surfaces, sample_token
+from paddle_tpu_torch.observability import fleet as obs_fleet
+from paddle_tpu_torch.observability import memory as obs_memory
+from paddle_tpu_torch.observability import requests as obs_requests
+from paddle_tpu_torch.observability import trace
+from paddle_tpu_torch.ops.pallas import ragged_paged_attention as rpa_mod
 from paddle_tpu_torch.ops.paged_attention import RaggedLayerCache
 from paddle_tpu_torch.ops.pallas.ragged_paged_attention import (
     DEFAULT_TILE_Q, build_step_maps, ragged_paged_attention, rpa_max_steps,
@@ -89,17 +111,89 @@ _serving_metrics_cache = None
 
 
 def serving_metrics(registry=None) -> dict:
-    """The ``serving_adapter_*`` metric families of the reference's
-    ``serving_metrics`` (its multi-tenant LoRA gauges and counters),
-    created on first use on ``observability.metrics``' registry. The
-    quantization gauges are ``quantization.weight_only.
-    quantization_metrics``'."""
+    """The ``serving_*`` metric families (created on first use) — one
+    accessor shared by the engine, the HTTP server's shed path and the
+    KV cache gauge. The default registry's dict is cached: the server's
+    503 shed path calls this per rejection. The quantization gauges are
+    ``quantization.weight_only.quantization_metrics``'."""
     global _serving_metrics_cache
     if registry is None and _serving_metrics_cache is not None:
         return _serving_metrics_cache
     from paddle_tpu_torch.observability import get_registry
     reg = registry if registry is not None else get_registry()
-    d = {
+    d = _build_serving_metrics(reg)
+    if registry is None:
+        _serving_metrics_cache = d
+    return d
+
+
+def _build_serving_metrics(reg) -> dict:
+    return {
+        "requests": reg.counter(
+            "serving_requests_total", "requests by final outcome"),
+        "queue": reg.gauge(
+            "serving_queue_depth", "requests waiting for a batch slot"),
+        "running": reg.gauge(
+            "serving_requests_running", "requests holding a batch slot"),
+        "waiting": reg.gauge(
+            "serving_requests_waiting", "requests queued (incl. preempted)"),
+        "ttft": reg.histogram(
+            "serving_ttft_seconds", "submit -> first generated token"),
+        "queue_wait": reg.histogram(
+            "serving_queue_wait_seconds",
+            "submit -> first batch-slot admission (the TTFT share spent "
+            "on queueing rather than prefill/compile)"),
+        "itl": reg.histogram(
+            "serving_inter_token_seconds", "gap between streamed tokens"),
+        "latency": reg.histogram(
+            "serving_request_latency_seconds", "submit -> request finished"),
+        "tokens": reg.counter(
+            "serving_tokens_total",
+            "tokens processed, by kind (prompt incl. recompute/generated)"),
+        "preemptions": reg.counter(
+            "serving_preemptions_total", "sequences preempted (recompute)"),
+        "steps": reg.counter(
+            "serving_engine_steps_total", "compiled steps run, by kind"),
+        "rejections": reg.counter(
+            "serving_rejections_total",
+            "requests shed by graceful degradation, by reason "
+            "(queue_full / deadline / fleet_saturated)"),
+        "in_flight": reg.gauge(
+            "serving_requests_in_flight",
+            "requests accepted but not yet finished (queued + running)"),
+        "kv_block_seconds": reg.counter(
+            "serving_kv_block_seconds_total",
+            "pool occupancy integral: KV blocks held by live sequences "
+            "x seconds held (the per-request cost ledger's denominator)"),
+        "kv_blocks": reg.gauge(
+            "serving_kv_blocks_in_use",
+            "KV-cache blocks currently held by live sequences"),
+        "kv_headroom": reg.gauge(
+            "serving_kv_headroom",
+            "fraction of KV-cache blocks allocatable (free + reclaimable "
+            "prefix-cached — the pressure signal before "
+            "preemption-by-recompute starts churning)"),
+        "kv_reclaimable": reg.gauge(
+            "serving_kv_reclaimable",
+            "fraction of KV-cache blocks parked refcount-0 in the prefix "
+            "cache's reclaimable LRU tier (cache capacity, not pressure)"),
+        "step_compiles": reg.gauge(
+            "serving_step_compiles",
+            "compiles of the ONE unified step executable (>1 means the "
+            "compile-once contract broke)"),
+        "prefix_lookups": reg.counter(
+            "serving_prefix_cache_lookups",
+            "admissions that consulted the prefix-cache index"),
+        "prefix_hits": reg.counter(
+            "serving_prefix_cache_hits",
+            "admissions that reused at least one cached KV block"),
+        "prefix_evictions": reg.counter(
+            "serving_prefix_cache_evictions",
+            "reclaimable cached blocks repurposed by the allocator"),
+        "prefix_token_fraction": reg.gauge(
+            "serving_prefix_cached_token_fraction",
+            "cumulative fraction of prompt tokens served from the prefix "
+            "cache instead of being prefilled"),
         "adapter_slots": reg.gauge(
             "serving_adapter_slots",
             "LoRA tenant slots the engine was built with (0 = plain "
@@ -114,9 +208,6 @@ def serving_metrics(registry=None) -> dict:
             "serving_adapter_loads_total",
             "adapter installs via load_adapter (in-place slot writes)"),
     }
-    if registry is None:
-        _serving_metrics_cache = d
-    return d
 
 
 def _quantized_linear_forward(layer, x):
@@ -166,6 +257,14 @@ class RequestHandle:
     def req_id(self) -> int:
         return self._req.req_id
 
+    @property
+    def trace_id(self) -> Optional[str]:
+        return self._req.trace_id
+
+    @property
+    def token_ids(self) -> List[int]:
+        return list(self._req.generated)
+
     def wait(self, timeout: Optional[float] = None) -> bool:
         return self._done.wait(timeout)
 
@@ -179,6 +278,7 @@ class RequestHandle:
             raise RuntimeError(f"request {r.req_id} failed: {r.error}")
         return {
             "request_id": r.req_id,
+            "trace_id": r.trace_id,
             "token_ids": list(r.generated),
             "num_generated": len(r.generated),
             "prompt_len": len(r.prompt_tokens),
@@ -194,7 +294,10 @@ class ServingEngine:
     ragged ``caches=`` protocol (Llama and the MoE LM). Runs on the card
     unless ``device="cpu"``; the model must already live on that
     device. ``mesh=`` is not ported (it raises ``NotImplementedError``);
-    the other options are the reference's (module docstring)."""
+    the other options are the reference's (module docstring).
+    ``request_ledger=False`` builds an engine whose request-ledger hooks
+    are one attribute read (the reference's
+    ``PADDLE_TPU_REQUEST_LEDGER=0``)."""
 
     def __init__(self, model, max_batch: int = 8, max_blocks: int = 64,
                  block_size: int = 16, prefill_chunk: int = 16,
@@ -204,7 +307,7 @@ class ServingEngine:
                  prefix_cache: Optional[bool] = None,
                  mesh=None, quantize: Optional[str] = None,
                  kv_dtype: Optional[str] = None, calibration=None,
-                 device=None):
+                 request_ledger: bool = True, device=None):
         if mesh is not None:
             raise NotImplementedError(
                 "ServingEngine(mesh=...) is not ported to paddle_tpu_torch "
@@ -331,13 +434,151 @@ class ServingEngine:
 
         self._lock = threading.RLock()
         self._cv = threading.Condition(self._lock)
+        # callers (submit, abort, ...) waiting for the lock: the run loop
+        # steps back while there are any, or it would take the lock
+        # again before a woken caller gets to run
+        self._callers = 0
+        self._callers_lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
         self._shutdown = False
         self._handles = {}  # req_id -> RequestHandle
+        #: this engine's own RPA kernel launches (``rpa_launches`` in
+        #: ``stats()`` is the process-wide count)
+        self.rpa_launches = 0
+        self._published_preemptions = 0
+        # per-request cost ledger: the process ledger, or None (then the
+        # hot path pays one attribute read on None)
+        self._ledger = obs_requests.maybe_arm(bool(request_ledger))
+        self._published_block_seconds = 0.0
+        # prefix-cache counter cursors (registry counters are process-
+        # global; publish per-engine deltas like preemptions do)
+        self._published_prefix = {"lookups": 0, "hits": 0, "evictions": 0}
+        self._prompt_tokens_prefilled = 0
+        self._init_metrics()
+
+    # -- metrics -----------------------------------------------------------
+    def _init_metrics(self):
         m = serving_metrics()
+        self._m_requests = m["requests"]
+        self._m_queue = m["queue"]
+        self._m_running = m["running"]
+        self._m_waiting = m["waiting"]
+        self._m_ttft = m["ttft"]
+        self._m_queue_wait = m["queue_wait"]
+        self._m_itl = m["itl"]
+        self._m_latency = m["latency"]
+        self._m_tokens = m["tokens"]
+        self._m_preempt = m["preemptions"]
+        self._m_steps = m["steps"]
+        self._m_in_flight = m["in_flight"]
+        self._m_kv_block_seconds = m["kv_block_seconds"]
+        self._m_kv_headroom = m["kv_headroom"]
+        self._m_kv_reclaimable = m["kv_reclaimable"]
+        self._m_step_compiles = m["step_compiles"]
+        self._m_prefix_lookups = m["prefix_lookups"]
+        self._m_prefix_hits = m["prefix_hits"]
+        self._m_prefix_evictions = m["prefix_evictions"]
+        self._m_prefix_token_fraction = m["prefix_token_fraction"]
         self._m_adapter_requests = m["adapter_requests"]
         m["adapter_slots"].set(self.n_adapter_slots)
         m["adapter_slots_loaded"].set(len(self._adapters))
+        # the port compiles no step executable
+        self._m_step_compiles.set(0)
+        self.cache.gauge_in_use()
+        self._register_memory_owners()
+
+    def _register_memory_owners(self):
+        """Register this engine's long-lived device-memory owners with
+        the memory ledger: the KV pools (with int8 KV's scale pools) and
+        the parameters the step reads (with the quantized leaves).
+        Weakref closures, so a discarded engine unregisters itself; a
+        second engine in the process takes over the names (the ledger
+        keys by owner, latest registration wins)."""
+        import weakref
+        wself = weakref.ref(self)
+
+        def _kv_pools():
+            eng = wself()
+            if eng is None:
+                return None
+            return (eng.cache.k_pools, eng.cache.v_pools,
+                    eng.cache.k_scales, eng.cache.v_scales)
+
+        def _model_state():
+            eng = wself()
+            if eng is None:
+                return None
+            return (list(eng.model.parameters()),
+                    [b for b in eng.model.buffers()],
+                    list(eng._qleaves.values()))
+
+        obs_memory.register("kv_cache", _kv_pools)
+        obs_memory.register("serving_params", _model_state)
+
+    def _update_gauges(self):
+        # queue depth = never-started arrivals; waiting also counts
+        # preempted sequences awaiting readmission
+        fresh = sum(1 for r in self.scheduler.waiting
+                    if r.preemptions == 0)
+        self._m_queue.set(fresh)
+        self._m_waiting.set(self.scheduler.num_waiting)
+        self._m_running.set(self.scheduler.num_running)
+        self.cache.gauge_in_use()
+        # preemptions happen inside the scheduler; publish the delta
+        # against a per-engine cursor (the registry counter is process-
+        # global and may aggregate several engines)
+        new = self.scheduler.num_preemptions - self._published_preemptions
+        if new > 0:
+            self._m_preempt.inc(new)
+            self._published_preemptions += new
+        # headroom splits free vs reclaimable: cached refcount-0 blocks
+        # are evictable capacity, not pressure
+        alloc = self.cache.allocator
+        cap = max(alloc.capacity, 1)
+        reclaim = alloc.num_reclaimable()
+        self._m_kv_headroom.set((alloc.num_free() + reclaim) / cap)
+        self._m_kv_reclaimable.set(reclaim / cap)
+        pc = self.cache.prefix_cache
+        if pc is not None:
+            for key, counter in (("lookups", self._m_prefix_lookups),
+                                 ("hits", self._m_prefix_hits),
+                                 ("evictions", self._m_prefix_evictions)):
+                new = getattr(pc, key) - self._published_prefix[key]
+                if new > 0:
+                    counter.inc(new)
+                    self._published_prefix[key] += new
+            seen = pc.hit_tokens + self._prompt_tokens_prefilled
+            if seen:
+                self._m_prefix_token_fraction.set(pc.hit_tokens / seen)
+        self._m_in_flight.set(len(self._handles))
+        # pool-occupancy cost: the allocator's exact integral, published
+        # as a counter delta against a per-engine cursor
+        bs_total = alloc.block_seconds_total()
+        d = bs_total - self._published_block_seconds
+        if d > 0:
+            self._m_kv_block_seconds.inc(d)
+            self._published_block_seconds = bs_total
+        # per-iteration device-memory poll: the ledger-backed hbm_* gauges
+        try:
+            obs_memory.publish()
+        except Exception:  # noqa: BLE001
+            pass  # the memory instrument must never fail a step
+
+    @contextlib.contextmanager
+    def _caller_lock(self):
+        """The engine lock, taken by a caller thread ahead of the run
+        loop's next step."""
+        with self._callers_lock:
+            self._callers += 1
+        try:
+            self._lock.acquire()
+        finally:
+            with self._callers_lock:
+                self._callers -= 1
+        try:
+            yield
+        finally:
+            self._lock.release()
 
     # -- weights -----------------------------------------------------------
     def _quantize_model(self) -> dict:
@@ -373,7 +614,7 @@ class ServingEngine:
         refused with a ``ValueError`` naming the leaf, before any weight
         changes. Quantized leaves are quantized again from the fresh
         weights (the same set as at construction)."""
-        with self._lock:
+        with self._caller_lock():
             active = self.scheduler.num_running + self.scheduler.num_waiting
             if active:
                 raise RuntimeError(
@@ -435,7 +676,7 @@ class ServingEngine:
                 f"adapter slot {slot} out of range 1.."
                 f"{self.n_adapter_slots}")
         slot = int(slot)
-        with self._lock:
+        with self._caller_lock():
             self._busy_slot(slot)
             unknown = [k for k in state if k not in self._lora_stacks]
             if unknown:
@@ -468,7 +709,7 @@ class ServingEngine:
         """Zero tenant ``slot``'s rows (delta back to exactly 0) and free
         the slot."""
         slot = int(slot)
-        with self._lock:
+        with self._caller_lock():
             self._busy_slot(slot)
             for p in self._lora_stacks.values():
                 p[slot].zero_()
@@ -481,9 +722,13 @@ class ServingEngine:
                temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
                eos_token_id: Optional[int] = None,
                on_token: Optional[Callable] = None,
+               trace_id: Optional[str] = None,
                adapter_id: int = 0) -> RequestHandle:
         """Enqueue a request; returns immediately with a handle. Tokens
         stream through ``on_token(request, token_id)`` as they decode.
+        ``trace_id`` carries a client-supplied W3C trace id (the server's
+        ``traceparent`` parse); absent, the engine mints one — either
+        way every span and response of the request carries it.
         ``adapter_id`` picks the tenant's LoRA slot (0 = base model)."""
         prompt_tokens = list(prompt_tokens)
         if not prompt_tokens:
@@ -530,16 +775,22 @@ class ServingEngine:
                       max_new_tokens=int(max_new_tokens),
                       temperature=float(temperature), top_k=int(top_k),
                       top_p=float(top_p), eos_token_id=eos_token_id,
-                      on_token=on_token, adapter_id=adapter_id,
+                      on_token=on_token,
+                      trace_id=trace_id or obs_requests.new_trace_id(),
+                      adapter_id=adapter_id,
                       cache_seed=seed, committed_hash=seed)
         if adapter_id:
             self._m_adapter_requests.inc(adapter=self._adapters[adapter_id])
         handle = RequestHandle(req)
-        with self._cv:
+        with self._caller_lock():
             if self._shutdown:
                 raise RuntimeError("engine is shut down")
             self._handles[req.req_id] = handle
             self.scheduler.add(req)
+            if self._ledger is not None:
+                self._ledger.admit(req)
+            self._m_requests.inc(outcome="accepted")
+            self._update_gauges()
             self._cv.notify_all()
         return handle
 
@@ -550,6 +801,11 @@ class ServingEngine:
         happened."""
         with self._lock:
             plan = self.scheduler.schedule()
+            if self._ledger is not None:
+                # step-boundary occupancy sample: bill each slotted
+                # request's previous holding level for the elapsed
+                # interval (preempt/finish tick before freeing)
+                self._ledger.note_occupancy_many(self.scheduler.slotted())
             # never act on a sequence that lost its slot/blocks during
             # planning (a later allocation in the same plan may have
             # preempted it)
@@ -561,6 +817,10 @@ class ServingEngine:
                         and s.state is RequestState.PREFILL]
             if decode or prefills:
                 self._run_unified(decode, prefills)
+                # /healthz liveness stamp: a wedged-but-listening server
+                # shows a growing last_step_age_seconds
+                obs_fleet.note_step()
+            self._update_gauges()
             return bool(decode or prefills)
 
     def _run_unified(self, decode: List[Request],
@@ -569,6 +829,16 @@ class ServingEngine:
         step's ragged metadata (token->sequence map, per-token positions,
         the RPA kernel's work lists) host-side, run the model once, and
         harvest per-sequence results."""
+        for seq, _ in prefills:
+            if seq.prefill_pos == 0 and seq.slot_time is not None \
+                    and not getattr(seq, "_queue_wait_observed", False):
+                # queue-wait ends at FIRST admission, observed once per
+                # request (slot_time never resets, so a recompute after
+                # preemption still reports the original wait)
+                seq._queue_wait_observed = True
+                self._m_queue_wait.observe(
+                    seq.slot_time - seq.arrival_time)
+
         # copy-on-write divergence: a fully-cached aligned prompt's last
         # matched block is copied into the sequence's private block
         # BEFORE the step, so the final-token write lands in owned
@@ -634,22 +904,43 @@ class ServingEngine:
         # model's device, for the adapter hooks
         adapters = (lora.adapter_ids(dev(aid)) if self.n_adapter_slots
                     else contextlib.nullcontext())
-        with torch.no_grad(), adapters:
-            h, _ = self._backbone(dev(tokens), caches=caches,
-                                  attn_impl=self.attn_impl)
-            # logits at each sequence's LAST packed token only (rows of
-            # empty metadata slots gather token 0 and are discarded)
-            hsel = h[0][dev(last_idx).long()][:, None, :]
-            logits = self._project(hsel)[:, 0].float()
-        self._clear_model_side_effects()
-        arr = logits.cpu().numpy()
+        t0 = time.perf_counter_ns()
+        launches0 = rpa_mod.thread_launches()
+        try:
+            logits = self._forward(dev(tokens), caches, dev(last_idx),
+                                   adapters)
+            arr = logits.cpu().numpy()
+        except Exception as e:
+            # out of device memory: one postmortem (the ledger's owners
+            # and the step's memory report) before re-raising into the
+            # run loop's fail-all-handles path
+            obs_memory.handle_oom(e, source="serving_step",
+                                  report_fn=self.memory_report)
+            raise
+        finally:
+            self.rpa_launches += rpa_mod.thread_launches() - launches0
+            self._clear_model_side_effects()
+        t1 = time.perf_counter_ns()
         self.steps += 1
+        self._m_steps.inc(kind="unified")
 
         for i, (seq, n, is_prefill) in enumerate(entries):
             if is_prefill:
+                if trace.active() is not None:
+                    # the port compiles nothing: compiles is always 0
+                    trace.span("serving", "prefill_chunk", t0, t1,
+                               args={"req": seq.req_id,
+                                     "trace": seq.trace_id, "tokens": n,
+                                     "pos": seq.prefill_pos,
+                                     "compiles": 0,
+                                     "preemptions": seq.preemptions})
+                if self._ledger is not None:
+                    self._ledger.note_prefill(seq, n, 0)
                 seq.prefill_pos += n
                 seq.num_cached += n
                 seq.prefilled_tokens += n
+                self._prompt_tokens_prefilled += n
+                self._m_tokens.inc(n, kind="prompt")
                 self._commit_cached_blocks(seq)
                 if seq.prefill_pos == len(seq.pending_tokens):
                     # prompt fully cached: sample the continuation (the
@@ -663,6 +954,80 @@ class ServingEngine:
                 self._commit_cached_blocks(seq)
                 tok = self._sample(arr[i], seq)
                 self._emit_token(seq, tok)
+
+    def _forward(self, tokens, caches, last_idx, adapters):
+        """The model over one packed step: the logits ``[max_batch, V]``
+        (f32) at each sequence's LAST packed token (rows of empty
+        metadata slots gather token 0 and are discarded)."""
+        with torch.no_grad(), adapters:
+            h, _ = self._backbone(tokens, caches=caches,
+                                  attn_impl=self.attn_impl)
+            hsel = h[0][last_idx.long()][:, None, :]
+            return self._project(hsel)[:, 0].float()
+
+    def memory_report(self):
+        """The measured memory accounting of the unified step
+        (``observability.memory.MemoryReport``; the serving twin of
+        ``TrainStep.memory_report``). ``argument_bytes`` are the
+        registered owners' bytes (parameters and KV pools),
+        ``alias_bytes`` the KV pools the step updates in place,
+        ``output_bytes`` the step's f32 logits, and ``temp_bytes`` the
+        step's allocation peak above what was allocated before it.
+
+        On the card that peak is measured on a zero-work step through
+        the engine's own read path: every token is padding, so the KV
+        writes land in the null block and no request, pool row or
+        generator changes — but the allocator's peak counter is reset
+        (read a window's ``max_memory_allocated`` before calling this),
+        and the RPA kernel launches once per layer (counted in the
+        process-wide count, not in this engine's). On the CPU,
+        ``temp_bytes`` is 0: nothing reports it."""
+        pools = self.cache.pool_bytes()
+        params = obs_memory.tree_bytes((list(self.model.parameters()),
+                                        list(self.model.buffers()),
+                                        list(self._qleaves.values())))
+        temp = 0
+        if self.device.type == "cuda":
+            with self._caller_lock():
+                torch.cuda.synchronize(self.device)
+                before = torch.cuda.memory_allocated(self.device)
+                torch.cuda.reset_peak_memory_stats(self.device)
+                self._zero_work_step()
+                torch.cuda.synchronize(self.device)
+                temp = max(torch.cuda.max_memory_allocated(self.device)
+                           - before, 0)
+        return obs_memory.MemoryReport(
+            argument_bytes=params + pools,
+            output_bytes=4 * self.max_batch * self.model.cfg.vocab_size,
+            temp_bytes=temp, alias_bytes=pools, source="serving_step")
+
+    def _zero_work_step(self):
+        """One step of padding only: every token's sequence id is the
+        sentinel, so the KV writes land in the null block and nothing is
+        sampled."""
+        T, S = self.step_tokens, self.max_batch
+        # the work lists of a step with no sequence: every step dead
+        ssq, sbk = self._null_step_maps
+
+        def dev(a):
+            return torch.from_numpy(a).to(self.device)
+        meta = [dev(a) for a in (
+            np.zeros((S + 1, self.cache.max_blocks_per_seq), np.int32),
+            np.zeros((S + 2,), np.int32),
+            np.zeros((S + 1,), np.int32), np.full((T,), S, np.int32),
+            np.zeros((T,), np.int32), ssq, sbk)]
+        c = self.cache
+        scales = zip(c.k_scales, c.v_scales) if self.kv_dtype else \
+            [(None, None)] * len(c.k_pools)
+        caches = [RaggedLayerCache(kp, vp, *meta, ks, vs) for kp, vp, (ks, vs)
+                  in zip(c.k_pools, c.v_pools, scales)]
+        adapters = (lora.adapter_ids(dev(np.zeros((T,), np.int32)))
+                    if self.n_adapter_slots else contextlib.nullcontext())
+        try:
+            self._forward(dev(np.zeros((1, T), np.int32)), caches,
+                          dev(np.zeros((S,), np.int32)), adapters)
+        finally:
+            self._clear_model_side_effects()
 
     def _clear_model_side_effects(self):
         """Drop the MoE gates' ``l_aux`` a step left behind (reference
@@ -701,10 +1066,18 @@ class ServingEngine:
 
     def _emit_token(self, seq: Request, tok: int):
         now = time.perf_counter()
+        itl = None
         if seq.first_token_time is None:
             seq.first_token_time = now
+            self._m_ttft.observe(now - seq.arrival_time)
+        elif seq.last_token_time is not None:
+            itl = now - seq.last_token_time
+            self._m_itl.observe(itl)
+        if self._ledger is not None:
+            self._ledger.note_token(seq, itl)
         seq.last_token_time = now
         seq.generated.append(int(tok))
+        self._m_tokens.inc(kind="generated")
         if seq.on_token is not None:
             try:
                 seq.on_token(seq, int(tok))
@@ -718,17 +1091,78 @@ class ServingEngine:
     def _finish(self, seq: Request, reason: str,
                 state: RequestState = RequestState.FINISHED):
         self.scheduler.finish(seq, state, reason)
+        self._m_requests.inc(
+            outcome="completed" if state is RequestState.FINISHED
+            else "failed")
+        if seq.latency() is not None:
+            self._m_latency.observe(seq.latency())
+        rec = (self._ledger.complete(seq)
+               if self._ledger is not None else None)
+        self._emit_request_chain(seq, reason, rec)
         handle = self._handles.pop(seq.req_id, None)
         if handle is not None:
             handle._done.set()
         with self._cv:
             self._cv.notify_all()
 
+    def _emit_request_chain(self, seq: Request, reason: str, rec=None):
+        """The per-request span chain: queue_wait -> [prefill_chunk
+        spans emitted live] -> decode -> request_done. The retrospective
+        spans use the request's recorded timestamps, so a slow TTFT
+        decomposes into admission wait vs prefill vs preemption
+        recompute in the merged trace. Every span carries the W3C trace
+        id, so ``trace merge --requests`` can stitch the chain across
+        processes; ``rec`` (the completed ledger record, when armed)
+        enriches ``request_done`` with the cost summary."""
+        if trace.active() is None:
+            return
+
+        def ns(t):
+            return int(t * 1e9)  # perf_counter -> perf_counter_ns clock
+
+        rid, tid = seq.req_id, seq.trace_id
+        admitted = seq.slot_time
+        if admitted is not None:
+            trace.span("serving", "queue_wait", ns(seq.arrival_time),
+                       ns(admitted), args={"req": rid, "trace": tid})
+        if seq.first_token_time is not None:
+            end = seq.finish_time or seq.last_token_time \
+                or seq.first_token_time
+            trace.span("serving", "decode", ns(seq.first_token_time),
+                       ns(end),
+                       args={"req": rid, "trace": tid,
+                             "tokens": len(seq.generated)})
+        args = {"req": rid, "trace": tid, "finish_reason": reason,
+                "prompt_len": len(seq.prompt_tokens),
+                "generated": len(seq.generated),
+                "preemptions": seq.preemptions}
+        if seq.ttft() is not None:
+            args["ttft_s"] = round(seq.ttft(), 6)
+        if seq.latency() is not None:
+            args["latency_s"] = round(seq.latency(), 6)
+        if rec is not None:
+            args["prefilled_tokens"] = rec.prefilled_tokens
+            args["cached_tokens"] = rec.cached_tokens
+            args["decode_tokens"] = rec.decode_tokens
+            args["kv_block_seconds"] = round(rec.kv_block_seconds, 6)
+            p50, p99 = (rec.itl_percentile(0.5), rec.itl_percentile(0.99))
+            if p50 is not None:
+                args["itl_p50_ms"] = round(p50 * 1e3, 3)
+                args["itl_p99_ms"] = round(p99 * 1e3, 3)
+        trace.mark("serving", "request_done",
+                   ts_ns=ns(seq.finish_time or time.perf_counter()),
+                   args=args)
+
     def abort(self, req_id: int, reason: str = "aborted") -> bool:
         """Cancel a queued or in-flight request, releasing its batch slot
-        and KV blocks. Returns False when the request is unknown or
-        already finished."""
-        with self._cv:
+        and KV blocks (a waiting request simply leaves the queue). The
+        graceful-degradation seam: the HTTP server aborts requests that
+        blew their deadline, so abandoned work stops holding capacity.
+        Under the engine lock, so no step is in flight: a request
+        aborted mid-prefill registered in the prefix index only blocks
+        whose every token a finished step wrote. Returns False when the
+        request is unknown or already finished."""
+        with self._caller_lock():
             handle = self._handles.get(req_id)
             if handle is None:
                 return False
@@ -738,12 +1172,14 @@ class ServingEngine:
             if seq in self.scheduler.waiting:
                 self.scheduler.waiting.remove(seq)
             seq.error = reason
+            # _finish records the request outcome (no extra count here)
             self._finish(seq, "aborted", RequestState.FAILED)
+            self._update_gauges()
             return True
 
     # -- run loop ----------------------------------------------------------
     def has_pending(self) -> bool:
-        with self._lock:
+        with self._caller_lock():
             return self.scheduler.has_work()
 
     def run_until_idle(self):
@@ -771,6 +1207,8 @@ class ServingEngine:
 
     def _run_loop(self):
         while True:
+            while self._callers:
+                time.sleep(1e-4)  # let a waiting caller take the lock
             with self._cv:
                 if self._shutdown and not self.scheduler.has_work():
                     return
@@ -801,7 +1239,7 @@ class ServingEngine:
                 break
             if deadline is not None and time.perf_counter() > deadline:
                 raise TimeoutError("engine drain timed out")
-            with self._cv:
+            with self._caller_lock():
                 if self.scheduler.has_work():
                     self._cv.wait(timeout=0.1)
 
@@ -810,7 +1248,7 @@ class ServingEngine:
         loop thread. New submissions are rejected once shut down."""
         if drain:
             self.drain(timeout)
-        with self._cv:
+        with self._caller_lock():
             self._shutdown = True
             if not drain:
                 for seq in (list(self.scheduler.slotted())
@@ -839,6 +1277,8 @@ class ServingEngine:
             "kv_blocks_reclaimable": reclaim,
             "preemptions": self.scheduler.num_preemptions,
             "requests_in_flight": len(self._handles),
+            "kv_block_seconds_total": round(
+                alloc.block_seconds_total(), 4),
             "steps": self.steps,
             # compiled executables of the unified step (the reference's
             # count is 1): the port runs the step eagerly and compiles none
@@ -846,6 +1286,8 @@ class ServingEngine:
             # process-wide count of RPA kernel launches (CPU tensors run
             # the plain version and count none)
             "rpa_launches": ragged_paged_attention.launches,
+            # this engine's own launches (two engines may share a card)
+            "rpa_launches_engine": self.rpa_launches,
             "attn_impl": self.attn_impl,
             "device": str(self.device),
             "step_tokens": self.step_tokens,
@@ -871,5 +1313,74 @@ class ServingEngine:
         if pc is not None:
             s = pc.stats()
             s["hit_rate"] = round(s["hits"] / max(s["lookups"], 1), 4)
+            # the fleet router's affinity signal: truncated digests of
+            # every registered block
+            s["sketch"] = pc.sketch()
             out["prefix_cache"] = s
         return out
+
+    # -- cross-replica KV handoff (fleet disaggregation) -------------------
+    def export_kv_blocks(self, digests: Sequence[bytes]) -> List[tuple]:
+        """The KV contents of the registered blocks behind ``digests``
+        (the chain hashes of a prefilled prompt's full blocks, in chain
+        order), as ``[(digest, k, v), ...]`` records for
+        :meth:`import_kv_blocks` on a peer replica; ``k`` and ``v`` are
+        copies on this engine's device in the compute dtype. Every block
+        is claimed through ``reuse_cached`` while the rows are copied —
+        an eviction cannot hand it to a new sequence mid-copy, and the
+        copy is ordered on the stream before any later write — and
+        released after. Stops at the first miss (a chained digest after
+        a miss could never be admitted anyway)."""
+        pc = self.cache.prefix_cache
+        if pc is None:
+            return []
+        alloc = self.cache.allocator
+        claimed: List[tuple] = []
+        for d in digests:
+            b = pc.lookup(d)
+            if b is None or not alloc.reuse_cached(b):
+                break
+            claimed.append((d, b))
+        if not claimed:
+            return []
+        try:
+            k, v = self.cache.export_blocks([b for _, b in claimed])
+        finally:
+            alloc.free([b for _, b in claimed])
+        return [(d, k[i], v[i]) for i, (d, _) in enumerate(claimed)]
+
+    def import_kv_blocks(self, records: Sequence[tuple]) -> int:
+        """Adopt KV blocks exported by a peer replica: allocate a
+        physical block per new record, write the rows, register the
+        chain digests in the prefix index, and park the blocks
+        reclaimable — the next admission sharing the prefix claims them
+        like any local cache hit (tail-only prefill). Already-known
+        digests are skipped (first writer wins, as ``register``); a full
+        pool stops the import early. Returns the number of blocks
+        resident afterwards."""
+        pc = self.cache.prefix_cache
+        if pc is None:
+            return 0
+        alloc = self.cache.allocator
+        n = 0
+        with self._caller_lock():
+            new = []
+            for rec in records:
+                if pc.lookup(rec[0]) is not None:
+                    n += 1  # prefix already resident here
+                    continue
+                try:
+                    (b,) = alloc.allocate(1)
+                except MemoryError:
+                    break
+                new.append((b, rec))
+                n += 1
+            if new:
+                self.cache.import_blocks(
+                    [b for b, _ in new],
+                    torch.stack([torch.as_tensor(r[1]) for _, r in new]),
+                    torch.stack([torch.as_tensor(r[2]) for _, r in new]))
+                for b, (d, _, _) in new:
+                    pc.register(d, b)
+                alloc.free([b for b, _ in new])  # parks reclaimable
+        return n

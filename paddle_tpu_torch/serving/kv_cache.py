@@ -18,15 +18,25 @@
   token slot and kv head, reference :357-390); the block copy copies
   the scales with the values.
 
-The allocator, prefix index and hashing are host Python and port
-verbatim apart from the dropped fleet, tensor-parallel and metrics
-hooks. ``PrefixCache.match(seed=)`` roots a chain in a namespace (the
-engine's per-adapter-slot seed).
+The allocator (with its block-seconds occupancy integral), prefix index
+(with the router-facing ``sketch``) and hashing are host Python and port
+verbatim apart from the dropped tensor-parallel hook.
+``PrefixCache.match(seed=)`` roots a chain in a namespace (the engine's
+per-adapter-slot seed).
+
+Cross-replica block transfer (``export_block`` / ``import_block``, the
+fleet's prefill->decode handoff): the wire dtype is the compute dtype,
+as in the reference, so an int8 pool dequantizes on export and
+re-quantizes on import and quantized and unquantized replicas hand
+blocks to each other. Unlike the reference's host-staged numpy rows, an
+exported record holds tensors on the exporting pool's device, so a
+handoff between two replicas on one card stays on the card.
 """
 from __future__ import annotations
 
 import hashlib
 import threading
+import time
 from collections import OrderedDict
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -65,6 +75,12 @@ class BlockAllocator:
         # ids 1..num_blocks (0 is the null block); popped from the end
         self._free: List[int] = list(range(num_blocks, 0, -1))
         self._refcount: Dict[int, int] = {}
+        # block-seconds occupancy integral: bill the PREVIOUS holding
+        # level for each elapsed interval at every occupancy transition
+        # (left-continuous — the exact pool-level cost the per-request
+        # ledger approximates at step granularity)
+        self._occ_t = time.monotonic()
+        self._occ_seconds = 0.0
         # refcount-0 blocks still holding registered prefix-cache
         # contents, LRU order (oldest first — the eviction order)
         self._reclaimable: "OrderedDict[int, bytes]" = OrderedDict()
@@ -75,6 +91,22 @@ class BlockAllocator:
         #: reclaimable block is repurposed — the PrefixCache drops its
         #: index entry here (must not re-enter the allocator)
         self._evict_cb: Optional[Callable[[int, bytes], None]] = None
+
+    def _occ_tick_locked(self, now: Optional[float] = None):
+        """Accrue block-seconds at the current holding level (lock held;
+        called BEFORE any occupancy mutation)."""
+        now = time.monotonic() if now is None else now
+        dt = now - self._occ_t
+        if dt > 0:
+            self._occ_seconds += len(self._refcount) * dt
+            self._occ_t = now
+
+    def block_seconds_total(self) -> float:
+        """Cumulative pool occupancy integral (blocks held by live
+        sequences x seconds held) since construction."""
+        with self._lock:
+            self._occ_tick_locked()
+            return self._occ_seconds
 
     @property
     def capacity(self) -> int:
@@ -105,6 +137,7 @@ class BlockAllocator:
         are evicted (their prefix-index entries invalidated via the
         eviction callback)."""
         with self._lock:
+            self._occ_tick_locked()
             if len(self._free) + len(self._reclaimable) < n:
                 raise MemoryError(
                     f"KV block pool exhausted: need {n}, free "
@@ -123,12 +156,19 @@ class BlockAllocator:
                 out.append(b)
             return out
 
+    def incref(self, block_id: int):
+        with self._lock:
+            if block_id not in self._refcount:
+                raise ValueError(f"block {block_id} is not allocated")
+            self._refcount[block_id] += 1
+
     def free(self, block_ids: Sequence[int]):
         """Drop one reference per id. At refcount 0 a registered
         (prefix-cached) block PARKS in the reclaimable tier — contents
         kept, evictable LRU — while an unregistered block returns to
         the free list."""
         with self._lock:
+            self._occ_tick_locked()
             for b in block_ids:
                 rc = self._refcount.get(b)
                 if rc is None:
@@ -142,6 +182,10 @@ class BlockAllocator:
                         self._free.append(b)
                 else:
                     self._refcount[b] = rc - 1
+
+    def refcount(self, block_id: int) -> int:
+        with self._lock:
+            return self._refcount.get(block_id, 0)
 
     # -- prefix-cache hooks ------------------------------------------------
     def mark_cached(self, block_id: int, key: bytes):
@@ -159,6 +203,7 @@ class BlockAllocator:
         incref a live holder, or resurrect a parked reclaimable block at
         refcount 1. False when the block was already evicted."""
         with self._lock:
+            self._occ_tick_locked()
             if block_id not in self._cached_key:
                 return False  # evicted (and possibly reallocated)
             if block_id in self._refcount:
@@ -169,6 +214,10 @@ class BlockAllocator:
                 self._refcount[block_id] = 1
                 return True
             return False
+
+    def is_cached(self, block_id: int) -> bool:
+        with self._lock:
+            return block_id in self._cached_key
 
     def assert_no_leaks(self):
         """Every block is back in the pool (end-of-drain invariant).
@@ -206,6 +255,12 @@ class PrefixCache:
         self.evictions = 0
         self.hit_tokens = 0      # prompt tokens served from the cache
         allocator._evict_cb = self._on_evict
+
+    def __len__(self) -> int:
+        return len(self._index)
+
+    def lookup(self, digest: bytes) -> Optional[int]:
+        return self._index.get(digest)
 
     def _on_evict(self, block_id: int, key: bytes):
         # under the allocator lock — dict surgery only
@@ -259,6 +314,21 @@ class PrefixCache:
             "hit_tokens": self.hit_tokens,
             "entries": len(self._index),
         }
+
+    #: bytes of each digest kept in the router-facing sketch — 8 bytes
+    #: (64 bits) keeps accidental cross-replica collisions negligible
+    SKETCH_PREFIX_BYTES = 8
+
+    def sketch(self, limit: int = 4096) -> List[str]:
+        """Compact content summary of the index for the fleet router:
+        the hex-truncated digest of every registered block (chain hashes
+        commit to their whole prefix, so digest-set intersection IS
+        prefix overlap). Capped at ``limit`` entries — a partial sketch
+        only costs affinity accuracy, never correctness: admission
+        re-walks the real index."""
+        n = self.SKETCH_PREFIX_BYTES
+        keys = list(self._index.keys())[:limit]
+        return [d[:n].hex() for d in keys]
 
 
 class PagedKVCache:
@@ -333,6 +403,75 @@ class PagedKVCache:
         for p in self.k_pools + self.v_pools + self.k_scales + \
                 self.v_scales:
             p[dst].copy_(p[src])
+
+    # -- cross-replica block transfer (fleet disaggregation) ---------------
+    @torch.no_grad()
+    def export_blocks(self, block_ids: Sequence[int]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Physical blocks' KV rows across every layer: ``(k, v)``, each
+        ``[len(block_ids), num_layers, block_size, n_kv, hd]`` in the
+        compute dtype on the pools' device (an int8 pool dequantized
+        with its scales), one gather a pool. The copies are ordered on
+        the current stream, before any later write to the blocks; the
+        caller holds a reference on each block while it calls (the
+        engine claims them through ``reuse_cached``)."""
+        ids = torch.as_tensor(list(block_ids), dtype=torch.long,
+                              device=self.k_pools[0].device)
+        k = torch.stack([p[ids] for p in self.k_pools], dim=1)
+        v = torch.stack([p[ids] for p in self.v_pools], dim=1)
+        if self.kv_dtype == "int8":
+            # wire format stays the compute dtype so handoffs work
+            # between quantized and unquantized replicas
+            ks = torch.stack([p[ids] for p in self.k_scales], dim=1)
+            vs = torch.stack([p[ids] for p in self.v_scales], dim=1)
+            k = (k.float() * ks[..., None]).to(self.dtype)
+            v = (v.float() * vs[..., None]).to(self.dtype)
+        return k, v
+
+    def export_block(self, block_id: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One block of :meth:`export_blocks`: ``[num_layers, block_size,
+        n_kv, hd]`` each."""
+        k, v = self.export_blocks([block_id])
+        return k[0], v[0]
+
+    @torch.no_grad()
+    def import_blocks(self, block_ids: Sequence[int], k, v):
+        """Write exported KV rows ``[len(block_ids), num_layers, ...]``
+        (tensors on any device, or numpy arrays) into physical
+        ``block_ids`` of every layer (the inverse of
+        :meth:`export_blocks`): cast to the compute dtype, quantized per
+        (token, kv head) into an int8 pool; one scatter a pool. The
+        caller owns the blocks (freshly allocated) and registers them
+        with the prefix index afterwards."""
+        dev = self.k_pools[0].device
+        ids = torch.as_tensor(list(block_ids), dtype=torch.long, device=dev)
+        k = torch.as_tensor(k).to(device=dev, dtype=self.dtype)
+        v = torch.as_tensor(v).to(device=dev, dtype=self.dtype)
+        if self.kv_dtype == "int8":
+            from ..ops.paged_attention import quantize_kv_slots
+            (k, ks), (v, vs) = quantize_kv_slots(k), quantize_kv_slots(v)
+            for i in range(self.num_layers):
+                self.k_scales[i][ids] = ks[:, i]
+                self.v_scales[i][ids] = vs[:, i]
+        for i in range(self.num_layers):
+            self.k_pools[i][ids] = k[:, i]
+            self.v_pools[i][ids] = v[:, i]
+
+    def import_block(self, block_id: int, k, v):
+        """One block of :meth:`import_blocks`: ``k``, ``v`` of
+        ``[num_layers, block_size, n_kv, hd]``."""
+        self.import_blocks([block_id], torch.as_tensor(k)[None],
+                           torch.as_tensor(v)[None])
+
+    def gauge_in_use(self):
+        """Publish pool occupancy through the observability registry."""
+        from ..observability import get_registry
+        g = get_registry().gauge(
+            "serving_kv_blocks_in_use",
+            "KV-cache blocks currently held by live sequences")
+        g.set(self.allocator.blocks_in_use())
+        return g
 
     def pad_block_table(self, block_ids: Sequence[int]) -> np.ndarray:
         """[max_blocks_per_seq] int32 row, null-padded."""

@@ -18,9 +18,12 @@ When the block pool can't cover an allocation, the sequence with the
 latest arrival is preempted: its blocks are freed and it re-enters the
 queue with ``prompt + generated`` as its new prefill text, so greedy
 output is identical to the unpreempted run. Host Python, ported
-verbatim apart from the dropped observability hooks; a request's
-``adapter_id`` and ``cache_seed`` (its LoRA slot and the prefix-cache
-namespace of that slot's load) ride along.
+verbatim with the reference's observability hooks: a request carries
+its W3C ``trace_id`` and its first admission time (``slot_time``), the
+request ledger's occupancy integral is closed right before preempt and
+finish free the blocks, and a preemption is marked in the span trace. A
+request's ``adapter_id`` and ``cache_seed`` (its LoRA slot and the
+prefix-cache namespace of that slot's load) ride along.
 """
 from __future__ import annotations
 
@@ -60,6 +63,10 @@ class Request:
     on_token: Optional[Callable] = None
     req_id: int = field(default_factory=lambda: next(_req_counter))
     arrival_time: float = field(default_factory=time.perf_counter)
+    #: W3C trace id (32 lowercase hex) — client-supplied via
+    #: ``traceparent`` or minted at submit; stamped into every span of
+    #: this request so ``trace merge --requests`` can stitch its chain
+    trace_id: Optional[str] = None
     #: LoRA adapter slot applied to this request's rows (0 = base model)
     adapter_id: int = 0
 
@@ -67,6 +74,8 @@ class Request:
     state: RequestState = RequestState.WAITING
     slot: Optional[int] = None
     block_ids: List[int] = field(default_factory=list)
+    #: first admission into a batch slot — the end of the queue-wait span
+    slot_time: Optional[float] = None
     #: tokens to (re)prefill — the prompt, or prompt+generated after a
     #: preemption (recompute)
     pending_tokens: List[int] = field(default=None)
@@ -74,6 +83,8 @@ class Request:
     num_cached: int = 0      # total tokens written to the KV cache
     generated: List[int] = field(default_factory=list)
     # -- prefix-cache state ------------------------------------------------
+    #: prompt tokens recovered from the prefix cache at the LAST admission
+    cached_prompt_tokens: int = 0
     #: prompt tokens actually prefilled over the request's whole life
     #: (incl. preemption recompute)
     prefilled_tokens: int = 0
@@ -131,6 +142,14 @@ class StepPlan:
     prefills: List[Tuple[Request, int]] = field(default_factory=list)
     #: running sequences to advance one decode token
     decode: List[Request] = field(default_factory=list)
+
+    @property
+    def empty(self) -> bool:
+        return not self.prefills and not self.decode
+
+    @property
+    def total_tokens(self) -> int:
+        return len(self.decode) + sum(n for _, n in self.prefills)
 
 
 class Scheduler:
@@ -197,6 +216,8 @@ class Scheduler:
             req.slot = i
             self.slots[i] = req
             req.state = RequestState.PREFILL
+            if req.slot_time is None:
+                req.slot_time = time.perf_counter()
             req.admitted_pending_total += len(req.pending_tokens)
             self._prefix_admit(req)
 
@@ -228,6 +249,7 @@ class Scheduler:
         seq.prefill_pos = matched
         seq.num_cached = matched
         seq.cached_tokens_total += matched
+        seq.cached_prompt_tokens = matched
         seq.committed_blocks = len(blocks)
         seq.committed_hash = (digests[len(blocks) - 1] if blocks
                               else seq.cache_seed)
@@ -318,6 +340,13 @@ class Scheduler:
         prompt+generated as the new prefill text. With the prefix cache
         on, the freed committed blocks park as reclaimable, and
         readmission recomputes only the uncached tail."""
+        from ..observability import requests as obs_requests
+        from ..observability import trace
+        led = obs_requests._active
+        if led is not None:
+            # close out the occupancy interval at the pre-free level —
+            # the request holds zero blocks until readmission
+            led.note_occupancy(seq, time.monotonic())
         self._release_cow(seq)
         self.cache.allocator.free(seq.block_ids)
         seq.block_ids = []
@@ -327,9 +356,14 @@ class Scheduler:
         seq.num_cached = 0
         seq.committed_blocks = 0
         seq.committed_hash = seq.cache_seed
+        seq.cached_prompt_tokens = 0
         seq.state = RequestState.WAITING
         seq.preemptions += 1
         self.num_preemptions += 1
+        trace.mark("serving", "preempted",
+                   args={"req": seq.req_id, "trace": seq.trace_id,
+                         "preemptions": seq.preemptions,
+                         "generated": len(seq.generated)})
         self.add(seq)
 
     def release_slot(self, seq: Request):
@@ -339,8 +373,13 @@ class Scheduler:
 
     def finish(self, seq: Request, state: RequestState,
                reason: str = "stop"):
-        """Return every resource; the engine runs the callbacks.
-        Registered blocks park in the reclaimable tier."""
+        """Return every resource; the engine records metrics and runs
+        the callbacks. Registered blocks park in the reclaimable tier."""
+        from ..observability import requests as obs_requests
+        led = obs_requests._active
+        if led is not None:
+            # bill the final holding interval before the blocks go back
+            led.note_occupancy(seq, time.monotonic())
         self._release_cow(seq)
         self.cache.allocator.free(seq.block_ids)
         seq.block_ids = []

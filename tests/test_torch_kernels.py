@@ -1845,3 +1845,126 @@ def test_int8_layer_exports_on_the_card(cuda_device, tmp_path):
     x = torch.randn(8, 32, device=cuda_device)
     with torch.no_grad():
         torch.testing.assert_close(back(x), model(x), atol=1e-6, rtol=0)
+
+
+# ------------------ serving in production: handoff, threads, profile --------
+def _serving_llama(device, dtype, head_dim=64, seed=5):
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig.tiny(hidden_size=4 * head_dim, num_attention_heads=4,
+                           num_key_value_heads=2)
+    model = LlamaForCausalLM(cfg, device=device, dtype=dtype, seed=seed)
+    model.eval()
+    return model
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src_kv", [None, "int8"])
+def test_kv_handoff_rows_equal_the_source_pool(cuda_device, src_kv):
+    """``export_kv_blocks`` -> ``import_kv_blocks`` between two engines on
+    the card: a bf16 replica's blocks arrive bit for bit; an int8-KV
+    replica's arrive as its pools dequantized with their scales (the
+    wire dtype is the compute dtype). The records stay on the card, and
+    the decode side then serves the prompt with the blocks as cached
+    tokens."""
+    import warnings
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.serving.fleet.router import prompt_digests
+    model = _serving_llama(cuda_device, torch.bfloat16)
+    kw = dict(max_batch=2, max_blocks=32, block_size=16, prefill_chunk=16)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        src = ServingEngine(model, kv_dtype=src_kv, **kw)
+    dst = ServingEngine(model, **kw)
+    prompt = np.random.RandomState(4).randint(1, 256, 70).tolist()
+    src.submit(prompt, max_new_tokens=1)
+    src.run_until_idle()
+    digs = prompt_digests(prompt, 16)
+    recs = src.export_kv_blocks(digs)
+    assert len(recs) == 4 and recs[0][1].device.type == "cuda"
+    assert recs[0][1].dtype == torch.bfloat16
+    assert dst.import_kv_blocks(recs) == 4
+    sc, dc = src.cache, dst.cache
+    for d, k, v in recs:
+        b_src, b_dst = sc.prefix_cache.lookup(d), dc.prefix_cache.lookup(d)
+        got_k = torch.stack([p[b_dst] for p in dc.k_pools])
+        got_v = torch.stack([p[b_dst] for p in dc.v_pools])
+        if src_kv is None:
+            want_k = torch.stack([p[b_src] for p in sc.k_pools])
+            want_v = torch.stack([p[b_src] for p in sc.v_pools])
+        else:
+            want_k = torch.stack([p[b_src].float() * s[b_src][..., None]
+                                  for p, s in zip(sc.k_pools, sc.k_scales)]
+                                 ).to(torch.bfloat16)
+            want_v = torch.stack([p[b_src].float() * s[b_src][..., None]
+                                  for p, s in zip(sc.v_pools, sc.v_scales)]
+                                 ).to(torch.bfloat16)
+        assert torch.equal(got_k, want_k) and torch.equal(got_v, want_v)
+    h = dst.submit(prompt, max_new_tokens=3)
+    dst.run_until_idle()
+    h.result(30)
+    assert h._req.cached_tokens_total == 64 and h._req.prefilled_tokens == 6
+    src.cache.allocator.assert_no_leaks()
+    dst.cache.allocator.assert_no_leaks()
+
+
+@pytest.mark.cuda
+def test_two_engine_threads_share_one_model_on_the_card(cuda_device):
+    """Two engines, one model, two run threads launching K4 onto the
+    card at once: every request gets the stream it gets alone, both
+    engines launch the kernel, and their own counts sum to the global
+    count."""
+    from paddle_tpu_torch.serving import ServingEngine
+    model = _serving_llama(cuda_device, torch.bfloat16)
+    kw = dict(max_batch=4, max_blocks=64, block_size=16, prefill_chunk=32)
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(1, 256, n).tolist() for n in (9, 40, 23, 70, 5)]
+    solo = []
+    for p in prompts:
+        eng = ServingEngine(model, **kw)
+        h = eng.submit(p, max_new_tokens=12)
+        eng.run_until_idle()
+        solo.append(h.result(30)["token_ids"])
+    engines = [ServingEngine(model, **kw) for _ in range(2)]
+    before = rpa.ragged_paged_attention.launches
+    for e in engines:
+        e.start()
+    try:
+        hs = [engines[i % 2].submit(p, max_new_tokens=12)
+              for i, p in enumerate(prompts * 2)]
+        got = [h.result(120)["token_ids"] for h in hs]
+    finally:
+        for e in engines:
+            e.shutdown()
+    assert got == solo * 2
+    own = [e.rpa_launches for e in engines]
+    assert min(own) > 0
+    assert sum(own) == rpa.ragged_paged_attention.launches - before
+
+
+@pytest.mark.cuda
+def test_a_profile_window_on_the_card_names_k4(cuda_device, tmp_path):
+    """A bounded ``torch.profiler`` window opened on one thread while an
+    engine serves on its own: the Chrome trace names K4's wgmma kernel,
+    and a second window while the first is live is refused."""
+    import json
+    import os
+    from paddle_tpu_torch.observability import profile
+    from paddle_tpu_torch.serving import ServingEngine
+    model = _serving_llama(cuda_device, torch.bfloat16)
+    eng = ServingEngine(model, max_batch=2, max_blocks=32, block_size=16,
+                        prefill_chunk=16)
+    eng.start()
+    profile.set_trace_dir(str(tmp_path))
+    try:
+        out = profile.start_capture("test")
+        with pytest.raises(profile.CaptureBusy):
+            profile.start_capture("test")
+        eng.submit(list(range(1, 40)), max_new_tokens=8).result(60)
+        assert profile.stop_capture() == out
+    finally:
+        profile.stop_capture()
+        profile.set_trace_dir(None)
+        eng.shutdown()
+    with open(os.path.join(out, profile.TRACE_FILE)) as f:
+        names = [str(e.get("name", "")) for e in json.load(f)["traceEvents"]]
+    assert any("rpa_wgmma_kernel" in n for n in names)
