@@ -283,7 +283,47 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    --requests`` stitches router + both replicas per request, with the
    handoff's ms and bytes; (c) the replica serving a stream is killed
    after 3 tokens and the survivor, holding the prefix, finishes it
-   token for token, recomputing only the tail.
+   token for token, recomputing only the tail;
+20. training in production at phase 7's width (the bench's Llama recipe,
+   bf16, AdamW f32 masters, clip 1.0) over phase 10's packed corpus at
+   4 x 2048: (a) ``Model.fit`` for 8 steps with ``StepTelemetry`` (the
+   bench's flop count), ``VisualDL``, ``FitResilience(save_every_steps=4,
+   step_timeout=600, nan_guard=True)``, the flight recorder, numerics
+   armed every 4 steps, a device-profiler window over steps 3-4
+   (``profile.set_fit_window``) and the chaos harness poisoning step 6
+   (a packed batch holds no float: its loss is corrupted): the losses
+   finite but step 6's and falling, the guard tripping once and
+   rolling back to step 4, its provenance replay finite, the goodput
+   ledger's ``rollback_discarded`` charged and its bins summing to its
+   wall within 1%, ``train_mfu_ratio`` = flops / step / the card's peak
+   within 1%, ``train_step_seconds``' median within 10% of the same
+   steps by CUDA events, one VisualDL ``train/loss`` record a step, every
+   numerics sample finite and the last checkpoint's ``"numerics"`` entry
+   equal to ``calibration_summary()``, the window's trace naming K1-K3's
+   wgmma kernels and ``fused_adam_kernel``, the flight recorder's events
+   holding step, ckpt and data kinds, K1-K3 8 a step (+ 8 for the
+   replay) and the fused kernels once a step; a NaN weight's replay
+   naming its layer's ``mlp`` tap; the mean step with StepTimer and the
+   flight recorder armed against disarmed (A B B A) and a sampled
+   numerics step against an unsampled one; (b) ``attribute_train_step``
+   on the fit's model and batch, fused and ``fused=False``: the phase
+   tables, the phases summing to the fit's step within 10%, the fused
+   optimizer phase shorter than the looped one, the flop count equal to
+   the bench's (the fused cross entropy's B*(S-1) rows); (c)
+   ``paddle.profiler.Profiler(targets=[CPU, GPU], scheduler=
+   make_scheduler(closed=1, ready=1, record=2))`` over 5 calls of a
+   ``TrainStep`` whose loss is ``paddle.mean`` of the model's: five
+   steps in ``step_info``, two ``TrainStep`` host spans and the op
+   library's ``mean`` spans in the export, and K1-K3's kernels in the
+   device trace beside it;
+   ``ProfilerTarget.TPU`` raises; (d) ``tests/torch_chaos_worker.py``
+   processes on the card (a tiny Llama, f32): a step held past
+   ``step_timeout`` with ``watchdog_action="kill"`` exits 79 with a dump
+   holding the flight recorder's events, and a fit SIGKILLed after step
+   3 by the chaos harness, resumed, gives the uninterrupted run's losses
+   at rtol 1e-5; (e) ``/fleetz``'s document carries ``local_goodput``.
+   Its files go to a ``phase20_*`` directory of the checkout, deleted
+   after.
 
 It prints its measurements on earlier lines, then one JSON line with a
 record per kernel (K1-K3's with their times at ERNIE's and DiT's shapes,
@@ -298,7 +338,9 @@ float16 record under ``float16``; K1-K3's ``launches_by_path`` with phase
 17's ``moe_generate`` and ``incubate`` and phase 18's ``export``, and
 K1's phase 18 record under ``export``; K4's ``launches_by_path`` with
 phase 19's ``serving_prod`` and ``fleet``, and phase 19's ledger step
-costs under ``serving_ledger_step_ms``),
+costs under ``serving_ledger_step_ms``; K1-K3's and the fused kernels'
+``launches_by_path`` with phase 20's ``train_prod`` and ``profiler``,
+and K1's phase 20 figures under ``train_prod``),
 and ends with
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -5928,6 +5970,620 @@ def phase_serving_production():
         {"armed_ms": cost[True], "disarmed_ms": cost[False]}
 
 
+# --------------------------------------------------------------------------
+# phase 20: training in production
+PROD_STEPS = 8            # fit steps of (a); saves at 4 and 8
+PROD_SAVE_EVERY = 4
+PROD_POISON = 6           # the chaos harness poisons this step's batch
+PROD_NUMERICS_EVERY = 4   # numerics samples at optimizer steps 1 and 4
+PROD_WINDOW = (3, 4)      # the fit's device-profiler window
+PROD_TRACE_KERNELS = ("flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel",
+                      "flash_dkv_wgmma_kernel", "fused_adam_kernel")
+
+
+def _prod_model(cfg, device, dtype):
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    net = LlamaForCausalLM(cfg, dtype=dtype, seed=SEED, device=device)
+    opt = AdamW(learning_rate=1e-4, parameters=net.parameters(),
+                multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))
+    return net, opt, Model(net).prepare(opt, loss=None)
+
+
+def _prod_recorder(model, device):
+    """A callback (after ``StepTelemetry``) that times each fit step with
+    CUDA events (perf_counter on the CPU) and keeps each numerics sample
+    the step produced."""
+    from paddle_tpu_torch.hapi import Callback
+
+    class Recorder(Callback):
+        def __init__(self):
+            self.rows, self.samples = [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            self._data = logs["data_time"]
+            self._seen = model._train_step.last_numerics
+            if device.type == "cuda":
+                self._ev = torch.cuda.Event(enable_timing=True)
+                self._ev.record()
+            self._t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            if device.type == "cuda":
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                end.synchronize()
+                ms = self._ev.elapsed_time(end)
+            else:
+                ms = 1e3 * (time.perf_counter() - self._t0)
+            self.rows.append(dict(step=step, loss=logs["loss"], ms=ms,
+                                  data_ms=1e3 * self._data))
+            s = model._train_step.last_numerics
+            if s is not None and s is not self._seen:
+                self.samples.append((step, s))
+
+    return Recorder()
+
+
+class _LastBatch:
+    """The pipeline's batches as delivered, the last one kept (the
+    batch the steps after the fit run on)."""
+
+    def __init__(self, pipe):
+        self.pipe, self.last = pipe, None
+
+    def __iter__(self):
+        for b in self.pipe:
+            self.last = b
+            yield b
+
+
+def _ckpt_entry(root, key):
+    """One non-tensor entry of a checkpoint's latest committed step, read
+    from its pickled skeleton alone (no tensor is read)."""
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.checkpoint.layout import (AUX_FILE,
+                                                    loads_skeleton)
+    mgr = CheckpointManager(root)
+    step = mgr.latest_step()
+    with open(os.path.join(mgr.step_dir(step), AUX_FILE), "rb") as f:
+        return step, loads_skeleton(f.read())[key]
+
+
+def _trace_names(path):
+    with open(path) as f:
+        return {str(e.get("name", "")) for e in json.load(f)["traceEvents"]}
+
+
+def prod_fit(cfg, device, dtype, B, S, corpus, work):
+    """20(a): ``Model.fit`` with everything armed. Returns the model, its
+    optimizer, what the checks read, and the fit's launch counts."""
+    from paddle_tpu_torch.data import DataPipeline
+    from paddle_tpu_torch.hapi import StepTelemetry, VisualDL
+    from paddle_tpu_torch.observability import (flight_recorder, goodput,
+                                                numerics, profile)
+    from paddle_tpu_torch.observability.metrics import MetricsRegistry
+    from paddle_tpu_torch.observability.step_timer import peak_flops
+    from paddle_tpu_torch.resilience import FitResilience, chaos
+
+    net, opt, model = _prod_model(cfg, device, dtype)
+    pipe = DataPipeline(corpus, batch_size=B, seq_len=S, pack=True,
+                        base_seed=SEED, drop_last=True,
+                        device_prefetch=2 if device.type == "cuda" else 0,
+                        **({"device": device} if device.type == "cuda"
+                           else {}))
+    reg = MetricsRegistry()
+    flops = train_flops_per_step(cfg, B, S)
+    peak = peak_flops(device)
+    tel = StepTelemetry(flops_per_sample=flops / B, registry=reg)
+    rec = _prod_recorder(model, device)
+    vdl_dir = os.path.join(work, "vdl")
+    # the checkpoint's metrics go to the default registry, which the
+    # goodput ledger's checkpoint bin reads
+    fr = FitResilience(checkpoint_dir=os.path.join(work, "ckpt"),
+                       save_every_steps=PROD_SAVE_EVERY, keep_last_k=1,
+                       step_timeout=600.0, nan_guard=True, pipeline=pipe)
+    profile.set_trace_dir(os.path.join(work, "trace"))
+    profile.set_fit_window(*PROD_WINDOW)
+    numerics.configure(armed=True, every=PROD_NUMERICS_EVERY)
+    chaos.configure(poison_batch=[PROD_POISON])
+    # this fit's ledger: the one-time costs stamped by earlier phases
+    # (kernel builds, captures, first steps) are not its own
+    goodput.reset_ledger()
+    goodput._drain_pending_compile()
+    rec_fr = flight_recorder.enable(capacity=4096)
+    _reset_flash_counts()
+    _reset_fused_counts()
+    t0 = time.perf_counter()
+    try:
+        kept = _LastBatch(pipe)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            model.fit(kept, epochs=PROD_STEPS, num_iters=PROD_STEPS,
+                      verbose=0, callbacks=[tel, rec, VisualDL(vdl_dir), fr])
+        counts = {**_flash_counts(), **_fused_counts()}
+        wall = time.perf_counter() - t0
+        events = rec_fr.events()
+    finally:
+        chaos.configure()
+        profile.set_fit_window()
+    return dict(net=net, opt=opt, model=model, reg=reg, tel=tel, rec=rec,
+                fr=fr, flops=flops, peak=peak, vdl_dir=vdl_dir,
+                counts=counts, wall=wall, events=events,
+                warnings=[str(w.message) for w in caught],
+                batch={k: torch.as_tensor(v).to(device)
+                       for k, v in kept.last.items()})
+
+
+def prod_fit_checks(cfg, a, work):
+    """20(a)'s checks on what :func:`prod_fit` returned."""
+    from paddle_tpu_torch.observability import goodput, numerics
+    rows, steps = a["rec"].rows, PROD_STEPS
+    losses = [r["loss"] for r in rows]
+    bad = [i + 1 for i, v in enumerate(losses) if not math.isfinite(v)]
+    if bad != [PROD_POISON]:
+        raise AssertionError(f"prod fit: non-finite losses at steps {bad}, "
+                             f"expected only the poisoned {PROD_POISON}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"prod fit: loss did not fall: {losses}")
+    guard = a["fr"].nan_guard
+    if guard.rollbacks != 1 or guard.trips[0]["step"] != PROD_POISON:
+        raise AssertionError(f"prod fit: guard trips {guard.trips}")
+    provs = [f for f in os.listdir(os.path.join(work, "trace"))
+             if f.startswith("nan_provenance_")]
+    if len(provs) != 1:
+        raise AssertionError(f"prod fit: provenance files {provs}")
+    prov = json.load(open(os.path.join(work, "trace", provs[0])))
+    if prov["verdict"] != "finite_in_graph" or not prov["replay"]["taps"]:
+        raise AssertionError(f"prod fit: the host-side loss corruption's "
+                             f"replay gave {prov['verdict']} with "
+                             f"{len(prov['replay']['taps'])} taps")
+    snap = goodput.snapshot()
+    bins = snap["bins"]
+    if not bins["rollback_discarded"] > 0:
+        raise AssertionError(f"prod fit: no rollback seconds: {bins}")
+    total = sum(bins.values())
+    if abs(total - snap["wall_s"]) > 0.01 * snap["wall_s"]:
+        raise AssertionError(f"prod fit: goodput bins sum to {total} s, "
+                             f"the ledger's wall {snap['wall_s']} s")
+    st = a["tel"].last_stats
+    mfu = a["reg"].get("train_mfu_ratio").value()
+    want = a["flops"] / st["step_time_s"] / a["peak"]
+    if abs(mfu - want) > 0.01 * want:
+        raise AssertionError(f"prod fit: train_mfu_ratio {mfu} against "
+                             f"{want}")
+    # the same steps, both clocks: all but the first (the compile bin)
+    tel_ms = [1e3 * t for t in list(a["tel"].timer.recent)[1:]]
+    ev_ms = [r["ms"] + r["data_ms"] for r in rows[1:]]
+    med_t, med_e = statistics.median(tel_ms), statistics.median(ev_ms)
+    if abs(med_t - med_e) > 0.10 * med_e:
+        raise AssertionError(f"prod fit: train_step_seconds median "
+                             f"{med_t:.3f} ms against CUDA events "
+                             f"{med_e:.3f} ms")
+    (vdl,) = os.listdir(a["vdl_dir"])
+    recs = [json.loads(line) for line in open(
+        os.path.join(a["vdl_dir"], vdl))]
+    loss_recs = [r for r in recs if r["tag"] == "train/loss"]
+    if [r["step"] for r in loss_recs] != list(range(1, steps + 1)):
+        raise AssertionError(f"prod fit: VisualDL train/loss records at "
+                             f"steps {[r['step'] for r in loss_recs]}")
+    samples = a["rec"].samples
+    if [s for s, _ in samples] != [1, PROD_NUMERICS_EVERY]:
+        raise AssertionError(f"prod fit: numerics samples at fit steps "
+                             f"{[s for s, _ in samples]}")
+    for s, sample in samples:
+        for name, (absmax, mean, rms, nonf) in sample["taps"].items():
+            if nonf or not all(map(math.isfinite, (absmax, mean, rms))):
+                raise AssertionError(f"prod fit: sample of step {s}: tap "
+                                     f"{name} not finite")
+    ck_step, ck_num = _ckpt_entry(os.path.join(work, "ckpt"), "numerics")
+    summary = numerics.get_observatory().calibration_summary()
+    if ck_num != summary:
+        raise AssertionError(f"prod fit: the step-{ck_step} checkpoint's "
+                             f"numerics entry differs from "
+                             f"calibration_summary()")
+    names = _trace_names(os.path.join(_fit_capture_dir(work),
+                                      "trace.json"))
+    missing = [k for k in PROD_TRACE_KERNELS
+               if not any(k in n for n in names)]
+    if missing:
+        raise AssertionError(f"prod fit: the window's trace lacks {missing}")
+    kinds = {e["kind"] for e in a["events"]}
+    if not {"step", "ckpt", "data"} <= kinds:
+        raise AssertionError(f"prod fit: flight recorder kinds {kinds}")
+    n = cfg.num_hidden_layers
+    flash = {k: a["counts"][k] for k in ("flash_attention_fwd",
+                                         "flash_attention_dq",
+                                         "flash_attention_dkv")}
+    # each fit step and the guard's one provenance replay (forward and
+    # backward) launch K1-K3 once a layer
+    if set(flash.values()) != {n * (steps + 1)}:
+        raise AssertionError(f"prod fit: launches {flash}, expected "
+                             f"{n} x ({steps} steps + 1 replay)")
+    for k in ("fused_adam_update", "fused_sqnorm"):
+        if a["counts"][k] != steps:
+            raise AssertionError(f"prod fit: {k} launched "
+                                 f"{a['counts'][k]} times in {steps} steps")
+    step_ms = statistics.median(r["ms"] for r in rows[1:])
+    return dict(losses=losses, prov=prov, bins=bins, wall_s=snap["wall_s"],
+                step_ms=step_ms,
+                fraction=snap["job_goodput_fraction"], mfu=mfu,
+                med_tel=med_t, med_ev=med_e, samples=len(samples),
+                taps=len(samples[0][1]["taps"]), ckpt_step=ck_step,
+                trace_names=len(names), kinds=sorted(kinds),
+                events=len(a["events"]), flash=flash)
+
+
+def _fit_capture_dir(work):
+    root = os.path.join(work, "trace")
+    (d,) = [f for f in os.listdir(root) if f.startswith("profile_fit_")]
+    return os.path.join(root, d)
+
+
+def prod_provenance_names_a_tap(a, cfg):
+    """A NaN in one layer's down projection: the replay names that
+    layer's ``mlp`` tap first. The weight is put back after."""
+    from paddle_tpu_torch.observability import numerics
+    layer = cfg.num_hidden_layers // 2
+    w = a["net"].model.layers[layer].mlp.down_proj.weight
+    held = w.detach().clone()
+    with torch.no_grad():
+        w[0, 0] = float("nan")
+    try:
+        path = numerics.write_provenance(a["model"]._train_step, 0,
+                                         "weight_nan")
+    finally:
+        with torch.no_grad():
+            w.copy_(held)
+    doc = json.load(open(path))
+    want = f"layers.{layer}.mlp"
+    if doc["first_nonfinite"] is None or \
+            doc["first_nonfinite"]["name"] != want:
+        raise AssertionError(f"provenance: named {doc['first_nonfinite']}, "
+                             f"expected {want}")
+    return doc["first_nonfinite"]
+
+
+def prod_costs(a, blocks=("A", "B", "B", "A"), n=4):
+    """The mean step (wall, loss read back) with StepTimer and the flight
+    recorder armed (A) against disarmed (B), in turns; then a sampled
+    numerics step against an unsampled one. Launches here are not on a
+    path: the counters are put back."""
+    from paddle_tpu_torch.observability import flight_recorder, numerics
+    from paddle_tpu_torch.observability.metrics import MetricsRegistry
+    from paddle_tpu_torch.observability.step_timer import StepTimer
+    step = a["model"]._train_step
+    batch = a["batch"]
+    held = {**_flash_counts(), **_fused_counts()}
+
+    def run(armed):
+        timer = StepTimer(registry=MetricsRegistry(), peak=0) \
+            if armed else None
+        if armed:
+            flight_recorder.enable(capacity=4096)
+        ts = []
+        try:
+            for _ in range(n):
+                t = time.perf_counter()
+                if armed:
+                    timer.begin_step()
+                float(step(**batch))
+                if armed:
+                    timer.end_step(samples=1)
+                ts.append(1e3 * (time.perf_counter() - t))
+        finally:
+            flight_recorder.disable()
+        return statistics.mean(ts)
+
+    cost = {"armed": [], "disarmed": []}
+    for b in blocks:
+        cost["armed" if b == "A" else "disarmed"].append(run(b == "A"))
+    numerics.configure(armed=True, every=1)
+    sampled = run(False)
+    numerics.configure(armed=False)
+    unsampled = run(False)
+    from paddle_tpu_torch.ops.pallas import flash_attention as fa
+    from paddle_tpu_torch.jit import fused_update as fu
+    fa.launches_fwd, fa.launches_dq, fa.launches_dkv = (
+        held["flash_attention_fwd"], held["flash_attention_dq"],
+        held["flash_attention_dkv"])
+    fu.launches_adam, fu.launches_sqnorm = held["fused_adam_update"], \
+        held["fused_sqnorm"]
+    return dict(cost, sampled=sampled, unsampled=unsampled)
+
+
+def prod_attribution(a, cfg, B, S, step_ms):
+    """20(b): ``attribute_train_step`` on the fit's model and a batch of
+    its pipeline, fused (its TrainStep) and ``fused=False``; the fused
+    table must sum to ``step_ms``, the same TrainStep's step measured
+    with its loss read back, within 10%."""
+    from paddle_tpu_torch.observability.attribution import \
+        attribute_train_step
+    from paddle_tpu_torch.observability.metrics import MetricsRegistry
+    batch = a["batch"]
+    out = {}
+    for fused in (True, False):
+        rep = attribute_train_step(
+            a["net"], a["opt"], batch, steps=2, warmup=1, reps=2,
+            fused=fused, registry=MetricsRegistry(),
+            train_step=a["model"]._train_step if fused else None)
+        out[fused] = rep
+        log(f"prod attribution ({'fused' if fused else 'fused=False'}; "
+            f"CUDA events, best of 2 x 2 calls a sub-step):\n"
+            + rep.table())
+    # bench.py counts the loss head over B*S rows; the fused cross
+    # entropy computes the B*(S-1) that have a next token
+    want = train_flops_per_step(cfg, B, S)
+    head_rows = 3 * 2 * B * cfg.hidden_size * cfg.vocab_size
+    for fused, rep in out.items():
+        if rep.total_flops not in (want, want - head_rows):
+            raise AssertionError(f"attribution: counted {rep.total_flops}"
+                                 f" flop, bench.py's count is {want}")
+    got = out[True].sum_seconds * 1e3
+    if abs(got - step_ms) > 0.10 * step_ms:
+        raise AssertionError(f"attribution: the fused phases sum to "
+                             f"{got:.3f} ms, the measured step {step_ms:.3f}"
+                             f" ms")
+    if not out[True].phases["optimizer"]["seconds"] < \
+            out[False].phases["optimizer"]["seconds"]:
+        raise AssertionError("attribution: the fused optimizer phase is not "
+                             "shorter than the looped one")
+    return out
+
+
+def prod_profiler(a, work, steps=5):
+    """20(c): ``paddle.profiler.Profiler`` with the CPU and GPU targets
+    and a (closed 1, ready 1, record 2) schedule over five calls of a
+    ``TrainStep`` whose loss goes through the op library
+    (``paddle.mean``). Returns its launch counts."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.jit import TrainStep
+    try:
+        profiler.Profiler(targets=[profiler.ProfilerTarget.TPU])
+        raise AssertionError("profiler: ProfilerTarget.TPU did not raise")
+    except ValueError:
+        pass
+    step = TrainStep(a["net"], lambda m, **b: paddle.mean(m(**b)[1]),
+                     a["opt"])
+    batch = a["batch"]
+    _reset_flash_counts()
+    _reset_fused_counts()
+    prof = profiler.Profiler(
+        targets=[profiler.ProfilerTarget.CPU, profiler.ProfilerTarget.GPU],
+        scheduler=profiler.make_scheduler(closed=1, ready=1, record=2))
+    prof.start()
+    for i in range(steps):
+        float(step(**batch))
+        if i < steps - 1:
+            prof.step()
+    prof.stop()
+    counts = {**_flash_counts(), **_fused_counts()}
+    info = prof.step_info()
+    if info["steps"] != steps:
+        raise AssertionError(f"profiler: step_info {info}")
+    out = os.path.join(work, "profiler")
+    host = prof.export_chrome_tracing(out, "w0")
+    host_names = [str(e["name"]) for e in
+                  json.load(open(host))["traceEvents"]]
+    devs = [f for f in os.listdir(out) if ".device" in f]
+    names = _trace_names(os.path.join(out, devs[0])) if devs else set()
+    missing = [k for k in PROD_TRACE_KERNELS[:3]
+               if not any(k in n for n in names)]
+    if host_names.count("TrainStep") != 2 or "mean" not in host_names or \
+            missing or len(devs) != 1:
+        raise AssertionError(f"profiler: {host_names.count('TrainStep')} "
+                             f"TrainStep spans, op spans "
+                             f"{sorted(set(host_names))[:10]}, device "
+                             f"traces {devs}, missing {missing}")
+    ops = sorted({n for n in host_names if n != "TrainStep"})
+    return dict(counts=counts, info=info, host_spans=len(host_names),
+                ops=ops, device_events=len(names))
+
+
+def prod_subprocesses(work, device):
+    """20(d): the watchdog's kill and the chaos harness's kill and resume,
+    each in its own process on the card (``tests/torch_chaos_worker.py``,
+    a tiny Llama)."""
+    import subprocess
+    worker = os.path.join(REPO_ROOT, "tests", "torch_chaos_worker.py")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO_ROOT, os.path.join(REPO_ROOT, "tests")]))
+
+    def start(*args):
+        return subprocess.Popen(
+            [sys.executable, worker, *map(str, args)], cwd=REPO_ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+
+    def done(p, timeout=300):
+        try:
+            out, err = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+        return p.returncode, out, err
+
+    def losses(out):
+        return {int(ln.split()[1]): float(ln.split()[2])
+                for ln in out.splitlines() if ln.startswith("step ")}
+
+    dev = device.type
+    procs = {"hang": start("hang", os.path.join(work, "hang"), dev),
+             "whole": start("run", os.path.join(work, "whole"), dev, 6),
+             "killed": start("run", os.path.join(work, "killed"), dev, 6, 3)}
+    res = {k: done(p) for k, p in procs.items()}
+    res["resumed"] = done(start("run", os.path.join(work, "killed"), dev, 6,
+                                3))
+    from paddle_tpu_torch.resilience import RESUMABLE_EXIT_CODE
+    want = {"hang": RESUMABLE_EXIT_CODE, "whole": 0, "killed": -9,
+            "resumed": 0}
+    for k, rc in want.items():
+        if res[k][0] != rc:
+            raise AssertionError(f"worker {k}: exit {res[k][0]}, expected "
+                                 f"{rc}:\n{res[k][2][-3000:]}")
+    trace = os.path.join(work, "hang", "trace")
+    (dump,) = [f for f in os.listdir(trace) if f.startswith("watchdog_")]
+    doc = json.load(open(os.path.join(trace, dump)))
+    kinds = {e["kind"] for e in doc["events"]}
+    if doc["stuck_span"]["context"].get("step") != 2 or \
+            not {"op", "data"} <= kinds:
+        raise AssertionError(f"watchdog dump: {doc['stuck_span']}, kinds "
+                             f"{kinds}")
+    w, k, r = (losses(res[n][1]) for n in ("whole", "killed", "resumed"))
+    got = {**k, **r}
+    if sorted(k) != [1, 2, 3] or sorted(got) != list(range(1, 7)):
+        raise AssertionError(f"chaos resume: steps {sorted(k)} then "
+                             f"{sorted(r)}")
+    diff = max(abs(got[s] - w[s]) / abs(w[s]) for s in w)
+    if not np.allclose([got[s] for s in range(1, 7)],
+                       [w[s] for s in range(1, 7)], rtol=1e-5, atol=0):
+        raise AssertionError(f"chaos resume: losses {got} against the "
+                             f"uninterrupted {w}")
+    return dict(dump_events=len(doc["events"]), kinds=sorted(kinds),
+                resumed_from=min(r), rel_diff=diff)
+
+
+def _phase_production(cfg, device, dtype, B, S, corpus, work,
+                      train_step_ms):
+    from paddle_tpu_torch.observability import (fleet, flight_recorder,
+                                                numerics, profile)
+    parts, t = {}, time.perf_counter()
+    a = prod_fit(cfg, device, dtype, B, S, corpus, work)
+    parts["(a) fit"] = time.perf_counter() - t
+    t = time.perf_counter()
+    try:
+        res = prod_fit_checks(cfg, a, work)
+    finally:
+        flight_recorder.disable()
+        numerics.configure(armed=False)
+    fz = fleet.fleetz_snapshot()
+    if fz["local_goodput"] is None or \
+            fz["local_goodput"]["steps"] != PROD_STEPS:
+        raise AssertionError(f"fleetz: {fz['local_goodput']}")
+    tap = prod_provenance_names_a_tap(a, cfg)
+    log_fit(a, res, tap, fz, train_step_ms)
+    costs = prod_costs(a)
+    log_costs(costs)
+    parts["(a) checks, costs"] = time.perf_counter() - t
+    t = time.perf_counter()
+    # the measured step: the same TrainStep, loss read back each step
+    step_ms = statistics.mean(costs["disarmed"])
+    rep = prod_attribution(a, cfg, B, S, step_ms)
+    log_attribution(rep, step_ms, res["step_ms"])
+    parts["(b) attribution"] = time.perf_counter() - t
+    t = time.perf_counter()
+    prof = prod_profiler(a, work) if device.type == "cuda" else None
+    if prof is not None:
+        log_profiler(prof)
+    parts["(c) profiler"] = time.perf_counter() - t
+    del a["net"], a["opt"], a["model"]
+    profile.set_trace_dir(None)
+    return a, res, costs, rep, prof, parts
+
+
+def phase_production(train_step_ms):
+    """Phase 20. Returns the launch counts of (a) and (c) by path and
+    what the JSON line carries of the phase."""
+    from paddle_tpu_torch.observability import goodput
+    cfg = llama_bench_config()
+    corpus = SyntheticCorpus(FIT_DOCUMENTS, cfg.vocab_size, SEED)
+    device = torch.device("cuda")
+    free_device_memory()
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="phase20_", dir=REPO_ROOT)
+    try:
+        a, res, costs, rep, prof, parts = _phase_production(
+            cfg, device, torch.bfloat16, 4, 2048, corpus, work,
+            train_step_ms)
+        free_device_memory()
+        t = time.perf_counter()
+        sub = prod_subprocesses(work, device)
+        log_subprocesses(sub)
+        parts["(d) subprocesses"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    free_device_memory()
+    log("phase 20 seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()) +
+        f"; phase 20 {time.perf_counter() - t_phase:.1f} s")
+    goodput.reset_ledger()
+    return {"train_prod": a["counts"], "profiler": prof["counts"]}, dict(
+        fit_step_ms=res["med_ev"], mfu=res["mfu"],
+        goodput_fraction=res["fraction"],
+        telemetry_armed_ms=costs["armed"],
+        telemetry_disarmed_ms=costs["disarmed"],
+        numerics_sampled_ms=costs["sampled"],
+        numerics_unsampled_ms=costs["unsampled"])
+
+
+def log_fit(a, res, tap, fz, train_step_ms):
+    bins = res["bins"]
+    log(f"prod fit (a): {PROD_STEPS} steps, losses "
+        f"{[round(v, 4) for v in res['losses']]} (step {PROD_POISON} "
+        f"poisoned: a packed batch holds no float, so its loss was "
+        f"corrupted); guard tripped once, rolled back to step "
+        f"{PROD_POISON - 2}; provenance {res['prov']['verdict']} over "
+        f"{len(res['prov']['replay']['taps'])} taps; a NaN weight's replay "
+        f"named {tap['name']} ({tap['nonfinite_count']} non-finite)")
+    log(f"prod fit (a): step median {res['med_ev']:.3f} ms by CUDA events "
+        f"(steps 2-{PROD_STEPS}, data wait included; "
+        f"{res['step_ms']:.3f} ms without it), train_step_seconds median "
+        f"{res['med_tel']:.3f} ms; phase 7's TrainStep {train_step_ms:.3f} "
+        f"ms; train_mfu_ratio {res['mfu']:.4f} of "
+        f"{a['peak'] / 1e12:.1f} TFLOP/s for {a['flops']:.4e} flop a step;"
+        f" step rows (step, ms, data ms): " + ", ".join(
+            f"({r['step']}, {r['ms']:.3f}, {r['data_ms']:.3f})"
+            for r in a["rec"].rows))
+    log(f"prod fit (a): goodput over {res['wall_s']:.3f} s: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in bins.items()) +
+        f"; job_goodput_fraction {res['fraction']:.4f}; fit wall "
+        f"{a['wall']:.3f} s")
+    log(f"prod fit (a): {res['samples']} numerics samples of {res['taps']} "
+        f"taps, all finite; the step-{res['ckpt_step']} checkpoint's "
+        f"numerics entry equals calibration_summary(); the window's trace "
+        f"({res['trace_names']} names) holds {', '.join(PROD_TRACE_KERNELS)}"
+        f"; flight recorder {res['events']} events of kinds "
+        f"{res['kinds']}; launches {a['counts']}")
+    log(f"prod fleetz (e): local_goodput steps {fz['local_goodput']['steps']}"
+        f", fraction {fz['local_goodput']['job_goodput_fraction']}")
+
+
+def log_costs(costs):
+    log("prod costs: mean step of 4 (wall, loss read back), StepTimer + "
+        "flight recorder armed / disarmed in turns A B B A: armed " +
+        " / ".join(f"{x:.3f}" for x in costs["armed"]) + " ms, disarmed " +
+        " / ".join(f"{x:.3f}" for x in costs["disarmed"]) +
+        f" ms; a sampled numerics step {costs['sampled']:.3f} ms against "
+        f"an unsampled {costs['unsampled']:.3f} ms")
+
+
+def log_attribution(rep, step_ms, fit_ms):
+    for fused, r in rep.items():
+        log(f"prod attribution ({'fused' if fused else 'fused=False'}): "
+            + json.dumps(r.to_json()["phases"]) +
+            f"; sum {r.sum_seconds * 1e3:.3f} ms against the disarmed "
+            f"step {step_ms:.3f} ms (fit step {fit_ms:.3f} ms); "
+            f"{r.total_flops:.4e} flop")
+
+
+def log_profiler(prof):
+    log(f"prod profiler (c): step_info {prof['info']}; {prof['host_spans']} "
+        f"host spans (op spans: {prof['ops'][:12]}), "
+        f"{prof['device_events']} device event names; launches "
+        f"{prof['counts']}")
+
+
+def log_subprocesses(sub):
+    log(f"prod subprocesses (d): watchdog kill -> exit 79 with "
+        f"{sub['dump_events']} events of kinds {sub['kinds']} in its dump; "
+        f"SIGKILL after step 3, resumed from step {sub['resumed_from'] - 1}"
+        f": losses of steps 1-6 within {sub['rel_diff']:.2e} (rtol 1e-5) "
+        f"of the uninterrupted run")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch",
@@ -5958,13 +6614,15 @@ def main():
     p17 = phase_moe_and_incubate(llama_sweep)
     export_counts, export_rec = phase_export_and_deploy()
     prod_launches, ledger_cost = phase_serving_production()
+    train_prod, train_prod_rec = phase_production(train_step_ms)
     # each path's launches were counted from 0 over its own run; a kernel
     # on several paths reports their sum, and each path's count beside it
     paths = {"train": counts, "moe_train": moe, "fit": fit, "ernie": ernie,
              "dit": dit, "ppocr": ppocr, "resnet50": resnet,
              "api_train": api, "generate": gen, **capture_paths,
              "moe_generate": p17["moe_generate"],
-             "incubate": p17["incubate"], "export": export_counts}
+             "incubate": p17["incubate"], "export": export_counts,
+             **train_prod}
 
     def path_launches(kname):
         by_path = {p: c[kname] for p, c in paths.items()}
@@ -5989,7 +6647,8 @@ def main():
                                 **{m: r[kname] for m, r in shapes.items()},
                                 **(decode if kname == "flash_attention_fwd"
                                    else {})},
-                            **({"export": export_rec}
+                            **({"export": export_rec,
+                                "train_prod": train_prod_rec}
                                if kname == "flash_attention_fwd" else {})))
     for kname, _, replaces in GMM_KERNELS:
         kernels.append(dict(name=kname, route="cuda", source=GMM_SRC,

@@ -34,12 +34,12 @@ engine's weight-only PTQ), ``tuning`` (LoRA), ``incubate`` (the fused
 layers, LookAhead/ModelAverage/EMA, auto-checkpoint, functional autodiff,
 ASP), ``static`` (``InputSpec``, and the Program/Executor workflow
 over a recorded program), ``inference`` (``Config``/``Predictor`` over
-``jit.save``'s ``torch.export`` program), ``models`` and the device
+``jit.save``'s ``torch.export`` program), ``profiler`` (host spans,
+the device capture, the chrome export), ``models`` and the device
 functions. The models: Llama-3
 (serving, training and eager ``generate``), the MoE family (the same),
 ERNIE, DiT and PP-OCRv4. A subsystem that is not ported (``sparse``,
-``profiler``, ...) is not
-exported: reaching it raises ``AttributeError``.
+``audio``, ...) is not exported: reaching it raises ``AttributeError``.
 """
 from __future__ import annotations
 
@@ -96,6 +96,7 @@ from paddle_tpu_torch.batch import batch  # noqa: F401
 from paddle_tpu_torch import linalg  # noqa: F401
 from paddle_tpu_torch import static  # noqa: F401
 from paddle_tpu_torch import inference  # noqa: F401
+from paddle_tpu_torch import profiler  # noqa: F401
 
 bool = bool_  # paddle.bool
 

@@ -6,7 +6,9 @@ own tape; the port builds one ``torch.autograd.Function`` per
 ``PyLayer`` subclass, so the pair is an opaque node of PyTorch's graph.
 ``forward`` runs with gradients off and sees Paddle ``Tensor``s;
 ``backward`` gets the output gradients as ``Tensor``s and returns one
-gradient (or ``None``) per tensor input.
+gradient (or ``None``) per tensor input. Each runs as one profiler span,
+``pylayer::<name>`` and ``grad::pylayer::<name>`` (the reference spans
+the forward, :67, and every backward node).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Any
 
 import torch
 
+from paddle_tpu_torch import profiler
 from paddle_tpu_torch.core.tensor import unwrap, wrap
 
 __all__ = ["PyLayer", "PyLayerContext"]
@@ -44,14 +47,16 @@ def _function_of(cls):
             ctx = PyLayerContext()
             tctx.pctx = ctx
             tctx.is_tensor = [isinstance(a, torch.Tensor) for a in args]
-            out = cls.forward(ctx, *[wrap(a) for a in args], **kwargs)
+            with profiler.RecordEvent(f"pylayer::{cls.__name__}"):
+                out = cls.forward(ctx, *[wrap(a) for a in args], **kwargs)
             if isinstance(out, (tuple, list)):
                 return tuple(unwrap(o) for o in out)
             return unwrap(out)
 
         @staticmethod
         def backward(tctx, *grads):
-            gs = cls.backward(tctx.pctx, *[wrap(g) for g in grads])
+            with profiler.RecordEvent(f"grad::pylayer::{cls.__name__}"):
+                gs = cls.backward(tctx.pctx, *[wrap(g) for g in grads])
             if not isinstance(gs, (tuple, list)):
                 gs = (gs,)
             it = iter(gs)

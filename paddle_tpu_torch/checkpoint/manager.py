@@ -145,6 +145,11 @@ class CheckpointManager:
                                    mesh=mesh, registry=self.registry,
                                    device=device)
                 self.last_restored_step = s
+                from paddle_tpu_torch.observability import flight_recorder
+                now = time.perf_counter_ns()
+                flight_recorder.record(
+                    flight_recorder.KIND_CKPT, f"restore:step_{s}", now,
+                    now, aux=int(s), args={"step": int(s)})
                 return state
             except CheckpointIntegrityError as e:
                 self._m["failures"].inc(kind="integrity")

@@ -23,7 +23,8 @@ The port writes from one process: every shard is owned by rank 0.
 ``ckpt_*`` families (save and blocking seconds, bytes, in-flight,
 last committed step, failures) go into the port's metrics registry.
 
-Not ported yet: the flight recorder's commit events, and saves from more
+A commit is a ``ckpt`` event of the flight recorder
+(``commit:step_<n>``, with its bytes). Not ported yet: saves from more
 than one process (``process_count > 1`` raises).
 """
 from __future__ import annotations
@@ -269,6 +270,11 @@ def write_step(root: str, step: int, snap: Snapshot, *,
         shutil.rmtree(aside, ignore_errors=True)
     _fsync_dir(root)
     m["last_step"].set(int(step))
+    from paddle_tpu_torch.observability import flight_recorder
+    now = time.perf_counter_ns()
+    flight_recorder.record(
+        flight_recorder.KIND_CKPT, f"commit:step_{int(step)}", now, now,
+        aux=int(step), args={"step": int(step), "bytes": written})
     return final_dir
 
 

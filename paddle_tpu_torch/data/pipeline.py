@@ -23,12 +23,14 @@ that epoch's tail batch. Batches are numpy dicts (``pack=True``) or the
 ``collate_fn``'s host tensors, and torch tensors on ``device`` under
 ``device_prefetch``.
 
-Not ported yet: ``sharding=`` (placement onto a mesh) raises
-``NotImplementedError``, and the flight recorder's commit events.
+Each delivered batch is a ``data`` event of the flight recorder
+(``commit:step_<n>@epoch_<e>``) while it is on. Not ported yet:
+``sharding=`` (placement onto a mesh) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import copy
+import time
 from typing import Callable, Iterator, Optional
 
 import numpy as np
@@ -373,8 +375,19 @@ class DataPipeline:
             pairs = prefetch_pairs(pairs, depth=self.device_prefetch,
                                    device=self.device,
                                    registry=self._registry)
+        from paddle_tpu_torch.observability import flight_recorder
         for state, batch in pairs:
             # the commit point: this batch is now the trainer's problem
             self._committed = state
             self._m["batches"].inc()
+            if flight_recorder.active() is not None:
+                now = time.perf_counter_ns()
+                # the epoch rides the name: the native ring keeps no args
+                flight_recorder.record(
+                    flight_recorder.KIND_DATA,
+                    f"commit:step_{int(state['step'])}"
+                    f"@epoch_{int(state['epoch'])}", now, now,
+                    aux=int(state["step"]),
+                    args={"step": int(state["step"]),
+                          "epoch": int(state["epoch"])})
             yield batch

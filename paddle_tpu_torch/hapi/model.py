@@ -16,12 +16,21 @@ leaves through ``torch.from_numpy``); a batch already there, as
 the reference, ``train_batch`` returns the step's loss as a Python
 float, which waits for the step to finish on the card every step.
 
-Not ported yet, raising ``NotImplementedError``: ``StepTelemetry`` and
-``VisualDL``, ``prepare(amp_configs=…)`` (which the reference accepts
-and ignores; ``amp.auto_cast`` is ported), ``fit``'s
-``accumulate_grad_batches`` other than 1 (which the reference accepts
-and ignores), and the env-armed chaos (``PADDLE_TPU_CHAOS_*``) and
-profiler (``PADDLE_TPU_PROFILE_AT_STEP``) windows of ``fit``.
+Production training (the reference's :144-245, :406-496):
+``StepTelemetry`` drives an ``observability.StepTimer`` from the batch
+hooks and puts its stats (step time, samples/s, tokens/s, MFU, the
+goodput fraction) into the batch logs; ``VisualDL`` writes each logged
+scalar as a JSON line; ``fit`` runs the chaos harness's seams while
+``resilience.chaos.enabled()`` and a device-profiler window over the
+steps ``observability.profile.set_fit_window(start, stop)`` names,
+closed in a ``finally``. The reference arms those two from
+``PADDLE_TPU_CHAOS_*`` and ``PADDLE_TPU_PROFILE_AT_STEP``; the port
+reads no environment variable.
+
+Not ported yet, raising ``NotImplementedError``:
+``prepare(amp_configs=…)`` (which the reference accepts and ignores;
+``amp.auto_cast`` is ported) and ``fit``'s ``accumulate_grad_batches``
+other than 1 (which the reference accepts and ignores).
 """
 from __future__ import annotations
 
@@ -154,16 +163,101 @@ class EarlyStopping(Callback):
 
 
 class VisualDL(Callback):
-    def __init__(self, *a, **kw):
-        raise NotImplementedError(
-            "the VisualDL callback is not ported to paddle_tpu_torch yet")
+    """Scalar logger (reference: hapi/callbacks.py VisualDL). The
+    visualdl package is not used: each scalar of the batch logs
+    (``train/<key>``) and of ``evaluate`` (``eval/<key>``) is one JSON
+    line, ``{"step", "epoch", "tag", "value"}``, in
+    ``<log_dir>/scalars_<unix time>.jsonl``, as the reference writes."""
+
+    def __init__(self, log_dir: str = "./vdl_log"):
+        self.log_dir = log_dir
+        os.makedirs(log_dir, exist_ok=True)
+        self._path = None
+        self._step = 0
+        self._epoch = 0
+
+    def _file(self):
+        if self._path is None:
+            self._path = os.path.join(
+                self.log_dir, f"scalars_{int(time.time())}.jsonl")
+        return self._path
+
+    def _write(self, tag, value):
+        import json
+        with open(self._file(), "a") as f:
+            f.write(json.dumps({"step": self._step, "epoch": self._epoch,
+                                "tag": tag, "value": float(value)}) + "\n")
+
+    def on_epoch_begin(self, epoch, logs=None):
+        self._epoch = epoch
+
+    def on_train_batch_end(self, step, logs=None):
+        self._step += 1
+        for k, v in (logs or {}).items():
+            try:
+                self._write(f"train/{k}", v)
+            except (TypeError, ValueError):
+                pass  # non-scalar log entries are skipped
+
+    def on_eval_end(self, logs=None):
+        for k, v in (logs or {}).items():
+            try:
+                self._write(f"eval/{k}", v)
+            except (TypeError, ValueError):
+                pass
 
 
 class StepTelemetry(Callback):
-    def __init__(self, *a, **kw):
-        raise NotImplementedError(
-            "the StepTelemetry callback (observability.StepTimer) is not "
-            "ported to paddle_tpu_torch yet")
+    """Step telemetry (reference: hapi/model.py StepTelemetry): an
+    ``observability.StepTimer`` driven by the fit loop's batch hooks,
+    recording each step's data / compute / collective split,
+    samples/s, tokens/s and MFU into the registry, and putting the same
+    stats and the goodput ledger's ``goodput_fraction`` into the batch
+    ``logs`` for ``ProgBarLogger`` and ``VisualDL``.
+
+    ``flops_per_sample``: training flops a sample (forward, backward and
+    update); when omitted, a ``flops_per_sample`` attribute of the
+    network is used if it has one. ``peak`` (FLOP/s) overrides the
+    card's (``observability.step_timer.peak_flops`` of the network's
+    device: 0 on the CPU). The reference also starts its env-gated
+    metrics exporter here; in the port that is
+    ``observability.start_exporter(port)``."""
+
+    def __init__(self, flops_per_sample=None, tokens_per_sample=None,
+                 registry=None, peak=None):
+        self.flops_per_sample = flops_per_sample
+        self.tokens_per_sample = tokens_per_sample
+        self.registry = registry
+        self.peak = peak
+        self.timer = None
+        self.last_stats = None
+        self._batch_size = None
+
+    def on_train_begin(self, logs=None):
+        from paddle_tpu_torch.observability.step_timer import StepTimer
+        flops = self.flops_per_sample
+        if flops is None:
+            flops = getattr(self.model.network, "flops_per_sample", None)
+        self.timer = StepTimer(registry=self.registry,
+                               flops_per_sample=flops,
+                               tokens_per_sample=self.tokens_per_sample,
+                               peak=self.peak, device=self.model._device())
+
+    def on_train_batch_begin(self, step, logs=None):
+        logs = logs or {}
+        self._batch_size = logs.get("batch_size")
+        self.timer.begin_step(data_time=logs.get("data_time", 0.0))
+
+    def on_train_batch_end(self, step, logs=None):
+        stats = self.timer.end_step(
+            samples=self._batch_size,
+            grad_norm=(logs or {}).get("grad_norm"))
+        self.last_stats = stats
+        if logs is not None:
+            for k in ("step_time_s", "samples_per_sec", "tokens_per_sec",
+                      "mfu", "goodput_fraction"):
+                if k in stats:
+                    logs[k] = stats[k]
 
 
 class LRScheduler(Callback):
@@ -320,15 +414,6 @@ class Model:
             eval_freq=1, log_freq=10, save_dir=None, save_freq=1, verbose=1,
             drop_last=False, shuffle=True, num_workers=0, callbacks=None,
             accumulate_grad_batches=1, num_iters=None):
-        if os.environ.get("PADDLE_TPU_PROFILE_AT_STEP"):
-            raise NotImplementedError(
-                "PADDLE_TPU_PROFILE_AT_STEP: the fit loop's profiler "
-                "window is not ported to paddle_tpu_torch yet")
-        if any(k.startswith("PADDLE_TPU_CHAOS_") and v
-               for k, v in os.environ.items()):
-            raise NotImplementedError(
-                "PADDLE_TPU_CHAOS_*: the chaos harness is not ported to "
-                "paddle_tpu_torch yet")
         if accumulate_grad_batches != 1:
             raise NotImplementedError(
                 "accumulate_grad_batches is not ported to "
@@ -344,18 +429,30 @@ class Model:
         self._stop_training = False
         for cb in callbacks:
             cb.on_train_begin()
+        from paddle_tpu_torch.observability import profile
+        from paddle_tpu_torch.resilience import chaos
+        chaos = chaos if chaos.enabled() else None
+        if chaos is not None:
+            chaos.refresh()
+        pwin = profile.fit_window()
         try:
             return self._fit_epochs(loader, eval_data, batch_size, epochs,
                                     eval_freq, save_dir, save_freq,
-                                    num_workers, callbacks, num_iters)
+                                    num_workers, callbacks, num_iters,
+                                    chaos, pwin)
         finally:
+            # a window still open when the loop ends or dies must not
+            # keep the process-wide capture slot
+            if pwin is not None:
+                pwin.close()
             # on exceptions too: callbacks with teardown duties
             # (ModelCheckpoint draining async saves) must run
             for cb in callbacks:
                 cb.on_train_end()
 
     def _fit_epochs(self, loader, eval_data, batch_size, epochs, eval_freq,
-                    save_dir, save_freq, num_workers, callbacks, num_iters):
+                    save_dir, save_freq, num_workers, callbacks, num_iters,
+                    chaos, pwin):
         history = {"loss": []}
         step = 0
         for epoch in range(epochs):
@@ -377,7 +474,13 @@ class Model:
                          "batch_size": int(shape[0]) if shape else None}
                 for cb in callbacks:
                     cb.on_train_batch_begin(step + 1, blogs)
+                if pwin is not None:
+                    pwin.on_step(step + 1)
+                if chaos is not None:
+                    x = chaos.poison_batch(step + 1, x)
                 loss = self.train_batch(x, y)[0]
+                if chaos is not None:
+                    loss = chaos.corrupt_loss(step + 1, loss)
                 epoch_losses.append(loss)
                 step += 1
                 logs = {"loss": loss}
@@ -386,6 +489,8 @@ class Model:
                     logs["grad_norm"] = float(gn)
                 for cb in callbacks:
                     cb.on_train_batch_end(step, logs)
+                if chaos is not None:
+                    chaos.kill_at_step(step)
                 if self._stop_training:
                     # a mid-epoch stop (preemption, NaN guard, a user
                     # callback) leaves at a step boundary

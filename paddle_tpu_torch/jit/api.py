@@ -23,6 +23,8 @@ stale addresses. What the graph returns is cloned out of its static
 buffers before it is handed back. The draws of ``core.generator``'s
 card stream (dropout) are registered with the graph, so each replay
 draws a new mask. On the CPU the call runs eagerly under the same cache.
+Each call is one profiler span, ``to_static:<name>`` (reference
+:120-121).
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from torch.utils import _pytree as pytree
 from paddle_tpu_torch.core import generator as _gen
 from paddle_tpu_torch.core.tensor import unwrap_args, wrap
 from paddle_tpu_torch.nn.layer_base import Layer
+from paddle_tpu_torch.profiler import RecordEvent
 
 from .cuda_graph import CapturedGraph
 
@@ -104,6 +107,10 @@ class StaticFunction:
         return static, graph, graph.capture()
 
     def __call__(self, *args, **kwargs):
+        with RecordEvent(f"to_static:{getattr(self, '__name__', 'fn')}"):
+            return self._call(args, kwargs)
+
+    def _call(self, args, kwargs):
         args, kwargs, had = unwrap_args(args, kwargs)
         leaves, treedef, sig = _signature((args, kwargs))
         training = self._layer.training if self._layer is not None \

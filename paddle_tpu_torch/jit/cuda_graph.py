@@ -38,6 +38,8 @@ back to eager. A capture that fails raises.
 """
 from __future__ import annotations
 
+import time
+
 from typing import Callable, Dict, Iterable, Tuple
 
 import torch
@@ -79,6 +81,7 @@ class CapturedGraph:
         """Warm up, then capture ``fn``. Returns what the warm-up run
         returned (a real result; :attr:`outputs` holds the graph's)."""
         global captures
+        t0 = time.perf_counter()
         with torch.cuda.device(self._device):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
@@ -99,6 +102,9 @@ class CapturedGraph:
         self._graph = graph
         self.outputs = outputs
         captures += 1
+        # a one-time cost: the goodput ledger's compile bin
+        from paddle_tpu_torch.observability import goodput
+        goodput.record_compile(time.perf_counter() - t0)
         return result
 
     def replay(self):

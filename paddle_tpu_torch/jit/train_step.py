@@ -19,8 +19,26 @@ reference's ``_group_lrs`` (:668-683), so a scheduler's tick takes
 effect on the next step. The forward and backward, the clip and the
 update each run inside one ``torch.profiler.record_function`` range
 (``TrainStep.forward_backward``, ``TrainStep.clip``,
-``TrainStep.update``). CUDA-graph capture and the lr as a device scalar
-are not ported yet, nor are the mesh and bucketed-collective paths.
+``TrainStep.update``); the whole step is one ``profiler.RecordEvent``
+span (``TrainStep``) inside ``observability.comm.compute_scope``, as in
+the reference (:774-787). The first step's wall, less the kernel builds
+and captures stamped inside it, goes to the goodput ledger's ``compile``
+bin (``observability/goodput.py`` states the rule).
+
+Numerics (``observability.numerics``): on the steps
+``numerics.sample_this_step`` picks, the step is the instrumented twin:
+the forward runs under ``numerics.collect()``, and the step computes
+each bucket's gradient norm and non-finite count before the clip and
+its update and parameter norms after the update (buckets named
+``bucket<i>:<first parameter>`` as the reference's, the residue by
+parameter group, ``group<g>``); the sample lands in
+:attr:`TrainStep.last_numerics` and the observatory. Other steps run
+the code of a never-instrumented step. While
+``numerics.provenance_enabled()`` each step stashes its batch and
+random state for :meth:`TrainStep.numerics_probe_last`.
+
+CUDA-graph capture and the lr as a device scalar are not ported yet,
+nor are the mesh and bucketed-collective paths.
 
 Usage::
 
@@ -29,14 +47,20 @@ Usage::
 """
 from __future__ import annotations
 
+import time
+import warnings
 from typing import Callable
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
+from paddle_tpu_torch.core import generator
 from paddle_tpu_torch.core.tensor import unwrap_args, wrap
 from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+from paddle_tpu_torch.observability import goodput, numerics
+from paddle_tpu_torch.observability.comm import compute_scope
+from paddle_tpu_torch.profiler import RecordEvent
 
 from .fused_update import (build_flat_states, build_layout, fused_clip,
                            fused_enabled, fused_update)
@@ -90,6 +114,12 @@ class TrainStep:
         #: the global gradient norm of the last step (an f32 0-d tensor
         #: under ClipGradByGlobalNorm, else None)
         self.last_grad_norm = None
+        #: the last sampled step's numerics (numerics.host_sample's dict)
+        self.last_numerics = None
+        #: (args, kwargs, random state) of the last step, while
+        #: numerics.provenance_enabled()
+        self._last_batch = None
+        self._stepped = False
 
     def _group_lrs(self):
         """Effective lr per param group in f32, read on the host at every
@@ -153,15 +183,78 @@ class TrainStep:
             if mine:
                 opt._apply(group, mine, group_lrs[gi])
 
+    def _bucket_names(self, layout, names):
+        """``{stat name: [parameter names]}``: the fused buckets, then the
+        rest by parameter group (the reference's :363-401)."""
+        out, rest = {}, list(names)
+        if layout is not None and layout.buckets:
+            for i, b in enumerate(layout.buckets):
+                out[f"bucket{i}:{b.names[0]}"] = list(b.names)
+            rest = [n for n in names if n in set(layout.residue)]
+        groups = {}
+        index = {id(g): i for i, g in enumerate(self._opt._param_groups)}
+        for n in rest:
+            gi = index[id(self._group_of[id(self._params[n])])]
+            groups.setdefault(gi, []).append(n)
+        for gi in sorted(groups):
+            out[f"group{gi}"] = groups[gi]
+        return out
+
+    @staticmethod
+    @torch.no_grad()
+    def _grad_stats(buckets, grads):
+        """Per bucket ``(L2 norm, non-finite count)`` of the gradients,
+        and the total sum of squares."""
+        out, total = {}, None
+        for key, names in buckets.items():
+            gs = [grads[n] for n in names]
+            sq = sum(g.float().square().sum() for g in gs)
+            nonf = sum((~torch.isfinite(g)).sum() for g in gs)
+            out[key] = (sq.sqrt(), nonf)
+            total = sq if total is None else total + sq
+        return out, total
+
+    @staticmethod
+    @torch.no_grad()
+    def _update_stats(buckets, before, params):
+        """Per bucket ``(update norm, parameter norm)`` of this step."""
+        out = {}
+        for key, names in buckets.items():
+            us = sum((params[n].detach().float() - before[n].float())
+                     .square().sum() for n in names)
+            ps = sum(before[n].float().square().sum() for n in names)
+            out[key] = (us.sqrt(), ps.sqrt())
+        return out
+
     def __call__(self, *args, **kwargs):
         """One step on the batch ``args``/``kwargs``; the loss, detached.
         Paddle ``Tensor`` arguments reach ``loss_fn`` as they are (it is
         the user's code), and the loss comes back as a ``Tensor`` when
         the batch held one."""
+        instrument = numerics.sample_this_step(self._opt._step_count + 1)
+        if numerics.provenance_enabled():
+            self._last_batch = (args, kwargs, generator.get_rng_state())
+        first = not self._stepped
+        if first:
+            t0, stamped0 = time.perf_counter(), \
+                goodput.stamped_compile_seconds()
+        with RecordEvent("TrainStep"), compute_scope():
+            loss = self._step(args, kwargs, instrument)
+        if first:
+            self._stepped = True
+            if loss.is_cuda:
+                torch.cuda.synchronize(loss.device)
+            goodput.record_compile(time.perf_counter() - t0 - (
+                goodput.stamped_compile_seconds() - stamped0))
+        return loss
+
+    def _step(self, args, kwargs, instrument):
         opt = self._opt
         train = [p for p in opt._parameter_list if p.requires_grad]
+        names = [self._name_of[id(p)] for p in train]
         with record_function(RANGE_FORWARD_BACKWARD):
-            loss = self._loss_fn(self._model, *args, **kwargs)
+            with numerics.collect(instrument) as col:
+                loss = self._loss_fn(self._model, *args, **kwargs)
             (loss,), _, had = unwrap_args((loss,), None)
             had = had or unwrap_args(args, kwargs)[2]
             # the pairs hold the only reference to the gradients, so the
@@ -171,10 +264,14 @@ class TrainStep:
                 loss, train, allow_unused=True, materialize_grads=True)))
         group_lrs = self._group_lrs()
         opt._step_count += 1
-        layout, flats = self._fused_plan(
-            [self._name_of[id(p)] for p in train]) if self._fused \
+        layout, flats = self._fused_plan(names) if self._fused \
             else (None, None)
         self._layout = layout
+        if instrument:
+            buckets = self._bucket_names(layout, names)
+            gstats, total_sq = self._grad_stats(
+                buckets, {self._name_of[id(p)]: g for p, g in pairs})
+            before = {n: self._params[n].detach().clone() for n in names}
         if layout is None or not layout.buckets:
             with record_function(RANGE_CLIP):
                 pairs, gnorm = self._clip_loop(pairs)
@@ -192,7 +289,53 @@ class TrainStep:
                                    for n, g in res_grads.items()], group_lrs)
         self.last_grad_norm = gnorm
         loss = loss.detach()
+        if instrument:
+            nums = {"taps": col.taps, "grads": gstats,
+                    "updates": self._update_stats(buckets, before,
+                                                  self._params),
+                    "grad_norm": gnorm if gnorm is not None
+                    else total_sq.sqrt()}
+            del before
+            try:
+                self.last_numerics = numerics.host_sample(nums, loss)
+                numerics.get_observatory().record_sample(
+                    opt._step_count, self.last_numerics)
+            except Exception:
+                # telemetry must never fail the step it observes
+                warnings.warn("[numerics] sample publication failed",
+                              RuntimeWarning, stacklevel=2)
         return wrap(loss) if had else loss
+
+    def numerics_probe_last(self):
+        """NaN-provenance replay: the forward and gradients of the last
+        stashed batch, with that step's random state and every tap
+        collected, against the CURRENT model (the NaN guard restores the
+        last commit first). No clip, no update: parameters, optimizer
+        state and the random state are left as they were. Returns the
+        host sample (taps, gradient buckets, ``grad_norm``, ``loss``),
+        or None when no batch was stashed."""
+        if self._last_batch is None:
+            return None
+        args, kwargs, rng = self._last_batch
+        saved = generator.get_rng_state()
+        train = [p for p in self._opt._parameter_list if p.requires_grad]
+        names = [self._name_of[id(p)] for p in train]
+        generator.set_rng_state(rng)
+        try:
+            with numerics.collect() as col:
+                loss = self._loss_fn(self._model, *args, **kwargs)
+            (loss,), _, _ = unwrap_args((loss,), None)
+            grads = torch.autograd.grad(loss, train, allow_unused=True,
+                                        materialize_grads=True)
+            gstats, total_sq = self._grad_stats(
+                self._bucket_names(self._layout, names),
+                dict(zip(names, grads)))
+            del grads
+            nums = {"taps": col.taps, "grads": gstats,
+                    "grad_norm": total_sq.sqrt()}
+            return numerics.host_sample(nums, loss.detach())
+        finally:
+            generator.set_rng_state(saved)
 
 
 def _layout_sig(layout):

@@ -22,8 +22,8 @@ the out-of-memory postmortem.
 - **OOM postmortem** — a CUDA out-of-memory error is the port's
   "resource exhausted": :func:`handle_oom` dumps one postmortem JSON
   (the ledger's snapshot with the top owners, the failing step's memory
-  report) before the error re-raises. Its flight-recorder tail is absent
-  (``None``) until ``observability/flight_recorder.py`` is ported.
+  report, the flight recorder's last events when it is on) before the
+  error re-raises.
 
 The reference reads ``PADDLE_TPU_HBM_HEADROOM_WARN`` and writes under
 ``PADDLE_TPU_TRACE_DIR``; the port reads no environment variable:
@@ -366,6 +366,17 @@ def handle_oom(exc: BaseException, source: str,
     return path
 
 
+#: how many of the flight recorder's last events a postmortem carries
+POSTMORTEM_EVENT_TAIL = 64
+
+
+def _flight_tail():
+    """The flight recorder's last events ([] when it is off)."""
+    from . import flight_recorder
+    rec = flight_recorder.active()
+    return [] if rec is None else rec.tail(POSTMORTEM_EVENT_TAIL)
+
+
 def _dump_postmortem(exc, source, report_fn, out_dir) -> str:
     from . import fleet
     d = out_dir or _postmortem["dir"] or os.path.join(
@@ -389,8 +400,8 @@ def _dump_postmortem(exc, source, report_fn, out_dir) -> str:
         "pid": os.getpid(),
         "ledger": get_ledger().snapshot(),
         "memory_report": None if report is None else report.to_json(),
-        # the flight recorder is not ported: no event tail to append
-        "flight_recorder_tail": None,
+        # the flight recorder's last events, when it is on
+        "flight_recorder_tail": _flight_tail(),
     }
     with open(path, "w") as f:
         json.dump(doc, f, indent=1)

@@ -11,10 +11,10 @@ resilience layer (``resilience_*``) and the serving engine
 Two exposition sinks render a registry, byte for byte as the
 reference's: Prometheus text (``prometheus_text``) and a JSON document
 (``to_json``). :class:`MetricsExporter` serves both over stdlib HTTP
-(``/metrics``, ``/metrics.json``) with ``/healthz`` and ``/statusz``;
-its ``/fleetz`` answers 501 until ``observability.fleet``'s snapshot is
-ported. ``start_exporter``'s host is an argument (loopback by default):
-the reference's ``PADDLE_TPU_METRICS_HOST`` is not read.
+(``/metrics``, ``/metrics.json``) with ``/healthz``, ``/statusz`` and
+``/fleetz`` (``observability.fleet.fleetz_snapshot``).
+``start_exporter``'s host is an argument (loopback by default): the
+reference's ``PADDLE_TPU_METRICS_HOST`` is not read.
 """
 from __future__ import annotations
 
@@ -303,7 +303,7 @@ class MetricsExporter:
     (Prometheus text), ``/metrics.json``, ``/healthz`` (rank, job id and
     the age of the last step), ``/statusz`` (SLO burn rates and the
     request ledger; ``?format=json`` for the raw payload) and
-    ``/fleetz`` (501 until the fleet snapshot is ported), on ``port``
+    ``/fleetz`` (the single-process fleet document), on ``port``
     (0 picks an ephemeral port; ``self.port`` holds the bound one)."""
 
     def __init__(self, port: int, registry: Optional[MetricsRegistry] = None,
@@ -325,11 +325,7 @@ class MetricsExporter:
                     ctype = "text/plain; version=0.0.4"
                 elif self.path.startswith("/fleetz"):
                     from . import fleet
-                    try:
-                        body = json.dumps(fleet.fleetz_snapshot()).encode()
-                    except NotImplementedError as e:
-                        code, body = 501, json.dumps(
-                            {"error": str(e)}).encode()
+                    body = json.dumps(fleet.fleetz_snapshot()).encode()
                     ctype = "application/json"
                 elif self.path.startswith("/healthz"):
                     from . import fleet

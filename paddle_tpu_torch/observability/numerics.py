@@ -17,15 +17,35 @@ them.
   1, "taps": {...}}`` document that weight-only quantization reads
   (``quantization/weight_only.py``), and ``load_summary`` merges one back.
 
-What is not ported yet (ROADMAP §1 item 7): ``TrainStep``'s sampled
-twin step, the NaN-provenance replay (``write_provenance``), the export
-of the sketches by ``FitResilience`` and the serving engine's decode
-drift gauges; so the reference's ``PADDLE_TPU_NUMERICS*`` switches, which
-arm those, are not read either.
+* **Sampling.** While :func:`armed`, ``TrainStep`` runs an instrumented
+  twin of the step on the steps :func:`sample_this_step` picks (step 1
+  and every :func:`every`-th): the forward under :func:`collect`, plus
+  per-bucket gradient norms and non-finite counts and update/parameter
+  norms. :func:`host_sample` brings the whole tree to the host in one
+  copy; the observatory publishes the ``numerics_*`` gauges, a trace
+  span and the calibration sketches. Unsampled steps run the very code
+  of a never-instrumented step.
+* **NaN provenance.** On a ``NaNGuard`` trip, :func:`write_provenance`
+  replays the stashed last batch through ``TrainStep.numerics_probe_last``
+  (forward and gradients only, the tripped step's random state, nothing
+  updated) against the state just restored, and names the first
+  non-finite tap or gradient bucket in execution order in
+  ``nan_provenance_rank<r>_<pid>.json``.
+
+The reference reads ``PADDLE_TPU_NUMERICS``, ``_NUMERICS_EVERY``,
+``_NUMERICS_PROVENANCE``, ``PADDLE_TPU_TRACE_DIR`` and
+``PADDLE_TRAINER_ID``; the port reads none: :func:`configure` sets the
+first three (default off, 32, and following ``armed``), provenance files
+go to ``observability.profile``'s trace directory (or ``out_dir``), and
+the rank is ``fleet.rank()``. Not ported yet: the serving engine's
+decode drift gauges (``record_decode``).
 """
 from __future__ import annotations
 
+import json
 import math
+import os
+import time
 from contextlib import contextmanager
 from typing import Dict, List, Optional
 
@@ -33,8 +53,56 @@ import torch
 
 from .metrics import MetricsRegistry, get_registry
 
-__all__ = ["tap", "scope", "suppress", "collect", "numerics_metrics",
-           "NumericsObservatory", "get_observatory"]
+__all__ = ["tap", "scope", "suppress", "collect", "armed", "every",
+           "configure", "sample_this_step", "provenance_enabled",
+           "numerics_metrics", "NumericsObservatory", "get_observatory",
+           "last_sample", "write_provenance", "reduce_stats",
+           "host_sample"]
+
+# -- switches ----------------------------------------------------------------
+
+_config = {"armed": False, "every": 32, "provenance": None}
+
+
+def configure(armed: Optional[bool] = None, every: Optional[int] = None,
+              provenance: Optional[bool] = None):
+    """Set the switches the reference reads from ``PADDLE_TPU_NUMERICS``
+    (``armed``), ``_NUMERICS_EVERY`` (``every``: a positive period, else
+    the default 32) and ``_NUMERICS_PROVENANCE`` (``provenance``: True
+    or False forces the replay on or off, None follows ``armed``). An
+    argument left None keeps its setting, except ``provenance``, which
+    None resets to following ``armed``."""
+    if armed is not None:
+        _config["armed"] = bool(armed)
+    if every is not None:
+        n = int(every)
+        _config["every"] = n if n > 0 else 32
+    _config["provenance"] = None if provenance is None else bool(provenance)
+
+
+def armed() -> bool:
+    """Master switch: off, every seam is a no-op and no twin runs."""
+    return _config["armed"]
+
+
+def every() -> int:
+    """Sampling period in steps (default 32)."""
+    return _config["every"]
+
+
+def sample_this_step(step: int) -> bool:
+    """Should ``step`` (1-based) run the instrumented twin? Step 1 and
+    every :func:`every`-th, while :func:`armed`."""
+    if not armed():
+        return False
+    return step == 1 or step % every() == 0
+
+
+def provenance_enabled() -> bool:
+    """Is the NaN-provenance replay armed (the batch stashed every
+    step)? Follows :func:`armed` unless ``configure(provenance=)``."""
+    p = _config["provenance"]
+    return armed() if p is None else p
 
 # -- the tap seam ------------------------------------------------------------
 
@@ -121,6 +189,44 @@ def collect(enabled: bool = True):
                 k += 1
                 key = f"{name}#{k}"
             col.taps[key] = st
+
+
+def reduce_stats(st, axis=None):
+    """One tap's stats reduced across a data-parallel group: the
+    reference reduces over a ``shard_map`` axis; one process has nothing
+    to reduce, so this returns ``st``."""
+    return st
+
+
+def host_sample(nums: dict, loss_val=None, tap_order=None) -> dict:
+    """One instrumented step's device-side numerics tree (``{"taps",
+    "grads", "updates", "grad_norm"}``, 0-d tensors) as host floats and
+    ints, in one device-to-host copy. ``tap_order`` reorders the taps."""
+    taps = nums.get("taps", {})
+    if tap_order:
+        taps = {n: taps[n] for n in tap_order if n in taps}
+    grads, updates = nums.get("grads", {}), nums.get("updates", {})
+    gn = nums.get("grad_norm")
+    flat = [v for st in taps.values() for v in st] + \
+        [v for st in grads.values() for v in st] + \
+        [v for st in updates.values() for v in st]
+    tail = [t for t in (gn, loss_val) if t is not None]
+    vals = []
+    if flat or tail:
+        vals = torch.stack([torch.as_tensor(v).detach().reshape(())
+                            .to(torch.float64) for v in flat + tail]) \
+            .cpu().tolist()
+    it = iter(vals)
+    sample = {
+        "taps": {n: (next(it), next(it), next(it), int(next(it)))
+                 for n in taps},
+        "grads": {n: (next(it), int(next(it))) for n in grads},
+        "updates": {n: (next(it), next(it)) for n in updates},
+    }
+    sample["grad_norm"] = next(it) if gn is not None else None
+    if loss_val is not None:
+        sample["loss"] = next(it)
+    return sample
 
 
 # -- metric families ---------------------------------------------------------
@@ -231,15 +337,22 @@ class NumericsObservatory:
     def record_sample(self, step: int, sample: dict):
         """Fold one host-side sample in: ``{"taps": {name: (absmax, mean,
         rms, nonfinite)}, "grads": {bucket: (norm, nonfinite)},
-        "updates": {bucket: (update_norm, param_norm)}}``."""
+        "updates": {bucket: (update_norm, param_norm)}, "grad_norm",
+        "loss"}``."""
+        t0 = time.perf_counter_ns()
         self.last = sample
         self.last_step = int(step)
         m = self._m
         m["samples"].inc()
+        nonfinite_total = 0
+        worst_absmax = 0.0
         for name, (absmax, _mean, rms, nonf) in sample["taps"].items():
             m["absmax"].set(absmax, tap=name)
             m["rms"].set(rms, tap=name)
             m["nonfinite"].set(nonf, tap=name)
+            nonfinite_total += int(nonf)
+            if math.isfinite(absmax):
+                worst_absmax = max(worst_absmax, absmax)
             self.sketches.setdefault(name, _Sketch()).add(float(absmax))
         for name, (norm, nonf) in sample.get("grads", {}).items():
             m["grad_norm"].set(norm, bucket=name)
@@ -247,6 +360,13 @@ class NumericsObservatory:
         for name, (unorm, pnorm) in sample.get("updates", {}).items():
             m["update_ratio"].set(unorm / pnorm if pnorm else 0.0,
                                   bucket=name)
+        from . import trace
+        if trace.active() is not None:
+            trace.span("numerics", "sample", t0, time.perf_counter_ns(),
+                       args={"step": int(step), "taps": len(sample["taps"]),
+                             "nonfinite_total": nonfinite_total,
+                             "worst_absmax": worst_absmax,
+                             "grad_norm": sample.get("grad_norm")})
 
     def calibration_summary(self) -> dict:
         """Per-tap range summaries accumulated over every sample so far
@@ -268,3 +388,88 @@ def get_observatory() -> NumericsObservatory:
     if _observatory is None:
         _observatory = NumericsObservatory()
     return _observatory
+
+
+def last_sample() -> Optional[dict]:
+    """The most recent sample with its step, or None (the flight
+    recorder's postmortem appendix)."""
+    obs = _observatory
+    if obs is None or obs.last is None:
+        return None
+    return {"step": obs.last_step, **obs.last}
+
+
+# -- NaN provenance ----------------------------------------------------------
+
+def _first_nonfinite(sample: dict) -> Optional[dict]:
+    """First non-finite site in execution order: the forward taps (their
+    recorded order), then the loss, then the gradient buckets."""
+    for name, (absmax, mean, _rms, nonf) in sample["taps"].items():
+        if int(nonf) > 0 or not math.isfinite(float(absmax)) \
+                or not math.isfinite(float(mean)):
+            return {"kind": "tap", "name": name,
+                    "nonfinite_count": int(nonf)}
+    loss = sample.get("loss")
+    if loss is not None and not math.isfinite(float(loss)):
+        return {"kind": "loss", "name": "loss", "nonfinite_count": 1}
+    for name, (norm, nonf) in sample.get("grads", {}).items():
+        if int(nonf) > 0 or not math.isfinite(float(norm)):
+            return {"kind": "grad_bucket", "name": name,
+                    "nonfinite_count": int(nonf)}
+    return None
+
+
+def write_provenance(train_step, step: int, trip_kind: str,
+                     out_dir: Optional[str] = None) -> Optional[str]:
+    """The NaN guard's consumer: replay the stashed last batch through
+    ``train_step.numerics_probe_last()`` (forward and gradients only,
+    nothing updated) and write ``nan_provenance_rank<r>_<pid>.json``
+    naming the first non-finite tap or bucket. Returns the path, or None
+    without a stash. The caller restores the last commit first, so the
+    replay runs on the state training resumes from; a replay that comes
+    back finite is recorded as ``verdict: "finite_in_graph"`` (a
+    host-side corruption, such as the chaos harness's loss seam)."""
+    probe = getattr(train_step, "numerics_probe_last", None)
+    if probe is None:
+        return None
+    sample = probe()
+    if sample is None:
+        return None
+    from . import fleet, flight_recorder, profile
+    first = _first_nonfinite(sample)
+    rank = fleet.rank()
+    doc = {
+        "schema": "nan_provenance_v1",
+        "step": int(step),
+        "trip_kind": trip_kind,
+        "rank": rank,
+        "pid": os.getpid(),
+        "unix_time": time.time(),
+        "verdict": "nonfinite_in_graph" if first is not None
+                   else "finite_in_graph",
+        "first_nonfinite": first,
+        "replay": {
+            "loss": sample.get("loss"),
+            "grad_norm": sample.get("grad_norm"),
+            "taps": {n: {"absmax": float(s[0]), "mean": float(s[1]),
+                         "rms": float(s[2]), "nonfinite": int(s[3])}
+                     for n, s in sample["taps"].items()},
+            "grad_buckets": {n: {"norm": float(s[0]),
+                                 "nonfinite": int(s[1])}
+                             for n, s in sample.get("grads", {}).items()},
+        },
+    }
+    d = out_dir or profile.trace_dir()
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, f"nan_provenance_rank{rank}_{os.getpid()}.json")
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(doc, f, indent=1)
+    os.replace(tmp, path)
+    now = time.time_ns()
+    flight_recorder.record(
+        flight_recorder.KIND_USER, "nan_provenance", now, now,
+        aux=int(step), args={"step": int(step), "trip_kind": trip_kind,
+                             "verdict": doc["verdict"],
+                             "first_nonfinite": first, "path": path})
+    return path

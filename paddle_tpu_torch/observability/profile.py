@@ -27,9 +27,13 @@ the arming logic is testable without a device.
 The reference writes under ``PADDLE_TPU_TRACE_DIR`` and arms the fit
 window from ``PADDLE_TPU_PROFILE_AT_STEP``; the port reads no
 environment variable: :func:`set_trace_dir` (the temporary directory's
-``paddle_tpu_torch_trace`` by default) and ``StepWindow(start, stop)``
-carry them. Hooking :class:`StepWindow` into ``Model.fit`` is not ported
-yet (``hapi.Model.fit`` raises on its profiler option).
+``paddle_tpu_torch_trace`` by default; the flight recorder's, the
+watchdog's and the NaN-provenance files go there too) and
+:func:`set_fit_window` carry them. ``Model.fit`` opens a
+:class:`StepWindow` over the steps :func:`set_fit_window` names and
+closes it in a ``finally``. ``paddle.profiler.Profiler``'s GPU target
+takes the same slot: each of these sees :class:`CaptureBusy` while
+another holds it.
 """
 from __future__ import annotations
 
@@ -43,7 +47,8 @@ from typing import Optional, Tuple
 __all__ = ["CaptureBusy", "MAX_CAPTURE_SECONDS", "bound_seconds",
            "capture_active", "start_capture", "stop_capture",
            "capture_for", "start_timed_capture", "StepWindow",
-           "set_trace_dir", "trace_dir", "TRACE_FILE"]
+           "set_trace_dir", "trace_dir", "set_fit_window", "fit_window",
+           "TRACE_FILE"]
 
 #: hard ceiling on one on-demand capture — device traces are large and
 #: the serving endpoint must stay abuse-proof
@@ -272,3 +277,25 @@ class StepWindow:
         if self._dir is not None:
             stop_capture()
         self._done = True
+
+
+_fit_steps = {"range": None}
+
+
+def set_fit_window(start: Optional[int] = None,
+                   stop: Optional[int] = None):
+    """The 1-based, inclusive step range ``Model.fit`` captures (the
+    reference's ``PADDLE_TPU_PROFILE_AT_STEP=<start>:<stop>``; a lone
+    ``start`` captures that step); ``set_fit_window()`` disarms it."""
+    if start is None:
+        _fit_steps["range"] = None
+        return
+    stop = start if stop is None else stop
+    StepWindow(start, stop)  # validates
+    _fit_steps["range"] = (int(start), int(stop))
+
+
+def fit_window() -> Optional[StepWindow]:
+    """A fresh :class:`StepWindow` over the configured range, or None."""
+    r = _fit_steps["range"]
+    return None if r is None else StepWindow(*r, label="fit")

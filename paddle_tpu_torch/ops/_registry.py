@@ -8,6 +8,10 @@ honours ``FLAGS_check_nan_inf`` (a floating output with a NaN or an Inf
 raises ``FloatingPointError``) and ``FLAGS_benchmark`` (wait for the card
 after the op), and casts the op's floating inputs by its name under an
 active ``amp.auto_cast`` policy (the reference casts in ``apply_op``).
+While a ``profiler.Profiler`` records or the flight recorder is on, each
+call is one host span named after the op (``record_shapes`` adds its
+operands' shapes), as the reference's dispatch emits
+(``core/autograd.py:162-166``); disarmed, that costs one attribute read.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ import torch
 
 from paddle_tpu_torch.amp.auto_cast import _open as _amp_open
 from paddle_tpu_torch.amp.auto_cast import cast_inputs
+from paddle_tpu_torch import profiler as _profiler
 from paddle_tpu_torch.core import flags
 from paddle_tpu_torch.core.tensor import unwrap_args, wrap
 
@@ -50,7 +55,14 @@ def dispatch(name: str, fn: Callable, args, kwargs):
     args, kwargs, _ = unwrap_args(args, kwargs)
     if _amp_open[0]:
         args, kwargs = cast_inputs(name, args, kwargs)
-    out = fn(*args, **kwargs)
+    if _profiler._armed:
+        ev = _profiler.record_op(name, args)
+        try:
+            out = fn(*args, **kwargs)
+        finally:
+            ev.end()
+    else:
+        out = fn(*args, **kwargs)
     if _FLAGS["check_nan_inf"].value:
         _check_nan_inf(name, out)
     if _FLAGS["benchmark"].value and torch.cuda.is_available():

@@ -90,6 +90,9 @@ def build(names=None) -> dict:
         out[n] = {"seconds": time.perf_counter() - t0, "log": log}
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    # a one-time cost on the step's path: the goodput ledger's compile bin
+    from paddle_tpu_torch.observability import goodput
+    goodput.record_compile(time.perf_counter() - t0)
     return out
 
 

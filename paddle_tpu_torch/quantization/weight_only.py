@@ -170,8 +170,9 @@ def calibration_from_checkpoint(path: str,
                                 step: Optional[int] = None
                                 ) -> Optional[dict]:
     """The ``"numerics"`` entry a training run saved beside its weights,
-    or None when the checkpoint has none (the port's ``FitResilience``
-    does not write it yet). Read on the CPU: only the document is used."""
+    or None when the checkpoint has none (``FitResilience`` writes it
+    while ``observability.numerics`` is armed, in either package). Read
+    on the CPU: only the document is used."""
     if os.path.isdir(path):
         from paddle_tpu_torch.checkpoint import load_state_dir
         state = load_state_dir(path, step=step, device="cpu")

@@ -12,17 +12,27 @@ One callback that composes the resilience pieces around ``Model.fit``:
   trips, the step in flight finishes, one final blocking save commits,
   and ``fit`` returns with ``exit_code == RESUMABLE_EXIT_CODE``
   (:meth:`exit_if_preempted` exits with it).
+* **watchdog** — ``step_timeout`` arms a deadline around each train
+  step and ``collective_timeout`` one around every traced collective
+  (:class:`~.watchdog.Watchdog`); ``watchdog_action`` picks the rung
+  (``"log"``, ``"dump"``, ``"kill"``).
 * **NaN guard** — loss/grad finiteness and a spike window with rollback
-  to the last commit (:class:`~.nan_guard.NaNGuard`). A rollback
-  restores weights and optimizer only: the data stream keeps moving.
+  to the last commit (:class:`~.nan_guard.NaNGuard`), the provenance
+  replay and the goodput reclassification. A rollback restores weights
+  and optimizer only: the data stream keeps moving.
+* **numerics** — while ``observability.numerics.armed()``, every save
+  commits the observatory's ``calibration_summary()`` under
+  ``"numerics"``, and :meth:`restore` merges it back.
+* **chaos** — ``on_train_begin`` re-applies ``resilience.chaos``'s
+  configuration (its collective hang hook).
 
 The state commits under the reference's keys (``"model"``,
-``"optimizer"``, ``"data"``; metadata ``global_step``), so a run of
-either package resumes from the other's checkpoint.
+``"optimizer"``, ``"data"``, ``"numerics"``; metadata
+``global_step``), so a run of either package resumes from the other's
+checkpoint.
 
-Not ported yet, raising ``NotImplementedError``: ``step_timeout`` and
-``collective_timeout`` (the watchdog), ``elastic=`` (live resharding);
-the chaos seams and the numerics calibration state are not ported either.
+Not ported yet, raising ``NotImplementedError``: ``elastic=`` (live
+resharding).
 """
 from __future__ import annotations
 
@@ -33,6 +43,7 @@ from paddle_tpu_torch.hapi.model import Callback
 
 from .nan_guard import NaNGuard, apply_restored_state
 from .preemption import RESUMABLE_EXIT_CODE, PreemptionListener
+from .watchdog import Watchdog
 
 __all__ = ["FitResilience"]
 
@@ -52,10 +63,6 @@ class FitResilience(Callback):
         """``pipeline``: a ``DataPipeline`` (or anything with
         ``state_dict``/``load_state_dict``) whose state commits under
         ``"data"`` in every save and is restored by :meth:`restore`."""
-        if step_timeout is not None or collective_timeout is not None:
-            raise NotImplementedError(
-                "step_timeout/collective_timeout (the hang watchdog) are "
-                "not ported to paddle_tpu_torch yet")
         if elastic or elastic_listener is not None:
             raise NotImplementedError(
                 "elastic resharding is not ported to paddle_tpu_torch yet")
@@ -68,6 +75,10 @@ class FitResilience(Callback):
         self.save_every_steps = save_every_steps
         self._want_preemption = preemption
         self.listener = listener
+        self.watchdog: Optional[Watchdog] = None
+        self._step_timeout = step_timeout
+        self._collective_timeout = collective_timeout
+        self._watchdog_action = watchdog_action
         self.nan_guard: Optional[NaNGuard] = None
         if nan_guard:
             self.nan_guard = NaNGuard(manager=self.manager,
@@ -81,6 +92,7 @@ class FitResilience(Callback):
         self.final_step: Optional[int] = None
         self._step0 = 0          # global-step offset after a resume
         self._cur_step = 0
+        self._wd_token = None
         self._installed_listener = False
 
     # -- resume ------------------------------------------------------------
@@ -96,6 +108,11 @@ class FitResilience(Callback):
         if self.pipeline is not None and isinstance(state, dict) and \
                 "data" in state:
             self.pipeline.load_state_dict(state["data"])
+        if isinstance(state, dict) and "numerics" in state:
+            # the calibration sketches continue where the previous run
+            # left them (sketches merge)
+            from paddle_tpu_torch.observability import numerics
+            numerics.get_observatory().load_summary(state["numerics"])
         restored = self.manager.last_restored_step
         meta = self.manager.metadata(restored)
         self._step0 = int(meta.get("global_step", restored))
@@ -112,16 +129,32 @@ class FitResilience(Callback):
             self.nan_guard.set_model(model)
 
     def on_train_begin(self, logs=None):
+        from . import chaos
+        if chaos.enabled():
+            chaos.refresh()
         if self._want_preemption and self.listener is None:
             self.listener = PreemptionListener(registry=self._registry)
         if self.listener is not None and not self._installed_listener:
             self.listener.install()
             self._installed_listener = True
+        if self._step_timeout is not None or \
+                self._collective_timeout is not None:
+            self.watchdog = Watchdog(
+                default_timeout=self._step_timeout or 300.0,
+                action=self._watchdog_action, registry=self._registry)
+            if self._collective_timeout is not None:
+                self.watchdog.watch_collectives(self._collective_timeout)
 
     def on_train_batch_begin(self, step, logs=None):
         self._cur_step = self._step0 + step
+        if self.watchdog is not None and self._step_timeout is not None:
+            self._wd_token = self.watchdog.arm(
+                "train_step", self._step_timeout, step=self._cur_step)
 
     def on_train_batch_end(self, step, logs=None):
+        if self._wd_token is not None:
+            self.watchdog.disarm(self._wd_token)
+            self._wd_token = None
         gs = self._cur_step
         if self.nan_guard is not None:
             logs = logs or {}
@@ -139,6 +172,8 @@ class FitResilience(Callback):
     def on_train_end(self, logs=None):
         if self.manager is not None:
             self.manager.wait_all()
+        if self.watchdog is not None:
+            self.watchdog.stop()
         if self._installed_listener:
             self.listener.uninstall()
             self._installed_listener = False
@@ -151,6 +186,13 @@ class FitResilience(Callback):
             state["optimizer"] = opt.state_dict()
         if self.pipeline is not None:
             state["data"] = self.pipeline.state_dict()
+        from paddle_tpu_torch.observability import numerics
+        if numerics.armed():
+            # the calibration sketches of every sample so far, committed
+            # with the weights (apply_restored_state ignores the key)
+            summary = numerics.get_observatory().calibration_summary()
+            if summary["taps"]:
+                state["numerics"] = summary
         return state
 
     def _final_save(self, gs: int):

@@ -10,8 +10,12 @@ Spike detection rests for ``cooldown`` steps after a rollback; more than
 ``max_rollbacks`` trips raise :class:`NumericError`. Without a committed
 checkpoint a trip counts, warns, and fails after ``max_rollbacks``.
 
-Not ported yet: the NaN-provenance replay (``observability.numerics``)
-and the goodput ledger's reclassification of the discarded steps.
+After the rollback the guard writes the NaN-provenance file
+(``observability.numerics.write_provenance``: the tripped batch replayed
+on the restored state, naming the first non-finite tap) while
+``numerics.provenance_enabled()``, and moves the discarded steps'
+seconds from ``productive`` to ``rollback_discarded`` in the goodput
+ledger.
 """
 from __future__ import annotations
 
@@ -104,6 +108,12 @@ class NaNGuard(Callback):
                 "exhausted; the run is numerically unstable")
         restored = self._restore_last_commit()
         rollback_counter(self.registry).inc()
+        provenance = self._write_provenance(step, kind)
+        if restored is not None and step > restored:
+            # the steps between the restored commit and the trip were
+            # thrown away: their productive seconds become badput
+            from paddle_tpu_torch.observability import goodput
+            goodput.discard_recent_steps(step - restored)
         self._window.clear()
         self._cool = self.cooldown
         warnings.warn(
@@ -112,8 +122,28 @@ class NaNGuard(Callback):
              if restored is not None else
              "no committed checkpoint to roll back to — continuing with "
              "current (possibly poisoned) parameters") +
-            f" (rollback {self.rollbacks}/{self.max_rollbacks})",
+            f" (rollback {self.rollbacks}/{self.max_rollbacks})" +
+            (f"; NaN provenance: {provenance}" if provenance else ""),
             RuntimeWarning, stacklevel=2)
+
+    def _write_provenance(self, step: int, kind: str) -> Optional[str]:
+        """The replay of the tripped batch on the restored state
+        (``numerics.write_provenance``), while provenance is enabled and
+        the model trains through a ``TrainStep``. A failed replay warns:
+        provenance is evidence, and must not break the rollback."""
+        from paddle_tpu_torch.observability import numerics
+        if not numerics.provenance_enabled():
+            return None
+        train_step = getattr(getattr(self, "model", None),
+                             "_train_step", None)
+        if train_step is None:
+            return None
+        try:
+            return numerics.write_provenance(train_step, step, kind)
+        except Exception as e:  # noqa: BLE001 — reported, not hidden
+            warnings.warn(f"[nan_guard] provenance replay failed: {e!r}",
+                          RuntimeWarning, stacklevel=2)
+            return None
 
     def _restore_last_commit(self) -> Optional[int]:
         mgr = self.manager

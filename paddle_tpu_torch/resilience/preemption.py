@@ -100,6 +100,10 @@ class PreemptionListener:
 
     # -- channels ----------------------------------------------------------
     def _handler(self, sn, frame):
+        # installed over the flight recorder's handler: its postmortem
+        # still gets written (flight_recorder.dump_on_signal)
+        from paddle_tpu_torch.observability import flight_recorder
+        flight_recorder.dump_on_signal(sn, self._prev_handlers.get(sn))
         # signal context: attribute writes only; the metric is bumped at
         # the next should_stop poll
         if not self._flagged:
@@ -122,6 +126,9 @@ class PreemptionListener:
         self._note_pending = False
         from .counters import preemption_counter
         preemption_counter(self._registry).inc(reason=self.reason)
+        from paddle_tpu_torch.observability import flight_recorder as fr
+        t = time.perf_counter_ns()
+        fr.record(fr.KIND_USER, f"preempt:{self.reason}", t, t)
 
     def _poll_notice(self):
         if os.environ.get(NOTICE_ENV, "").strip() not in ("", "0"):

@@ -25,8 +25,10 @@ daemon threads). Endpoints:
   requests by KV block-seconds.
 * ``GET /metrics`` / ``GET /metrics.json`` — the registry's
   Prometheus-text / JSON expositions (the ``serving_*`` families).
-* ``GET /fleetz`` — 501 with the error until the fleet rollup is
-  ported (``observability.fleet``); a ``RouterServer`` answers it.
+* ``GET /fleetz`` — the single-process fleet document
+  (``observability.fleet.fleetz_snapshot``: identity, liveness and the
+  goodput ledger's ``local_goodput``); a ``RouterServer`` answers it
+  with its fleet.
 * ``POST /debug/profile?seconds=N`` — a bounded on-demand
   ``torch.profiler`` window (``observability.profile``): 200 with the
   capture directory, 400 on a bad duration, 409 while one is live, 500
@@ -133,10 +135,7 @@ class Handler(http.server.BaseHTTPRequestHandler):
                 **({"max_queue_depth": depth}
                    if depth is not None else {})})
         elif self.path.startswith("/fleetz"):
-            try:
-                self._json(200, fleet.fleetz_snapshot())
-            except NotImplementedError as e:
-                self._json(501, {"error": str(e)})
+            self._json(200, fleet.fleetz_snapshot())
         elif self.path.startswith("/statusz"):
             from paddle_tpu_torch.observability import (
                 requests as obs_requests)

@@ -180,9 +180,9 @@ def test_refusals(monkeypatch):
     with pytest.raises(NotImplementedError, match="amp"):
         Model(tm).prepare(AdamW(parameters=tm.parameters()),
                           amp_configs={"level": "O1"})
-    for cls in (StepTelemetry, VisualDL):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            cls()
+    # StepTelemetry and VisualDL are ported: they construct
+    assert StepTelemetry(peak=0).timer is None
+    assert VisualDL is not None
     batch = {"input_ids": np.ones((2, 8), np.int32),
              "labels": np.ones((2, 8), np.int32)}
     lossy = Model(tm).prepare(AdamW(parameters=tm.parameters()),
@@ -190,6 +190,7 @@ def test_refusals(monkeypatch):
     for call in (lossy.train_batch, lossy.eval_batch):
         with pytest.raises(RuntimeError, match="loss=None"):
             call(batch)
-    monkeypatch.setenv("PADDLE_TPU_CHAOS_KILL_AT_STEP", "3")
-    with pytest.raises(NotImplementedError, match="chaos"):
-        tmodel.fit([batch], verbose=0)
+    # the reference's chaos variable is not read (resilience.chaos's
+    # configure arms the harness): the fit runs its step
+    monkeypatch.setenv("PADDLE_TPU_CHAOS_KILL_AT_STEP", "1")
+    assert len(tmodel.fit([batch], verbose=0)["loss"]) == 1

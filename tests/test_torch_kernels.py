@@ -1968,3 +1968,98 @@ def test_a_profile_window_on_the_card_names_k4(cuda_device, tmp_path):
     with open(os.path.join(out, profile.TRACE_FILE)) as f:
         names = [str(e.get("name", "")) for e in json.load(f)["traceEvents"]]
     assert any("rpa_wgmma_kernel" in n for n in names)
+
+
+# ------------------------------ training in production ----------------------
+def _bf16_train_step(device, fused=True):
+    """A 2-layer bf16 Llama (head_dim 64: K1-K3 on wgmma) under a fused
+    TrainStep with AdamW (f32 masters, clip 1.0), and one batch."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    model = _tiny_llama(device, dtype="bfloat16")
+    model.train()
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))
+    step = TrainStep(model, lambda m, t: m(t, labels=t)[1], opt,
+                     fused=fused)
+    x = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 128, (2, 256))).to(device)
+    return model, opt, step, x
+
+
+@pytest.mark.cuda
+def test_a_profiler_window_over_train_steps_names_k1_to_k3(cuda_device,
+                                                           tmp_path):
+    """``paddle.profiler.Profiler`` with the GPU target over five
+    ``TrainStep`` calls (closed, ready, record 2): five steps in
+    ``step_info``, the host trace holds the ``TrainStep`` spans of the
+    window, and the device trace beside it names K1-K3's wgmma kernels
+    and the fused Adam kernel."""
+    import json
+    import os
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.observability import profile
+    _, _, step, x = _bf16_train_step(cuda_device)
+    profile.set_trace_dir(str(tmp_path / "captures"))
+    try:
+        prof = profiler.Profiler(
+            targets=[profiler.ProfilerTarget.CPU,
+                     profiler.ProfilerTarget.GPU],
+            scheduler=profiler.make_scheduler(closed=1, ready=1, record=2))
+        prof.start()
+        for i in range(5):
+            float(step(x))
+            if i < 4:
+                prof.step()
+        prof.stop()
+    finally:
+        profile.set_trace_dir(None)
+    assert prof.step_info()["steps"] == 5
+    host = prof.export_chrome_tracing(str(tmp_path / "out"), "w0")
+    spans = [e["name"] for e in json.load(open(host))["traceEvents"]]
+    assert spans.count("TrainStep") == 2
+    (dev,) = [f for f in os.listdir(tmp_path / "out") if "device" in f]
+    with open(tmp_path / "out" / dev) as f:
+        names = {str(e.get("name", "")) for e in json.load(f)["traceEvents"]}
+    for kernel in ("flash_fwd_wgmma_kernel", "flash_dq_wgmma_kernel",
+                   "flash_dkv_wgmma_kernel", "fused_adam_kernel"):
+        assert any(kernel in n for n in names), kernel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False])
+def test_attribution_on_the_card_restores_the_fused_buckets(cuda_device,
+                                                            fused):
+    """``attribute_train_step`` on the card (CUDA-event timing) after a
+    fused step planned its flat buckets: the phases sum to the measured
+    step; afterwards every parameter and optimizer state entry is
+    bit-identical and still a view of the same flats, and the first
+    step's next loss equals a twin's that never saw the attribution."""
+    from paddle_tpu_torch.observability.attribution import \
+        attribute_train_step
+    from paddle_tpu_torch.observability.metrics import MetricsRegistry
+    runs = []
+    for attribute in (True, False):
+        model, opt, step, x = _bf16_train_step(cuda_device)
+        float(step(x))
+        if attribute:
+            flats = step._plan[2]
+            params = {n: p.detach().clone()
+                      for n, p in model.named_parameters()}
+            state = {k: (d, dict(d), {kk: v.clone() for kk, v in d.items()})
+                     for k, d in opt._state.items()}
+            rep = attribute_train_step(model, opt, x, steps=2, warmup=1,
+                                       reps=2, fused=fused,
+                                       registry=MetricsRegistry())
+            assert rep.check(0.05) and rep.peak > 0
+            assert rep.phases["optimizer"]["seconds"] > 0
+            for n, p in model.named_parameters():
+                assert torch.equal(p, params[n]), n
+            for k, (d, entries, values) in state.items():
+                assert opt._state[k] is d
+                for kk, v in d.items():
+                    assert v is entries[kk] and torch.equal(v, values[kk])
+            assert step._fused_plan(list(step._params))[1] is flats
+        runs.append(float(step(x)))
+    assert runs[0] == runs[1]

@@ -201,10 +201,13 @@ def test_sigusr1_gives_one_final_save_and_exit_79(tmp_path):
 
 
 def test_unported_options_raise():
-    for kw in ({"step_timeout": 10.0}, {"collective_timeout": 1.0},
-               {"elastic": True}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            FitResilience(**kw)
+    # the watchdog's options are ported
+    # (tests/test_torch_training_resilience.py); elastic resharding and
+    # the store consensus are not
+    for kw in ({"step_timeout": 10.0}, {"collective_timeout": 1.0}):
+        assert FitResilience(**kw).watchdog is None  # armed at fit begin
+    with pytest.raises(NotImplementedError, match="not ported"):
+        FitResilience(elastic=True)
     from paddle_tpu_torch.resilience import PreemptionListener
     with pytest.raises(NotImplementedError, match="not ported"):
         PreemptionListener(use_store=True)

@@ -120,7 +120,11 @@ def test_metrics_exporter_endpoints():
         code, body = _get(base + "/statusz?format=json")
         assert code == 200 and set(json.loads(body)) == {"slo", "requests"}
         code, body = _get(base + "/fleetz")
-        assert code == 501 and "not ported" in json.loads(body)["error"]
+        fz = json.loads(body)
+        # the reference's single-process document: no aggregator, no
+        # heartbeats, this process's goodput ledger
+        assert code == 200 and fz["aggregator"] is False
+        assert fz["ranks"] == {} and "local_goodput" in fz
         assert _get(base + "/nope")[0] == 404
     finally:
         exp.stop()
@@ -622,7 +626,9 @@ def test_metrics_statusz_healthz_and_fleetz_through_the_server(models):
     assert hz["status"] == "ok" and hz["rank"] == 0
     assert hz["last_step_age_seconds"] is not None
     assert hz["kv_block_seconds_total"] > 0
-    assert fz[0] == 501 and "not ported" in json.loads(fz[1])["error"]
+    fleetz = json.loads(fz[1])
+    assert fz[0] == 200 and fleetz["aggregator"] is False
+    assert fleetz["rank"] == 0 and "local_goodput" in fleetz
 
 
 def _keys(d, depth=2):
@@ -793,7 +799,8 @@ def test_oom_postmortem_once_with_the_ledger(tmp_path):
     assert os.path.basename(path).startswith("oom_postmortem_rank0_")
     assert doc["ledger"]["owners"]["probe"] == 16
     assert doc["memory_report"]["total_bytes"] == 15
-    assert doc["flight_recorder_tail"] is None
+    # the flight recorder is off: an empty tail, as the reference's
+    assert doc["flight_recorder_tail"] == []
     assert doc["reason"] == "RESOURCE_EXHAUSTED"
 
 
