@@ -217,15 +217,16 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    ``generate`` with the adapter merged, slot 0's a no-LoRA engine's; an
    ``fp8_wo`` engine serves with finite logits;
 17. MoE serving and decoding, the autotuner and ``paddle.incubate``: (a)
-   ``MoeConfig.deepseek_moe_16b()`` uncut (28 layers, 16/16 heads of 128,
-   64 routed experts top-6 beside 2 shared, bf16, seeded weights) behind
+   ``MoeConfig.deepseek_moe_16b()`` at full width cut to 14 of its 28
+   layers (to keep the script within its limit; 16/16 heads of 128, 64
+   routed experts top-6 beside 2 shared, bf16, seeded weights) behind
    the HTTP ``Server`` with phase 4's prompts and geometry: all tokens,
-   finite logits, K4 launches = 28 x steps, the window's numbers and
+   finite logits, K4 launches = 14 x steps, the window's numbers and
    busy share, each MoE layer's capacity and dropped assignments in the
    window's busiest step, the layer-0 K4 output of a real step against
    the plain version, ``aux_loss()`` None and no leaked block; K4 at
    this model's heads on phase 3's mix against its plain version, timed;
-   (b) eager ``generate`` (4 x 512, 64 greedy tokens): K1 28 x 64
+   (b) eager ``generate`` (4 x 512, 64 greedy tokens): K1 14 x 64
    launches, ms a token, ``aux_loss()`` the last decode step's (finite,
    as the reference's); ``generate_compiled`` on the same prompts: one
    capture a signature, the replay equal to the capturing call, ms a
@@ -324,6 +325,27 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    at rtol 1e-5; (e) ``/fleetz``'s document carries ``local_goodput``.
    Its files go to a ``phase20_*`` directory of the checkout, deleted
    after.
+21. data, tensor and sharded parallelism over ``torch.distributed``:
+   (a) one rank over NCCL at full width: phase 7's model, batch and
+   optimizer (AdamW f32 masters, clip 1.0) through
+   ``init_parallel_env()`` (world size 1), ``fleet.init`` ->
+   ``distributed_model`` -> ``distributed_optimizer`` ->
+   ``TrainStep(mesh=init_mesh({"dp": 1}), bucketed=True)``, 2 + 5
+   steps, against the unmeshed fused ``TrainStep`` of the same seed and
+   batch (2 + 5 steps, rtol 1e-3): both step times by CUDA events, the
+   all-reduces a step (the comm registry's count, which must equal the
+   bucket plan's bucket count), the bytes through them and the host
+   seconds around them (exposed / overlapped), the NCCL kernels' device
+   ms in a profiled step, K1-K3 8 launches a step; (b) two processes
+   started by the port's ``spawn`` share the card over gloo (NCCL
+   refuses two ranks on one device; gloo takes CUDA tensors for
+   all-reduce and broadcast, the collectives of dp and mp): the bench's
+   widths cut to 2 layers in f32, 3 steps at dp 2 and 3 at mp 2, each
+   rank's losses equal to one process's on the same global batch at
+   rtol 1e-4, with the step times (two processes on one card: no
+   measure of scaling). ZeRO's reduce-scatter and all-gather are held
+   in the CPU tests only until a second card. Its files go to a
+   ``phase21_*`` directory of the checkout, deleted after.
 
 It prints its measurements on earlier lines, then one JSON line with a
 record per kernel (K1-K3's with their times at ERNIE's and DiT's shapes,
@@ -340,7 +362,10 @@ K1's phase 18 record under ``export``; K4's ``launches_by_path`` with
 phase 19's ``serving_prod`` and ``fleet``, and phase 19's ledger step
 costs under ``serving_ledger_step_ms``; K1-K3's and the fused kernels'
 ``launches_by_path`` with phase 20's ``train_prod`` and ``profiler``,
-and K1's phase 20 figures under ``train_prod``),
+and K1's phase 20 figures under ``train_prod``; K1-K3's
+``launches_by_path`` with phase 21's ``dist_one_rank`` and
+``dist_two_ranks``, the fused kernels' with ``dist_one_rank``, and
+phase 21's figures under K1's ``dist``),
 and ends with
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -4997,6 +5022,11 @@ def incubate_checks():
         + f"; {len(masks)} weights kept 2:4 through a decorated SGD step")
 
 
+# phase 17's MoE depth: DeepSeekMoE-16B's 28 layers cut to half to keep
+# phases 1-21 within the script's limit
+MOE_SERVING_LAYERS = 14
+
+
 def phase_moe_and_incubate(llama_sweep):
     """Phase 17: MoE serving and decoding at DeepSeekMoE-16B's full width,
     the f32 equalities at 2 layers, the autotuner, and
@@ -5004,13 +5034,14 @@ def phase_moe_and_incubate(llama_sweep):
     record at the MoE geometry."""
     from paddle_tpu_torch.incubate import nn as inn
     from paddle_tpu_torch.models.moe import MoeConfig, MoeForCausalLM
-    cfg = MoeConfig.deepseek_moe_16b()
+    cfg = MoeConfig.deepseek_moe_16b(num_hidden_layers=MOE_SERVING_LAYERS)
     free_device_memory()
     t0 = time.perf_counter()
     model = MoeForCausalLM(cfg, dtype="bfloat16", seed=SEED).eval()
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"moe: DeepSeekMoE-16B, all {cfg.num_hidden_layers} layers, bf16, "
+    log(f"moe: DeepSeekMoE-16B, {cfg.num_hidden_layers} of its 28 layers, "
+        f"bf16, "
         f"{n_params} parameters ({2 * n_params} B) built in "
         f"{time.perf_counter() - t0:.2f} s")
     parts = {"build": time.perf_counter() - t0}
@@ -6584,6 +6615,290 @@ def log_subprocesses(sub):
         f"of the uninterrupted run")
 
 
+# --------------------------------------------------------------------------
+# phase 21: data, tensor and sharded parallelism over torch.distributed
+DIST_STEPS = (2, 5)      # (a): warm-up and timed steps
+DIST_TWO_STEPS = 3       # (b): steps of each two-rank run
+DIST_TWO_LAYERS = 2      # (b): the bench's widths cut to 2 layers, f32
+
+
+def dist_timed(step, x, warmup, timed):
+    """``warmup`` + ``timed`` steps of ``step`` on ``x``: the losses and
+    each timed step's ms by CUDA events."""
+    losses = [float(step(x)) for _ in range(warmup)]
+    marks, outs = [], []
+    for _ in range(timed):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        outs.append(step(x))
+        b.record()
+        marks.append((a, b))
+    torch.cuda.synchronize()
+    return dict(losses=losses + [float(v) for v in outs],
+                ms=[a.elapsed_time(b) for a, b in marks])
+
+
+def _dist_batch(vocab, B=4, S=2048):
+    return torch.from_numpy(np.random.RandomState(0).randint(
+        0, vocab, (B, S))).cuda()
+
+
+def _dist_opt(model):
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    return AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                 multi_precision=True, grad_clip=ClipGradByGlobalNorm(1.0))
+
+
+def _dist_loss(m, x):
+    return m(x, labels=x)[1]
+
+
+def dist_one_rank():
+    """Phase 21(a): the bench's recipe (phase 7's model, batch and
+    optimizer) through ``init_parallel_env()`` (NCCL, world size 1),
+    ``fleet.init`` -> ``distributed_model`` -> ``distributed_optimizer``
+    -> ``TrainStep(mesh=init_mesh({"dp": 1}), bucketed=True)``, 2 + 5
+    steps, against the unmeshed fused ``TrainStep`` of the same seed and
+    batch (rtol 1e-3). Returns K1-K3's launches in the meshed run and its
+    record."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.observability.comm import comm_totals
+    from paddle_tpu_torch.observability.metrics import get_registry
+    cfg = llama_bench_config()
+    x = _dist_batch(cfg.vocab_size)
+    free_device_memory()
+    model = LlamaForCausalLM(cfg, dtype="bfloat16", seed=SEED)
+    plain = dist_timed(TrainStep(model, _dist_loss, _dist_opt(model)), x,
+                       *DIST_STEPS)
+    del model
+    free_device_memory()
+    t = time.perf_counter()
+    dist.init_parallel_env()
+    fleet.init(is_collective=True)
+    init_s = time.perf_counter() - t
+    model = fleet.distributed_model(
+        LlamaForCausalLM(cfg, dtype="bfloat16", seed=SEED))
+    opt = fleet.distributed_optimizer(_dist_opt(model))
+    step = TrainStep(model, _dist_loss, opt,
+                     mesh=dist.init_mesh({"dp": 1}), bucketed=True)
+    # the warm-up steps make the NCCL communicators: the counts and the
+    # comm totals are the timed steps'
+    warm = dist_timed(step, x, DIST_STEPS[0], 0)
+    calls = get_registry().get("comm_calls_total")
+    _reset_flash_counts()
+    _reset_fused_counts()
+    ar0, c0 = calls.value(op="all_reduce", axes="dp"), comm_totals()
+    meshed = dist_timed(step, x, 0, DIST_STEPS[1])
+    meshed["losses"] = warm["losses"] + meshed["losses"]
+    counts = _flash_counts()
+    fused_counts = _fused_counts()
+    c1 = comm_totals()
+    n = DIST_STEPS[1]
+    all_reduces = (calls.value(op="all_reduce", axes="dp") - ar0) / n
+    plan = step._mesh_plan
+    buckets = len(plan.comm_buckets)
+    if all_reduces != buckets:
+        raise AssertionError(f"dist (a): {all_reduces} all-reduces a step "
+                             f"for {buckets} buckets")
+    for kname, c in counts.items():
+        if c != n * cfg.num_hidden_layers:
+            raise AssertionError(f"dist (a): {kname} launched {c} times in "
+                                 f"{n} steps")
+    if not np.allclose(meshed["losses"], plain["losses"], rtol=1e-3,
+                       atol=0):
+        raise AssertionError(f"dist (a): meshed losses {meshed['losses']} "
+                             f"and unmeshed {plain['losses']} differ by "
+                             f"more than rtol 1e-3")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(x)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    nccl = [(us, key, c) for us, key, c in rows if "nccl" in key.lower()]
+    nccl_ms = sum(us for us, _, _ in nccl) / 1e3
+    dev_ms = sum(us for us, _, _ in rows) / 1e3
+    per = {k: (c1[k] - c0[k]) / n for k in c0}
+    med_plain = statistics.median(plain["ms"])
+    med_mesh = statistics.median(meshed["ms"])
+    bucket_bytes = [sum(plan._params[nm].numel() *
+                        plan._params[nm].element_size() for nm in b)
+                    for b in plan.comm_buckets]
+    log(f"dist (a): init_parallel_env (nccl, world 1) + fleet.init "
+        f"{init_s:.2f} s; mesh {dict(zip(step._mesh_plan.mesh.mesh_dim_names, step._mesh_plan.mesh.shape))}, "
+        f"distributed_model -> {type(model).__name__}; {buckets} gradient "
+        f"buckets of 25 MB (bytes: min {min(bucket_bytes)}, max "
+        f"{max(bucket_bytes)}, sum {sum(bucket_bytes)})")
+    log(f"dist (a): losses {[round(v, 5) for v in meshed['losses']]} "
+        f"against the unmeshed step's "
+        f"{[round(v, 5) for v in plain['losses']]} (rtol 1e-3)")
+    log(f"dist (a): step ms by CUDA events, meshed "
+        f"{[round(v, 3) for v in meshed['ms']]} (median {med_mesh:.3f}) "
+        f"against unmeshed {[round(v, 3) for v in plain['ms']]} (median "
+        f"{med_plain:.3f}); {all_reduces:.0f} all-reduces a step (= the "
+        f"bucket count), {per['comm_bytes_total']:.0f} B a step through "
+        f"them, host seconds a step inside the collectives' spans "
+        f"{per['comm_seconds_total']:.6f} (exposed "
+        f"{per['comm_exposed_seconds_total']:.6f}, overlapped "
+        f"{per['comm_overlapped_seconds_total']:.6f})")
+    log(f"dist (a): a profiled step: NCCL kernels {nccl_ms:.3f} device ms "
+        f"in {sum(c for _, _, c in nccl)} launches of "
+        f"{sorted({k for _, k, _ in nccl})[:3]}, of {dev_ms:.3f} device ms "
+        f"(the largest kernels: "
+        f"{[(k[:40], round(us / 1e3, 3)) for us, k, _ in rows[:6]]}); "
+        f"counts over the {n} timed steps: "
+        f"K1-K3 {counts['flash_attention_fwd'] // n}, "
+        f"{counts['flash_attention_dq'] // n}, "
+        f"{counts['flash_attention_dkv'] // n} a step; fused_adam_update "
+        f"{fused_counts['fused_adam_update']} and fused_sqnorm "
+        f"{fused_counts['fused_sqnorm']} in {n} steps")
+    del step, opt, model
+    free_device_memory()
+    dist.destroy_process_group()
+    return {**counts, **fused_counts}, dict(
+        step_ms=med_mesh, unmeshed_step_ms=med_plain,
+        all_reduces_per_step=all_reduces, buckets=buckets,
+        nccl_ms_per_step=nccl_ms,
+        comm_bytes_per_step=per["comm_bytes_total"])
+
+
+def dist_two_rank_config():
+    return dataclasses.replace(llama_bench_config(),
+                               num_hidden_layers=DIST_TWO_LAYERS)
+
+
+def _two_rank_worker(out_dir):
+    """One of phase 21(b)'s two processes on the one card: dp 2, then mp
+    2, each through fleet and a meshed ``TrainStep`` over gloo, in f32;
+    writes its losses, step ms and K1-K3 launches to
+    ``out_dir/rank<r>.json``."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo")
+    rank = dist.get_rank()
+    cfg = dist_two_rank_config()
+    x = _dist_batch(cfg.vocab_size)
+    res = {}
+    for name, degrees in (("dp2", {"dp_degree": 2}),
+                          ("mp2", {"mp_degree": 2})):
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs = {"dp_degree": 1, "mp_degree": 1, "pp_degree": 1,
+                            "sharding_degree": 1, **degrees}
+        fleet.init(is_collective=True, strategy=s)
+        model = fleet.distributed_model(LlamaForCausalLM(
+            dataclasses.replace(cfg, tensor_parallel=name == "mp2"),
+            dtype="float32", seed=SEED))
+        opt = fleet.distributed_optimizer(_dist_opt(model))
+        step = TrainStep(model, _dist_loss, opt, mesh=dist.get_mesh(),
+                         bucketed=True)
+        _reset_flash_counts()
+        run = dist_timed(step, x, 0, DIST_TWO_STEPS)
+        res[name] = dict(run, launches=_flash_counts(),
+                         model=type(model).__name__)
+        del step, opt, model
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def dist_two_ranks():
+    """Phase 21(b): two processes started by the port's ``spawn`` share
+    the card over gloo (NCCL refuses two ranks on one device): the
+    bench's widths at 2 layers in f32, 3 steps at dp 2 and 3 at mp 2,
+    each rank's losses against one process's on the same global batch
+    at rtol 1e-4. Returns K1-K3's launches on both ranks and the
+    record."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    cfg = dist_two_rank_config()
+    free_device_memory()
+    model = LlamaForCausalLM(cfg, dtype="float32", seed=SEED)
+    one = dist_timed(TrainStep(model, _dist_loss, _dist_opt(model)),
+                     _dist_batch(cfg.vocab_size), 0, DIST_TWO_STEPS)
+    del model
+    free_device_memory()
+    out_dir = tempfile.mkdtemp(prefix="phase21_", dir=REPO_ROOT)
+    try:
+        t = time.perf_counter()
+        procs = dist.spawn(_two_rank_worker, args=(out_dir,), nprocs=2,
+                           join=False)
+        for p in procs:
+            p.join(timeout=max(420 - (time.perf_counter() - t), 1))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"dist (b): ranks exited "
+                                 f"{[p.exitcode for p in procs]}")
+        wall = time.perf_counter() - t
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    counts = dict.fromkeys(ranks[0]["dp2"]["launches"], 0)
+    for r, res in enumerate(ranks):
+        for name in ("dp2", "mp2"):
+            got = res[name]["losses"]
+            if not np.allclose(got, one["losses"], rtol=1e-4, atol=0):
+                raise AssertionError(
+                    f"dist (b): rank {r} {name} losses {got} and one "
+                    f"process's {one['losses']} differ by more than rtol "
+                    f"1e-4")
+            for kname, c in res[name]["launches"].items():
+                if c != DIST_TWO_STEPS * cfg.num_hidden_layers:
+                    raise AssertionError(f"dist (b): rank {r} {name} "
+                                         f"{kname} launched {c} times")
+                counts[kname] += c
+    log(f"dist (b): two processes on one card over gloo (spawn, "
+        f"{wall:.1f} s with their start), the bench's widths at "
+        f"{cfg.num_hidden_layers} layers in f32, {DIST_TWO_STEPS} steps "
+        f"each: losses dp 2 {[round(v, 6) for v in ranks[0]['dp2']['losses']]}"
+        f" ({ranks[0]['dp2']['model']}), mp 2 "
+        f"{[round(v, 6) for v in ranks[0]['mp2']['losses']]}, one process "
+        f"{[round(v, 6) for v in one['losses']]} (rtol 1e-4, both ranks)")
+    log(f"dist (b): step ms by CUDA events (two processes share one card "
+        f"and gloo stages every collective through the host, so these are "
+        f"no measure of scaling): one process "
+        f"{[round(v, 3) for v in one['ms']]}; dp 2 rank 0 "
+        f"{[round(v, 3) for v in ranks[0]['dp2']['ms']]}, rank 1 "
+        f"{[round(v, 3) for v in ranks[1]['dp2']['ms']]}; mp 2 rank 0 "
+        f"{[round(v, 3) for v in ranks[0]['mp2']['ms']]}, rank 1 "
+        f"{[round(v, 3) for v in ranks[1]['mp2']['ms']]}; K1-K3 launches "
+        f"on both ranks {counts}")
+    return counts, dict(one_process_ms=one["ms"],
+                        dp2_ms=ranks[0]["dp2"]["ms"],
+                        mp2_ms=ranks[0]["mp2"]["ms"])
+
+
+def phase_distributed():
+    """Phase 21. Returns K1-K3's launches by path and the record."""
+    t0 = time.perf_counter()
+    a_counts, a_rec = dist_one_rank()
+    t1 = time.perf_counter()
+    b_counts, b_rec = dist_two_ranks()
+    t2 = time.perf_counter()
+    log(f"phase 21 seconds by part: (a) one rank {t1 - t0:.1f}, (b) two "
+        f"ranks {t2 - t1:.1f}; phase 21 {t2 - t0:.1f} s")
+    return {"dist_one_rank": a_counts, "dist_two_ranks": b_counts}, \
+        dict(one_rank=a_rec, two_ranks=b_rec)
+
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch",
@@ -6615,6 +6930,7 @@ def main():
     export_counts, export_rec = phase_export_and_deploy()
     prod_launches, ledger_cost = phase_serving_production()
     train_prod, train_prod_rec = phase_production(train_step_ms)
+    dist_paths, dist_rec = phase_distributed()
     # each path's launches were counted from 0 over its own run; a kernel
     # on several paths reports their sum, and each path's count beside it
     paths = {"train": counts, "moe_train": moe, "fit": fit, "ernie": ernie,
@@ -6622,10 +6938,10 @@ def main():
              "api_train": api, "generate": gen, **capture_paths,
              "moe_generate": p17["moe_generate"],
              "incubate": p17["incubate"], "export": export_counts,
-             **train_prod}
+             **train_prod, **dist_paths}
 
     def path_launches(kname):
-        by_path = {p: c[kname] for p, c in paths.items()}
+        by_path = {p: c[kname] for p, c in paths.items() if kname in c}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
     rpa_paths = {"serving": launches, **rpa_paths,
                  "moe_serving": p17["moe_serving"], **prod_launches}
@@ -6648,7 +6964,8 @@ def main():
                                 **(decode if kname == "flash_attention_fwd"
                                    else {})},
                             **({"export": export_rec,
-                                "train_prod": train_prod_rec}
+                                "train_prod": train_prod_rec,
+                                "dist": dist_rec}
                                if kname == "flash_attention_fwd" else {})))
     for kname, _, replaces in GMM_KERNELS:
         kernels.append(dict(name=kname, route="cuda", source=GMM_SRC,

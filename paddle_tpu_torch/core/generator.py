@@ -19,13 +19,16 @@ tests carry weights across through numpy.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Optional
 
 import torch
 
 __all__ = ["Generator", "default_generator", "seed", "get_rng_state",
            "set_rng_state", "rng_guard", "torch_generator", "host_int",
-           "draw_generator"]
+           "draw_generator", "RNGStatesTracker", "get_rng_tracker"]
+
+_tls = threading.local()
 
 
 def _key(device) -> str:
@@ -90,9 +93,15 @@ def set_rng_state(state):
     default_generator.set_state(state)
 
 
+def _active() -> "Generator":
+    return getattr(_tls, "active_generator", None) or default_generator
+
+
 def torch_generator(device) -> torch.Generator:
-    """The default generator's ``torch.Generator`` for ``device``."""
-    return default_generator.torch_generator(device)
+    """The active generator's ``torch.Generator`` for ``device``: the
+    default generator's, or inside :meth:`RNGStatesTracker.rng_state` the
+    named stream's."""
+    return _active().torch_generator(device)
 
 
 def draw_generator(device, seed: int = 0) -> torch.Generator:
@@ -125,3 +134,44 @@ def rng_guard(seed_value: int, generator: Optional[Generator] = None):
         yield gen
     finally:
         gen.set_state(saved)
+
+
+class RNGStatesTracker:
+    """Named RNG streams for tensor parallelism (reference :129-160, after
+    Paddle's ``mpu/random.py:35``): e.g. a ``global_seed`` stream, the
+    same on every model-parallel rank (dropout on replicated
+    activations), beside a ``local_seed`` stream that differs per rank
+    (dropout on sharded activations). Inside :meth:`rng_state` every
+    draw of this thread (dropout, initializers, the flash dropout seed)
+    comes from the named stream."""
+
+    def __init__(self):
+        self._states = {}
+        self._offsets = {}
+
+    def add(self, name: str, seed: int):
+        if name in self._states:
+            raise ValueError(f"rng state {name!r} already exists")
+        self._states[name] = Generator(seed)
+        self._offsets[name] = seed - default_generator.seed()
+
+    def states(self):
+        return dict(self._states)
+
+    @contextlib.contextmanager
+    def rng_state(self, name: str):
+        if name not in self._states:
+            raise ValueError(f"unknown rng state {name!r}")
+        prev = getattr(_tls, "active_generator", None)
+        _tls.active_generator = self._states[name]
+        try:
+            yield
+        finally:
+            _tls.active_generator = prev
+
+
+_TRACKER = RNGStatesTracker()
+
+
+def get_rng_tracker() -> RNGStatesTracker:
+    return _TRACKER

@@ -1,21 +1,43 @@
-"""``fleet`` of the port: the Mixture-of-Experts layer and its gates
-(``paddle_tpu/distributed/fleet/moe.py``), activation recomputation
-(``utils.recompute``) and the strategy object
-(``paddle_tpu/distributed/fleet/__init__.py:36-58``)."""
-from . import moe, utils
+"""``fleet`` — port of ``paddle_tpu/distributed/fleet/__init__.py``.
+
+``fleet.init`` builds the hybrid topology and its mesh from the
+strategy's ``hybrid_configs``; ``distributed_model`` wraps a pure
+data-parallel model in ``DataParallel`` (a tensor-parallel model, built
+from the mpu layers, passes through), and ``distributed_optimizer``
+passes the optimizer through (``jit.TrainStep`` owns the gradient
+collectives), as in the reference. Also here: the tensor-parallel layers
+(``mpu``), the Mixture-of-Experts layer and its gates (one device; its
+expert parallelism is a later slice), and ``recompute``. The pipeline
+engines and sequence parallelism are later slices and not exported.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+from ..env import get_rank, get_world_size
+from ..mesh import get_mesh
+from ..parallel import DataParallel
+from ..topology import CommunicateTopology, HybridCommunicateGroup
+from . import moe, mpu, utils
 from .moe import GShardGate, MoELayer, NaiveGate, SwitchGate
+from .mpu import (ColumnParallelLinear, ParallelCrossEntropy,
+                  RowParallelLinear, VocabParallelEmbedding)
 from .utils import recompute
 
-__all__ = ["moe", "MoELayer", "NaiveGate", "SwitchGate", "GShardGate",
-           "utils", "recompute", "DistributedStrategy"]
+__all__ = ["init", "DistributedStrategy", "distributed_model",
+           "distributed_optimizer", "get_hybrid_communicate_group",
+           "worker_num", "worker_index", "mpu", "ColumnParallelLinear",
+           "RowParallelLinear", "VocabParallelEmbedding",
+           "ParallelCrossEntropy", "moe", "MoELayer", "NaiveGate",
+           "SwitchGate", "GShardGate", "utils", "recompute"]
+
+_state = {"hcg": None, "strategy": None}
 
 
 class DistributedStrategy:
     """The reference's switchboard (``fleet/base/distributed_strategy.py``):
-    each knob recorded as set. ``recompute = True`` is what
-    ``LlamaConfig.recompute`` carries on one card; the mesh knobs
-    (``hybrid_configs``, sharding, pipeline, tensor parallelism) wait for
-    the distributed slice."""
+    ``hybrid_configs`` gives the mesh's degrees, ``recompute`` turns on
+    a zoo model's ``cfg.recompute``; the other knobs are recorded."""
 
     def __init__(self):
         self.hybrid_configs = {"dp_degree": 1, "mp_degree": 1,
@@ -34,3 +56,58 @@ class DistributedStrategy:
         self.gradient_merge = False
         self.gradient_merge_configs = {}
         self.find_unused_parameters = False
+
+
+def init(role_maker=None, is_collective=True, strategy: Optional[
+        DistributedStrategy] = None):
+    """Reference :68-81: the topology and its mesh from
+    ``strategy.hybrid_configs``. Needs ``init_parallel_env`` first; when
+    every degree is 1 the whole world goes on ``dp`` (Paddle's default),
+    where the reference's mesh would not cover its devices."""
+    strategy = strategy or DistributedStrategy()
+    hc = strategy.hybrid_configs
+    dims = [hc.get("dp_degree", 1), hc.get("pp_degree", 1),
+            hc.get("sharding_degree", 1), hc.get("mp_degree", 1)]
+    if dims == [1, 1, 1, 1]:
+        dims[0] = get_world_size()
+    topo = CommunicateTopology(["data", "pipe", "sharding", "model"], dims)
+    hcg = HybridCommunicateGroup(topo)
+    _state["hcg"] = hcg
+    _state["strategy"] = strategy
+    return hcg
+
+
+def get_hybrid_communicate_group() -> HybridCommunicateGroup:
+    if _state["hcg"] is None:
+        raise RuntimeError("call fleet.init() first")
+    return _state["hcg"]
+
+
+def distributed_model(model):
+    """Reference :89-106: ``DataParallel`` for a pure data-parallel
+    topology; other models pass through. ``strategy.recompute`` sets a
+    model's ``cfg.recompute``."""
+    hcg = get_hybrid_communicate_group()
+    strategy = _state.get("strategy")
+    if strategy is not None and strategy.recompute:
+        cfg = getattr(model, "cfg", None)
+        if cfg is not None and hasattr(cfg, "recompute"):
+            cfg.recompute = True
+    if hcg.get_data_parallel_world_size() > 1 and \
+            hcg.get_model_parallel_world_size() == 1 and \
+            hcg.get_pipe_parallel_world_size() == 1:
+        return DataParallel(model, mesh=get_mesh())
+    return model
+
+
+def distributed_optimizer(optimizer, strategy=None):
+    """Reference :109-114: the optimizer as it is."""
+    return optimizer
+
+
+def worker_num() -> int:
+    return get_world_size()
+
+
+def worker_index() -> int:
+    return get_rank()

@@ -113,6 +113,9 @@ class Bucket:
     kwargs: dict                    # _update_delta keyword args
     vector_keys: Tuple[str, ...]    # state entries with the param's shape
     scalar_keys: Tuple[str, ...]    # 0-d state entries, equal bucket-wide
+    # mesh axes each member is split over (tensor parallelism, ZeRO):
+    # the clip sums a bucket's squares over them
+    shard_axes: Tuple[str, ...] = ()
     # the kernels' device tables, built at their first launch
     table: object = field(default=None, repr=False, compare=False)
 
@@ -185,12 +188,12 @@ def build_layout(opt, params: Dict[str, torch.Tensor],
             layout.residue.append(name)
             continue
         key = (gi, str(p.dtype), "master_weight" in st, lr_ratio, dcoeff,
-               tuple(scalar_vals), kw_key)
+               tuple(scalar_vals), kw_key, shard_axes(p))
         groups.setdefault(key, []).append(
             (name, tuple(p.shape), kw, fold_decay, tuple(vector_keys),
              tuple(scalar_keys)))
 
-    for (gi, _dt, master, lr_ratio, dcoeff, _sv, _kw), members \
+    for (gi, _dt, master, lr_ratio, dcoeff, _sv, _kw, axes), members \
             in groups.items():
         sizes = [int(np.prod(shape)) for _, shape, *_ in members]
         offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).tolist()
@@ -201,8 +204,19 @@ def build_layout(opt, params: Dict[str, torch.Tensor],
             offsets=tuple(int(o) for o in offsets), group_index=gi,
             master=master, lr_ratio=lr_ratio, decay_coeff=dcoeff,
             decay=first[3], kwargs=first[2], vector_keys=first[4],
-            scalar_keys=first[5]))
+            scalar_keys=first[5], shard_axes=axes))
     return layout
+
+
+def shard_axes(p) -> Tuple[str, ...]:
+    """The mesh axes ``p`` is split over (its ``_sharding_spec``'s, set
+    by the tensor-parallel layers and ZeRO stage 3), in the mesh's
+    order; () for a whole parameter."""
+    spec = getattr(p, "_sharding_spec", None)
+    if not spec:
+        return ()
+    from paddle_tpu_torch.distributed.mesh import spec_axes
+    return spec_axes(spec, getattr(p, "_sharding_mesh", None))
 
 
 def _flat(tensors):
@@ -439,13 +453,15 @@ def fused_adam_update(opt, b: Bucket, params, grads, flat, lr, scale=None):
 
 
 # -- the step's clip and update -------------------------------------------
-def fused_clip(opt, layout: FlatLayout, params, grads):
+def fused_clip(opt, layout: FlatLayout, params, grads, reduce_sq=None):
     """The clip of the fused step. ``grads`` maps every train name to its
     gradient. Returns ``(bucket_grads, res_grads, scale, global_norm)``:
     per-bucket gradient lists and the residue's ``{name: grad}`` (clipped
     already, except by the global norm, whose factor ``scale`` the update
     folds in) and the pre-clip global norm under
-    ``ClipGradByGlobalNorm`` (else None and None)."""
+    ``ClipGradByGlobalNorm`` (else None and None). ``reduce_sq``, given
+    ``[(shard axes, squared norm)]``, returns the global sum of squares
+    (``TrainStep`` over a mesh); by default the local sum."""
     clip = opt._grad_clip
     if clip is not None and not isinstance(clip, ClipGradByGlobalNorm):
         # a per-tensor strategy (ClipGradByNorm), or ClipGradByValue,
@@ -458,10 +474,12 @@ def fused_clip(opt, layout: FlatLayout, params, grads):
     res_grads = {n: grads[n] for n in layout.residue}
     if not isinstance(clip, ClipGradByGlobalNorm):
         return bucket_grads, res_grads, None, None
-    sq = [fused_sqnorm(gs, b) for gs, b in zip(bucket_grads,
-                                               layout.buckets)]
-    sq += [sqnorm_plain([g]) for g in res_grads.values()]
-    global_norm = torch.sqrt(sum(sq))
+    sq = [(b.shard_axes, fused_sqnorm(gs, b))
+          for gs, b in zip(bucket_grads, layout.buckets)]
+    sq += [(shard_axes(params[n]), sqnorm_plain([g]))
+           for n, g in res_grads.items()]
+    global_norm = torch.sqrt(sum(q for _, q in sq) if reduce_sq is None
+                             else reduce_sq(sq))
     scale = clip.scale(global_norm)
     res_grads = {n: g * scale.to(g.dtype) for n, g in res_grads.items()}
     return bucket_grads, res_grads, scale, global_norm

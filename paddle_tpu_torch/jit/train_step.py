@@ -37,8 +37,15 @@ the code of a never-instrumented step. While
 ``numerics.provenance_enabled()`` each step stashes its batch and
 random state for :meth:`TrainStep.numerics_probe_last`.
 
-CUDA-graph capture and the lr as a device scalar are not ported yet,
-nor are the mesh and bucketed-collective paths.
+Over a mesh (``mesh=``, or a ``DataParallel`` model, whose mesh and
+``batch_spec`` it takes, as the reference's :101-106): each process runs
+its rows of the batch (``input_spec``, default ``P("dp")``), the loss is
+one mean over the global batch, the gradients are all-reduced in buckets
+as they land (``bucketed``, on by default as in the reference), the
+tensor-parallel blocks and ZeRO's shards are trained where they live,
+and the global-norm clip sums each split gradient over its axes:
+``jit/mesh_step.py`` holds that path. CUDA-graph capture and the lr as
+a device scalar are not ported yet.
 
 Usage::
 
@@ -57,6 +64,8 @@ from torch.profiler import record_function
 
 from paddle_tpu_torch.core import generator
 from paddle_tpu_torch.core.tensor import unwrap_args, wrap
+from paddle_tpu_torch.distributed.parallel import (DataParallel,
+                                                   counting_loss_tokens)
 from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
 from paddle_tpu_torch.observability import goodput, numerics
 from paddle_tpu_torch.observability.comm import compute_scope
@@ -64,6 +73,7 @@ from paddle_tpu_torch.profiler import RecordEvent
 
 from .fused_update import (build_flat_states, build_layout, fused_clip,
                            fused_enabled, fused_update)
+from .mesh_step import MeshPlan
 
 __all__ = ["TrainStep"]
 
@@ -77,21 +87,18 @@ class TrainStep:
                  donate: bool = True, mesh=None, input_spec=None,
                  fused=None, bucketed=None):
         """The update is in place, which is what the reference's default
-        ``donate=True`` buys; ``donate=False``, ``mesh``, ``input_spec``
-        and ``bucketed=True`` raise: they are not ported yet.
-        ``fused`` overrides ``fused_enabled()``."""
-        if mesh is not None or input_spec is not None:
-            raise NotImplementedError(
-                "SPMD training (mesh/input_spec) is not ported to "
-                "paddle_tpu_torch yet")
+        ``donate=True`` buys; ``donate=False`` raises. ``fused``
+        overrides ``fused_enabled()``. ``mesh``/``input_spec`` run the
+        step over a mesh (a ``DataParallel`` model brings its own), with
+        the gradients reduced in buckets unless ``bucketed=False``."""
         if not donate:
             raise NotImplementedError(
                 "donate=False is not ported to paddle_tpu_torch: the "
                 "update is always in place")
-        if bucketed:
-            raise NotImplementedError(
-                "bucketed gradient collectives are not ported to "
-                "paddle_tpu_torch yet")
+        if mesh is None and isinstance(model, DataParallel):
+            mesh = model._mesh
+        if input_spec is not None and mesh is None:
+            raise ValueError("input_spec needs a mesh")
         self._model = model
         self._loss_fn = loss_fn
         self._opt = optimizer
@@ -120,6 +127,9 @@ class TrainStep:
         #: numerics.provenance_enabled()
         self._last_batch = None
         self._stepped = False
+        #: the mesh path's plan (None without a mesh)
+        self._mesh_plan = None if mesh is None else MeshPlan(
+            model, optimizer, mesh, input_spec, bucketed, self._params)
 
     def _group_lrs(self):
         """Effective lr per param group in f32, read on the host at every
@@ -172,7 +182,9 @@ class TrainStep:
         clip = self._opt._grad_clip
         if isinstance(clip, ClipGradByGlobalNorm):
             # one norm over every trained parameter, all groups together
-            return clip._clip_with_norm(pairs)
+            plan = self._mesh_plan
+            return clip._clip_with_norm(
+                pairs, None if plan is None else plan.clip_reduce)
         return (clip(pairs) if clip is not None else pairs), None
 
     def _update_loop(self, pairs, group_lrs):
@@ -248,24 +260,52 @@ class TrainStep:
                 goodput.stamped_compile_seconds() - stamped0))
         return loss
 
+    def _forward_backward(self, train, names, args, kwargs, instrument):
+        """``(loss, gradient pairs, numerics collector, had a Tensor)``;
+        over a mesh the loss is the global batch's and the gradients are
+        reduced (``mesh_step.MeshPlan``)."""
+        plan = self._mesh_plan
+        had = unwrap_args(args, kwargs)[2]
+        if plan is None:
+            with numerics.collect(instrument) as col:
+                loss = self._loss_fn(self._model, *args, **kwargs)
+            (loss,), _, had_loss = unwrap_args((loss,), None)
+            # the pairs hold the only reference to the gradients, so the
+            # loop frees them once its clip has copied them, before the
+            # update allocates its temporaries
+            return loss, list(zip(train, torch.autograd.grad(
+                loss, train, allow_unused=True, materialize_grads=True))), \
+                col, had or had_loss
+        args, kwargs = plan.local_batch(args, kwargs)
+        plan.install_full()
+        try:
+            with numerics.collect(instrument) as col, \
+                    counting_loss_tokens() as noted:
+                loss = self._loss_fn(self._model, *args, **kwargs)
+            (loss,), _, had_loss = unwrap_args((loss,), None)
+            weight, global_loss = plan.weigh(loss, noted)
+            plan.begin(names)
+            torch.autograd.backward(
+                loss if weight is None else loss * weight, inputs=train)
+            grads = plan.finish(names)
+        finally:
+            plan.restore_shards()
+        return global_loss, [(p, grads[n]) for p, n in zip(train, names)], \
+            col, had or had_loss
+
     def _step(self, args, kwargs, instrument):
         opt = self._opt
         train = [p for p in opt._parameter_list if p.requires_grad]
         names = [self._name_of[id(p)] for p in train]
+        plan = self._mesh_plan
         with record_function(RANGE_FORWARD_BACKWARD):
-            with numerics.collect(instrument) as col:
-                loss = self._loss_fn(self._model, *args, **kwargs)
-            (loss,), _, had = unwrap_args((loss,), None)
-            had = had or unwrap_args(args, kwargs)[2]
-            # the pairs hold the only reference to the gradients, so the
-            # loop frees them once its clip has copied them, before the
-            # update allocates its temporaries
-            pairs = list(zip(train, torch.autograd.grad(
-                loss, train, allow_unused=True, materialize_grads=True)))
+            loss, pairs, col, had = self._forward_backward(
+                train, names, args, kwargs, instrument)
         group_lrs = self._group_lrs()
         opt._step_count += 1
-        layout, flats = self._fused_plan(names) if self._fused \
-            else (None, None)
+        zero = plan is not None and plan.zero_level is not None
+        layout, flats = self._fused_plan(names) \
+            if self._fused and not zero else (None, None)
         self._layout = layout
         if instrument:
             buckets = self._bucket_names(layout, names)
@@ -276,12 +316,16 @@ class TrainStep:
             with record_function(RANGE_CLIP):
                 pairs, gnorm = self._clip_loop(pairs)
             with record_function(RANGE_UPDATE):
-                self._update_loop(pairs, group_lrs)
+                if zero:
+                    plan.zero_update(opt, pairs, group_lrs, self._group_of)
+                else:
+                    self._update_loop(pairs, group_lrs)
         else:
             by_name = {self._name_of[id(p)]: g for p, g in pairs}
             with record_function(RANGE_CLIP):
                 bucket_grads, res_grads, scale, gnorm = fused_clip(
-                    opt, layout, self._params, by_name)
+                    opt, layout, self._params, by_name,
+                    None if plan is None else plan.reduce_sq)
             with record_function(RANGE_UPDATE):
                 fused_update(opt, layout, self._params, bucket_grads, flats,
                              group_lrs, scale)

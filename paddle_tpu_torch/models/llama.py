@@ -15,8 +15,16 @@ least 32768), the static-cache path of ``generate_compiled`` (reference
 written in place at a position held on the card), recompute
 (``cfg.recompute`` through ``distributed.fleet.utils.recompute``), the
 int8-KV branch of the paged forward (:407-436: scale pools in the
-cache) and the numerics taps (:475-626). Tensor parallelism is not
-ported yet.
+cache), the numerics taps (:475-626) and tensor parallelism
+(``tensor_parallel=True``, :143-149 and :515-523): the projections are
+``distributed.fleet``'s column/row-parallel layers over the default
+mesh's ``mp`` axis (each rank keeps its heads and its FFN columns, so
+``n_heads``/``n_kv`` are the local counts and ``mp`` must divide the KV
+heads), the embedding is vocab-parallel, and the loss is the
+vocab-parallel cross entropy (the fused chunked CE with the row max, the
+sum of exponentials and the target logit all-reduced over ``mp``). The
+init draws every full weight and keeps this rank's block, so a
+tensor-parallel model equals the one-device model of the same seed.
 
 Parameter names and shapes equal the reference's, so a numpy state dict
 moves between the packages unchanged (``utils/bridge.py``).
@@ -82,6 +90,22 @@ class LlamaConfig:
 # every projection is bias-free and starts at zero: the owning model's
 # _init_weights draws the Llama recipe (or the bridge loads the weights)
 _ZERO_NO_BIAS = dict(weight_attr=I.Constant(0.0), bias_attr=False)
+
+
+def _make_linear(cfg, d_in, d_out, kind, *, device, dtype):
+    """A bias-free projection (reference :143-157): ``kind`` "col" splits
+    the output features over ``mp`` (its input replicated), "row" the
+    input features (its output all-reduced)."""
+    if not cfg.tensor_parallel:
+        return Linear(d_in, d_out, device=device, dtype=dtype,
+                      **_ZERO_NO_BIAS)
+    from paddle_tpu_torch.distributed.fleet import (ColumnParallelLinear,
+                                                    RowParallelLinear)
+    kw = dict(weight_attr=I.Constant(0.0), has_bias=False, device=device,
+              dtype=dtype)
+    if kind == "col":
+        return ColumnParallelLinear(d_in, d_out, gather_output=False, **kw)
+    return RowParallelLinear(d_in, d_out, input_is_parallel=True, **kw)
 
 
 @functools.lru_cache(maxsize=32)
@@ -208,19 +232,36 @@ def run_cached_layers(owner, x, caches, attn_impl="rpa", attention_mask=None,
     return x, new
 
 
+def _mp_of(cfg):
+    """The model-parallel group of a tensor-parallel config, checked
+    against its head counts."""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed.fleet.mpu import _mp_axis
+    from paddle_tpu_torch.distributed.mesh import get_mesh
+    mesh = get_mesh()
+    group = C.Group((_mp_axis(mesh),), mesh)
+    if cfg.num_key_value_heads % group.nranks:
+        raise ValueError(f"the model-parallel degree {group.nranks} must "
+                         f"divide num_key_value_heads "
+                         f"{cfg.num_key_value_heads}")
+    return group
+
+
 class LlamaAttention(Layer):
     def __init__(self, cfg: LlamaConfig, *, device, dtype):
         super().__init__()
         self.cfg = cfg
         self.head_dim = cfg.hidden_size // cfg.num_attention_heads
-        self.n_heads = cfg.num_attention_heads
-        self.n_kv = cfg.num_key_value_heads
-        mk = functools.partial(Linear, device=device, dtype=dtype,
-                               **_ZERO_NO_BIAS)
-        self.q_proj = mk(cfg.hidden_size, self.n_heads * self.head_dim)
-        self.k_proj = mk(cfg.hidden_size, self.n_kv * self.head_dim)
-        self.v_proj = mk(cfg.hidden_size, self.n_kv * self.head_dim)
-        self.o_proj = mk(self.n_heads * self.head_dim, cfg.hidden_size)
+        mk = functools.partial(_make_linear, cfg, device=device, dtype=dtype)
+        hq = cfg.num_attention_heads * self.head_dim
+        hkv = cfg.num_key_value_heads * self.head_dim
+        self.q_proj = mk(cfg.hidden_size, hq, "col")
+        self.k_proj = mk(cfg.hidden_size, hkv, "col")
+        self.v_proj = mk(cfg.hidden_size, hkv, "col")
+        self.o_proj = mk(hq, cfg.hidden_size, "row")
+        # this rank's heads (all of them without tensor parallelism)
+        self.n_heads = self.q_proj.weight.shape[1] // self.head_dim
+        self.n_kv = self.k_proj.weight.shape[1] // self.head_dim
 
     def forward(self, x, cache: Optional[pa.RaggedLayerCache], rope,
                 attn_impl: str = "rpa", attention_mask=None,
@@ -378,11 +419,10 @@ class LlamaAttention(Layer):
 class LlamaMLP(Layer):
     def __init__(self, cfg: LlamaConfig, *, device, dtype):
         super().__init__()
-        mk = functools.partial(Linear, device=device, dtype=dtype,
-                               **_ZERO_NO_BIAS)
-        self.gate_proj = mk(cfg.hidden_size, cfg.intermediate_size)
-        self.up_proj = mk(cfg.hidden_size, cfg.intermediate_size)
-        self.down_proj = mk(cfg.intermediate_size, cfg.hidden_size)
+        mk = functools.partial(_make_linear, cfg, device=device, dtype=dtype)
+        self.gate_proj = mk(cfg.hidden_size, cfg.intermediate_size, "col")
+        self.up_proj = mk(cfg.hidden_size, cfg.intermediate_size, "col")
+        self.down_proj = mk(cfg.intermediate_size, cfg.hidden_size, "row")
 
     def forward(self, x):
         # numerics tap seam: the gated activation is where Llama-family
@@ -423,8 +463,15 @@ class LlamaModel(Layer):
         super().__init__()
         self.cfg = cfg
         kw = dict(device=device, dtype=dtype)
-        self.embed_tokens = Embedding(cfg.vocab_size, cfg.hidden_size,
-                                      weight_attr=I.Constant(0.0), **kw)
+        if cfg.tensor_parallel:
+            from paddle_tpu_torch.distributed.fleet import \
+                VocabParallelEmbedding
+            self.embed_tokens = VocabParallelEmbedding(
+                cfg.vocab_size, cfg.hidden_size,
+                weight_attr=I.Constant(0.0), **kw)
+        else:
+            self.embed_tokens = Embedding(cfg.vocab_size, cfg.hidden_size,
+                                          weight_attr=I.Constant(0.0), **kw)
         self.layers = LayerList(
             [LlamaDecoderLayer(cfg, **kw)
              for _ in range(cfg.num_hidden_layers)])
@@ -513,26 +560,40 @@ class LlamaForCausalLM(Layer):
         super().__init__()
         if cfg.hidden_size % cfg.num_attention_heads:
             raise ValueError("hidden_size must divide by num_attention_heads")
-        if cfg.tensor_parallel:
-            raise NotImplementedError(
-                "tensor_parallel is not ported to paddle_tpu_torch yet")
         device = resolve_device(device)
         dtype = convert_dtype(dtype)
         self.cfg = cfg
+        self._mp = None
+        if cfg.tensor_parallel:
+            self._mp = _mp_of(cfg)
         self.model = LlamaModel(cfg, device=device, dtype=dtype)
-        self.lm_head = None if cfg.tie_word_embeddings else Linear(
-            cfg.hidden_size, cfg.vocab_size, device=device, dtype=dtype,
-            **_ZERO_NO_BIAS)
+        self.lm_head = None if cfg.tie_word_embeddings else _make_linear(
+            cfg, cfg.hidden_size, cfg.vocab_size, "col", device=device,
+            dtype=dtype)
         self._init_weights(torch.Generator(device=device).manual_seed(seed))
 
     @torch.no_grad()
     def _init_weights(self, generator):
         """Llama recipe init: every 2-D weight (embedding, projections)
-        ~ N(0, initializer_range); norms stay at ones."""
+        ~ N(0, initializer_range); norms stay at ones. A tensor-parallel
+        block draws its full weight and keeps its part, so every rank's
+        stream, and the weights, equal the one-device model's."""
+        from paddle_tpu_torch.distributed.mesh import local_block
         for _, p in self.named_parameters():
-            if p.dim() == 2:
+            if p.dim() != 2:
+                continue
+            spec = getattr(p, "_sharding_spec", None)
+            if spec is None or self._mp is None or self._mp.nranks == 1:
                 p.normal_(0.0, self.cfg.initializer_range,
                           generator=generator)
+                continue
+            mesh = p._sharding_mesh
+            shape = [s * (self._mp.nranks if e is not None else 1)
+                     for s, e in zip(p.shape, spec)]
+            full = torch.empty(shape, dtype=p.dtype, device=p.device)
+            full.normal_(0.0, self.cfg.initializer_range,
+                         generator=generator)
+            p.copy_(local_block(full, spec, mesh))
 
     # vocab size from which the fused chunked CE pays for itself (below
     # it the [T, V] logits are small and callers keep them)
@@ -552,26 +613,63 @@ class LlamaForCausalLM(Layer):
             raise ValueError(
                 "causal-LM loss needs sequences of length >= 2 (the "
                 "internal shift leaves nothing to predict for length 1)")
+        if labels is not None:
+            # the loss is a mean over these tokens: a data-parallel step
+            # weights each rank by its share of them
+            from paddle_tpu_torch.distributed.parallel import \
+                note_loss_tokens
+            note_loss_tokens((labels[:, 1:] != -100).sum())
+        mp = self._mp
         if (labels is not None and self.lm_head is None
                 and self.cfg.vocab_size >= self._FUSED_CE_MIN_VOCAB):
             # the reference's op "fused_causal_ce": on neither amp list
             h, w = cast_for("fused_causal_ce", h,
                                 self.model.embed_tokens.weight)
-            return None, causal_lm_loss(h, w, labels)
-        logits = numerics.tap("logits", self._logits(h))
+            if mp is None or mp.nranks == 1:
+                return None, causal_lm_loss(h, w, labels)
+            from paddle_tpu_torch.distributed.fleet.mpu import copy_to_group
+            return None, causal_lm_loss(
+                copy_to_group(h, mp), w, labels, group=mp,
+                vocab_start=self.model.embed_tokens._start)
+        if mp is None or mp.nranks == 1:
+            logits = numerics.tap("logits", self._logits(h))
+            if labels is None:
+                return logits
+            loss = F.cross_entropy(
+                logits[:, :-1].reshape(-1, logits.shape[-1]),
+                labels[:, 1:].reshape(-1))
+            return logits, loss
+        from paddle_tpu_torch.distributed.fleet.mpu import (
+            _GatherFromGroup, vocab_parallel_ce)
+        local = self._local_logits(h)
+        logits = numerics.tap("logits", _GatherFromGroup.apply(local, mp))
         if labels is None:
             return logits
-        loss = F.cross_entropy(
-            logits[:, :-1].reshape(-1, logits.shape[-1]),
-            labels[:, 1:].reshape(-1))
-        return logits, loss
+        tgt = labels[:, 1:].reshape(-1)
+        per_tok = vocab_parallel_ce(
+            local[:, :-1].reshape(-1, local.shape[-1]), tgt, mp,
+            mp.rank * local.shape[-1])
+        valid = (tgt != -100).sum().clamp(min=1)
+        return logits, per_tok.sum() / valid.to(per_tok.dtype)
 
-    def _logits(self, h):
+    def _local_logits(self, h):
+        """This rank's columns of the logits (all of them without tensor
+        parallelism)."""
         if self.lm_head is not None:
             return self.lm_head(h)
+        if self._mp is not None and self._mp.nranks > 1:
+            from paddle_tpu_torch.distributed.fleet.mpu import copy_to_group
+            h = copy_to_group(h, self._mp)
         # the reference's ops.matmul: a white-list op under amp
         h, w = cast_for("matmul", h, self.model.embed_tokens.weight)
         return torch.matmul(h, w.t())
+
+    def _logits(self, h):
+        local = self._local_logits(h)
+        if self._mp is None or self._mp.nranks == 1:
+            return local
+        from paddle_tpu_torch.distributed.fleet.mpu import _GatherFromGroup
+        return _GatherFromGroup.apply(local, self._mp)
 
     def generate(self, input_ids, max_new_tokens: int = 32,
                  temperature: float = 1.0, top_k: int = 0,

@@ -84,15 +84,18 @@ class ClipGradByGlobalNorm(ClipGradBase):
         tensor on the norm's device)."""
         return self.clip_norm / torch.clamp(global_norm, min=self.clip_norm)
 
-    def _clip_with_norm(self, params_grads):
+    def _clip_with_norm(self, params_grads, reduce_sq=None):
         """``(clipped pairs, global_norm)``; the norm is an f32 0-d
-        tensor, or None when no pair has a gradient."""
-        grads = [g for p, g in params_grads if not _skipped(p, g)]
-        if not grads:
+        tensor, or None when no pair has a gradient. ``reduce_sq``, given
+        the parameters and their squared norms, returns the global sum
+        (``TrainStep`` over a mesh sums split parameters over their
+        axes); by default the local sum."""
+        kept = [(p, g) for p, g in params_grads if not _skipped(p, g)]
+        if not kept:
             return params_grads, None
-        sq = torch.stack([torch.sum(torch.square(g.float()))
-                          for g in grads])
-        global_norm = torch.sqrt(sq.sum())
+        sq = [torch.sum(torch.square(g.float())) for _, g in kept]
+        global_norm = torch.sqrt(torch.stack(sq).sum() if reduce_sq is None
+                                 else reduce_sq([p for p, _ in kept], sq))
         scale = self.scale(global_norm)
         out = [(p, g) if _skipped(p, g) else (p, g * scale.to(g.dtype))
                for p, g in params_grads]

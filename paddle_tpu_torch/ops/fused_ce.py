@@ -12,6 +12,14 @@ Returns PER-TOKEN losses (callers reduce), as
 ``F.cross_entropy(..., reduction='none')`` does for hard labels. The
 chunk count is 8, or with ``FLAGS_use_autotune`` on the card the winner
 of :func:`_auto_chunks`' sweep.
+
+Over a vocab split by tensor parallelism (``group``: W holds this
+rank's rows ``vocab_start .. vocab_start + V/mp``), each rank streams its
+rows, and the row max, the sum of exponentials and the target logit are
+all-reduced over the group (the reference leaves this partition to
+GSPMD); the backward's ``dW`` is this rank's rows and its ``dh`` this
+rank's part, which the caller sums over the group (``mpu.copy_to_group``
+in front of ``h``).
 """
 from __future__ import annotations
 
@@ -36,7 +44,7 @@ def _mm_f32(a, b):
 class _MatmulCE(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, h, w, labels, valid, n_chunks):
+    def forward(ctx, h, w, labels, valid, n_chunks, group=None):
         T = h.shape[0]
         vc = w.shape[0] // n_chunks
         m = torch.full((T,), float("-inf"), device=h.device)
@@ -53,6 +61,12 @@ class _MatmulCE(torch.autograd.Function):
             idx = torch.clamp(labels - start, 0, vc - 1)
             in_chunk = (labels >= start) & (labels < start + vc)
             lab = torch.where(in_chunk, logits[rows, idx], lab)
+        if group is not None:
+            from paddle_tpu_torch.distributed import collective as C
+            m_all = C.all_reduce(m.clone(), C.ReduceOp.MAX, group=group)
+            s = C.all_reduce(s * torch.exp(m - m_all), group=group)
+            lab = C.all_reduce(lab, group=group)
+            m = m_all
         lse = m + torch.log(s)
         ctx.save_for_backward(h, w, labels, valid, lse)
         ctx.n_chunks = n_chunks
@@ -79,7 +93,7 @@ class _MatmulCE(torch.autograd.Function):
             g = (p * dout[:, None]).to(h.dtype)
             dh += _mm_f32(g, wc)
             dw[start:start + vc] = _mm_f32(g.t(), h).to(w.dtype)
-        return dh.to(h.dtype), dw, None, None, None
+        return dh.to(h.dtype), dw, None, None, None, None
 
 
 def _auto_chunks(T, V, d, dtype, device) -> int:
@@ -114,8 +128,10 @@ def _auto_chunks(T, V, d, dtype, device) -> int:
 
 
 def matmul_cross_entropy(h, w_vd, labels, ignore_index: int = -100,
-                         n_chunks=None):
-    """Per-token CE of ``h @ w_vdᵀ`` against int ``labels``.
+                         n_chunks=None, group=None, vocab_start: int = 0):
+    """Per-token CE of ``h @ w_vdᵀ`` against int ``labels``; over a
+    vocab split on ``group``, ``w_vd`` is this rank's rows from
+    ``vocab_start``.
 
     ``h``: [T, d] (or [..., d], flattened), ``w_vd``: [V, d] (the tied
     embedding's layout), ``labels``: int [T]. Tokens whose label equals
@@ -129,23 +145,28 @@ def matmul_cross_entropy(h, w_vd, labels, ignore_index: int = -100,
     lab = labels.reshape(-1).long()
     valid = lab != ignore_index
     lab = torch.where(valid, lab, torch.zeros_like(lab))
+    if group is not None:
+        # a label outside this rank's rows is in no chunk here
+        lab = torch.where(valid, lab - vocab_start, lab)
     V = w_vd.shape[0]
     n_chunks = _auto_chunks(h2.shape[0], V, h2.shape[1], h2.dtype,
                             h2.device) if n_chunks is None \
         else int(n_chunks)
     if V % n_chunks:
         n_chunks = 1
-    loss = _MatmulCE.apply(h2, w_vd, lab, valid, n_chunks)
+    loss = _MatmulCE.apply(h2, w_vd, lab, valid, n_chunks, group)
     return loss.reshape(lead)
 
 
-def causal_lm_loss(h, w_vd, labels, ignore_index: int = -100):
+def causal_lm_loss(h, w_vd, labels, ignore_index: int = -100, group=None,
+                   vocab_start: int = 0):
     """Masked-mean causal-LM loss over the fused chunked matmul-CE:
     position t predicts token t+1; ``ignore_index`` positions contribute
-    zero loss and zero denominator. ``h`` [B, S, d], ``w_vd`` [V, d]."""
+    zero loss and zero denominator. ``h`` [B, S, d], ``w_vd`` [V, d]
+    (this rank's rows from ``vocab_start`` over a split vocab)."""
     tgt = labels[:, 1:].reshape(-1)
     per_tok = matmul_cross_entropy(
         h[:, :-1, :].reshape(-1, h.shape[-1]), w_vd, tgt,
-        ignore_index=ignore_index)
+        ignore_index=ignore_index, group=group, vocab_start=vocab_start)
     valid = (tgt != ignore_index).to(per_tok.dtype)
     return per_tok.sum() / torch.clamp(valid.sum(), min=1.0)

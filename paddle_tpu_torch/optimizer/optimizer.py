@@ -191,12 +191,22 @@ class Optimizer:
         (clipping already done) at the group's effective ``lr``: the rule
         on the f32 master weight where there is one, then the parameter,
         all in place."""
+        self._apply_to(group, [(p, p, g) for p, g in params_grads], lr)
+
+    @torch.no_grad()
+    def _apply_to(self, group, triples, lr):
+        """:meth:`_apply` over ``(param, target, grad)`` triples, where
+        ``target`` is the part of ``param`` to update (``param`` itself,
+        or, under ZeRO, this rank's rows of it: its state is made from
+        ``target`` and holds only those rows)."""
         decay = group.get("weight_decay", self.regularization)
-        for p, g in params_grads:
-            state = self._ensure_state(p)
+        for p, target, g in triples:
+            state = self._state.get(id(p))
+            if state is None:
+                state = self._state[id(p)] = self._new_state(target)
             master = state.get("master_weight")
             g = g.float() if master is not None else g
-            p_arr = p if master is None else master
+            p_arr = target if master is None else master
             if decay is not None and not self._decoupled_decay:
                 g = decay(p_arr, g)
             dcoeff = self._decay_coeff_for(p, decay) \
@@ -205,7 +215,7 @@ class Optimizer:
                          weight_decay=dcoeff,
                          **self._param_group_kwargs(p, group))
             if master is not None:
-                p.copy_(master)
+                target.copy_(master)
 
     def _decay_coeff_for(self, p, decay) -> float:
         """Decoupled-decay coefficient of one parameter (AdamW hook)."""

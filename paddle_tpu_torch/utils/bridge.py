@@ -19,6 +19,11 @@ the reference's engine loads a trained adapter into a slot.
 :func:`optimizer_state_to_numpy` and :func:`load_optimizer_state` do the
 same for an optimizer's ``state_dict`` (``param_<i>.moment1``, ...,
 ``@step_count``), so moments can be compared across the packages.
+
+A parameter split over a mesh (a tensor-parallel block or a ZeRO stage-3
+shard: its ``_sharding_spec``) takes this rank's block of the full
+array; :func:`numpy_state` and :func:`full_state_dict` gather the blocks
+back, a collective that every rank of the mesh calls.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ import torch
 from paddle_tpu_torch.core.dtype import dtype_name
 
 __all__ = ["load_numpy_state", "numpy_state", "optimizer_state_to_numpy",
-           "load_optimizer_state", "BRIDGED_BUFFERS"]
+           "load_optimizer_state", "full_state_dict", "BRIDGED_BUFFERS"]
 
 #: buffer names (the last part of the qualified name) that the reference's
 #: layers hold as well: ``_BatchNormBase``'s ``_mean`` and ``_variance``,
@@ -81,6 +86,10 @@ def load_numpy_state(model: torch.nn.Module, state: dict,
                 and t.dim() == 2:
             p = p[int(adapter_slot)]
             params[name] = p
+        spec = getattr(p, "_sharding_spec", None)
+        if spec is not None and tuple(t.shape) != tuple(p.shape):
+            from paddle_tpu_torch.distributed.mesh import local_block
+            t = local_block(t, spec, p._sharding_mesh).contiguous()
         if tuple(t.shape) != tuple(p.shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)} != parameter "
                              f"shape {tuple(p.shape)}")
@@ -92,14 +101,28 @@ def load_numpy_state(model: torch.nn.Module, state: dict,
         params[name].copy_(t)
 
 
-def numpy_state(model: torch.nn.Module) -> dict:
-    """``{name: numpy array}`` of every parameter and bridged buffer
-    (float32, float16 and int32; numpy cannot hold bfloat16)."""
+def full_state_dict(model: torch.nn.Module) -> dict:
+    """``{name: tensor}`` of every parameter and bridged buffer, split
+    parameters gathered whole (every rank of their mesh calls this)."""
+    from paddle_tpu_torch.distributed.collective import gather_block
     out = {}
     for name, p in _state_tensors(model).items():
+        spec = getattr(p, "_sharding_spec", None)
+        t = p.detach()
+        out[name] = t if spec is None else \
+            gather_block(t.contiguous(), spec, p._sharding_mesh)
+    return out
+
+
+def numpy_state(model: torch.nn.Module) -> dict:
+    """``{name: numpy array}`` of every parameter and bridged buffer
+    (float32, float16 and int32; numpy cannot hold bfloat16), split
+    parameters gathered whole."""
+    out = {}
+    for name, p in full_state_dict(model).items():
         if p.dtype == torch.bfloat16:
             raise TypeError(f"{name}: numpy has no bfloat16")
-        out[name] = p.detach().cpu().numpy().copy()
+        out[name] = p.cpu().numpy().copy()
     return out
 
 

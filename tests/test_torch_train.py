@@ -28,6 +28,7 @@ from paddle_tpu_torch.optimizer.lr import StepDecay
 from paddle_tpu_torch.utils.bridge import (load_optimizer_state,
                                            optimizer_state_to_numpy)
 
+import torch_dist_worker as W
 from test_torch_bridge import one_torch_thread  # noqa: F401
 from test_torch_bridge import bridged, jax_tiny, state_dict_from_jax
 
@@ -309,16 +310,27 @@ def test_master_weights_state_round_trip_and_refusals():
     tm = tl.LlamaForCausalLM(tl.LlamaConfig.tiny(), device="cpu")
     # fused=True builds (the fused update is the default)
     assert TrainStep(tm, lambda m, x: m(x), opt, fused=True)._fused
-    for kw in ({"mesh": object()}, {"bucketed": True}, {"donate": False}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            TrainStep(tm, lambda m, x: m(x), opt, **kw)
-    # recompute is ported (tests/test_torch_recompute.py); tensor
-    # parallelism is not
+    # donate=False still raises; a mesh, bucketed=True and tensor
+    # parallelism build (they train in tests/test_torch_distributed.py
+    # and tests/test_torch_tensor_parallel.py, over gloo ranks)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TrainStep(tm, lambda m, x: m(x), opt, donate=False)
+    assert TrainStep(tm, lambda m, x: m(x), opt,
+                     bucketed=True)._mesh_plan is None
+    with pytest.raises(ValueError, match="needs a mesh"):
+        TrainStep(tm, lambda m, x: m(x), opt, input_spec=("dp",))
+    # recompute is ported (tests/test_torch_recompute.py)
     assert tl.LlamaForCausalLM(tl.LlamaConfig.tiny(recompute=True),
                                device="cpu").cfg.recompute
-    with pytest.raises(NotImplementedError, match="tensor_parallel"):
-        tl.LlamaForCausalLM(tl.LlamaConfig.tiny(tensor_parallel=True),
-                            device="cpu")
+    ranks = W.Ranks("build", 1)
+    try:
+        got = ranks.results()[0]["build"]
+    finally:
+        ranks.close()
+    assert np.isfinite(got["loss"]) and got["all_reduces"] == 1
+    assert got["tp_heads"] == (4, 2)
+    if not torch.cuda.is_available():
+        assert "device='cpu'" in got["default_device"]
 
 
 def test_train_step_trains_only_the_optimizer_parameters():
