@@ -346,6 +346,35 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    measure of scaling). ZeRO's reduce-scatter and all-gather are held
    in the CPU tests only until a second card. Its files go to a
    ``phase21_*`` directory of the checkout, deleted after.
+22. pipeline and sequence parallelism over ``torch.distributed``: first,
+   in this process, ring-flash's block calls (``flash_block_fwd`` /
+   ``flash_block_bwd``: K1 on the diagonal block, causal, and on a past
+   block, the two merged through their lse, K2 and K3 on each with the
+   merged output and the global lse) at the ring's block shape (32
+   heads, 16384 queries, hd 128, bf16), and K1-K3 on the whole sequence
+   (32 heads, 32768 tokens), against the plain versions run a few heads
+   at a time, each tensor held by its norm-relative error and
+   elementwise against its RMS (``SP_REL``, ``SP_ATOL_RMS``), with
+   controls that these limits must reject (a block's own lse for the
+   global one, the past block skipped, dk and dv halved); then two
+   processes started by the port's ``spawn``
+   share the card over gloo (which stages point-to-point, all-gather and
+   all-to-all through the host): (a) ``ring_attention`` (the kernel
+   path) and ``ulysses_attention`` at sp 2 on a causal sequence of
+   1 x 32768 tokens, 32 heads (Llama-3-8B's query heads; the ring takes
+   no GQA), hd 128, bf16, forward and backward, each rank's output and
+   q/k/v gradient shards against K1-K3 on the whole sequence at the
+   same limits, K1-K3 launched once each on rank 0 and twice on
+   rank 1 (the causal ring skips the future block), once each by
+   Ulysses; (b) pp 2 in f32 at ERNIE-base widths (an embedding, 12
+   ``nn.TransformerEncoderLayer``s of d 768, 12 heads, ff 3072, dropout
+   0, a head over a vocabulary of 18000), 16 x 512 in 4 micro-batches, 3
+   steps of ``PipelineParallel`` at v 1 and v 2 and of
+   ``SpmdPipelineParallel`` over the encoder layer (v 6, ``remat=False``),
+   losses against one process's at rtol 1e-4, K1-K3 launched steps x
+   micro-batches x 6 local layers on each rank. The times are no measure
+   of scaling. Its files go to a ``phase22_*`` directory of the
+   checkout, deleted after.
 
 It prints its measurements on earlier lines, then one JSON line with a
 record per kernel (K1-K3's with their times at ERNIE's and DiT's shapes,
@@ -365,7 +394,10 @@ costs under ``serving_ledger_step_ms``; K1-K3's and the fused kernels'
 and K1's phase 20 figures under ``train_prod``; K1-K3's
 ``launches_by_path`` with phase 21's ``dist_one_rank`` and
 ``dist_two_ranks``, the fused kernels' with ``dist_one_rank``, and
-phase 21's figures under K1's ``dist``),
+phase 21's figures under K1's ``dist``; K1-K3's ``launches_by_path``
+with phase 22's ``ring_flash``, ``ulysses``, ``pipeline`` and
+``spmd_pipeline`` (both ranks), and phase 22's figures under K1's
+``seq_pipe``),
 and ends with
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -6897,6 +6929,644 @@ def phase_distributed():
     return {"dist_one_rank": a_counts, "dist_two_ranks": b_counts}, \
         dict(one_rank=a_rec, two_ranks=b_rec)
 
+# --------------------------------------------------------------------------
+# phase 22: pipeline and sequence parallelism over torch.distributed
+SP_SHAPE = (1, 32768, 32, 128)  # B, S, heads (Llama-3-8B's q heads), hd
+PP_ERNIE = dict(vocab=18000, d=768, heads=12, ff=3072, layers=12)
+PP_BATCH = (16, 512)              # rows x tokens
+PP_MICRO = 4                      # accumulate_steps
+PP_STEPS = 3
+
+
+def _sp_global(device="cuda"):
+    """Phase 22(a)'s global q, k, v and output gradient, bf16, drawn from
+    one seeded generator (every rank draws the same)."""
+    g = torch.Generator(device=device).manual_seed(SEED + 22)
+    return [torch.randn(SP_SHAPE, generator=g, device=device,
+                        dtype=torch.bfloat16) for _ in range(4)]
+
+
+def _events_ms(fn):
+    """``fn()``'s result and its ms by CUDA events."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+# Phase 22(a)'s limits. At 16384-32768 keys the values compared are about
+# as small as FLASH_TOL's absolute bf16 limits (o and dq near 1e-2, rank
+# 1's dk and dv near 6e-3), which would pass a block dropped or weighted
+# by the wrong lse. So each tensor is held by its norm, ||got - want|| /
+# ||want|| within SP_REL, and everywhere by |got - want| within
+# SP_ATOL_RMS times want's RMS plus FLASH_TOL's rtol times |want|; lse
+# (f32, near ln S) keeps FLASH_TOL's limits. Measured on the card (H100
+# 80GB HBM3, 700.00 W; PERF.md): norm-relative errors up to 3.4e-3 and
+# excesses up to 0.073 RMS (the whole sequence's dq, where the first
+# rows' large values cancel), against 0.475-3.33 and 3.5-322 RMS for
+# the faults these limits are for, which the phase also runs as
+# controls that must fail (``_must_fail``): K2/K3 fed a block's own lse,
+# the past block skipped, dk and dv at half their value
+SP_REL = 1e-2
+SP_ATOL_RMS = 0.25
+
+
+def _norm_err(got, want, rtol):
+    """Phase 22(a)'s measures of ``got`` against ``want``: max |err|, the
+    norm-relative error, want's RMS, the largest |err| - rtol * |want| in
+    units of that RMS, and whether all are within the limits."""
+    got, want = got.detach().float(), want.detach().float()
+    err = (got - want).abs()
+    rms = float(want.square().mean().sqrt())
+    rel = float(err.square().sum().sqrt()) / max(
+        float(want.square().sum().sqrt()), 1e-30)
+    excess = float((err - rtol * want.abs()).max()) / max(rms, 1e-30)
+    ok = bool(torch.isfinite(got).all()) and rel <= SP_REL and \
+        excess <= SP_ATOL_RMS
+    return dict(max_abs_err=float(err.max()), rel_err=rel, rms=rms,
+                excess_rms=excess, ok=ok)
+
+
+def _fmt_err(rec):
+    return (f"max |err| {rec['max_abs_err']:.3e}, rel {rec['rel_err']:.3e}, "
+            f"excess {rec['excess_rms']:.3e} rms (rms {rec['rms']:.3e})")
+
+
+def _norm_check(what, got, want, rtol):
+    """Phase 22(a)'s comparison (``_norm_err``); raises unless within the
+    limits."""
+    rec = _norm_err(got, want, rtol)
+    if not rec["ok"]:
+        raise AssertionError(
+            f"{what}: disagrees with its reference: {_fmt_err(rec)} (limits "
+            f"rel {SP_REL}, excess {SP_ATOL_RMS} rms, rtol {rtol})")
+    return rec
+
+
+def _must_fail(what, got, want, rtol):
+    """A control: a wrong result that phase 22(a)'s limits must reject."""
+    rec = _norm_err(got, want, rtol)
+    if rec["ok"]:
+        raise AssertionError(
+            f"control {what} passes phase 22(a)'s limits ({_fmt_err(rec)}): "
+            f"they would not see the fault")
+    return rec
+
+
+def ring_block_check(q, k, v, do):
+    """Phase 22(a), one process: the block calls rank 1 of the ring makes,
+    at their shape (the global q, k, v and do of ``_sp_global``: 32
+    heads, 16384 queries, hd 128, bf16): K1 on the diagonal block
+    (causal) and on the past block, merged through their lse, and K2/K3
+    on each block with the merged output and the global lse. Held
+    against the plain versions, run 2 heads at a time for their [S, S]
+    scores: each block's o and lse, the merged o and lse against the
+    plain forward over both blocks' keys, each block's dq, dk and dv.
+    Controls that must fail: the diagonal block's o as the merged one
+    (the past block skipped), and K2/K3 on the past block paired with
+    that block's own o and lse (not the global ones). Uncounted. Returns
+    {kernel: max |err|} and every measure."""
+    from paddle_tpu_torch.distributed.fleet.sequence_parallel import (
+        _merge, _to_k)
+    from paddle_tpu_torch.ops.pallas import flash_attention as fa
+    S, hd = SP_SHAPE[1], SP_SHAPE[3]
+    half = S // 2
+    q1, kd, vd, do1 = (_to_k(t[:, half:]) for t in (q, k, v, do))
+    kp, vp = (_to_k(t[:, :half]) for t in (k, v))
+    scale = 1.0 / math.sqrt(hd)
+    o_rtol, g_rtol = (t[1] for t in FLASH_TOL[torch.bfloat16])
+    o_tol = FLASH_TOL[torch.bfloat16][0]
+
+    def run():
+        o1, lse1 = fa.flash_block_fwd(q1, kd, vd, True, scale)
+        o2, lse2 = fa.flash_block_fwd(q1, kp, vp, False, scale)
+        acc, lse = _merge(o1.float(), lse1, o2, lse2)
+        o = acc.to(torch.bfloat16)
+        delta = (do1.float() * o.float()).sum(-1)
+        return dict(
+            o1=o1, lse1=lse1, o2=o2, lse2=lse2, o=o, lse=lse, delta=delta,
+            diag=fa.flash_block_bwd(q1, kd, vd, o, lse, do1, True, scale,
+                                    delta),
+            past=fa.flash_block_bwd(q1, kp, vp, o, lse, do1, False, scale,
+                                    delta),
+            past_own=fa.flash_block_bwd(q1, kp, vp, o2, lse2, do1, False,
+                                        scale))
+    got = _uncounted_flash(run)
+    gc_ = fa.FlashGeometry(hq=1, hkv=1, causal=True, sm_scale=scale)
+    gf = fa.FlashGeometry(hq=1, hkv=1, causal=False, sm_scale=scale)
+    kw, vw = torch.cat([kp, kd], 1), torch.cat([vp, vd], 1)
+    want = {}
+    for i in range(0, q1.shape[0], 2):
+        h = slice(i, i + 2)
+        parts = dict(zip(("o1", "lse1"),
+                         fa._forward_plain(q1[h], kd[h], vd[h], gc_)))
+        parts.update(zip(("o2", "lse2"),
+                         fa._forward_plain(q1[h], kp[h], vp[h], gf)))
+        # keys [past, diagonal], causal at offset 16384: the whole row
+        parts.update(zip(("o", "lse"),
+                         fa._forward_plain(q1[h], kw[h], vw[h], gc_)))
+        for blk, kk, vv, g in (("diag", kd, vd, gc_), ("past", kp, vp, gf)):
+            args = (q1[h], kk[h], vv[h], do1[h], got["lse"][h],
+                    got["delta"][h], g)
+            parts[blk] = (fa._dq_plain(*args), *fa._dkv_plain(*args))
+        for key, t in parts.items():
+            want.setdefault(key, []).append(t)
+        del parts, args
+    want = {key: (torch.cat(ts) if torch.is_tensor(ts[0]) else
+                  [torch.cat(c) for c in zip(*ts)])
+            for key, ts in want.items()}
+    free_device_memory()
+    rec = {}
+    for blk in ("1", "2"):
+        name = "diagonal" if blk == "1" else "past"
+        rec[f"K1 o {name}"] = _norm_check(
+            f"ring block {name} K1 o", got["o" + blk], want["o" + blk], o_rtol)
+        rec[f"K1 lse {name}"] = dict(max_abs_err=_check(
+            f"ring block {name} K1 lse", got["lse" + blk], want["lse" + blk],
+            *o_tol))
+    rec["merged o"] = _norm_check("ring blocks merged o", got["o"],
+                                  want["o"], o_rtol)
+    rec["merged lse"] = dict(max_abs_err=_check(
+        "ring blocks merged lse", got["lse"], want["lse"], *o_tol))
+    for blk in ("diag", "past"):
+        for what, g_, w_ in zip(("dq", "dk", "dv"), got[blk], want[blk]):
+            kname = "K2" if what == "dq" else "K3"
+            rec[f"{kname} {what} {blk}"] = _norm_check(
+                f"ring block {blk} {kname} {what} (global lse)", g_, w_,
+                g_rtol)
+    controls = {"past block skipped: o": _must_fail(
+        "the diagonal block's o as the merged o", got["o1"], want["o"],
+        o_rtol)}
+    for what, g_, w_ in zip(("dq", "dk", "dv"), got["past_own"],
+                            want["past"]):
+        controls[f"own lse: {what}"] = _must_fail(
+            f"K2/K3 on the past block with its own o and lse: {what}", g_,
+            w_, g_rtol)
+    errs = {
+        "flash_attention_fwd": max(rec[k_]["max_abs_err"] for k_ in rec
+                                   if k_.startswith(("K1", "merged"))),
+        "flash_attention_dq": max(rec[k_]["max_abs_err"] for k_ in rec
+                                  if k_.startswith("K2")),
+        "flash_attention_dkv": max(rec[k_]["max_abs_err"] for k_ in rec
+                                   if k_.startswith("K3"))}
+    log(f"seq (a): ring-flash's block calls (rank 1's) at "
+        f"{list(q1.shape)} bf16 against the plain versions, 2 heads at a "
+        f"time (the diagonal block causal, the past block full, K2/K3 on "
+        f"the merged output with the global lse):")
+    for key, r in rec.items():
+        log(f"  {key}: " + (_fmt_err(r) if "rel_err" in r else
+                            f"max |err| {r['max_abs_err']:.3e}"))
+    for key, r in controls.items():
+        log(f"  control {key}: rejected, {_fmt_err(r)}")
+    del got, want
+    free_device_memory()
+    return errs, dict(checks=rec, controls=controls)
+
+
+def whole_sequence_check(q, k, v, do):
+    """Phase 22(a)'s reference, one process: K1-K3 through
+    ``flash_attention_bshd`` on the whole causal sequence (what each
+    rank's shards are held against) against the plain versions at
+    [32 heads, 32768, 128], one head at a time (the plain backward from
+    the plain forward's o and lse). Uncounted. Returns the measures."""
+    from paddle_tpu_torch.distributed.fleet.sequence_parallel import _to_k
+    from paddle_tpu_torch.ops.pallas import flash_attention as fa
+    o_rtol, g_rtol = (t[1] for t in FLASH_TOL[torch.bfloat16])
+
+    def whole():
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        o = fa.flash_attention_bshd(qq, kk, vv, causal=True)
+        o.backward(do)
+        return [_to_k(t) for t in (o.detach(), qq.grad, kk.grad, vv.grad)]
+    got = _uncounted_flash(whole)
+    qk, kk, vk, dok = (_to_k(t) for t in (q, k, v, do))
+    g = fa.FlashGeometry(hq=1, hkv=1, causal=True,
+                         sm_scale=1.0 / math.sqrt(SP_SHAPE[3]))
+    want = [[], [], [], []]
+    for i in range(qk.shape[0]):
+        h = slice(i, i + 1)
+        o_, lse_ = fa._forward_plain(qk[h], kk[h], vk[h], g)
+        delta_ = (dok[h].float() * o_.float()).sum(-1)
+        args = (qk[h], kk[h], vk[h], dok[h], lse_, delta_, g)
+        for w, t in zip(want, (o_, fa._dq_plain(*args),
+                               *fa._dkv_plain(*args))):
+            w.append(t)
+        del o_, lse_, delta_, args
+    want = [torch.cat(w) for w in want]
+    free_device_memory()
+    rec = {what: _norm_check(f"seq (a) the whole sequence's {what}", g_, w_,
+                             tol)
+           for what, g_, w_, tol in zip(
+               ("o", "dq", "dk", "dv"), got, want,
+               (o_rtol, g_rtol, g_rtol, g_rtol))}
+    log(f"seq (a): K1-K3 on the whole sequence {list(qk.shape)} bf16 causal "
+        f"against the plain versions, one head at a time: " + "; ".join(
+            f"{k_} {_fmt_err(r)}" for k_, r in rec.items()))
+    del got, want
+    free_device_memory()
+    return rec
+
+
+def _sp_part(rank, n):
+    """Phase 22(a) on one rank: ring-flash (``use_flash=None``, so the
+    kernel path) and Ulysses at SP_SHAPE, causal, each forward and
+    backward, this rank's output and q/k/v gradient shards held against
+    K1-K3 on the whole sequence in this process (which the parent holds
+    against the plain versions). Controls that must fail: dk and dv at
+    half their value and, on a rank with a past block, its diagonal
+    block's output alone. Returns the record."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.sequence_parallel import (
+        _from_k, _to_k)
+    from paddle_tpu_torch.ops.pallas import flash_attention as fa
+    dist.init_mesh({"sp": n})
+    q, k, v, do = _sp_global()
+    B, S, H, hd = SP_SHAPE
+    lo, hi = rank * S // n, (rank + 1) * S // n
+
+    def whole():
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        o = fa.flash_attention_bshd(qq, kk, vv, causal=True)
+        o.backward(do)
+        return [t[:, lo:hi].contiguous() for t in
+                (o.detach(), qq.grad, kk.grad, vv.grad)]
+    want = _uncounted_flash(whole)  # the process's first K1-K3 calls
+    _, whole_ms = _events_ms(lambda: _uncounted_flash(whole))
+    free_device_memory()
+    o_rtol, g_rtol = (t[1] for t in FLASH_TOL[torch.bfloat16])
+    rtols = (o_rtol, g_rtol, g_rtol, g_rtol)
+    rec = dict(whole_ms=whole_ms)
+    for name, fn in (("ring", fleet.ring_attention),
+                     ("ulysses", fleet.ulysses_attention)):
+        ql, kl, vl = (t[:, lo:hi].contiguous().requires_grad_()
+                      for t in (q, k, v))
+        dist.barrier()
+        _reset_flash_counts()
+        out, fwd_ms = _events_ms(lambda: fn(ql, kl, vl, causal=True))
+        _, bwd_ms = _events_ms(
+            lambda: out.backward(do[:, lo:hi].contiguous()))
+        counts = _flash_counts()
+        errs = {what: _norm_check(f"seq (a) {name} rank {rank} {what}", got,
+                                  ref, tol)
+                for what, got, ref, tol in zip(
+                    ("o", "dq", "dk", "dv"),
+                    (out, ql.grad, kl.grad, vl.grad), want, rtols)}
+        controls = {}
+        if name == "ring":
+            for what, got, ref in (("dk", kl.grad, want[2]),
+                                   ("dv", vl.grad, want[3])):
+                controls[f"{what} halved"] = _must_fail(
+                    f"rank {rank}'s {what} at half its value", 0.5 * got,
+                    ref, g_rtol)
+            if rank > 0:
+                diag = _uncounted_flash(lambda: fa.flash_block_fwd(
+                    *(_to_k(t.detach()) for t in (ql, kl, vl)), True,
+                    1.0 / math.sqrt(hd))[0])
+                controls["past blocks skipped: o"] = _must_fail(
+                    f"rank {rank}'s diagonal block alone as its output",
+                    _from_k(diag, B, H), want[0], o_rtol)
+        rec[name] = dict(fwd_ms=fwd_ms, bwd_ms=bwd_ms, launches=counts,
+                         max_abs_err={k_: r["max_abs_err"]
+                                      for k_, r in errs.items()},
+                         measures=errs, controls=controls)
+        del out, ql, kl, vl
+        free_device_memory()
+    del q, k, v, do, want
+    free_device_memory()
+    return rec
+
+
+class _PpEmbed(torch.nn.Module):
+    def __init__(self, vocab, d):
+        super().__init__()
+        from paddle_tpu_torch import nn
+        self.word = nn.Embedding(vocab, d)
+
+    def forward(self, ids):
+        return self.word(ids)
+
+
+class _PpHead(torch.nn.Module):
+    def __init__(self, d, vocab):
+        super().__init__()
+        from paddle_tpu_torch import nn
+        self.out = nn.Linear(d, vocab)
+
+    def forward(self, h):
+        return self.out(h)
+
+
+def _pp_items(desc):
+    """Phase 22(b)'s stack as ``(class, args, kwargs)``: an embedding,
+    ERNIE-base's 12 encoder layers (dropout 0) and a vocabulary head."""
+    from paddle_tpu_torch import nn
+    c = PP_ERNIE
+    enc = (nn.TransformerEncoderLayer, (c["d"], c["heads"], c["ff"]),
+           dict(dropout=0.0))
+    return [(_PpEmbed, (c["vocab"], c["d"]), {})] + [enc] * c["layers"] + \
+        [(_PpHead, (c["d"], c["vocab"]), {})]
+
+
+def _pp_init(layer, position):
+    """Weights of the layer at ``position`` of the stack, the same in every
+    process whichever rank builds it: 2-D weights ~ N(0, 0.02) from a
+    generator seeded by the position (ERNIE's recipe), biases 0,
+    LayerNorm scales 1."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1000 + position)
+    with torch.no_grad():
+        for name, p in layer.named_parameters():
+            if p.dim() >= 2:
+                p.copy_(0.02 * torch.randn(p.shape, generator=g,
+                                           device="cuda"))
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                p.fill_(1.0)
+
+
+def _pp_batch():
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2200)
+    ids = torch.randint(0, PP_ERNIE["vocab"], PP_BATCH, generator=g,
+                        device="cuda")
+    labels = torch.randint(0, PP_ERNIE["vocab"], PP_BATCH, generator=g,
+                           device="cuda")
+    return ids, labels
+
+
+def _pp_loss(logits, labels):
+    return torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), labels.reshape(-1))
+
+
+def _spmd_batch():
+    g = torch.Generator(device="cuda").manual_seed(SEED + 2201)
+    shape = (*PP_BATCH, PP_ERNIE["d"])
+    return (torch.randn(shape, generator=g, device="cuda"),
+            torch.randn(shape, generator=g, device="cuda"))
+
+
+def _pp_opt(params):
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    return AdamW(learning_rate=1e-4, parameters=params,
+                 grad_clip=ClipGradByGlobalNorm(1.0))
+
+
+def _pp_part(rank, n):
+    """Phase 22(b) on one rank (pp 2, f32): ``PipelineParallel`` over the
+    ERNIE-width ``PipelineLayer`` at v 1 and v 2, then
+    ``SpmdPipelineParallel`` with the encoder layer as its block (v 6:
+    12 chunks, ``remat=False``), PP_STEPS steps each. Returns the
+    record."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import fleet
+    dist.init_mesh({"pp": n})
+    ids, labels = _pp_batch()
+    rec = {}
+    for v in (1, 2):
+        descs = [fleet.LayerDesc(cls, *a, **kw)
+                 for cls, a, kw in _pp_items(None)]
+        pl = fleet.PipelineLayer(descs, num_virtual_pipeline_stages=v,
+                                 loss_fn=_pp_loss)
+        for key, layer in pl.layers.named_children():
+            _pp_init(layer, int(key))
+        local = sum(isinstance(m, nn.TransformerEncoderLayer)
+                    for m in pl.layers.children())
+        pp = fleet.PipelineParallel(pl, accumulate_steps=PP_MICRO)
+        opt = _pp_opt(pp.parameters())
+        dist.barrier()
+        _reset_flash_counts()
+        losses, ms = [], []
+        for _ in range(PP_STEPS):
+            loss, t = _events_ms(lambda: pp.train_batch((ids, labels), opt))
+            losses.append(float(loss.detach()))
+            ms.append(t)
+        rec[f"v{v}"] = dict(losses=losses, ms=ms, launches=_flash_counts(),
+                            local_layers=local,
+                            stats=pp.last_schedule_stats)
+        del pl, pp, opt
+        free_device_memory()
+    x, y = _spmd_batch()
+    c = PP_ERNIE
+    spl = fleet.SpmdPipelineLayer(
+        lambda: nn.TransformerEncoderLayer(c["d"], c["heads"], c["ff"],
+                                           dropout=0.0),
+        num_virtual_stages=c["layers"] // n, remat=False,
+        loss_fn=nn.MSELoss())
+    spl.set_state_dict(_spmd_state(n))
+    eng = fleet.SpmdPipelineParallel(spl, accumulate_steps=PP_MICRO)
+    opt = _pp_opt(eng.parameters())
+    dist.barrier()
+    _reset_flash_counts()
+    losses, ms = [], []
+    for _ in range(PP_STEPS):
+        loss, t = _events_ms(lambda: eng.train_batch((x, y), opt))
+        losses.append(float(loss.detach()))
+        ms.append(t)
+    rec["spmd"] = dict(losses=losses, ms=ms, launches=_flash_counts(),
+                       local_layers=spl.num_virtual_stages,
+                       stats=eng.last_schedule_stats)
+    del spl, eng, opt
+    free_device_memory()
+    return rec
+
+
+def _spmd_state(n):
+    """The stacked ``[v, S, ...]`` state of phase 22(b)'s SPMD trunk:
+    chunk c = r*S + s is the stack's encoder layer c (position c + 1),
+    initialised by ``_pp_init``."""
+    from paddle_tpu_torch import nn
+    c = PP_ERNIE
+    v = c["layers"] // n
+    per = []
+    for i in range(c["layers"]):
+        layer = nn.TransformerEncoderLayer(c["d"], c["heads"], c["ff"],
+                                           dropout=0.0)
+        _pp_init(layer, i + 1)
+        per.append({k.replace(".", "__"): p.detach()
+                    for k, p in layer.named_parameters()})
+    return {k: torch.stack([d[k] for d in per]).reshape(
+        v, n, *per[0][k].shape) for k in per[0]}
+
+
+def _seq_pipe_worker(out_dir):
+    """One of phase 22's two processes sharing the card over gloo: (a)
+    then (b); writes its record to ``out_dir/rank<r>.json``."""
+    import paddle_tpu_torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo")
+    rank, n = dist.get_rank(), dist.get_world_size()
+    t0 = time.perf_counter()
+    rec = dict(a=_sp_part(rank, n))
+    t1 = time.perf_counter()
+    rec["b"] = _pp_part(rank, n)
+    rec["seconds"] = dict(a=t1 - t0, b=time.perf_counter() - t1)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
+def _pp_reference():
+    """Phase 22(b) unpipelined, in this process: the same stack and
+    initial weights, 4 micro-batches a step with their gradients summed,
+    then the SPMD trunk's 12 layers on the whole batch. Returns both
+    runs' losses."""
+    from paddle_tpu_torch import nn
+    ids, labels = _pp_batch()
+    layers = []
+    for i, (cls, a, kw) in enumerate(_pp_items(None)):
+        layer = cls(*a, **kw)
+        _pp_init(layer, i)
+        layers.append(layer.cuda())
+    model = torch.nn.Sequential(*layers)
+    opt = _pp_opt(list(model.parameters()))
+    pp = []
+    for _ in range(PP_STEPS):
+        mb = []
+        for xb, yb in zip(ids.chunk(PP_MICRO), labels.chunk(PP_MICRO)):
+            loss = _pp_loss(model(xb), yb)
+            (loss / PP_MICRO).backward()
+            mb.append(float(loss.detach()))
+        opt.step()
+        opt.clear_grad()
+        pp.append(sum(mb) / PP_MICRO)
+    trunk = torch.nn.Sequential(*layers[1:-1])
+    for i, layer in enumerate(trunk):
+        _pp_init(layer, i + 1)
+    opt = _pp_opt(list(trunk.parameters()))
+    x, y = _spmd_batch()
+    spmd = []
+    for _ in range(PP_STEPS):
+        loss = torch.nn.functional.mse_loss(trunk(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        spmd.append(float(loss.detach()))
+    del model, trunk, layers, opt
+    free_device_memory()
+    return pp, spmd
+
+
+def phase_seq_pipe():
+    """Phase 22: two processes started by the port's ``spawn`` share the
+    card over gloo: (a) ring-flash and Ulysses at sp 2 on a 32768-token
+    causal sequence of 32 heads at hd 128 in bf16, each rank's shards
+    against K1-K3 on the whole sequence; (b) pp 2 in f32 at ERNIE-base
+    widths: ``PipelineParallel`` (v 1, v 2) and ``SpmdPipelineParallel``,
+    their losses against one process's at rtol 1e-4. Returns K1-K3's
+    launches by path and the record."""
+    import paddle_tpu_torch.distributed as dist
+    t0 = time.perf_counter()
+    sp = _sp_global()
+    block_errs, block_rec = ring_block_check(*sp)
+    whole_rec = whole_sequence_check(*sp)
+    del sp
+    free_device_memory()
+    ref_pp, ref_spmd = _uncounted_flash(_pp_reference)
+    t1 = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="phase22_", dir=REPO_ROOT)
+    try:
+        procs = dist.spawn(_seq_pipe_worker, args=(out_dir,), nprocs=2,
+                           join=False)
+        for p in procs:
+            p.join(timeout=max(300 - (time.perf_counter() - t1), 1))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"phase 22: ranks exited "
+                                 f"{[p.exitcode for p in procs]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    t2 = time.perf_counter()
+    paths = {"ring_flash": {}, "ulysses": {}, "pipeline": {},
+             "spmd_pipeline": {}}
+    kernels = ("flash_attention_fwd", "flash_attention_dq",
+               "flash_attention_dkv")
+    for r, rec in enumerate(ranks):
+        # ring: rank r runs its diagonal block and the r past ones
+        for part, want in (("ring", r + 1), ("ulysses", 1)):
+            got = rec["a"][part]["launches"]
+            if any(got[k] != want for k in kernels):
+                raise AssertionError(f"seq (a) {part} rank {r}: launches "
+                                     f"{got}, not {want} each")
+            key = "ring_flash" if part == "ring" else "ulysses"
+            for k in kernels:
+                paths[key][k] = paths[key].get(k, 0) + got[k]
+        for part, ref in (("v1", ref_pp), ("v2", ref_pp),
+                          ("spmd", ref_spmd)):
+            b = rec["b"][part]
+            if not np.allclose(b["losses"], ref, rtol=1e-4, atol=0):
+                raise AssertionError(
+                    f"seq (b) {part} rank {r}: losses {b['losses']} and "
+                    f"one process's {ref} differ by more than rtol 1e-4")
+            want = PP_STEPS * PP_MICRO * b["local_layers"]
+            if b["local_layers"] != PP_ERNIE["layers"] // 2 or any(
+                    b["launches"][k] != want for k in kernels):
+                raise AssertionError(
+                    f"seq (b) {part} rank {r}: launches {b['launches']} "
+                    f"over {b['local_layers']} local layers, not {want}")
+            key = "spmd_pipeline" if part == "spmd" else "pipeline"
+            for k in kernels:
+                paths[key][k] = paths[key].get(k, 0) + b["launches"][k]
+    for r, rec in enumerate(ranks):
+        a = rec["a"]
+        log(f"seq (a) rank {r}: ring-flash sp 2 at {list(SP_SHAPE)} bf16 "
+            f"causal: fwd {a['ring']['fwd_ms']:.1f} ms, bwd "
+            f"{a['ring']['bwd_ms']:.1f} ms, K1/K2/K3 launches "
+            f"{a['ring']['launches']}; Ulysses fwd "
+            f"{a['ulysses']['fwd_ms']:.1f} ms, bwd "
+            f"{a['ulysses']['bwd_ms']:.1f} ms, launches "
+            f"{a['ulysses']['launches']}; the whole sequence in one "
+            f"process (fwd + bwd, a second run) {a['whole_ms']:.1f} ms (ms "
+            f"by CUDA events; "
+            f"two processes share one card and gloo stages every hop "
+            f"through the host, so these are no measure of scaling)")
+        for part in ("ring", "ulysses"):
+            for what, m in a[part]["measures"].items():
+                log(f"  {part} rank {r} {what} against the whole sequence's "
+                    f"K1-K3: {_fmt_err(m)}")
+            for what, m in a[part]["controls"].items():
+                log(f"  {part} rank {r} control {what}: rejected, "
+                    f"{_fmt_err(m)}")
+    for r, rec in enumerate(ranks):
+        for part in ("v1", "v2", "spmd"):
+            b = rec["b"][part]
+            log(f"seq (b) rank {r} {part}: losses "
+                f"{[round(x, 6) for x in b['losses']]} (one process: "
+                f"{[round(x, 6) for x in (ref_spmd if part == 'spmd' else ref_pp)]}, "
+                f"rtol 1e-4), step ms {[round(x, 1) for x in b['ms']]}, "
+                f"K1-K3 launches {b['launches']} over {b['local_layers']} "
+                f"local encoder layers, last_schedule_stats {b['stats']}")
+    secs = [rec["seconds"] for rec in ranks]
+    log(f"phase 22 seconds by part: the block and whole-sequence checks "
+        f"and the one-process pipeline reference "
+        f"{t1 - t0:.1f}; the two ranks {t2 - t1:.1f} (with their start; "
+        f"rank 0's (a) {secs[0]['a']:.1f}, (b) {secs[0]['b']:.1f}); phase "
+        f"22 {t2 - t0:.1f} s")
+    return paths, dict(block_max_abs_err=block_errs, blocks=block_rec,
+                       whole_sequence=whole_rec,
+                       ranks=[rec["a"] for rec in ranks],
+                       pipeline=[{k: dict(losses=rec["b"][k]["losses"],
+                                          ms=rec["b"][k]["ms"],
+                                          stats=rec["b"][k]["stats"])
+                                  for k in ("v1", "v2", "spmd")}
+                                 for rec in ranks],
+                       seconds=dict(setup=t1 - t0, ranks=t2 - t1))
+
+
 
 
 def main():
@@ -6931,6 +7601,7 @@ def main():
     prod_launches, ledger_cost = phase_serving_production()
     train_prod, train_prod_rec = phase_production(train_step_ms)
     dist_paths, dist_rec = phase_distributed()
+    seq_paths, seq_rec = phase_seq_pipe()
     # each path's launches were counted from 0 over its own run; a kernel
     # on several paths reports their sum, and each path's count beside it
     paths = {"train": counts, "moe_train": moe, "fit": fit, "ernie": ernie,
@@ -6938,7 +7609,7 @@ def main():
              "api_train": api, "generate": gen, **capture_paths,
              "moe_generate": p17["moe_generate"],
              "incubate": p17["incubate"], "export": export_counts,
-             **train_prod, **dist_paths}
+             **train_prod, **dist_paths, **seq_paths}
 
     def path_launches(kname):
         by_path = {p: c[kname] for p, c in paths.items() if kname in c}
@@ -6965,7 +7636,7 @@ def main():
                                    else {})},
                             **({"export": export_rec,
                                 "train_prod": train_prod_rec,
-                                "dist": dist_rec}
+                                "dist": dist_rec, "seq_pipe": seq_rec}
                                if kname == "flash_attention_fwd" else {})))
     for kname, _, replaces in GMM_KERNELS:
         kernels.append(dict(name=kname, route="cuda", source=GMM_SRC,

@@ -9,6 +9,7 @@ tensor-parallel layers act across processes. The reference's names are
 exported (``paddle_tpu/distributed/__init__.py:8-43``) except those of
 the modules later slices port: ``launch`` (and elastic), the
 ``auto_parallel`` engine (``Engine``, ``Strategy``), ``rpc`` and ``ps``.
+``auto_parallel`` itself holds the checkpoint converters.
 """
 from .mesh import (  # noqa: F401
     init_mesh, get_mesh, set_mesh, mesh_scope, ProcessMesh,
@@ -34,6 +35,7 @@ from .sharding import (  # noqa: F401
     group_sharded_parallel, save_group_sharded_model,
 )
 from .tcp_store import TCPStore  # noqa: F401
+from . import auto_parallel  # noqa: F401
 from .fleet.utils import recompute  # noqa: F401
 from .communication import stream  # noqa: F401
 from .compat import (  # noqa: F401
@@ -43,7 +45,7 @@ from .compat import (  # noqa: F401
 )
 
 #: names of the reference's ``paddle.distributed`` that later slices port
-UNPORTED = ("auto_parallel", "Engine", "Strategy", "rpc", "launch")
+UNPORTED = ("Engine", "Strategy", "rpc", "launch")
 
 
 def __getattr__(name):

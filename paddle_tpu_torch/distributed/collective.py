@@ -26,6 +26,21 @@ on every rank, as the reference's does (:343-348). ``ReduceOp.AVG`` is
 a sum divided by the group size. Each collective reports through
 ``observability.comm`` (``comm_scope``: bytes, calls, seconds, exposed
 or overlapped).
+
+**Gloo and CUDA tensors.** Gloo carries only ``broadcast`` and
+``all_reduce`` for CUDA tensors; handed one, its point-to-point writes
+from the device address and fails (``writev ... Bad address`` with an
+H100's tensors). So on a gloo group :func:`send`, :func:`recv`,
+:func:`p2p_shift`, :func:`all_gather` and :func:`all_to_all` *stage* a
+CUDA tensor: it is copied into a pinned host buffer, the host buffer
+travels, and what arrives is copied back onto the card. ``comm_scope``
+records such a call with ``staged: True`` and its bytes as usual. An
+NCCL group never stages. This is what lets two processes share one card
+over gloo (``chip_smoke.py`` phases 21(b) and 22).
+
+:func:`ring_hop` is :func:`p2p_shift` as an autograd function whose
+backward is the reverse hop (the transpose of a permutation, as the
+reference's ``ppermute`` under ``jax.grad``).
 """
 from __future__ import annotations
 
@@ -208,10 +223,11 @@ class _Task:
     current stream after it), runs what completes the result, and
     returns it."""
 
-    def __init__(self, work, result, after=None):
+    def __init__(self, work, result, after=None, keep=None):
         self._work = work
         self._result = result
         self._after = after
+        self._keep = keep  # a staged buffer, alive until the wait
         self._pending = True
 
     def wait(self):
@@ -223,6 +239,7 @@ class _Task:
                 self._result = self._result if out is None else out
             self._pending = False
             self._work = None
+            self._keep = None
         return self._result
 
     def is_completed(self) -> bool:
@@ -230,9 +247,47 @@ class _Task:
                                      self._work.is_completed())
 
 
-def _issue(work, result, sync_op, after=None):
-    task = _Task(work, result, after)
+def _issue(work, result, sync_op, after=None, keep=None):
+    task = _Task(work, result, after, keep)
     return task.wait() if sync_op else task
+
+
+def staged(pg, x) -> bool:
+    """Whether a call on process group ``pg`` stages ``x`` through the
+    host: a CUDA tensor on a gloo group."""
+    return x.is_cuda and dist.get_backend(pg) == "gloo"
+
+
+def _to_host(x):
+    """A pinned host copy of ``x``, as gloo moves it: 16-bit floats
+    travel as their bytes (the staged calls move bytes and reduce
+    nothing, and gloo's all-gather and all-to-all take no 16-bit
+    integers)."""
+    h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    h.copy_(x)
+    return _as_bytes(h)
+
+
+def _host_like(x):
+    return _as_bytes(torch.empty(x.shape, dtype=x.dtype, pin_memory=True))
+
+
+def _as_bytes(h):
+    if h.dtype in (torch.bfloat16, torch.float16):
+        return h.reshape(h.shape or (1,)).view(torch.uint8)
+    return h
+
+
+def _from_bytes(b, like):
+    """A staged buffer back in ``like``'s dtype and shape (on the host)."""
+    return b.view(like.dtype).reshape(like.shape)
+
+
+def _extra(pg, x, extra=None):
+    out = dict(extra or {})
+    if staged(pg, x):
+        out["staged"] = True
+    return out or None
 
 
 def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True):
@@ -263,16 +318,22 @@ def all_gather(tensor_or_list, tensor=None, group=None, sync_op=True,
         out_list, t = tensor_or_list, tensor
     pg, axes, n = _resolve(group)
     x = unwrap(t)
+    stage = False
     if pg is None:
         parts = [x]
         work = None
     else:
-        parts = [torch.empty_like(x) for _ in range(n)]
-        with comm_scope("all_gather", axes, payload=x):
-            work = dist.all_gather(parts, x.contiguous(), group=pg,
+        stage = staged(pg, x)
+        src = _to_host(x) if stage else x.contiguous()
+        parts = [torch.empty_like(src) for _ in range(n)]
+        with comm_scope("all_gather", axes, payload=x,
+                        extra=_extra(pg, x)):
+            work = dist.all_gather(parts, src, group=pg,
                                    async_op=not sync_op)
 
     def done():
+        if stage:
+            parts[:] = [_from_bytes(p, x).to(x.device) for p in parts]
         if out_list is not None:
             out_list.extend(_like(t, p) for p in parts)
             return None
@@ -411,9 +472,14 @@ def all_to_all(in_tensor_list, out_tensor_list=None, group=None,
         send = torch.stack(x.chunk(n, dim=split_axis)).contiguous()
     else:
         send = torch.stack([unwrap(t) for t in in_tensor_list]).contiguous()
-    recv_buf = torch.empty_like(send)
-    with comm_scope("all_to_all", axes, payload=send):
-        dist.all_to_all_single(recv_buf, send, group=pg)
+    stage = staged(pg, send)
+    src = _to_host(send) if stage else send
+    recv_buf = torch.empty_like(src)
+    with comm_scope("all_to_all", axes, payload=send,
+                    extra=_extra(pg, send)):
+        dist.all_to_all_single(recv_buf, src, group=pg)
+    if stage:
+        recv_buf = _from_bytes(recv_buf, send).to(send.device)
     if single:
         return _like(in_tensor_list,
                      torch.cat(list(recv_buf.unbind(0)), dim=concat_axis))
@@ -447,9 +513,11 @@ def send(tensor, dst=0, group=None, sync_op=True):
     pg, axes, n = _resolve(group)
     x = unwrap(tensor).contiguous()
     g = _global(pg, dst, n, "send dst")
-    with comm_scope("send", axes, payload=x, extra={"dst": dst}):
-        work = dist.isend(x, dst=g, group=pg)
-    return _issue(work, None, sync_op)
+    src = _to_host(x) if staged(pg, x) else x
+    with comm_scope("send", axes, payload=x,
+                    extra=_extra(pg, x, {"dst": dst})):
+        work = dist.isend(src, dst=g, group=pg)
+    return _issue(work, None, sync_op, keep=src)
 
 
 def recv(tensor, src=0, group=None, sync_op=True):
@@ -457,9 +525,15 @@ def recv(tensor, src=0, group=None, sync_op=True):
     pg, axes, n = _resolve(group)
     x = unwrap(tensor)
     g = _global(pg, src, n, "recv src")
-    with comm_scope("recv", axes, payload=x, extra={"src": src}):
-        work = dist.irecv(x, src=g, group=pg)
-    return _issue(work, tensor, sync_op)
+    buf = _host_like(x) if staged(pg, x) else x
+    with comm_scope("recv", axes, payload=x,
+                    extra=_extra(pg, x, {"src": src})):
+        work = dist.irecv(buf, src=g, group=pg)
+
+    def land():
+        if buf is not x:
+            x.copy_(_from_bytes(buf, x))
+    return _issue(work, tensor, sync_op, land)
 
 
 def p2p_shift(tensor, group=None, shift: int = 1):
@@ -470,15 +544,42 @@ def p2p_shift(tensor, group=None, shift: int = 1):
         return tensor
     x = unwrap(tensor).contiguous()
     me = dist.get_rank(pg)
-    out = torch.empty_like(x)
-    with comm_scope("p2p_shift", axes, payload=x, extra={"shift": shift}):
-        reqs = [dist.isend(x, dst=dist.get_global_rank(pg, (me + shift) % n),
+    stage = staged(pg, x)
+    src = _to_host(x) if stage else x
+    out = torch.empty_like(src)
+    with comm_scope("p2p_shift", axes, payload=x,
+                    extra=_extra(pg, x, {"shift": shift})):
+        reqs = [dist.isend(src, dst=dist.get_global_rank(pg, (me + shift) % n),
                            group=pg),
                 dist.irecv(out, src=dist.get_global_rank(pg, (me - shift) % n),
                            group=pg)]
         for r in reqs:
             r.wait()
+    if stage:
+        out = _from_bytes(out, x).to(x.device)
     return _like(tensor, out)
+
+
+class _RingHop(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, shift, *xs):
+        ctx.group, ctx.shift = group, shift
+        return tuple(unwrap(p2p_shift(x, group, shift)) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None) + tuple(
+            unwrap(p2p_shift(g.contiguous(), ctx.group, -ctx.shift))
+            for g in gs)
+
+
+def ring_hop(*tensors, group=None, shift: int = 1):
+    """:func:`p2p_shift` of each tensor under autograd, as one node: the
+    gradient of each value that arrived goes back the way it came (a hop
+    by ``-shift``), in the same order on every rank. Every rank of the
+    group must reach the backward alike, as every rank called the
+    forward. Returns a tuple."""
+    return _RingHop.apply(group, shift, *(unwrap(t) for t in tensors))
 
 
 def barrier(group=None):

@@ -7,8 +7,12 @@ from the mpu layers, passes through), and ``distributed_optimizer``
 passes the optimizer through (``jit.TrainStep`` owns the gradient
 collectives), as in the reference. Also here: the tensor-parallel layers
 (``mpu``), the Mixture-of-Experts layer and its gates (one device; its
-expert parallelism is a later slice), and ``recompute``. The pipeline
-engines and sequence parallelism are later slices and not exported.
+expert parallelism is a later slice), ``recompute``, the pipeline
+engines (``pipeline``: ``PipelineLayer`` and the 1F1B
+``PipelineParallel``; ``spmd_pipeline``: the tick-loop pipeline and its
+layers) and sequence parallelism (``sequence_parallel``: ring attention,
+Ulysses, ``scatter_sequence``/``gather_sequence``) — every name of the
+reference's ``fleet/__init__.py:19-42``.
 """
 from __future__ import annotations
 
@@ -18,18 +22,32 @@ from ..env import get_rank, get_world_size
 from ..mesh import get_mesh
 from ..parallel import DataParallel
 from ..topology import CommunicateTopology, HybridCommunicateGroup
-from . import moe, mpu, utils
+from . import moe, mpu, pipeline, sequence_parallel, spmd_pipeline, utils
 from .moe import GShardGate, MoELayer, NaiveGate, SwitchGate
 from .mpu import (ColumnParallelLinear, ParallelCrossEntropy,
                   RowParallelLinear, VocabParallelEmbedding)
+from .pipeline import (LayerDesc, PipelineLayer, PipelineParallel,
+                       SharedLayerDesc)
+from .sequence_parallel import (gather_sequence, ring_attention,
+                                scatter_sequence, ulysses_attention)
+from .spmd_pipeline import (SpmdHeteroPipelineLayer, SpmdPipelineLayer,
+                            SpmdPipelineParallel, pipeline_spmd,
+                            pipeline_spmd_hetero, spmd_schedule_stats)
 from .utils import recompute
 
 __all__ = ["init", "DistributedStrategy", "distributed_model",
            "distributed_optimizer", "get_hybrid_communicate_group",
            "worker_num", "worker_index", "mpu", "ColumnParallelLinear",
            "RowParallelLinear", "VocabParallelEmbedding",
-           "ParallelCrossEntropy", "moe", "MoELayer", "NaiveGate",
-           "SwitchGate", "GShardGate", "utils", "recompute"]
+           "ParallelCrossEntropy", "LayerDesc", "SharedLayerDesc",
+           "PipelineLayer", "PipelineParallel", "pipeline_spmd",
+           "spmd_schedule_stats", "SpmdPipelineLayer",
+           "SpmdPipelineParallel", "pipeline_spmd_hetero",
+           "SpmdHeteroPipelineLayer", "moe", "MoELayer", "NaiveGate",
+           "SwitchGate", "GShardGate", "ring_attention",
+           "ulysses_attention", "scatter_sequence", "gather_sequence",
+           "pipeline", "sequence_parallel", "spmd_pipeline", "utils",
+           "recompute"]
 
 _state = {"hcg": None, "strategy": None}
 

@@ -12,8 +12,9 @@ Paddle's ``mp_ops.py``:
 * ``_ReduceFromGroup``: all-reduce forward, identity backward
   (``mp_allreduce``), after a row-parallel matmul or a vocab-parallel
   lookup;
-* ``_GatherFromGroup`` / ``_ScatterToGroup``: the last dim gathered or
-  cut to this rank's block, each the other's backward.
+* ``_GatherFromGroup`` / ``_ScatterToGroup``: a dim (the last by
+  default; the sequence for ``fleet.sequence_parallel``) gathered or cut
+  to this rank's block, each the other's backward.
 
 Shards (``[in, out]`` weights):
 
@@ -90,25 +91,27 @@ class _ReduceFromGroup(torch.autograd.Function):
 
 class _GatherFromGroup(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return C.all_gather(x.contiguous(), group=group, axis=-1)
+    def forward(ctx, x, group, dim=-1):
+        ctx.group, ctx.dim = group, dim
+        return C.all_gather(x.contiguous(), group=group, axis=dim)
 
     @staticmethod
     def backward(ctx, g):
         n = ctx.group.nranks
-        return g.chunk(n, dim=-1)[ctx.group.rank].contiguous(), None
+        return g.chunk(n, dim=ctx.dim)[ctx.group.rank].contiguous(), None, \
+            None
 
 
 class _ScatterToGroup(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.chunk(group.nranks, dim=-1)[group.rank].contiguous()
+    def forward(ctx, x, group, dim=-1):
+        ctx.group, ctx.dim = group, dim
+        return x.chunk(group.nranks, dim=dim)[group.rank].contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        return C.all_gather(g.contiguous(), group=ctx.group, axis=-1), None
+        return C.all_gather(g.contiguous(), group=ctx.group,
+                            axis=ctx.dim), None, None
 
 
 def copy_to_group(x, group):

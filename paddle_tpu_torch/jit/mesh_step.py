@@ -7,8 +7,11 @@ place the collectives. Here each process is one rank and runs its part:
 
 * **batch** — each tensor leaf of the batch is cut to this rank's block
   by ``input_spec`` (default ``P("dp")`` where the mesh has ``dp``: rows
-  split over ``dp``, the reference's default, :643-645); the axes that
-  split dim 0 are the step's *batch axes*;
+  split over ``dp``, the reference's default, :643-645); the axes the
+  spec splits, on any dim, are the step's *batch axes* (``P(None,
+  "dp")`` splits an SPMD pipeline's ``[M, B, ...]`` micro-batches over
+  ``dp``). A parameter split on another axis (a stacked SPMD pipeline
+  parameter on ``pp``) is not reduced over it;
 * **loss** — the loss is one mean over the global batch: each rank's
   loss reports the tokens it averages (``distributed.parallel.
   note_loss_tokens``, else every rank counts 1), one all-reduce of
@@ -113,7 +116,7 @@ class MeshPlan:
             input_spec = P("dp")
         self.mesh = mesh
         self.input_spec = None if input_spec is None else P(*input_spec)
-        self.batch_axes = spec_axes(self.input_spec[:1], mesh) \
+        self.batch_axes = spec_axes(self.input_spec, mesh) \
             if self.input_spec else ()
         self.batch_group = C.Group(self.batch_axes, mesh)
         self.n_batch = axis_size(mesh, self.batch_axes)

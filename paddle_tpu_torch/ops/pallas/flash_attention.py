@@ -66,7 +66,8 @@ from . import _build, counters
 __all__ = ["flash_attention_bhsd", "flash_attention_bshd",
            "flash_attention_reference", "flash_attention_fwd",
            "flash_attention_dq", "flash_attention_dkv", "dropout_keep",
-           "pad_head_dim", "padded_launch", "FlashGeometry"]
+           "pad_head_dim", "padded_launch", "flash_block_fwd",
+           "flash_block_bwd", "FlashGeometry"]
 
 #: kernel launches since each count was last set to 0 (CPU calls, which
 #: compute the plain versions, do not count)
@@ -507,6 +508,56 @@ def padded_launch(q, k, v, do, g: FlashGeometry):
                for t in padded)
     o, dq, dk, dv = (t[..., :d] for t in padded)
     return (o, lse, delta, dq, dk, dv), tail
+
+
+def _block_geometry(q, k, causal, sm_scale) -> FlashGeometry:
+    if q.dim() != 3 or k.shape[0] != q.shape[0] or \
+            k.shape[2] != q.shape[2]:
+        raise ValueError(f"flash blocks are [B*H, S, D] with matching "
+                         f"B*H and D, got {tuple(q.shape)} and "
+                         f"{tuple(k.shape)}")
+    if causal and k.shape[1] < q.shape[1]:
+        raise NotImplementedError(
+            "a causal block with fewer keys than queries leaves rows with "
+            "no visible key; the port does not take it")
+    return FlashGeometry(hq=1, hkv=1, causal=bool(causal),
+                         sm_scale=float(sm_scale))
+
+
+def flash_block_fwd(q, k, v, causal, sm_scale):
+    """K1 on one block of a ring (the reference's ``fa._fwd(q, k, v, ...,
+    blk_causal, sm_scale, ...)`` of ``sequence_parallel.py:172-175``):
+    q ``[B*H, Sq, D]``, k/v ``[B*H, Sk, D]``, contiguous (no copy is made
+    here). Returns ``(o, lse)``: ``o`` in q's dtype, ``lse`` f32
+    ``[B*H, Sq]``. A head_dim with no kernel instance is zero-padded as
+    :func:`flash_attention_bhsd` pads it; CPU tensors compute the plain
+    version."""
+    g = _block_geometry(q, k, causal, sm_scale)
+    d = q.shape[-1]
+    _, o, lse = _padded_fwd(q, k, v, g)
+    return (o if o.shape[-1] == d else o[..., :d]), lse
+
+
+def flash_block_bwd(q, k, v, o, lse, do, causal, sm_scale, delta=None):
+    """K2 and K3 on one block with an *external* ``o`` and ``lse`` (the
+    reference's ``fa._bwd(q, k, v, o, lse, do, ...)``,
+    ``sequence_parallel.py:176-178``): in ring-flash they are the merged
+    output and its global log-sum-exp, so ``p = exp(s - lse)`` is this
+    block's slice of the whole row's softmax. ``delta = rowsum(do * o)``
+    (f32 ``[B*H, Sq]``) is computed from ``o`` unless given. ``do`` is in
+    q's dtype. Returns ``(dq, dk, dv)`` at width ``D``."""
+    g = _block_geometry(q, k, causal, sm_scale)
+    if delta is None:
+        delta = (do.float() * o.float()).sum(dim=-1)
+    d = q.shape[-1]
+    q, k, v = pad_head_dim(q, k, v, g)
+    if q.shape[-1] != d:
+        do = torch.nn.functional.pad(do, (0, q.shape[-1] - d))
+    dq = flash_attention_dq(q, k, v, do, lse, delta, g)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, g)
+    if dq.shape[-1] != d:
+        dq, dk, dv = dq[..., :d], dk[..., :d], dv[..., :d]
+    return dq, dk, dv
 
 
 class _Flash(torch.autograd.Function):

@@ -361,22 +361,38 @@ def test_bucket_size_is_an_argument(monkeypatch):
 def test_unported_distributed_modules_are_not_exported():
     """Divergence: launch, the auto_parallel engine and rpc wait for
     their slices; every other name of the reference's
-    ``paddle.distributed`` is exported."""
+    ``paddle.distributed`` is exported, and of ``fleet`` every name.
+    ``auto_parallel`` holds only the checkpoint converters: its
+    ``Engine``, ``Strategy``, planner and cost model are not exported."""
     import ast
 
     import paddle_tpu_torch.distributed as dist
-    src = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "paddle_tpu", "distributed",
-        "__init__.py")
-    names = set()
-    for node in ast.parse(open(src).read()).body:
-        if isinstance(node, ast.ImportFrom):
-            names |= {a.asname or a.name for a in node.names}
+    root = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "paddle_tpu", "distributed")
+
+    def imported(*parts):
+        names = set()
+        src = open(os.path.join(root, *parts, "__init__.py")).read()
+        for node in ast.parse(src).body:
+            if isinstance(node, ast.ImportFrom):
+                names |= {a.asname or a.name for a in node.names}
+        return names
+    names = imported()
     assert set(dist.UNPORTED) <= names
     for name in names - set(dist.UNPORTED):
         assert hasattr(dist, name), name
     for name in dist.UNPORTED:
         assert not hasattr(dist, name), name
+    for name in imported("fleet"):
+        assert hasattr(dist.fleet, name), name
+    ap = dist.auto_parallel
+    for name in ("Converter", "pipeline_state_to_spmd",
+                 "spmd_state_to_pipeline", "uniform_chunk_bounds"):
+        assert hasattr(ap, name), name
+    for name in ("Engine", "Strategy", "Planner", "CostEstimator",
+                 "Cluster", "auto_shard_params"):
+        assert name in imported("auto_parallel") and \
+            not hasattr(ap, name), name
 
 
 def test_init_parallel_env_needs_a_card_or_gloo(monkeypatch):

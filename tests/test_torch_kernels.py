@@ -2063,3 +2063,120 @@ def test_attribution_on_the_card_restores_the_fused_buckets(cuda_device,
             assert step._fused_plan(list(step._params))[1] is flats
         runs.append(float(step(x)))
     assert runs[0] == runs[1]
+
+
+# ---------------- ring-flash's block calls and gloo's host staging ----------------
+def _merge_blocks(o1, lse1, o2, lse2):
+    """Two blocks' ``(o, lse)`` merged through their log-sum-exps, in
+    f32 (``sequence_parallel._merge``)."""
+    from paddle_tpu_torch.distributed.fleet.sequence_parallel import _merge
+    return _merge(o1.float(), lse1, o2, lse2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, 2e-4), (torch.bfloat16, 2e-2), (torch.float16, 1.5e-3)])
+@pytest.mark.parametrize("hd", [64, 128, 72])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_block_calls_with_an_external_lse(cuda_device, dtype, tol, hd,
+                                                causal):
+    """Ring-flash's calls (``flash_block_fwd``/``flash_block_bwd``): K1 on
+    the diagonal block (causal or not) and on a past block, each held
+    against the plain forward; the two merged through their lse; K2 and
+    K3 on each block with the merged output and the *global* lse, held
+    against the plain backward on the same tensors, and their sum against
+    K2/K3 run once over both key blocks (the ring's arithmetic is the
+    whole row's). Tolerances as the kernel tests above; head_dim 72 runs
+    zero-padded and counts in ``launches_padded``."""
+    rng = np.random.RandomState(hd + int(causal))
+    bh, s = 4, 192
+    mk = lambda: torch.from_numpy(  # noqa: E731
+        rng.randn(bh, s, hd)).to(cuda_device, dtype).contiguous()
+    q, k1, v1, k2, v2, do = (mk() for _ in range(6))
+    scale = 1.0 / np.sqrt(hd)
+    counts = (fa.launches_fwd, fa.launches_dq, fa.launches_dkv,
+              fa.launches_padded)
+    o1, lse1 = fa.flash_block_fwd(q, k1, v1, causal, scale)
+    o2, lse2 = fa.flash_block_fwd(q, k2, v2, False, scale)
+    o, lse = _merge_blocks(o1, lse1, o2, lse2)
+    o = o.to(dtype)
+    g1 = fa.FlashGeometry(hq=1, hkv=1, causal=causal, sm_scale=scale)
+    g2 = fa.FlashGeometry(hq=1, hkv=1, causal=False, sm_scale=scale)
+    grads = [fa.flash_block_bwd(q, kk, vv, o, lse, do, c, scale)
+             for kk, vv, c in ((k1, v1, causal), (k2, v2, False))]
+    torch.cuda.synchronize()
+    padded = 6 if hd not in fa._HEAD_DIMS else 0
+    assert (fa.launches_fwd, fa.launches_dq, fa.launches_dkv,
+            fa.launches_padded) == (counts[0] + 2, counts[1] + 2,
+                                    counts[2] + 2, counts[3] + padded)
+    for got, (kk, vv, g) in zip(((o1, lse1), (o2, lse2)),
+                                ((k1, v1, g1), (k2, v2, g2))):
+        want = fa._forward_plain(q, kk, vv, g)
+        for a, b in zip(got, want):
+            assert _rel_err(a, b) <= tol
+    delta = (do.float() * o.float()).sum(-1)
+    for (dq, dk, dv), (kk, vv, g) in zip(grads, ((k1, v1, g1),
+                                                 (k2, v2, g2))):
+        want = (fa._dq_plain(q, kk, vv, do, lse, delta, g),
+                *fa._dkv_plain(q, kk, vv, do, lse, delta, g))
+        for a, b in zip((dq, dk, dv), want):
+            assert bool(torch.isfinite(a).all()) and _rel_err(a, b) <= tol
+    # the whole row at once: keys [past block, diagonal block], causal at
+    # offset s (query i sees the past block and keys <= i of its own)
+    kw, vw = torch.cat([k2, k1], 1), torch.cat([v2, v1], 1)
+    gw = fa.FlashGeometry(hq=1, hkv=1, causal=causal, sm_scale=scale)
+    if hd not in fa._HEAD_DIMS:
+        (ow, lsew, _, dqw, dkw, dvw), _ = fa.padded_launch(q, kw, vw, do, gw)
+    else:
+        ow, lsew = fa.flash_attention_fwd(q, kw, vw, gw)
+        dw = (do.float() * ow.float()).sum(-1)
+        dqw = fa.flash_attention_dq(q, kw, vw, do, lsew, dw, gw)
+        dkw, dvw = fa.flash_attention_dkv(q, kw, vw, do, lsew, dw, gw)
+    assert _rel_err(o, ow) <= tol and _rel_err(lse, lsew) <= tol
+    assert _rel_err(grads[0][0].float() + grads[1][0].float(), dqw) <= tol
+    assert _rel_err(torch.cat([grads[1][1], grads[0][1]], 1), dkw) <= tol
+    assert _rel_err(torch.cat([grads[1][2], grads[0][2]], 1), dvw) <= tol
+
+
+@pytest.mark.cuda
+def test_flash_block_calls_refuse_what_the_kernels_do_not_take(cuda_device):
+    """No silent copy: a bf16 block one element into its storage is
+    refused (TMA needs 16-byte aligned bases), as is a causal block with
+    fewer keys than queries."""
+    q = torch.randn(2, 64, 128, device=cuda_device, dtype=torch.bfloat16)
+    buf = torch.zeros(q.numel() + 8, device=cuda_device, dtype=q.dtype)
+    q_off = buf[1:1 + q.numel()].view(q.shape).copy_(q)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_block_fwd(q_off, q, q, False, 0.1)
+    with pytest.raises(NotImplementedError):
+        fa.flash_block_fwd(q, q[:, :32].contiguous(), q[:, :32].contiguous(),
+                           True, 0.1)
+
+
+@pytest.mark.cuda
+def test_gloo_stages_cuda_tensors_through_the_host(cuda_device, tmp_path):
+    """Gloo carries only broadcast and all-reduce for CUDA tensors: two
+    ranks spawned over gloo on one card run send/recv, p2p_shift,
+    all_gather (both forms) and all_to_all on CUDA tensors in f32 and
+    bf16, staged through pinned host buffers, and get what the same
+    calls give on CPU tensors, with the same bytes counted."""
+    import pickle
+
+    import paddle_tpu_torch.distributed as dist
+    import torch_pp_worker as PW
+    for device in ("cpu", "cuda"):
+        dist.spawn(PW.gloo_staging_rank, args=(str(tmp_path), device),
+                   nprocs=2)
+    for r in range(2):
+        got = {dev: pickle.loads((tmp_path / f"{dev}{r}.pkl").read_bytes())
+               for dev in ("cpu", "cuda")}
+        assert got["cuda"]["staged"] and not got["cpu"]["staged"]
+        assert got["cuda"]["bytes"] == got["cpu"]["bytes"] > 0
+        keys = [k for k in got["cpu"] if isinstance(k, tuple)]
+        assert len(keys) == 10
+        for k in keys:
+            np.testing.assert_array_equal(got["cuda"][k], got["cpu"][k],
+                                          err_msg=str(k))
+        np.testing.assert_array_equal(got["cpu"]["send_recv", "float32"],
+                                      np.arange(24).reshape(4, 6) +
+                                      100 * (1 - r))

@@ -562,11 +562,12 @@ SUITES = {"dist": [case_collectives, case_placements, case_topology,
 
 
 class Ranks:
-    """A world of ``world`` worker processes running ``suite``, started
-    at once (the tests' module fixtures make one per file); their output
-    goes to ``log.txt`` in their directory."""
+    """A world of ``world`` worker processes running ``suite`` of the
+    worker file ``script`` (this one by default), started at once (the
+    tests' module fixtures make one per file); their output goes to
+    ``log.txt`` in their directory."""
 
-    def __init__(self, suite, world, timeout=600):
+    def __init__(self, suite, world, timeout=600, script=None):
         import shutil
         import subprocess
         import tempfile
@@ -580,7 +581,8 @@ class Ranks:
         env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=REPO)
         self._log = open(os.path.join(self.dir, "log.txt"), "w")
         self.procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), suite, str(r),
+            [sys.executable, script or os.path.abspath(__file__), suite,
+             str(r),
              str(world), master, self.dir], env=env, stdout=self._log,
             stderr=subprocess.STDOUT) for r in range(world)]
         self._results = None
@@ -626,7 +628,9 @@ class Ranks:
         self._rmtree(self.dir, ignore_errors=True)
 
 
-def main(argv):
+def main(argv, suites=None):
+    """Run one rank of ``suites[suite]`` (this file's suites by
+    default)."""
     suite, rank, world, master, outdir = argv
     rank, world = int(rank), int(world)
     torch.set_num_threads(1)
@@ -635,7 +639,7 @@ def main(argv):
                            master=master)
     results = {}
     ok = True
-    for case in SUITES[suite]:
+    for case in (suites or SUITES)[suite]:
         name = case.__name__[len("case_"):]
         try:
             results[name] = case(rank)
