@@ -217,16 +217,16 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    ``generate`` with the adapter merged, slot 0's a no-LoRA engine's; an
    ``fp8_wo`` engine serves with finite logits;
 17. MoE serving and decoding, the autotuner and ``paddle.incubate``: (a)
-   ``MoeConfig.deepseek_moe_16b()`` at full width cut to 14 of its 28
+   ``MoeConfig.deepseek_moe_16b()`` at full width cut to 8 of its 28
    layers (to keep the script within its limit; 16/16 heads of 128, 64
    routed experts top-6 beside 2 shared, bf16, seeded weights) behind
    the HTTP ``Server`` with phase 4's prompts and geometry: all tokens,
-   finite logits, K4 launches = 14 x steps, the window's numbers and
+   finite logits, K4 launches = 8 x steps, the window's numbers and
    busy share, each MoE layer's capacity and dropped assignments in the
    window's busiest step, the layer-0 K4 output of a real step against
    the plain version, ``aux_loss()`` None and no leaked block; K4 at
    this model's heads on phase 3's mix against its plain version, timed;
-   (b) eager ``generate`` (4 x 512, 64 greedy tokens): K1 14 x 64
+   (b) eager ``generate`` (4 x 512, 64 greedy tokens): K1 8 x 64
    launches, ms a token, ``aux_loss()`` the last decode step's (finite,
    as the reference's); ``generate_compiled`` on the same prompts: one
    capture a signature, the replay equal to the capturing call, ms a
@@ -375,6 +375,28 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    micro-batches x 6 local layers on each rank. The times are no measure
    of scaling. Its files go to a ``phase22_*`` directory of the
    checkout, deleted after.
+23. the multi-process job lifecycle under the port's launcher: (a) the
+   bench's widths cut to 2 layers in f32 (phase 21(b)'s model) on 4 x
+   2048 seeded global batches, trained by two trainers that ``python -m
+   paddle_tpu_torch.distributed.launch --nproc_per_node 2 --max_restarts
+   1`` starts (``chip_smoke.py --job-trainer``: gloo on the card, dp 2
+   through ``fleet.distributed_model``, ``Model.fit`` under
+   ``FitResilience`` with an asynchronous save every step): the chaos
+   harness SIGKILLs rank 1 after step 2 and the launcher relaunches,
+   resuming from step 2; SIGUSR1 reaches rank 0 as step 4 begins, both
+   ranks stop at step 5 with one commit and exit 79, and the launcher
+   relaunches without spending its crash budget; the job finishes step 6
+   and exits 0. Every step's loss equals one process's uninterrupted run
+   in this process at rtol 1e-4, each relaunched rank's restored state
+   digests to the committed step's crc32s, and K1-K3 are counted over
+   both ranks and every attempt; it logs the attempts, the seconds by
+   part (starts, restores, saves, steps) and the goodput bins; (b) the
+   tiny Llama in f32, elastic 2 -> 1 under the launcher: rank 1 departs
+   with 83 at the agreed step, rank 0 continues in place on the state
+   exchanged over the job's store, its losses equal to one process's at
+   rtol 1e-4, and rank 0's heartbeat aggregator shows rank 1
+   ``departed``. Its files go to a ``phase23_*`` directory of the
+   checkout, deleted after.
 
 It prints its measurements on earlier lines, then one JSON line with a
 record per kernel (K1-K3's with their times at ERNIE's and DiT's shapes,
@@ -397,7 +419,9 @@ and K1's phase 20 figures under ``train_prod``; K1-K3's
 phase 21's figures under K1's ``dist``; K1-K3's ``launches_by_path``
 with phase 22's ``ring_flash``, ``ulysses``, ``pipeline`` and
 ``spmd_pipeline`` (both ranks), and phase 22's figures under K1's
-``seq_pipe``),
+``seq_pipe``; K1-K3's ``launches_by_path`` with phase 23's ``launch``
+(both ranks, every attempt) and ``elastic``, and phase 23's figures under
+K1's ``job``),
 and ends with
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -412,6 +436,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import sys
 import tempfile
@@ -1101,6 +1126,8 @@ def phase_parity():
 
 # --------------------------------------------------------------------------
 FLASH_SRC = "paddle_tpu_torch/ops/pallas/csrc/flash_attention.cu"
+FLASH_KERNELS_NAMES = ("flash_attention_fwd", "flash_attention_dq",
+                       "flash_attention_dkv")
 FLASH_KERNELS = (  # name, the TPU kernel it replaces
     ("flash_attention_fwd", "paddle_tpu/ops/pallas/flash_attention.py:242"),
     ("flash_attention_dq", "paddle_tpu/ops/pallas/flash_attention.py:410"),
@@ -5054,9 +5081,9 @@ def incubate_checks():
         + f"; {len(masks)} weights kept 2:4 through a decorated SGD step")
 
 
-# phase 17's MoE depth: DeepSeekMoE-16B's 28 layers cut to half to keep
-# phases 1-21 within the script's limit
-MOE_SERVING_LAYERS = 14
+# phase 17's MoE depth: DeepSeekMoE-16B's 28 layers cut to 8 to keep
+# phases 1-23 within the script's limit (14 in PRs 19-20)
+MOE_SERVING_LAYERS = 8
 
 
 def phase_moe_and_incubate(llama_sweep):
@@ -7569,6 +7596,436 @@ def phase_seq_pipe():
 
 
 
+# --------------------------------------------------------------------------
+# phase 23: the multi-process job lifecycle under the port's launcher
+JOB_STEPS = 6            # global steps of each launched job
+JOB_BATCH = (4, 2048)    # (a): rows x tokens of each global batch
+JOB_KILL = (1, 2)        # (a): the chaos harness SIGKILLs rank 1 after step 2
+JOB_PREEMPT = (0, 4)     # (a): SIGUSR1 reaches rank 0 as step 4 begins
+JOB_RESIZE_AT = 3        # (b): rank 0 asks for world 1 during step 3
+JOB_TINY_BATCH = (4, 16)
+
+
+def _job_batches(vocab, B, S):
+    """JOB_STEPS seeded global batches of token ids (the labels are the
+    ids), as the launched ranks and the one-process run see them."""
+    return [torch.from_numpy(np.random.RandomState(SEED + 100 + s).randint(
+        0, vocab, (B, S))) for s in range(JOB_STEPS)]
+
+
+def _job_config(mode):
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    if mode == "lifecycle":
+        return dist_two_rank_config(), JOB_BATCH
+    return LlamaConfig.tiny(), JOB_TINY_BATCH
+
+
+def _job_shard_crcs(state, index):
+    """sha256 over the crc32 of every shard of ``state``'s leaves, cut by
+    the grids of a committed step's manifest (``index``): the digest of
+    a restored state, comparable with the committed step's own crc32s."""
+    import hashlib
+    import zlib
+
+    from paddle_tpu_torch.checkpoint.layout import flatten_state
+    _, leaves = flatten_state(state)
+    h = hashlib.sha256()
+    for key in sorted(index["tensors"]):
+        value = leaves[key][0]
+        for rec in index["tensors"][key]["shards"]:
+            sl = tuple(slice(o, o + n) for o, n in zip(rec["offset"],
+                                                       rec["shape"]))
+            if isinstance(value, torch.Tensor):
+                t = value.detach()[sl].contiguous().cpu()
+                data = t.reshape(-1).view(torch.uint8).numpy()
+            else:
+                data = np.ascontiguousarray(value[sl]).reshape(-1).view(
+                    np.uint8)
+            h.update(f"{key}:{zlib.crc32(data) & 0xFFFFFFFF};".encode())
+    return h.hexdigest()
+
+
+def _job_manifest_digest(index):
+    """The same digest, from the committed step's recorded crc32s."""
+    import hashlib
+    h = hashlib.sha256()
+    for key in sorted(index["tensors"]):
+        for rec in index["tensors"][key]["shards"]:
+            h.update(f"{key}:{rec['crc32']};".encode())
+    return h.hexdigest()
+
+
+def job_trainer(mode, out):
+    """One rank of phase 23's launched jobs (``chip_smoke.py --job-trainer
+    MODE OUT``, started by ``python -m paddle_tpu_torch.distributed.launch``):
+    the Llama of ``_job_config(mode)`` in f32 on the card at dp over the
+    world (``fleet.distributed_model``, gloo), ``Model.fit`` over the
+    JOB_STEPS global batches under ``FitResilience`` with an asynchronous
+    save every step (the killed rank waits for step JOB_KILL's commit
+    before the harness kills it), resumed from the latest step. ``lifecycle``: the
+    chaos harness and SIGUSR1 as JOB_KILL and JOB_PREEMPT say;
+    ``elastic``: rank 0 asks for world 1 during step JOB_RESIZE_AT, rank
+    1 departs (83) and rank 0 fits on in place. After every step each
+    rank writes ``OUT/rank<r>.e<epoch>.json``: its losses, K1-K3's
+    launches, the goodput bins and its seconds by part."""
+    t_main = time.perf_counter()
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch import hapi
+    from paddle_tpu_torch.checkpoint import CheckpointManager
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.hapi import Callback, StepTelemetry
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.observability import fleet as fleet_bus
+    from paddle_tpu_torch.observability import goodput
+    from paddle_tpu_torch.observability.metrics import MetricsRegistry
+    from paddle_tpu_torch.resilience import (ElasticResizeListener,
+                                             FitResilience, chaos)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo")
+    rank, epoch = dist.get_rank(), os.environ["PADDLE_RESTART_EPOCH"]
+    cfg, (B, S) = _job_config(mode)
+    fleet.init(is_collective=True)
+    net = LlamaForCausalLM(cfg, dtype="float32", seed=SEED)
+    opt = _dist_opt(net)
+    model = hapi.Model(fleet.distributed_model(net))
+    model.prepare(fleet.distributed_optimizer(opt), loss=None)
+    listener = ElasticResizeListener() if mode == "elastic" else None
+    ckpt = os.path.join(out, "ckpt")
+    fr = FitResilience(manager=CheckpointManager(ckpt, keep_last_k=2),
+                       save_every_steps=1, elastic_listener=listener)
+    fr.set_model(model)
+    secs = dict(start=time.perf_counter() - t_main, restore=0.0, save=0.0,
+                steps=0.0, digest=0.0, fit=0.0)
+    t = time.perf_counter()
+    restored = fr.restore(model)
+    secs["restore"] = time.perf_counter() - t
+    res = dict(rank=rank, epoch=epoch, restored=restored, losses={},
+               seconds=secs)
+    if restored is not None:
+        t = time.perf_counter()
+        with open(os.path.join(ckpt, f"step_{restored}", "index.json")) as f:
+            index = f.read()
+        res["digest"] = _job_shard_crcs(fr._state(), json.loads(index))
+        # the committed manifest, for the parent (retention may remove
+        # the step before the job ends)
+        with open(os.path.join(out, f"index.step{restored}.r{rank}.json"),
+                  "w") as f:
+            f.write(index)
+        secs["digest"] = time.perf_counter() - t
+    marks = os.path.join(out, "marks")
+    os.makedirs(marks, exist_ok=True)
+    if mode == "lifecycle" and rank == JOB_KILL[0]:
+        chaos.configure(kill_at_step=JOB_KILL[1], mark_dir=marks)
+    _reset_flash_counts()
+
+    def dump():
+        snap = goodput.snapshot()
+        res.update(launches=_flash_counts(),
+                   goodput=None if snap is None else snap["bins"])
+        with open(os.path.join(out, f"rank{rank}.e{epoch}.json"), "w") as f:
+            json.dump(res, f)
+    marks_t = {}
+
+    class Before(Callback):
+        def on_train_batch_begin(self, step, logs=None):
+            gs = fr._step0 + step
+            marks_t["begin"] = time.perf_counter()
+            if mode == "lifecycle" and rank == JOB_PREEMPT[0] and \
+                    gs == JOB_PREEMPT[1] and \
+                    not os.path.exists(os.path.join(marks, "preempt")):
+                open(os.path.join(marks, "preempt"), "w").close()
+                os.kill(os.getpid(), signal.SIGUSR1)
+            if listener is not None and rank == 0 and gs == JOB_RESIZE_AT:
+                listener.request(1, "phase23")
+
+        def on_train_batch_end(self, step, logs=None):
+            res["losses"][str(fr._step0 + step)] = logs["loss"]
+            marks_t["end"] = time.perf_counter()
+            secs["steps"] += marks_t["end"] - marks_t["begin"]
+
+    class After(Callback):
+        def on_train_batch_end(self, step, logs=None):
+            secs["save"] += time.perf_counter() - marks_t["end"]
+            if mode == "lifecycle" and rank == JOB_KILL[0] and \
+                    fr._step0 + step == JOB_KILL[1]:
+                fr.manager.wait_all()  # the kill comes after the commit
+            dump()
+    callbacks = [Before(), fr, After(), StepTelemetry(
+        registry=MetricsRegistry())]
+    batches = [{"input_ids": x, "labels": x} for x in
+               _job_batches(cfg.vocab_size, B, S)]
+    t = time.perf_counter()
+    model.fit(batches[restored or 0:], callbacks=callbacks, verbose=0)
+    secs["fit"] = time.perf_counter() - t
+    res["ended"] = "preempted" if fr.preempted else \
+        "resized" if fr.resized else "done"
+    if fr.resized:
+        res["boundary"] = fr.resize_boundary_step
+        dump()  # a departing rank exits 83 inside complete_resize
+        t = time.perf_counter()
+        res["new_world"] = fr.complete_resize()
+        secs["resize"] = time.perf_counter() - t
+        single = hapi.Model(model.network._layers)
+        single.prepare(model._optimizer, loss=None)
+        single.fit(batches[fr._step0:], callbacks=callbacks, verbose=0)
+        res["fleetz"] = fleet_bus.fleetz_snapshot()
+    dump()
+    dist.destroy_process_group()
+    fr.exit_if_preempted()
+    return 0
+
+
+def _run_launched(mode, out, timeout):
+    """``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2
+    --max_restarts 1 chip_smoke.py --job-trainer MODE OUT`` in a session
+    of its own (killed whole on a timeout); (exit code, seconds, the
+    per-attempt records {(rank, epoch): record})."""
+    import signal as _signal
+    import subprocess
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    t = time.perf_counter()
+    with open(os.path.join(out, "launcher.log"), "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--nproc_per_node", "2", "--max_restarts", "1",
+             os.path.join(REPO_ROOT, "chip_smoke.py"), "--job-trainer",
+             mode, out], cwd=REPO_ROOT, env=env, stdout=logf,
+            stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, _signal.SIGKILL)
+            proc.wait()
+            raise AssertionError(f"job (phase 23 {mode}): the launcher "
+                                 f"ran past {timeout} s")
+    wall = time.perf_counter() - t
+    recs = {}
+    for name in os.listdir(out):
+        if name.startswith("rank") and name.endswith(".json"):
+            with open(os.path.join(out, name)) as f:
+                rec = json.load(f)
+            recs[(rec["rank"], int(rec["epoch"]))] = rec
+    if rc != 0:
+        with open(os.path.join(out, "launcher.log")) as f:
+            tail = f.read()[-6000:]
+        raise AssertionError(f"job (phase 23 {mode}): the launcher exited "
+                             f"{rc}:\n{tail}")
+    return rc, wall, recs
+
+
+def _one_process_losses(mode):
+    """The uninterrupted run of a launched job's recipe in this process:
+    one rank, the whole global batch each step."""
+    from paddle_tpu_torch.jit import TrainStep
+    cfg, (B, S) = _job_config(mode)
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    model = LlamaForCausalLM(cfg, dtype="float32", seed=SEED)
+    step = TrainStep(model, _dist_loss, _dist_opt(model))
+    losses = [float(step(x.cuda())) for x in
+              _job_batches(cfg.vocab_size, B, S)]
+    del step, model
+    free_device_memory()
+    return losses
+
+
+def _merged_losses(recs, rank):
+    merged = {}
+    for (r, e), rec in sorted(recs.items()):
+        if r == rank:
+            merged.update({int(k): v for k, v in rec["losses"].items()})
+    return [merged.get(s) for s in range(1, JOB_STEPS + 1)]
+
+
+def _launch_job(mode, timeout):
+    """One launched job of phase 23 in a fresh ``phase23_*`` directory
+    (deleted after): (seconds, the per-attempt records, each with the
+    committed digest of the step it restored, and step JOB_STEPS's
+    manifest)."""
+    out = tempfile.mkdtemp(prefix="phase23_", dir=REPO_ROOT)
+    try:
+        _, wall, recs = _run_launched(mode, out, timeout)
+        for (r, e), rec in recs.items():
+            if rec["restored"] is not None:
+                with open(os.path.join(out, f"index.step{rec['restored']}"
+                                       f".r{r}.json")) as f:
+                    rec["committed_digest"] = _job_manifest_digest(
+                        json.load(f))
+        with open(os.path.join(out, "ckpt", f"step_{JOB_STEPS}",
+                               "index.json")) as f:
+            last = json.load(f)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return wall, recs, last
+
+
+def job_lifecycle(one, launched):
+    """Phase 23(a)'s checks: the bench's widths at 2 layers in f32, two
+    trainers under the launcher over gloo on the card, a save every step:
+    a crash relaunch, a preemption relaunch, the finish; losses against
+    one process's (``one``) at rtol 1e-4, restored digests against the
+    committed steps. Returns K1-K3's launches (both ranks, every attempt)
+    and the record."""
+    cfg, (B, S) = _job_config("lifecycle")
+    wall, recs, last = launched
+    if sorted(recs) != [(r, e) for r in (0, 1) for e in range(3)]:
+        raise AssertionError(f"job (a): attempts {sorted(recs)}, not three "
+                             "epochs of two ranks")
+    ended = {k: rec.get("ended") for k, rec in recs.items()}
+    if [recs[(r, 1)]["restored"] for r in (0, 1)] != [JOB_KILL[1]] * 2:
+        raise AssertionError(f"job (a): epoch 1 restored "
+                             f"{[recs[(r, 1)]['restored'] for r in (0, 1)]}")
+    stop = JOB_PREEMPT[1] + 1
+    if [recs[(r, 2)]["restored"] for r in (0, 1)] != [stop] * 2 or \
+            [ended[(r, 1)] for r in (0, 1)] != ["preempted"] * 2:
+        raise AssertionError(f"job (a): the preemption did not stop both "
+                             f"ranks at step {stop}: {ended}, restored "
+                             f"{[recs[(r, 2)]['restored'] for r in (0, 1)]}")
+    for (r, e), rec in recs.items():
+        if e and rec["digest"] != rec["committed_digest"]:
+            raise AssertionError(f"job (a): rank {r} epoch {e} restored a "
+                                 f"state whose digest is not step "
+                                 f"{rec['restored']}'s")
+    counts = dict.fromkeys(FLASH_KERNELS_NAMES, 0)
+    for r in (0, 1):
+        got = _merged_losses(recs, r)
+        if None in got or not np.allclose(got, one, rtol=1e-4, atol=0):
+            raise AssertionError(f"job (a): rank {r} losses {got} and one "
+                                 f"process's {one} differ by more than "
+                                 "rtol 1e-4")
+        for e in range(3):
+            for k, c in recs[(r, e)]["launches"].items():
+                counts[k] += c
+    want = 2 * JOB_STEPS * cfg.num_hidden_layers
+    if any(c != want for c in counts.values()):
+        raise AssertionError(f"job (a): K1-K3 launched {counts} over both "
+                             f"ranks and every attempt, not {want} each")
+    gb = last["metadata"]
+    log(f"job (a): the bench's widths at {cfg.num_hidden_layers} layers in "
+        f"f32, {B} x {S} global batches at dp 2, two trainers under "
+        f"`python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2 "
+        f"--max_restarts 1` over gloo on one card, an asynchronous save "
+        f"every step ({last['world_size']} writers, topology "
+        f"{last['topology']}): attempts {sorted(set(e for _, e in recs))}, "
+        f"how each ended {dict((f'r{r}e{e}', v) for (r, e), v in sorted(ended.items()))} "
+        f"(rank 1 of epoch 0 was SIGKILLed after step {JOB_KILL[1]}; the "
+        f"launcher exited 0); step {JOB_STEPS}'s metadata {gb}")
+    log(f"job (a): losses {[round(v, 6) for v in _merged_losses(recs, 0)]}"
+        f" on both ranks, one process {[round(v, 6) for v in one]} (rtol "
+        f"1e-4); restored digests equal to the committed steps' crc32s "
+        f"({sum(1 for (_, e) in recs if e)} relaunched ranks); K1-K3 "
+        f"launches {counts} (rank 0 "
+        f"{[recs[(0, e)]['launches']['flash_attention_fwd'] for e in range(3)]}"
+        f" and rank 1 "
+        f"{[recs[(1, e)]['launches']['flash_attention_fwd'] for e in range(3)]}"
+        f" K1 launches by epoch)")
+    for (r, e), rec in sorted(recs.items()):
+        sec = rec["seconds"]
+        log(f"job (a) rank {r} epoch {e}: seconds start "
+            f"{sec['start']:.2f}, restore {sec['restore']:.2f}, digest "
+            f"{sec['digest']:.2f}, the saves' stall on the loop "
+            f"{sec['save']:.2f}, steps {sec['steps']:.2f}, fit with the "
+            f"last commits {sec['fit']:.2f}; goodput bins "
+            f"{ {k: round(v, 3) for k, v in (rec['goodput'] or {}).items()} }")
+    log(f"job (a): the launched job {wall:.1f} s (both ranks share the "
+        "card, with (b)'s two: no measure of scaling)")
+    return counts, dict(one_process_losses=one,
+                        losses=_merged_losses(recs, 0), launched_s=wall,
+                        seconds={f"r{r}e{e}": rec["seconds"]
+                                 for (r, e), rec in recs.items()},
+                        goodput={f"r{r}e{e}": rec["goodput"]
+                                 for (r, e), rec in recs.items()})
+
+
+def job_elastic(one, launched):
+    """Phase 23(b)'s checks: the tiny Llama in f32, elastic 2 -> 1 under
+    the launcher: rank 1 departs (83), rank 0 continues in place; its
+    losses against one process's (``one``), rank 1 ``departed`` on rank
+    0's aggregator. Returns K1-K3's launches and the record."""
+    wall, recs, _ = launched
+    if sorted(recs) != [(0, 0), (1, 0)]:
+        raise AssertionError(f"job (b): attempts {sorted(recs)}: the resize "
+                             "was not in place")
+    r0, r1 = recs[(0, 0)], recs[(1, 0)]
+    boundary = JOB_RESIZE_AT + 1
+    if r0.get("boundary") != boundary or r1.get("boundary") != boundary or \
+            r1["ended"] != "resized" or r0.get("new_world") != 1:
+        raise AssertionError(f"job (b): boundaries {r0.get('boundary')}, "
+                             f"{r1.get('boundary')}, rank 1 "
+                             f"{r1['ended']}, new world "
+                             f"{r0.get('new_world')}")
+    got = _merged_losses(recs, 0)
+    if None in got or not np.allclose(got, one, rtol=1e-4, atol=0):
+        raise AssertionError(f"job (b): rank 0 losses {got} and one "
+                             f"process's {one} differ by more than rtol "
+                             "1e-4")
+    lane = r0["fleetz"]["ranks"].get("1", {})
+    if lane.get("status") != "departed":
+        raise AssertionError(f"job (b): rank 1's lane on rank 0's "
+                             f"aggregator is {lane.get('status')}")
+    counts = {k: r0["launches"][k] + r1["launches"][k]
+              for k in FLASH_KERNELS_NAMES}
+    if any(c == 0 for c in counts.values()):
+        raise AssertionError(f"job (b): K1-K3 launches {counts}")
+    log(f"job (b): the tiny Llama in f32, elastic 2 -> 1 at step "
+        f"{boundary} under the launcher ({wall:.1f} s): rank 1 departed "
+        f"(83) after publishing its shards, rank 0 continued in place on "
+        f"the exchanged state in {r0['seconds'].get('resize', 0):.2f} s of "
+        f"resize; rank 0 losses {[round(v, 6) for v in got]}, one process "
+        f"{[round(v, 6) for v in one]} (rtol 1e-4); rank 1 on rank 0's "
+        f"aggregator: {lane.get('status')} at step {lane.get('step')}; "
+        f"K1-K3 launches {counts}")
+    return counts, dict(losses=got, one_process_losses=one, launched_s=wall,
+                        resize_s=r0["seconds"].get("resize"))
+
+
+def phase_job_lifecycle():
+    """Phase 23: the one-process runs of both jobs in this process, then
+    (a) and (b) under two launchers at once (four processes share the
+    card). Returns K1-K3's launches by path and the record."""
+    t0 = time.perf_counter()
+    ones = {mode: _uncounted_flash(lambda: _one_process_losses(mode))
+            for mode in ("lifecycle", "elastic")}
+    t1 = time.perf_counter()
+    elastic = {}
+
+    def run_elastic():
+        try:
+            elastic["out"] = _launch_job("elastic", 400)
+        except BaseException as e:  # re-raised below, in this thread
+            elastic["error"] = e
+    th = threading.Thread(target=run_elastic)
+    th.start()
+    try:
+        lifecycle = _launch_job("lifecycle", 900)
+    finally:
+        th.join()
+    if "error" in elastic:
+        raise elastic["error"]
+    t2 = time.perf_counter()
+    a_counts, a_rec = job_lifecycle(ones["lifecycle"], lifecycle)
+    b_counts, b_rec = job_elastic(ones["elastic"], elastic["out"])
+    log(f"phase 23 seconds by part: the one-process runs {t1 - t0:.1f}, "
+        f"the two launched jobs at once {t2 - t1:.1f} ((a) "
+        f"{lifecycle[0]:.1f}, (b) {elastic['out'][0]:.1f}); phase 23 "
+        f"{t2 - t0:.1f} s")
+    return {"launch": a_counts, "elastic": b_counts}, \
+        dict(lifecycle=a_rec, elastic=b_rec, seconds=t2 - t0)
+
+
+_PHASE_SECONDS = []
+
+
+def _timed(fn, *args):
+    """``fn(*args)``, its seconds kept for the closing line."""
+    t = time.perf_counter()
+    out = fn(*args)
+    _PHASE_SECONDS.append((fn.__name__, round(time.perf_counter() - t, 1)))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible to PyTorch",
@@ -7576,32 +8033,33 @@ def main():
         return 2
     import paddle_tpu_torch  # noqa: F401 — fails outside a checkout
     t0 = time.perf_counter()
-    phase_environment()
-    phase_build()
-    rec, rec_f16 = phase_kernel()
-    launches, serving_peak, llama_sweep = phase_serving()
-    phase_parity()
-    flash = phase_flash()
-    counts, train_step_ms = phase_training()
-    fused = phase_fused_update()
-    gmm = phase_gmm()
-    moe = phase_moe_training()
-    fit = phase_fit(flash, train_step_ms)
-    ernie = phase_ernie()
-    dit = phase_dit()
+    _timed(phase_environment)
+    _timed(phase_build)
+    rec, rec_f16 = _timed(phase_kernel)
+    launches, serving_peak, llama_sweep = _timed(phase_serving)
+    _timed(phase_parity)
+    flash = _timed(phase_flash)
+    counts, train_step_ms = _timed(phase_training)
+    fused = _timed(phase_fused_update)
+    gmm = _timed(phase_gmm)
+    moe = _timed(phase_moe_training)
+    fit = _timed(phase_fit, flash, train_step_ms)
+    ernie = _timed(phase_ernie)
+    dit = _timed(phase_dit)
     shapes = {"ernie": flash_model_shape("ernie", 16, 12, 512, 64, 0.1),
               "dit": flash_model_shape("dit", 64, 16, 256, 72, 0.0)}
-    ppocr = phase_ppocr()
-    resnet = phase_resnet()
-    api, gen, decode = phase_api(train_step_ms)
-    capture_paths, flash_f16 = phase_capture_amp_recompute(gen, flash)
-    rpa_paths, f16_step_err = phase_quantized_serving(serving_peak)
-    p17 = phase_moe_and_incubate(llama_sweep)
-    export_counts, export_rec = phase_export_and_deploy()
-    prod_launches, ledger_cost = phase_serving_production()
-    train_prod, train_prod_rec = phase_production(train_step_ms)
-    dist_paths, dist_rec = phase_distributed()
-    seq_paths, seq_rec = phase_seq_pipe()
+    ppocr = _timed(phase_ppocr)
+    resnet = _timed(phase_resnet)
+    api, gen, decode = _timed(phase_api, train_step_ms)
+    capture_paths, flash_f16 = _timed(phase_capture_amp_recompute, gen, flash)
+    rpa_paths, f16_step_err = _timed(phase_quantized_serving, serving_peak)
+    p17 = _timed(phase_moe_and_incubate, llama_sweep)
+    export_counts, export_rec = _timed(phase_export_and_deploy)
+    prod_launches, ledger_cost = _timed(phase_serving_production)
+    train_prod, train_prod_rec = _timed(phase_production, train_step_ms)
+    dist_paths, dist_rec = _timed(phase_distributed)
+    seq_paths, seq_rec = _timed(phase_seq_pipe)
+    job_paths, job_rec = _timed(phase_job_lifecycle)
     # each path's launches were counted from 0 over its own run; a kernel
     # on several paths reports their sum, and each path's count beside it
     paths = {"train": counts, "moe_train": moe, "fit": fit, "ernie": ernie,
@@ -7609,7 +8067,7 @@ def main():
              "api_train": api, "generate": gen, **capture_paths,
              "moe_generate": p17["moe_generate"],
              "incubate": p17["incubate"], "export": export_counts,
-             **train_prod, **dist_paths, **seq_paths}
+             **train_prod, **dist_paths, **seq_paths, **job_paths}
 
     def path_launches(kname):
         by_path = {p: c[kname] for p, c in paths.items() if kname in c}
@@ -7636,7 +8094,8 @@ def main():
                                    else {})},
                             **({"export": export_rec,
                                 "train_prod": train_prod_rec,
-                                "dist": dist_rec, "seq_pipe": seq_rec}
+                                "dist": dist_rec, "seq_pipe": seq_rec,
+                                "job": job_rec}
                                if kname == "flash_attention_fwd" else {})))
     for kname, _, replaces in GMM_KERNELS:
         kernels.append(dict(name=kname, route="cuda", source=GMM_SRC,
@@ -7647,6 +8106,7 @@ def main():
         kernels.append(dict(name=kname, route="cuda", source=FUSED_SRC,
                             replaces=FUSED_REPLACES, **path_launches(kname),
                             **fused[kname]))
+    log(f"seconds by phase: {_PHASE_SECONDS}")
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -7656,4 +8116,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--job-trainer"]:
+        sys.exit(job_trainer(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -36,8 +36,9 @@ import itertools
 import json
 import os
 import pickle
+import time
 import zlib
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,10 +50,14 @@ __all__ = [
     "is_committed", "list_committed_steps", "plan_grid", "iter_shards",
     "crc32_of", "flatten_state", "unflatten_state", "write_index",
     "read_index", "is_checkpoint_dir", "dumps_skeleton",
-    "loads_skeleton", "torch_dtype", "dtype_name",
+    "loads_skeleton", "torch_dtype", "dtype_name", "poll_until",
+    "IO_WORKERS",
 ]
 
 FORMAT_VERSION = 1
+#: threads that read or write a step's shard files at once: the file
+#: syscalls, zlib's crc32 and torch's copies all run without the GIL
+IO_WORKERS = min(8, os.cpu_count() or 1)
 INDEX_FILE = "index.json"
 COMMIT_MARKER = "COMMITTED"
 AUX_FILE = "aux.pkl"
@@ -163,6 +168,22 @@ def iter_shards(shape: Sequence[int], grid: Sequence[int]):
         slices = tuple(slice(o, o + sh)
                        for o, sh in zip(offset, shard_shape))
         yield flat_pos, offset, shard_shape, slices
+
+
+def poll_until(predicate: Callable[[], bool], what: str,
+               timeout: float = 600.0, interval: float = 0.005):
+    """The filesystem barrier of a save from several processes (commit
+    markers, the ranks' shard records): poll ``predicate`` until true,
+    raising ``TimeoutError`` naming ``what`` after ``timeout`` seconds
+    (the reference's default; it reads
+    ``PADDLE_TPU_CKPT_BARRIER_TIMEOUT``, the port no variable)."""
+    deadline = time.monotonic() + timeout
+    while not predicate():
+        if time.monotonic() > deadline:
+            raise TimeoutError(
+                f"timed out after {timeout}s waiting for {what}; "
+                f"no commit observed")
+        time.sleep(interval)
 
 
 def crc32_of(data) -> int:

@@ -14,15 +14,19 @@ Owns one checkpoint root full of ``step_N`` directories:
   ``strict`` is set.
 * ``latest_step()`` / ``all_steps()`` / ``metadata(step)``.
 * keep-last-k retention GC by commit recency after every commit, which
-  also sweeps ``.tmp`` directories of aborted saves.
+  also sweeps ``.tmp`` directories of aborted saves in a single-process
+  job (with several, another rank's save in flight looks the same).
 
-Not ported yet: ``mesh=`` (restore onto a device mesh) raises
-``NotImplementedError``.
+``restore(mesh=)`` places every tensor onto the port's process mesh
+(``reshard.place_on_mesh``); the writing topology defaults to the
+current mesh's (``distributed.get_mesh``), and a save from several
+processes writes each rank's shards (``writer.write_step``).
 """
 from __future__ import annotations
 
 import os
 import shutil
+import sys
 import time
 import warnings
 from typing import Callable, List, Optional
@@ -31,7 +35,7 @@ from .layout import (INDEX_FILE, STEP_PREFIX, TMP_SUFFIX, CheckpointError,
                      CheckpointIntegrityError, is_committed,
                      list_committed_steps, parse_step_dir, read_index,
                      step_dir_name)
-from .reshard import read_state
+from .reshard import mesh_topology, read_state
 from .writer import (AsyncCheckpointWriter, SaveFuture, ckpt_metrics,
                      snapshot, write_step)
 
@@ -40,8 +44,8 @@ __all__ = ["CheckpointManager", "load_state_dir"]
 
 class CheckpointManager:
     """``topology``: axis name -> size recorded in the manifest and used
-    to pick shard grids (default: one device, one shard per tensor).
-    ``fault_hook`` is forwarded to :func:`writer.write_step`."""
+    to pick shard grids (default: the current mesh's, ``{}`` without
+    one). ``fault_hook`` is forwarded to :func:`writer.write_step`."""
 
     def __init__(self, root: str, keep_last_k: Optional[int] = None,
                  async_: bool = True, topology: Optional[dict] = None,
@@ -52,7 +56,7 @@ class CheckpointManager:
         self.async_ = bool(async_)
         self.registry = registry
         self.fault_hook = fault_hook
-        self._topology = dict(topology or {})
+        self._topology = None if topology is None else dict(topology)
         self._writer = AsyncCheckpointWriter(registry)
         self._m = ckpt_metrics(registry)
         self.last_restored_step: Optional[int] = None
@@ -60,7 +64,10 @@ class CheckpointManager:
 
     # -- save ----------------------------------------------------------------
     def topology(self) -> dict:
-        return dict(self._topology)
+        if self._topology is not None:
+            return dict(self._topology)
+        mesh = sys.modules.get("paddle_tpu_torch.distributed.mesh")
+        return mesh_topology(mesh.get_mesh()) if mesh is not None else {}
 
     def save(self, step: int, state, async_: Optional[bool] = None,
              metadata: Optional[dict] = None,
@@ -124,7 +131,8 @@ class CheckpointManager:
     def restore(self, step: Optional[int] = None, mesh=None,
                 verify: bool = True, strict: bool = False, device=None):
         """Load a committed step (default: the latest) back into a state
-        tree, tensors on ``device``; corrupt steps fall back as the module
+        tree, tensors on ``device`` (with ``mesh``, each a ``DTensor`` of
+        this rank's block); corrupt steps fall back as the module
         docstring says."""
         steps = self.all_steps()
         if step is not None:
@@ -172,8 +180,8 @@ class CheckpointManager:
     def _gc(self):
         """Keep the newest ``keep_last_k`` committed steps by commit time;
         remove ``.tmp`` dirs older than the newest commit (aborted saves
-        of this process's serialized writer) and superseded ``.old``
-        swaps."""
+        of this process's serialized writer; in a single-process job
+        only) and superseded ``.old`` swaps."""
         try:
             names = os.listdir(self.root)
         except FileNotFoundError:
@@ -193,8 +201,11 @@ class CheckpointManager:
             by_recency = sorted(committed, key=commit_time)
             doomed = [os.path.join(self.root, step_dir_name(s))
                       for s in by_recency[:-self.keep_last_k]]
+        from .writer import _process_group
+        single_process = _process_group()[1] == 1
         for name in names:
-            if name.startswith(STEP_PREFIX) and name.endswith(TMP_SUFFIX):
+            if single_process and name.startswith(STEP_PREFIX) and \
+                    name.endswith(TMP_SUFFIX):
                 try:
                     s = int(name[len(STEP_PREFIX):-len(TMP_SUFFIX)])
                 except ValueError:

@@ -16,33 +16,48 @@ Save path (``CheckpointManager.save`` drives it):
    only, never a CUDA tensor.
 2. **Write** (one background thread, FIFO, for async saves): shards go
    into ``step_N.tmp/`` as fsynced raw C-order files with their crc32,
-   then ``index.json``, the ``COMMITTED`` marker, and the rename to
-   ``step_N``, which is the atomic publish.
+   each process writing the shards it owns (``owner = flat_pos %
+   process_count``, reference :149-290); rank 0 writes the skeleton,
+   merges every rank's shard records into ``index.json``, writes the
+   ``COMMITTED`` marker and renames the directory to ``step_N``, the
+   atomic publish.
+3. With several processes, every rank publishes its records as
+   ``shards.rank<r>.json`` (tmp + rename), and rank 0 commits only after
+   every other rank has; the other ranks return once rank 0's fresh commit
+   appears (its ``index.json`` differs from any earlier commit of the
+   step id). This is a filesystem barrier, no collective: it runs in the
+   writer thread while the main thread's collectives go on.
+   ``process_index`` and ``process_count`` default to the process
+   group's rank and size.
 
-The port writes from one process: every shard is owned by rank 0.
-``ckpt_*`` families (save and blocking seconds, bytes, in-flight,
-last committed step, failures) go into the port's metrics registry.
-
-A commit is a ``ckpt`` event of the flight recorder
-(``commit:step_<n>``, with its bytes). Not ported yet: saves from more
-than one process (``process_count > 1`` raises).
+A ``DTensor`` leaf is gathered whole at the snapshot (``full_tensor``,
+a collective every rank makes in the same order) and saved as the
+reference saves a sharded array: the logical tensor, cut by the shard
+grid. ``ckpt_*`` families (save and blocking seconds, bytes, in-flight,
+last committed step, failures) go into the port's metrics registry. A
+commit is a ``ckpt`` event of the flight recorder (``commit:step_<n>``,
+with its bytes).
 """
 from __future__ import annotations
 
+import json
 import os
 import queue
 import shutil
 import threading
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from .layout import (AUX_FILE, COMMIT_MARKER, FORMAT_VERSION, TMP_SUFFIX,
-                     CheckpointError, crc32_of, dtype_name, dumps_skeleton,
-                     flatten_state, iter_shards, plan_grid, step_dir_name,
+from .layout import (AUX_FILE, COMMIT_MARKER, FORMAT_VERSION, INDEX_FILE,
+                     IO_WORKERS, TMP_SUFFIX, CheckpointError, crc32_of,
+                     dtype_name,
+                     dumps_skeleton, flatten_state, is_committed,
+                     iter_shards, plan_grid, poll_until, step_dir_name,
                      write_index)
 
 __all__ = ["Snapshot", "snapshot", "SaveFuture", "write_step",
@@ -81,6 +96,8 @@ def _host_copy(value):
     if isinstance(value, np.ndarray):
         return np.array(value, copy=True), False
     t = value.detach()
+    if hasattr(t, "full_tensor"):  # a DTensor: the logical tensor
+        t = t.full_tensor()
     if t.is_cuda:
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         host.copy_(t, non_blocking=True)
@@ -125,6 +142,12 @@ def snapshot(state) -> Snapshot:
     skel = dumps_skeleton(skeleton)
     return Snapshot(skel, tensors, nbytes + len(skel),
                     time.perf_counter() - t0, event)
+
+
+def _dtype_of(arr) -> str:
+    """The manifest's dtype name of a host leaf."""
+    return str(arr.dtype) if isinstance(arr, np.ndarray) else \
+        dtype_name(arr.dtype)
 
 
 def _raw(arr):
@@ -183,10 +206,28 @@ def _fsync_dir(path: str):
         os.close(fd)
 
 
+def _process_group() -> tuple:
+    """(rank, size) of the process group, (0, 1) without one."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _rank_shards_file(rank: int) -> str:
+    """A rank's records file, named by the job's attempt, so a relaunch
+    never reads a killed attempt's residue in a reused ``step_N.tmp``."""
+    from paddle_tpu_torch.distributed.env import job_namespace
+    ns = job_namespace()
+    return f"shards.rank{rank}.json" if ns == "0" else \
+        f"shards.rank{rank}.e{ns}.json"
+
+
 def write_step(root: str, step: int, snap: Snapshot, *,
                topology: Optional[dict] = None,
                metadata: Optional[dict] = None,
-               process_index: int = 0, process_count: int = 1,
+               process_index: Optional[int] = None,
+               process_count: Optional[int] = None,
                fault_hook: Optional[Callable[[str], None]] = None,
                overwrite: bool = False,
                registry=None) -> str:
@@ -195,58 +236,107 @@ def write_step(root: str, step: int, snap: Snapshot, *,
     ``fault_hook(phase)`` is the crash-injection seam: it runs at
     ``"after_shards"`` and ``"before_commit"``, and raising from it
     leaves only the ``.tmp`` directory, as a kill there would."""
-    if process_count != 1 or process_index != 0:
-        raise NotImplementedError(
-            "checkpoint saves from more than one process are not ported "
-            "to paddle_tpu_torch yet")
+    if process_index is None or process_count is None:
+        process_index, process_count = _process_group()
     topology = dict(topology or {})
     nshards = 1
     for v in topology.values():
         nshards *= int(v)
+    nshards = max(nshards, process_count, 1)
 
     final_dir = os.path.join(root, step_dir_name(step))
     tmp_dir = final_dir + TMP_SUFFIX
     if os.path.isdir(final_dir) and not overwrite:
         raise CheckpointError(
             f"step {step} already committed at {final_dir!r}")
-    if os.path.isdir(tmp_dir):
-        shutil.rmtree(tmp_dir)  # residue of a crashed save of this step
-    os.makedirs(tmp_dir)
+    if process_count == 1 and os.path.isdir(tmp_dir):
+        # residue of a crashed save of this step; with several processes
+        # no rank may remove a directory the others are writing into
+        shutil.rmtree(tmp_dir)
+    os.makedirs(tmp_dir, exist_ok=True)
     snap.wait()
 
     entries: Dict[str, dict] = {}
-    written = 0
+    owned = []  # (record, host leaf, slices or None for the whole leaf)
     for key in sorted(snap.tensors):
         arr, ref = snap.tensors[key]
         shape = list(arr.shape)
-        dt, flat = _raw(arr)
         grid = plan_grid(shape, nshards)
-        entry = {"shape": shape, "dtype": dt, "grid": grid,
+        entry = {"shape": shape, "dtype": _dtype_of(arr), "grid": grid,
                  "kind": ref.kind, "shards": []}
         for flat_pos, offset, shard_shape, slices in iter_shards(shape,
                                                                  grid):
-            fname = f"{key}_s{flat_pos:03d}.bin"
-            data = flat if grid == [1] * len(shape) else _raw(
-                arr[slices])[1]
-            rec = {"file": fname, "offset": offset, "shape": shard_shape,
-                   "owner": 0, "crc32": crc32_of(data),
-                   "nbytes": int(data.nbytes)}
-            _fsync_file(os.path.join(tmp_dir, fname), data)
-            written += int(data.nbytes)
+            owner = flat_pos % process_count
+            rec = {"file": f"{key}_s{flat_pos:03d}.bin", "offset": offset,
+                   "shape": shard_shape, "owner": owner}
+            if owner == process_index:
+                owned.append((rec, arr, None if grid == [1] * len(shape)
+                              else slices))
             entry["shards"].append(rec)
         entries[key] = entry
 
-    aux_crc = crc32_of(snap.skeleton_bytes)
-    _fsync_file(os.path.join(tmp_dir, AUX_FILE), snap.skeleton_bytes)
-    written += len(snap.skeleton_bytes)
+    def write_shard(job) -> int:
+        rec, arr, slices = job
+        data = _raw(arr if slices is None else arr[slices])[1]
+        rec["crc32"] = crc32_of(data)
+        rec["nbytes"] = int(data.nbytes)
+        _fsync_file(os.path.join(tmp_dir, rec["file"]), data)
+        return int(data.nbytes)
+
+    with ThreadPoolExecutor(IO_WORKERS) as pool:
+        written = sum(pool.map(write_shard, owned))
+
+    if process_index == 0:
+        aux_crc = crc32_of(snap.skeleton_bytes)
+        _fsync_file(os.path.join(tmp_dir, AUX_FILE), snap.skeleton_bytes)
+        written += len(snap.skeleton_bytes)
     _fsync_dir(tmp_dir)
     if fault_hook is not None:
         fault_hook("after_shards")
     m = ckpt_metrics(registry)
     m["bytes"].inc(written, direction="write")
 
+    # the identity of an earlier commit of this step id, taken before
+    # this rank publishes its records (so before rank 0 can commit):
+    # the barrier below tells that stale commit from rank 0's fresh one
+    def commit_token():
+        try:
+            st = os.stat(os.path.join(final_dir, INDEX_FILE))
+            return (st.st_ino, st.st_mtime_ns)
+        except OSError:
+            return None
+    stale_token = commit_token()
+
+    if process_count > 1:
+        # every rank publishes its records (rank 0's stays in the step
+        # directory, as the reference's does)
+        rf = os.path.join(tmp_dir, _rank_shards_file(process_index))
+        _fsync_file(rf + ".tmp", json.dumps(entries).encode())
+        os.replace(rf + ".tmp", rf)  # published whole, never torn
+    if process_index != 0:
+        poll_until(lambda: is_committed(final_dir) and
+                   commit_token() != stale_token,
+                   what=f"rank 0's commit of step {step} "
+                        f"(rank {process_index} barrier)")
+        return final_dir
+
+    # -- rank 0: merge the ranks' records, write the manifest, commit ------
+    for r in range(1, process_count):
+        path = os.path.join(tmp_dir, _rank_shards_file(r))
+        poll_until(lambda: os.path.exists(path),
+                   what=f"rank {r}'s shard records for step {step}")
+        with open(path) as f:
+            theirs = json.load(f)
+        for key, entry in theirs.items():
+            mine = entries[key]["shards"]
+            for pos, rec in enumerate(entry["shards"]):
+                if rec.get("owner") == r:
+                    mine[pos] = rec
+        os.unlink(path)
+
     doc = {"format_version": FORMAT_VERSION, "step": int(step),
-           "world_size": 1, "topology": topology, "tensors": entries,
+           "world_size": process_count, "topology": topology,
+           "tensors": entries,
            "aux": {"file": AUX_FILE, "crc32": aux_crc,
                    "nbytes": len(snap.skeleton_bytes)},
            "metadata": dict(metadata or {})}

@@ -24,8 +24,9 @@ that epoch's tail batch. Batches are numpy dicts (``pack=True``) or the
 ``device_prefetch``.
 
 Each delivered batch is a ``data`` event of the flight recorder
-(``commit:step_<n>@epoch_<e>``) while it is on. Not ported yet:
-``sharding=`` (placement onto a mesh) raises ``NotImplementedError``.
+(``commit:step_<n>@epoch_<e>``) while it is on. With ``device_prefetch``
+``sharding=`` (``"auto"`` or a ``NamedSharding``) places each batch onto
+the process mesh, each rank keeping its block (``prefetch.py``).
 """
 from __future__ import annotations
 
@@ -67,10 +68,6 @@ class DataPipeline:
         """``device`` is where ``device_prefetch`` puts the batches:
         ``None`` is the CUDA card (raising where there is none), or pass
         ``device="cpu"``."""
-        if sharding is not None:
-            raise NotImplementedError(
-                "DataPipeline(sharding=...) places batches onto a mesh, "
-                "which is not ported to paddle_tpu_torch yet")
         self.stream = ShardedStream(
             dataset, base_seed=base_seed, shuffle=shuffle,
             shard_index=shard_index, num_shards=num_shards,
@@ -87,6 +84,7 @@ class DataPipeline:
             self.packer = SequencePacker(seq_len, batch_size,
                                          pad_id=pad_id, registry=registry)
         self.device_prefetch = int(device_prefetch)
+        self.sharding = sharding
         self.device = None
         if self.device_prefetch > 0:
             self.device = resolve_device(device)
@@ -374,6 +372,7 @@ class DataPipeline:
             from .prefetch import prefetch_pairs
             pairs = prefetch_pairs(pairs, depth=self.device_prefetch,
                                    device=self.device,
+                                   sharding=self.sharding,
                                    registry=self._registry)
         from paddle_tpu_torch.observability import flight_recorder
         for state, batch in pairs:

@@ -7,9 +7,10 @@ default mesh (a ``DeviceMesh`` with the reference's axis names), and
 the collectives, placements, data parallelism, ZeRO and the
 tensor-parallel layers act across processes. The reference's names are
 exported (``paddle_tpu/distributed/__init__.py:8-43``) except those of
-the modules later slices port: ``launch`` (and elastic), the
-``auto_parallel`` engine (``Engine``, ``Strategy``), ``rpc`` and ``ps``.
-``auto_parallel`` itself holds the checkpoint converters.
+the modules later slices port: the ``auto_parallel`` engine
+(``Engine``, ``Strategy``), ``rpc`` and ``ps``. ``auto_parallel`` itself
+holds the checkpoint converters. ``launch`` is the launcher module
+(``python -m paddle_tpu_torch.distributed.launch``).
 """
 from .mesh import (  # noqa: F401
     init_mesh, get_mesh, set_mesh, mesh_scope, ProcessMesh,
@@ -45,10 +46,15 @@ from .compat import (  # noqa: F401
 )
 
 #: names of the reference's ``paddle.distributed`` that later slices port
-UNPORTED = ("Engine", "Strategy", "rpc", "launch")
+UNPORTED = ("Engine", "Strategy", "rpc")
 
 
 def __getattr__(name):
+    # the launcher module loads on first use, so that ``python -m
+    # paddle_tpu_torch.distributed.launch`` runs it fresh as __main__
+    if name == "launch":
+        import importlib
+        return importlib.import_module(f"{__name__}.launch")
     # the placements load torch.distributed.tensor on first use
     from . import sharding_api
     if name in sharding_api._PLACEMENTS:

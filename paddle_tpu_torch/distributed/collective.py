@@ -373,18 +373,22 @@ def _group_members(group, what: str):
 
 def _reaped_barrier(store, name: str, world: int):
     """A store barrier whose last leaver deletes its keys."""
+    from .env import job_namespace
     from .tcp_store import barrier_via_store
     barrier_via_store(store, name, world)
-    if store.add(f"__barrier/{name}/left", 1) == world:
-        store.delete_prefix(f"__barrier/{name}")
+    key = f"__barrier/{job_namespace()}/{name}"
+    if store.add(f"{key}/left", 1) == world:
+        store.delete_prefix(key)
 
 
 def _obj_key(kind: str, tag: str = "w") -> str:
     """A per-call store namespace: members call a group's collectives in
-    the same order, so a per-(kind, group) counter agrees across them."""
+    the same order, so a per-(kind, group) counter agrees across them;
+    the attempt's namespace keeps a dead attempt's keys out."""
+    from .env import job_namespace
     seq = _obj_seq.get((kind, tag), 0)
     _obj_seq[(kind, tag)] = seq + 1
-    return f"__objcol/{tag}/{kind}{seq}"
+    return f"__objcol/{job_namespace()}/{tag}/{kind}{seq}"
 
 
 def all_gather_object(object_list, obj, group=None):

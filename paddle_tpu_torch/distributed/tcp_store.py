@@ -13,8 +13,11 @@ starts it on rank 0 of a world of more than one process and hands its
 address to every rank through the process group, so the object
 collectives (``all_gather_object``, ``broadcast_object_list``,
 ``scatter_object_list``) and :func:`barrier_via_store` need no launcher.
-The reference's ``PADDLE_MASTER``/``PADDLE_STORE_PORT`` variables and its
-elastic restart epoch come with the launcher's slice and are not read.
+Under the launcher (``distributed.launch``) the store is the launcher's,
+and every rank joins it as a client (``env.init_parallel_env``). A
+barrier's keys are namespaced by the attempt (``env.job_namespace``: the
+restart epoch and the resize generation), so a relaunched attempt never
+passes a dead attempt's barrier (reference :249-260).
 """
 from __future__ import annotations
 
@@ -255,19 +258,21 @@ class TCPStore:
 
 def barrier_via_store(store: TCPStore, name: str, world_size: int) -> None:
     """Everyone increments a counter, then waits for the last arrival's
-    done key (the reference's init barrier, :268-281)."""
-    arrived = store.add(f"__barrier/{name}", 1)
+    done key, under this attempt's namespace (reference :249-260)."""
+    from .env import job_namespace
+    key = f"__barrier/{job_namespace()}/{name}"
+    arrived = store.add(key, 1)
     if arrived == world_size:
-        store.set(f"__barrier/{name}/done", b"1")
-    store.wait(f"__barrier/{name}/done")
+        store.set(f"{key}/done", b"1")
+    store.wait(f"{key}/done")
 
 
 _job = {"store": None}
 
 
 def job_store() -> TCPStore:
-    """The job's store, which ``init_parallel_env`` starts for a world of
-    more than one process; raises before that."""
+    """The job's store: the launcher's, or the one ``init_parallel_env``
+    starts for a world of more than one process; raises before that."""
     if _job["store"] is None:
         raise RuntimeError(
             "no job store: call paddle.distributed.init_parallel_env() "

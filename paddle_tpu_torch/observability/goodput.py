@@ -32,15 +32,19 @@ rule stands where the reference times its first trace
 
 The reference reads ``PADDLE_TPU_GOODPUT_DIR``,
 ``PADDLE_TPU_GOODPUT_DOWN_AT``, ``PADDLE_TPU_GOODPUT_RESIZE_AT`` and
-``PADDLE_TRAINER_ID``; the port reads none: :func:`configure` sets the
-snapshot directory, the constructor takes ``down_at``/``resize_at``, and
-the rank is ``fleet.rank()``. ``clock``/``wall_clock`` are the seams
+``PADDLE_TRAINER_ID``; the port reads none here: :func:`configure` sets
+the snapshot directory, the constructor takes ``down_at``/``resize_at``
+(the process ledger takes the launcher's stamps from the launched job
+that ``distributed.init_parallel_env`` joined, so a relaunch after a
+crash bins its gap as ``restart`` and one after a resize as
+``reshard``), and the rank is ``fleet.rank()``. ``clock``/``wall_clock`` are the seams
 through which a test injects time.
 """
 from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -283,7 +287,10 @@ def get_ledger() -> GoodputLedger:
     then: at the top of the first fit loop, not at import)."""
     global _ledger
     if _ledger is None:
-        _ledger = GoodputLedger()
+        env = sys.modules.get("paddle_tpu_torch.distributed.env")
+        job = env.launched_job() if env is not None else None
+        _ledger = GoodputLedger() if job is None else GoodputLedger(
+            down_at=job.down_at, resize_at=job.resize_at)
     return _ledger
 
 

@@ -8,7 +8,7 @@ import torch
 
 from paddle_tpu_torch.core.generator import draw_generator
 from paddle_tpu_torch.core.tensor import unwrap, wrap
-from ._common import LONG, as_t
+from ._common import LONG, as_t, floatify
 from ._registry import dispatch, op
 
 __all__ = [
@@ -66,12 +66,12 @@ def polygamma(x, n=1):
 @op
 def igamma(x, a):
     # Paddle/torch: igamma is the lower regularised P(x, a), igammac Q
-    return torch.igamma(x, as_t(a, x))
+    return torch.igamma(floatify(x), floatify(as_t(a, x)))
 
 
 @op
 def igammac(x, a):
-    return torch.igammac(x, as_t(a, x))
+    return torch.igammac(floatify(x), floatify(as_t(a, x)))
 
 
 @op
@@ -106,12 +106,13 @@ def label_smooth(label, prior_dist=None, epsilon=0.1):
 
 @op
 def polar(abs, angle):
+    abs = floatify(abs)
     return torch.polar(abs, angle.to(abs.dtype))
 
 
 @op
 def matrix_exp(x):
-    return torch.linalg.matrix_exp(x)
+    return torch.linalg.matrix_exp(floatify(x))
 
 
 @op
@@ -133,7 +134,7 @@ def householder_product(x, tau):
 
 @op
 def pdist(x, p=2.0):
-    return torch.pdist(x, p)
+    return torch.pdist(floatify(x), p)
 
 
 @op

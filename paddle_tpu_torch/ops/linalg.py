@@ -10,7 +10,7 @@ import math
 
 import torch
 
-from ._common import LONG
+from ._common import LONG, floatify
 from ._registry import op
 
 __all__ = [
@@ -138,23 +138,23 @@ def bincount(x, weights=None, minlength=0):
 # -- decompositions / solvers --------------------------------------------------
 @op
 def cholesky(x, upper=False):
-    return torch.linalg.cholesky(x, upper=upper)
+    return torch.linalg.cholesky(floatify(x), upper=upper)
 
 
 @op
 def cholesky_solve(x, y, upper=False):
-    return torch.cholesky_solve(x, y, upper=upper)
+    return torch.cholesky_solve(floatify(x), floatify(y), upper=upper)
 
 
 @op
 def qr(x, mode="reduced"):
-    q, r = torch.linalg.qr(x, mode=mode)
+    q, r = torch.linalg.qr(floatify(x), mode=mode)
     return q, r
 
 
 @op
 def svd(x, full_matrices=False):
-    u, s, vh = torch.linalg.svd(x, full_matrices=full_matrices)
+    u, s, vh = torch.linalg.svd(floatify(x), full_matrices=full_matrices)
     return u, s, vh
 
 
@@ -166,7 +166,7 @@ def eig(x):
 
 @op
 def eigh(x, UPLO="L"):
-    w, v = torch.linalg.eigh(x, UPLO=UPLO)
+    w, v = torch.linalg.eigh(floatify(x), UPLO=UPLO)
     return w, v
 
 
@@ -177,42 +177,43 @@ def eigvals(x):
 
 @op
 def eigvalsh(x, UPLO="L"):
-    return torch.linalg.eigvalsh(x, UPLO=UPLO)
+    return torch.linalg.eigvalsh(floatify(x), UPLO=UPLO)
 
 
 @op
 def matrix_rank(x, tol=None, hermitian=False):
-    return torch.linalg.matrix_rank(x, rtol=tol, hermitian=hermitian).to(LONG)
+    return torch.linalg.matrix_rank(floatify(x), rtol=tol, hermitian=hermitian).to(LONG)
 
 
 @op
 def det(x):
-    return torch.linalg.det(x)
+    return torch.linalg.det(floatify(x))
 
 
 @op
 def slogdet(x):
-    sign, logdet = torch.linalg.slogdet(x)
+    sign, logdet = torch.linalg.slogdet(floatify(x))
     return torch.stack([sign, logdet])
 
 
 @op
 def inverse(x):
-    return torch.linalg.inv(x)
+    return torch.linalg.inv(floatify(x))
 
 
 @op
 def pinv(x, rcond=1e-15, hermitian=False):
-    return torch.linalg.pinv(x, rtol=rcond, hermitian=hermitian)
+    return torch.linalg.pinv(floatify(x), rtol=rcond, hermitian=hermitian)
 
 
 @op
 def solve(x, y):
-    return torch.linalg.solve(x, y)
+    return torch.linalg.solve(floatify(x), floatify(y))
 
 
 @op
 def triangular_solve(x, y, upper=True, transpose=False, unitriangular=False):
+    x, y = floatify(x), floatify(y)
     if transpose:
         x, upper = x.transpose(-1, -2), not upper
     return torch.linalg.solve_triangular(x, y, upper=upper,
@@ -224,6 +225,7 @@ def lstsq(x, y, rcond=None):
     """``(solution, residuals, rank, singular values)``; on the card only
     the QR solver (``gels``) exists, which gives no rank or singular
     values."""
+    x, y = floatify(x), floatify(y)
     solver = "gelsd" if x.device.type == "cpu" else "gels"
     sol, res, rank, sv = torch.linalg.lstsq(x, y, rcond=rcond, driver=solver)
     return sol, res, rank, sv
@@ -241,7 +243,7 @@ def multi_dot(xs):
 
 @op
 def lu(x, pivot=True):
-    lu_, piv = torch.linalg.lu_factor(x, pivot=pivot)
+    lu_, piv = torch.linalg.lu_factor(floatify(x), pivot=pivot)
     return lu_, piv.to(torch.int32)  # 1-based, as Paddle's
 
 

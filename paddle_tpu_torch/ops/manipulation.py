@@ -454,6 +454,10 @@ def as_real(x):
 
 @op
 def as_complex(x):
+    if x.dtype in (torch.float16, torch.bfloat16):
+        # as the reference's lax.complex refuses them
+        raise TypeError(f"as_complex takes float32 or float64 pairs, not "
+                        f"{x.dtype}")
     return torch.complex(x[..., 0], x[..., 1])
 
 

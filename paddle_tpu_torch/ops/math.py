@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from ._common import as_t, pair
+from ._common import as_t, floatify, pair
 from ._registry import op
 
 __all__ = [
@@ -96,7 +96,7 @@ def atan2(x, y):
 
 @op
 def hypot(x, y):
-    return torch.hypot(*pair(x, y))
+    return torch.hypot(*map(floatify, pair(x, y)))
 
 
 @op
@@ -114,7 +114,7 @@ def lerp(x, y, weight):
 # -- unary ---------------------------------------------------------------------
 @op
 def abs(x):
-    return torch.abs(x)
+    return x.clone() if x.dtype == torch.bool else torch.abs(x)
 
 
 @op
@@ -179,12 +179,12 @@ def sign(x):
 
 @op
 def floor(x):
-    return torch.floor(x)
+    return x.clone() if x.dtype == torch.bool else torch.floor(x)
 
 
 @op
 def ceil(x):
-    return torch.ceil(x)
+    return x.clone() if x.dtype == torch.bool else torch.ceil(x)
 
 
 @op
@@ -194,7 +194,7 @@ def round(x):
 
 @op
 def trunc(x):
-    return torch.trunc(x)
+    return x.clone() if x.dtype == torch.bool else torch.trunc(x)
 
 
 @op
@@ -293,6 +293,8 @@ def clip(x, min=None, max=None):
 
 @op
 def digamma(x):
+    # the poles: torch gives -inf at 0, jax.scipy (the reference) nan at
+    # every non-positive integer; the port keeps torch's -inf at 0
     return torch.digamma(x)
 
 
@@ -328,16 +330,23 @@ def _flat_axis(x, axis):
     return x, int(axis)
 
 
+def _scan_dtype(x):
+    """torch widens integer scans to int64; the reference's jnp scans keep
+    the input's integer dtype (and wrap as it does)."""
+    return x.dtype if not (x.is_floating_point() or x.is_complex() or
+                           x.dtype == torch.bool) else None
+
+
 @op
 def cumsum(x, axis=None):
     x, axis = _flat_axis(x, axis)
-    return torch.cumsum(x, axis)
+    return torch.cumsum(x, axis, dtype=_scan_dtype(x))
 
 
 @op
 def cumprod(x, dim=None):
     x, dim = _flat_axis(x, dim)
-    return torch.cumprod(x, dim)
+    return torch.cumprod(x, dim, dtype=_scan_dtype(x))
 
 
 @op
@@ -491,6 +500,8 @@ def nan_to_num(x, nan=0.0, posinf=None, neginf=None):
 
 @op
 def heaviside(x, y):
+    # integer inputs keep their dtype (Paddle's), where the reference
+    # promotes to float32 (ROADMAP §3)
     x, y = pair(x, y)
     return torch.heaviside(x, y.to(x.dtype))
 
@@ -507,7 +518,7 @@ def lcm(x, y):
 
 @op
 def logaddexp(x, y):
-    return torch.logaddexp(*pair(x, y))
+    return torch.logaddexp(*map(floatify, pair(x, y)))
 
 
 @op

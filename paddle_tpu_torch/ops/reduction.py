@@ -121,6 +121,8 @@ def logsumexp(x, axis=None, keepdim=False):
 
 
 def _arg(fn, x, axis, keepdim, dtype):
+    if x.dtype == torch.bool:  # torch refuses bool; jnp orders False < True
+        x = x.to(torch.uint8)
     if axis is None:
         out = fn(x.reshape(-1))
         if keepdim:

@@ -26,13 +26,20 @@ One callback that composes the resilience pieces around ``Model.fit``:
 * **chaos** — ``on_train_begin`` re-applies ``resilience.chaos``'s
   configuration (its collective hang hook).
 
+* **elastic** — with ``elastic=True`` (or an ``elastic_listener``), an
+  :class:`~.elastic.ElasticResizeListener` is polled after each step;
+  at the agreed boundary ``fit`` returns with no checkpoint
+  (``resized``, ``resize_target``). :meth:`complete_resize` then runs
+  ``elastic.perform_resize`` over the job's store: a departing rank
+  exits ``RESIZE_EXIT_CODE`` (83), a survivor takes the exchanged
+  model, optimizer and data state, joins the new world's process group
+  and returns the new world size, for the caller to rebuild its
+  ``TrainStep`` and fit on.
+
 The state commits under the reference's keys (``"model"``,
 ``"optimizer"``, ``"data"``, ``"numerics"``; metadata
 ``global_step``), so a run of either package resumes from the other's
 checkpoint.
-
-Not ported yet, raising ``NotImplementedError``: ``elastic=`` (live
-resharding).
 """
 from __future__ import annotations
 
@@ -63,9 +70,6 @@ class FitResilience(Callback):
         """``pipeline``: a ``DataPipeline`` (or anything with
         ``state_dict``/``load_state_dict``) whose state commits under
         ``"data"`` in every save and is restored by :meth:`restore`."""
-        if elastic or elastic_listener is not None:
-            raise NotImplementedError(
-                "elastic resharding is not ported to paddle_tpu_torch yet")
         if manager is None and checkpoint_dir is not None:
             from paddle_tpu_torch.checkpoint import CheckpointManager
             manager = CheckpointManager(checkpoint_dir,
@@ -88,7 +92,12 @@ class FitResilience(Callback):
                                       registry=registry)
         self._registry = registry
         self.pipeline = pipeline
+        self._want_elastic = elastic
+        self.elastic_listener = elastic_listener
         self.preempted = False
+        self.resized = False
+        self.resize_target: Optional[int] = None
+        self.resize_boundary_step: Optional[int] = None
         self.final_step: Optional[int] = None
         self._step0 = 0          # global-step offset after a resume
         self._cur_step = 0
@@ -134,6 +143,9 @@ class FitResilience(Callback):
             chaos.refresh()
         if self._want_preemption and self.listener is None:
             self.listener = PreemptionListener(registry=self._registry)
+        if self._want_elastic and self.elastic_listener is None:
+            from .elastic import ElasticResizeListener
+            self.elastic_listener = ElasticResizeListener()
         if self.listener is not None and not self._installed_listener:
             self.listener.install()
             self._installed_listener = True
@@ -168,6 +180,10 @@ class FitResilience(Callback):
         if self.listener is not None and not self.preempted and \
                 self.listener.should_stop(step=gs):
             self._final_save(gs)
+        if self.elastic_listener is not None and not self.preempted and \
+                not self.resized and \
+                self.elastic_listener.should_resize(step=gs):
+            self._resize_stop(gs)
 
     def on_train_end(self, logs=None):
         if self.manager is not None:
@@ -206,6 +222,50 @@ class FitResilience(Callback):
                 metadata={"global_step": gs, "preempted": True,
                           "reason": getattr(self.listener, "reason", None)})
         self.model._stop_training = True
+
+    def _resize_stop(self, gs: int):
+        """The elastic boundary: leave ``fit`` with no checkpoint; the
+        state stays in memory for :meth:`complete_resize`."""
+        self.resized = True
+        self.resize_target = self.elastic_listener.target_world
+        self.resize_boundary_step = gs
+        from paddle_tpu_torch.observability import trace
+        trace.mark("elastic", "resize_boundary",
+                   args={"step": gs, "target": self.resize_target,
+                         "reason": self.elastic_listener.reason})
+        self.model._stop_training = True
+
+    def complete_resize(self) -> int:
+        """After ``fit`` stopped at a resize boundary: exchange the state
+        over the job's store, exit :data:`~.elastic.RESIZE_EXIT_CODE` on
+        a departing rank, and on a survivor apply the exchanged model,
+        optimizer and data state, re-arm the listener and return the new
+        world size (the process group is the new world's, its default
+        mesh every rank on ``dp``)."""
+        from paddle_tpu_torch.distributed import get_rank, get_world_size
+        from paddle_tpu_torch.distributed.tcp_store import job_store
+        from .elastic import RESIZE_EXIT_CODE, perform_resize
+        if not self.resized:
+            raise RuntimeError("complete_resize: fit did not stop at a "
+                               "resize boundary")
+        state = self._state()
+        data = state.pop("data", None)
+        new_state, new_data = perform_resize(
+            job_store(), state=state, data_state=data,
+            world=get_world_size(), rank=get_rank(),
+            new_world=self.resize_target,
+            generation=self.elastic_listener.generation,
+            boundary_step=self.resize_boundary_step,
+            device=self.model._device())
+        if new_state is None:
+            sys.exit(RESIZE_EXIT_CODE)
+        apply_restored_state(self.model, new_state)
+        if self.pipeline is not None and new_data is not None:
+            self.pipeline.load_state_dict(new_data)
+        self._step0 = self.resize_boundary_step
+        self.elastic_listener.reset()
+        self.resized = False
+        return int(self.resize_target)
 
     @property
     def exit_code(self) -> int:

@@ -7,15 +7,22 @@ finishes the step in flight, ``FitResilience`` takes one final blocking
 save and ``fit`` returns), and the maintenance-notice seam — the file
 named by ``PADDLE_TPU_PREEMPTION_FILE`` existing, or
 ``PADDLE_TPU_PREEMPTION_NOTICE`` set — polled at each step boundary.
-:data:`RESUMABLE_EXIT_CODE` (79) is the contract with a launcher: the
-trainer was preempted after committing a resumable checkpoint.
+:data:`RESUMABLE_EXIT_CODE` (79) is the contract with the launcher: the
+trainer was preempted after committing a resumable checkpoint, and
+``distributed.launch`` relaunches it without spending the crash budget.
+
+Across ranks the listener agrees on a *consensus stop step* over the
+job's TCPStore (reference :162-265): the first rank to see a notice wins
+an atomic claim (``store.add`` on ``__preempt/{epoch}/armed``) and
+publishes ``stop = its step + 1`` under :func:`preempt_stop_key`; every
+rank keeps stepping until its own step reaches it, so all of them take
+the final save at the same step. Every store call happens in
+``should_stop``, never in the signal handler. ``use_store=None`` uses
+the store when ``init_parallel_env`` joined a launched job
+(``distributed.env.launched_job``); the epoch is that job's restart
+epoch.
 
 The listener does not chain SIGTERM to a handler installed before it.
-
-Not ported yet: the job-store consensus stop step across ranks
-(``use_store=True``, or ``PADDLE_MASTER`` in the environment, raises
-``NotImplementedError``); one process stops at the step boundary where
-it sees the notice.
 """
 from __future__ import annotations
 
@@ -26,7 +33,8 @@ import threading
 import time
 from typing import Optional
 
-__all__ = ["RESUMABLE_EXIT_CODE", "PreemptionListener"]
+__all__ = ["RESUMABLE_EXIT_CODE", "PreemptionListener",
+           "preempt_stop_key"]
 
 #: Exit status meaning "preempted, checkpoint committed, restart me from
 #: latest_step". 79 sits just past the sysexits.h range (64-78) and far
@@ -34,8 +42,29 @@ __all__ = ["RESUMABLE_EXIT_CODE", "PreemptionListener"]
 #: can never be confused with a crash.
 RESUMABLE_EXIT_CODE = 79
 
+#: store key prefix of the consensus, namespaced by the restart epoch
+STORE_KEY = "__preempt"
+
 NOTICE_ENV = "PADDLE_TPU_PREEMPTION_NOTICE"
 NOTICE_FILE_ENV = "PADDLE_TPU_PREEMPTION_FILE"
+
+
+def _launched_job():
+    """The launched job ``init_parallel_env`` joined (None before it, or
+    when ``paddle_tpu_torch.distributed`` was never imported)."""
+    env = sys.modules.get("paddle_tpu_torch.distributed.env")
+    return env.launched_job() if env is not None else None
+
+
+def _store_key() -> str:
+    job = _launched_job()
+    return f"{STORE_KEY}/{job.epoch if job is not None else '0'}"
+
+
+def preempt_stop_key(epoch) -> str:
+    """The consensus verdict's key for ``epoch``, which the launcher
+    probes to tell a peer's preemption from a crash."""
+    return f"{STORE_KEY}/{epoch}/stop"
 
 
 class PreemptionListener:
@@ -46,8 +75,9 @@ class PreemptionListener:
     handlers install only on the main thread). ``notice_file``: the path
     whose existence is the maintenance notice (default
     ``$PADDLE_TPU_PREEMPTION_FILE``). ``check_interval``: least seconds
-    between notice polls inside ``should_stop`` (0 polls every call).
-    ``use_store`` is the reference's cross-rank consensus, not ported.
+    between notice polls inside ``should_stop`` (0 polls every call;
+    the store is read every call). ``use_store``: agree on the stop step
+    over the job's TCPStore (default: when a launched job is joined).
     """
 
     def __init__(self, signals=(signal.SIGTERM, signal.SIGUSR1),
@@ -55,11 +85,6 @@ class PreemptionListener:
                  use_store: Optional[bool] = None,
                  check_interval: float = 0.0,
                  registry=None):
-        if use_store or (use_store is None and
-                         os.environ.get("PADDLE_MASTER")):
-            raise NotImplementedError(
-                "the job-store preemption consensus (use_store, "
-                "PADDLE_MASTER) is not ported to paddle_tpu_torch yet")
         self._signals = tuple(signals)
         self._notice_file = notice_file
         self._check_interval = float(check_interval)
@@ -73,6 +98,11 @@ class PreemptionListener:
         self._prev_handlers: dict = {}
         self._installed = False
         self._last_poll = 0.0
+        self._use_store = use_store
+        self._store = None
+        self._store_failed = False
+        self._broadcast_done = False
+        self._stop_decided = False
 
     # -- lifecycle ---------------------------------------------------------
     def install(self) -> "PreemptionListener":
@@ -111,12 +141,15 @@ class PreemptionListener:
             self._note_pending = True
             self._flagged = True
 
-    def request(self, reason: str):
-        """Mark this process preempted (the programmatic seam)."""
+    def request(self, reason: str, broadcast: bool = True):
+        """Mark this process preempted (the programmatic seam); the store
+        broadcast happens at the next ``should_stop``."""
         if not self._flagged:
             self.reason = reason
             self._note_pending = True
             self._flagged = True
+        if not broadcast:
+            self._broadcast_done = True
         self._note()
 
     def _note(self):
@@ -130,6 +163,19 @@ class PreemptionListener:
         t = time.perf_counter_ns()
         fr.record(fr.KIND_USER, f"preempt:{self.reason}", t, t)
 
+    def _job_store(self):
+        if self._store is not None or self._store_failed:
+            return self._store
+        use = self._use_store
+        if use is None:
+            use = _launched_job() is not None
+        if not use:
+            self._store_failed = True
+            return None
+        from paddle_tpu_torch.distributed.tcp_store import job_store
+        self._store = job_store()  # use_store=True without a store raises
+        return self._store
+
     def _poll_notice(self):
         if os.environ.get(NOTICE_ENV, "").strip() not in ("", "0"):
             self.request("notice_env")
@@ -139,15 +185,47 @@ class PreemptionListener:
 
     # -- the step-boundary query ------------------------------------------
     def should_stop(self, step: Optional[int] = None) -> bool:
-        """Poll at a step boundary: True once a signal or a notice was
-        seen (``step`` is the caller's global step, kept for the
-        reference's signature)."""
+        """Poll at a step boundary (``step``: the caller's global step).
+        With a job store, True once the cluster's stop step is reached,
+        at the same boundary on every rank; without one (or with
+        ``step=None``) a notice seen here stops at once."""
+        if self._stop_decided:
+            return True
         self._note()
         now = time.monotonic()
         if now - self._last_poll >= self._check_interval:
             self._last_poll = now
             self._poll_notice()
-        return self._flagged
+        store = self._job_store()
+        if store is None:
+            self._stop_decided = self._flagged
+            return self._stop_decided
+        try:
+            key = _store_key()
+            if self._flagged and not self._broadcast_done:
+                # one rank (the atomic claim) publishes the stop step, one
+                # past its own, so peers still in this step see it in time
+                if int(store.add(key + "/armed", 1)) == 1:
+                    stop_at = 0 if step is None else int(step) + 1
+                    store.set(key + "/stop",
+                              f"{stop_at}:{self.reason or '?'}".encode())
+                self._broadcast_done = True
+            v = store.get(key + "/stop")
+        except (OSError, RuntimeError):
+            # a dead control plane must not kill the step: stop on what
+            # this rank saw itself
+            self._store_failed = True
+            self._stop_decided = self._flagged
+            return self._stop_decided
+        if v is None:
+            return False
+        stop_s, _, reason = v.decode(errors="replace").partition(":")
+        if not self._flagged:
+            self.request(f"store:{reason}", broadcast=False)
+        stop_at = int(stop_s)
+        if step is None or stop_at == 0 or int(step) >= stop_at:
+            self._stop_decided = True
+        return self._stop_decided
 
     @property
     def preempted(self) -> bool:

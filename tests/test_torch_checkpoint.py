@@ -199,6 +199,137 @@ def test_restore_runs_on_the_card_unless_asked(tmp_path):
         mgr.restore()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_state_dir(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # restore onto a mesh is ported: what it takes is the process mesh
+    with pytest.raises(TypeError, match="mesh"):
         mgr.restore(mesh=object(), device="cpu")
     assert os.path.isdir(mgr.step_dir(1))
+
+
+# -- saves from several processes, restore onto a mesh -------------------------
+def _launched(tmp_path, mode, nproc, *opts):
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", str(nproc),
+         os.path.join(repo, "tests", "torch_launch_worker.py"), mode,
+         str(tmp_path), *opts],
+        env=env, capture_output=True, text=True, timeout=240)
+    assert r.returncode == 0, r.stderr[-4000:]
+
+
+def _jax_two_process_save(root):
+    """The reference's ``write_step`` as two processes (two threads with
+    process_index 0 and 1 of 2, topology {"dp": 2}) on the worker's
+    state."""
+    import threading
+
+    from paddle_tpu.checkpoint.writer import snapshot, write_step
+    from torch_launch_worker import save_state
+    a = save_state()
+    state = {"model": {k: pt.to_tensor(v) for k, v in a.items()
+                       if k != "ids"},
+             "optimizer": {"h16": pt.to_tensor(a["h"]).astype("bfloat16"),
+                           "@step_count": 2},
+             "ids": a["ids"]}
+    errors = []
+
+    def rank(r):
+        try:
+            write_step(str(root), 1, snapshot(state), topology={"dp": 2},
+                       metadata={"global_step": 1}, process_index=r,
+                       process_count=2)
+        except Exception as e:  # surfaces below
+            errors.append(e)
+    threads = [threading.Thread(target=rank, args=(r,)) for r in (1, 0)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert not errors and not any(t.is_alive() for t in threads)
+
+
+@pytest.fixture(scope="module")
+def two_process_steps(tmp_path_factory):
+    port = tmp_path_factory.mktemp("port_two")
+    _launched(port, "save", 2)
+    ref = tmp_path_factory.mktemp("jax_two")
+    _jax_two_process_save(ref)
+    return port / "ckpt", ref
+
+
+def _check_saved(state):
+    from torch_launch_worker import save_state
+    a = save_state()
+    for k in ("w", "v", "h"):
+        assert _bits(state["model"][k]) == ("float32", a[k].tobytes())
+    h16 = torch.from_numpy(a["h"]).to(torch.bfloat16)
+    assert _bits(state["optimizer"]["h16"]) == _bits(h16)
+    assert state["optimizer"]["@step_count"] == 2
+    assert state["ids"].tobytes() == a["ids"].tobytes()
+
+
+def test_a_step_saved_by_two_port_ranks_restores_in_the_reference(
+        two_process_steps):
+    """Two gloo ranks under the launcher each wrote their shards (owner =
+    flat position % 2) and rank 0 committed: the JAX package restores it
+    bit for bit, and its manifest (world size, topology, grids, shard
+    owners and crc32s) is the reference's own two-process save's."""
+    port, ref = two_process_steps
+    _check_saved(JManager(str(port)).restore())
+    mine = json.loads((port / "step_1" / "index.json").read_text())
+    theirs = json.loads((ref / "step_1" / "index.json").read_text())
+    assert mine == theirs
+    assert mine["world_size"] == 2 and mine["topology"] == {"dp": 2}
+    owners = [[s["owner"] for s in e["shards"]]
+              for e in mine["tensors"].values()]
+    assert [0, 1] in owners and [0] in owners
+    assert sorted(os.listdir(port / "step_1")) == \
+        sorted(os.listdir(ref / "step_1"))
+
+
+def test_a_step_the_reference_wrote_from_two_processes_restores(
+        two_process_steps):
+    _, ref = two_process_steps
+    _check_saved(CheckpointManager(str(ref)).restore(device="cpu"))
+
+
+PLACE_SHAPES = {"rows8": (8, 6), "cols8": (6, 8), "six": (6,),
+                "five": (5,), "pair": (2, 3)}
+
+
+def test_restore_onto_a_mesh_keeps_the_references_block(tmp_path):
+    """Four gloo ranks on a {"dp": 2, "mp": 2} mesh restore one step with
+    ``mesh=``: each tensor is a DTensor whose spec is the reference's
+    ``_partition_spec`` (the largest dim that divides, over as many axes
+    as divide it) and whose local block is the shard the reference's
+    ``place_on_mesh`` puts on the device at the rank's coordinate."""
+    import jax
+
+    from paddle_tpu.checkpoint.reshard import _partition_spec, place_on_mesh
+    from test_torch_distributed import jax_mesh
+    rng = np.random.RandomState(3)
+    arrays = {k: rng.randn(*s).astype(np.float32)
+              for k, s in PLACE_SHAPES.items()}
+    CheckpointManager(str(tmp_path / "ckpt"), async_=False).save(
+        1, {"model": {k: torch.from_numpy(v) for k, v in arrays.items()}})
+    _launched(tmp_path, "place", 4, f"ckpt={tmp_path / 'ckpt'}")
+    ranks = [pickle.loads((tmp_path / f"place.rank{r}.pkl").read_bytes())
+             for r in range(4)]
+    jmesh = jax_mesh({"dp": 2, "mp": 2})
+    devices = list(jmesh.devices.flatten())
+    for k, a in arrays.items():
+        spec = tuple(_partition_spec(a.shape, jmesh))
+        placed = place_on_mesh(a, jmesh)
+        by_rank = {devices.index(s.device): np.asarray(s.data)
+                   for s in placed.addressable_shards}
+        for r in range(4):
+            block, got_spec, shape = ranks[r]["restored"][k]
+            assert shape == a.shape
+            assert got_spec + (None,) * (len(shape) - len(got_spec)) == \
+                spec + (None,) * (len(shape) - len(spec)), k
+            np.testing.assert_array_equal(block, by_rank[r], err_msg=k)
+    assert len(jax.devices()) >= 4

@@ -264,11 +264,20 @@ def test_prefetched_batches_are_tensors_on_the_device():
         loader, device="cpu")] == [0, 1, 2, 3, 4]
     with pytest.raises(ValueError, match="device_prefetch"):
         DevicePrefetcher(pipe, device="cpu")
-    for call in (lambda: DataPipeline(Docs(4), 2, sharding="auto"),
-                 lambda: to_device({}, device="cpu", sharding="auto"),
-                 lambda: DevicePrefetcher(loader, sharding="auto",
-                                          device="cpu")):
-        with pytest.raises(NotImplementedError, match="mesh"):
+    # sharding= is ported (test_sharding_places_each_rank_on_its_block):
+    # with no mesh, "auto" places nothing, as the reference's; a sharding
+    # that is neither "auto" nor a NamedSharding raises
+    assert [float(b[0][0]) for b in DevicePrefetcher(
+        loader, sharding="auto", device="cpu")] == [0, 1, 2, 3, 4]
+    assert to_device({"a": np.arange(2)}, device="cpu",
+                     sharding="auto")["a"].tolist() == [0, 1]
+    auto = DataPipeline(Docs(20), batch_size=2, seq_len=32, pack=True,
+                        device_prefetch=2, device="cpu", sharding="auto")
+    assert digest(next(iter(auto))) == digest(b)
+    for call in (lambda: to_device({}, device="cpu", sharding="dp"),
+                 lambda: list(DevicePrefetcher(loader, sharding=("dp",),
+                                               device="cpu"))):
+        with pytest.raises(TypeError, match="sharding"):
             call()
 
 
@@ -282,3 +291,49 @@ def test_bad_samples_spend_the_loader_budget():
     with pytest.raises(RuntimeError, match="budget exhausted"), \
             pytest.warns(RuntimeWarning):
         list(pipe)
+
+
+def test_sharding_places_each_rank_on_its_block(tmp_path):
+    """Four gloo ranks on a {"dp": 2, "mp": 2} mesh prefetch the same
+    pipeline with ``sharding="auto"`` (dim 0 over ``dp``), with dim 0
+    over both axes and with the spec ``(None, "mp")``: each rank's leaf is a DTensor holding the
+    shard that the reference's prefetch puts on the device at the rank's
+    coordinate, and a leaf the spec cannot divide (dim 1 of 3, a 1-D
+    label) is copied whole, as the reference falls back to an unsharded
+    put."""
+    import pickle
+
+    from jax.sharding import NamedSharding, PartitionSpec
+
+    from paddle_tpu.data.prefetch import to_device as jto_device
+    from test_torch_checkpoint import _launched
+    from test_torch_distributed import jax_mesh
+    from torch_launch_worker import Pairs as WPairs
+    _launched(tmp_path, "place", 4, "batches=1")
+    ranks = [pickle.loads((tmp_path / f"place.rank{r}.pkl").read_bytes())
+             for r in range(4)]
+    jmesh = jax_mesh({"dp": 2, "mp": 2})
+    devices = list(jmesh.devices.flatten())
+    want = [b for b in JPipe(WPairs(), batch_size=4)]
+    specs = {"auto": PartitionSpec("dp"),
+             "dpmp": PartitionSpec(("dp", "mp")),
+             "mp": PartitionSpec(None, "mp")}
+    import warnings
+    for name, spec in specs.items():
+        assert len(ranks[0]["batches"][name]) == len(want) == 4
+        for i, batch in enumerate(want):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                placed = jto_device(batch, NamedSharding(jmesh, spec))
+            for leaf_i, leaf in enumerate(placed):
+                arr = leaf.data
+                # the fallback put lands on one device: every rank keeps
+                # the whole leaf
+                sharded = len(arr.sharding.device_set) > 1
+                by_rank = {devices.index(s.device): np.asarray(s.data)
+                           for s in arr.addressable_shards} if sharded \
+                    else dict.fromkeys(range(4), np.asarray(arr))
+                for r in range(4):
+                    block, got_spec = ranks[r]["batches"][name][i][leaf_i]
+                    np.testing.assert_array_equal(block, by_rank[r])
+                    assert (got_spec is not None) == sharded, (name, leaf_i)

@@ -359,11 +359,12 @@ def test_bucket_size_is_an_argument(monkeypatch):
 
 
 def test_unported_distributed_modules_are_not_exported():
-    """Divergence: launch, the auto_parallel engine and rpc wait for
-    their slices; every other name of the reference's
-    ``paddle.distributed`` is exported, and of ``fleet`` every name.
-    ``auto_parallel`` holds only the checkpoint converters: its
-    ``Engine``, ``Strategy``, planner and cost model are not exported."""
+    """Divergence: the auto_parallel engine and rpc wait for their
+    slices; every other name of the reference's ``paddle.distributed`` is
+    exported (``launch`` since its slice: the launcher module), and of
+    ``fleet`` every name. ``auto_parallel`` holds only the checkpoint
+    converters: its ``Engine``, ``Strategy``, planner and cost model are
+    not exported."""
     import ast
 
     import paddle_tpu_torch.distributed as dist
@@ -383,6 +384,9 @@ def test_unported_distributed_modules_are_not_exported():
         assert hasattr(dist, name), name
     for name in dist.UNPORTED:
         assert not hasattr(dist, name), name
+    assert set(dist.UNPORTED) == {"Engine", "Strategy", "rpc"}
+    from paddle_tpu_torch.distributed import launch
+    assert dist.launch is launch and callable(launch.main)
     for name in imported("fleet"):
         assert hasattr(dist.fleet, name), name
     ap = dist.auto_parallel

@@ -613,3 +613,125 @@ def test_op_table(name):
         t = np.zeros(j.shape, np.float32) if t is None else t.numpy()
         j = np.zeros(t.shape, np.float32) if j is None else j.numpy()
         np.testing.assert_allclose(t, j, rtol=1e-4, atol=1e-5)
+
+
+# -- faults F5-F8 (ROADMAP §3) and the float64 pin ------------------------------
+def _pair_values(t, j):
+    return np.asarray(t.numpy()), np.asarray(j.numpy())
+
+
+@pytest.mark.parametrize("name", ["cumsum", "cumprod"])
+@pytest.mark.parametrize("dtype", [np.int8, np.uint8, np.int16])
+def test_integer_scans_keep_their_dtype(name, dtype):
+    """F5: the scans keep a narrow integer dtype and wrap as the
+    reference's jnp scans do (torch widens them to int64)."""
+    x = np.array([100, 100, 100], dtype) if dtype != np.int16 else \
+        np.array([30000, 30000, 5], dtype)
+    tn, jn = _pair_values(*run(name, x))
+    assert tn.dtype == jn.dtype == dtype
+    np.testing.assert_array_equal(tn, jn)
+    if name == "cumsum" and dtype == np.int8:
+        assert tn.tolist() == [100, -56, 44]
+
+
+@pytest.mark.parametrize("name", ["sum", "prod", "nansum", "trace", "dot"])
+def test_unsigned_reductions_widen_to_int64(name):
+    """F5, pinned divergence: a uint8 reduction gives int64 in the port
+    (its integer results are int64, as for int32) where the reference
+    gives uint32; the values are equal."""
+    x = np.array([[2, 1], [3, 4]], np.uint8)
+    args = (x[0], x[1]) if name == "dot" else (x,)
+    tn, jn = _pair_values(*run(name, *args))
+    assert tn.dtype == np.int64 and jn.dtype == np.uint32
+    np.testing.assert_array_equal(tn, jn)
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_as_complex_refuses_half_precision(dtype):
+    """F6: a float16 (or bfloat16) pair raises TypeError at the call, as
+    the reference's ``lax.complex`` does (it used to return a complex32
+    tensor whose dtype raised)."""
+    x = np.ones((2, 2), np.float32)
+    for pkg in (ptt, pt):
+        with pytest.raises(TypeError):
+            pkg.ops.as_complex(pkg.to_tensor(x).astype(dtype))
+    t, j = run("as_complex", x)
+    assert str(t.dtype).endswith("complex64")
+    np.testing.assert_array_equal(*_pair_values(t, j))
+
+
+_A = np.array([[4, 1], [1, 3]], np.int32)
+_V = np.array([3, 4], np.int32)
+_B = np.array([True, False, True])
+F7_CASES = {
+    "hypot": (_V, _V), "logaddexp": (_V, _V), "igamma": (_V, _V),
+    "igammac": (_V, _V), "pdist": (_A,), "polar": (_V, _V),
+    "det": (_A,), "slogdet": (_A,), "inverse": (_A,), "pinv": (_A,),
+    "matrix_rank": (_A,), "cholesky": (_A,), "cholesky_solve": (_A, _A),
+    "eigh": (_A,), "eigvalsh": (_A,), "lu": (_A,), "qr": (_A,),
+    "svd": (_A,), "solve": (_A, _A), "triangular_solve": (_A, _A),
+    "lstsq": (_A, _A), "matrix_exp": (_A,),
+    "abs[bool]": (_B,), "ceil[bool]": (_B,), "floor[bool]": (_B,),
+    "trunc[bool]": (_B,), "argmax[bool]": (_B,), "argmin[bool]": (_B,),
+}
+
+
+def _signless(name, arrs):
+    """Factors that are unique up to the sign of each vector."""
+    if name in ("eigh", "svd", "qr"):
+        return [np.abs(a) for a in arrs]
+    return arrs
+
+
+@pytest.mark.parametrize("case", sorted(F7_CASES))
+def test_integer_and_bool_inputs_promote_as_the_reference(case):
+    """F7: integer inputs the reference promotes to float (complex64 for
+    ``polar``) compute there in the port too, and bool inputs to the
+    rounding ops and to argmax/argmin give what the reference gives.
+    Integer result dtypes are int64 where the reference's are int32 (the
+    pinned divergence of ``test_to_tensor_int_dtype``)."""
+    name = case.split("[")[0]
+    t, j = run(name, *F7_CASES[case])
+    touts = t if isinstance(t, (tuple, list)) else (t,)
+    jouts = j if isinstance(j, (tuple, list)) else (j,)
+    assert len(touts) == len(jouts)
+    tn = [np.asarray(v.numpy()) for v in touts]
+    jn = [np.asarray(v.numpy()) for v in jouts]
+    for a, b in zip(tn, jn):
+        assert a.dtype.kind == b.dtype.kind or \
+            {a.dtype.kind, b.dtype.kind} <= {"i", "u"}, (a.dtype, b.dtype)
+        assert a.dtype.kind not in "iu" or a.dtype == np.int64 or \
+            a.dtype == b.dtype
+    if name == "lstsq":  # the residuals of a square system are empty
+        tn, jn = [tn[0], tn[2], tn[3]], [jn[0], jn[2], jn[3]]
+    for a, b in zip(_signless(name, tn), _signless(name, jn)):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_digamma_at_zero_and_heaviside_of_integers():
+    """F8, pinned divergences: ``digamma(0)`` is -inf in the port
+    (torch's) and nan in the reference (both nan at -1 and equal
+    elsewhere); ``heaviside`` of integers keeps the integer dtype
+    (Paddle's), where the reference returns float32 with equal values."""
+    t, j = _pair_values(*run("digamma", np.array([0.0, -1.0, 1.5, 3.0],
+                                                 np.float32)))
+    assert t[0] == -np.inf and np.isnan(j[0])
+    assert np.isnan(t[1]) and np.isnan(j[1])
+    np.testing.assert_allclose(t[2:], j[2:], rtol=1e-5)
+    t, j = _pair_values(*run("heaviside", np.array([1, 0, -3], np.int32),
+                             np.array([0, 1, 1], np.int32)))
+    assert t.dtype.kind == "i" and j.dtype == np.float32
+    np.testing.assert_array_equal(t, j)
+
+
+@pytest.mark.parametrize("how", ["array", "dtype"])
+def test_to_tensor_keeps_float64(how):
+    """Pinned divergence: float64 stays float64 in the port (Paddle's),
+    where the reference runs JAX with x64 off and gives float32."""
+    x = np.array([0.1, 1.0 / 3.0])
+    t, j = (pkg.to_tensor(x) if how == "array" else
+            pkg.to_tensor(x.tolist(), dtype="float64") for pkg in (ptt, pt))
+    assert str(t.dtype).endswith("float64") and \
+        str(j.dtype).endswith("float32")
+    np.testing.assert_array_equal(t.numpy(), x)
+    np.testing.assert_allclose(t.numpy(), j.numpy(), rtol=1e-7)

@@ -201,13 +201,20 @@ def test_sigusr1_gives_one_final_save_and_exit_79(tmp_path):
 
 
 def test_unported_options_raise():
-    # the watchdog's options are ported
-    # (tests/test_torch_training_resilience.py); elastic resharding and
-    # the store consensus are not
+    """Every option is ported now: the watchdog's
+    (tests/test_torch_training_resilience.py), ``elastic=`` and the store
+    consensus (tests/test_torch_elastic.py, test_torch_job_lifecycle.py).
+    What is left to raise: the store consensus asked for outside a job
+    with a store, which raises at the first poll rather than stopping on
+    this rank alone; and ``complete_resize`` without a resize boundary."""
     for kw in ({"step_timeout": 10.0}, {"collective_timeout": 1.0}):
         assert FitResilience(**kw).watchdog is None  # armed at fit begin
-    with pytest.raises(NotImplementedError, match="not ported"):
-        FitResilience(elastic=True)
+    fr = FitResilience(elastic=True)
+    assert fr.elastic_listener is None and not fr.resized  # at fit begin
+    with pytest.raises(RuntimeError, match="resize boundary"):
+        fr.complete_resize()
     from paddle_tpu_torch.resilience import PreemptionListener
-    with pytest.raises(NotImplementedError, match="not ported"):
-        PreemptionListener(use_store=True)
+    lst = PreemptionListener(use_store=True)
+    with pytest.raises(RuntimeError, match="no job store"):
+        lst.should_stop(step=1)
+    assert PreemptionListener().should_stop(step=1) is False
