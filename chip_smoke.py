@@ -217,16 +217,17 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    ``generate`` with the adapter merged, slot 0's a no-LoRA engine's; an
    ``fp8_wo`` engine serves with finite logits;
 17. MoE serving and decoding, the autotuner and ``paddle.incubate``: (a)
-   ``MoeConfig.deepseek_moe_16b()`` at full width cut to 8 of its 28
-   layers (to keep the script within its limit; 16/16 heads of 128, 64
+   ``MoeConfig.deepseek_moe_16b()`` at full width cut to 2 of its 28
+   layers, one dense and one MoE (to keep the script within its limit;
+   16/16 heads of 128, 64
    routed experts top-6 beside 2 shared, bf16, seeded weights) behind
    the HTTP ``Server`` with phase 4's prompts and geometry: all tokens,
-   finite logits, K4 launches = 8 x steps, the window's numbers and
+   finite logits, K4 launches = 2 x steps, the window's numbers and
    busy share, each MoE layer's capacity and dropped assignments in the
    window's busiest step, the layer-0 K4 output of a real step against
    the plain version, ``aux_loss()`` None and no leaked block; K4 at
    this model's heads on phase 3's mix against its plain version, timed;
-   (b) eager ``generate`` (4 x 512, 64 greedy tokens): K1 8 x 64
+   (b) eager ``generate`` (4 x 512, 64 greedy tokens): K1 2 x 64
    launches, ms a token, ``aux_loss()`` the last decode step's (finite,
    as the reference's); ``generate_compiled`` on the same prompts: one
    capture a signature, the replay equal to the capturing call, ms a
@@ -271,7 +272,9 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    ``Retry-After``, every accepted stream equals its solo stream and
    echoes its trace id; ``POST /debug/profile?seconds=2`` during the
    burst writes a ``torch.profiler`` trace naming ``rpa_wgmma_kernel``
-   and a second POST gets 409; ``/statusz?format=json`` carries burn
+   (a window whose trace holds none is opened once more over one live
+   request through the server, and that one must name it; each
+   window's counts are logged) and a second POST gets 409; ``/statusz?format=json`` carries burn
    rates and the top in-flight requests; ``deadline_s=0.05`` with 512
    tokens gets 504 and the request's blocks go back; ``/metrics`` parses
    and its request, rejection and token counters equal the client's and
@@ -397,6 +400,41 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    rtol 1e-4, and rank 0's heartbeat aggregator shows rank 1
    ``departed``. Its files go to a ``phase23_*`` directory of the
    checkout, deleted after.
+24. expert-parallel MoE training and tensor-parallel serving: in this
+   process first the one-process oracles (below) and K4 at one mp-2
+   rank's heads of Llama-3-8B (16 query and 4 KV heads, hd 128, bf16;
+   phase 3's mix) against its plain version, timed; then (a) and (b) each
+   in two processes started by the port's ``spawn``, all four at once,
+   sharing the card over gloo: (a)
+   ``MoeConfig.deepseek_moe_16b`` at full width cut to 2 layers (layer 0
+   dense, layer 1 64 experts top-6 beside 2 shared; f32, seeded, AdamW,
+   clip 1.0) on 2 x 2048 seeded global ids at ``init_mesh({"ep": 2})``,
+   3 steps with ``input_spec=P("ep")`` (each rank's row routed, the
+   ``[64, 480, 2048]`` capacity buffer exchanged by ``all_to_all``) and
+   3 with ``P()`` (every token on every rank, the partial combine
+   all-reduced): each rank's losses equal one process's at rtol 1e-4 and
+   each step's drops exactly, K1-K3 launched 2 layers x 3 steps on each
+   rank in each layout; the all-to-alls a step and their bytes, the step
+   ms and each rank's peak memory are logged; (b) at
+   ``init_mesh({"mp": 2})``: Llama-3-8B widths at 2 layers in f32,
+   phase 4's prompts x 16 greedy tokens through ``ServingEngine(mesh=)``
+   (rank 0 drives, rank 1 follows), plain and ``int8_wo``: the streams
+   equal one process's exactly; then ``LlamaConfig.llama3_8b()`` in bf16
+   at 16 of its 32 layers (4 of 8 KV heads a rank) at phase 4's
+   geometry, 32 greedy tokens: gloo's bf16 all-reduce (within one ulp
+   of the f32 sum rounded once) and all-gather (bit-equal) on CUDA
+   tensors; the first step's logits (every prompt's first chunk) equal
+   on both ranks and to the step's replay, and within
+   ``TP_BF16_LOGITS_RTOL`` of one process's, norm-relative, while the
+   same step with each row-parallel sum cut to one rank's half (the
+   control of a wrong collective) must exceed it; K4 one launch a layer
+   a step on each rank, every stream either equal to one process's or
+   parting at a near-tie of it (top-2 gap at most
+   ``NEAR_TIE``; each parting logged with its gap), the mean step, the
+   broadcasts, all-reduces and all-gathers a step, each rank's memory
+   (before the model, its weights, with the engine, the peak) and pool
+   bytes beside one process's. The times are no measure of scaling. Its
+   files go to a ``phase24_*`` directory of the checkout, deleted after.
 
 It prints its measurements on earlier lines, then one JSON line with a
 record per kernel (K1-K3's with their times at ERNIE's and DiT's shapes,
@@ -421,7 +459,10 @@ with phase 22's ``ring_flash``, ``ulysses``, ``pipeline`` and
 ``spmd_pipeline`` (both ranks), and phase 22's figures under K1's
 ``seq_pipe``; K1-K3's ``launches_by_path`` with phase 23's ``launch``
 (both ranks, every attempt) and ``elastic``, and phase 23's figures under
-K1's ``job``),
+K1's ``job``; K1-K3's ``launches_by_path`` with phase 24's ``ep_train``
+(both ranks, both layouts) and K4's with its ``tp_serving`` (both ranks),
+phase 24's training figures under K1's ``ep_train`` and its serving
+figures, with K4 at one rank's heads, under K4's ``tp_serving``),
 and ends with
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -429,6 +470,7 @@ non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -5081,9 +5123,10 @@ def incubate_checks():
         + f"; {len(masks)} weights kept 2:4 through a decorated SGD step")
 
 
-# phase 17's MoE depth: DeepSeekMoE-16B's 28 layers cut to 8 to keep
-# phases 1-23 within the script's limit (14 in PRs 19-20)
-MOE_SERVING_LAYERS = 8
+# phase 17's MoE depth: DeepSeekMoE-16B's 28 layers cut to 2 (a dense
+# layer and an MoE layer) to keep phases 1-24 within the script's limit
+# (14, then 8, before phase 24 came)
+MOE_SERVING_LAYERS = 2
 
 
 def phase_moe_and_incubate(llama_sweep):
@@ -5552,6 +5595,18 @@ def f32_exactness(prompts):
     free_device_memory()
 
 
+def _trace_counts(trace_dir):
+    """``(events, device kernels, rpa_wgmma_kernel events)`` of a capture
+    window's trace."""
+    from paddle_tpu_torch.observability import profile as obs_profile
+    with open(os.path.join(trace_dir, obs_profile.TRACE_FILE)) as f:
+        events = json.load(f)
+    events = events.get("traceEvents", events)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return len(events), len(kernels), sum(
+        1 for e in events if "rpa_wgmma_kernel" in str(e.get("name", "")))
+
+
 def production_server(model, cfg, prompts, solo, work_dir):
     """Phase 19(a): one engine behind ``Server(max_queue_depth=4)``."""
     from paddle_tpu_torch.observability import memory as obs_memory
@@ -5629,6 +5684,31 @@ def production_server(model, cfg, prompts, solo, work_dir):
         launches = rpa.ragged_paged_attention.launches
         steps = engine.steps - steps0
         peak = torch.cuda.max_memory_allocated()
+        # the window's trace must hold K4 (checked below); when it holds
+        # none, the same window once more over one live request through
+        # the server, and the check reads that one (both are logged)
+        deadline = time.monotonic() + 120
+        while obs_profile.capture_active() and time.monotonic() < deadline:
+            time.sleep(0.05)
+        windows = [_trace_counts(json.loads(body1)["trace_dir"])] \
+            if code1 == 200 else []
+        retry = None
+        retry_tid = "f" * 32
+        if windows and not windows[0][2]:
+            code1, _, body1 = _http("POST",
+                                    srv.url + "/debug/profile?seconds=2")
+            retry = _http("POST", srv.url + "/generate", {
+                "prompt_ids": prompts[3],
+                "max_new_tokens": PROD_NEW_TOKENS},
+                {"traceparent": f"00-{retry_tid}-00f067aa0ba902b7-01"})
+            deadline = time.monotonic() + 120
+            while obs_profile.capture_active() and \
+                    time.monotonic() < deadline:
+                time.sleep(0.05)
+            if code1 == 200:
+                windows.append(_trace_counts(json.loads(body1)["trace_dir"]))
+            if retry[0] != 200:
+                raise AssertionError(f"the second window's request: {retry}")
         # the deadline request: 512 tokens in 50 ms cannot be served
         dl_tid = "d" * 32
         code_dl, hdr_dl, body_dl = _http("POST", srv.url + "/generate", {
@@ -5644,9 +5724,6 @@ def production_server(model, cfg, prompts, solo, work_dir):
         _, _, metrics_text = _http("GET", srv.url + "/metrics")
         _, _, health = _http("GET", srv.url + "/healthz")
         fleetz = _http("GET", srv.url + "/fleetz")[0]
-        deadline = time.monotonic() + 120
-        while obs_profile.capture_active() and time.monotonic() < deadline:
-            time.sleep(0.05)
     health = json.loads(health)
     statusz = json.loads(statusz)
     # -- the burst: at least one 503, the accepted streams exact
@@ -5678,9 +5755,14 @@ def production_server(model, cfg, prompts, solo, work_dir):
         if done.get("trace_id") != tid[i]:
             raise AssertionError(f"request {i}: trace id {done}")
         streams[i] = done["token_ids"]
+    extra = {"profiled": (prof_tid, prof_toks, solo[2])}
+    if retry is not None:
+        extra["second window"] = (retry_tid, json.loads(retry[2])[
+            "token_ids"], solo[3])
     exact, ties = _check_streams(
-        "(a)", {**streams, "profiled": prof_toks},
-        {**{i: solo[i % len(prompts)] for i in streams}, "profiled": solo[2]})
+        "(a)", {**streams, **{k: v[1] for k, v in extra.items()}},
+        {**{i: solo[i % len(prompts)] for i in streams},
+         **{k: v[2] for k, v in extra.items()}})
     want = cfg.num_hidden_layers * steps
     if launches != want or engine.rpa_launches < want:
         raise AssertionError(f"rpa launches {launches} (engine "
@@ -5701,15 +5783,15 @@ def production_server(model, cfg, prompts, solo, work_dir):
         return prom.get(series, 0.0) - before
     recs = {d["trace_id"]: d for d in led.exemplars()}
     dl_rec = recs[dl_tid]
-    gen = sum(len(s) for s in streams.values()) + len(prof_toks) + \
-        dl_rec["decode_tokens"]
-    prompt_tok = sum(recs[t]["prefilled_tokens"]
-                     for t in [tid[i] for i in accepted] + [prof_tid, dl_tid])
+    served = [tid[i] for i in accepted] + [v[0] for v in extra.values()]
+    gen = sum(len(s) for s in streams.values()) + dl_rec["decode_tokens"] \
+        + sum(len(v[1]) for v in extra.values())
+    prompt_tok = sum(recs[t]["prefilled_tokens"] for t in served + [dl_tid])
     checks = {
         "accepted": (delta('serving_requests_total{outcome="accepted"}',
-                           base["accepted"]), len(accepted) + 2),
+                           base["accepted"]), len(served) + 1),
         "completed": (delta('serving_requests_total{outcome="completed"}',
-                            base["completed"]), len(accepted) + 1),
+                            base["completed"]), len(served)),
         "failed": (delta('serving_requests_total{outcome="failed"}',
                          base["failed"]), 1),
         "queue_full": (delta('serving_rejections_total{reason="queue_full"}',
@@ -5732,25 +5814,22 @@ def production_server(model, cfg, prompts, solo, work_dir):
             "kv_block_seconds" not in r for r in top):
         raise AssertionError(f"/statusz: {statusz}")
     # -- the ledger's token accounting
-    for t in [tid[i] for i in accepted] + [prof_tid]:
+    for t in served:
         r = recs[t]
         if r["preemptions"] == 0 and \
                 r["prefilled_tokens"] + r["cached_tokens"] != r["prompt_len"]:
             raise AssertionError(f"ledger record {r}")
-    cached = sum(recs[t]["cached_tokens"]
-                 for t in [tid[i] for i in accepted] + [prof_tid])
+    cached = sum(recs[t]["cached_tokens"] for t in served)
     # -- the profiler window
     cap = json.loads(body1)
     if code1 != 200 or code2 != 409:
         raise AssertionError(f"profile: {code1} {body1} {code2} {body2}")
     trace_file = os.path.join(cap["trace_dir"], obs_profile.TRACE_FILE)
-    with open(trace_file) as f:
-        events = json.load(f)
-    events = events.get("traceEvents", events)
-    rpa_events = sum(1 for e in events
-                     if "rpa_wgmma_kernel" in str(e.get("name", "")))
+    n_events, n_kernels, rpa_events = _trace_counts(cap["trace_dir"])
     if not rpa_events:
-        raise AssertionError("the profile window holds no rpa_wgmma_kernel")
+        raise AssertionError(
+            f"the profile window holds no rpa_wgmma_kernel: (trace events, "
+            f"device kernels, K4 events) of each window {windows}")
     trace_bytes = os.path.getsize(trace_file)
     # -- memory: parameters and pools within 1%
     snap = obs_memory.snapshot()
@@ -5790,7 +5869,10 @@ def production_server(model, cfg, prompts, solo, work_dir):
         f"{profile_start_ms:.1f} ms), second POST -> "
         f"{code2}; trace {trace_bytes} B with {rpa_events} rpa_wgmma_kernel "
         f"events, export_chrome_trace "
-        f"{obs_profile.last_export_seconds:.3f} s")
+        f"{obs_profile.last_export_seconds:.3f} s"
+        + (f"; a second window over one live request: (trace events, "
+           f"device kernels, K4 events) of each {windows}"
+           if retry is not None else ""))
     log(f"serving prod (a): memory snapshot serving_params "
         f"{snap['owners']['serving_params']} B (parameters and RoPE "
         f"tables {params} B), "
@@ -8015,6 +8097,571 @@ def phase_job_lifecycle():
         dict(lifecycle=a_rec, elastic=b_rec, seconds=t2 - t0)
 
 
+# --------------------------------------------------------------------------
+# phase 24: expert-parallel MoE training and tensor-parallel serving
+EP_LAYERS = 2              # DeepSeekMoE-16B cut to layer 0 dense, layer 1 MoE
+EP_BATCH = (2, 2048)       # global ids
+EP_STEPS = 3
+EP_LR = 1e-4
+TP_NEW_TOKENS = 32
+TP_LAYERS = 16             # (b): Llama-3-8B cut to 16 of its 32 layers, to
+                           # keep phases 1-24 within the script's limit
+TP_EXACT_LAYERS = 2        # (b)'s exact check: Llama-3-8B widths at 2 layers,
+TP_EXACT_TOKENS = 16       # 16 greedy tokens a request
+TP_BF16_LOGITS_RTOL = 0.1  # (b)'s bf16 first-step logits at mp 2 against
+                           # one process's, as ||a - b|| / ||b||: 3.3x the
+                           # sound run's 0.0306 and 1/12.7 of the 1.268 of
+                           # a row-parallel sum that drops one rank's half
+                           # (NVIDIA H100 80GB HBM3, 700.00 W)
+
+
+def ep_config():
+    from paddle_tpu_torch.models import MoeConfig
+    return MoeConfig.deepseek_moe_16b(num_hidden_layers=EP_LAYERS)
+
+
+def _ep_batch(vocab):
+    rng = np.random.RandomState(SEED + 24)
+    return torch.as_tensor(rng.randint(0, vocab, EP_BATCH), device="cuda")
+
+
+def ep_train(mesh=None, input_spec=None):
+    """24(a): phase 24's MoE (f32, seeded, AdamW, clip 1.0) through
+    ``TrainStep`` for EP_STEPS steps on the seeded global batch, over
+    ``mesh`` with ``input_spec`` (one process without). Returns each
+    step's loss, the routed layer's drops and the step ms by CUDA
+    events."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import MoeForCausalLM
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = ep_config()
+    torch.cuda.reset_peak_memory_stats()
+    model = MoeForCausalLM(cfg, dtype="float32", seed=SEED)
+    opt = AdamW(learning_rate=EP_LR, parameters=model.parameters(),
+                grad_clip=ClipGradByGlobalNorm(1.0))
+    step = TrainStep(model, lambda m, x: m(x, labels=x)[1], opt, mesh=mesh,
+                     input_spec=input_spec)
+    x = _ep_batch(cfg.vocab_size)
+    moe = model.layers[1].mlp
+    losses, dropped, ms = [], [], []
+    for _ in range(EP_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        loss = step(x)
+        b.record()
+        torch.cuda.synchronize()
+        losses.append(float(loss))
+        dropped.append(int(moe.last_dropped))
+        ms.append(a.elapsed_time(b))
+    out = dict(losses=losses, dropped=dropped, ms=ms,
+               capacity=moe.last_capacity, local_experts=moe.w1.shape[0],
+               peak=torch.cuda.max_memory_allocated())
+    del step, opt, model, moe
+    free_device_memory()
+    return out
+
+
+def _gap_recorder(eng):
+    """Wrap the engine's sampler: each request's top-2 logit gaps, in
+    order of its tokens."""
+    gaps = {}
+    sample = eng._sample
+
+    def recording(row, seq):
+        top2 = np.partition(row, -2)[-2:]
+        gaps.setdefault(seq.req_id, []).append(
+            float(top2[1] - top2[0]) if np.isfinite(row).all()
+            else float("nan"))
+        return sample(row, seq)
+    eng._sample = recording
+    return gaps
+
+
+def _first_step_recorder(eng):
+    """Wrap the engine's forward: the first step's inputs and its f32
+    logits ``[max_batch, V]`` on the host."""
+    first = {}
+    forward = eng._forward
+
+    def recording(tokens, caches, last_idx, adapters):
+        out = forward(tokens, caches, last_idx, adapters)
+        if not first:
+            first.update(args=(tokens, caches, last_idx),
+                         logits=out.cpu().numpy())
+        return out
+    eng._forward = recording
+    return first
+
+
+def _replay_first_step(eng, first, drop_other_half):
+    """The first step again on this rank's engine (every rank calls it
+    at once), its logits on the host; with ``drop_other_half`` every
+    row-parallel sum over ``mp`` keeps this rank's half only: the
+    control of a wrong collective. The step's tokens start their
+    sequences, so the K/V it reads are those it writes."""
+    from paddle_tpu_torch.distributed.fleet import mpu
+    keep = mpu.reduce_from_group
+    if drop_other_half:
+        mpu.reduce_from_group = lambda x, group: x
+    try:
+        return eng._forward(*first["args"],
+                            contextlib.nullcontext()).cpu().numpy()
+    finally:
+        mpu.reduce_from_group = keep
+
+
+def bf16_collectives(mesh):
+    """gloo's bf16 all-reduce and all-gather over ``mp`` on CUDA tensors
+    of a row-parallel output's shape (a 520-token step at hidden 4096),
+    against the sum in f32 rounded once and the concatenation, made here
+    from the same seed on every rank: (the all-reduce's largest error in
+    units of the result's bf16 spacing, bit-equal, the all-gather
+    bit-equal)."""
+    from paddle_tpu_torch.distributed import collective as C
+    group = C.Group(("mp",), mesh)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    xs = [torch.randn(520, 4096, generator=gen, device="cuda").bfloat16()
+          for _ in range(2)]
+    got = xs[group.rank].clone()
+    C.all_reduce(got, group=group)
+    want = (xs[0].float() + xs[1].float()).bfloat16()
+    spacing = torch.finfo(torch.bfloat16).eps * want.float().abs().clamp(
+        min=torch.finfo(torch.bfloat16).tiny)
+    ulps = float(((got.float() - want.float()).abs() / spacing).max())
+    gathered = C.all_gather(xs[group.rank].clone(), group=group)
+    return ulps, bool(torch.equal(got, want)), bool(
+        torch.equal(gathered, torch.cat(xs)))
+
+
+def _rel_norm(a, b):
+    """``||a - b|| / ||b||`` in f64."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def row_parallel_halves():
+    """The scale of what mp 2 changes in one bf16 row-parallel product:
+    Llama-3-8B's ``down_proj`` at a 520-token step ([520, 14336] @
+    [14336, 4096], seeded), whole and as two halves of the inner axis,
+    each half's product rounded to bf16 and the two summed in bf16,
+    each against the product in f32: (whole, halves) as
+    ``||a - f32|| / ||f32||``."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(520, 14336, generator=gen, device="cuda").bfloat16()
+    w = (0.02 * torch.randn(14336, 4096, generator=gen, device="cuda")
+         ).bfloat16()
+    ref = (x.float() @ w.float()).cpu().numpy()
+    whole = (x @ w).float().cpu().numpy()
+    halves = (x[:, :7168] @ w[:7168] + x[:, 7168:] @ w[7168:]
+              ).float().cpu().numpy()
+    return _rel_norm(whole, ref), _rel_norm(halves, ref)
+
+
+def tp_serve(mesh, layers=TP_LAYERS, dtype="bfloat16", quantize=None,
+             new_tokens=TP_NEW_TOKENS, controls=False):
+    """24(b): Llama-3-8B widths at ``layers`` of its 32 layers
+    behind ``ServingEngine(mesh=)`` at phase 4's geometry and prompts,
+    ``new_tokens`` greedy tokens; every rank calls it (rank 0 of ``mp``
+    drives, the other follows). Returns the driver's streams and top-2
+    gaps, the first step's logits, the engine's steps, K4's launches, the
+    wall, the peak memory and pool bytes, and the collectives a step;
+    with ``controls`` also the first step replayed as it ran and with
+    each row-parallel sum cut to this rank's half."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.observability.metrics import get_registry
+    from paddle_tpu_torch.ops.pallas import ragged_paged_attention as rpa
+    from paddle_tpu_torch.serving import ServingEngine
+    cfg = LlamaConfig.llama3_8b(tensor_parallel=mesh is not None,
+                                num_hidden_layers=layers)
+    held = torch.cuda.memory_allocated()
+    model = LlamaForCausalLM(cfg, dtype=dtype, seed=SEED)
+    weights = torch.cuda.memory_allocated() - held
+    eng = ServingEngine(model, max_batch=8, block_size=16, prefill_chunk=512,
+                        max_blocks=2048, mesh=mesh, quantize=quantize,
+                        request_ledger=False)
+    del model
+    resident = torch.cuda.memory_allocated()
+    prompts = _phase4_prompts(cfg, np.random.RandomState(SEED))
+    gaps = _gap_recorder(eng) if eng.is_driver else {}
+    first = _first_step_recorder(eng)
+    calls = get_registry().get("comm_calls_total")
+
+    def ncalls():
+        return {op: calls.value(op=op, axes="mp") for op in
+                ("broadcast", "all_reduce", "all_gather")} \
+            if mesh is not None else {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    c0, steps0 = ncalls(), eng.steps
+    rpa.ragged_paged_attention.launches = 0
+    t = time.perf_counter()
+    hs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts] \
+        if eng.is_driver else []
+    eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = rpa.ragged_paged_attention.launches
+    steps = eng.steps - steps0
+    streams = [h.result(60)["token_ids"] for h in hs]
+    c1 = ncalls()
+    eng.cache.allocator.assert_no_leaks()
+    out = dict(streams=streams, gaps=[gaps[h.req_id] for h in hs],
+               first_logits=first["logits"],
+               steps=steps, launches=launches, wall=wall,
+               mean_step_ms=1e3 * wall / max(steps, 1),
+               peak=torch.cuda.max_memory_allocated(),
+               held=held, weights=weights, resident=resident,
+               pool_bytes=eng.cache.pool_bytes(),
+               pool_heads=int(eng.cache.k_pools[0].shape[2]),
+               tensor_parallel=eng.stats()["tensor_parallel"],
+               per_step={op: (c1[op] - c0[op]) / max(steps, 1)
+                         for op in c0},
+               layers=cfg.num_hidden_layers)
+    if controls:
+        out["replay_logits"] = _replay_first_step(eng, first, False)
+        out["half_logits"] = _replay_first_step(eng, first, True)
+    first.clear()
+    eng.shutdown()
+    del eng
+    free_device_memory()
+    return out
+
+
+def _gloo_rank():
+    """A spawned rank of phase 24 on the one card, in the world ``spawn``
+    set up; its rank."""
+    import paddle_tpu_torch.distributed as dist
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env(backend="gloo")
+    return dist.get_rank()
+
+
+def _ep_worker(out_dir):
+    """One of 24(a)'s two processes: the MoE at ep 2 with the rows split
+    (``P("ep")``) and whole (``P()``); writes ``out_dir/rank<r>.json``."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import P
+    from paddle_tpu_torch.observability.metrics import get_registry
+    rank = _gloo_rank()
+    reg = get_registry()
+    res = {"held_at_start": torch.cuda.memory_allocated()}
+    a2a = (reg.get("comm_calls_total"), reg.get("comm_bytes_total"))
+    mesh = dist.init_mesh({"ep": 2})
+    for layout, spec in (("rows", P("ep")), ("whole", P())):
+        n0 = [c.value(op="all_to_all", axes="ep") for c in a2a]
+        _reset_flash_counts()
+        t = time.perf_counter()
+        run = ep_train(mesh, spec)
+        run["seconds"] = time.perf_counter() - t
+        run["launches"] = _flash_counts()
+        run["a2a_calls"], run["a2a_bytes"] = [
+            (c.value(op="all_to_all", axes="ep") - v) / EP_STEPS
+            for c, v in zip(a2a, n0)]
+        res[layout] = run
+    res["held_after_ep"] = torch.cuda.memory_allocated()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def _tp_worker(out_dir):
+    """One of 24(b)'s two processes: the exact f32 check at 2 layers
+    (plain and ``int8_wo``), then Llama-3-8B at mp 2 in bf16; writes
+    ``out_dir/rank<r>.json``."""
+    import paddle_tpu_torch.distributed as dist
+    rank = _gloo_rank()
+    mesh = dist.init_mesh({"mp": 2})
+    t = time.perf_counter()
+    res = {"exact": {q or "plain": tp_serve(
+        mesh, TP_EXACT_LAYERS, "float32", q, TP_EXACT_TOKENS)["streams"]
+        for q in (None, "int8_wo")}}
+    res["exact_seconds"] = time.perf_counter() - t
+    res["collectives"] = bf16_collectives(mesh)
+    t = time.perf_counter()
+    res["serve"] = tp_serve(mesh, controls=True)
+    res["serve"]["seconds"] = time.perf_counter() - t
+    for k in ("first_logits", "replay_logits", "half_logits"):
+        np.save(os.path.join(out_dir, f"{k}.rank{rank}.npy"),
+                res["serve"].pop(k))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def _spawn_pairs(workers, timeout):
+    """Each of ``workers`` in its own pair of spawned processes, every
+    pair at once (each ``spawn`` its own world); their ``rank<r>.json``
+    by worker, each with the arrays its rank saved beside it
+    (``NAME.rank<r>.npy``) under ``arrays``."""
+    import paddle_tpu_torch.distributed as dist
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="phase24_", dir=REPO_ROOT)
+    try:
+        started = []
+        for w in workers:
+            out = os.path.join(root, w.__name__)
+            os.makedirs(out)
+            started.append((w, out, dist.spawn(w, args=(out,), nprocs=2,
+                                               join=False)))
+        for _, _, procs in started:
+            for p in procs:
+                p.join(timeout=max(timeout - (time.perf_counter() - t0), 1))
+        for _, _, procs in started:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        bad = {w.__name__: [p.exitcode for p in procs]
+               for w, _, procs in started
+               if any(p.exitcode != 0 for p in procs)}
+        if bad:
+            raise AssertionError(f"ep/tp: ranks exited {bad}")
+        out = {}
+        for w, d, _ in started:
+            out[w] = []
+            for r in range(2):
+                with open(os.path.join(d, f"rank{r}.json")) as f:
+                    out[w].append(json.load(f))
+                out[w][r]["arrays"] = {
+                    n.split(".")[0]: np.load(os.path.join(d, n))
+                    for n in os.listdir(d) if n.endswith(f".rank{r}.npy")}
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _stream_agreement(streams, one):
+    """``(exact streams, [(request, first differing token, the one
+    process's top-2 gap there)])`` of ``streams`` against the one
+    process's ``(streams, gaps)``."""
+    exact, parts = 0, []
+    for i, (s, want) in enumerate(zip(streams, one["streams"])):
+        if s == want:
+            exact += 1
+            continue
+        j = next((j for j, (a, b) in enumerate(zip(s, want)) if a != b),
+                 min(len(s), len(want)))
+        gap = one["gaps"][i][j] if j < len(one["gaps"][i]) else None
+        parts.append((i, j, None if gap is None else round(gap, 5)))
+    return exact, parts
+
+
+def rpa_local_heads():
+    """K4 at a tensor-parallel rank's heads of Llama-3-8B at mp 2 (16
+    query and 4 KV heads, group 4, hd 128; phase 3's mix) against its
+    plain version, timed."""
+    from paddle_tpu_torch.ops.pallas.ragged_paged_attention import (
+        ragged_paged_attention, ragged_paged_attention_reference)
+    args, valid, need = rpa_mix(torch.bfloat16, n_heads=16, n_kv=4)
+    held = ragged_paged_attention.launches
+    out = ragged_paged_attention(**args)
+    ref = ragged_paged_attention_reference(**args)
+    err = _rpa_check("bfloat16, one mp-2 rank's heads", out, ref, valid,
+                     RPA_TOL[torch.bfloat16])
+    ms = cuda_ms(lambda: ragged_paged_attention(**args))
+    plain_ms = cuda_ms(lambda: ragged_paged_attention_reference(**args))
+    ragged_paged_attention.launches = held
+    log(f"rpa bfloat16 at one mp-2 rank's heads of Llama-3-8B (16 query "
+        f"and 4 KV heads, group 4, hd 128; phase 3's mix, tile_q 8): "
+        f"T={need['T']} live pages={need['pages']} max|err|={err:.3e} "
+        f"(atol {RPA_TOL[torch.bfloat16]}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {need['bound_ms']:.4f} ms "
+        f"({need['bound_by']}: {need['bytes']} B, {need['flops']} flop)")
+    del args, out, ref
+    free_device_memory()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=need["bound_ms"], bound_by=need["bound_by"])
+
+
+def phase_ep_tp():
+    """Phase 24: the one-process runs in this process (the MoE's 3 steps,
+    Llama-3-8B's bf16 engine and the 2-layer f32 engines), K4 at one
+    rank's heads, then (a) and (b) each in a pair of processes started by
+    the port's ``spawn``, both pairs at once, sharing the card over gloo.
+    Returns K1-K3's launches on ``ep_train``, K4's on ``tp_serving``, and
+    the records."""
+    t0 = time.perf_counter()
+    free_device_memory()
+    one = _uncounted_flash(ep_train)
+    serve_one = _uncounted_flash(lambda: tp_serve(None))
+    exact_one = {q or "plain": tp_serve(None, TP_EXACT_LAYERS, "float32",
+                                        q, TP_EXACT_TOKENS)["streams"]
+                 for q in (None, "int8_wo")}
+    local = rpa_local_heads()
+    halves = row_parallel_halves()
+    t1 = time.perf_counter()
+    pairs = _spawn_pairs((_ep_worker, _tp_worker), 600)
+    ranks = [{**a, **b} for a, b in zip(pairs[_ep_worker],
+                                        pairs[_tp_worker])]
+    t2 = time.perf_counter()
+    cfg = ep_config()
+    # (a): every rank's losses and drops against one process's
+    ep_counts = dict.fromkeys(FLASH_KERNELS_NAMES, 0)
+    for r, res in enumerate(ranks):
+        for layout in ("rows", "whole"):
+            got = res[layout]
+            if not np.allclose(got["losses"], one["losses"], rtol=1e-4,
+                               atol=0):
+                raise AssertionError(
+                    f"ep (a): rank {r} {layout} losses {got['losses']} and "
+                    f"one process's {one['losses']} differ by more than "
+                    f"rtol 1e-4")
+            if got["dropped"] != one["dropped"]:
+                raise AssertionError(
+                    f"ep (a): rank {r} {layout} drops {got['dropped']} != "
+                    f"one process's {one['dropped']}")
+            for kname, c in got["launches"].items():
+                if c != EP_STEPS * EP_LAYERS:
+                    raise AssertionError(f"ep (a): rank {r} {layout} "
+                                         f"{kname} launched {c} times")
+                ep_counts[kname] += c
+    rows, whole = ranks[0]["rows"], ranks[0]["whole"]
+    log(f"ep (a): DeepSeekMoE-16B widths at {EP_LAYERS} layers (layer 0 "
+        f"dense, layer 1 {cfg.num_experts} experts top-"
+        f"{cfg.num_experts_per_tok}), f32, {EP_BATCH[0]} x {EP_BATCH[1]} "
+        f"global ids, {EP_STEPS} steps: losses one process "
+        f"{[round(v, 6) for v in one['losses']]}, ep 2 rows split "
+        f"{[round(v, 6) for v in rows['losses']]}, whole "
+        f"{[round(v, 6) for v in whole['losses']]} (rtol 1e-4, both "
+        f"ranks); drops a step {one['dropped']} in all three (capacity "
+        f"{rows['capacity']}, {rows['local_experts']} experts a rank)")
+    log(f"ep (a): step ms by CUDA events (two processes on one card over "
+        f"gloo beside (b)'s two, every all-to-all and all-gather staged "
+        f"through the host: no measure of scaling): one process "
+        f"{[round(v, 3) for v in one['ms']]}; rows split rank 0 "
+        f"{[round(v, 3) for v in rows['ms']]}, rank 1 "
+        f"{[round(v, 3) for v in ranks[1]['rows']['ms']]}; whole rank 0 "
+        f"{[round(v, 3) for v in whole['ms']]}, rank 1 "
+        f"{[round(v, 3) for v in ranks[1]['whole']['ms']]}; all-to-alls "
+        f"a step rows {rows['a2a_calls']:.0f} ({rows['a2a_bytes']:.0f} B), "
+        f"whole {whole['a2a_calls']:.0f}; peak memory a rank rows "
+        f"{[res['rows']['peak'] for res in ranks]} B, whole "
+        f"{[res['whole']['peak'] for res in ranks]} B, one process "
+        f"{one['peak']} B; allocated a rank at its start "
+        f"{[res['held_at_start'] for res in ranks]} B and after (a) "
+        f"{[res['held_after_ep'] for res in ranks]} B; K1-K3 on both ranks "
+        f"{ep_counts}")
+    # (b): the exact f32 check, then the bf16 streams' agreement
+    for q, want in exact_one.items():
+        if ranks[0]["exact"][q] != want:
+            raise AssertionError(
+                f"tp (b): {q} f32 streams at mp 2 {ranks[0]['exact'][q]} "
+                f"differ from one process's {want}")
+    sv = [res["serve"] for res in ranks]
+    for r, s in enumerate(sv):
+        if s["launches"] != s["layers"] * sv[0]["steps"] or \
+                s["steps"] != sv[0]["steps"] or s["tensor_parallel"] != 2:
+            raise AssertionError(
+                f"tp (b): rank {r} K4 launches {s['launches']} over "
+                f"{s['steps']} steps ({s['layers']} layers; the driver "
+                f"took {sv[0]['steps']})")
+    for i, toks in enumerate(sv[0]["streams"]):
+        if len(toks) != TP_NEW_TOKENS or not all(
+                0 <= t < 128256 for t in toks) or not all(
+                math.isfinite(g) for g in sv[0]["gaps"][i]):
+            raise AssertionError(f"tp (b): request {i} returned {toks}")
+    # the bf16 collectives themselves, on CUDA tensors
+    for r, res in enumerate(ranks):
+        ulps, _, gathered = res["collectives"]
+        if ulps > 1.0 or not gathered:
+            raise AssertionError(
+                f"tp (b): rank {r}: gloo's bf16 all-reduce off by {ulps} "
+                f"ulp, all-gather equal: {gathered}")
+    # the bf16 first step (every prompt's first chunk) against one
+    # process's: norm-relative, with the replay of that step as it ran
+    # and with each row-parallel sum cut to one rank's half (the control
+    # of a wrong collective) beside it
+    arrs = [res["arrays"] for res in ranks]
+    if not np.array_equal(arrs[0]["replay_logits"],
+                          arrs[0]["first_logits"]) or not np.array_equal(
+                              arrs[1]["first_logits"],
+                              arrs[0]["first_logits"]):
+        raise AssertionError("tp (b): the first step's logits differ "
+                             "between the ranks or from its replay")
+    first_err = _rel_norm(arrs[0]["first_logits"], serve_one["first_logits"])
+    half_err = [_rel_norm(a["half_logits"], serve_one["first_logits"])
+                for a in arrs]
+    if not first_err <= TP_BF16_LOGITS_RTOL < min(half_err):
+        raise AssertionError(
+            f"tp (b): bf16 first-step logits at mp 2 against one process's: "
+            f"{first_err:.3e} (limit {TP_BF16_LOGITS_RTOL}); with each "
+            f"row-parallel sum cut to one rank's half {half_err}, which "
+            f"must exceed the limit")
+    exact, parts = _stream_agreement(sv[0]["streams"], serve_one)
+    # a bf16 stream may part from one process's only at a near-tie there
+    # (phase 19's rule): mp 2 sums the row-parallel products in halves
+    clear = [p for p in parts if p[2] is None or p[2] > NEAR_TIE]
+    if clear:
+        raise AssertionError(f"tp (b): bf16 streams part from one process's "
+                             f"where its top-2 gap exceeds {NEAR_TIE}: "
+                             f"{clear}")
+    tp_counts = {"ragged_paged_attention": sum(s["launches"] for s in sv)}
+    log(f"tp (b): f32 at {TP_EXACT_LAYERS} layers, mp 2: greedy streams "
+        f"equal one process's, plain and int8_wo ({len(exact_one['plain'])}"
+        f" requests x {TP_EXACT_TOKENS} tokens each)")
+    log(f"tp (b): bf16 collectives over gloo on CUDA tensors [520, 4096]: "
+        f"all-reduce against the f32 sum rounded once, largest error "
+        f"{[res['collectives'][0] for res in ranks]} ulp (bit-equal "
+        f"{[res['collectives'][1] for res in ranks]}), all-gather "
+        f"bit-equal {[res['collectives'][2] for res in ranks]}; first-step "
+        f"logits [{arrs[0]['first_logits'].shape[0]}, "
+        f"{arrs[0]['first_logits'].shape[1]}] at mp 2 against one "
+        f"process's, ||a - b|| / ||b||: {first_err:.4e} (limit "
+        f"{TP_BF16_LOGITS_RTOL}; the ranks' logits and the step's replay "
+        f"bit-equal); the control with each row-parallel sum cut to one "
+        f"rank's half {[round(e, 4) for e in half_err]}; one down_proj "
+        f"product in bf16 against f32: whole {halves[0]:.4e}, in two "
+        f"halves summed in bf16 {halves[1]:.4e}")
+    log(f"tp (b): Llama-3-8B bf16 at mp 2 ({sv[0]['layers']} of 32 layers, "
+        f"{sv[0]['pool_heads']} of 8 KV heads a rank), phase 4's prompts x "
+        f"{TP_NEW_TOKENS} tokens: {exact} of {len(sv[0]['streams'])} streams "
+        f"equal one process's, the others part at (request, token, one "
+        f"process's top-2 gap) {parts}; mean step {sv[0]['mean_step_ms']:.3f}"
+        f" ms over {sv[0]['steps']} steps (one process "
+        f"{serve_one['mean_step_ms']:.3f} ms over {serve_one['steps']}); "
+        f"a step: {sv[0]['per_step']} (over mp); peak memory a rank "
+        f"{[s['peak'] for s in sv]} B (one process {serve_one['peak']} B; "
+        f"before the model a rank {[s['held'] for s in sv]} B, its weights "
+        f"{[s['weights'] for s in sv]} B, with the engine "
+        f"{[s['resident'] for s in sv]} B; one process "
+        f"{serve_one['held']}, {serve_one['weights']}, "
+        f"{serve_one['resident']} B), "
+        f"pool bytes a rank {[s['pool_bytes'] for s in sv]} (one process "
+        f"{serve_one['pool_bytes']}); K4 launches rank 0 {sv[0]['launches']},"
+        f" rank 1 {sv[1]['launches']} (= {sv[0]['layers']} x steps each)")
+    log(f"phase 24 seconds by part: the one-process runs and K4 "
+        f"{t1 - t0:.1f}, the two pairs of ranks at once {t2 - t1:.1f} (rank "
+        f"0 of (a): rows {rows['seconds']:.1f}, whole "
+        f"{whole['seconds']:.1f}; of (b): bf16 "
+        f"{ranks[0]['serve']['seconds']:.1f}, exact "
+        f"{ranks[0]['exact_seconds']:.1f}); phase 24 {t2 - t0:.1f} s")
+    rec = dict(ep_losses=one["losses"], ep_dropped=one["dropped"],
+               ep_step_ms=dict(one_process=one["ms"], rows=rows["ms"],
+                               whole=whole["ms"]),
+               a2a_per_step=dict(calls=rows["a2a_calls"],
+                                 bytes=rows["a2a_bytes"]),
+               seconds=t2 - t0)
+    serve_rec = dict(local, streams_exact=exact, streams_parted=parts,
+                     first_step_logits_rel_err=first_err,
+                     first_step_logits_rtol=TP_BF16_LOGITS_RTOL,
+                     half_sum_control_rel_err=half_err,
+                     down_proj_rel_err=dict(whole=halves[0],
+                                            halves=halves[1]),
+                     bf16_all_reduce_ulps=[res["collectives"][0]
+                                           for res in ranks],
+                     mean_step_ms=sv[0]["mean_step_ms"],
+                     one_process_step_ms=serve_one["mean_step_ms"],
+                     per_step=sv[0]["per_step"],
+                     peak=[s["peak"] for s in sv],
+                     pool_bytes=[s["pool_bytes"] for s in sv])
+    return {"ep_train": ep_counts}, {"tp_serving": tp_counts["ragged_paged_attention"]}, \
+        rec, serve_rec
+
+
 _PHASE_SECONDS = []
 
 
@@ -8060,6 +8707,7 @@ def main():
     dist_paths, dist_rec = _timed(phase_distributed)
     seq_paths, seq_rec = _timed(phase_seq_pipe)
     job_paths, job_rec = _timed(phase_job_lifecycle)
+    ep_paths, tp_launches, ep_rec, tp_rec = _timed(phase_ep_tp)
     # each path's launches were counted from 0 over its own run; a kernel
     # on several paths reports their sum, and each path's count beside it
     paths = {"train": counts, "moe_train": moe, "fit": fit, "ernie": ernie,
@@ -8067,13 +8715,15 @@ def main():
              "api_train": api, "generate": gen, **capture_paths,
              "moe_generate": p17["moe_generate"],
              "incubate": p17["incubate"], "export": export_counts,
-             **train_prod, **dist_paths, **seq_paths, **job_paths}
+             **train_prod, **dist_paths, **seq_paths, **job_paths,
+             **ep_paths}
 
     def path_launches(kname):
         by_path = {p: c[kname] for p, c in paths.items() if kname in c}
         return dict(launches=sum(by_path.values()), launches_by_path=by_path)
     rpa_paths = {"serving": launches, **rpa_paths,
-                 "moe_serving": p17["moe_serving"], **prod_launches}
+                 "moe_serving": p17["moe_serving"], **prod_launches,
+                 **tp_launches}
     kernels = [dict(
         name="ragged_paged_attention", route="cuda",
         source="paddle_tpu_torch/ops/pallas/csrc/ragged_paged_attention.cu",
@@ -8083,7 +8733,7 @@ def main():
             rec_f16, launches=rpa_paths["serving_f16"],
             engine_step_max_abs_err=f16_step_err),
         at_moe_heads=p17["rpa_moe"], autotune=p17["autotune"],
-        serving_ledger_step_ms=ledger_cost)]
+        serving_ledger_step_ms=ledger_cost, tp_serving=tp_rec)]
     for kname, replaces in FLASH_KERNELS:
         kernels.append(dict(name=kname, route="cuda", source=FLASH_SRC,
                             replaces=replaces, **path_launches(kname),
@@ -8095,7 +8745,7 @@ def main():
                             **({"export": export_rec,
                                 "train_prod": train_prod_rec,
                                 "dist": dist_rec, "seq_pipe": seq_rec,
-                                "job": job_rec}
+                                "job": job_rec, "ep_train": ep_rec}
                                if kname == "flash_attention_fwd" else {})))
     for kname, _, replaces in GMM_KERNELS:
         kernels.append(dict(name=kname, route="cuda", source=GMM_SRC,

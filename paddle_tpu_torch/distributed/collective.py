@@ -71,6 +71,10 @@ class P(tuple):
     def __new__(cls, *entries):
         return super().__new__(cls, entries)
 
+    def __getnewargs__(self):
+        # pickle rebuilds a tuple subclass from __new__'s arguments
+        return tuple(self)
+
     def __repr__(self):
         return "P(" + ", ".join(repr(e) for e in self) + ")"
 

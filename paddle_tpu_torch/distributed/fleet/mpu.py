@@ -145,8 +145,10 @@ class _MPLayer(Layer):
         if not self.is_mp:
             p = full
         else:
-            p = type(full)(local_block(full.detach(), spec,
-                                       self._mesh).contiguous(),
+            # a copy: a block of dim 0 is a contiguous view, which would
+            # keep the full tensor's storage alive
+            p = type(full)(local_block(full.detach(), spec, self._mesh)
+                           .clone(memory_format=torch.contiguous_format),
                            full.requires_grad)
         p._sharding_spec = spec
         p._sharding_mesh = self._mesh

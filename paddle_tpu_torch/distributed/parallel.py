@@ -14,6 +14,11 @@ over uneven ``-100`` labels: a loss that divides by a count of valid
 tokens reports it with :func:`note_loss_tokens` (the Llama causal-LM
 loss does), and ``TrainStep`` weights each rank's gradient by its share
 of the global count, so the step equals one mean over the global batch.
+
+:func:`splitting_batch` is how ``TrainStep`` tells the layers of its
+forward how the batch lies on the mesh: an expert-parallel
+``MoELayer`` reads :func:`batch_split` to learn whether its tokens are
+the global batch (replicated) or this rank's rows of it.
 """
 from __future__ import annotations
 
@@ -28,7 +33,8 @@ from . import collective as C
 from .collective import P
 from .mesh import axis_size, get_mesh
 
-__all__ = ["DataParallel", "note_loss_tokens"]
+__all__ = ["DataParallel", "note_loss_tokens", "splitting_batch",
+           "batch_split"]
 
 _tls = threading.local()
 
@@ -52,6 +58,27 @@ def counting_loss_tokens():
         yield _tls.noted
     finally:
         _tls.noted = prev
+
+
+@contextlib.contextmanager
+def splitting_batch(row_axes, batch_axes):
+    """The block runs a forward whose batch is split over the mesh:
+    ``row_axes`` split its dim 0 (the rows), ``batch_axes`` are every
+    axis its input spec splits (``TrainStep(mesh=)`` sets them around
+    its forward)."""
+    prev = getattr(_tls, "split", None)
+    _tls.split = (tuple(row_axes), tuple(batch_axes))
+    try:
+        yield
+    finally:
+        _tls.split = prev
+
+
+def batch_split():
+    """``(row axes, batch axes)`` of the forward running now; ``((),
+    ())`` outside a ``TrainStep`` over a mesh: the batch is whole on
+    every rank."""
+    return getattr(_tls, "split", None) or ((), ())
 
 
 class DataParallel(Layer):

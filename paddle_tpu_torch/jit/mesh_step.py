@@ -10,8 +10,11 @@ place the collectives. Here each process is one rank and runs its part:
   split over ``dp``, the reference's default, :643-645); the axes the
   spec splits, on any dim, are the step's *batch axes* (``P(None,
   "dp")`` splits an SPMD pipeline's ``[M, B, ...]`` micro-batches over
-  ``dp``). A parameter split on another axis (a stacked SPMD pipeline
-  parameter on ``pp``) is not reduced over it;
+  ``dp``), and those of its dim 0 its *row axes*. The forward runs
+  under ``distributed.parallel.splitting_batch(row axes, batch axes)``,
+  which is how an expert-parallel ``MoELayer`` learns that its tokens
+  are this rank's rows. A parameter split on another axis (a stacked
+  SPMD pipeline parameter on ``pp``) is not reduced over it;
 * **loss** — the loss is one mean over the global batch: each rank's
   loss reports the tokens it averages (``distributed.parallel.
   note_loss_tokens``, else every rank counts 1), one all-reduce of
@@ -27,9 +30,13 @@ place the collectives. Here each process is one rank and runs its part:
   clip and the update read. ``bucketed=False`` reduces each parameter
   on its own after the backward;
 * **split parameters** — a tensor-parallel block (``_sharding_spec``)
-  trains on its own rank, its gradient reduced over the batch axes
-  only; the global-norm clip sums each parameter's squares over the
-  axes it is split on (:meth:`MeshPlan.reduce_sq`);
+  trains on its own rank. Each gradient is reduced over the batch axes
+  less the axes its parameter is split on (:meth:`MeshPlan.reduce_axes`):
+  an expert stack split on ``ep`` under a batch split on ``ep`` holds
+  other experts on each rank, and is not reduced over ``ep``; buckets
+  are planned per reduction group. The global-norm clip sums each
+  parameter's squares over the axes it is split on
+  (:meth:`MeshPlan.reduce_sq`);
 * **ZeRO** — read from the optimizer as the reference reads it
   (:603-605; ``distributed.sharding``): at ``os`` and ``os_g`` a
   parameter whose dim 0 divides by the ``sharding`` axis is updated on
@@ -43,6 +50,7 @@ place the collectives. Here each process is one rank and runs its part:
 """
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -80,6 +88,7 @@ class _CommBucket:
     names: Tuple[str, ...]
     flat: torch.Tensor
     slots: Dict[str, Tuple[int, int]]
+    group: object = None
     landed: set = field(default_factory=set)
     task: Optional[object] = None
 
@@ -118,7 +127,10 @@ class MeshPlan:
         self.input_spec = None if input_spec is None else P(*input_spec)
         self.batch_axes = spec_axes(self.input_spec, mesh) \
             if self.input_spec else ()
+        self.row_axes = spec_axes(P(self.input_spec[0]), mesh) \
+            if self.input_spec else ()
         self.batch_group = C.Group(self.batch_axes, mesh)
+        self._groups = {self.batch_axes: self.batch_group}
         self.n_batch = axis_size(mesh, self.batch_axes)
         self.bucket_mb = getattr(model, "comm_buffer_size",
                                  DEFAULT_BUCKET_MB)
@@ -208,19 +220,36 @@ class MeshPlan:
         return rows
 
     # -- the gradient collectives ----------------------------------------------
+    def reduce_axes(self, name) -> tuple:
+        """The axes ``name``'s gradient is summed over: the batch axes
+        less those its parameter is split on."""
+        split = shard_axes(self._params[name])
+        return tuple(a for a in self.batch_axes if a not in split)
+
+    def _group(self, axes):
+        if axes not in self._groups:
+            self._groups[axes] = C.Group(axes, self.mesh)
+        return self._groups[axes]
+
     def _plan_buckets(self, train):
-        self.comm_buckets = plan_comm_buckets(
-            {n: self._params[n] for n in train},
-            comm_bucket_bytes(self.bucket_mb))
+        by_axes: Dict[tuple, List[str]] = {}
+        for n in train:
+            by_axes.setdefault(self.reduce_axes(n), []).append(n)
+        plans = [(axes, names) for axes, group in by_axes.items()
+                 for names in plan_comm_buckets(
+                     {n: self._params[n] for n in group},
+                     comm_bucket_bytes(self.bucket_mb))]
+        self.comm_buckets = [names for _, names in plans]
         out = []
-        for names in self.comm_buckets:
+        for axes, names in plans:
             p0 = self._params[names[0]]
             slots, off = {}, 0
             for n in names:
                 slots[n] = (off, self._params[n].numel())
                 off += self._params[n].numel()
             out.append(_CommBucket(names, torch.zeros(
-                off, dtype=p0.dtype, device=p0.device), slots))
+                off, dtype=p0.dtype, device=p0.device), slots,
+                self._group(axes)))
         self._buckets = out
         self._bucket_of = {n: b for b in out for n in b.names}
         for n in train:
@@ -230,8 +259,15 @@ class MeshPlan:
                 self._hooked.add(n)
 
     def _make_hook(self, name):
+        # the parameter holds its hooks where the cycle collector cannot
+        # see them: a strong reference to the plan (which holds the
+        # parameters) would keep the model and its buckets alive forever
+        plan_ref = weakref.ref(self)
+
         def hook(p):
-            if not self._active or name not in self._bucket_of:
+            self = plan_ref()
+            if self is None or not self._active or \
+                    name not in self._bucket_of:
                 return
             b = self._bucket_of[name]
             b.view(name, (-1,)).copy_(p.grad.reshape(-1))
@@ -242,7 +278,7 @@ class MeshPlan:
         return hook
 
     def _launch(self, b):
-        b.task = C.all_reduce(b.flat, group=self.batch_group, sync_op=False)
+        b.task = C.all_reduce(b.flat, group=b.group, sync_op=False)
         self.last_all_reduces += 1
 
     def begin(self, train: List[str]):
@@ -263,12 +299,13 @@ class MeshPlan:
             self._active = True
 
     def _reduced_by_buckets(self, n):
-        return n not in self._stage3 and not (
-            self.zero_level == "os_g" and n in self.zero_rows)
+        return n not in self._stage3 and bool(self.reduce_axes(n)) and \
+            not (self.zero_level == "os_g" and n in self.zero_rows)
 
     def finish(self, train: List[str]) -> Dict[str, torch.Tensor]:
         """After the backward: every trained parameter's gradient, summed
-        over the batch axes (ZeRO's split ones: this rank's rows)."""
+        over its :meth:`reduce_axes` (ZeRO's split ones: this rank's
+        rows)."""
         self._active = False
         grads = {}
         if self.bucketed and self._buckets is not None:
@@ -293,8 +330,9 @@ class MeshPlan:
             elif self.zero_level == "os_g" and n in self.zero_rows:
                 grads[n] = self.rows_of_grad(g)
             else:
-                if self.batch_axes:
-                    C.all_reduce(g, group=self.batch_group)
+                axes = self.reduce_axes(n)
+                if axes:
+                    C.all_reduce(g, group=self._group(axes))
                     self.last_all_reduces += 1
                 grads[n] = g
         return grads

@@ -65,7 +65,8 @@ from torch.profiler import record_function
 from paddle_tpu_torch.core import generator
 from paddle_tpu_torch.core.tensor import unwrap_args, wrap
 from paddle_tpu_torch.distributed.parallel import (DataParallel,
-                                                   counting_loss_tokens)
+                                                   counting_loss_tokens,
+                                                   splitting_batch)
 from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
 from paddle_tpu_torch.observability import goodput, numerics
 from paddle_tpu_torch.observability.comm import compute_scope
@@ -280,7 +281,8 @@ class TrainStep:
         plan.install_full()
         try:
             with numerics.collect(instrument) as col, \
-                    counting_loss_tokens() as noted:
+                    counting_loss_tokens() as noted, \
+                    splitting_batch(plan.row_axes, plan.batch_axes):
                 loss = self._loss_fn(self._model, *args, **kwargs)
             (loss,), _, had_loss = unwrap_args((loss,), None)
             weight, global_loss = plan.weigh(loss, noted)

@@ -12,9 +12,18 @@ Ported: the configuration and its presets, the cacheless forward, both
 loss routes with the gate-balance aux loss folded in, ``aux_loss`` and
 ``clear_decode_side_effects``, the cached forward that serving and
 decoding run (reference :188-206) over the three cache forms of the
-Llama trunk, eager ``generate`` and ``generate_compiled``. Tensor
-parallelism raises. Parameter names and shapes equal the reference's,
-so a numpy state dict moves between the packages unchanged
+Llama trunk, eager ``generate`` and ``generate_compiled``.
+
+Parallelism, as the reference's (:79-115, :156-161):
+``tensor_parallel=True`` makes the attention, the dense MLP and the
+shared experts the port's tensor-parallel Llama layers over the global
+mesh's ``mp`` axis (the embedding and ``lm_head`` stay whole), and the
+routed ``MoELayer`` picks up the global mesh's ``ep`` axis (expert
+parallelism; see ``distributed/fleet/moe.py``). The init draws every
+full weight and keeps this rank's block, so a parallel model equals the
+one-device model of its seed. ``aux_loss()`` adds the layers' auxes,
+each global under a row split. Parameter names and shapes equal the
+reference's, so a numpy state dict moves between the packages unchanged
 (``utils/bridge.py``).
 """
 from __future__ import annotations
@@ -33,7 +42,7 @@ from paddle_tpu_torch.nn import initializer as I
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.ops.fused_ce import causal_lm_loss
 from .llama import (_ZERO_NO_BIAS, LlamaAttention, LlamaConfig, LlamaMLP,
-                    _rope_cache, run_cached_layers)
+                    _mp_of, _rope_cache, run_cached_layers)
 from paddle_tpu_torch.nn.containers import LayerList
 from paddle_tpu_torch.nn.layer_base import Layer
 
@@ -177,11 +186,10 @@ class MoeForCausalLM(Layer):
     def __init__(self, cfg: MoeConfig, device=None, dtype="float32",
                  seed: int = 0):
         super().__init__()
-        if cfg.tensor_parallel:
-            raise NotImplementedError(
-                "tensor_parallel is not ported to paddle_tpu_torch yet")
         if cfg.hidden_size % cfg.num_attention_heads:
             raise ValueError("hidden_size must divide by num_attention_heads")
+        if cfg.tensor_parallel:
+            _mp_of(cfg._attn_cfg())  # mp must divide the KV heads
         device = resolve_device(device)
         dtype = convert_dtype(dtype)
         kw = dict(device=device, dtype=dtype)
@@ -207,12 +215,24 @@ class MoeForCausalLM(Layer):
 
     @torch.no_grad()
     def _init_weights(self, generator):
+        """The reference's recipe; a tensor-parallel block draws its full
+        weight (and its XavierUniform bound) and keeps its part."""
+        from paddle_tpu_torch.distributed.mesh import axis_size, local_block
         for name, p in self.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if name == "embed_tokens.weight":
                 p.normal_(0.0, 1.0, generator=generator)
             elif p.dim() == 2 and leaf == "weight":
-                _xavier_uniform_(p, generator)
+                spec = getattr(p, "_sharding_spec", None)
+                if spec is None:
+                    _xavier_uniform_(p, generator)
+                    continue
+                mesh = p._sharding_mesh
+                full = p.new_empty([s * (1 if e is None else
+                                         axis_size(mesh, e))
+                                    for s, e in zip(p.shape, spec)])
+                _xavier_uniform_(full, generator)
+                p.copy_(local_block(full, spec, mesh))
             elif p.dim() == 1:
                 p.fill_(1.0)  # RMSNorm scales
         for layer in self.layers:

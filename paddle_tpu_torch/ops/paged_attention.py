@@ -29,10 +29,23 @@ the step quantizes the new K/V per (token, kv head)
 in place (:func:`write_kv_scales_to_pool`) and reads through the gather
 path, which dequantizes the gathered context in f32. The RPA kernel reads
 unquantized pools only: an int8 pool on the ``rpa`` path raises.
+
+Tensor parallelism (reference :218-243, :367-391): the serving engine
+pins its mesh with :func:`mesh_override` around its step, and
+:func:`_tp_mesh` reads it, under the reference's names. The reference
+``shard_map``s the kernel over the ``mp`` shards of q and of the pools;
+here each process is one rank whose model already holds its
+``n_heads/mp`` query and ``n_kv/mp`` KV heads, and whose pools hold the
+same KV heads (the engine builds them so), so the kernel runs once on
+the local heads with its arguments unchanged. Whole GQA groups stay on
+one rank (both counts split by the same factor), so the group size is
+unchanged; the step checks that the local heads form whole groups.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import NamedTuple
 
 import torch
@@ -60,6 +73,37 @@ class RaggedLayerCache(NamedTuple):
     # pools hold the model's dtype
     k_scale: torch.Tensor = None  # [num_blocks + 1, block_size, n_kv] f32
     v_scale: torch.Tensor = None  # [num_blocks + 1, block_size, n_kv] f32
+
+
+_impl_local = threading.local()
+
+
+@contextlib.contextmanager
+def mesh_override(mesh):
+    """Pin a tensor-parallel mesh for the ragged calls inside the block
+    on this thread (``None`` = one device, a no-op); the serving engine
+    wraps its step in it."""
+    prev = getattr(_impl_local, "mesh", None)
+    _impl_local.mesh = mesh
+    try:
+        yield
+    finally:
+        _impl_local.mesh = prev
+
+
+def _tp_mesh():
+    """``(mesh, mp axis name)`` when a mesh with a model axis of more than
+    one rank is pinned on this thread, else None."""
+    mesh = getattr(_impl_local, "mesh", None)
+    if mesh is None:
+        return None
+    from paddle_tpu_torch.distributed.fleet.mpu import _mp_axis
+    from paddle_tpu_torch.distributed.mesh import axis_size
+    try:
+        axis = _mp_axis(mesh)
+    except ValueError:
+        return None
+    return (mesh, axis) if axis_size(mesh, axis) > 1 else None
 
 
 def _slots(pool, block_tables, seq_ids, positions):
@@ -197,6 +241,10 @@ def ragged_paged_attention_step(q, k, v, k_pool, v_pool, block_tables,
     T, n_heads, hd = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
+    if _tp_mesh() is not None and n_heads % k_pool.shape[2]:
+        raise ValueError(
+            f"this rank's {n_heads} query heads do not form whole GQA "
+            f"groups over its {k_pool.shape[2]} KV heads")
     if k_scale is not None:
         if attn_impl != "gather":
             raise ValueError(

@@ -198,15 +198,21 @@ def default_target(name: str, arr) -> bool:
 
 def quantize_state(state: Dict[str, object], mode: str, *,
                    calibration: Optional[dict] = None, targets=None,
-                   axis: int = 1) -> Dict[str, object]:
+                   axis: int = 1, quantize=None) -> Dict[str, object]:
     """A NEW dict whose selected leaves are :class:`QuantizedLeaf` (keys
     unchanged). ``targets`` overrides the default name/shape predicate;
-    ``calibration`` applies the sensitivity gate."""
+    ``calibration`` applies the sensitivity gate; ``quantize(name,
+    value)`` overrides how one selected leaf is quantized (the
+    tensor-parallel serving engine quantizes the full weight of a block
+    and keeps its part, :func:`shard_quantized`)."""
     if mode not in WEIGHT_MODES:
         raise ValueError(
             f"quantize mode {mode!r} (want one of "
             f"{sorted(WEIGHT_MODES)})")
     pred = targets or default_target
+    if quantize is None:
+        def quantize(k, v):
+            return quantize_leaf(v, mode, axis=axis)
     picked = [k for k, v in state.items()
               if not isinstance(v, QuantizedLeaf) and pred(k, v)]
     skip = sensitive_params(picked, calibration)
@@ -214,7 +220,7 @@ def quantize_state(state: Dict[str, object], mode: str, *,
     for k in picked:
         if k in skip:
             continue
-        out[k] = quantize_leaf(state[k], mode, axis=axis)
+        out[k] = quantize(k, state[k])
     m = quantization_metrics()
     m["weight_leaves"].set(sum(
         1 for v in out.values() if isinstance(v, QuantizedLeaf)))
@@ -229,12 +235,20 @@ def quantized_bytes(state: Dict[str, object]) -> int:
                if isinstance(v, QuantizedLeaf))
 
 
-def shard_quantized(leaf: QuantizedLeaf, mesh, spec):
-    """Tensor-parallel placement of a quantized leaf: waits for the
-    port's mesh (ROADMAP §1 item 6)."""
-    raise NotImplementedError(
-        "shard_quantized needs a device mesh, which paddle_tpu_torch does "
-        "not have yet")
+def shard_quantized(leaf: QuantizedLeaf, mesh, spec) -> QuantizedLeaf:
+    """Tensor-parallel placement of a quantized leaf of a FULL weight
+    (reference :282-295): this rank's block of the values under the
+    weight's partition ``spec``, and of the 1-D scales under the spec's
+    entry at the channel axis — split for a column-parallel weight, whole
+    for a row-parallel one — so the dequantize needs no collective."""
+    from paddle_tpu_torch.distributed.mesh import local_block
+    parts = tuple(spec) if spec is not None else ()
+    scale_part = parts[leaf.axis] if leaf.axis < len(parts) else None
+    # copies: a block of dim 0 is a view that would keep the full storage
+    q = local_block(leaf.q, parts, mesh).clone(
+        memory_format=torch.contiguous_format)
+    scale = local_block(leaf.scale, (scale_part,), mesh).clone()
+    return QuantizedLeaf(q, scale, leaf.axis, leaf.orig_dtype)
 
 
 # -- metrics ------------------------------------------------------------------

@@ -30,6 +30,36 @@ Serving options of the reference (its engine :203-857):
   n_slots=N)``; :meth:`ServingEngine.load_adapter`, ``unload_adapter``
   and ``submit(adapter_id=)``, with a per-slot load generation seeding
   the prefix-cache chain.
+* ``mesh=`` — tensor-parallel serving over the mesh's ``mp`` axis
+  (reference :284-331, :495-528), one process per rank. The model is
+  built with ``tensor_parallel=True`` under that mesh, so each rank
+  already holds its heads and FFN columns; ``mp`` must divide
+  ``num_key_value_heads`` (``ValueError``), each rank's KV pools hold
+  its ``n_kv/mp`` heads (allocated so from the start), a quantized
+  projection is quantized whole and placed by
+  ``quantization.shard_quantized``, and a checkpoint's full weights
+  (``warm_start_from=``, :meth:`ServingEngine.load_weights`) are cut to
+  each rank's blocks. A model built without ``tensor_parallel`` warns
+  (``RuntimeWarning``) and is served whole, its weights and pools on
+  every rank. **Every rank takes the same step**: group rank 0 of
+  ``mp`` is the *driver* — it owns the scheduler, ``submit``,
+  ``abort``, sampling and the run loop (``start()``, so ``Server`` runs
+  on it unchanged) — and at each unified step it broadcasts over
+  ``mp`` one packed int32 buffer: the step's tokens, block tables,
+  ``cu``/``ctx``, sequence ids, positions, last-token indices, the RPA
+  work lists and the copy-on-write pairs. The other ranks are
+  *followers*: :meth:`ServingEngine.follow` (or ``run_until_idle``,
+  ``start``/``shutdown``) runs ``_forward`` on each buffer with their
+  shards and takes part in the row-parallel all-reduces and the logits
+  gather; they never schedule or sample, and ``submit`` on one raises.
+  The driver's ``shutdown`` (and the end of its ``run_until_idle``)
+  reaches every rank. While the driver's run loop idles it sends a
+  keep-alive word every :data:`KEEPALIVE_S` seconds (at most a quarter
+  of the group's collective timeout), so a follower's wait for the next
+  step never reaches that timeout. ``stats()["tensor_parallel"]`` is
+  ``mp``.
+  LoRA slots and the fleet's KV handoff are not ported under a mesh
+  (``NotImplementedError``).
 
 The model is any causal LM of the zoo that speaks the ``caches=``
 protocol (``models.generation.decode_surfaces``): Llama, and the MoE LM,
@@ -60,9 +90,9 @@ place rather than threaded through the step; ``memory_report()`` is
 measured on a zero-work step, not read from a compiler; the
 reference's ``PADDLE_TPU_QUANT_WEIGHTS``, ``PADDLE_TPU_QUANT_KV``,
 ``PADDLE_TPU_PREFIX_CACHE`` and ``PADDLE_TPU_REQUEST_LEDGER`` are not
-read (the arguments carry them); and tensor-parallel ``mesh=`` (it
-raises ``NotImplementedError``) and the decode numerics sampling are
-not ported yet.
+read (the arguments carry them), nor is ``PADDLE_TPU_SERVING_MP`` (the
+mesh is an argument); and the decode numerics sampling is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -80,6 +110,7 @@ import torch
 from paddle_tpu_torch.core.dtype import dtype_name
 from paddle_tpu_torch.device import resolve_device
 from paddle_tpu_torch.models.generation import decode_surfaces, sample_token
+from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.observability import fleet as obs_fleet
 from paddle_tpu_torch.observability import memory as obs_memory
 from paddle_tpu_torch.observability import requests as obs_requests
@@ -90,8 +121,8 @@ from paddle_tpu_torch.ops.pallas.ragged_paged_attention import (
     DEFAULT_TILE_Q, build_step_maps, ragged_paged_attention, rpa_max_steps,
     rpa_tile_q)
 from paddle_tpu_torch.quantization.weight_only import (
-    WEIGHT_MODES, QuantizedLeaf, calibration_from_checkpoint, quantize_leaf,
-    quantization_metrics, quantize_state)
+    WEIGHT_MODES, QuantizedLeaf, calibration_from_checkpoint,
+    quantize_leaf, quantization_metrics, quantize_state, shard_quantized)
 from paddle_tpu_torch.tuning import lora
 
 from .kv_cache import PagedKVCache, chain_hash
@@ -106,6 +137,15 @@ __all__ = ["ServingEngine", "RequestHandle", "serving_metrics",
 #: lm_head takes 16 chunks, the MLP projections 2, the attention's 1;
 #: the f32 staging of a chunk is 128 MiB)
 DEQUANT_CHUNK = 1 << 25
+
+# what the driver of a tensor-parallel engine tells its followers, in the
+# first word of the step buffer
+_STOP, _STEP, _ZERO_WORK, _IDLE, _ALIVE = 0, 1, 2, 3, 4
+
+#: the most seconds an idle tensor-parallel driver lets pass between two
+#: words to its followers (each waits for the next in a broadcast, which
+#: fails at the group's collective timeout: gloo's default is 30 minutes)
+KEEPALIVE_S = 10.0
 
 _serving_metrics_cache = None
 
@@ -215,8 +255,29 @@ def _quantized_linear_forward(layer, x):
     weight dequantized (f32 values x scales, then the logical dtype, as
     the reference's ``dequantize``) over column chunks of at most
     :data:`DEQUANT_CHUNK` elements, each multiplied and dropped before
-    the next."""
-    leaf = layer._wq
+    the next. A tensor-parallel projection multiplies its block and
+    keeps its layer's collectives: a row-parallel product is summed
+    over ``mp`` before the bias, a gathered column-parallel one is
+    gathered after it."""
+    from paddle_tpu_torch.distributed.fleet import mpu
+    if isinstance(layer, mpu.RowParallelLinear) and layer.is_mp:
+        if not layer.input_is_parallel:
+            x = mpu._ScatterToGroup.apply(x, layer._group)
+        out = mpu.reduce_from_group(_dequantized_product(layer._wq, x),
+                                    layer._group)
+        return out if layer.bias is None else out + layer.bias
+    out = _dequantized_product(layer._wq, x)
+    if layer.bias is not None:
+        out = out + layer.bias
+    if isinstance(layer, mpu.ColumnParallelLinear) and layer.is_mp and \
+            layer.gather_output:
+        out = mpu._GatherFromGroup.apply(out, layer._group)
+    return out
+
+
+def _dequantized_product(leaf, x):
+    """``x @ dequantize(leaf)`` over column chunks (see
+    :func:`_quantized_linear_forward`)."""
     q, scale = leaf.q, leaf.scale
     d_in, d_out = q.shape
     step = max(1, DEQUANT_CHUNK // d_in)
@@ -225,8 +286,7 @@ def _quantized_linear_forward(layer, x):
         c1 = min(d_out, c0 + step)
         w = q[:, c0:c1].float().mul_(scale[c0:c1]).to(leaf.orig_dtype)
         parts.append(torch.matmul(x, w))
-    out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-    return out if layer.bias is None else out + layer.bias
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
 
 def _read_checkpoint_state(path: str, step: Optional[int] = None) -> dict:
@@ -293,8 +353,9 @@ class ServingEngine:
     """Continuous-batching inference over a causal LM that speaks the
     ragged ``caches=`` protocol (Llama and the MoE LM). Runs on the card
     unless ``device="cpu"``; the model must already live on that
-    device. ``mesh=`` is not ported (it raises ``NotImplementedError``);
-    the other options are the reference's (module docstring).
+    device. ``mesh=`` serves a tensor-parallel model from one process per
+    rank, rank 0 of ``mp`` driving (module docstring); the other options
+    are the reference's.
     ``request_ledger=False`` builds an engine whose request-ledger hooks
     are one attribute read (the reference's
     ``PADDLE_TPU_REQUEST_LEDGER=0``)."""
@@ -308,10 +369,6 @@ class ServingEngine:
                  mesh=None, quantize: Optional[str] = None,
                  kv_dtype: Optional[str] = None, calibration=None,
                  request_ledger: bool = True, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ServingEngine(mesh=...) is not ported to paddle_tpu_torch "
-                "yet: tensor-parallel serving waits for the port's mesh")
         if quantize is not None and quantize not in WEIGHT_MODES:
             raise ValueError(f"quantize={quantize!r} (want one of "
                              f"{sorted(WEIGHT_MODES)})")
@@ -327,10 +384,11 @@ class ServingEngine:
                 f"model lives on {model_dev} but the engine runs on "
                 f"{self.device}; build the model on the engine's device")
         model.eval()
-        if warm_start_from is not None:
-            model.set_state_dict(_read_checkpoint_state(warm_start_from))
         self.model = model
         cfg = model.cfg
+        self._setup_mesh(mesh, cfg)
+        if warm_start_from is not None:
+            self._set_state(_read_checkpoint_state(warm_start_from))
         self._backbone, self._project, dtype = decode_surfaces(model)
         # weight-only quantization: the projection weights become
         # (values, scales) pairs, dequantized one projection at a time
@@ -365,6 +423,8 @@ class ServingEngine:
         nl = cfg.num_hidden_layers
         n_kv = cfg.num_key_value_heads
         hd = cfg.hidden_size // cfg.num_attention_heads
+        # this rank's share of the heads (all of them when served whole)
+        heads_per = self.tp if self._shard_heads else 1
         #: block-granular prefix-cache KV reuse — on by default;
         #: prefix_cache=False is the bit-parity oracle
         self.prefix_cache_enabled = True if prefix_cache is None \
@@ -378,7 +438,8 @@ class ServingEngine:
         if max_blocks_per_seq is None:
             max_blocks_per_seq = min(max_blocks, -(-max_pos // block_size))
         self.kv_dtype = kv_dtype
-        self.cache = PagedKVCache(nl, max_blocks, block_size, n_kv, hd,
+        self.cache = PagedKVCache(nl, max_blocks, block_size,
+                                  n_kv // heads_per, hd,
                                   max_blocks_per_seq, dtype=dtype,
                                   device=self.device,
                                   prefix_cache=self.prefix_cache_enabled,
@@ -411,7 +472,8 @@ class ServingEngine:
         self._tile_q = DEFAULT_TILE_Q if self.attn_impl == "gather" \
             else rpa_tile_q(
                 self.max_batch + self.prefill_chunk,
-                cfg.num_attention_heads, n_kv, hd, block_size,
+                cfg.num_attention_heads // heads_per, n_kv // heads_per, hd,
+                block_size,
                 self.cache.max_blocks_per_seq, max_blocks,
                 dtype=dtype_name(dtype), device=self.device,
                 default=DEFAULT_TILE_Q)
@@ -441,6 +503,9 @@ class ServingEngine:
         self._callers_lock = threading.Lock()
         self._thread: Optional[threading.Thread] = None
         self._shutdown = False
+        self._stopped_followers = False
+        self._last_word = time.monotonic()
+        self._keepalive_s = self._keepalive_interval()
         self._handles = {}  # req_id -> RequestHandle
         #: this engine's own RPA kernel launches (``rpa_launches`` in
         #: ``stats()`` is the process-wide count)
@@ -455,6 +520,186 @@ class ServingEngine:
         self._published_prefix = {"lookups": 0, "hits": 0, "evictions": 0}
         self._prompt_tokens_prefilled = 0
         self._init_metrics()
+
+    # -- tensor parallelism ------------------------------------------------
+    def _setup_mesh(self, mesh, cfg):
+        """The engine's place on ``mesh`` (None: one process): its
+        model-parallel group, whether this rank drives, and whether the
+        heads are split (the model was built tensor-parallel)."""
+        self.mesh = mesh
+        self.tp, self.tp_rank, self._tp_group = 1, 0, None
+        self._mp_axis = None
+        self._shard_heads = False
+        if mesh is None:
+            return
+        if getattr(mesh, "mesh_dim_names", None) is None:
+            raise TypeError("mesh= takes a device mesh "
+                            "(paddle.distributed.init_mesh)")
+        from paddle_tpu_torch.distributed import collective as C
+        from paddle_tpu_torch.distributed.fleet.mpu import _mp_axis
+        from paddle_tpu_torch.distributed.mesh import axis_size
+        self._mp_axis = _mp_axis(mesh)
+        mp = axis_size(mesh, self._mp_axis)
+        n_kv = cfg.num_key_value_heads
+        if mp > 1 and n_kv % mp:
+            raise ValueError(
+                f"tensor-parallel serving shards the KV pools over the "
+                f"'{self._mp_axis}' axis: num_key_value_heads {n_kv} must "
+                f"divide by its size {mp}")
+        if mp == 1:
+            return
+        if getattr(self.model, "_lora_slots", 0):
+            raise NotImplementedError(
+                "LoRA tenant slots under ServingEngine(mesh=) are not "
+                "ported to paddle_tpu_torch")
+        if not getattr(cfg, "tensor_parallel", False):
+            warnings.warn(
+                "ServingEngine(mesh=) over a model built without "
+                "tensor_parallel=True: its weights and KV pools stay whole "
+                "on every rank", RuntimeWarning)
+        self.tp = mp
+        self._tp_group = C.Group((self._mp_axis,), mesh)
+        self.tp_rank = self._tp_group.rank
+        self._shard_heads = bool(getattr(cfg, "tensor_parallel", False))
+
+    @property
+    def is_driver(self) -> bool:
+        """Whether this rank schedules and samples (always, without a
+        mesh)."""
+        return self.tp_rank == 0
+
+    def _refuse_on_follower(self, what: str):
+        if not self.is_driver:
+            raise RuntimeError(
+                f"{what} on a follower rank ({self.tp_rank} of "
+                f"'{self._mp_axis}'): the driver (rank 0) schedules; "
+                "followers run follow()")
+
+    def _set_state(self, state: dict):
+        """Load a full state into the model: a tensor-parallel block
+        takes its part of a full tensor (``_shard_state``)."""
+        self.model.set_state_dict(self._shard_state(state))
+
+    def _shard_state(self, state: dict) -> dict:
+        """``state`` with each full tensor of a split parameter cut to
+        this rank's block (a block-shaped one is kept)."""
+        if not self._shard_heads:
+            return state
+        from paddle_tpu_torch.distributed.mesh import local_block
+        params = dict(self.model.named_parameters())
+        out = {}
+        for k, v in state.items():
+            p = params.get(k)
+            spec = getattr(p, "_sharding_spec", None)
+            if spec is not None and tuple(v.shape) != tuple(p.shape):
+                v = local_block(v, spec, p._sharding_mesh).contiguous()
+            out[k] = v
+        return out
+
+    def _keepalive_interval(self) -> float:
+        """Seconds between an idle driver's keep-alive words:
+        :data:`KEEPALIVE_S`, or a quarter of the ``mp`` group's collective
+        timeout where that is shorter."""
+        if self._tp_group is None:
+            return KEEPALIVE_S
+        from paddle_tpu_torch.distributed import collective as C
+        pg = C._resolve(self._tp_group)[0]
+        try:
+            timeout = pg._get_backend(
+                torch.device(self.device)).options._timeout.total_seconds()
+        except (AttributeError, RuntimeError):
+            return KEEPALIVE_S
+        return min(KEEPALIVE_S, timeout / 4)
+
+    def _keep_followers(self):
+        """Driver, idle: a keep-alive word once :attr:`_keepalive_s`
+        has passed since the last word."""
+        if self._tp_group is not None and \
+                time.monotonic() - self._last_word >= self._keepalive_s:
+            self._send_step(_ALIVE)
+
+    def _send_step(self, flag: int, cow=(), arrays=()):
+        """Driver: the step's word to the followers (one broadcast over
+        ``mp``; a no-op without followers)."""
+        if self._tp_group is None:
+            return
+        self._last_word = time.monotonic()
+        buf = np.zeros(self._step_words(), np.int32)
+        buf[0], buf[1] = flag, len(cow)
+        for i, (src, dst) in enumerate(cow):
+            buf[2 + 2 * i], buf[3 + 2 * i] = src, dst
+        off = 2 + 2 * self.max_batch
+        for a in arrays:
+            buf[off:off + a.size] = a.reshape(-1)
+            off += a.size
+        from paddle_tpu_torch.distributed import collective as C
+        C.broadcast(torch.from_numpy(buf).to(self.device), src=0,
+                    group=self._tp_group)
+
+    def _step_shapes(self):
+        """The shapes of the arrays a step buffer carries, in order:
+        tokens, block tables, cu, ctx, sequence ids, positions, last
+        indices and the two RPA work lists."""
+        T, S = self.step_tokens, self.max_batch
+        tiles = self._null_step_maps[0].shape
+        return [(1, T), (S + 1, self.cache.max_blocks_per_seq), (S + 2,),
+                (S + 1,), (T,), (T,), (S,), tiles, tiles]
+
+    def _step_words(self) -> int:
+        return 2 + 2 * self.max_batch + sum(
+            int(np.prod(sh)) for sh in self._step_shapes())
+
+    def follow(self):
+        """A follower's loop: take each step the driver broadcasts and run
+        it on this rank's shards, until the driver's ``shutdown``.
+        Returns at once on the driver and without a mesh."""
+        self._follow(until_idle=False)
+
+    def _follow(self, until_idle: bool):
+        """:meth:`follow`; with ``until_idle`` it also returns at the end
+        of the driver's ``run_until_idle``."""
+        if self._tp_group is None or self.is_driver:
+            return
+        from paddle_tpu_torch.distributed import collective as C
+        buf = torch.zeros(self._step_words(), dtype=torch.int32,
+                          device=self.device)
+        while True:
+            C.broadcast(buf, src=0, group=self._tp_group)
+            head = buf[:2 + 2 * self.max_batch].tolist()
+            flag = head[0]
+            if flag == _STOP or (until_idle and flag == _IDLE):
+                return
+            if flag == _ZERO_WORK:
+                self._zero_work_step()
+                continue
+            if flag != _STEP:
+                continue
+            for i in range(head[1]):
+                self.cache.copy_block(head[2 + 2 * i], head[3 + 2 * i])
+            arrays, off = [], 2 + 2 * self.max_batch
+            for sh in self._step_shapes():
+                n = int(np.prod(sh))
+                arrays.append(buf[off:off + n].reshape(sh).clone())
+                off += n
+            tokens, bt, cu, ctx, sid, pos, last_idx, ssq, sbk = arrays
+            launches0 = rpa_mod.thread_launches()
+            try:
+                self._forward(tokens, self._caches(
+                    [bt, cu, ctx, sid, pos, ssq, sbk]), last_idx,
+                    contextlib.nullcontext())
+            finally:
+                self.rpa_launches += rpa_mod.thread_launches() - launches0
+                self._clear_model_side_effects()
+            self.steps += 1
+
+    def _caches(self, meta):
+        """One :class:`RaggedLayerCache` per layer over the step's
+        device metadata."""
+        c = self.cache
+        scales = zip(c.k_scales, c.v_scales) if self.kv_dtype else \
+            [(None, None)] * len(c.k_pools)
+        return [RaggedLayerCache(kp, vp, *meta, ks, vs)
+                for kp, vp, (ks, vs) in zip(c.k_pools, c.v_pools, scales)]
 
     # -- metrics -----------------------------------------------------------
     def _init_metrics(self):
@@ -588,11 +833,17 @@ class ServingEngine:
         keeps the :class:`QuantizedLeaf` as ``_wq`` and computes through
         :func:`_quantized_linear_forward`."""
         params = dict(self.model.named_parameters())
-        qstate = quantize_state(params, self.quantize,
-                                calibration=self._calibration)
+        qstate = quantize_state(
+            params, self.quantize, calibration=self._calibration,
+            quantize=self._quantize_block if self._shard_heads else None)
         leaves = {k: v for k, v in qstate.items()
                   if isinstance(v, QuantizedLeaf)}
         del params, qstate
+        #: the partition specs of the quantized projections' weights
+        self._qspecs = {
+            name: getattr(self.model.get_submodule(
+                name.rsplit(".", 1)[0]).weight, "_sharding_spec", None)
+            for name in leaves}
         for name, leaf in leaves.items():
             layer = self.model.get_submodule(name.rsplit(".", 1)[0])
             del layer.weight
@@ -600,6 +851,19 @@ class ServingEngine:
             layer.forward = types.MethodType(_quantized_linear_forward,
                                              layer)
         return leaves
+
+    def _quantize_block(self, name, p):
+        """One projection of a tensor-parallel model quantized as the
+        reference does: the full weight (gathered over ``mp``) is
+        quantized, and :func:`shard_quantized` keeps this rank's block
+        of the values and of the scales."""
+        spec = getattr(p, "_sharding_spec", None)
+        if spec is None:
+            return quantize_leaf(p, self.quantize)
+        from paddle_tpu_torch.distributed.collective import gather_block
+        full = gather_block(p.detach().contiguous(), spec, p._sharding_mesh)
+        return shard_quantized(quantize_leaf(full, self.quantize),
+                               p._sharding_mesh, spec)
 
     def load_weights(self, path: str, step: Optional[int] = None):
         """Swap in weights from a checkpoint: a training
@@ -613,7 +877,8 @@ class ServingEngine:
         loudly (``RuntimeWarning`` naming the leaf); anything else is
         refused with a ``ValueError`` naming the leaf, before any weight
         changes. Quantized leaves are quantized again from the fresh
-        weights (the same set as at construction)."""
+        weights (the same set as at construction). Under a mesh every
+        rank calls it, and each keeps its blocks of the full weights."""
         with self._caller_lock():
             active = self.scheduler.num_running + self.scheduler.num_waiting
             if active:
@@ -643,10 +908,14 @@ class ServingEngine:
                 checked[k] = v
             plain = {k: v for k, v in checked.items()
                      if k not in self._qleaves}
-            self.model.set_state_dict(plain)
+            self._set_state(plain)
             for k, v in checked.items():
                 if k in self._qleaves:
                     leaf = quantize_leaf(v.to(self.device), self.quantize)
+                    spec = self._qspecs.get(k)
+                    if spec is not None and \
+                            tuple(v.shape) != tuple(self._qleaves[k].shape):
+                        leaf = shard_quantized(leaf, self.mesh, spec)
                     self._qleaves[k] = leaf
                     self.model.get_submodule(k.rsplit(".", 1)[0])._wq = leaf
 
@@ -730,6 +999,7 @@ class ServingEngine:
         ``traceparent`` parse); absent, the engine mints one — either
         way every span and response of the request carries it.
         ``adapter_id`` picks the tenant's LoRA slot (0 = base model)."""
+        self._refuse_on_follower("submit")
         prompt_tokens = list(prompt_tokens)
         if not prompt_tokens:
             raise ValueError("empty prompt")
@@ -843,11 +1113,12 @@ class ServingEngine:
         # matched block is copied into the sequence's private block
         # BEFORE the step, so the final-token write lands in owned
         # storage and the shared block stays immutable
+        cow = []
         for seq, _ in prefills:
             if seq.cow_src is not None and seq.cow_index is not None \
                     and seq.cow_index < len(seq.block_ids):
-                self.cache.copy_block(seq.cow_src,
-                                      seq.block_ids[seq.cow_index])
+                cow.append((seq.cow_src, seq.block_ids[seq.cow_index]))
+                self.cache.copy_block(*cow[-1])
                 self.scheduler._release_cow(seq)
 
         entries = [(seq, 1, False) for seq in decode] + \
@@ -890,16 +1161,14 @@ class ServingEngine:
                 max_steps=self._max_steps, max_seqs=S)
         else:
             ssq, sbk = self._null_step_maps
+        self._send_step(_STEP, cow, (tokens, bt, cu, ctx, sid, pos,
+                                     last_idx, ssq, sbk))
 
         def dev(a):
             return torch.from_numpy(a).to(self.device)
 
-        meta = [dev(a) for a in (bt, cu, ctx, sid, pos, ssq, sbk)]
-        c = self.cache
-        scales = zip(c.k_scales, c.v_scales) if self.kv_dtype else \
-            [(None, None)] * len(c.k_pools)
-        caches = [RaggedLayerCache(kp, vp, *meta, ks, vs) for kp, vp, (ks, vs)
-                  in zip(c.k_pools, c.v_pools, scales)]
+        caches = self._caches([dev(a) for a in (bt, cu, ctx, sid, pos, ssq,
+                                                sbk)])
         # per-token LoRA dispatch: this step's token -> slot ids, on the
         # model's device, for the adapter hooks
         adapters = (lora.adapter_ids(dev(aid)) if self.n_adapter_slots
@@ -959,7 +1228,8 @@ class ServingEngine:
         """The model over one packed step: the logits ``[max_batch, V]``
         (f32) at each sequence's LAST packed token (rows of empty
         metadata slots gather token 0 and are discarded)."""
-        with torch.no_grad(), adapters:
+        with torch.no_grad(), adapters, \
+                pa.mesh_override(self.mesh if self._shard_heads else None):
             h, _ = self._backbone(tokens, caches=caches,
                                   attn_impl=self.attn_impl)
             hsel = h[0][last_idx.long()][:, None, :]
@@ -1004,7 +1274,9 @@ class ServingEngine:
     def _zero_work_step(self):
         """One step of padding only: every token's sequence id is the
         sentinel, so the KV writes land in the null block and nothing is
-        sampled."""
+        sampled. The driver of a mesh has its followers take it too."""
+        if self.is_driver:
+            self._send_step(_ZERO_WORK)
         T, S = self.step_tokens, self.max_batch
         # the work lists of a step with no sequence: every step dead
         ssq, sbk = self._null_step_maps
@@ -1016,11 +1288,7 @@ class ServingEngine:
             np.zeros((S + 2,), np.int32),
             np.zeros((S + 1,), np.int32), np.full((T,), S, np.int32),
             np.zeros((T,), np.int32), ssq, sbk)]
-        c = self.cache
-        scales = zip(c.k_scales, c.v_scales) if self.kv_dtype else \
-            [(None, None)] * len(c.k_pools)
-        caches = [RaggedLayerCache(kp, vp, *meta, ks, vs) for kp, vp, (ks, vs)
-                  in zip(c.k_pools, c.v_pools, scales)]
+        caches = self._caches(meta)
         adapters = (lora.adapter_ids(dev(np.zeros((T,), np.int32)))
                     if self.n_adapter_slots else contextlib.nullcontext())
         try:
@@ -1162,6 +1430,7 @@ class ServingEngine:
         aborted mid-prefill registered in the prefix index only blocks
         whose every token a finished step wrote. Returns False when the
         request is unknown or already finished."""
+        self._refuse_on_follower("abort")
         with self._caller_lock():
             handle = self._handles.get(req_id)
             if handle is None:
@@ -1184,10 +1453,16 @@ class ServingEngine:
 
     def run_until_idle(self):
         """Synchronous loop (tests / batch jobs): step until every
-        submitted request has finished."""
+        submitted request has finished. Under a mesh every rank calls
+        it: the driver steps, then tells the followers it is idle; a
+        follower runs the driver's steps until then."""
+        if not self.is_driver:
+            self._follow(until_idle=True)
+            return
         while True:
             did = self.step()
             if not did and not self.has_pending():
+                self._send_step(_IDLE)
                 return
             if not did:
                 raise RuntimeError(
@@ -1195,14 +1470,15 @@ class ServingEngine:
                     "undersized for the admitted requests")
 
     def start(self):
-        """Background step loop (the server front-end's mode)."""
+        """Background step loop (the server front-end's mode); on a
+        follower, :meth:`follow` in the background."""
         with self._lock:
             if self._thread is not None:
                 return
             self._shutdown = False
             self._thread = threading.Thread(
-                target=self._run_loop, name="pt-torch-serving-engine",
-                daemon=True)
+                target=self._run_loop if self.is_driver else self.follow,
+                name="pt-torch-serving-engine", daemon=True)
             self._thread.start()
 
     def _run_loop(self):
@@ -1214,6 +1490,7 @@ class ServingEngine:
                     return
                 if not self.scheduler.has_work():
                     self._cv.wait(timeout=0.1)
+                    self._keep_followers()
                     continue
             try:
                 self.step()
@@ -1245,7 +1522,17 @@ class ServingEngine:
 
     def shutdown(self, drain: bool = True, timeout: Optional[float] = None):
         """Graceful stop: optionally finish in-flight work, then stop the
-        loop thread. New submissions are rejected once shut down."""
+        loop thread. New submissions are rejected once shut down. The
+        driver of a mesh then stops its followers; a follower's
+        ``shutdown`` follows the driver's steps until that stop."""
+        if not self.is_driver:
+            if self._thread is not None:
+                self._thread.join()
+                self._thread = None
+            elif not self._shutdown:
+                self.follow()
+            self._shutdown = True
+            return
         if drain:
             self.drain(timeout)
         with self._caller_lock():
@@ -1260,6 +1547,9 @@ class ServingEngine:
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
+        if self._tp_group is not None and not self._stopped_followers:
+            self._stopped_followers = True
+            self._send_step(_STOP)
 
     # -- introspection -----------------------------------------------------
     def stats(self) -> dict:
@@ -1296,6 +1586,8 @@ class ServingEngine:
             "kv_reclaimable_fraction": round(reclaim / cap, 4),
             "max_batch": self.max_batch,
             "max_model_len": self.max_model_len,
+            # ranks the model-parallel axis splits the heads over
+            "tensor_parallel": self.tp,
             "block_size": self.cache.block_size,
             # what the weights and the KV actually serve in, and which
             # tenant sits in which slot
@@ -1320,6 +1612,12 @@ class ServingEngine:
         return out
 
     # -- cross-replica KV handoff (fleet disaggregation) -------------------
+    def _refuse_handoff(self):
+        if self._tp_group is not None:
+            raise NotImplementedError(
+                "the KV handoff of ServingEngine(mesh=) is not ported to "
+                "paddle_tpu_torch: each rank holds only its heads")
+
     def export_kv_blocks(self, digests: Sequence[bytes]) -> List[tuple]:
         """The KV contents of the registered blocks behind ``digests``
         (the chain hashes of a prefilled prompt's full blocks, in chain
@@ -1331,6 +1629,7 @@ class ServingEngine:
         copy is ordered on the stream before any later write — and
         released after. Stops at the first miss (a chained digest after
         a miss could never be admitted anyway)."""
+        self._refuse_handoff()
         pc = self.cache.prefix_cache
         if pc is None:
             return []
@@ -1358,6 +1657,7 @@ class ServingEngine:
         digests are skipped (first writer wins, as ``register``); a full
         pool stops the import early. Returns the number of blocks
         resident afterwards."""
+        self._refuse_handoff()
         pc = self.cache.prefix_cache
         if pc is None:
             return 0

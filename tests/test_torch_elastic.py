@@ -291,9 +291,15 @@ def test_fleet_aggregator_equals_the_references():
     assert last["stragglers"] == [2]
 
 
-def test_publisher_and_depart_records():
+def test_publisher_and_depart_records(monkeypatch):
     """A publisher's heartbeat and a departure carry the reference's
-    fields; the module seams are no-ops while the bus is off."""
+    fields; the module seams are no-ops while the bus is off. Both
+    packages start without a process goodput ledger (an earlier test in
+    the same process may have left one, which adds a ``goodput`` field)."""
+    import paddle_tpu.observability.goodput as jgoodput
+    from paddle_tpu_torch.observability import goodput
+    monkeypatch.setattr(jgoodput, "_ledger", None)
+    monkeypatch.setattr(goodput, "_ledger", None)
     fleet.disable()
     fleet.publish_step(1, {})
     assert fleet.recent_heartbeats() == []

@@ -195,6 +195,37 @@ def test_rpa_bf16_split_kernel(cuda_device, block_size, grp, hd, tile_q):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol,rtol", [
+    (torch.float32, 1e-4, 1e-4), (torch.bfloat16, 4e-3, 8e-3)])
+@pytest.mark.parametrize("rank", [0, 1])
+def test_rpa_at_a_tensor_parallel_rank_heads(cuda_device, dtype, atol, rtol,
+                                             rank):
+    """Tensor-parallel serving at mp 2 runs K4 on each rank's heads:
+    Llama-3-8B's 32 query / 8 KV heads (hd 128) split to 16 / 4, whole
+    GQA groups of 4. The kernel on rank ``rank``'s heads of a full step
+    gives the plain version's result on those heads of the whole, and
+    launches once."""
+    rng = np.random.RandomState(40 + rank)
+    seqs = [(1, 700), (1, 37), (0, 0), (120, 260), (1, 16), (1, 1)]
+    args, valid = _rpa_bf16_args(rng, seqs, 16, 4, 128, 8, cuda_device,
+                                 n_kv=8, shared=2, dtype=dtype)
+    q, kp, vp = args[:3]
+    mine = [q[:, 16 * rank:16 * rank + 16].contiguous(),
+            kp[:, :, 4 * rank:4 * rank + 4].contiguous(),
+            vp[:, :, 4 * rank:4 * rank + 4].contiguous()]
+    before = rpa.ragged_paged_attention.launches
+    out = rpa.ragged_paged_attention(*mine, *args[3:])
+    torch.cuda.synchronize()
+    assert rpa.ragged_paged_attention.launches == before + 1
+    ref = rpa.ragged_paged_attention_reference(*args).reshape(
+        q.shape)[:, 16 * rank:16 * rank + 16]
+    assert out.shape == ref.shape
+    torch.testing.assert_close(out[valid].float(), ref[valid].float(),
+                               atol=atol, rtol=rtol)
+    assert bool((out[~valid] == 0).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("tile_q", [8, 16, 32])
 def test_rpa_bf16_decode_step_with_padding_tiles(cuda_device, tile_q):
     """An engine's decode-only step: every decode row in the first tile,

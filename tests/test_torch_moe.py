@@ -188,9 +188,31 @@ def test_token_mask_matches_jax(mode, monkeypatch):
     assert bool((y[masked] == 0).all())
 
 
+class _EpMesh:
+    """A stand-in for a mesh of one axis ``ep`` of ``n`` ranks (this
+    process at coordinate 0): what the layer reads to place its stacks."""
+    mesh_dim_names = ("ep",)
+
+    def __init__(self, n):
+        self.shape = (n,)
+
+    def get_coordinate(self):
+        return [0]
+
+
 def test_layer_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        MoELayer(D, HID, E, mesh=object(), device="cpu")
+    """``mesh=`` is ported (``tests/test_torch_expert_parallel.py`` holds
+    it against the reference over gloo ranks): where ``ep`` does not
+    divide the experts the stacks stay whole and the layer is the
+    mesh-less one. A dispatch mode the reference lacks still raises."""
+    whole = MoELayer(D, HID, E, mesh=_EpMesh(3), device="cpu", seed=2)
+    plain = MoELayer(D, HID, E, device="cpu", seed=2)
+    assert not whole.sharded and whole.w1.shape == (E, D, HID)
+    assert getattr(whole.w1, "_sharding_spec", None) is None
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 5, D)
+                         .astype(np.float32))
+    np.testing.assert_array_equal(whole(x).detach().numpy(),
+                                  plain(x).detach().numpy())
     with pytest.raises(ValueError, match="dispatch_mode"):
         MoELayer(D, HID, E, dispatch_mode="scatter", device="cpu")
 
@@ -285,14 +307,15 @@ def test_three_train_steps_match_jax():
 
 
 def test_model_refuses_what_is_not_ported():
-    """Tensor parallelism raises; the cached forward (ported since the MoE
-    serving slice) refuses a cache list of the wrong length, as the
+    """Tensor parallelism (ported: ``tests/test_torch_expert_parallel.py``)
+    needs a mesh with a model-parallel axis, as the mpu layers do; the
+    cached forward refuses a cache list of the wrong length, as the
     reference does, and the loss a one-token sequence."""
     tm = MoeForCausalLM(MoeConfig.tiny(), device="cpu")
     ids = torch.zeros(1, 4, dtype=torch.long)
     with pytest.raises(ValueError, match="caches has 1 entries"):
         tm(ids, caches=[(None, None)])
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(RuntimeError, match="need a mesh"):
         MoeForCausalLM(MoeConfig.tiny(tensor_parallel=True), device="cpu")
     with pytest.raises(ValueError, match="length >= 2"):
         tm(ids[:, :1], labels=ids[:, :1])

@@ -215,9 +215,10 @@ def test_layer_set_entry_points_default_to_cuda():
     {"quantize": "int8"}, {"kv_dtype": "int8"}, {"mesh": object()},
     {"warm_start_from": "/nonexistent"}, {"calibration": {}}])
 def test_engine_refuses_unported_options(kwarg):
-    """Of the reference engine's options only ``mesh=`` is still not
-    ported (``NotImplementedError``); the others are taken, and each
-    refuses what the reference refuses: a quantize mode outside
+    """Every option of the reference engine is taken, and each refuses
+    what it cannot serve: ``mesh=`` anything but a device mesh (the
+    tensor-parallel engine itself is held against the reference in
+    ``tests/test_torch_tp_serving.py``), a quantize mode outside
     ``WEIGHT_MODES``, a checkpoint that is not there. ``kv_dtype="int8"``
     pins the gather read path with the reference's warning, and an empty
     calibration gates nothing."""
@@ -228,7 +229,7 @@ def test_engine_refuses_unported_options(kwarg):
     kw = dict(max_blocks=8, block_size=4, prefill_chunk=4, device="cpu",
               **kwarg)
     if "mesh" in kwarg:
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(TypeError, match="device mesh"):
             ServingEngine(model, **kw)
     elif "quantize" in kwarg:
         with pytest.raises(ValueError, match="int8_wo"):

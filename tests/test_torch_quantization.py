@@ -151,10 +151,35 @@ def test_calibrate_equals_jax_and_reads_a_reference_checkpoint(tmp_path):
         str(tmp_path / "plain.pdparams")) is None
 
 
+class _MpMesh:
+    """A stand-in for rank 1 of a mesh ``{"mp": 2}``: what
+    ``shard_quantized`` reads to cut its block."""
+    mesh_dim_names = ("mp",)
+    shape = (2,)
+
+    def get_coordinate(self):
+        return [1]
+
+
 def test_shard_quantized_waits_for_the_mesh():
-    leaf = wo.quantize_leaf(torch.randn(4, 8), "int8_wo")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        wo.shard_quantized(leaf, None, None)
+    """``shard_quantized`` on the port's mesh (the reference's
+    :282-295): the values take the weight's spec, the 1-D scales the
+    spec's entry at the channel axis — this rank's half for a
+    column-parallel weight, whole for a row-parallel one — so each
+    block dequantizes to its block of the full dequantized weight.
+    ``tests/test_torch_tp_serving.py`` serves it over gloo ranks."""
+    w = torch.randn(4, 8)
+    leaf = wo.quantize_leaf(w, "int8_wo")
+    full = leaf.dequantize()
+    col = wo.shard_quantized(leaf, _MpMesh(), (None, "mp"))
+    assert col.q.shape == (4, 4) and col.scale.shape == (4,)
+    assert torch.equal(col.q, leaf.q[:, 4:]) and col.axis == 1
+    assert torch.equal(col.dequantize(), full[:, 4:])
+    row = wo.shard_quantized(leaf, _MpMesh(), ("mp", None))
+    assert row.q.shape == (2, 8) and torch.equal(row.scale, leaf.scale)
+    assert torch.equal(row.dequantize(), full[2:])
+    whole = wo.shard_quantized(leaf, _MpMesh(), None)
+    assert torch.equal(whole.q, leaf.q) and whole.dtype == torch.float32
     with pytest.raises(ValueError, match="quantize mode"):
         wo.quantize_state({}, "int4_wo")
 
