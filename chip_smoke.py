@@ -435,6 +435,35 @@ Phases, each of which either succeeds or makes the script exit non-zero:
    (before the model, its weights, with the engine, the peak) and pool
    bytes beside one process's. The times are no measure of scaling. Its
    files go to a ``phase24_*`` directory of the checkout, deleted after.
+25. the layer, vision and dtype leftovers: (a) ``LlamaConfig.llama3_8b``
+   cut to 4 layers in f32: four rows of 1024, 640, 384 and 128 prompt
+   tokens prefilled side by side in chunks of 256 through per-row
+   ``PagedLayerCache``s (block 16, padded tails), then 32 greedy tokens a
+   row; each stream equals the row's eager ``generate`` (K1) or parts
+   only where generate's top-2 logit gap is at most ``PAGED_GAP``
+   (logged); the prefill and decode step ms and the peak memory. Then
+   ``MoeConfig.deepseek_moe_16b`` at 2 layers in f32, one per-row chunk
+   of rows of 256, 200, 97 and 31 tokens: the routed layer on the chunk
+   and its token mask equals the same layer on the valid tokens alone at
+   the same capacity (equal drops and outputs: the padded tails claim no
+   slot), and, at a capacity no assignment exceeds, each row's logits
+   equal the row run alone; (b) ``vision.ops`` at Mask R-CNN R50-FPN's
+   sizes: the P2 map [2, 256, 200, 336], 2 x 512 RoIs, ``roi_align`` at
+   the 7x7 box and 14x14 mask poolers with ``sampling_ratio`` 2 and the
+   adaptive default (8 here), forward and backward into the map,
+   ``roi_pool`` 7x7, RPN ``nms`` (2000 boxes, IoU 0.7) and per-class
+   ``nms`` (1000 boxes of 80 categories, 0.5), ``box_coder`` encoding 100
+   boxes against the 201600 P2 anchors and decoding two images' deltas;
+   each timed with its peak memory and checked against the same call on
+   the CPU (the RoI ops on a subset of RoIs; indices equal); (c) every
+   functional and layer the slice ported, forward and backward once at a
+   Cityscapes head's, an ESPCN x3 upscaler's, a spatial transformer's and
+   a 3x3 im2col's sizes and the losses over [4096, 1024], against the
+   CPU in f32 (``CENSUS_SUM_TOL``: ``CENSUS_TOL``'s rtol, atol 1e-4 for
+   the two devices' other orders of f32 sums); the random layers by their
+   statistics; a weight-normed conv three SGD steps under
+   ``clip_grad_norm_`` against the CPU's; the five new dtypes through
+   ``to_tensor`` on the card.
 
 It prints its measurements on earlier lines, then one JSON line with a
 record per kernel (K1-K3's with their times at ERNIE's and DiT's shapes,
@@ -462,7 +491,10 @@ with phase 22's ``ring_flash``, ``ulysses``, ``pipeline`` and
 K1's ``job``; K1-K3's ``launches_by_path`` with phase 24's ``ep_train``
 (both ranks, both layouts) and K4's with its ``tp_serving`` (both ranks),
 phase 24's training figures under K1's ``ep_train`` and its serving
-figures, with K4 at one rank's heads, under K4's ``tp_serving``),
+figures, with K4 at one rank's heads, under K4's ``tp_serving``; K1-K3's
+``launches_by_path`` with phase 25's ``paged_rows`` (the per-row runs,
+0 by design) and ``paged_rows_generate`` (its eager ``generate`` runs),
+and phase 25's figures under K1's ``leftovers``),
 and ends with
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -8662,6 +8694,755 @@ def phase_ep_tp():
         rec, serve_rec
 
 
+# --------------------------------------------------------------------------
+# phase 25: the per-row paged path, vision.ops and the layer census
+PAGED_LENS = (1024, 640, 384, 128)  # prompt tokens of (a)'s four rows
+PAGED_CHUNK, PAGED_BLOCK, PAGED_NEW = 256, 16, 32
+# a paged stream may part from eager generate's only where generate's
+# top-2 logit gap is at most this (f32 sums in other orders)
+PAGED_GAP = 1e-3
+MOE_ROW_LENS = (256, 200, 97, 31)  # (a)'s MoE chunk: one padded row each
+MOE_TIGHT_CF = 0.5  # a capacity factor at which the chunk drops
+CENSUS_TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_layers.py
+# the census's card-vs-CPU limit: the two devices sum f32 terms in other
+# orders (Bilinear's 4096-term contractions differ by 1.3e-5, the losses'
+# means over 4M values more), so atol is ten times the layers'
+CENSUS_SUM_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _peak_gb(device):
+    return torch.cuda.max_memory_allocated(device) / 1e9 \
+        if device.type == "cuda" else 0.0
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def paged_rows_greedy(model, prompts, new_tokens, chunk, block, logits):
+    """Greedy decoding of ``prompts`` side by side through per-row
+    ``PagedLayerCache``s: the prompts prefilled ``chunk`` tokens a step
+    (rows that are done carry ``new_lens`` 0, a short last chunk a padded
+    tail), each row's first token from its last prompt position, then
+    ``new_tokens - 1`` decode steps of one token a row. ``logits(h)`` maps
+    hidden states to logits. Returns the streams, each prefill step's ms
+    and the median decode step ms."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    cfg = model.cfg
+    dev = next(iter(model.parameters())).device
+    B = len(prompts)
+    nblk = -(-(max(map(len, prompts)) + new_tokens) // block)
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    shape = (B * nblk + 1, block, cfg.num_key_value_heads, hd)
+    pools = [(torch.zeros(shape, device=dev), torch.zeros(shape, device=dev))
+             for _ in range(cfg.num_hidden_layers)]
+    bt = (1 + torch.arange(B * nblk, dtype=torch.int32, device=dev)).reshape(
+        B, nblk)
+    ctx = torch.zeros(B, dtype=torch.int32, device=dev)
+    trunk = getattr(model, "model", model)
+
+    def step(ids, new_lens):
+        nl = torch.tensor(new_lens, dtype=torch.int32, device=dev)
+        caches = [pa.PagedLayerCache(k, v, bt, ctx, nl) for k, v in pools]
+        h, _ = trunk(ids, caches=caches)
+        ctx.add_(nl)
+        return h
+
+    first = [None] * B
+    done = [0] * B
+    prefill_ms = []
+    with torch.no_grad():
+        while any(d < len(p) for d, p in zip(done, prompts)):
+            ids = torch.zeros(B, chunk, dtype=torch.long)
+            nl = []
+            for b, p in enumerate(prompts):
+                k = min(chunk, len(p) - done[b])
+                ids[b, :k] = torch.as_tensor(p[done[b]:done[b] + k])
+                done[b] += k
+                nl.append(k)
+            _sync(dev)
+            t = time.perf_counter()
+            h = step(ids.to(dev), nl)
+            for b, k in enumerate(nl):
+                if k and done[b] == len(prompts[b]):
+                    first[b] = int(logits(h[b:b + 1, k - 1:k]).argmax(-1))
+            _sync(dev)
+            prefill_ms.append(1e3 * (time.perf_counter() - t))
+        streams = [[f] for f in first]
+        decode_ms = []
+        for _ in range(new_tokens - 1):
+            ids = torch.tensor([[s[-1]] for s in streams], device=dev)
+            _sync(dev)
+            t = time.perf_counter()
+            nxt = logits(step(ids, [1] * B)).argmax(-1)[:, 0].tolist()
+            _sync(dev)
+            decode_ms.append(1e3 * (time.perf_counter() - t))
+            for s, n in zip(streams, nxt):
+                s.append(n)
+    return streams, prefill_ms, statistics.median(decode_ms)
+
+
+def _eager_gap(model, tokens, logits):
+    """Top-2 gap of the eager (growing-cache) logits after ``tokens``."""
+    trunk = getattr(model, "model", model)
+    dev = next(iter(model.parameters())).device
+    with torch.no_grad():
+        h, _ = trunk(torch.tensor([tokens], device=dev),
+                     caches=[(None, None)] * model.cfg.num_hidden_layers)
+        top = torch.topk(logits(h[:, -1:]).float().flatten(), 2).values
+    return float(top[0] - top[1])
+
+
+def paged_rows_llama(cfg, device, lens=PAGED_LENS, new=PAGED_NEW,
+                     chunk=PAGED_CHUNK, block=PAGED_BLOCK):
+    """25(a), Llama: the per-row paged greedy streams against eager
+    ``generate``'s (K1 on the card), row by row. Returns K1-K3's launches
+    on the per-row run (``paged_rows``) and on the generate runs
+    (``paged_rows_generate``), and the record."""
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    model = LlamaForCausalLM(cfg, device=device, dtype="float32",
+                             seed=SEED + 25)
+    model.eval()
+    rng = np.random.RandomState(SEED + 25)
+    prompts = [rng.randint(1, cfg.vocab_size, n).tolist() for n in lens]
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    _reset_flash_counts()
+    streams, pre_ms, dec_ms = paged_rows_greedy(model, prompts, new, chunk,
+                                                block, model._logits)
+    own = _flash_counts()
+    peak = _peak_gb(device)
+    _reset_flash_counts()
+    with torch.no_grad():
+        solo = [model.generate(torch.tensor([p], device=device), new,
+                               temperature=0.0)[0, len(p):].tolist()
+                for p in prompts]
+    counts = _flash_counts()
+    parted = []
+    for b, (s, g) in enumerate(zip(streams, solo)):
+        if s == g:
+            continue
+        j = next(j for j, (x, y) in enumerate(zip(s, g)) if x != y)
+        gap = _eager_gap(model, prompts[b] + g[:j], model._logits)
+        log(f"paged rows (a): row {b} parts from eager generate at token "
+            f"{j}, where generate's top-2 gap is {gap:.3e}")
+        if gap > PAGED_GAP:
+            raise AssertionError(
+                f"paged rows (a): row {b} parts from eager generate at "
+                f"token {j} with a top-2 gap of {gap} > {PAGED_GAP}")
+        parted.append((b, j, gap))
+    if device.type == "cuda" and counts["flash_attention_fwd"] == 0:
+        raise AssertionError("eager generate launched no K1")
+    log(f"paged rows (a): Llama-3-8B widths x {cfg.num_hidden_layers} "
+        f"layers f32, rows {list(lens)} prefilled in chunks of {chunk} "
+        f"(block {block}) then {new} greedy tokens: "
+        f"{len(lens) - len(parted)}/{len(lens)} streams equal eager "
+        f"generate's, partings {parted}; prefill steps "
+        f"{[round(m, 2) for m in pre_ms]} ms, decode step (median) "
+        f"{dec_ms:.2f} ms, peak {peak:.2f} GB; generate's K1 launches "
+        f"{counts['flash_attention_fwd']}")
+    del model
+    free_device_memory()
+    return dict(paged_rows=own, paged_rows_generate=counts), dict(
+        prefill_step_ms=pre_ms, decode_step_ms=dec_ms, peak_gb=peak,
+        parted=parted)
+
+
+def _moe_rows(model, ids, lens, device):
+    """One per-row paged chunk of the MoE LM: ``(logits [B, S, V], the
+    routed layers' (capacity, drops), the routed layers' inputs)``."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    cfg = model.cfg
+    B, S = ids.shape
+    nblk = -(-S // PAGED_BLOCK)
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    shape = (B * nblk + 1, PAGED_BLOCK, cfg.num_key_value_heads, hd)
+    bt = (1 + torch.arange(B * nblk, dtype=torch.int32,
+                           device=device)).reshape(B, nblk)
+    nl = torch.tensor(lens, dtype=torch.int32, device=device)
+    ctx = torch.zeros(B, dtype=torch.int32, device=device)
+    caches = [pa.PagedLayerCache(torch.zeros(shape, device=device),
+                                 torch.zeros(shape, device=device), bt, ctx,
+                                 nl) for _ in range(cfg.num_hidden_layers)]
+    routed = [l.mlp for l in model.layers if not l.is_dense]
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, a, kw: seen.append((a[0].detach(), kw["token_mask"])),
+        with_kwargs=True) for m in routed]
+    try:
+        with torch.no_grad():
+            h, _ = model(ids.to(device), caches=caches)
+            out = model.lm_head(h)
+    finally:
+        for hk in hooks:
+            hk.remove()
+    return out, [(m.last_capacity, int(m.last_dropped)) for m in routed], seen
+
+
+def paged_rows_moe(cfg, device, lens=MOE_ROW_LENS):
+    """25(a), MoE: one padded per-row chunk through the routed layer's
+    token mask. (i) At the config's capacity factor and at a binding one
+    (``MOE_TIGHT_CF``, which drops), the routed layer on the chunk's
+    hidden states and mask equals the same layer on the valid tokens
+    alone, packed in the same order, at the same capacity: equal drops
+    and equal outputs, so the padded tails claimed no slot. (ii)
+    With the capacity factor raised until nothing drops, each valid row's
+    logits equal the same row run alone and unpadded."""
+    from paddle_tpu_torch.models import MoeForCausalLM
+    model = MoeForCausalLM(cfg, device=device, dtype="float32",
+                           seed=SEED + 26)
+    model.eval()
+    B, S = len(lens), max(lens)
+    rng = np.random.RandomState(SEED + 26)
+    ids = torch.zeros(B, S, dtype=torch.long)
+    for b, n in enumerate(lens):
+        ids[b, :n] = torch.from_numpy(rng.randint(1, cfg.vocab_size, n))
+    valid = torch.arange(S)[None, :] < torch.tensor(lens)[:, None]
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    _sync(device)
+    t = time.perf_counter()
+    _, caps, seen = _moe_rows(model, ids, lens, device)
+    _sync(device)
+    step_ms = 1e3 * (time.perf_counter() - t)
+    routed = [l.mlp for l in model.layers if not l.is_dense]
+    same = []
+    for m, (x, mask) in zip(routed, seen):
+        cf = m.capacity_factor
+        for chunk_cf in (cf, MOE_TIGHT_CF):
+            with torch.no_grad():
+                m.capacity_factor = chunk_cf
+                pad_out = m(x, token_mask=mask)
+                C, dropped = m.last_capacity, int(m.last_dropped)
+                packed = x[valid.to(device)][None]
+                # the packed tokens' factor that gives the chunk's C
+                m.capacity_factor = (C + 0.5) * m.num_experts / (
+                    m.gate.top_k * packed.shape[1])
+                try:
+                    out = m(packed)
+                    if m.last_capacity != C:
+                        raise AssertionError(
+                            f"moe rows: capacity {m.last_capacity} != {C}")
+                    drops = int(m.last_dropped)
+                finally:
+                    m.capacity_factor = cf
+            if drops != dropped:
+                raise AssertionError(f"moe rows: the padded chunk drops "
+                                     f"{dropped}, its valid tokens {drops}")
+            _close("moe rows: routed layer, padded vs packed",
+                   pad_out[valid.to(device)], out[0], CENSUS_TOL)
+            same.append((chunk_cf, C, dropped))
+    for m in routed:  # (ii): a capacity of at least T, so nothing drops
+        m.capacity_factor = float(m.num_experts) / m.gate.top_k + 1.0
+    logits, caps2, _ = _moe_rows(model, ids, lens, device)
+    if any(d for _, d in caps2):
+        raise AssertionError(f"moe rows: drops at capacity >= T: {caps2}")
+    for b, n in enumerate(lens):
+        alone, _, _ = _moe_rows(model, ids[b:b + 1, :n], [n], device)
+        _close(f"moe rows: row {b} padded vs alone", logits[b, :n],
+               alone[0], CENSUS_TOL)
+    peak = _peak_gb(device)
+    log(f"paged rows (a): DeepSeekMoE-16B widths x "
+        f"{cfg.num_hidden_layers} layers f32, one per-row chunk of rows "
+        f"{list(lens)} (S {S}): the routed layer's (capacity factor, C, "
+        f"drops) {same}, each equal to the valid tokens' alone at that C "
+        f"(outputs too); valid rows' logits equal each row alone; chunk "
+        f"step {step_ms:.2f} ms, peak {peak:.2f} GB")
+    del model
+    free_device_memory()
+    return dict(capacity_drops=same, step_ms=step_ms, peak_gb=peak)
+
+
+def _close(what, got, want, tol):
+    """``got`` against ``want`` (moved to ``got``'s device) by ``tol``;
+    returns the largest absolute difference."""
+    got, want = got.double(), want.to(got.device).double()
+    if not torch.allclose(got, want, **tol):
+        err = float((got - want).abs().max())
+        raise AssertionError(f"{what}: max |diff| {err:.3e} outside {tol}")
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def _timed_peak(fn, device):
+    """``(fn(), ms, peak GB)``: one call, synchronised, its peak memory
+    above what was allocated before it."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+    t = time.perf_counter()
+    out = fn()
+    _sync(device)
+    ms = 1e3 * (time.perf_counter() - t)
+    peak = (torch.cuda.max_memory_allocated(device) - base) / 1e9 \
+        if device.type == "cuda" else 0.0
+    return out, ms, peak
+
+
+def _detection_inputs(rng, scale=1.0):
+    """Mask R-CNN R50-FPN's P2 level (stride 4 of an 800 x 1344 image,
+    256 channels, batch 2), 512 RoIs an image, RPN anchors (size 32,
+    ratios 0.5/1/2 at every P2 cell), 50 ground-truth boxes an image."""
+    H, W = int(200 * scale), int(336 * scale)
+    feat = rng.randn(2, 256, H, W).astype(np.float32)
+    img_h, img_w = 4 * H, 4 * W
+
+    def boxes(n, lo, hi):
+        xy = rng.uniform(0, 1, (n, 2)) * [img_w, img_h]
+        wh = rng.uniform(lo, hi, (n, 2)) * [img_w, img_h]
+        b = np.concatenate([xy, np.minimum(xy + wh, [img_w, img_h])], 1)
+        return b.astype(np.float32)
+    rois = boxes(1024, 0.02, 0.6)
+    cy, cx = np.meshgrid((np.arange(H) + 0.5) * 4, (np.arange(W) + 0.5) * 4,
+                         indexing="ij")
+    anchors = []
+    for r in (0.5, 1.0, 2.0):
+        w, h = 32 / np.sqrt(r), 32 * np.sqrt(r)
+        anchors.append(np.stack([cx - w / 2, cy - h / 2, cx + w / 2,
+                                 cy + h / 2], -1).reshape(-1, 4))
+    anchors = np.concatenate(anchors).astype(np.float32)
+    return feat, rois, anchors, boxes(100, 0.05, 0.5), boxes
+
+
+def vision_ops_census(device, scale=1.0, check_rois=64):
+    """25(b): ``vision.ops`` at Mask R-CNN R50-FPN's sizes on ``device``,
+    each call timed with its peak memory; each checked against the same
+    call on the CPU in f32 (``roi_align``/``roi_pool`` on the first
+    ``check_rois`` RoIs of each image, at the card's sampling ratio)."""
+    from paddle_tpu_torch.vision import ops as V
+    rng = np.random.RandomState(SEED + 27)
+    feat, rois, anchors, gt, boxes = _detection_inputs(rng, scale)
+    num = torch.tensor([512, 512])
+    x = torch.from_numpy(feat).to(device).requires_grad_()
+    r = torch.from_numpy(rois).to(device)
+    rec = {}
+    cot_rng = np.random.RandomState(SEED + 28)
+    t_part = time.perf_counter()
+    for out_size, ratio in ((7, 2), (14, 2), (7, -1), (14, -1)):
+        # the CPU checks fewer RoIs at the adaptive ratio (8 here: 16
+        # times ratio 2's samples)
+        n_chk = check_rois if ratio > 0 else max(check_rois // 16, 1)
+        sub = np.r_[0:n_chk, 512:512 + n_chk]
+        sub_num = torch.tensor([n_chk, n_chk])
+        out, ms, peak = _timed_peak(lambda: V.roi_align(
+            x, r, num.to(device), out_size, 0.25, ratio), device)
+        cot = torch.from_numpy(cot_rng.rand(*out.shape).astype(
+            np.float32)).to(device)
+        _, bms, bpeak = _timed_peak(
+            lambda: (out * cot).sum().backward(), device)
+        used = ratio
+        if ratio <= 0:  # the adaptive ratio of all 1024 boxes, on the CPU
+            b = rois * 0.25
+            used = int(min(math.ceil(max(
+                float(np.max(b[:, 3] - b[:, 1])) / out_size,
+                float(np.max(b[:, 2] - b[:, 0])) / out_size, 1.0)), 8))
+        # the check: both devices on the subset, at the same ratio
+        xs = {}
+        for dev in ("cpu", device):
+            xd = torch.from_numpy(feat).to(dev).requires_grad_()
+            o = V.roi_align(xd, torch.from_numpy(rois[sub]).to(dev),
+                            sub_num.to(dev), out_size, 0.25, used)
+            (o * cot[sub].to(dev)).sum().backward()
+            xs[str(dev)] = (o.detach(), xd.grad)
+        (oc, gc_), (og, gg) = xs["cpu"], xs[str(device)]
+        e1 = _close("vision (b) roi_align", og, oc, CENSUS_TOL)
+        e2 = _close("vision (b) roi_align grad", gg, gc_, CENSUS_TOL)
+        key = f"roi_align_{out_size}_r{ratio}"
+        rec[key] = dict(ms=ms, backward_ms=bms, peak_gb=peak,
+                        backward_peak_gb=bpeak, ratio=used,
+                        max_abs_err=max(e1, e2),
+                        wall_s=time.perf_counter() - t_part)
+        t_part = time.perf_counter()
+        x.grad = None
+        del out, cot
+    sub = np.r_[0:check_rois, 512:512 + check_rois]
+    sub_num = torch.tensor([check_rois, check_rois])
+    out, ms, peak = _timed_peak(
+        lambda: V.roi_pool(x.detach(), r, num.to(device), 7, 0.25), device)
+    want = V.roi_pool(torch.from_numpy(feat), torch.from_numpy(rois[sub]),
+                      sub_num, 7, 0.25)
+    got = V.roi_pool(x.detach(), r[torch.from_numpy(sub).to(device)],
+                     sub_num.to(device), 7, 0.25)
+    rec["roi_pool_7"] = dict(ms=ms, peak_gb=peak, max_abs_err=_close(
+        "vision (b) roi_pool", got, want, CENSUS_TOL))
+    if not torch.equal(got, out[torch.from_numpy(sub).to(device)]):
+        raise AssertionError("vision (b) roi_pool: the subset's call "
+                             "differs from the whole call")
+    # RPN NMS: 2000 proposals an image at 0.7; per-class NMS: 1000 boxes
+    # of 80 categories at 0.5
+    for name, n, thr, ncat in (("nms_rpn", 2000, 0.7, 0),
+                               ("nms_per_class", 1000, 0.5, 80)):
+        bx = torch.from_numpy(boxes(n, 0.01, 0.3))
+        sc = torch.from_numpy(rng.rand(n).astype(np.float32))
+        kw = {}
+        if ncat:
+            cat = torch.from_numpy(rng.randint(0, ncat, n))
+            kw = dict(category_idxs=cat, categories=list(range(ncat)))
+        want = V.nms(bx, thr, sc, **kw)
+        got, ms, peak = _timed_peak(lambda: V.nms(
+            bx.to(device), thr, sc.to(device),
+            **{k: (v.to(device) if torch.is_tensor(v) else v)
+               for k, v in kw.items()}), device)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"vision (b) {name}: kept indices differ")
+        rec[name] = dict(ms=ms, peak_gb=peak, kept=int(got.numel()))
+    var = torch.tensor([0.1, 0.1, 0.2, 0.2]).expand(len(anchors), 4)
+    a = torch.from_numpy(anchors)
+    deltas = torch.from_numpy(rng.randn(2, len(anchors), 4).astype(
+        np.float32) * 0.2)
+    for name, args, kw in (
+            ("box_coder_encode", (a, var, torch.from_numpy(gt)),
+             dict(code_type="encode_center_size")),
+            ("box_coder_decode", (a, None, deltas),
+             dict(code_type="decode_center_size"))):
+        want = V.box_coder(*args, **kw)
+        got, ms, peak = _timed_peak(lambda: V.box_coder(
+            *[None if t is None else t.to(device) for t in args], **kw),
+            device)
+        rec[name] = dict(ms=ms, peak_gb=peak, max_abs_err=_close(
+            f"vision (b) {name}", got, want, dict(rtol=1e-4, atol=1e-4)))
+    for k, v in rec.items():
+        log(f"vision (b) {k}: " + ", ".join(
+            f"{n} {x:.4g}" if isinstance(x, float) else f"{n} {x}"
+            for n, x in v.items()))
+    del x
+    free_device_memory()
+    return rec
+
+
+def _census_inputs(arrays, device, grad):
+    """The numpy ``arrays`` on ``device``, those that ``grad`` names
+    requiring a gradient."""
+    return [torch.from_numpy(a).to(device).requires_grad_(i in grad)
+            for i, a in enumerate(arrays)]
+
+
+def _census_cot(shape, device):
+    """A cotangent in [0.5, 1.5) made on ``device`` from an integer hash
+    of each element's flat index, so every device makes the same values
+    and a batch's first sample is the cotangent of that sample alone."""
+    i = torch.arange(math.prod(shape), device=device, dtype=torch.int64)
+    frac = ((i * 2654435761) % 1000003).float() * (1.0 / 1000003)
+    return (0.5 + frac).reshape(shape)
+
+
+def _fwd_bwd(fn, ts, grad):
+    """``fn`` on the tensors ``ts``: the output and the gradients of
+    ``sum(out * cot)`` in the tensors ``grad`` names."""
+    out = fn(*ts)
+    if grad:
+        (out * _census_cot(tuple(out.shape), out.device)).sum().backward()
+    return [out.detach()] + [ts[i].grad for i in grad]
+
+
+def _census_table(rng, s=1):
+    """(name, fn of the functional module or a layer built for a device,
+    inputs, indices of the differentiated inputs, the first-sample-only
+    CPU check): every functional and layer this slice ported. The resize,
+    shuffle, grid and fold rows run the sizes of a Cityscapes
+    segmentation head, an ESPCN x3 upscaler, a spatial transformer and a
+    3x3 im2col; the losses run over [4096, 1024]. ``s`` divides the
+    batch and spatial sizes (a rehearsal on the CPU)."""
+    import paddle_tpu_torch.nn as tnn
+    import paddle_tpu_torch.nn.functional as F
+    N, D = 4096 // s, 1024 // s
+
+    def r(*s):
+        return rng.randn(*s).astype(np.float32)
+
+    def u(*s, lo=0.05, hi=0.95):
+        return rng.uniform(lo, hi, s).astype(np.float32)
+
+    sign = np.where(rng.rand(N) > 0.5, 1.0, -1.0).astype(np.float32)
+    bits = (rng.rand(N, D) > 0.5).astype(np.float32)
+    seg = r(8, 19, 128 // s, 256 // s)
+    rows = []
+    for mode in ("nearest", "bilinear", "bicubic", "area"):
+        rows.append((f"interpolate {mode} x4", lambda v, m=mode:
+                     F.interpolate(v, scale_factor=4, mode=m), [seg], (0,),
+                     True))
+        rows.append((f"interpolate {mode} 1/2", lambda v, m=mode:
+                     F.interpolate(v, size=(64 // s, 128 // s), mode=m), [seg], (0,),
+                     True))
+    th = (np.eye(2, 3)[None] + 0.1 * rng.randn(8, 2, 3)).astype(np.float32)
+    rows += [
+        ("Upsample bilinear x4", lambda d: tnn.Upsample(
+            scale_factor=4, mode="bilinear"), [seg], (0,), True),
+        ("UpsamplingNearest2D x4", lambda d: tnn.UpsamplingNearest2D(
+            scale_factor=4), [seg], (0,), True),
+        ("pixel_shuffle x3", lambda v: F.pixel_shuffle(v, 3),
+         [r(16 // s, 576, 64 // s, 64 // s)], (0,), True),
+        ("PixelUnshuffle 3", lambda d: tnn.PixelUnshuffle(3),
+         [r(16 // s, 64, 192 // s, 192 // s)], (0,), True),
+        ("affine_grid + grid_sample", lambda v, t: F.grid_sample(
+            v, F.affine_grid(t, [8, 3, 512 // s, 512 // s])),
+         [r(8, 3, 512 // s, 512 // s), th],
+         (0, 1), True),
+        ("unfold k3", lambda v: F.unfold(v, 3, paddings=1),
+         [r(8, 64, 128 // s, 128 // s)], (0,), True),
+        ("fold k3", lambda v: F.fold(v, [128 // s, 128 // s], 3, paddings=1),
+         [r(8, 576, (128 // s) ** 2)], (0,), True),
+        ("ChannelShuffle 4", lambda d: tnn.ChannelShuffle(4),
+         [r(8, 64, 128 // s, 128 // s)], (0,), True),
+        ("temporal_shift", lambda v: F.temporal_shift(v, 8),
+         [r(16, 64, 56 // s, 56 // s)], (0,), False),
+        ("swiglu", lambda v: F.swiglu(v), [r(N, 2 * D)], (0,), False),
+        ("label_smooth", lambda v: F.label_smooth(v, epsilon=0.1),
+         [u(N, D)], (0,), False),
+        ("LabelSmooth", lambda d: tnn.LabelSmooth(0.1), [u(N, D)], (0,),
+         False),
+        ("normalize", lambda v: F.normalize(v, axis=-1), [r(N, D)], (0,),
+         False),
+        ("CosineSimilarity", lambda d: tnn.CosineSimilarity(axis=-1),
+         [r(N, D), r(N, D)], (0, 1), False),
+        ("PairwiseDistance", lambda d: tnn.PairwiseDistance(),
+         [r(N, D), r(N, D)], (0, 1), False),
+        ("Bilinear", lambda d: _seeded(tnn.Bilinear(64, 64, 32, device=d)),
+         [r(N, 64), r(N, 64)], (0, 1), False),
+        ("pad reflect", lambda v: F.pad(v, [2, 3, 1, 1], mode="reflect"),
+         [r(8, 64, 128 // s, 128 // s)], (0,), False),
+        ("Pad2D replicate", lambda d: tnn.Pad2D(2, mode="replicate"),
+         [r(8, 64, 128 // s, 128 // s)], (0,), False),
+        ("ZeroPad2D", lambda d: tnn.ZeroPad2D([1, 2, 3, 4]),
+         [r(8, 64, 128 // s, 128 // s)], (0,), False),
+        ("Pad1D circular", lambda d: tnn.Pad1D(3, mode="circular"),
+         [r(64, 128, 512 // s)], (0,), False),
+        ("Pad3D", lambda d: tnn.Pad3D(1), [r(4, 16, 32 // s, 32 // s, 32 // s)], (0,),
+         False),
+        ("diag_embed", lambda v: F.diag_embed(v), [r(64, 256)], (0,),
+         False),
+        ("gaussian_nll_loss", lambda a, b, v: F.gaussian_nll_loss(a, b, v),
+         [r(N, D), r(N, D), u(N, D, lo=0.1, hi=2.0)], (0, 1, 2), False),
+        ("GaussianNLLLoss", lambda d: tnn.GaussianNLLLoss(),
+         [r(N, D), r(N, D), u(N, D, lo=0.1, hi=2.0)], (0, 1, 2), False),
+        ("poisson_nll_loss", lambda a, b: F.poisson_nll_loss(a, b),
+         [r(N, D), np.floor(u(N, D, lo=0, hi=6))], (0,), False),
+        ("PoissonNLLLoss", lambda d: tnn.PoissonNLLLoss(full=True),
+         [r(N, D), np.floor(u(N, D, lo=0, hi=6))], (0,), False),
+        ("multi_label_soft_margin_loss", lambda a, b:
+         F.multi_label_soft_margin_loss(a, b), [r(N, D), bits], (0,),
+         False),
+        ("MultiLabelSoftMarginLoss", lambda d:
+         tnn.MultiLabelSoftMarginLoss(), [r(N, D), bits], (0,), False),
+        ("sigmoid_focal_loss", lambda a, b: F.sigmoid_focal_loss(a, b),
+         [r(N, D), bits], (0,), False),
+        ("dice_loss", lambda a, b: F.dice_loss(a, b),
+         [np.abs(u(N, D)), rng.randint(0, D, (N, 1))], (0,), False),
+        ("npair_loss", lambda a, p, y: F.npair_loss(a, p, y),
+         [r(N, 64), r(N, 64), rng.randint(0, 64, N)], (0, 1), False),
+        ("margin_ranking_loss", lambda a, b, t: F.margin_ranking_loss(
+            a, b, t, 0.1), [r(N), r(N), sign], (0, 1), False),
+        ("MarginRankingLoss", lambda d: tnn.MarginRankingLoss(0.1),
+         [r(N), r(N), sign], (0, 1), False),
+        ("hinge_embedding_loss", lambda a, t: F.hinge_embedding_loss(
+            a, t[:, None]), [r(N, D), sign], (0,), False),
+        ("HingeEmbeddingLoss", lambda d: tnn.HingeEmbeddingLoss(),
+         [r(N, D), np.repeat(sign[:, None], D, 1)], (0,), False),
+        ("cosine_embedding_loss", lambda a, b, t: F.cosine_embedding_loss(
+            a, b, t), [r(N, D), r(N, D), sign], (0, 1), False),
+        ("CosineEmbeddingLoss", lambda d: tnn.CosineEmbeddingLoss(0.1),
+         [r(N, D), r(N, D), sign], (0, 1), False),
+        ("triplet_margin_loss", lambda a, p, n: F.triplet_margin_loss(
+            a, p, n), [r(N, D), r(N, D), r(N, D)], (0, 1, 2), False),
+        ("TripletMarginLoss", lambda d: tnn.TripletMarginLoss(swap=True),
+         [r(N, D), r(N, D), r(N, D)], (0, 1, 2), False),
+        ("SoftMarginLoss", lambda d: tnn.SoftMarginLoss(),
+         [r(N, D), np.repeat(sign[:, None], D, 1)], (0,), False),
+        ("log_loss", lambda p, t: F.log_loss(p, t), [u(N, D), bits], (0,),
+         False),
+        ("LogLoss", lambda d: tnn.LogLoss(), [u(N, D), bits], (0,), False),
+        ("Unfold", lambda d: tnn.Unfold(3, paddings=1),
+         [r(8, 64, 128 // s, 128 // s)], (0,), True),
+        ("Fold", lambda d: tnn.Fold([128 // s, 128 // s], 3, paddings=1),
+         [r(8, 576, (128 // s) ** 2)], (0,), True),
+        ("PixelShuffle 3", lambda d: tnn.PixelShuffle(3),
+         [r(16 // s, 576, 64 // s, 64 // s)], (0,), True),
+        ("one_hot", lambda v: F.one_hot(v, 1000),
+         [rng.randint(0, 1000, N)], (), False),
+        ("sequence_mask", lambda v: F.sequence_mask(v, 512),
+         [rng.randint(0, 512, N)], (), False),
+        ("max_pool2d padding over half", lambda v: F.max_pool2d(
+            v, 2, 1, padding=2), [r(8, 64, 128 // s, 128 // s)], (0,), False),
+        ("avg_pool2d padding over half", lambda v: F.avg_pool2d(
+            v, 3, 2, padding=2, ceil_mode=True), [r(8, 64, 128 // s, 128 // s)], (0,),
+         False),
+    ]
+    return rows
+
+
+def _seeded(layer):
+    """A layer's parameters drawn again from a seeded CPU generator, so
+    the CPU and the card copies hold the same weights."""
+    g = torch.Generator().manual_seed(SEED + 29)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+    return layer
+
+
+_LAYER_NAMES = ("Upsample", "UpsamplingNearest2D", "PixelUnshuffle",
+                "PixelShuffle", "ChannelShuffle", "LabelSmooth",
+                "CosineSimilarity", "PairwiseDistance", "Bilinear", "Pad1D",
+                "Pad2D", "Pad3D", "ZeroPad2D", "GaussianNLLLoss",
+                "PoissonNLLLoss", "MultiLabelSoftMarginLoss",
+                "MarginRankingLoss", "HingeEmbeddingLoss",
+                "CosineEmbeddingLoss", "TripletMarginLoss", "SoftMarginLoss",
+                "LogLoss", "Unfold", "Fold")
+
+
+def layer_census(device, s=1):
+    """25(c): each row of :func:`_census_table` forward and backward on
+    ``device`` against the CPU in f32 (the rows marked so on their first
+    sample); the random layers by their statistics; a weight-normed conv
+    three steps under ``clip_grad_norm_`` on both; the five dtypes
+    through ``to_tensor`` on ``device``. ``s`` as in
+    :func:`_census_table`."""
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.nn as tnn
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.core.dtype import convert_dtype
+    rng = np.random.RandomState(SEED + 30)
+    rec = {}
+    worst = (0.0, None)
+    for name, make, arrays, grad, first in _census_table(rng, s):
+        t_row = time.perf_counter()
+        is_layer = name.split()[0] in _LAYER_NAMES
+        fn = {}
+        for dev in ("cpu", device):
+            fn[str(dev)] = make(dev) if is_layer else make
+        ts = _census_inputs(arrays, device, grad)
+        (got, ms, peak) = _timed_peak(
+            lambda: _fwd_bwd(fn[str(device)], ts, grad), device)
+        cpu_arrays = [a[:1] for a in arrays] if first else arrays
+        want = _fwd_bwd(fn["cpu"], _census_inputs(cpu_arrays, "cpu", grad),
+                        grad)
+        if first:  # the per-sample rows' first sample (grid's theta too)
+            got = [t[:1] for t in got]
+        err = max(_close(f"census (c) {name}", g, w, CENSUS_SUM_TOL)
+                  for g, w in zip(got, want))
+        rec[name] = dict(ms=ms, peak_gb=peak, max_abs_err=err,
+                         wall_s=time.perf_counter() - t_row)
+        worst = max(worst, (err, name), key=lambda t: t[0])
+        del got, want, ts
+    log(f"census (c): {len(rec)} functionals and layers forward+backward "
+        f"on the card equal the CPU's (largest |diff| {worst[0]:.3e} at "
+        f"{worst[1]}); slowest: " + ", ".join(
+            f"{n} {v['ms']:.1f} ms ({v['peak_gb']:.2f} GB)" for n, v in
+            sorted(rec.items(), key=lambda kv: -kv[1]["ms"])[:6])
+        + "; longest with the CPU's side: " + ", ".join(
+            f"{n} {v['wall_s']:.2f} s" for n, v in
+            sorted(rec.items(), key=lambda kv: -kv[1]["wall_s"])[:6]))
+    # the random ones: by their statistics (their streams differ from the
+    # CPU's by contract)
+    ptt.seed(SEED)
+    ones = torch.ones(256, 128, 8, 8, device=device)
+    d2 = F.dropout2d(ones, 0.3).reshape(256, 128, -1)
+    if not torch.all((d2 == 0).all(-1) | (d2 == 1 / 0.7).all(-1)):
+        raise AssertionError("census (c) dropout2d: a channel half dropped")
+    d3 = F.dropout3d(torch.ones(64, 32, 4, 8, 8, device=device), 0.5)
+    keep2 = float((d2[..., 0] != 0).float().mean())
+    keep3 = float((d3.reshape(64, 32, -1)[..., 0] != 0).float().mean())
+    z = torch.randn(1 << 22, device=device)
+    a = F.alpha_dropout(z, 0.2)
+    g = F.gumbel_softmax(torch.tensor([[2.0, 0.0, -1.0, 0.5]],
+                                      device=device).repeat(1 << 18, 1))
+    freq = torch.bincount(g.argmax(-1), minlength=4).float() / (1 << 18)
+    want = torch.softmax(torch.tensor([2.0, 0.0, -1.0, 0.5]), -1)
+    stats = dict(dropout2d_keep=keep2, dropout3d_keep=keep3,
+                 alpha_mean=float(a.mean()), alpha_std=float(a.std()),
+                 gumbel_freq_err=float((freq.cpu() - want).abs().max()))
+    if not (abs(keep2 - 0.7) < 0.02 and abs(keep3 - 0.5) < 0.04
+            and abs(stats["alpha_mean"]) < 5e-3
+            and abs(stats["alpha_std"] - 1) < 5e-3
+            and stats["gumbel_freq_err"] < 5e-3):
+        raise AssertionError(f"census (c) random layers: {stats}")
+    log("census (c) random: " + ", ".join(f"{k} {v:.4f}"
+                                          for k, v in stats.items()))
+    # a weight-normed conv, three SGD steps under clip_grad_norm_
+    x = torch.from_numpy(rng.randn(16, 32, 64, 64).astype(np.float32))
+    params = {}
+    for dev in ("cpu", device):
+        conv = _seeded(tnn.Conv2D(32, 64, 3, padding=1, device=dev))
+        tnn.utils.weight_norm(conv)
+        norms = []
+        for _ in range(3):
+            (conv(x.to(dev)) ** 2).mean().backward()
+            norms.append(float(tnn.clip_grad_norm_(
+                list(conv.parameters()), 0.05)))
+            with torch.no_grad():
+                for p in conv.parameters():
+                    p -= 0.5 * p.grad
+                    p.grad = None
+        params[str(dev)] = (dict(conv.named_parameters()), norms)
+    (pc, nc), (pd, nd) = params["cpu"], params[str(device)]
+    for n in pc:
+        _close(f"census (c) weight_norm {n}", pd[n].detach(),
+               pc[n].detach(), CENSUS_SUM_TOL)
+    np.testing.assert_allclose(nd, nc, rtol=1e-4)
+    log(f"census (c) weight_norm conv: 3 steps under clip_grad_norm_ "
+        f"equal the CPU's (grad norms {[round(v, 5) for v in nd]})")
+    vals = np.array([[0.0, 1.5, 3.0], [17.0, 200.0, 448.0]], np.float32)
+    for name in ("float8_e4m3fn", "float8_e5m2", "uint16", "uint32",
+                 "uint64"):
+        data = np.floor(vals) if name.startswith("uint") else vals
+        t = ptt.to_tensor(data, dtype=name, place=str(device))
+        if t.device.type != device.type or \
+                convert_dtype(t.dtype) is not getattr(torch, name):
+            raise AssertionError(f"census (c) to_tensor {name}: {t.dtype} "
+                                 f"on {t.device}")
+        back = t.astype("float32").cpu().numpy()
+        want = ptt.to_tensor(data, dtype=name, place="cpu").astype(
+            "float32").numpy()
+        np.testing.assert_array_equal(back, want)
+    log("census (c) dtypes: float8_e4m3fn, float8_e5m2, uint16, uint32 "
+        "and uint64 round-trip through to_tensor on the card")
+    free_device_memory()
+    return dict(rows=rec, random=stats)
+
+
+def phase_leftovers():
+    """Phase 25: (a) the per-row paged path at Llama-3-8B and
+    DeepSeekMoE-16B widths, (b) ``vision.ops`` at Mask R-CNN's sizes,
+    (c) the layer census. Returns K1-K3's launches on (a)'s per-row runs
+    (``paged_rows``: none, since the path reads through the gather path
+    as the reference's does, and the phase fails if one launches) and on
+    its eager ``generate`` runs (``paged_rows_generate``), and the
+    record."""
+    from paddle_tpu_torch.models import MoeConfig
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    from paddle_tpu_torch.ops.pallas import ragged_paged_attention as rpa
+    t0 = time.perf_counter()
+    free_device_memory()
+    dev = torch.device("cuda")
+    rpa0 = rpa.ragged_paged_attention.launches
+    paths, llama = paged_rows_llama(
+        LlamaConfig.llama3_8b(num_hidden_layers=4), dev)
+    ta = time.perf_counter()
+    _reset_flash_counts()
+    moe = paged_rows_moe(MoeConfig.deepseek_moe_16b(num_hidden_layers=2),
+                         dev)
+    paths["paged_rows"] = {k: v + _flash_counts()[k]
+                           for k, v in paths["paged_rows"].items()}
+    if any(paths["paged_rows"].values()) or \
+            rpa.ragged_paged_attention.launches != rpa0:
+        raise AssertionError(
+            f"the per-row paged path launched a kernel (K1-K3 "
+            f"{paths['paged_rows']}, K4 "
+            f"{rpa.ragged_paged_attention.launches - rpa0}); it reads "
+            f"through the gather path")
+    t1 = time.perf_counter()
+    vision = vision_ops_census(dev)
+    t2 = time.perf_counter()
+    census = layer_census(dev)
+    t3 = time.perf_counter()
+    log(f"phase 25 seconds: {t3 - t0:.1f} ((a) {t1 - t0:.1f}: Llama "
+        f"{ta - t0:.1f}, MoE {t1 - ta:.1f}; (b) {t2 - t1:.1f}, (c) "
+        f"{t3 - t2:.1f})")
+    return paths, dict(llama=llama, moe=moe, vision=vision,
+                       census=census["random"])
+
+
 _PHASE_SECONDS = []
 
 
@@ -8708,6 +9489,7 @@ def main():
     seq_paths, seq_rec = _timed(phase_seq_pipe)
     job_paths, job_rec = _timed(phase_job_lifecycle)
     ep_paths, tp_launches, ep_rec, tp_rec = _timed(phase_ep_tp)
+    left_paths, left_rec = _timed(phase_leftovers)
     # each path's launches were counted from 0 over its own run; a kernel
     # on several paths reports their sum, and each path's count beside it
     paths = {"train": counts, "moe_train": moe, "fit": fit, "ernie": ernie,
@@ -8716,7 +9498,7 @@ def main():
              "moe_generate": p17["moe_generate"],
              "incubate": p17["incubate"], "export": export_counts,
              **train_prod, **dist_paths, **seq_paths, **job_paths,
-             **ep_paths}
+             **ep_paths, **left_paths}
 
     def path_launches(kname):
         by_path = {p: c[kname] for p, c in paths.items() if kname in c}
@@ -8745,7 +9527,8 @@ def main():
                             **({"export": export_rec,
                                 "train_prod": train_prod_rec,
                                 "dist": dist_rec, "seq_pipe": seq_rec,
-                                "job": job_rec, "ep_train": ep_rec}
+                                "job": job_rec, "ep_train": ep_rec,
+                                "leftovers": left_rec}
                                if kname == "flash_attention_fwd" else {})))
     for kname, _, replaces in GMM_KERNELS:
         kernels.append(dict(name=kname, route="cuda", source=GMM_SRC,

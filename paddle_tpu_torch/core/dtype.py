@@ -7,6 +7,16 @@ does not know, so an unknown dtype never slips through as a silent cast.
 At the user API a dtype is a :class:`DType` (``paddle.float32``), which
 compares equal to its name, to its ``torch.dtype`` and to its numpy
 dtype, as the reference's does (:func:`to_dtype`).
+
+The table is the reference's (:24-31, :85-92), the float8 types and the
+wide unsigned ones included. PyTorch computes little on those: a float8
+tensor is storage (casts, copies, indexing; ``quantization``'s ``fp8_wo``
+stores its weights so), and ``uint16``/``uint32``/``uint64`` take casts,
+equality, indexing, ``sum``, ``multiply`` and bitwise ops but not, among
+others, ``add``, ``abs``, ``max``/``min`` or ordering comparisons, which
+raise where the reference computes (``tests/test_torch_dtypes.py`` pins
+which ops of the op table refuse them). numpy has no float8, so
+``np_dtype`` raises for them as for bfloat16.
 """
 from __future__ import annotations
 
@@ -15,7 +25,8 @@ import torch
 
 __all__ = [
     "DType", "float32", "float64", "float16", "bfloat16", "int8", "int16",
-    "int32", "int64", "uint8", "bool_", "complex64", "complex128",
+    "int32", "int64", "uint8", "uint16", "uint32", "uint64", "bool_",
+    "complex64", "complex128", "float8_e4m3fn", "float8_e5m2",
     "convert_dtype", "dtype_name", "to_dtype", "is_floating_point",
     "is_integer", "finfo", "iinfo", "default_float",
 ]
@@ -32,8 +43,8 @@ class DType:
 
     @property
     def np_dtype(self):
-        if self.torch_dtype is torch.bfloat16:
-            raise TypeError("numpy has no bfloat16")
+        if self.torch_dtype in _NO_NUMPY:
+            raise TypeError(f"numpy has no {self.name}")
         return np.dtype(self.name)
 
     @property
@@ -69,12 +80,19 @@ int16 = DType("int16", torch.int16)
 int32 = DType("int32", torch.int32)
 int64 = DType("int64", torch.int64)
 uint8 = DType("uint8", torch.uint8)
+uint16 = DType("uint16", torch.uint16)
+uint32 = DType("uint32", torch.uint32)
+uint64 = DType("uint64", torch.uint64)
 bool_ = DType("bool", torch.bool)
 complex64 = DType("complex64", torch.complex64)
 complex128 = DType("complex128", torch.complex128)
+float8_e4m3fn = DType("float8_e4m3fn", torch.float8_e4m3fn)
+float8_e5m2 = DType("float8_e5m2", torch.float8_e5m2)
 
 _ALL = [float32, float64, float16, bfloat16, int8, int16, int32, int64,
-        uint8, bool_, complex64, complex128]
+        uint8, uint16, uint32, uint64, bool_, complex64, complex128,
+        float8_e4m3fn, float8_e5m2]
+_NO_NUMPY = (torch.bfloat16, torch.float8_e4m3fn, torch.float8_e5m2)
 _BY_NAME = {d.name: d for d in _ALL}
 _BY_NAME.update({"bool_": bool_, "float": float32, "double": float64,
                  "half": float16, "int": int32, "long": int64})

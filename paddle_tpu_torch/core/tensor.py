@@ -640,7 +640,7 @@ def to_tensor(data, dtype=None, place=None,
             from .dtype import default_float
             arr = arr.astype(np.float32 if default_float() is torch.float32
                              else np.float64)
-        if arr.dtype == np.uint16 or arr.dtype.kind in "US":
+        if arr.dtype.kind in "US":
             raise TypeError(f"to_tensor: unsupported data of dtype "
                             f"{arr.dtype}")
         t = torch.as_tensor(arr, device=resolve_device(place))

@@ -17,7 +17,8 @@ import torch
 from . import cuda  # noqa: F401
 
 __all__ = ["resolve_device", "card_name", "set_device", "get_device",
-           "get_available_device", "device_count", "synchronize",
+           "get_available_device", "get_all_custom_device_type",
+           "get_available_custom_device", "device_count", "synchronize",
            "memory_stats", "memory_allocated", "max_memory_allocated",
            "reset_max_memory_allocated", "is_compiled_with_cuda",
            "is_compiled_with_rocm", "is_compiled_with_xpu",
@@ -89,6 +90,20 @@ def get_device() -> str:
 
 def get_available_device():
     return [f"gpu:{i}" for i in range(device_count())]
+
+
+def get_all_custom_device_type():
+    """The platforms of the available devices other than ``cpu`` and
+    ``gpu`` (reference :173-175): none on a CUDA card."""
+    return sorted({d.split(":")[0] for d in get_available_device()}
+                  - {"cpu", "gpu"})
+
+
+def get_available_custom_device():
+    """The available devices of a platform other than ``cpu`` and ``gpu``
+    (reference :178-180): none on a CUDA card."""
+    return [d for d in get_available_device()
+            if d.split(":")[0] not in ("cpu", "gpu")]
 
 
 def device_count() -> int:

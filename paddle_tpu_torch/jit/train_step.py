@@ -88,14 +88,15 @@ class TrainStep:
                  donate: bool = True, mesh=None, input_spec=None,
                  fused=None, bucketed=None):
         """The update is in place, which is what the reference's default
-        ``donate=True`` buys; ``donate=False`` raises. ``fused``
-        overrides ``fused_enabled()``. ``mesh``/``input_spec`` run the
-        step over a mesh (a ``DataParallel`` model brings its own), with
-        the gradients reduced in buckets unless ``bucketed=False``."""
-        if not donate:
-            raise NotImplementedError(
-                "donate=False is not ported to paddle_tpu_torch: the "
-                "update is always in place")
+        ``donate=True`` buys. With ``donate=False`` each step first
+        rebinds every trainable parameter to a copy of itself and updates
+        the copy, so a tensor the caller took from a parameter before the
+        step (``state_dict()``, ``detach()``) keeps its values, as the
+        reference's undonated buffers do. ``fused`` overrides
+        ``fused_enabled()``. ``mesh``/``input_spec`` run the step over a
+        mesh (a ``DataParallel`` model brings its own), with the
+        gradients reduced in buckets unless ``bucketed=False``."""
+        self._donate = bool(donate)
         if mesh is None and isinstance(model, DataParallel):
             mesh = model._mesh
         if input_spec is not None and mesh is None:
@@ -303,6 +304,10 @@ class TrainStep:
         with record_function(RANGE_FORWARD_BACKWARD):
             loss, pairs, col, had = self._forward_backward(
                 train, names, args, kwargs, instrument)
+        if not self._donate:
+            with torch.no_grad():
+                for p in train:
+                    p.data = p.data.clone()
         group_lrs = self._group_lrs()
         opt._step_count += 1
         zero = plan is not None and plan.zero_level is not None

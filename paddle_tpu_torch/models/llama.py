@@ -4,6 +4,7 @@ training and eager generation.
 Ported: the config and its presets, the RoPE table and rotation, the
 token-packed block-paged forward that the serving engine's unified step
 runs (reference ``LlamaAttention._ragged_paged_forward``, ``:392``), the
+per-row block-paged forward (``_paged_forward``, :370), the
 cacheless forward that training runs (flash attention, with segment ids
 from ``attention_mask`` and per-token ``position_ids``), the eager
 growing ``(k, v)`` cache of ``generate`` (reference :267-280: the past
@@ -195,7 +196,10 @@ def run_cached_layers(owner, x, caches, attn_impl="rpa", attention_mask=None,
       its grown pair;
     - :class:`~paddle_tpu_torch.ops.paged_attention.RaggedLayerCache`
       (the serving step): the pools are written in place through
-      ``attn_impl``'s read path, and the caches come back as they were.
+      ``attn_impl``'s read path, and the caches come back as they were;
+    - :class:`~paddle_tpu_torch.ops.paged_attention.PagedLayerCache`
+      (the per-row form): the pools are written in place and read through
+      the gather path, and the caches come back as they were.
 
     ``position_ids`` is a cacheless argument and raises here; so do
     ``attention_mask`` and ``pos_offsets`` outside the static form (the
@@ -226,6 +230,8 @@ def run_cached_layers(owner, x, caches, attn_impl="rpa", attention_mask=None,
         with numerics.scope(f"layers.{i}"):
             if paged:
                 x = layer(x, c, rope, attn_impl)
+            elif isinstance(c, pa.PagedLayerCache):
+                x, c = layer(x, c, rope)
             else:
                 x, c = layer(x, tuple(c), rope, **kw)
         new.append(c)
@@ -285,7 +291,12 @@ class LlamaAttention(Layer):
         With a static ``(k_buf, v_buf, pos)`` triple: ``generate_compiled``'s
         fixed-shape cache (:meth:`_static_forward`); ``attention_mask`` is
         then the ``[B, L]`` key liveness over the buffers and
-        ``pos_offsets`` the ``[B]`` per-row RoPE shift."""
+        ``pos_offsets`` the ``[B]`` per-row RoPE shift.
+
+        With a :class:`~paddle_tpu_torch.ops.paged_attention.PagedLayerCache`:
+        the per-row block-paged form (:meth:`_paged_forward`), returning
+        ``(out, cache)``; ``attention_mask`` and ``pos_offsets`` raise, as
+        in the reference (:223-229)."""
         if cache is None:
             return self._cacheless_forward(x, rope, attention_mask,
                                            position_ids)
@@ -293,11 +304,19 @@ class LlamaAttention(Layer):
                 position_ids is None:
             return self._static_forward(x, cache, rope, attention_mask,
                                         pos_offsets)
+        if isinstance(cache, pa.PagedLayerCache):
+            if attention_mask is not None or pos_offsets is not None:
+                raise NotImplementedError(
+                    "the paged path derives per-row positions and key "
+                    "liveness from the cache itself; attention_mask/"
+                    "pos_offsets do not apply")
         if attention_mask is not None or position_ids is not None or \
                 pos_offsets is not None:
             raise NotImplementedError(
                 "the cached paths derive per-token positions and key "
                 "liveness from the cache itself")
+        if isinstance(cache, pa.PagedLayerCache):
+            return self._paged_forward(x, cache, rope)
         if not isinstance(cache, pa.RaggedLayerCache):
             return self._eager_cache_forward(x, cache, rope)
         T = x.shape[1]
@@ -316,6 +335,29 @@ class LlamaAttention(Layer):
             scale=1.0 / math.sqrt(hd), attn_impl=attn_impl,
             k_scale=cache.k_scale, v_scale=cache.v_scale)
         return self.o_proj(out.reshape(1, T, -1))
+
+    def _paged_forward(self, x, cache, rope):
+        """The per-row block-paged form (reference :370-390): ``x`` [B, S,
+        hidden] with row ``b``'s first ``new_lens[b]`` tokens real; RoPE
+        at positions ``context_lens[b] + i`` (clipped to the table); the
+        new K/V written into the pools in place and each row's paged
+        context read through the gather path
+        (``paged_attention_step``). The cache comes back as it was: the
+        caller advances ``context_lens``."""
+        B, S = x.shape[0], x.shape[1]
+        hd = self.head_dim
+        q = self.q_proj(x).reshape(B, S, self.n_heads, hd)
+        k = self.k_proj(x).reshape(B, S, self.n_kv, hd)
+        v = self.v_proj(x).reshape(B, S, self.n_kv, hd)
+        cos_t, sin_t = rope
+        pidx = torch.clamp(cache.context_lens.long()[:, None] + torch.arange(
+            S, device=x.device)[None, :], 0, cos_t.shape[0] - 1)
+        cos, sin = cos_t[pidx][:, :, None, :], sin_t[pidx][:, :, None, :]
+        out, _, _ = pa.paged_attention_step(
+            _rot_interleaved(q, cos, sin), _rot_interleaved(k, cos, sin), v,
+            cache.k_pool, cache.v_pool, cache.block_tables,
+            cache.context_lens, cache.new_lens, scale=1.0 / math.sqrt(hd))
+        return self.o_proj(out), cache
 
     def _static_forward(self, x, cache, rope, key_mask=None,
                         pos_offsets=None):
@@ -498,6 +540,11 @@ class LlamaModel(Layer):
         :class:`~paddle_tpu_torch.ops.paged_attention.RaggedLayerCache`
         per layer -> ``(final-norm hidden [1, T, hidden], caches)``. The
         pools inside the caches are updated in place.
+
+        Per-row paged: ``input_ids`` [B, S] (right-padded) and one
+        :class:`~paddle_tpu_torch.ops.paged_attention.PagedLayerCache` per
+        layer -> ``(final-norm hidden [B, S, hidden], caches)``, the pools
+        updated in place.
 
         Eager generation: ``input_ids`` [B, S] and one ``(past_k,
         past_v)`` pair per layer (``(None, None)`` before the prompt) ->

@@ -11,8 +11,9 @@ num_shared_experts``.
 Ported: the configuration and its presets, the cacheless forward, both
 loss routes with the gate-balance aux loss folded in, ``aux_loss`` and
 ``clear_decode_side_effects``, the cached forward that serving and
-decoding run (reference :188-206) over the three cache forms of the
-Llama trunk, eager ``generate`` and ``generate_compiled``.
+decoding run (reference :188-206) over the four cache forms of the
+Llama trunk (the per-row ``PagedLayerCache`` with its token mask among
+them), eager ``generate`` and ``generate_compiled``.
 
 Parallelism, as the reference's (:79-115, :156-161):
 ``tensor_parallel=True`` makes the attention, the dense MLP and the
@@ -147,10 +148,10 @@ class MoeDecoderLayer(Layer):
         With a :class:`~paddle_tpu_torch.ops.paged_attention.RaggedLayerCache`
         the routed experts get ``token_mask = seq_ids < sentinel``, the
         sentinel being the all-null block-table row ``block_tables.shape[0]
-        - 1`` that marks the step's budget padding (reference :137-141), so
-        padding claims no expert capacity. The reference's per-row
-        ``PagedLayerCache`` branch (:132-136) has no counterpart: the port
-        has no ``PagedLayerCache``."""
+        - 1`` that marks the step's budget padding (reference :137-141);
+        with a :class:`~paddle_tpu_torch.ops.paged_attention.PagedLayerCache`
+        ``token_mask[b, i] = i < new_lens[b]`` (reference :132-136). So
+        padding claims no expert capacity."""
         h = self.self_attn(self.input_layernorm(x), cache, rope, attn_impl,
                            attention_mask, None, pos_offsets)
         new_cache = None
@@ -162,7 +163,10 @@ class MoeDecoderLayer(Layer):
             out = x + self.mlp(h)
         else:
             mask = None
-            if isinstance(cache, pa.RaggedLayerCache):
+            if isinstance(cache, pa.PagedLayerCache):
+                mask = torch.arange(x.shape[1], device=x.device)[None, :] \
+                    < cache.new_lens.long()[:, None]
+            elif isinstance(cache, pa.RaggedLayerCache):
                 sentinel = cache.block_tables.shape[0] - 1
                 mask = (cache.seq_ids < sentinel)[None, :]
             routed = self.mlp(h, token_mask=mask)
@@ -271,8 +275,9 @@ class MoeForCausalLM(Layer):
         Cached (reference :188-206): one cache per layer, in any form the
         Llama trunk takes (``models.llama.run_cached_layers``): eager
         ``(past_k, past_v)`` pairs (``(None, None)`` before the prompt),
-        static ``(k_buf, v_buf, pos)`` triples, or the serving step's
-        ``RaggedLayerCache``s read through ``attn_impl``. Returns the
+        static ``(k_buf, v_buf, pos)`` triples, per-row
+        ``PagedLayerCache``s, or the serving step's ``RaggedLayerCache``s
+        read through ``attn_impl``. Returns the
         final-norm hidden states and the caches, not logits: the caller
         projects only the positions it needs. As in the reference, the
         cached forward takes no ``attention_mask`` or ``pos_offsets``, so

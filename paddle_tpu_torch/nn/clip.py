@@ -1,15 +1,17 @@
-"""Gradient clipping — port of ``paddle_tpu/nn/clip.py`` (:22-121):
-``ClipGradByValue``, ``ClipGradByNorm`` and ``ClipGradByGlobalNorm``.
-Each works on ``(param, grad)`` pairs, as the optimizer hands them over,
-and returns new gradient tensors: the given ones are left as they are.
-Pairs whose gradient is None or whose parameter does not require a
-gradient pass through unchanged."""
+"""Gradient clipping — port of ``paddle_tpu/nn/clip.py``:
+``ClipGradByValue``, ``ClipGradByNorm`` and ``ClipGradByGlobalNorm``
+(:22-121), and the torch-style in-place ``clip_grad_norm_`` and
+``clip_grad_value_`` (:127-167). The three classes work on ``(param,
+grad)`` pairs, as the optimizer hands them over, and return new gradient
+tensors: the given ones are left as they are. Pairs whose gradient is
+None or whose parameter does not require a gradient pass through
+unchanged."""
 from __future__ import annotations
 
 import torch
 
 __all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
-           "ClipGradByGlobalNorm"]
+           "ClipGradByGlobalNorm", "clip_grad_norm_", "clip_grad_value_"]
 
 
 def _skipped(p, g) -> bool:
@@ -103,3 +105,44 @@ class ClipGradByGlobalNorm(ClipGradBase):
 
     def __repr__(self):
         return f"ClipGradByGlobalNorm(clip_norm={self.clip_norm})"
+
+
+def _param_list(parameters):
+    return [parameters] if isinstance(parameters, torch.Tensor) \
+        else list(parameters)
+
+
+def clip_grad_norm_(parameters, max_norm, norm_type=2.0,
+                    error_if_nonfinite=False):
+    """Scale the ``.grad`` of ``parameters`` in place by ``min(max_norm /
+    max(total, 1e-6), 1)``, ``total`` the ``norm_type`` norm of all the
+    gradients together (in f32, the largest magnitude for ``inf``), and
+    return ``total`` (0 when no parameter has a gradient). A non-finite
+    total raises ``RuntimeError`` under ``error_if_nonfinite``."""
+    params = [p for p in _param_list(parameters) if p.grad is not None]
+    if not params:
+        return torch.tensor(0.0)
+    grads = [p.grad for p in params]
+    if norm_type == float("inf"):
+        total = torch.stack([g.abs().max() for g in grads]).max()
+    else:
+        total = torch.stack([torch.sum(g.float().abs() ** norm_type)
+                             for g in grads]).sum() ** (1.0 / norm_type)
+    if error_if_nonfinite and not bool(torch.isfinite(total)):
+        raise RuntimeError("the total norm for gradients is non-finite")
+    scale = torch.clamp(max_norm / torch.clamp(total, min=1e-6), max=1.0)
+    with torch.no_grad():
+        for g in grads:
+            g.mul_(scale.to(g.dtype))
+    return total
+
+
+def clip_grad_value_(parameters, clip_value):
+    """Clamp every ``.grad`` of ``parameters`` into ``[-clip_value,
+    clip_value]`` in place."""
+    if clip_value < 0:
+        raise ValueError("clip_value must be non-negative")
+    with torch.no_grad():
+        for p in _param_list(parameters):
+            if p.grad is not None:
+                p.grad.clamp_(-clip_value, clip_value)

@@ -1,6 +1,7 @@
-"""Functional ops of the port (port of the matching functions in
-``paddle_tpu/nn/functional.py``): activations, linear and embedding,
-dropout, the norms, convolution, pooling, attention and the losses.
+"""Functional ops of the port (port of ``paddle_tpu/nn/functional.py``):
+activations, linear and embedding, dropout, the small maps, the resize
+and shuffle family, the norms, convolution, pooling, attention and the
+losses.
 
 Randomness (dropout, ``rrelu``, the flash kernels' dropout seed) draws
 from ``core.generator``'s default generator, never from PyTorch's global
@@ -29,12 +30,18 @@ __all__ = [
     "log_softmax", "leaky_relu", "elu", "selu", "celu", "hardswish",
     "hardsigmoid", "hardtanh", "hardshrink", "softshrink", "tanhshrink",
     "softplus", "softsign", "mish", "prelu", "rrelu", "glu", "maxout",
-    "log_sigmoid", "thresholded_relu",
+    "log_sigmoid", "thresholded_relu", "swiglu",
     # common
-    "linear", "embedding", "dropout",
+    "linear", "embedding", "dropout", "dropout2d", "dropout3d",
+    "alpha_dropout", "one_hot", "label_smooth", "bilinear",
+    "cosine_similarity", "pairwise_distance", "sequence_mask",
+    "temporal_shift",
+    # resize and shuffle
+    "interpolate", "upsample", "pixel_shuffle", "pixel_unshuffle",
+    "channel_shuffle", "unfold", "fold",
     # norms
     "layer_norm", "rms_norm", "batch_norm", "instance_norm", "group_norm",
-    "local_response_norm",
+    "local_response_norm", "normalize",
     # convolution
     "conv1d", "conv2d", "conv3d", "conv1d_transpose", "conv2d_transpose",
     "conv3d_transpose",
@@ -49,7 +56,9 @@ __all__ = [
     "cross_entropy", "softmax_with_cross_entropy", "square_error_cost",
     "mse_loss", "l1_loss", "nll_loss",
     "binary_cross_entropy", "binary_cross_entropy_with_logits",
-    "smooth_l1_loss", "kl_div", "ctc_loss",
+    "smooth_l1_loss", "kl_div", "ctc_loss", "margin_ranking_loss",
+    "hinge_embedding_loss", "cosine_embedding_loss", "triplet_margin_loss",
+    "log_loss",
 ]
 
 _tf = torch.nn.functional
@@ -192,6 +201,14 @@ def maxout(x, groups, axis=1):
     return torch.amax(x.reshape(new), dim=ax + 1)
 
 
+def swiglu(x, y=None):
+    """Reference :189: ``silu(x) * y``; with one argument, its last axis
+    split in half."""
+    if y is None:
+        x, y = torch.chunk(x, 2, dim=-1)
+    return _tf.silu(x) * y
+
+
 # =========================== common ==========================================
 def linear(x, weight, bias=None):
     """``x @ W (+ b)`` with Paddle's ``[in, out]`` weight layout. The
@@ -240,6 +257,103 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train"):
     kept = x / (1.0 - p) if mode == "upscale_in_train" else x
     return torch.where(keep, kept, torch.zeros((), dtype=x.dtype,
                                                device=x.device))
+
+
+def dropout2d(x, p=0.5, training=True, data_format="NCHW"):
+    """Reference :251: whole channels dropped, one draw per (sample,
+    channel); any format but ``NCHW`` is read as ``NHWC``."""
+    ax = [0, 1] if data_format == "NCHW" else [0, 3]
+    return dropout(x, p, axis=ax, training=training)
+
+
+def dropout3d(x, p=0.5, training=True, data_format="NCDHW"):
+    """Reference :256: :func:`dropout2d` over ``NCDHW`` (else
+    ``NDHWC``)."""
+    ax = [0, 1] if data_format == "NCDHW" else [0, 4]
+    return dropout(x, p, axis=ax, training=training)
+
+
+_SELU_ALPHA = 1.6732632423543772
+_SELU_SCALE = 1.0507009873554805
+
+
+def alpha_dropout(x, p=0.5, training=True):
+    """Reference :261: dropped elements take SELU's negative saturation,
+    then an affine map keeps the mean and variance; the draw comes from
+    the default generator."""
+    if not training or p == 0.0:
+        return x
+    alpha_p = -_SELU_ALPHA * _SELU_SCALE
+    keep = torch.rand(x.shape, dtype=torch.float32, device=x.device,
+                      generator=_gen.torch_generator(x.device)) >= p
+    a = 1.0 / np.sqrt((1 - p) * (1 + p * alpha_p ** 2)) if p < 1 else 0.0
+    b = -a * alpha_p * p
+    return a * torch.where(keep, x, torch.full((), alpha_p, dtype=x.dtype,
+                                               device=x.device)) + b
+
+
+def one_hot(x, num_classes):
+    """Reference :278: float32 one-hot rows over a new last axis."""
+    return _tf.one_hot(x.long(), int(num_classes)).to(torch.float32)
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1):
+    """Reference :282: ``(1 - epsilon) * label`` plus ``epsilon`` times
+    ``prior_dist``, or the uniform distribution over the last axis."""
+    if prior_dist is not None:
+        return (1 - epsilon) * label + epsilon * torch.as_tensor(
+            prior_dist, dtype=label.dtype, device=label.device)
+    return (1 - epsilon) * label + epsilon / label.shape[-1]
+
+
+def bilinear(x1, x2, weight, bias=None):
+    """Reference :293: ``out[b, o] = x1[b] @ weight[o] @ x2[b]`` (weight
+    ``[out, in1, in2]``), plus ``bias``."""
+    out = torch.einsum("bi,oij,bj->bo", x1, weight, x2)
+    return out if bias is None else out + bias
+
+
+def cosine_similarity(x1, x2, axis=1, eps=1e-8):
+    """Reference :304: the dot product over ``axis`` divided by the
+    product of the two norms, that product floored at ``eps``."""
+    num = torch.sum(x1 * x2, dim=axis)
+    den = torch.linalg.vector_norm(x1, dim=axis) * \
+        torch.linalg.vector_norm(x2, dim=axis)
+    return num / torch.clamp(den, min=eps)
+
+
+def pairwise_distance(x, y, p=2.0, epsilon=1e-6, keepdim=False):
+    """Reference :312: the ``p``-norm of ``x - y + epsilon`` over the last
+    axis."""
+    return torch.linalg.vector_norm(x - y + epsilon, ord=p, dim=-1,
+                                    keepdim=keepdim)
+
+
+def sequence_mask(lengths, maxlen=None, dtype="int64"):
+    """Reference :326: ``mask[..., j] = j < lengths[...]`` over
+    ``maxlen`` columns (the largest length when None), in ``dtype``."""
+    from paddle_tpu_torch.core.dtype import convert_dtype
+    m = int(maxlen) if maxlen is not None else int(lengths.max())
+    rng = torch.arange(m, device=lengths.device)
+    return (rng < lengths[..., None]).to(convert_dtype(dtype))
+
+
+def temporal_shift(x, seg_num, shift_ratio=0.25, data_format="NCHW"):
+    """Reference :338: over ``[N, C, H, W]`` read as ``seg_num`` frames of
+    ``N / seg_num`` clips, the first ``C * shift_ratio`` channels move one
+    frame back and the next as many one frame forward, zeros entering."""
+    if data_format != "NCHW":
+        raise NotImplementedError(
+            f"temporal_shift with data_format={data_format!r}: the "
+            f"reference reads NCHW whatever the format")
+    n, c, h, w = x.shape
+    v = x.reshape(n // seg_num, seg_num, c, h, w)
+    fold = int(c * shift_ratio)
+    out = torch.zeros_like(v)
+    out[:, :-1, :fold] = v[:, 1:, :fold]
+    out[:, 1:, fold:2 * fold] = v[:, :-1, fold:2 * fold]
+    out[:, :, 2 * fold:] = v[:, :, 2 * fold:]
+    return out.reshape(n, c, h, w)
 
 
 # =========================== norms ===========================================
@@ -339,6 +453,13 @@ def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
     pad = [0, 0] * (x.dim() - 2) + [half, size - half - 1]
     windows = _tf.pad(sq, pad).unfold(1, size, 1)
     return x / torch.pow(k + alpha * windows.sum(-1), beta)
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12):
+    """Reference :319: ``x`` over its ``p``-norm along ``axis``, the norm
+    floored at ``epsilon``."""
+    n = torch.linalg.vector_norm(x, ord=p, dim=axis, keepdim=True)
+    return x / torch.clamp(n, min=epsilon)
 
 
 # =========================== convolution =====================================
@@ -474,18 +595,17 @@ def _pool_nd(x, kernel_size, stride, padding, nd, mode, data_format,
     window's input elements, padding and the ceil overhang excluded; a
     non-exclusive one always by the kernel's size, the overhang included
     (``divisor_override``). Padding of more than half a window, which
-    PyTorch's pools refuse, raises."""
+    PyTorch's pools refuse, is padded explicitly
+    (:func:`_pool_padded`)."""
     ks = _ntuple(kernel_size, nd)
     st = _ntuple(stride if stride is not None else kernel_size, nd)
     pd = _ntuple(padding, nd)
-    if any(p > k // 2 for p, k in zip(pd, ks)):
-        raise NotImplementedError(
-            f"pooling padding {pd} over half the window {ks} is not "
-            f"ported to paddle_tpu_torch")
     channel_last = data_format in _CHANNEL_LAST
     if channel_last:
         x = x.movedim(-1, 1)
-    if mode == "max":
+    if any(p > k // 2 for p, k in zip(pd, ks)):
+        out = _pool_padded(x, ks, st, pd, nd, mode, ceil_mode, exclusive)
+    elif mode == "max":
         out = _MAX_POOL[nd](x, ks, st, pd, ceil_mode=ceil_mode)
     elif nd == 1:  # avg_pool1d has no divisor_override: pool a 1-high 2-D
         out = _pool_nd(x[:, :, None], (1, ks[0]), (1, st[0]), (0, pd[0]), 2,
@@ -498,8 +618,37 @@ def _pool_nd(x, kernel_size, stride, padding, nd, mode, data_format,
     return out.movedim(1, -1) if channel_last else out
 
 
+def _pool_padded(x, ks, st, pd, nd, mode, ceil_mode, exclusive):
+    """The reference's ``reduce_window`` over explicit pads (:642-677),
+    for a padding PyTorch's pools refuse: each spatial axis padded by
+    ``pd`` low and ``pd`` plus the ceil overhang high (-inf for max, 0
+    for average), then pooled unpadded. An exclusive average divides by
+    the count of input elements in each window (the same pool over
+    ones), a non-exclusive one by the kernel's size."""
+    pairs = []
+    for i in range(nd):
+        n = x.shape[2 + i]
+        extra = 0
+        if ceil_mode:
+            out = -(-(n + 2 * pd[i] - ks[i]) // st[i]) + 1
+            if (out - 1) * st[i] >= n + pd[i]:
+                out -= 1
+            extra = max((out - 1) * st[i] + ks[i] - (n + 2 * pd[i]), 0)
+        pairs.append((pd[i], pd[i] + extra))
+    flat = [v for lo, hi in reversed(pairs) for v in (lo, hi)]
+    if mode == "max":
+        return _MAX_POOL[nd](_tf.pad(x, flat, value=float("-inf")), ks, st)
+    pool = _AVG_POOL[nd]
+    out = pool(_tf.pad(x, flat), ks, st)
+    if not exclusive:
+        return out
+    ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype,
+                      device=x.device)
+    return out / pool(_tf.pad(ones, flat), ks, st)
+
+
 _MAX_POOL = {1: _tf.max_pool1d, 2: _tf.max_pool2d, 3: _tf.max_pool3d}
-_AVG_POOL = {2: _tf.avg_pool2d, 3: _tf.avg_pool3d}
+_AVG_POOL = {1: _tf.avg_pool1d, 2: _tf.avg_pool2d, 3: _tf.avg_pool3d}
 
 
 def max_pool1d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
@@ -583,6 +732,144 @@ def adaptive_max_pool2d(x, output_size, return_mask=False, data_format="NCHW"):
 def adaptive_max_pool3d(x, output_size, return_mask=False,
                         data_format="NCDHW"):
     return _adaptive_pool(x, output_size, 3, "max", data_format, return_mask)
+
+
+# =========================== resize / shuffle ================================
+_RESIZE = {"nearest": "nearest", "bilinear": "bilinear", "linear": "bilinear",
+           "trilinear": "bilinear", "bicubic": "bicubic", "area": "bilinear"}
+
+
+def _nearest_index(n_in, n_out, device):
+    """``floor((j + 0.5) * n_in / n_out)`` in float32, as ``jax.image``'s
+    nearest resize writes it, with a true division: the divisor is a
+    device tensor, since a host scalar divisor becomes a multiply by its
+    reciprocal on CUDA. Where a sample falls on a pixel edge exactly
+    (``(2j + 1) n_in = 2k n_out``) the rounded arithmetic picks either
+    side: XLA on the CPU, PyTorch's ``nearest-exact`` and this function
+    each round some such points apart; elsewhere all three agree while
+    ``n_in * n_out < 2**22``."""
+    pos = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) \
+        * n_in
+    div = torch.full((), n_out, dtype=torch.float32, device=device)
+    return torch.floor(pos / div).long()
+
+
+def _resize_2d(x, h, w, method):
+    """PyTorch's antialiased ``bilinear``/``bicubic`` of ``[N, C, H, W]``
+    to ``[N, C, h, w]``: half-pixel samples, the kernel widened by the
+    inverse scale when shrinking, Keys' a = -0.5, each output's weights
+    normalised, which is ``jax.image``'s linear and cubic resize. An axis
+    kept at its size gets the identity."""
+    return _tf.interpolate(x, size=(h, w), mode=method, antialias=True,
+                           align_corners=False)
+
+
+def interpolate(x, size=None, scale_factor=None, mode="nearest",
+                align_corners=False, data_format="NCHW"):
+    """Reference :793-815, which is ``jax.image.resize``: each spatial
+    axis whose size changes is resampled, ``nearest`` by the sample
+    ``floor((j + 0.5) * n_in / n_out)`` (:func:`_nearest_index`),
+    ``linear`` (``bilinear``, ``trilinear`` and, as in the reference,
+    ``area``) and ``bicubic`` (Keys' a = -0.5) antialiased when shrinking
+    (:func:`_resize_2d`; a 3-D input as a height-1 image, a 5-D one by
+    its height and width pass, then its depth pass over the flattened
+    plane). ``scale_factor`` gives ``int(n * factor)`` per axis. The
+    reference never reads ``align_corners``, so ``True`` raises."""
+    if align_corners:
+        raise NotImplementedError(
+            "interpolate(align_corners=True): the reference never reads "
+            "align_corners and always samples at half-pixel centres")
+    if mode not in _RESIZE:
+        raise ValueError(f"interpolate mode {mode!r} (want one of "
+                         f"{sorted(_RESIZE)})")
+    channel_last = data_format.endswith("C")
+    axes = list(range(1, x.dim() - 1)) if channel_last \
+        else list(range(2, x.dim()))
+    if size is not None:
+        out_sizes = _ntuple(size, len(axes))
+    else:
+        sf = scale_factor if isinstance(scale_factor, (list, tuple)) \
+            else [scale_factor] * len(axes)
+        out_sizes = [int(x.shape[a] * f) for a, f in zip(axes, sf)]
+    method = _RESIZE[mode]
+    out = x
+    if method == "nearest":
+        for a, n_out in zip(axes, out_sizes):
+            if out.shape[a] != n_out:
+                out = torch.index_select(
+                    out, a, _nearest_index(out.shape[a], n_out, x.device))
+        return out
+    if [out.shape[a] for a in axes] == list(out_sizes):
+        return out if out.is_floating_point() else out.float()
+    out = out.float() if not out.is_floating_point() else out
+    if channel_last:
+        out = out.movedim(-1, 1)
+    if out.dim() == 3:
+        out = _resize_2d(out[:, :, None], 1, out_sizes[0], method)[:, :, 0]
+    elif out.dim() == 4:
+        out = _resize_2d(out, *out_sizes, method)
+    else:
+        n, c, d, h, w = out.shape
+        d2, h2, w2 = out_sizes
+        if (h, w) != (h2, w2):
+            out = _resize_2d(out.reshape(n, c * d, h, w), h2, w2,
+                             method).reshape(n, c, d, h2, w2)
+        if d != d2:
+            out = _resize_2d(out.reshape(n, c, d, h2 * w2), d2, h2 * w2,
+                             method).reshape(n, c, d2, h2, w2)
+    return out.movedim(1, -1) if channel_last else out
+
+
+upsample = interpolate
+
+
+def _channels_first(data_format, what):
+    if data_format != "NCHW":
+        raise NotImplementedError(
+            f"{what} with data_format={data_format!r}: the reference "
+            f"reads NCHW whatever the format")
+
+
+def pixel_shuffle(x, upscale_factor, data_format="NCHW"):
+    """Reference :818: ``[N, C r², H, W] -> [N, C, H r, W r]``."""
+    _channels_first(data_format, "pixel_shuffle")
+    return _tf.pixel_shuffle(x, upscale_factor)
+
+
+def pixel_unshuffle(x, downscale_factor, data_format="NCHW"):
+    """Reference :829: ``[N, C, H r, W r] -> [N, C r², H, W]``."""
+    _channels_first(data_format, "pixel_unshuffle")
+    return _tf.pixel_unshuffle(x, downscale_factor)
+
+
+def channel_shuffle(x, groups, data_format="NCHW"):
+    """Reference :840: the channels read as ``[groups, C / groups]`` and
+    transposed."""
+    _channels_first(data_format, "channel_shuffle")
+    n, c, h, w = x.shape
+    return x.reshape(n, groups, c // groups, h, w).transpose(1, 2).reshape(
+        n, c, h, w)
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1):
+    """Reference :848: ``[N, C, H, W]`` -> ``[N, C kh kw, L]`` sliding
+    blocks (im2col), padded by ``paddings[0]``/``[1]`` on both sides of H
+    and W."""
+    pd = _ntuple(paddings, 2)
+    return _tf.unfold(x, _ntuple(kernel_sizes, 2), _ntuple(dilations, 2),
+                      (pd[0], pd[1]), _ntuple(strides, 2))
+
+
+def fold(x, output_sizes, kernel_sizes, strides=1, paddings=0, dilations=1):
+    """Reference :863: the inverse of :func:`unfold`, overlapping blocks
+    summed. The reference never reads ``dilations``: other than 1 it
+    raises."""
+    if any(d != 1 for d in _ntuple(dilations, 2)):
+        raise NotImplementedError(
+            "fold(dilations != 1): the reference never reads dilations")
+    pd = _ntuple(paddings, 2)
+    return _tf.fold(x, _ntuple(output_sizes, 2), _ntuple(kernel_sizes, 2),
+                    1, (pd[0], pd[1]), _ntuple(strides, 2))
 
 
 # =========================== attention =======================================
@@ -836,6 +1123,54 @@ def kl_div(input, label, reduction="mean"):
     if reduction == "batchmean":
         return loss.sum() / input.shape[0]
     return _reduce(loss, reduction)
+
+
+def margin_ranking_loss(input, other, label, margin=0.0, reduction="mean"):
+    """Reference :1216: ``max(-label * (input - other) + margin, 0)``."""
+    return _reduce(torch.clamp(-label * (input - other) + margin, min=0.0),
+                   reduction)
+
+
+def hinge_embedding_loss(input, label, margin=1.0, reduction="mean"):
+    """Reference :1222: ``input`` where ``label == 1``, else ``max(margin
+    - input, 0)``."""
+    return _reduce(torch.where(label == 1, input,
+                               torch.clamp(margin - input, min=0.0)),
+                   reduction)
+
+
+def cosine_embedding_loss(input1, input2, label, margin=0.0,
+                          reduction="mean"):
+    """Reference :1229: ``1 - cos`` where ``label == 1``, else ``max(cos -
+    margin, 0)``; cos over the last axis, its norm product floored at
+    1e-12."""
+    cos = torch.sum(input1 * input2, -1) / torch.clamp(
+        torch.linalg.vector_norm(input1, dim=-1)
+        * torch.linalg.vector_norm(input2, dim=-1), min=1e-12)
+    return _reduce(torch.where(label == 1, 1 - cos,
+                               torch.clamp(cos - margin, min=0.0)),
+                   reduction)
+
+
+def triplet_margin_loss(input, positive, negative, margin=1.0, p=2.0,
+                        epsilon=1e-6, swap=False, reduction="mean"):
+    """Reference :1240: ``max(d(a, pos) - d(a, neg) + margin, 0)`` with
+    ``d`` the ``p``-norm of ``u - v + epsilon``; ``swap`` takes the
+    smaller of ``d(a, neg)`` and ``d(pos, neg)``."""
+    def dist(u, v):
+        return torch.linalg.vector_norm(u - v + epsilon, ord=p, dim=-1)
+    dn = dist(input, negative)
+    if swap:
+        dn = torch.minimum(dn, dist(positive, negative))
+    return _reduce(torch.clamp(dist(input, positive) - dn + margin, min=0.0),
+                   reduction)
+
+
+def log_loss(input, label, epsilon=1e-4):
+    """Reference :1254: the unreduced binary log loss of probabilities,
+    ``epsilon`` inside each log."""
+    return -label * torch.log(input + epsilon) - \
+        (1 - label) * torch.log(1 - input + epsilon)
 
 
 def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,

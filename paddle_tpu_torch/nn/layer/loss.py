@@ -1,14 +1,19 @@
-"""Loss layers (port of ``paddle_tpu/nn/layer/loss.py``): the losses
-that are one function of :mod:`paddle_tpu_torch.nn.functional` plus
-Paddle's reduction. The margin, triplet, Poisson and Gaussian losses
-are not ported yet."""
+"""Loss layers (port of ``paddle_tpu/nn/layer/loss.py``): each is one
+function of :mod:`paddle_tpu_torch.nn.functional` with its options
+fixed, ``SoftMarginLoss`` the reference's own ``log1p(exp(-y x))``."""
 from __future__ import annotations
+
+import torch
 
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.nn.layer_base import Layer
 
-__all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss",
-           "BCEWithLogitsLoss", "SmoothL1Loss", "KLDivLoss", "CTCLoss"]
+__all__ = ["PoissonNLLLoss", "GaussianNLLLoss", "MultiLabelSoftMarginLoss",
+           "CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss",
+           "BCEWithLogitsLoss", "SmoothL1Loss", "KLDivLoss",
+           "MarginRankingLoss", "CTCLoss", "CosineEmbeddingLoss",
+           "TripletMarginLoss", "HingeEmbeddingLoss", "SoftMarginLoss",
+           "LogLoss"]
 
 
 class CrossEntropyLoss(Layer):
@@ -124,3 +129,98 @@ class CTCLoss(Layer):
                 "CTCLoss(norm_by_times=True) is not ported")
         return F.ctc_loss(log_probs, labels, input_lengths, label_lengths,
                           self._blank, self._reduction)
+
+
+class MarginRankingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self._margin = margin
+        self._reduction = reduction
+
+    def forward(self, input, other, label):
+        return F.margin_ranking_loss(input, other, label, self._margin,
+                                     self._reduction)
+
+
+class CosineEmbeddingLoss(Layer):
+    def __init__(self, margin=0.0, reduction="mean", name=None):
+        super().__init__()
+        self._margin = margin
+        self._reduction = reduction
+
+    def forward(self, input1, input2, label):
+        return F.cosine_embedding_loss(input1, input2, label, self._margin,
+                                       self._reduction)
+
+
+class TripletMarginLoss(Layer):
+    def __init__(self, margin=1.0, p=2.0, epsilon=1e-6, swap=False,
+                 reduction="mean", name=None):
+        super().__init__()
+        self._args = (margin, p, epsilon, swap, reduction)
+
+    def forward(self, input, positive, negative):
+        return F.triplet_margin_loss(input, positive, negative, *self._args)
+
+
+class HingeEmbeddingLoss(Layer):
+    def __init__(self, margin=1.0, reduction="mean", name=None):
+        super().__init__()
+        self._margin = margin
+        self._reduction = reduction
+
+    def forward(self, input, label):
+        return F.hinge_embedding_loss(input, label, self._margin,
+                                      self._reduction)
+
+
+class SoftMarginLoss(Layer):
+    """``log1p(exp(-label * input))``, reduced (reference :170-183)."""
+
+    def __init__(self, reduction="mean", name=None):
+        super().__init__()
+        self._reduction = reduction
+
+    def forward(self, input, label):
+        return F._reduce(torch.log1p(torch.exp(-label * input)),
+                         self._reduction)
+
+
+class LogLoss(Layer):
+    def __init__(self, epsilon=1e-4, name=None):
+        super().__init__()
+        self._epsilon = epsilon
+
+    def forward(self, input, label):
+        return F.log_loss(input, label, self._epsilon)
+
+
+class PoissonNLLLoss(Layer):
+    def __init__(self, log_input=True, full=False, epsilon=1e-8,
+                 reduction="mean", name=None):
+        super().__init__()
+        self._args = (log_input, full, epsilon, reduction)
+
+    def forward(self, input, label):
+        return F.poisson_nll_loss(input, label, *self._args)
+
+
+class GaussianNLLLoss(Layer):
+    def __init__(self, full=False, epsilon=1e-6, reduction="mean",
+                 name=None):
+        super().__init__()
+        self._args = (full, epsilon, reduction)
+
+    def forward(self, input, label, variance):
+        return F.gaussian_nll_loss(input, label, variance, *self._args)
+
+
+class MultiLabelSoftMarginLoss(Layer):
+    def __init__(self, weight=None, reduction="mean", name=None):
+        super().__init__()
+        self._weight = weight
+        self._reduction = reduction
+
+    def forward(self, input, label):
+        return F.multi_label_soft_margin_loss(input, label, self._weight,
+                                              self._reduction)

@@ -1,4 +1,4 @@
-"""Block-paged KV-cache attention, token-packed form — port of
+"""Block-paged KV-cache attention — port of
 ``paddle_tpu/ops/paged_attention.py``.
 
 The serving engine stores each layer's KV cache as a pool of fixed-size
@@ -8,15 +8,22 @@ token blocks:
                       (block 0 is the reserved null block)
 
 and runs every step over a flat token axis holding all scheduled
-sequences' new tokens back to back (:class:`RaggedLayerCache`). Two read
-paths share that layout:
+sequences' new tokens back to back (:class:`RaggedLayerCache`). The
+per-row form (:class:`PagedLayerCache`, reference :61-147) is for
+callers outside the engine: ``[B, S]`` inputs with right padding, each
+row's new tokens counted by ``new_lens``, read by
+:func:`paged_attention_step` through the gather path, as in the
+reference. Two read paths share the token-packed layout:
 
 * **rpa** — the ragged-paged-attention kernel
   (``ops/pallas/ragged_paged_attention.py``): on CUDA tensors the
   hand-written CUDA kernel, on CPU tensors its plain version;
 * **gather** — gather every sequence's whole padded context and run a
   dense masked softmax (:func:`ragged_gather_attention`), the parity
-  oracle. It is chosen only by an explicit ``attn_impl="gather"``.
+  oracle. It is chosen only by an explicit ``attn_impl="gather"``, or
+  by ``attn_impl=None`` under :func:`paged_attention_impl`, which reads
+  :func:`impl_override` and never the reference's
+  ``PADDLE_TPU_PAGED_ATTN_IMPL``.
 
 Unlike the reference, the pools are updated **in place**: the JAX step
 threads them functionally (pools in, pools out), which in PyTorch would
@@ -50,9 +57,24 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["RaggedLayerCache", "write_tokens_to_pool", "gather_pool",
+__all__ = ["PagedLayerCache", "RaggedLayerCache", "write_to_pool",
+           "write_tokens_to_pool", "gather_pool", "paged_attention_step",
            "ragged_gather_attention", "ragged_paged_attention_step",
+           "paged_attention_impl", "impl_override", "mesh_override",
            "quantize_kv_slots", "write_kv_scales_to_pool"]
+
+
+class PagedLayerCache(NamedTuple):
+    """One layer's view of the paged KV state in the per-row form: the
+    pools are per layer, ``block_tables`` ``[B, max_blocks_per_seq]``
+    int32, ``context_lens`` ``[B]`` (tokens already cached) and
+    ``new_lens`` ``[B]`` (valid tokens of this call's ``[B, S]`` input)
+    shared by the layers."""
+    k_pool: torch.Tensor        # [num_blocks + 1, block_size, n_kv, hd]
+    v_pool: torch.Tensor        # [num_blocks + 1, block_size, n_kv, hd]
+    block_tables: torch.Tensor  # [B, max_blocks_per_seq] int32
+    context_lens: torch.Tensor  # [B] int32
+    new_lens: torch.Tensor      # [B] int32
 
 
 class RaggedLayerCache(NamedTuple):
@@ -76,6 +98,33 @@ class RaggedLayerCache(NamedTuple):
 
 
 _impl_local = threading.local()
+
+
+def paged_attention_impl() -> str:
+    """The read path of a token-packed step called with ``attn_impl=None``:
+    an :func:`impl_override` in effect on this thread, else ``"rpa"``
+    when a CUDA card is visible and ``"gather"`` otherwise (reference
+    :180-196, which reads ``PADDLE_TPU_PAGED_ATTN_IMPL`` between the two;
+    the port reads no environment)."""
+    override = getattr(_impl_local, "value", None)
+    if override is not None:
+        return override
+    return "rpa" if torch.cuda.is_available() else "gather"
+
+
+@contextlib.contextmanager
+def impl_override(value):
+    """Pin :func:`paged_attention_impl` for the calls inside the block on
+    this thread; ``None`` pins nothing (the default applies inside, as
+    the reference's clears an outer pin)."""
+    if value is not None and value not in ("rpa", "gather"):
+        raise ValueError(f"attn impl {value!r} (want rpa|gather|None)")
+    prev = getattr(_impl_local, "value", None)
+    _impl_local.value = value
+    try:
+        yield
+    finally:
+        _impl_local.value = prev
 
 
 @contextlib.contextmanager
@@ -153,10 +202,61 @@ def write_kv_scales_to_pool(scale_pool, scales, block_tables, seq_ids,
 
 
 def gather_pool(pool, block_tables):
-    """[rows, max_blocks_per_seq * block_size, n_kv, hd] contiguous view
-    of each table row's paged context (the gather read path)."""
+    """[rows, max_blocks_per_seq * block_size, n_kv, hd] contiguous copy
+    of each table row's paged context (the gather read path of both
+    forms: a row is a sequence of the per-row batch, or of the
+    token-packed step's table)."""
     g = pool[block_tables.long()]  # [rows, nblk, bs, n_kv, hd]
     return g.reshape(g.shape[0], g.shape[1] * g.shape[2], *pool.shape[2:])
+
+
+def write_to_pool(pool, new, block_tables, positions, valid):
+    """Scatter ``new`` [B, S, n_kv, hd] into ``pool`` **in place** at the
+    logical ``positions`` [B, S] through ``block_tables``, and return the
+    pool. Tokens with ``valid`` False land in (null block 0, slot 0)."""
+    bs, nblk = pool.shape[1], block_tables.shape[1]
+    pos = positions.long()
+    blk = torch.clamp(pos // bs, 0, nblk - 1)
+    phys = torch.gather(block_tables.long(), 1, blk)
+    zero = torch.zeros_like(pos)
+    phys = torch.where(valid, phys, zero)
+    slot = torch.where(valid, pos % bs, zero)
+    pool[phys, slot] = new.to(pool.dtype)
+    return pool
+
+
+def paged_attention_step(q, k, v, k_pool, v_pool, block_tables,
+                         context_lens, new_lens, *, scale=None):
+    """One attention step over the per-row paged cache (reference
+    :87-131). ``q`` [B, S, n_heads, hd] and ``k``/``v`` [B, S, n_kv, hd]
+    are this call's position-encoded projections (``S`` the chunk length,
+    1 in decode). The new K/V go into the pools in place (tokens past
+    ``new_lens`` to the null block); then each row's whole paged context
+    is gathered and attended with key ``l`` visible to query ``i`` of row
+    ``b`` iff ``l <= context_lens[b] + i``, softmax in f32. Returns
+    ``(out [B, S, n_heads * hd], k_pool, v_pool)``; outputs at padded
+    queries are garbage, for the caller to discard."""
+    B, S, n_kv, hd = k.shape
+    n_heads = q.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    ar = torch.arange(S, device=q.device)
+    pos = context_lens.long()[:, None] + ar[None, :]        # [B, S]
+    valid = ar[None, :] < new_lens.long()[:, None]
+    write_to_pool(k_pool, k, block_tables, pos, valid)
+    write_to_pool(v_pool, v, block_tables, pos, valid)
+    keys = gather_pool(k_pool, block_tables)                # [B, L, ...]
+    vals = gather_pool(v_pool, block_tables)
+    L = keys.shape[1]
+    qg = q.reshape(B, S, n_kv, n_heads // n_kv, hd)
+    s = torch.einsum("bskgh,blkh->bskgl", qg.float(), keys.float()) * scale
+    visible = torch.arange(L, device=q.device)[None, None, :] <= \
+        pos[:, :, None]                                     # [B, S, L]
+    s = s.masked_fill(~visible[:, :, None, None, :],
+                      torch.finfo(torch.float32).min)
+    w = torch.softmax(s, dim=-1).to(vals.dtype)
+    out = torch.einsum("bskgl,blkh->bskgh", w, vals)
+    return out.reshape(B, S, n_heads * hd), k_pool, v_pool
 
 
 def ragged_gather_attention(q, k_pool, v_pool, block_tables, seq_ids,
@@ -225,7 +325,8 @@ def ragged_paged_attention_step(q, k, v, k_pool, v_pool, block_tables,
     (already position-encoded) projections of the step's flat tokens.
     Writes the new K/V into the pools in place (padding to the null
     block), then reads through the RPA kernel (``attn_impl="rpa"``; its
-    plain version for CPU tensors) or the gather path. Returns
+    plain version for CPU tensors) or the gather path (``None``: as
+    :func:`paged_attention_impl` says). Returns
     ``out [T, n_heads * hd]``; outputs at padding tokens are garbage
     (gather) or 0 (rpa) and must be discarded by the caller.
 
@@ -241,6 +342,8 @@ def ragged_paged_attention_step(q, k, v, k_pool, v_pool, block_tables,
     T, n_heads, hd = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(hd)
+    if attn_impl is None:
+        attn_impl = paged_attention_impl()
     if _tp_mesh() is not None and n_heads % k_pool.shape[2]:
         raise ValueError(
             f"this rank's {n_heads} query heads do not form whole GQA "

@@ -2211,3 +2211,149 @@ def test_gloo_stages_cuda_tensors_through_the_host(cuda_device, tmp_path):
         np.testing.assert_array_equal(got["cpu"]["send_recv", "float32"],
                                       np.arange(24).reshape(4, 6) +
                                       100 * (1 - r))
+
+
+# ---- the layer, vision and paged-row leftovers: card against CPU ----------
+def _cpu_and_card(fn, arrays, cuda_device, grad=(0,)):
+    """``fn`` on CPU tensors and on their card copies: the outputs and the
+    gradients of ``sum(out * cot)`` in ``arrays[i]`` for ``i`` in
+    ``grad``, as numpy, CPU first."""
+    res = []
+    for dev in ("cpu", cuda_device):
+        ts = [torch.from_numpy(a).to(dev).requires_grad_(i in grad)
+              for i, a in enumerate(arrays)]
+        out = fn(*ts)
+        if grad:
+            cot = torch.from_numpy(np.random.RandomState(1).rand(
+                *out.shape).astype(np.float32)).to(dev)
+            (out * cot).sum().backward()
+        res.append([out.detach().cpu().numpy()] +
+                   [ts[i].grad.cpu().numpy() for i in grad])
+    return res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["nearest", "bilinear", "bicubic", "area"])
+@pytest.mark.parametrize("size", [(40, 52), (5, 7)], ids=["up", "down"])
+def test_interpolate_on_the_card(cuda_device, mode, size):
+    """``F.interpolate`` (the reference's ``jax.image.resize``) on the card
+    equals the CPU's, forward and backward, up and antialiased down."""
+    from paddle_tpu_torch.nn import functional as F
+    x = np.random.RandomState(0).randn(2, 3, 10, 13).astype(np.float32)
+    cpu, card = _cpu_and_card(lambda v: F.interpolate(v, size=size,
+                                                      mode=mode),
+                              [x], cuda_device)
+    for a, b in zip(card, cpu):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["nearest", "linear", "bicubic"])
+@pytest.mark.parametrize("shape,size", [((2, 3, 11), (29,)),
+                                        ((2, 3, 11), (4,)),
+                                        ((1, 2, 5, 6, 7), (9, 4, 15)),
+                                        ((1, 2, 5, 6, 7), (3, 13, 2))],
+                         ids=["3d-up", "3d-down", "5d-mixed", "5d-mixed2"])
+def test_interpolate_3d_and_5d_on_the_card(cuda_device, mode, shape, size):
+    """The 3-D (a height-1 image) and 5-D (a plane pass, then a depth
+    pass) resizes on the card equal the CPU's, forward and backward."""
+    from paddle_tpu_torch.nn import functional as F
+    if mode == "linear" and len(shape) == 5:
+        mode = "trilinear"
+    fmt = "NCW" if len(shape) == 3 else "NCDHW"
+    x = np.random.RandomState(3).randn(*shape).astype(np.float32)
+    cpu, card = _cpu_and_card(lambda v: F.interpolate(
+        v, size=size, mode=mode, data_format=fmt), [x], cuda_device)
+    for a, b in zip(card, cpu):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+def test_affine_grid_and_grid_sample_on_the_card(cuda_device, mode,
+                                                 padding_mode):
+    from paddle_tpu_torch.nn import functional as F
+    rng = np.random.RandomState(2)
+    x = rng.randn(2, 3, 16, 20).astype(np.float32)
+    th = (np.eye(2, 3)[None] + 0.3 * rng.randn(2, 2, 3)).astype(np.float32)
+
+    def run(v, t):
+        return F.grid_sample(v, F.affine_grid(t, [2, 3, 12, 9]), mode,
+                             padding_mode)
+    cpu, card = _cpu_and_card(run, [x, th], cuda_device, grad=(0, 1))
+    for a, b in zip(card, cpu):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ratio", [2, -1])
+def test_roi_align_and_roi_pool_on_the_card(cuda_device, ratio):
+    """``roi_align`` forward and backward into the map, chunked over RoIs
+    on both devices, and ``roi_pool``, on the card equal the CPU's."""
+    from paddle_tpu_torch.vision import ops as V
+    rng = np.random.RandomState(3)
+    x = rng.randn(2, 8, 30, 34).astype(np.float32)
+    xy = rng.uniform(0, 90, (40, 2))
+    boxes = np.concatenate([xy, xy + rng.uniform(2, 60, (40, 2))],
+                           1).astype(np.float32)
+    num = torch.tensor([25, 15])
+    cpu, card = _cpu_and_card(
+        lambda v, b: V.roi_align(v, b, num.to(v.device), 7, 0.25, ratio),
+        [x, boxes], cuda_device)
+    for a, b in zip(card, cpu):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+    cpu, card = _cpu_and_card(
+        lambda v, b: V.roi_pool(v, b, num.to(v.device), 7, 0.25),
+        [x, boxes], cuda_device, grad=())
+    np.testing.assert_array_equal(card[0], cpu[0])
+
+
+@pytest.mark.cuda
+def test_nms_on_the_card(cuda_device):
+    """The same kept indices on the card as on the CPU, with and without
+    categories, score ties included."""
+    from paddle_tpu_torch.vision import ops as V
+    rng = np.random.RandomState(4)
+    xy = rng.uniform(0, 200, (500, 2))
+    boxes = torch.from_numpy(np.concatenate(
+        [xy, xy + rng.uniform(5, 60, (500, 2))], 1).astype(np.float32))
+    scores = torch.from_numpy(np.round(rng.rand(500) * 50).astype(
+        np.float32))
+    cats = torch.from_numpy(rng.randint(0, 8, 500))
+    for kw in ({}, dict(category_idxs=cats, categories=[0, 1, 2, 5])):
+        cpu = V.nms(boxes, 0.5, scores, **kw)
+        card = V.nms(boxes.to(cuda_device), 0.5, scores.to(cuda_device),
+                     **{k: (v.to(cuda_device) if torch.is_tensor(v) else v)
+                        for k, v in kw.items()})
+        assert card.device.type == "cuda" and card.dtype == torch.int64
+        np.testing.assert_array_equal(card.cpu().numpy(), cpu.numpy())
+
+
+@pytest.mark.cuda
+def test_paged_attention_step_on_the_card(cuda_device):
+    """The per-row paged step (padded tails, GQA) on the card: the same
+    output at the valid queries and the same pools as on the CPU."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    rng = np.random.RandomState(5)
+    B, S, n_kv, grp, hd, bs = 3, 8, 2, 4, 64, 16
+    q = rng.randn(B, S, n_kv * grp, hd).astype(np.float32)
+    k = rng.randn(B, S, n_kv, hd).astype(np.float32)
+    v = rng.randn(B, S, n_kv, hd).astype(np.float32)
+    pools = rng.randn(2, 13, bs, n_kv, hd).astype(np.float32)
+    bt = np.arange(1, 13, dtype=np.int32).reshape(3, 4)
+    ctx = np.array([5, 0, 33], np.int32)
+    new = np.array([8, 3, 0], np.int32)
+    outs = []
+    for dev in ("cpu", cuda_device):
+        kp, vp = (torch.from_numpy(p.copy()).to(dev) for p in pools)
+        out, kp, vp = pa.paged_attention_step(
+            *(torch.from_numpy(a).to(dev) for a in (q, k, v)), kp, vp,
+            *(torch.from_numpy(a).to(dev) for a in (bt, ctx, new)))
+        outs.append([t.cpu().numpy() for t in (out, kp, vp)])
+    (o_cpu, k_cpu, v_cpu), (o_card, k_card, v_card) = outs
+    valid = np.arange(S)[None, :] < new[:, None]
+    np.testing.assert_allclose(o_card[valid], o_cpu[valid], rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_array_equal(k_card[1:], k_cpu[1:])
+    np.testing.assert_array_equal(v_card[1:], v_cpu[1:])

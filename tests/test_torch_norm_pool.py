@@ -319,8 +319,11 @@ def test_max_pool_index_and_unpool_round_trip():
 
 def test_pool_options_not_ported_raise():
     x = torch.from_numpy(_x(1, 1, 8, 8))
-    with pytest.raises(NotImplementedError, match="half the window"):
-        F.max_pool2d(x, 2, 2, 2)
+    # padding over half the window is ported (padded explicitly): the
+    # reference's values, where it used to raise
+    np.testing.assert_array_equal(
+        F.max_pool2d(x, 2, 2, 2).numpy(),
+        np.asarray(JF.max_pool2d(pt.to_tensor(x.numpy()), 2, 2, 2).data))
     with pytest.raises(NotImplementedError, match="return_mask"):
         tnn.MaxPool2D(2, return_mask=True)
     with pytest.raises(NotImplementedError, match="return_mask"):

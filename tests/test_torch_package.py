@@ -455,3 +455,48 @@ def test_top_level_exports_what_the_reference_does():
     net = paddle.nn.Linear(4, 3, device="cpu")
     assert paddle.flops(net, [2, 4]) == 2 * 2 * 4 * 3
     assert paddle.summary(net)["total_params"] == 15
+
+
+def test_layer_vision_and_dtype_leftovers_are_exported():
+    """The names ported with the layer, vision and dtype leftovers stand
+    where the reference exports them: ``nn.functional``'s whole list,
+    every layer and loss of ``nn``, ``nn.clip_grad_norm_`` and
+    ``nn.utils``, ``vision.ops``, the dtype table, the device helpers,
+    ``ops.paged_attention``'s per-row path and override, and
+    ``ops.pallas``'s ``flash_attention_bshd`` (its
+    ``ragged_paged_attention`` stays the submodule, a divergence).
+    ``device``'s XLA tuning names
+    (``XLA_TUNING_FLAGS``, ``apply_xla_tuning``, ``applied_xla_tuning``)
+    stay unexported: they tune XLA, which the port has no counterpart
+    of."""
+    import paddle_tpu as pt
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import pallas
+
+    assert set(pt.nn.functional.__all__) <= set(paddle.nn.functional.__all__)
+    assert set(pt.nn.layer.__all__) <= set(paddle.nn.__all__)
+    assert paddle.nn.clip_grad_norm_ is paddle.nn.utils.clip_grad_norm_
+    utils = {n for n in dir(pt.nn.utils) if not n.startswith("_")
+             and callable(getattr(pt.nn.utils, n))}
+    assert utils <= set(paddle.nn.utils.__all__)
+    assert set(pt.vision.ops.__all__) == set(paddle.vision.ops.__all__)
+    assert set(pt.core.dtype.__all__) <= set(paddle.core.dtype.__all__)
+    assert set(pt.ops.paged_attention.__all__) <= set(
+        paddle.ops.paged_attention.__all__)
+    xla = {"XLA_TUNING_FLAGS", "apply_xla_tuning", "applied_xla_tuning"}
+    assert set(pt.device.__all__) - set(paddle.device.__all__) == \
+        xla - {"XLA_TUNING_FLAGS"}
+    for name in xla:
+        assert hasattr(pt.device, name) and not hasattr(paddle.device, name)
+    assert paddle.device.get_all_custom_device_type() == []
+    assert paddle.device.get_available_custom_device() == []
+    from paddle_tpu_torch.ops.pallas.flash_attention import \
+        flash_attention_bshd
+    assert pallas.flash_attention_bshd is flash_attention_bshd
+    # divergence: ragged_paged_attention stays the submodule (the port's
+    # modules import it under that name); its entry point is inside it
+    import types
+    rpa = pallas.ragged_paged_attention
+    assert type(rpa) is types.ModuleType
+    assert callable(rpa.ragged_paged_attention)
+    assert rpa.ragged_paged_attention.launches >= 0

@@ -236,6 +236,51 @@ def test_three_train_steps_match_jax():
                                        **GRAD_TOL)
 
 
+def test_donate_false_matches_jax_and_keeps_the_callers_tensors():
+    """``TrainStep(donate=False)``: two steps give the JAX package's
+    ``donate=False`` losses and parameters (the tolerances of
+    ``test_three_train_steps_match_jax``), and a tensor the caller took
+    from a parameter before a step (a ``state_dict()`` value) keeps its
+    values, fused and on the per-parameter loop; with ``donate=True``
+    the update is in place and the held tensor moves."""
+    jm = jax_tiny(24)
+    jm.train()
+    tm = bridged(jm)
+    ids = np.random.RandomState(7).randint(
+        0, jm.cfg.vocab_size, (2, 16)).astype(np.int32)
+
+    def loss(m, x):
+        return m(x, labels=x)[1]
+    jstep = pt.jit.TrainStep(jm, loss, pt.optimizer.AdamW(
+        learning_rate=1e-3, parameters=jm.parameters()), donate=False)
+    tstep = TrainStep(tm, loss, AdamW(learning_rate=1e-3,
+                                      parameters=tm.parameters()),
+                      donate=False)
+    for _ in range(2):
+        held = {n: t for n, t in tm.state_dict().items()}
+        before = {n: t.clone() for n, t in held.items()}
+        jl = float(_np(jstep(pt.to_tensor(ids))))
+        np.testing.assert_allclose(float(tstep(torch.from_numpy(ids))), jl,
+                                   rtol=1e-5)
+        for n, t in held.items():
+            assert torch.equal(t, before[n]), n
+        assert not torch.equal(tm.state_dict()["lm_head.weight"],
+                               before["lm_head.weight"])
+    jstate = state_dict_from_jax(jm)
+    for n, p in tm.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), jstate[n],
+                                   err_msg=n, **GRAD_TOL)
+    x = torch.from_numpy(ids)
+    for donate, fused in ((False, False), (True, True), (True, False)):
+        step = TrainStep(tm, loss, AdamW(learning_rate=1e-3,
+                                         parameters=tm.parameters()),
+                         donate=donate, fused=fused)
+        held = tm.state_dict()["lm_head.weight"]
+        before = held.clone()
+        step(x)
+        assert torch.equal(held, before) is (not donate), (donate, fused)
+
+
 def test_eager_adam_groups_and_decay_match_jax():
     """Eager ``step()`` of Adam with an L2 decay and AdamW with
     per-group lr, ``apply_decay_param_fun`` and ``lr_ratio``, two steps
@@ -310,11 +355,10 @@ def test_master_weights_state_round_trip_and_refusals():
     tm = tl.LlamaForCausalLM(tl.LlamaConfig.tiny(), device="cpu")
     # fused=True builds (the fused update is the default)
     assert TrainStep(tm, lambda m, x: m(x), opt, fused=True)._fused
-    # donate=False still raises; a mesh, bucketed=True and tensor
-    # parallelism build (they train in tests/test_torch_distributed.py
-    # and tests/test_torch_tensor_parallel.py, over gloo ranks)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TrainStep(tm, lambda m, x: m(x), opt, donate=False)
+    # donate=False trains (test_donate_false_matches_jax_and_keeps_the_
+    # callers_tensors); a mesh, bucketed=True and tensor parallelism
+    # build (they train in tests/test_torch_distributed.py and
+    # tests/test_torch_tensor_parallel.py, over gloo ranks)
     assert TrainStep(tm, lambda m, x: m(x), opt,
                      bucketed=True)._mesh_plan is None
     with pytest.raises(ValueError, match="needs a mesh"):
